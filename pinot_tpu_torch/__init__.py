@@ -1,0 +1,18 @@
+"""pinot_tpu_torch — the PyTorch + CUDA port of pinot_tpu for NVIDIA Hopper.
+
+The same real-time OLAP engine as `pinot_tpu`, with segments staged as torch
+tensors on one device and the per-segment query program (filter mask ->
+projection -> dense group id -> aggregate) run as eager torch ops around
+kernels written by hand for Hopper (CUDA C++ for sm_90a under `ops/csrc/`).
+The JAX package stays the reference; this package imports nothing of it.
+
+Entry points run on the card: `QueryEngine(segments)` uses device "cuda"
+and raises where there is none; pass device="cpu" to run the plain torch
+versions of the kernels on the CPU.
+
+Layer map (mirrors pinot_tpu's):
+  common/   - schema, types, config subset, error codes
+  segment/  - dictionaries, stats, builder, device staging, carry-over
+  query/    - SQL parser, context, planner, per-segment program, reduce, engine
+  ops/      - hand-written CUDA kernels, their plain versions, their build
+"""

@@ -1,0 +1,112 @@
+"""Segment creation: raw rows/columns -> in-memory immutable segment.
+
+Reference parity: SegmentIndexCreationDriverImpl (pinot-segment-local/.../
+creator/impl/SegmentIndexCreationDriverImpl.java:93): a stats pass over the
+input followed by per-column index creation. Columnar-first: input is a dict
+of numpy arrays (or a list of row dicts, pivoted once) and the creation is
+vectorized numpy.
+
+Encoding decisions (IndexingConfig semantics, as in the JAX package):
+  - DIMENSION / DATE_TIME columns: dictionary-encoded by default.
+  - METRIC columns: raw by default (Pinot's common noDictionaryColumns pattern).
+  - TableConfig.indexing.{dictionary,no_dictionary}_columns override.
+  - STRING/BYTES/JSON are ALWAYS dictionary-encoded: only ids ever reach the
+    device.
+
+This package builds single-value dictionary and raw columns only; a schema or
+table config that asks for anything else raises NotImplementedError naming it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+
+from pinot_tpu_torch.common.config import UNSUPPORTED_INDEX_FIELDS, TableConfig
+from pinot_tpu_torch.common.types import DataType, FieldType, Schema
+from pinot_tpu_torch.segment.dictionary import Dictionary
+from pinot_tpu_torch.segment.segment import ColumnIndex, ImmutableSegment
+from pinot_tpu_torch.segment.stats import ColumnStats
+
+
+def _pivot(rows: Sequence[Mapping[str, Any]], schema: Schema) -> dict[str, np.ndarray]:
+    cols: dict[str, list] = {c: [] for c in schema.columns}
+    for r in rows:
+        for c in schema.columns:
+            cols[c].append(r.get(c))
+    return {c: np.asarray(vals, dtype=object) for c, vals in cols.items()}
+
+
+def _fill_nulls(raw: np.ndarray, dt: DataType) -> np.ndarray:
+    """Replace None entries with the type's default null placeholder
+    (FieldSpec DEFAULT_* parity)."""
+    if raw.dtype != object:
+        return raw
+    nulls = np.asarray([v is None for v in raw], dtype=bool)
+    if nulls.any():
+        raw = raw.copy()
+        raw[nulls] = dt.default_null
+    if dt in (DataType.STRING, DataType.BYTES, DataType.JSON):
+        return raw
+    return raw.astype(dt.np_dtype)
+
+
+class SegmentBuilder:
+    """Builds one immutable segment from input data."""
+
+    def __init__(self, schema: Schema, table_config: TableConfig | None = None):
+        self.schema = schema
+        self.config = table_config or TableConfig(schema.name)
+        idx = self.config.indexing
+        for name in UNSUPPORTED_INDEX_FIELDS:
+            if getattr(idx, name):
+                raise NotImplementedError(f"IndexingConfig.{name} is not supported by pinot_tpu_torch yet")
+        if idx.null_handling:
+            raise NotImplementedError("IndexingConfig.null_handling is not supported by pinot_tpu_torch yet")
+        for spec in schema.fields.values():
+            if not spec.single_value:
+                raise NotImplementedError(f"multi-value column {spec.name!r} is not supported by pinot_tpu_torch yet")
+
+    def _use_dictionary(self, col: str) -> bool:
+        spec = self.schema[col]
+        idx = self.config.indexing
+        if spec.data_type in (DataType.STRING, DataType.BYTES, DataType.JSON):
+            return True
+        if col in idx.no_dictionary_columns:
+            return False
+        if col in idx.dictionary_columns:
+            return True
+        return spec.field_type in (FieldType.DIMENSION, FieldType.DATE_TIME)
+
+    def build(
+        self,
+        data: Sequence[Mapping[str, Any]] | Mapping[str, np.ndarray],
+        segment_name: str,
+    ) -> ImmutableSegment:
+        if isinstance(data, Mapping):
+            columns = {c: np.asarray(v) for c, v in data.items()}
+        else:
+            columns = _pivot(data, self.schema)
+        n_docs = len(next(iter(columns.values()))) if columns else 0
+        seg = ImmutableSegment(name=segment_name, schema=self.schema, n_docs=n_docs)
+        for col in self.schema.columns:
+            if col not in columns:
+                raise ValueError(f"missing column {col!r} in input data")
+            raw = columns[col]
+            if len(raw) != n_docs:
+                raise ValueError(f"column {col!r} length {len(raw)} != {n_docs}")
+            dt = self.schema[col].data_type
+            raw = _fill_nulls(raw, dt)
+            if self._use_dictionary(col):
+                dictionary, ids = Dictionary.from_column(dt, raw)
+                stats = ColumnStats.from_dictionary(col, dt, ids, dictionary)
+                fwd = ids
+            else:
+                dictionary = None
+                vals = np.asarray(raw, dtype=dt.np_dtype)
+                card = len(np.unique(vals))
+                stats = ColumnStats.collect(col, dt, vals, card)
+                fwd = vals
+            seg.columns[col] = ColumnIndex(col, dt, dictionary, fwd, stats)
+        return seg

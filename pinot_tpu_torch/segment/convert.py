@@ -1,0 +1,61 @@
+"""Carry a segment across from plain data.
+
+`segment_from_numpy` rebuilds an `ImmutableSegment` from a description made
+of plain values and numpy arrays only, so a segment built elsewhere (by the
+JAX package's builder, or read from any store) is queried here over the
+byte-identical forward arrays and dictionary ids. It is the counterpart of
+carrying a model's weights across.
+
+    desc = {
+        "name": "lineorder_0",                  # optional, default "segment"
+        "schema": "<Schema.to_json() text>",
+        "n_docs": 4000,
+        "columns": {
+            "<column>": {
+                "forward": np.ndarray,          # dict ids (int32) or raw values
+                "dictionary": np.ndarray | None,  # sorted unique values
+                "stats": {...},                 # ColumnStats.to_dict() form
+            },
+            ...
+        },
+    }
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pinot_tpu_torch.common.types import Schema
+from pinot_tpu_torch.segment.dictionary import Dictionary
+from pinot_tpu_torch.segment.segment import ColumnIndex, ImmutableSegment
+from pinot_tpu_torch.segment.stats import ColumnStats
+
+
+def segment_from_numpy(desc: dict) -> ImmutableSegment:
+    schema = Schema.from_json(desc["schema"])
+    n_docs = int(desc["n_docs"])
+    seg = ImmutableSegment(name=desc.get("name", "segment"), schema=schema, n_docs=n_docs)
+    for col in schema.columns:
+        if col not in desc["columns"]:
+            raise ValueError(f"segment description has no column {col!r}")
+        spec = schema[col]
+        if not spec.single_value:
+            raise NotImplementedError(f"multi-value column {col!r} is not supported by pinot_tpu_torch yet")
+        cd = desc["columns"][col]
+        fwd = np.ascontiguousarray(cd["forward"])
+        if fwd.ndim != 1 or len(fwd) != n_docs:
+            raise ValueError(f"column {col!r}: forward array of shape {fwd.shape}, expected ({n_docs},)")
+        values = cd.get("dictionary")
+        dictionary = None
+        if values is not None:
+            values = np.asarray(values)
+            if fwd.dtype != np.int32:
+                raise ValueError(f"column {col!r}: dict ids must be int32, got {fwd.dtype}")
+            dictionary = Dictionary(spec.data_type, values)
+        elif fwd.dtype != spec.data_type.np_dtype:
+            raise ValueError(
+                f"column {col!r}: raw values must be {spec.data_type.np_dtype}, got {fwd.dtype}"
+            )
+        stats = ColumnStats.from_dict(cd["stats"])
+        seg.columns[col] = ColumnIndex(col, spec.data_type, dictionary, fwd, stats)
+    return seg

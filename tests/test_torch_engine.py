@@ -1,0 +1,268 @@
+"""The port's QueryEngine (device="cpu") against the JAX package's QueryEngine
+over the same data: BASELINE configs 1-4, the __graft_entry__ Q4 query and
+slice-shaped queries from tests/test_queries.py. Segments reach the port two
+ways — its own SegmentBuilder on the same arrays, and the reference's
+segments carried across with segment_from_numpy. ResultTable rows must be
+equal — values, Python types and row order — and so must numDocsScanned;
+only float64 sums over DOUBLE columns may differ, within rtol 1e-12, since
+they sum in another order."""
+
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as graft
+from pinot_tpu.common import DataType as JDT
+from pinot_tpu.common import Schema as JSchema
+from pinot_tpu.query import QueryEngine as JEngine
+from pinot_tpu.segment import SegmentBuilder as JBuilder
+from pinot_tpu_torch.common import DataType, Schema
+from pinot_tpu_torch.query import QueryEngine
+from pinot_tpu_torch.segment import SegmentBuilder, segment_from_numpy
+from test_torch_segment import describe
+
+REPO = Path(__file__).resolve().parents[1]
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+NATIONS = [f"NATION_{i:02d}" for i in range(25)]
+CATEGORIES = [f"MFGR#{i // 10 + 1}{i % 10 + 1}" for i in range(25)]
+
+
+def _lineorder(seed, n):
+    """tests/test_queries.py's generator: each seed draws its own value pools,
+    so the segments' dictionaries differ."""
+    rng = np.random.default_rng(seed)
+    region_pool = rng.permutation(REGIONS)[: rng.integers(3, 6)]
+    nation_pool = rng.permutation(NATIONS)[: rng.integers(10, 25)]
+    return {
+        "region": np.asarray(region_pool, dtype=object)[rng.integers(0, len(region_pool), n)],
+        "nation": np.asarray(nation_pool, dtype=object)[rng.integers(0, len(nation_pool), n)],
+        "year": rng.integers(1992, 1999, n).astype(np.int32),
+        "quantity": rng.integers(1, 51, n).astype(np.int32),
+        "revenue": rng.integers(100, 600_000, n).astype(np.int64),
+        "discount": np.round(rng.uniform(0, 0.1, n), 3),
+    }
+
+
+def _ssb(seed, n):
+    """bench.py's SSB-flavoured lineorder generator."""
+    rng = np.random.default_rng(seed)
+    return {
+        "d_year": rng.integers(1992, 1999, n).astype(np.int32),
+        "c_nation": np.array(NATIONS, dtype=object)[rng.integers(0, 25, n)],
+        "p_category": np.array(CATEGORIES, dtype=object)[rng.integers(0, 25, n)],
+        "lo_revenue": rng.integers(100, 600_000, n).astype(np.int64),
+        "lo_supplycost": rng.integers(50, 100_000, n).astype(np.int64),
+        "lo_quantity": rng.integers(1, 51, n).astype(np.int32),
+    }
+
+
+TABLES = {
+    "lineorder": (
+        lambda DT: dict(
+            dimensions=[("region", DT.STRING), ("nation", DT.STRING), ("year", DT.INT)],
+            metrics=[("quantity", DT.INT), ("revenue", DT.LONG), ("discount", DT.DOUBLE)],
+        ),
+        [_lineorder(100 + i, n) for i, n in enumerate([4000, 2500, 3300])],
+    ),
+    "ssb": (
+        lambda DT: dict(
+            dimensions=[("d_year", DT.INT), ("c_nation", DT.STRING), ("p_category", DT.STRING)],
+            metrics=[("lo_revenue", DT.LONG), ("lo_supplycost", DT.LONG), ("lo_quantity", DT.INT)],
+        ),
+        [_ssb(i, 5000) for i in range(3)],
+    ),
+    "graft": (
+        lambda DT: dict(
+            dimensions=[("d_year", DT.INT), ("c_nation", DT.STRING)],
+            metrics=[("lo_revenue", DT.LONG), ("lo_quantity", DT.INT)],
+        ),
+        [graft._toy_table(4096)[1]],
+    ),
+}
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """{table: (reference engine, {mode: port engine})}, plus a memo of the
+    reference's results."""
+    out = {}
+    for table, (cols, datas) in TABLES.items():
+        name = "lineorder"
+        jsegs = [JBuilder(JSchema.build(name, **cols(JDT))).build(d, f"{table}_{i}") for i, d in enumerate(datas)]
+        built = [SegmentBuilder(Schema.build(name, **cols(DataType))).build(d, f"{table}_{i}") for i, d in enumerate(datas)]
+        carried = [segment_from_numpy(describe(s)) for s in jsegs]
+        out[table] = (
+            JEngine(jsegs),
+            {"built": QueryEngine(built, device="cpu"), "carried": QueryEngine(carried, device="cpu")},
+        )
+    return out, {}
+
+
+def _assert_rows(got, want, approx=()):
+    assert len(got) == len(want), (got, want)
+    for r, (g, w) in enumerate(zip(got, want)):
+        assert len(g) == len(w)
+        for c, (a, b) in enumerate(zip(g, w)):
+            assert type(a) is type(b), (r, c, a, b)
+            if c in approx:
+                assert math.isclose(a, b, rel_tol=1e-12), (r, c, a, b)
+            else:
+                assert a == b or (a != a and b != b), (r, c, a, b)
+
+
+# (table, sql, columns holding DOUBLE-column sums)
+QUERIES = [
+    # BASELINE configs 1-4 (bench.py's SQL)
+    ("ssb", "SELECT COUNT(*) FROM lineorder WHERE c_nation = 'NATION_07'", ()),
+    ("ssb", "SELECT SUM(lo_revenue), MIN(lo_quantity), MAX(lo_revenue), AVG(lo_supplycost) "
+            "FROM lineorder WHERE d_year BETWEEN 1994 AND 1996 AND c_nation = 'NATION_03'", ()),
+    ("ssb", "SELECT d_year, SUM(lo_revenue) FROM lineorder "
+            "WHERE (c_nation = 'NATION_01' OR c_nation = 'NATION_02') AND lo_quantity < 25 "
+            "GROUP BY d_year ORDER BY d_year LIMIT 20", ()),
+    ("ssb", "SELECT d_year, c_nation, p_category, SUM(lo_revenue - lo_supplycost) "
+            "FROM lineorder WHERE lo_quantity > 5 AND d_year BETWEEN 1993 AND 1997 "
+            "GROUP BY d_year, c_nation, p_category ORDER BY SUM(lo_revenue - lo_supplycost) DESC LIMIT 10", ()),
+    ("ssb", "SELECT p_category, COUNT(*), MIN(lo_supplycost), MINMAXRANGE(lo_revenue) FROM lineorder "
+            "WHERE lo_quantity = 7 GROUP BY p_category ORDER BY COUNT(*) DESC LIMIT 12", ()),
+    # the __graft_entry__ Q4 query
+    ("graft", graft._SQL, ()),
+    # slice-shaped queries of tests/test_queries.py
+    ("lineorder", "SELECT COUNT(*) FROM lineorder WHERE region = 'ASIA'", ()),
+    ("lineorder", "SELECT COUNT(*) FROM lineorder", ()),
+    ("lineorder", "SELECT SUM(revenue), MIN(quantity), MAX(discount), AVG(revenue) FROM lineorder "
+                  "WHERE region = 'EUROPE' AND year BETWEEN 1994 AND 1997", ()),
+    ("lineorder", "SELECT COUNT(*) FROM lineorder WHERE NOT (region = 'ASIA' OR year != 1995)", ()),
+    ("lineorder", "SELECT COUNT(*) FROM lineorder WHERE region IN ('ASIA','EUROPE') AND year NOT IN (1992, 1998)", ()),
+    ("lineorder", "SELECT COUNT(*) FROM lineorder WHERE quantity > 25 AND discount <= 0.05", ()),
+    ("lineorder", "SELECT COUNT(*) FROM lineorder WHERE quantity * 2 + 1 > 60", ()),
+    ("lineorder", "SELECT COUNT(*) FROM lineorder WHERE nation LIKE 'NATION_0_'", ()),
+    ("lineorder", "SELECT COUNT(*) FROM lineorder WHERE REGEXP_LIKE(nation, '_1')", ()),
+    ("lineorder", "SELECT COUNT(*) FROM lineorder WHERE region = 'ATLANTIS'", ()),
+    ("lineorder", "SELECT SUM(revenue) / COUNT(*) FROM lineorder", ()),
+    ("lineorder", "SELECT MINMAXRANGE(revenue) FROM lineorder", ()),
+    ("lineorder", "SELECT region, COUNT(*) FROM lineorder GROUP BY region LIMIT 100", ()),
+    ("lineorder", "SELECT region, SUM(revenue) FROM lineorder WHERE year >= 1995 GROUP BY region LIMIT 100", ()),
+    ("lineorder", "SELECT year, region, SUM(revenue) FROM lineorder GROUP BY year, region "
+                  "ORDER BY SUM(revenue) DESC LIMIT 5", ()),
+    ("lineorder", "SELECT nation, AVG(quantity) FROM lineorder GROUP BY nation HAVING COUNT(*) > 300 LIMIT 100", ()),
+    ("lineorder", "SELECT year, COUNT(*) FROM lineorder GROUP BY year ORDER BY year LIMIT 3", ()),
+    ("lineorder", "SELECT region, COUNT(*) FROM lineorder WHERE year = 1800 GROUP BY region", ()),
+    # ties under ORDER BY: row order follows the reference's merge order
+    ("lineorder", "SELECT region, year, COUNT(*) FROM lineorder WHERE quantity = 7 "
+                  "GROUP BY region, year ORDER BY COUNT(*) DESC LIMIT 20", ()),
+    ("lineorder", "SELECT nation, region, MAX(revenue), MIN(revenue), MINMAXRANGE(quantity) FROM lineorder "
+                  "WHERE quantity BETWEEN 10 AND 40 GROUP BY nation, region ORDER BY region, MAX(revenue) DESC LIMIT 15", ()),
+    ("lineorder", "SELECT year, COUNT(*) AS n, SUM(quantity) FROM lineorder GROUP BY year "
+                  "HAVING SUM(quantity) > 1000 ORDER BY n DESC LIMIT 4 OFFSET 1", ()),
+    # DOUBLE-column sums
+    ("lineorder", "SELECT SUM(discount), MIN(discount), MAX(discount), AVG(discount) FROM lineorder", (0, 3)),
+    ("lineorder", "SELECT region, SUM(discount), AVG(discount), COUNT(*) FROM lineorder "
+                  "GROUP BY region ORDER BY region LIMIT 10", (1, 2)),
+]
+
+
+@pytest.mark.parametrize("mode", ["built", "carried"])
+@pytest.mark.parametrize("table,sql,approx", QUERIES)
+def test_engine_matches_reference(engines, table, sql, approx, mode):
+    by_table, memo = engines
+    ref, ports = by_table[table]
+    if sql not in memo:
+        memo[sql] = ref.execute(sql)
+    want = memo[sql]
+    got = ports[mode].execute(sql)
+    assert got.columns == want.columns
+    _assert_rows(got.rows, want.rows, approx)
+    assert got.num_docs_scanned == want.num_docs_scanned
+    assert got.total_docs == want.total_docs
+
+
+@pytest.mark.parametrize(
+    "sql",
+    [
+        "SELECT COUNT(*) FROM lineorder WHERE quantity IN (1, 2, 3)",  # in_sorted
+        "SELECT DISTINCTCOUNT(nation) FROM lineorder",
+        "SELECT COUNT(*) FILTER (WHERE year = 1995) FROM lineorder",  # masked
+        "SELECT year - 1990, COUNT(*) FROM lineorder GROUP BY year - 1990",  # host executor
+        "SELECT region, year FROM lineorder LIMIT 3",  # selection
+        "SELECT DISTINCT region FROM lineorder",
+        "SELECT SUM(ABS(quantity)) FROM lineorder",  # transforms
+        "SET enableNullHandling = true; SELECT SUM(quantity) FROM lineorder",
+    ],
+)
+def test_unported_query_shapes_raise(engines, sql):
+    by_table, _ = engines
+    with pytest.raises(NotImplementedError):
+        by_table["lineorder"][1]["built"].execute(sql)
+
+
+def test_engine_defaults_to_the_card(engines):
+    by_table, _ = engines
+    segs = by_table["lineorder"][1]["built"].segments
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="cuda"):
+        QueryEngine(segs)
+
+
+def test_submits_resolve_in_any_order(engines):
+    """Several queries submitted before any resolves: each resolve makes its
+    own copies and gives the reference's rows."""
+    by_table, _ = engines
+    ref, ports = by_table["ssb"]
+    q1 = "SELECT COUNT(*) FROM lineorder WHERE c_nation = 'NATION_07'"
+    q2 = "SELECT d_year, COUNT(*) FROM lineorder GROUP BY d_year ORDER BY d_year"
+    resolve_1 = ports["built"].submit(q1)
+    resolve_2 = ports["built"].submit(q2)
+    assert resolve_2().rows == ref.execute(q2).rows
+    assert resolve_1().rows == ref.execute(q1).rows
+
+
+def test_import_leaves_no_jax_pandas_or_reference():
+    """A fresh interpreter imports the port and runs a CPU query; afterwards
+    no module of jax, pandas or the JAX package is loaded."""
+    code = (
+        "import sys, numpy as np\n"
+        "from pinot_tpu_torch.common import DataType, Schema\n"
+        "from pinot_tpu_torch.segment import SegmentBuilder\n"
+        "from pinot_tpu_torch.query import QueryEngine\n"
+        "s = Schema.build('t', dimensions=[('g', DataType.STRING)], metrics=[('v', DataType.INT)])\n"
+        "seg = SegmentBuilder(s).build({'g': np.array(['a', 'b', 'a'], dtype=object),"
+        " 'v': np.array([1, 2, 3], dtype=np.int32)}, 's0')\n"
+        "res = QueryEngine([seg], device='cpu').execute('SELECT g, SUM(v) FROM t GROUP BY g ORDER BY g')\n"
+        "assert res.rows == [['a', 4.0], ['b', 2.0]], res.rows\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'pinot_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+FORBIDDEN = {"jax", "jaxlib", "pandas", "pinot_tpu"}
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(REPO)) for p in (REPO / "pinot_tpu_torch").rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_source_imports_nothing_forbidden(path):
+    """Every import in the port (and its card check) names a module whose
+    top-level package is not jax, pandas or the JAX package — matched on the
+    whole first component, so pinot_tpu_torch itself passes."""
+    import ast
+
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"

@@ -1,0 +1,240 @@
+"""The port's segment layer against the JAX package's: the builder array for
+array (forward, dictionary, stats), carrying a reference segment across with
+segment_from_numpy, and the staging dtype policy and padding of to_device."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from pinot_tpu.common import DataType as JDT
+from pinot_tpu.common import Schema as JSchema
+from pinot_tpu.common import TableConfig as JTableConfig
+from pinot_tpu.segment import SegmentBuilder as JBuilder
+from pinot_tpu_torch.common import DataType, IndexingConfig, Schema, TableConfig
+from pinot_tpu_torch.segment import SegmentBuilder, segment_from_numpy
+from pinot_tpu_torch.segment.segment import DOC_PAD, padded_len
+
+COLUMNS = [
+    # (name, type name, role)
+    ("region", "STRING", "dim"),
+    ("year", "INT", "dim"),
+    ("shipdate", "LONG", "dim"),
+    ("rating", "DOUBLE", "dim"),
+    ("flag", "BOOLEAN", "dim"),
+    ("quantity", "INT", "metric"),
+    ("revenue", "LONG", "metric"),
+    ("bigval", "LONG", "metric"),
+    ("discount", "DOUBLE", "metric"),
+    ("weight", "FLOAT", "metric"),
+    ("ts", "TIMESTAMP", "metric"),
+]
+
+
+def _schema(DT, S):
+    return S.build(
+        "t",
+        dimensions=[(c, DT[t]) for c, t, r in COLUMNS if r == "dim"],
+        metrics=[(c, DT[t]) for c, t, r in COLUMNS if r == "metric"],
+    )
+
+
+def _data(seed, n):
+    rng = np.random.default_rng(seed)
+    regions = np.array(["ASIA", "EUROPE", "AFRICA", "AMERICA", "MIDDLE EAST", "é-region"], dtype=object)
+    return {
+        "region": regions[rng.integers(0, len(regions), n)],
+        "year": rng.integers(1992, 1999, n).astype(np.int32),
+        "shipdate": rng.integers(19920101, 19981231, n).astype(np.int64),
+        "rating": np.round(rng.uniform(0, 5, n), 1),
+        "flag": rng.integers(0, 2, n).astype(np.int32),
+        "quantity": rng.integers(-50, 51, n).astype(np.int32),
+        "revenue": rng.integers(100, 600_000, n).astype(np.int64),
+        # exceeds int32: stays int64 on the device
+        "bigval": rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64),
+        "discount": np.round(rng.uniform(0, 0.1, n), 3),
+        "weight": rng.uniform(0, 10, n).astype(np.float32),
+        "ts": np.sort(rng.integers(1_600_000_000_000, 1_700_000_000_000, n)).astype(np.int64),
+    }
+
+
+def describe(seg) -> dict:
+    """A reference segment as segment_from_numpy's plain-data description."""
+    return {
+        "name": seg.name,
+        "schema": seg.schema.to_json(),
+        "n_docs": seg.n_docs,
+        "columns": {
+            c: {
+                "forward": ci.forward,
+                "dictionary": None if ci.dictionary is None else ci.dictionary.values,
+                "stats": ci.stats.to_dict(),
+            }
+            for c, ci in seg.columns.items()
+        },
+    }
+
+
+def _assert_same_segment(ref, port):
+    assert port.n_docs == ref.n_docs
+    assert list(port.columns) == list(ref.columns)
+    for c, rci in ref.columns.items():
+        pci = port.columns[c]
+        assert pci.forward.dtype == rci.forward.dtype, c
+        assert np.array_equal(pci.forward, rci.forward), c
+        assert (pci.dictionary is None) == (rci.dictionary is None), c
+        if rci.dictionary is not None:
+            assert pci.dictionary.values.dtype == rci.dictionary.values.dtype, c
+            assert np.array_equal(pci.dictionary.values, rci.dictionary.values), c
+        assert pci.stats.to_dict() == rci.stats.to_dict(), c
+
+
+@pytest.fixture(scope="module")
+def pair():
+    data = _data(11, 5000)
+    ref = JBuilder(_schema(JDT, JSchema)).build(data, "seg0")
+    port = SegmentBuilder(_schema(DataType, Schema)).build(data, "seg0")
+    return data, ref, port
+
+
+def test_schema_json_roundtrip():
+    js = _schema(JDT, JSchema).to_json()
+    assert json.loads(_schema(DataType, Schema).to_json()) == json.loads(js)
+    assert Schema.from_json(js).to_json() == js
+
+
+def test_builder_matches_reference(pair):
+    _, ref, port = pair
+    _assert_same_segment(ref, port)
+
+
+@pytest.mark.parametrize("seed,n", [(1, 1), (2, 1024), (3, 1500), (4, 4097)])
+def test_builder_matches_reference_at_sizes(seed, n):
+    data = _data(seed, n)
+    ref = JBuilder(_schema(JDT, JSchema)).build(data, "s")
+    port = SegmentBuilder(_schema(DataType, Schema)).build(data, "s")
+    _assert_same_segment(ref, port)
+
+
+def test_no_dictionary_override_matches_reference():
+    data = _data(5, 3000)
+    ref = JBuilder(
+        _schema(JDT, JSchema), JTableConfig("t", indexing=type(JTableConfig("t").indexing)(no_dictionary_columns=["year"], dictionary_columns=["quantity"]))
+    ).build(data, "s")
+    port = SegmentBuilder(
+        _schema(DataType, Schema),
+        TableConfig("t", IndexingConfig(no_dictionary_columns=["year"], dictionary_columns=["quantity"])),
+    ).build(data, "s")
+    assert port.columns["year"].dictionary is None and port.columns["quantity"].dictionary is not None
+    _assert_same_segment(ref, port)
+
+
+def test_row_input_and_nulls_match_reference():
+    rows = [{"region": "ASIA", "year": 1995, "quantity": None}, {"region": None, "year": 1996, "quantity": 4}]
+    cols = [("region", "STRING", "dim"), ("year", "INT", "dim"), ("quantity", "INT", "metric")]
+
+    def schema(DT, S):
+        return S.build("r", dimensions=[(c, DT[t]) for c, t, r in cols if r == "dim"],
+                       metrics=[(c, DT[t]) for c, t, r in cols if r == "metric"])
+
+    ref = JBuilder(schema(JDT, JSchema)).build(rows, "s")
+    port = SegmentBuilder(schema(DataType, Schema)).build(rows, "s")
+    _assert_same_segment(ref, port)
+
+
+def test_segment_from_numpy_carries_reference_across(pair):
+    _, ref, _ = pair
+    port = segment_from_numpy(describe(ref))
+    assert port.name == ref.name
+    _assert_same_segment(ref, port)
+    assert port.schema.to_json() == ref.schema.to_json()
+
+
+def test_segment_from_numpy_rejects_bad_descriptions(pair):
+    _, ref, _ = pair
+    desc = describe(ref)
+    desc["columns"]["year"] = dict(desc["columns"]["year"], forward=desc["columns"]["year"]["forward"][:10])
+    with pytest.raises(ValueError, match="year"):
+        segment_from_numpy(desc)
+    desc = describe(ref)
+    del desc["columns"]["region"]
+    with pytest.raises(ValueError, match="region"):
+        segment_from_numpy(desc)
+
+
+def test_to_device_matches_reference_staging(pair):
+    _, ref, port = pair
+    jdev = ref.to_device()
+    dev = port.to_device("cpu")
+    assert dev.padded == jdev.padded == padded_len(ref.n_docs)
+    assert dev.device == torch.device("cpu")
+    assert set(dev.arrays) == set(jdev.arrays)
+    for c, t in dev.arrays.items():
+        want = np.asarray(jdev.arrays[c])
+        got = t.numpy()
+        assert got.dtype == want.dtype, c
+        assert np.array_equal(got, want), c
+
+
+def test_to_device_dtype_policy_and_padding(pair):
+    _, _, port = pair
+    dev = port.to_device("cpu")
+    n, pad = port.n_docs, dev.padded
+    assert pad % DOC_PAD == 0 and pad >= n
+    expect = {
+        "region": torch.int32,  # dict ids
+        "revenue": torch.int32,  # int64 narrowed: stats fit int32
+        "ts": torch.int64,  # int64 kept: stats exceed int32
+        "bigval": torch.int64,
+        "discount": torch.float64,  # DOUBLE stays f64
+        "weight": torch.float32,
+        "quantity": torch.int32,
+    }
+    for c, dt in expect.items():
+        t = dev.arrays[c]
+        assert t.dtype == dt, c
+        assert t.shape == (pad,)
+        assert not t[n:].any(), c  # zero tail
+        assert np.array_equal(t[:n].numpy(), port.columns[c].forward.astype(t.numpy().dtype)), c
+
+
+def test_to_device_cached_is_per_device(pair):
+    _, _, port = pair
+    a = port.to_device_cached("cpu")
+    assert port.to_device_cached(torch.device("cpu")) is a
+    assert port.to_device("cpu") is not a
+
+
+def test_default_staging_device_is_the_card(pair):
+    _, _, port = pair
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default stages there")
+    with pytest.raises((RuntimeError, AssertionError)):
+        port.to_device()
+
+
+@pytest.mark.parametrize(
+    "indexing",
+    [
+        dict(inverted_index_columns=["year"]),
+        dict(range_index_columns=["year"]),
+        dict(bloom_filter_columns=["year"]),
+        dict(star_tree_configs=[object()]),
+        dict(vector_index_columns=["v"]),
+        dict(fst_index_columns=["region"]),
+        dict(null_handling=True),
+    ],
+)
+def test_unsupported_table_config_raises(indexing):
+    name = next(iter(indexing))
+    with pytest.raises(NotImplementedError, match=name):
+        SegmentBuilder(_schema(DataType, Schema), TableConfig("t", IndexingConfig(**indexing)))
+
+
+def test_multi_value_column_raises():
+    from pinot_tpu_torch.common import FieldSpec
+
+    schema = Schema("mv").add(FieldSpec("tags", DataType.STRING, single_value=False))
+    with pytest.raises(NotImplementedError, match="tags"):
+        SegmentBuilder(schema)
