@@ -4,16 +4,23 @@
     python3 chip_smoke.py        # from the root of the repository
 
 1. Card: prints the card's name and power limit, builds every CUDA kernel of
-   the package from the sources in the checkout (nvcc, sm_90a).
-2. Kernels: holds each kernel against its plain torch version on the card
-   (exact equality), at the main path's shapes and at edge cases, and times
-   kernel, plain version and the PyTorch library call beside the bound.
+   the package from the sources in the checkout (nvcc, sm_90a, one process
+   per source, all started together).
+2. Kernels: holds each kernel against its plain torch version on the card,
+   at the main path's shapes and at edge cases, and times kernel, plain
+   version and the PyTorch library call beside the bound. Kernels:
+   grouped_sum_count (exact int sums + counts), grouped_extreme (MIN/MAX of
+   f32, i32 and f64 values) and grouped_sum_f32 (f32 sums / counts and the
+   DISTINCTCOUNT presence flags). Tolerance: exact equality (== , NaN equal
+   to NaN) for everything but f32 sums, which add in a run-dependent order
+   and are held to rtol 1e-4, atol 1e-2.
 3. Main path: generates the SSB-flavoured lineorder (16M rows, seed 0, the
    generator of bench.py), builds 4 segments of 4M rows with the package's
-   SegmentBuilder, stages them on the card and runs BASELINE configs 1-4
-   through QueryEngine(..., device="cuda").execute. Every result row is held
-   against a numpy oracle over the raw arrays; the kernels' launch counters
-   are reset just before that run and read just after.
+   SegmentBuilder, stages them on the card and runs configs 1-7 (BASELINE
+   1-4, grouped MIN/MAX, grouped and scalar DISTINCTCOUNT) through
+   QueryEngine(..., device="cuda").execute. Every result row is held against
+   a numpy oracle over the raw arrays; the kernels' launch counters are reset
+   just before that run and read just after, per config.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -56,7 +63,35 @@ CONFIGS = {
         "GROUP BY d_year, c_nation, p_category ORDER BY SUM(lo_revenue - lo_supplycost) DESC LIMIT 10"
     ),
 }
-GROUP_BY_CONFIGS = ("3_q1_groupby", "4_q4_groupby_orderby")
+CONFIGS.update(
+    {
+        "5_groupby_minmax": (
+            "SELECT d_year, c_nation, COUNT(*), MIN(lo_quantity), MAX(lo_revenue), MINMAXRANGE(lo_supplycost), "
+            "MAX(lo_revenue / lo_quantity) FROM lineorder WHERE lo_quantity > 5 AND d_year BETWEEN 1993 AND 1997 "
+            "GROUP BY d_year, c_nation ORDER BY d_year, c_nation LIMIT 200"
+        ),
+        "6_groupby_distinct": (
+            "SELECT d_year, p_category, COUNT(*), DISTINCTCOUNT(c_nation) FROM lineorder "
+            "WHERE lo_quantity = 1 AND lo_revenue < 20000 "
+            "GROUP BY d_year, p_category ORDER BY d_year, p_category LIMIT 200"
+        ),
+        "7_distinct": (
+            "SELECT COUNT(DISTINCT c_nation), DISTINCTCOUNT(p_category), MIN(lo_revenue) FROM lineorder "
+            "WHERE lo_quantity = 1 AND lo_revenue < 20000"
+        ),
+    }
+)
+#: kernel launches per segment of each config: (grouped_sum_count,
+#: grouped_extreme, presence)
+LAUNCHES_PER_SEGMENT = {
+    "1_count_filter": (0, 0, 0),
+    "2_filtered_agg": (0, 0, 0),
+    "3_q1_groupby": (1, 0, 0),
+    "4_q4_groupby_orderby": (1, 0, 0),
+    "5_groupby_minmax": (1, 5, 0),  # MIN, MAX, MINMAXRANGE (2) of int32, MAX of float64
+    "6_groupby_distinct": (1, 0, 1),
+    "7_distinct": (0, 0, 2),
+}
 
 
 def emit(obj) -> None:
@@ -204,6 +239,300 @@ def check_kernels(torch, gb) -> dict:
     return {"max_abs_err": max_err, **timing}
 
 
+def same(torch, got, want) -> bool:
+    """Exact equality under == (so -0.0 == +0.0), NaN equal to NaN, and the
+    same dtype and shape."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    eq = got == want
+    if got.dtype.is_floating_point:
+        eq |= got.isnan() & want.isnan()
+    return bool(eq.all().item())
+
+
+def abs_err(torch, got, want) -> float:
+    """Largest |got - want| over the entries finite on both sides."""
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    fin = torch.isfinite(g) & torch.isfinite(w)
+    return float((g - w)[fin].abs().max().item()) if bool(fin.any().item()) else 0.0
+
+
+def hbm_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _tensor(torch, a, dtype):
+    return torch.as_tensor(np.ascontiguousarray(a)).to("cuda").to(dtype).contiguous()
+
+
+def _in_range(torch, gid, mask, ng):
+    ok = mask & (gid >= 0) & (gid < ng)
+    return ok, torch.where(ok, gid, 0).to(torch.int64)
+
+
+def _counts(torch, gid, mask, ng):
+    ok, idx = _in_range(torch, gid, mask, ng)
+    return torch.bincount(idx[ok], minlength=ng)
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the extreme kernel (grouped MIN/MAX) against its plain version
+# ---------------------------------------------------------------------------
+
+
+def extreme_cases(torch):
+    """(name, values, gid, mask, ng, is_min, counts, expect_shared): Q4's
+    shape, the engine's shapes (config 5: 125 groups of ng = 256), and the
+    edges of the kernel's contract."""
+    rng = np.random.default_rng(2)
+    f32, f64, i32, b = torch.float32, torch.float64, torch.int32, torch.bool
+    cases = []
+
+    def add(name, values, gid, mask, ng, is_min, shared):
+        counts = _counts(torch, gid, mask, ng) if values.dtype == i32 else None
+        cases.append((name, values, gid, mask, ng, is_min, counts, shared))
+
+    n = 4_194_304
+    gid = _tensor(torch, rng.integers(0, 4375, n), i32)
+    mask = _tensor(torch, rng.random(n) < 0.7, b)
+    for is_min in (True, False):
+        tag = "min" if is_min else "max"
+        add(f"q4_shape_f32_{tag}", _tensor(torch, rng.uniform(-1e6, 1e6, n), f32), gid, mask, 4608, is_min, True)
+        add(f"q4_shape_i32_{tag}", _tensor(torch, rng.integers(-600_000, 600_001, n), i32), gid, mask, 4608, is_min, True)
+        add(f"q4_shape_f64_{tag}", _tensor(torch, rng.normal(0, 1e6, n), f64), gid, mask, 4608, is_min, True)
+
+    # config 5's shape: 125 present groups of ng = 256, heavy contention
+    egid = _tensor(torch, rng.integers(0, 125, n), i32)
+    emask = _tensor(torch, rng.random(n) < 0.65, b)
+    qty = rng.integers(1, 51, n)
+    rev = rng.integers(100, 600_000, n)
+    add("engine_ng256_i32_min", _tensor(torch, qty, i32), egid, emask, 256, True, True)
+    add("engine_ng256_i32_max", _tensor(torch, rev, i32), egid, emask, 256, False, True)
+    add("engine_ng256_f64_max", _tensor(torch, rev / qty, f64), egid, emask, 256, False, True)
+
+    n2 = 1 << 20
+    gid2 = _tensor(torch, rng.integers(0, 256, n2), i32)
+    none = _tensor(torch, np.zeros(n2, bool), b)
+    add("empty_mask_f32_min", _tensor(torch, rng.normal(0, 1, n2), f32), gid2, none, 256, True, True)
+    add("empty_mask_i32_max", _tensor(torch, rng.integers(-5, 6, n2), i32), gid2, none, 256, False, True)
+    add("empty_mask_f64_min", _tensor(torch, rng.normal(0, 1, n2), f64), gid2, none, 256, True, True)
+
+    ogid = _tensor(torch, rng.integers(-3, 300, n2), i32)  # ids outside [0, 256): dropped
+    omask = _tensor(torch, rng.random(n2) < 0.8, b)
+    add("out_of_range_f32_max", _tensor(torch, rng.normal(0, 1, n2), f32), ogid, omask, 256, False, True)
+    add("out_of_range_i32_min", _tensor(torch, rng.integers(-9, 9, n2), i32), ogid, omask, 256, True, True)
+
+    i32_info = np.iinfo(np.int32)
+    pool = np.array([i32_info.min, i32_info.max, i32_info.min + 1, i32_info.max - 1, -1, 0, 1], dtype=np.int64)
+    for is_min in (True, False):
+        tag = "min" if is_min else "max"
+        # sparse mask: some groups hold only INT32_MAX (or only INT32_MIN) docs
+        add(f"int32_extremes_{tag}", _tensor(torch, rng.choice(pool, n2), i32), gid2,
+            _tensor(torch, rng.random(n2) < 0.002, b), 256, is_min, True)
+        specials = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, 1.5, -1.5])
+        x = rng.choice(specials, n2, p=[0.0005, 0.3, 0.3, 0.001, 0.001, 0.1985, 0.199])
+        add(f"nan_signed_zero_f32_{tag}", _tensor(torch, x, f32), gid2, omask, 256, is_min, True)
+        add(f"nan_signed_zero_f64_{tag}", _tensor(torch, x, f64), gid2, omask, 256, is_min, True)
+
+    big_gid = _tensor(torch, rng.integers(0, 1 << 20, n), i32)
+    big_mask = _tensor(torch, rng.random(n) < 0.5, b)
+    add("ng_2^20_global_f32_min", _tensor(torch, rng.normal(0, 1, n), f32), big_gid, big_mask, 1 << 20, True, False)
+    add("ng_2^20_global_i32_max", _tensor(torch, rng.integers(-1000, 1001, n), i32), big_gid, big_mask, 1 << 20, False, False)
+    add("ng_2^20_global_f64_min", _tensor(torch, rng.normal(0, 1, n), f64), big_gid, big_mask, 1 << 20, True, False)
+    return cases
+
+
+def check_extreme(torch, ext) -> dict:
+    results, max_err, keep = [], 0.0, {}
+    for name, values, gid, mask, ng, is_min, counts, expect_shared in extreme_cases(torch):
+        shared = ext.uses_shared_keys(values.dtype, ng, gid.device)
+        if shared != expect_shared:
+            raise AssertionError(f"{name}: shared-memory path {shared}, expected {expect_shared}")
+        got = ext.grouped_extreme_kernel(values, gid, mask, ng, is_min, counts)
+        torch.cuda.synchronize()
+        want = ext.grouped_extreme_plain(values, gid, mask, ng, is_min, counts)
+        equal = same(torch, got, want)
+        err = abs_err(torch, got, want)
+        max_err = max(max_err, err)
+        results.append(
+            {"case": name, "dtype": str(values.dtype), "ng": ng, "n": gid.numel(), "shared_keys": shared,
+             "nan_groups": int(got.isnan().sum().item()), "equal": equal}
+        )
+        if not equal:
+            raise AssertionError(f"{name}: grouped_extreme kernel != plain version (max abs err {err})")
+        keep[name] = (values, gid, mask, ng, is_min, counts)
+    emit({"phase": "kernel_vs_plain", "kernel": "grouped_extreme", "cases": results})
+
+    timings = {}
+    for name in ("q4_shape_i32_min", "q4_shape_f32_min", "q4_shape_f64_max", "engine_ng256_i32_min", "engine_ng256_f64_max"):
+        values, gid, mask, ng, is_min, counts = keep[name]
+        n, vbytes = gid.numel(), values.element_size()
+        ok, idx = _in_range(torch, gid, mask, ng)
+        fill = (np.iinfo(np.int32).max if is_min else np.iinfo(np.int32).min) if values.dtype == torch.int32 else (
+            math.inf if is_min else -math.inf
+        )
+        src = torch.where(ok, values, fill)
+        dst = torch.full((ng,), fill, dtype=values.dtype, device="cuda")
+        # outputs written once (f32 for f32 values, f64 otherwise), and the
+        # int32 form reads the per-group counts
+        out_bytes = ng * (4 if values.dtype == torch.float32 else 8) + (ng * 8 if counts is not None else 0)
+        masked = int(mask.sum().item())
+        timings[name] = {
+            "shape": {"n": n, "ng": ng, "dtype": str(values.dtype), "is_min": is_min},
+            "kernel_ms": time_ms(torch, lambda: ext.grouped_extreme_kernel(values, gid, mask, ng, is_min, counts), 50),
+            "plain_ms": time_ms(torch, lambda: ext.grouped_extreme_plain(values, gid, mask, ng, is_min, counts), 20),
+            "library_ms": time_ms(
+                torch, lambda: dst.scatter_reduce_(0, idx, src, reduce="amin" if is_min else "amax", include_self=True), 20
+            ),
+            "bound_ms": hbm_ms(n * (4 + 1 + vbytes) + out_bytes),
+            "bound_data_ms": hbm_ms(n + masked * (4 + vbytes) + out_bytes),
+        }
+    emit({"phase": "kernel_timing", "kernel": "grouped_extreme", "timings": timings, "card": card_line()})
+    return {"max_abs_err": max_err, **timings["q4_shape_i32_min"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: the f32 sum / presence kernel against its plain versions
+# ---------------------------------------------------------------------------
+
+
+def sum_f32_cases(torch):
+    """(name, values or None, gid, mask, ng, expect_shared)."""
+    rng = np.random.default_rng(3)
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    n, n2 = 4_194_304, 1 << 20
+    gid = _tensor(torch, rng.integers(0, 4375, n), i32)
+    mask = _tensor(torch, rng.random(n) < 0.7, b)
+    vals = _tensor(torch, rng.uniform(-100, 100, n), f32)
+    gid2 = _tensor(torch, rng.integers(0, 256, n2), i32)
+    ogid = _tensor(torch, rng.integers(-3, 300, n2), i32)
+    mask2 = _tensor(torch, rng.random(n2) < 0.8, b)
+    none = _tensor(torch, np.zeros(n2, bool), b)
+    x = rng.uniform(-100, 100, n2)
+    x[rng.random(n2) < 0.0001] = np.nan  # a non-finite value stays in its own group
+    x[rng.random(n2) < 0.0001] = np.inf
+    big_gid = _tensor(torch, rng.integers(0, 1 << 20, n), i32)
+    return [
+        ("q4_shape_sum", vals, gid, mask, 4608, True),
+        ("q4_shape_count", None, gid, mask, 4608, True),
+        ("engine_ng256_sum", _tensor(torch, rng.uniform(-100, 100, n2), f32), gid2, mask2, 256, True),
+        ("empty_mask_sum", _tensor(torch, x, f32), gid2, none, 256, True),
+        ("empty_mask_count", None, gid2, none, 256, True),
+        ("out_of_range_sum", _tensor(torch, rng.uniform(-100, 100, n2), f32), ogid, mask2, 256, True),
+        ("out_of_range_count", None, ogid, mask2, 256, True),
+        ("non_finite_sum", _tensor(torch, x, f32), gid2, mask2, 256, True),
+        ("ng_2^20_global_sum", vals, big_gid, mask, 1 << 20, False),
+        ("ng_2^20_global_count", None, big_gid, mask, 1 << 20, False),
+    ]
+
+
+def presence_cases(torch):
+    """(name, ids, mask, pad, gid or None, ng, expect_shared): Q4's shape,
+    the engine's shapes (config 6: ng = 256, pad = 32; config 7: scalar,
+    pad = 32, both at config 6-7's selectivity and at 70%), and the edges."""
+    rng = np.random.default_rng(4)
+    i32, b = torch.int32, torch.bool
+    n = 4_194_304
+    ids = _tensor(torch, rng.integers(0, 25, n), i32)
+    mask = _tensor(torch, rng.random(n) < 0.7, b)
+    sparse = _tensor(torch, rng.random(n) < 0.00066, b)
+    q4_gid = _tensor(torch, rng.integers(0, 4375, n), i32)
+    egid = _tensor(torch, rng.integers(0, 175, n), i32)
+    none = _tensor(torch, np.zeros(n, bool), b)
+    oids = _tensor(torch, rng.integers(-2, 40, n), i32)  # ids outside [0, 32): dropped
+    ogid = _tensor(torch, rng.integers(-3, 300, n), i32)
+    big_ids = _tensor(torch, rng.integers(0, 1000, n), i32)
+    big_gid = _tensor(torch, rng.integers(0, 1 << 14, n), i32)
+    return [
+        ("q4_shape_grouped_pad32", ids, mask, 32, q4_gid, 4608, True),
+        ("q4_shape_scalar_pad32", ids, mask, 32, None, 1, True),
+        ("engine_ng256_pad32", ids, mask, 32, egid, 256, True),
+        ("engine_ng256_pad32_sparse", ids, sparse, 32, egid, 256, True),
+        ("engine_scalar_pad32", ids, mask, 32, None, 1, True),
+        ("engine_scalar_pad32_sparse", ids, sparse, 32, None, 1, True),
+        ("empty_mask_grouped", ids, none, 32, egid, 256, True),
+        ("empty_mask_scalar", ids, none, 32, None, 1, True),
+        ("out_of_range_grouped", oids, mask, 32, ogid, 256, True),
+        ("out_of_range_scalar", oids, mask, 32, None, 1, True),
+        ("cells_2^24_global", big_ids, mask, 1024, big_gid, 1 << 14, False),
+    ]
+
+
+def check_sum_f32(torch, gs) -> dict:
+    results, max_err, keep = [], 0.0, {}
+    for name, values, gid, mask, ng, expect_shared in sum_f32_cases(torch):
+        shared = gs.uses_shared(ng * 4, gid.device)
+        if shared != expect_shared:
+            raise AssertionError(f"{name}: shared-memory path {shared}, expected {expect_shared}")
+        got = gs.grouped_sum_kernel(values, gid, mask, ng)
+        torch.cuda.synchronize()
+        want = gs.grouped_sum_plain(values, gid, mask, ng)
+        if values is None:  # counts: exact
+            ok = same(torch, got, want)
+        else:
+            ok = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-2, equal_nan=True))
+            ok &= bool(torch.equal(got.isnan(), want.isnan()))
+        err = abs_err(torch, got, want)
+        max_err = max(max_err, err)
+        results.append({"case": name, "ng": ng, "n": gid.numel(), "shared": shared, "max_abs_err": err, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name}: grouped_sum_f32 kernel != plain version (max abs err {err})")
+        keep[name] = (values, gid, mask, ng)
+    for name, ids, mask, pad, gid, ng, expect_shared in presence_cases(torch):
+        shared = gs.uses_shared(gs.presence_state_bytes(pad, ng), ids.device)
+        if shared != expect_shared:
+            raise AssertionError(f"{name}: shared-memory path {shared}, expected {expect_shared}")
+        got = gs.presence_kernel(ids, mask, pad, gid, ng)
+        torch.cuda.synchronize()
+        want = gs.presence_plain(ids, mask, pad, gid, ng)
+        equal = same(torch, got, want)
+        results.append(
+            {"case": name, "pad": pad, "ng": ng, "n": ids.numel(), "shared": shared,
+             "present": int(got.sum().item()), "equal": equal}
+        )
+        if not equal:
+            raise AssertionError(f"{name}: presence kernel != plain version")
+        keep[name] = (ids, mask, pad, gid, ng)
+    emit({"phase": "kernel_vs_plain", "kernel": "grouped_sum_f32", "cases": results})
+
+    timings = {}
+    values, gid, mask, ng = keep["q4_shape_sum"]
+    n, masked = gid.numel(), int(mask.sum().item())
+    ok, idx = _in_range(torch, gid, mask, ng)
+    src = torch.where(ok, values, 0.0)
+    dst = torch.zeros(ng, dtype=torch.float32, device="cuda")
+    timings["q4_shape_sum"] = {
+        "shape": {"n": n, "ng": ng},
+        "kernel_ms": time_ms(torch, lambda: gs.grouped_sum_kernel(values, gid, mask, ng), 50),
+        "plain_ms": time_ms(torch, lambda: gs.grouped_sum_plain(values, gid, mask, ng), 20),
+        "library_ms": time_ms(torch, lambda: dst.index_add_(0, idx, src), 20),
+        "bound_ms": hbm_ms(n * (4 + 1 + 4) + 4 * ng),
+        "bound_data_ms": hbm_ms(n + masked * (4 + 4) + 4 * ng),
+    }
+    for name in ("engine_ng256_pad32", "engine_scalar_pad32", "engine_ng256_pad32_sparse", "q4_shape_grouped_pad32"):
+        ids, mask, pad, gid, ng = keep[name]
+        n, masked = ids.numel(), int(mask.sum().item())
+        ok = mask & (ids >= 0) & (ids < pad)
+        cell = ids.to(torch.int64)
+        if gid is not None:
+            ok &= (gid >= 0) & (gid < ng)
+            cell = gid.to(torch.int64) * pad + cell
+        idx = torch.where(ok, cell, 0)
+        src = ok.to(torch.uint8)
+        dst = torch.zeros(ng * pad, dtype=torch.uint8, device="cuda")
+        per_doc = 4 + (4 if gid is not None else 0)
+        timings[name] = {
+            "shape": {"n": n, "ng": ng, "pad": pad, "mask_on": masked},
+            "kernel_ms": time_ms(torch, lambda: gs.presence_kernel(ids, mask, pad, gid, ng), 50),
+            "plain_ms": time_ms(torch, lambda: gs.presence_plain(ids, mask, pad, gid, ng), 20),
+            "library_ms": time_ms(torch, lambda: dst.scatter_reduce_(0, idx, src, reduce="amax"), 20),
+            "bound_ms": hbm_ms(n * (per_doc + 1) + ng * pad),
+            "bound_data_ms": hbm_ms(n + masked * per_doc + ng * pad),
+        }
+    emit({"phase": "kernel_timing", "kernel": "grouped_sum_f32", "timings": timings, "card": card_line()})
+    return {"max_abs_err": max_err, **timings["engine_ng256_pad32"]}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -252,6 +581,37 @@ def oracle(data, nation, category) -> dict:
     out["4_q4_groupby_orderby"] = [
         [1992 + int(g // 625), NATIONS[int(g // 25 % 25)], CATEGORIES[int(g % 25)], float(sums[g])] for g in top
     ]
+
+    m = (qty > 5) & (year >= 1993) & (year <= 1997)
+    key = (year[m].astype(np.int64) - 1992) * 25 + nation[m]  # (d_year, c_nation): NATION_xx sort by index
+    order = np.argsort(key, kind="stable")
+    k = key[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+
+    def per_group(v, ufunc):
+        return ufunc.reduceat(v[m][order], starts)
+
+    cost = data["lo_supplycost"]
+    ratio = rev.astype(np.float64) / qty.astype(np.float64)  # IEEE division, as on the card
+    counts = np.diff(np.r_[starts, len(k)])
+    mins_q = per_group(qty, np.minimum)
+    maxs_r = per_group(rev, np.maximum)
+    range_c = per_group(cost, np.maximum) - per_group(cost, np.minimum)
+    maxs_ratio = per_group(ratio, np.maximum)
+    out["5_groupby_minmax"] = [
+        [1992 + int(g // 25), NATIONS[int(g % 25)], int(c), float(a), float(b), float(r), float(x)]
+        for g, c, a, b, r, x in zip(k[starts], counts, mins_q, maxs_r, range_c, maxs_ratio)
+    ][:200]
+
+    m = (qty == 1) & (rev < 20000)
+    key = (year[m].astype(np.int64) - 1992) * 25 + category[m]
+    cnt = np.bincount(key, minlength=7 * 25)
+    distinct = np.bincount(np.unique(key * 25 + nation[m]) // 25, minlength=7 * 25)
+    present = sorted(np.flatnonzero(cnt), key=lambda g: (g // 25, CATEGORIES[g % 25]))  # ORDER BY the strings
+    out["6_groupby_distinct"] = [
+        [1992 + int(g // 25), CATEGORIES[int(g % 25)], int(cnt[g]), int(distinct[g])] for g in present
+    ][:200]
+    out["7_distinct"] = [[len(np.unique(nation[m])), len(np.unique(category[m])), float(rev[m].min())]]
     return out
 
 
@@ -260,13 +620,14 @@ def rows_match(name: str, got: list, want: list) -> None:
         raise AssertionError(f"{name}: {len(got)} rows, oracle {len(want)}")
     for r, (g, w) in enumerate(zip(got, want)):
         for c, (a, b) in enumerate(zip(g, w)):
-            # AVG is a float quotient: 1e-12 relative; everything else exact
+            # AVG is a float quotient: 1e-12 relative; everything else exact (MIN/MAX
+    # of the float64 quotient too: both sides divide with IEEE rounding)
             same = math.isclose(a, b, rel_tol=1e-12) if (name == "2_filtered_agg" and c == 3) else a == b
             if not same or type(a) is not type(b):
                 raise AssertionError(f"{name} row {r} col {c}: got {a!r}, oracle {b!r}")
 
 
-def run_main_path(torch, gb) -> dict:
+def run_main_path(torch, counters: dict) -> dict:
     from pinot_tpu_torch.common import DataType, Schema
     from pinot_tpu_torch.query import QueryEngine
     from pinot_tpu_torch.segment import SegmentBuilder
@@ -310,22 +671,25 @@ def run_main_path(torch, gb) -> dict:
         }
     )
 
-    # the main path: counts from 0, one execute per config, counts read after
-    gb.grouped_multi_sum.launches = 0
+    # the main path: every count from 0, one execute per config, counts read
+    # after each config and at the end
+    for fn in counters.values():
+        fn.launches = 0
     launches = {}
     for name, sql in CONFIGS.items():
-        before = gb.grouped_multi_sum.launches
+        before = [fn.launches for fn in counters.values()]
         res = engine.execute(sql)
-        launches[name] = gb.grouped_multi_sum.launches - before
+        launches[name] = {k: fn.launches - b for (k, fn), b in zip(counters.items(), before)}
         rows_match(name, res.rows, want[name])
-        expect = N_SEGMENTS if name in GROUP_BY_CONFIGS else 0
+        expect = dict(zip(counters, (N_SEGMENTS * c for c in LAUNCHES_PER_SEGMENT[name])))
         if launches[name] != expect:
-            raise AssertionError(f"{name}: grouped_sum_count launched {launches[name]} times, expected {expect}")
+            raise AssertionError(f"{name}: launches {launches[name]}, expected {expect}")
         if res.num_docs_scanned <= 0 or res.total_docs != N_ROWS:
             raise AssertionError(f"{name}: docsScanned {res.num_docs_scanned}, totalDocs {res.total_docs}")
-    main_launches = gb.grouped_multi_sum.launches
-    if main_launches == 0:
-        raise AssertionError("the main path never launched grouped_sum_count")
+    main_launches = {k: fn.launches for k, fn in counters.items()}
+    for k, v in main_launches.items():
+        if v == 0:
+            raise AssertionError(f"the main path never launched {k}")
     emit({"phase": "main_path", "results_match_oracle": True, "launches_per_config": launches, "launches": main_launches})
 
     wall = {}
@@ -402,7 +766,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from pinot_tpu_torch.ops import build
+    from pinot_tpu_torch.ops import extreme as ext
     from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
 
     card = card_line()
     print(card, flush=True)
@@ -417,32 +783,44 @@ def main() -> int:
             "python": sys.version.split()[0],
         }
     )
-    report = build.build(["grouped_sum_count"])
+    report = build.build(["grouped_sum_count", "grouped_extreme", "grouped_sum_f32"])
     emit({"phase": "build", "nvcc": build.nvcc_path(), "flags": list(build.NVCC_FLAGS), "report": report})
 
-    timing = check_kernels(torch, gb)
-    main = run_main_path(torch, gb)
+    timing = {
+        "grouped_sum_count": check_kernels(torch, gb),
+        "grouped_extreme": check_extreme(torch, ext),
+        "grouped_sum_f32": check_sum_f32(torch, gs),
+    }
+    counters = {"grouped_sum_count": gb.grouped_multi_sum, "grouped_extreme": ext.grouped_extreme, "presence": gs.presence}
+    main = run_main_path(torch, counters)
+    # the sum entry of grouped_sum_f32 is not on the main path: the kernel's
+    # main-path launches are its presence entry's
+    launches = {**main["launches"], "grouped_sum_f32": main["launches"]["presence"]}
 
     print(card_line(), flush=True)
-    emit(
-        {
-            "kernels": [
-                {
-                    "name": "grouped_sum_count",
-                    "route": "cuda",
-                    "source": "pinot_tpu_torch/ops/csrc/grouped_sum_count.cu",
-                    "replaces": "pinot_tpu/ops/groupby_pallas.py:318",
-                    "launches": main["launches"],
-                    "max_abs_err": timing["max_abs_err"],
-                    "ms": timing["kernel_ms"],
-                    "plain_ms": timing["plain_ms"],
-                    "bound_ms": timing["bound_data_ms"],
-                    "bound_by": "bytes",
-                    "library_ms": timing["library_ms"],
-                }
-            ]
-        }
-    )
+    kernels = []
+    for kname, replaces in (
+        ("grouped_sum_count", "pinot_tpu/ops/groupby_pallas.py:318"),
+        ("grouped_extreme", "pinot_tpu/ops/groupby_pallas.py:232"),
+        ("grouped_sum_f32", "pinot_tpu/ops/groupby_pallas.py:152"),
+    ):
+        t = timing[kname]
+        kernels.append(
+            {
+                "name": kname,
+                "route": "cuda",
+                "source": f"pinot_tpu_torch/ops/csrc/{kname}.cu",
+                "replaces": replaces,
+                "launches": launches[kname],
+                "max_abs_err": t["max_abs_err"],
+                "ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_data_ms"],
+                "bound_by": "bytes",
+                "library_ms": t["library_ms"],
+            }
+        )
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0
 

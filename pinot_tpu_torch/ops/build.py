@@ -3,9 +3,10 @@
 Each `ops/csrc/<name>.cu` compiles with nvcc for Hopper (sm_90a) into a
 shared library with a plain C interface, loaded with ctypes: no PyTorch
 headers take part, so a build takes seconds. A library builds at first use
-into `pinot_tpu_torch/_build/`, named by a digest of its source and flags, so
-an edited source never loads a stale build. Concurrent builders each write a
-private file and rename it into place.
+into `pinot_tpu_torch/_build/`, named by a digest of its source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source never loads a stale
+build. Concurrent builders each write a private file and rename it into
+place.
 
 A failed build raises; nothing here falls back to another implementation.
 """
@@ -47,7 +48,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source, every header a source may include, and the flags
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -30,6 +30,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kMaxCols = 8;
@@ -76,22 +78,12 @@ size_t shared_bytes(int k, int ng) {
   return static_cast<size_t>(k + 1) * static_cast<size_t>(ng) * sizeof(unsigned long long);
 }
 
-int shared_limit(int* limit) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-}
-
 }  // namespace
 
 // 1 when (k, ng) takes the shared-memory path on the current device, 0 when
 // it takes the global-atomics path, or a negative CUDA error code.
 extern "C" int grouped_sum_count_uses_shared(int k, int ng) {
-  int limit = 0;
-  const int err = shared_limit(&limit);
-  if (err != cudaSuccess) return -err;
-  return shared_bytes(k, ng) <= static_cast<size_t>(limit) ? 1 : 0;
+  return pinot::fits_shared(shared_bytes(k, ng));
 }
 
 // out: (k+1, ng) int64, zeroed by the caller; rows 0..k-1 receive the sums of
@@ -105,32 +97,15 @@ extern "C" int grouped_sum_count(const void* const* values, int k, const void* g
   if (n == 0) return cudaSuccess;
   Cols cols{};
   for (int j = 0; j < k; ++j) cols.p[j] = static_cast<const int32_t*>(values[j]);
-  int dev = 0, sms = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = static_cast<cudaError_t>(shared_limit(&limit));
-  if (err != cudaSuccess) return err;
-
   const size_t smem = shared_bytes(k, ng);
-  const bool use_shared = smem <= static_cast<size_t>(limit);
-  int per_sm = 0;
-  if (use_shared) {
-    err = cudaFuncSetAttribute(grouped_sum_count_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grouped_sum_count_kernel<true>,
-                                                        kThreads, smem);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grouped_sum_count_kernel<false>,
-                                                        kThreads, 0);
-  }
+  const int shared = pinot::fits_shared(smem);
+  if (shared < 0) return -shared;
+  const bool use_shared = shared == 1;
+  unsigned int blocks = 0;
+  const cudaError_t err =
+      use_shared ? pinot::one_wave(grouped_sum_count_kernel<true>, kThreads, smem, n, &blocks)
+                 : pinot::one_wave(grouped_sum_count_kernel<false>, kThreads, 0, n, &blocks);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) per_sm = 1;
-  const long long needed = (n + kThreads - 1) / kThreads;
-  const long long wave = static_cast<long long>(sms) * per_sm;
-  const unsigned int blocks = static_cast<unsigned int>(needed < wave ? needed : wave);
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* g = static_cast<const int32_t*>(gid);

@@ -17,6 +17,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,6 +53,7 @@ def grouped_multi_sum_plain(values: list[torch.Tensor], gid: torch.Tensor, mask:
     return out.index_add_(1, idx, torch.stack(rows))
 
 
+@functools.cache
 def _library():
     from pinot_tpu_torch.ops.build import load
 

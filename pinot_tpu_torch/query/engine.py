@@ -108,18 +108,21 @@ class QueryEngine:
         out = unpack()  # the one device->host copy for this segment
         if ctx.query_type == QueryType.AGGREGATION:
             matched, parts = out
-            return self._convert_agg(ctx, parts), int(matched)
+            return self._convert_agg(seg, ctx, plan, parts), int(matched)
         matched, counts, parts = out
-        return self._convert_groups(ctx, plan, np.asarray(counts), parts), int(matched)
+        return self._convert_groups(seg, ctx, plan, np.asarray(counts), parts), int(matched)
 
     # -- device output -> host partial conversions ----------------------
 
     @staticmethod
-    def _convert_agg(ctx: QueryContext, parts) -> list:
+    def _convert_agg(seg: ImmutableSegment, ctx: QueryContext, plan: SegmentPlan, parts) -> list:
         out = []
-        for a, p in zip(ctx.aggregations, parts):
+        for a, spec_entry, p in zip(ctx.aggregations, plan.spec[3], parts):
             if a.func == "count":
                 out.append(int(p))
+            elif a.func in reduce_mod.DISTINCT_AGGS:
+                # presence over dict ids -> the set of present values
+                out.append(_present_values(seg, spec_entry[1], np.asarray(p)))
             elif a.func in ("avg", "minmaxrange"):
                 out.append((float(p[0]), int(p[1]) if a.func == "avg" else float(p[1])))
             else:
@@ -127,9 +130,12 @@ class QueryEngine:
         return out
 
     @staticmethod
-    def _convert_groups(ctx: QueryContext, plan: SegmentPlan, counts: np.ndarray, parts) -> dict[str, np.ndarray]:
+    def _convert_groups(
+        seg: ImmutableSegment, ctx: QueryContext, plan: SegmentPlan, counts: np.ndarray, parts
+    ) -> dict[str, np.ndarray]:
         """Present groups (count > 0) -> a group frame: key columns decoded
-        through the dictionaries, one column per partial."""
+        through the dictionaries, one column per partial (DISTINCTCOUNT: an
+        object column of value sets)."""
         pg = np.nonzero(counts)[0]
         cards = [ci.cardinality for _, ci in plan.group_cols]
         strides = group_strides(cards, np.int64)
@@ -138,10 +144,23 @@ class QueryEngine:
             ids = (pg // strides[i]) % max(cards[i], 1)
             vals = ci.dictionary.get_many(ids)
             frame[f"k{i}"] = vals.astype(str) if vals.dtype == object else vals
-        for i, (a, p) in enumerate(zip(ctx.aggregations, parts)):
+        for i, (a, spec_entry, p) in enumerate(zip(ctx.aggregations, plan.spec[3], parts)):
             if a.func in ("avg", "minmaxrange"):
                 frame[f"a{i}p0"] = np.asarray(p[0])[pg]
                 frame[f"a{i}p1"] = np.asarray(p[1])[pg]
+            elif a.func in reduce_mod.DISTINCT_AGGS:
+                pres = np.asarray(p)[pg]
+                cells = np.empty(len(pg), dtype=object)
+                for j in range(len(pg)):
+                    cells[j] = _present_values(seg, spec_entry[1], pres[j])
+                frame[f"a{i}p0"] = cells
             else:
                 frame[f"a{i}p0"] = np.asarray(p)[pg]
         return frame
+
+
+def _present_values(seg: ImmutableSegment, col: str, presence: np.ndarray) -> set:
+    """The dictionary values of `col` whose ids a presence vector marks (the
+    reference's mergeable DISTINCTCOUNT partial)."""
+    ci = seg.columns[col]
+    return set(ci.dictionary.values[np.nonzero(presence[: ci.cardinality])[0]].tolist())

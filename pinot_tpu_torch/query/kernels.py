@@ -13,8 +13,13 @@ launch on the tensors' device, and nothing syncs with the host until
 
 Every grouped COUNT and every int32 SUM/AVG goes through one exact group-by
 kernel (`ops.groupby.grouped_multi_sum`), as the reference routes them through
-its Pallas byte-plane kernel. The tensors' device decides what runs: on a CUDA
-device the hand-written kernel, on the CPU its plain torch version.
+its Pallas byte-plane kernel. Grouped MIN/MAX/MINMAXRANGE go through the
+extreme kernel (`ops.extreme.grouped_extreme`, the counterpart of the Pallas
+`_make_extreme_kernel`), where the reference uses XLA's segment_min/max, and
+DISTINCTCOUNT's presence vectors through the presence entry of the one-hot-sum
+counterpart (`ops.grouped_sum_f32.presence`), where the reference scatters with
+`.at[...].max(mask)`. The tensors' device decides what runs: on a CUDA device
+the hand-written kernels, on the CPU their plain torch versions.
 
 Accumulator dtype policy (Pinot parity: SUM/MIN/MAX/AVG return DOUBLE, COUNT
 returns LONG): float64 value accumulators, int64 counts. Integer sums are
@@ -37,7 +42,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pinot_tpu_torch.ops.extreme import grouped_extreme
 from pinot_tpu_torch.ops.groupby import grouped_multi_sum
+from pinot_tpu_torch.ops.grouped_sum_f32 import presence
 
 _F = torch.float64
 _I = torch.int64
@@ -166,6 +173,9 @@ def _agg_scalar(aspec, cols, ops, mask):
     kind = aspec[0]
     if kind == "count":
         return mask.sum(dtype=_I)
+    if kind == "distinct_ids":
+        # DISTINCTCOUNT: presence over the column's dict-id space
+        return presence(cols[aspec[1]].contiguous(), mask, aspec[2])
     if kind not in ("sum", "min", "max", "avg", "minmaxrange"):
         raise _unsupported(kind, "aggregation")
     v_raw = _value(aspec[1], cols, ops, mask.shape[0])
@@ -203,25 +213,6 @@ def _in_range(gid, ng):
     return torch.where(ok, gid, 0).to(_I), ok
 
 
-def _grouped_extreme(v, gid, mask, ng, is_min, empty_sentinel):
-    """Per-group MIN/MAX of masked values; `empty_sentinel` fills groups no
-    masked doc reaches (the reference's segment_min/max identity)."""
-    idx, ok = _in_range(gid, ng)
-    m = mask & ok
-    src = torch.where(m, v, empty_sentinel)
-    out = torch.full((ng,), empty_sentinel, dtype=v.dtype, device=v.device)
-    return out.scatter_reduce_(0, idx, src, reduce="amin" if is_min else "amax", include_self=True), idx, m
-
-
-def _int_grouped_extreme(v, gid, mask, ng, is_min):
-    r, idx, m = _grouped_extreme(v, gid, mask, ng, is_min, _I32_MAX if is_min else _I32_MIN)
-    hit = torch.zeros(ng, dtype=torch.int32, device=v.device).scatter_reduce_(
-        0, idx, m.to(torch.int32), reduce="amax", include_self=True
-    )
-    empty = float("inf") if is_min else float("-inf")
-    return torch.where(hit > 0, r.to(_F), empty)
-
-
 def _f64_grouped_sum(v, gid, mask, ng):
     idx, ok = _in_range(gid, ng)
     src = torch.where(mask & ok, v, 0.0)
@@ -233,39 +224,29 @@ def _agg_grouped(kind, v_raw, mask, gid, ng, counts):
     aggregations the exact kernel does not take: MIN/MAX/MINMAXRANGE of any
     type and SUM/AVG of non-int32 values."""
     is_i32 = v_raw.dtype == torch.int32
-    v = None if is_i32 else v_raw.to(_F)
-    inf = float("inf")
-    if kind == "sum":  # non-int32 only: int32 sums ride the kernel
-        return _f64_grouped_sum(v, gid, mask, ng)
+    if kind == "sum":  # non-int32 only: int32 sums ride the exact kernel
+        return _f64_grouped_sum(v_raw.to(_F), gid, mask, ng)
     if kind == "avg":
-        return (_f64_grouped_sum(v, gid, mask, ng), counts)
+        return (_f64_grouped_sum(v_raw.to(_F), gid, mask, ng), counts)
+    # MIN/MAX of int32 values stay int32 (an empty group is one with count
+    # 0); every other type is compared as float64, as the reference does
+    v = v_raw.contiguous() if is_i32 else v_raw.to(_F).contiguous()
+    hit = counts if is_i32 else None
     if kind == "min":
-        if is_i32:
-            return _int_grouped_extreme(v_raw, gid, mask, ng, True)
-        return _grouped_extreme(v, gid, mask, ng, True, inf)[0]
+        return grouped_extreme(v, gid, mask, ng, True, hit)
     if kind == "max":
-        if is_i32:
-            return _int_grouped_extreme(v_raw, gid, mask, ng, False)
-        return _grouped_extreme(v, gid, mask, ng, False, -inf)[0]
+        return grouped_extreme(v, gid, mask, ng, False, hit)
     # minmaxrange
-    if is_i32:
-        return (
-            _int_grouped_extreme(v_raw, gid, mask, ng, True),
-            _int_grouped_extreme(v_raw, gid, mask, ng, False),
-        )
-    return (
-        _grouped_extreme(v, gid, mask, ng, True, inf)[0],
-        _grouped_extreme(v, gid, mask, ng, False, -inf)[0],
-    )
+    return (grouped_extreme(v, gid, mask, ng, True, hit), grouped_extreme(v, gid, mask, ng, False, hit))
 
 
 def _grouped_all(aggs, cols, ops, mask, gid, ng):
     """Group counts + every agg partial. The count and ALL int32 SUM/AVG aggs
     fuse into ONE exact group-by kernel launch; the remaining aggs
-    (min/max/non-int32 sums) use their per-agg reductions."""
+    (min/max/non-int32 sums, distinct presence) use their per-agg kernels."""
     values, kernel_vals, owner = {}, [], {}
     for i, a in enumerate(aggs):
-        if a[0] == "count":
+        if a[0] in ("count", "distinct_ids"):
             continue
         if a[0] not in ("sum", "min", "max", "avg", "minmaxrange"):
             raise _unsupported(a[0], "aggregation")
@@ -278,6 +259,10 @@ def _grouped_all(aggs, cols, ops, mask, gid, ng):
     for i, a in enumerate(aggs):
         if a[0] == "count":
             parts.append(counts)
+        elif a[0] == "distinct_ids":
+            # grouped DISTINCTCOUNT: a (ng, pad) presence matrix; the plan
+            # keeps ng * pad under its budget
+            parts.append(presence(cols[a[1]].contiguous(), mask, a[2], gid=gid, ng=ng))
         elif i in owner:
             parts.append(sums[owner[i]] if a[0] == "sum" else (sums[owner[i]], counts))
         else:

@@ -23,7 +23,8 @@ same program in both packages.
 Query shapes whose lowering needs a module that is not ported yet (the host
 executor, transforms, sketches, null handling, multi-value columns, the sparse
 group path, selection) raise NotImplementedError; `DeviceFallback`, which the
-reference answers with its host executor, is one such error here.
+reference answers with its host executor (e.g. DISTINCTCOUNT of a raw column,
+or a grouped presence matrix over MAX_PRESENCE_CELLS), is one such error here.
 """
 
 from __future__ import annotations
@@ -48,7 +49,11 @@ VIRTUAL_COLUMNS = ("$docId", "$segmentName", "$hostName")
 _STRING_TYPES = (DataType.STRING, DataType.BYTES, DataType.JSON)
 
 #: aggregations with a device lowering in this package
-PORTED_AGGS = ("count", "sum", "min", "max", "avg", "minmaxrange")
+PORTED_AGGS = ("count", "sum", "min", "max", "avg", "minmaxrange", "distinctcount", "distinctcountbitmap")
+
+#: largest grouped DISTINCTCOUNT presence matrix (ng * pad cells) lowered to
+#: the device; the reference answers larger ones with its host executor
+MAX_PRESENCE_CELLS = 1 << 24
 
 
 class DeviceFallback(NotImplementedError):
@@ -88,6 +93,7 @@ class _Lowering:
         self.ctx = ctx
         self.operands: list[Any] = []
         self.columns: list[str] = []
+        self._group_ng = 1  # set by group_spec; the presence budget reads it
 
     # -- operand / column registration --------------------------------------
 
@@ -419,18 +425,29 @@ class _Lowering:
 
     # -- aggregations --------------------------------------------------------
 
-    def agg_spec(self, info: AggregationInfo) -> tuple:
+    def agg_spec(self, info: AggregationInfo, grouped: bool) -> tuple:
         if info.filter is not None:
             # FILTER (WHERE ...): the reference's wrapper spec; the program
             # evaluator has no "masked" tag yet and raises when it meets one
             import dataclasses
 
             inner = dataclasses.replace(info, filter=None)
-            return ("masked", self.filter_spec(info.filter), self.agg_spec(inner))
+            return ("masked", self.filter_spec(info.filter), self.agg_spec(inner, grouped))
         if info.func not in PORTED_AGGS:
             raise NotImplementedError(f"aggregation {info.func} is not ported to pinot_tpu_torch yet")
         if info.func == "count":
             return ("count",)
+        if info.func in ("distinctcount", "distinctcountbitmap"):
+            # presence over the dict-id space of a dictionary-encoded column
+            if isinstance(info.arg, ast.Identifier):
+                ci = self.seg.columns.get(info.arg.name)
+                if ci is not None and ci.is_dict_encoded and not ci.is_mv:
+                    pad = _pow2(max(ci.cardinality, 1))
+                    if grouped and self._group_ng * pad > MAX_PRESENCE_CELLS:
+                        raise DeviceFallback("grouped DISTINCTCOUNT presence matrix exceeds device budget")
+                    self.use_col(info.arg.name)
+                    return ("distinct_ids", info.arg.name, pad)
+            raise DeviceFallback("DISTINCTCOUNT on raw/expression args runs host-side")
         if info.arg is None:
             raise PlanError(f"{info.func} requires an argument")
         return (info.func, self.value_spec(info.arg))
@@ -465,6 +482,7 @@ class _Lowering:
         # round ng to 256 steps, as the reference does (its Pallas group-tile
         # edge), so both packages size every grouped output identically
         ng = ((max(num_groups, 1) + 255) // 256) * 256
+        self._group_ng = ng
         return ("groups", tuple(cols), ng, self.op_idx(strides))
 
 
@@ -530,8 +548,9 @@ def plan_segment(seg: ImmutableSegment, ctx: QueryContext) -> SegmentPlan:
         raise NotImplementedError(f"{ctx.query_type.value} queries are not ported to pinot_tpu_torch yet")
     lo = _Lowering(seg, ctx)
     fspec = lo.filter_spec(ctx.filter)
-    gspec = lo.group_spec() if ctx.query_type == QueryType.GROUP_BY else None
-    aggs = tuple(lo.agg_spec(a) for a in ctx.aggregations)
+    grouped = ctx.query_type == QueryType.GROUP_BY
+    gspec = lo.group_spec() if grouped else None
+    aggs = tuple(lo.agg_spec(a, grouped) for a in ctx.aggregations)
     return SegmentPlan(
         spec=("agg", fspec, gspec, aggs),
         operands=tuple(lo.operands),

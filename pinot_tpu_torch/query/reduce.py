@@ -4,16 +4,17 @@ Reference parity: BrokerReduceService.reduceOnDataTable (pinot-core/.../query/
 reduce/BrokerReduceService.java:54,61) and the per-type reducers
 (GroupByDataTableReducer, AggregationDataTableReducer) plus HavingFilterHandler
 / PostAggregationHandler. This is the JAX package's `query/reduce.py` for the
-aggregations this package lowers (COUNT, SUM, MIN, MAX, AVG, MINMAXRANGE),
-written in numpy alone: it keeps the reference's merge order, so ties under
-ORDER BY come out in the reference's row order.
+aggregations this package lowers (COUNT, SUM, MIN, MAX, AVG, MINMAXRANGE,
+DISTINCTCOUNT), written in numpy alone: it keeps the reference's merge order,
+so ties under ORDER BY come out in the reference's row order.
 
 Partial formats:
   AGGREGATION: list aligned with ctx.aggregations; entries by func:
       count -> int, sum/min/max -> float, avg -> (sum, count),
-      minmaxrange -> (min, max)
+      minmaxrange -> (min, max), distinctcount -> set of values
   GROUP_BY: a "group frame", a dict of equal-length numpy arrays with key
-      columns k0..k{n-1} and partial columns a{i}p{j} (agg i, part j)
+      columns k0..k{n-1} and partial columns a{i}p{j} (agg i, part j);
+      DISTINCTCOUNT's column holds a set per group (dtype object)
 """
 
 from __future__ import annotations
@@ -143,6 +144,10 @@ def eval_having(f: ast.FilterExpr, env: dict[str, Any], aliases: dict[str, ast.E
 # ---------------------------------------------------------------------------
 
 
+#: aggregations whose partial is a set of values (merged by union)
+DISTINCT_AGGS = ("distinctcount", "distinctcountbitmap")
+
+
 def _is_null_partial(x) -> bool:
     """True for None or NaN, the reference's null sentinels."""
     return x is None or (isinstance(x, float) and x != x)
@@ -159,6 +164,8 @@ def _merge_agg_partials(func: str, a, b):
         return (a[0] + b[0], a[1] + b[1])
     if func == "minmaxrange":
         return (min(a[0], b[0]), max(a[1], b[1]))
+    if func in DISTINCT_AGGS:
+        return a | b
     raise AssertionError(func)
 
 
@@ -175,6 +182,8 @@ def _finalize(a, p):
         return float(p[0]) / p[1]
     if func == "minmaxrange":
         return float(p[1]) - float(p[0])
+    if func in DISTINCT_AGGS:
+        return len(p)
     raise AssertionError(func)
 
 
@@ -198,6 +207,8 @@ def _finalize_column(a, parts) -> list:
         lo = np.asarray(parts[0], dtype=np.float64)
         hi = np.asarray(parts[1], dtype=np.float64)
         return (hi - lo).tolist()
+    if func in DISTINCT_AGGS:
+        return [len(s) for s in parts]
     raise AssertionError(func)
 
 
@@ -226,6 +237,8 @@ def _empty_partial(func: str):
         "max": float("-inf"),
         "avg": (0.0, 0),
         "minmaxrange": (float("inf"), float("-inf")),
+        "distinctcount": set(),
+        "distinctcountbitmap": set(),
     }[func]
 
 
@@ -248,7 +261,15 @@ def group_index(keys: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
 
 def _merge_column(func: str, vals: np.ndarray, group: np.ndarray, n_groups: int) -> np.ndarray:
     """Per-group merge of one partial column, with pandas' missing-value
-    semantics: sum skips NaN, min/max skip NaN unless a group has only NaN."""
+    semantics: sum skips NaN, min/max skip NaN unless a group has only NaN;
+    union merges a column of sets."""
+    if func == "union":
+        out = np.empty(n_groups, dtype=object)
+        for g in range(n_groups):
+            out[g] = set()
+        for g, s in zip(group.tolist(), vals):
+            out[g] |= s
+        return out
     if func == "sum":
         if vals.dtype.kind == "f":
             out = np.zeros(n_groups, dtype=np.float64)
@@ -270,6 +291,8 @@ _PART_MERGE = {
     "min": ("min",),
     "max": ("max",),
     "minmaxrange": ("min", "max"),
+    "distinctcount": ("union",),
+    "distinctcountbitmap": ("union",),
 }
 
 

@@ -61,6 +61,21 @@ def _ssb(seed, n):
     }
 
 
+def _doubles(seed, n):
+    """A DOUBLE column with NaN, +-0.0 and +-inf among its values: group "a"
+    holds a NaN in every segment, "b" in some, "z" holds only zeros."""
+    rng = np.random.default_rng(seed)
+    g = np.array(["a", "b", "c", "z"], dtype=object)[rng.integers(0, 4, n)]
+    x = np.round(rng.normal(0, 100, n), 2)
+    x[g == "z"] = rng.choice([0.0, -0.0], int((g == "z").sum()))
+    x[np.flatnonzero(g == "a")[:2]] = np.nan
+    if seed % 2:
+        x[np.flatnonzero(g == "b")[:1]] = np.nan
+    x[np.flatnonzero(g == "c")[:1]] = np.inf
+    x[np.flatnonzero(g == "c")[1:2]] = -np.inf
+    return {"g": g, "x": x, "y": rng.integers(-5, 6, n).astype(np.int32)}
+
+
 TABLES = {
     "lineorder": (
         lambda DT: dict(
@@ -82,6 +97,10 @@ TABLES = {
             metrics=[("lo_revenue", DT.LONG), ("lo_quantity", DT.INT)],
         ),
         [graft._toy_table(4096)[1]],
+    ),
+    "doubles": (
+        lambda DT: dict(dimensions=[("g", DT.STRING)], metrics=[("x", DT.DOUBLE), ("y", DT.INT)]),
+        [_doubles(200 + i, n) for i, n in enumerate([700, 900])],
     ),
 }
 
@@ -114,6 +133,24 @@ def _assert_rows(got, want, approx=()):
             else:
                 assert a == b or (a != a and b != b), (r, c, a, b)
 
+
+CONFIG_5 = (
+    "SELECT d_year, c_nation, COUNT(*), MIN(lo_quantity), MAX(lo_revenue), MINMAXRANGE(lo_supplycost), "
+    "MAX(lo_revenue / lo_quantity) FROM lineorder WHERE lo_quantity > 5 AND d_year BETWEEN 1993 AND 1997 "
+    "GROUP BY d_year, c_nation ORDER BY d_year, c_nation LIMIT 200"
+)
+CONFIG_6 = (
+    "SELECT d_year, p_category, COUNT(*), DISTINCTCOUNT(c_nation) FROM lineorder "
+    "WHERE lo_quantity = 1 AND lo_revenue < 20000 GROUP BY d_year, p_category ORDER BY d_year, p_category LIMIT 200"
+)
+CONFIG_7 = (
+    "SELECT COUNT(DISTINCT c_nation), DISTINCTCOUNT(p_category), MIN(lo_revenue) FROM lineorder "
+    "WHERE lo_quantity = 1 AND lo_revenue < 20000"
+)
+EMPTY_IN_ONE_SEGMENT = (
+    "SELECT nation, MIN(quantity), MAX(revenue), MIN(discount), DISTINCTCOUNT(region), COUNT(*) FROM lineorder "
+    "WHERE year = 1995 AND quantity < 3 GROUP BY nation ORDER BY nation LIMIT 30"
+)
 
 # (table, sql, columns holding DOUBLE-column sums)
 QUERIES = [
@@ -163,6 +200,33 @@ QUERIES = [
     ("lineorder", "SELECT SUM(discount), MIN(discount), MAX(discount), AVG(discount) FROM lineorder", (0, 3)),
     ("lineorder", "SELECT region, SUM(discount), AVG(discount), COUNT(*) FROM lineorder "
                   "GROUP BY region ORDER BY region LIMIT 10", (1, 2)),
+    # chip_smoke configs 5-7: grouped MIN/MAX (int32 and float64 values),
+    # grouped and scalar DISTINCTCOUNT
+    ("ssb", CONFIG_5, ()),
+    ("ssb", CONFIG_6, ()),
+    ("ssb", CONFIG_7, ()),
+    # DISTINCTCOUNT and COUNT(DISTINCT ...), grouped and scalar
+    ("ssb", "SELECT d_year, DISTINCTCOUNT(c_nation), COUNT(DISTINCT p_category), COUNT(*) FROM lineorder "
+            "WHERE lo_quantity < 3 GROUP BY d_year ORDER BY d_year LIMIT 10", ()),
+    ("lineorder", "SELECT DISTINCTCOUNT(nation), COUNT(DISTINCT region), DISTINCTCOUNTBITMAP(year) "
+                  "FROM lineorder WHERE quantity > 20", ()),
+    ("lineorder", "SELECT region, DISTINCTCOUNT(nation), COUNT(*) FROM lineorder GROUP BY region "
+                  "ORDER BY DISTINCTCOUNT(nation) DESC, region LIMIT 10", ()),
+    ("lineorder", "SELECT year, region, COUNT(DISTINCT nation) AS dn FROM lineorder WHERE quantity BETWEEN 5 AND 9 "
+                  "GROUP BY year, region HAVING COUNT(DISTINCT nation) > 3 ORDER BY dn DESC LIMIT 12", ()),
+    ("lineorder", "SELECT DISTINCTCOUNT(nation) FROM lineorder WHERE region = 'ATLANTIS'", ()),
+    # MIN/MAX/MINMAXRANGE over a DOUBLE column and over a quotient
+    ("lineorder", "SELECT region, MIN(discount), MAX(discount), MINMAXRANGE(discount) FROM lineorder "
+                  "GROUP BY region ORDER BY region LIMIT 10", ()),
+    ("lineorder", "SELECT year, MIN(revenue / quantity), MAX(revenue / quantity), MINMAXRANGE(revenue / quantity) "
+                  "FROM lineorder WHERE region != 'ASIA' GROUP BY year ORDER BY year LIMIT 10", ()),
+    # NaN, +-0.0 and +-inf in a DOUBLE column
+    ("doubles", "SELECT g, MIN(x), MAX(x), MINMAXRANGE(x), MIN(y), MAX(y), COUNT(*) FROM lineorder "
+                "GROUP BY g ORDER BY g LIMIT 10", ()),
+    ("doubles", "SELECT g, MIN(x), MAX(x) FROM lineorder WHERE y > 2 GROUP BY g ORDER BY g LIMIT 10", ()),
+    # groups that the filter leaves empty in some segment (see
+    # test_filter_empties_a_group_in_one_segment)
+    ("lineorder", EMPTY_IN_ONE_SEGMENT, ()),
 ]
 
 
@@ -185,7 +249,9 @@ def test_engine_matches_reference(engines, table, sql, approx, mode):
     "sql",
     [
         "SELECT COUNT(*) FROM lineorder WHERE quantity IN (1, 2, 3)",  # in_sorted
-        "SELECT DISTINCTCOUNT(nation) FROM lineorder",
+        "SELECT DISTINCTCOUNTHLL(nation) FROM lineorder",  # sketches
+        "SELECT DISTINCTCOUNT(quantity) FROM lineorder",  # raw column: host executor
+        "SELECT region, DISTINCTCOUNT(quantity + 1) FROM lineorder GROUP BY region",  # expression
         "SELECT COUNT(*) FILTER (WHERE year = 1995) FROM lineorder",  # masked
         "SELECT year - 1990, COUNT(*) FROM lineorder GROUP BY year - 1990",  # host executor
         "SELECT region, year FROM lineorder LIMIT 3",  # selection
@@ -198,6 +264,46 @@ def test_unported_query_shapes_raise(engines, sql):
     by_table, _ = engines
     with pytest.raises(NotImplementedError):
         by_table["lineorder"][1]["built"].execute(sql)
+
+
+def test_filter_empties_a_group_in_one_segment(engines):
+    """EMPTY_IN_ONE_SEGMENT's filter leaves some nation of a segment's
+    dictionary without a doc, while other segments keep that nation: its
+    extreme slots stay at their start key there and must not surface."""
+    by_table, _ = engines
+    port = by_table["lineorder"][1]["built"]
+    ctx = port.make_context(EMPTY_IN_ONE_SEGMENT)
+    frames = [port._finish_segment(seg, ctx, port._dispatch_segment(seg, ctx))[0] for seg in port.segments]
+    present = [set(f["k0"].tolist()) for f in frames]
+    in_dict = [set(seg.columns["nation"].dictionary.values.tolist()) for seg in port.segments]
+    assert any(d - p for d, p in zip(in_dict, present))
+    assert any((d - p) & set().union(*present) for d, p in zip(in_dict, present))
+
+
+def test_presence_budget_raises():
+    """A grouped DISTINCTCOUNT whose (ng, pad) presence matrix passes 2^24
+    cells raises DeviceFallback (the reference answers it on its host
+    executor, which is not ported)."""
+    from pinot_tpu_torch.query.plan import MAX_PRESENCE_CELLS, DeviceFallback
+
+    rng = np.random.default_rng(11)
+    n = 5000
+    data = {
+        "a": np.array([f"a{i:04d}" for i in rng.permutation(n)], dtype=object),
+        "b": np.array([f"b{i % 400:03d}" for i in range(n)], dtype=object),
+        "c": np.array([f"c{i:04d}" for i in range(n)], dtype=object),
+    }
+    schema = Schema.build("t", dimensions=[("a", DataType.STRING), ("b", DataType.STRING), ("c", DataType.STRING)])
+    engine = QueryEngine([SegmentBuilder(schema).build(data, "s0")], device="cpu")
+    # GROUP BY a: ng = 5120 (5000 keys rounded to 256) * pad 8192 (5000 ids)
+    assert 5120 * 8192 > MAX_PRESENCE_CELLS
+    with pytest.raises(DeviceFallback, match="presence matrix"):
+        engine.execute("SELECT a, DISTINCTCOUNT(c) FROM t GROUP BY a LIMIT 5")
+    # under the budget the same shape runs
+    assert engine.execute("SELECT b, DISTINCTCOUNT(c) FROM t GROUP BY b ORDER BY b LIMIT 2").rows == [
+        ["b000", 13],
+        ["b001", 13],
+    ]
 
 
 def test_engine_defaults_to_the_card(engines):

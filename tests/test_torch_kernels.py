@@ -104,6 +104,9 @@ CORPUS = [
     ("SELECT day, region, AVG(discount), SUM(discount), MINMAXRANGE(discount), AVG(bigval) FROM t GROUP BY day, region", False),
     ("SELECT region, COUNT(*) FROM t WHERE year = 1800 GROUP BY region", True),  # const False
     ("SELECT day, SUM(quantity % year), SUM(quantity - 2 * year) FROM t WHERE quantity <> 0 GROUP BY day", True),
+    ("SELECT DISTINCTCOUNT(region), COUNT(DISTINCT year), MIN(quantity) FROM t WHERE quantity > 40", True),  # distinct_ids
+    ("SELECT year, DISTINCTCOUNT(region), DISTINCTCOUNTBITMAP(day), MAX(discount) FROM t "
+     "WHERE quantity BETWEEN 0 AND 3 GROUP BY year", True),  # grouped distinct_ids
 ]
 
 
@@ -141,7 +144,7 @@ def test_corpus_reaches_every_covered_tag(segs):
     covered = {
         "const", "and", "or", "not", "range_ids", "in_lut", "cmp_raw", "cmp_lit", "doc_range",
         "raw", "dictval", "lit", "bin", "cast_int", "cast_float",
-        "count", "sum", "min", "max", "avg", "minmaxrange", "groups",
+        "count", "sum", "min", "max", "avg", "minmaxrange", "distinct_ids", "groups",
     }
     assert covered <= seen, covered - seen
 
@@ -167,7 +170,7 @@ def test_ids_value_matches_reference(segs, aggs):
     [
         ("agg", ("in_sorted", ("raw", "quantity"), 0), None, (("count",),)),
         ("agg", ("const", True), None, (("sum", ("docid",)),)),
-        ("agg", ("const", True), None, (("distinct_ids", "region", 8),)),
+        ("agg", ("const", True), None, (("funnel_steps", "region", 8, (("const", True),)),)),
         ("agg", ("const", True), None, (("masked", ("const", True), ("count",)),)),
         ("agg", ("const", True), ("groups", ("region",), 256, 0), (("hll", ("gather", "region", 0), 8),)),
         ("agg", ("const", True), ("groups_sparse", ("region",), 256, 0), (("count",),)),
