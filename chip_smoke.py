@@ -9,18 +9,21 @@
 2. Kernels: holds each kernel against its plain torch version on the card,
    at the main path's shapes and at edge cases, and times kernel, plain
    version and the PyTorch library call beside the bound. Kernels:
-   grouped_sum_count (exact int sums + counts), grouped_extreme (MIN/MAX of
+   grouped_sum_count (exact int sums + counts), grouped_sum_count_2l (the
+   same function for large group counts, two-level gid; timed beside
+   grouped_sum_count's global-atomics branch), grouped_extreme (MIN/MAX of
    f32, i32 and f64 values) and grouped_sum_f32 (f32 sums / counts and the
    DISTINCTCOUNT presence flags). Tolerance: exact equality (== , NaN equal
    to NaN) for everything but f32 sums, which add in a run-dependent order
    and are held to rtol 1e-4, atol 1e-2.
 3. Main path: generates the SSB-flavoured lineorder (16M rows, seed 0, the
-   generator of bench.py), builds 4 segments of 4M rows with the package's
-   SegmentBuilder, stages them on the card and runs configs 1-7 (BASELINE
-   1-4, grouped MIN/MAX, grouped and scalar DISTINCTCOUNT) through
-   QueryEngine(..., device="cuda").execute. Every result row is held against
-   a numpy oracle over the raw arrays; the kernels' launch counters are reset
-   just before that run and read just after, per config.
+   generator of bench.py, then lo_custkey and lo_suppkey), builds 4 segments
+   of 4M rows with the package's SegmentBuilder, stages them on the card and
+   runs configs 1-9 (BASELINE 1-4, grouped MIN/MAX, grouped and scalar
+   DISTINCTCOUNT, a 90k-group GROUP BY, a sparse customer x supplier GROUP
+   BY) through QueryEngine(..., device="cuda").execute. Every result row is
+   held against a numpy oracle over the raw arrays; the kernels' launch
+   counters are reset just before that run and read just after, per config.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -79,19 +82,38 @@ CONFIGS.update(
             "SELECT COUNT(DISTINCT c_nation), DISTINCTCOUNT(p_category), MIN(lo_revenue) FROM lineorder "
             "WHERE lo_quantity = 1 AND lo_revenue < 20000"
         ),
+        # "top customers": 90,000 customers (ng 90,112), past the flat
+        # kernel's shared counters
+        "8_groupby_wide": (
+            "SELECT lo_custkey, SUM(lo_revenue), COUNT(*) FROM lineorder WHERE d_year BETWEEN 1993 AND 1997 "
+            "GROUP BY lo_custkey ORDER BY SUM(lo_revenue) DESC, lo_custkey LIMIT 10"
+        ),
+        # "top customer-supplier pairs": a key product of 5.4e8 > 2^20, the
+        # sort-compaction path into U = 2^20 slots
+        "9_groupby_sparse": (
+            "SELECT lo_custkey, lo_suppkey, SUM(lo_revenue), COUNT(*) FROM lineorder "
+            "WHERE d_year = 1997 AND lo_quantity <= 5 GROUP BY lo_custkey, lo_suppkey "
+            "ORDER BY SUM(lo_revenue) DESC, lo_custkey, lo_suppkey LIMIT 10"
+        ),
     }
 )
 #: kernel launches per segment of each config: (grouped_sum_count,
-#: grouped_extreme, presence)
+#: grouped_extreme, presence, grouped_sum_count_2l)
 LAUNCHES_PER_SEGMENT = {
-    "1_count_filter": (0, 0, 0),
-    "2_filtered_agg": (0, 0, 0),
-    "3_q1_groupby": (1, 0, 0),
-    "4_q4_groupby_orderby": (1, 0, 0),
-    "5_groupby_minmax": (1, 5, 0),  # MIN, MAX, MINMAXRANGE (2) of int32, MAX of float64
-    "6_groupby_distinct": (1, 0, 1),
-    "7_distinct": (0, 0, 2),
+    "1_count_filter": (0, 0, 0, 0),
+    "2_filtered_agg": (0, 0, 0, 0),
+    "3_q1_groupby": (1, 0, 0, 0),
+    "4_q4_groupby_orderby": (1, 0, 0, 0),
+    "5_groupby_minmax": (1, 5, 0, 0),  # MIN, MAX, MINMAXRANGE (2) of int32, MAX of float64
+    "6_groupby_distinct": (1, 0, 1, 0),
+    "7_distinct": (0, 0, 2, 0),
+    "8_groupby_wide": (0, 0, 0, 1),
+    "9_groupby_sparse": (0, 0, 0, 1),
 }
+#: SSB's customer and supplier key ranges at scale factor 3 (~16M x 6/16
+#: lineorder rows)
+N_CUSTOMERS = 90_000
+N_SUPPLIERS = 6_000
 
 
 def emit(obj) -> None:
@@ -114,15 +136,21 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms over `iters` runs, each after the L2
-    is flushed (the main path reads its columns from device memory)."""
+def time_ms(torch, fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
+    """Mean time of fn() in ms between CUDA events over `iters` runs, each
+    after the L2 is flushed (the main path reads its columns from device
+    memory). The span holds the host's enqueue of fn's work wherever the
+    device waits for it; with `queued` the device first spins for ~1 ms, so
+    the host has enqueued all of fn before the span starts and the span is
+    device time alone."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        if queued:
+            torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -273,6 +301,145 @@ def _in_range(torch, gid, mask, ng):
 def _counts(torch, gid, mask, ng):
     ok, idx = _in_range(torch, gid, mask, ng)
     return torch.bincount(idx[ok], minlength=ng)
+
+
+# ---------------------------------------------------------------------------
+# phase 2a: the two-level exact group-by kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def two_level_cases(torch):
+    """(name, values, gid, mask, ng, L or None for the default): configs 8
+    and 9's shapes, ng = 2^20 with a dense mask under three L, and the edges
+    of the kernel's contract. Every case lies past the flat kernel's shared
+    counters, where the engine takes the two-level kernel."""
+    rng = np.random.default_rng(5)
+    i32, b = torch.int32, torch.bool
+    n, n2 = 4_194_304, 1 << 20
+
+    def rev(m):
+        return _tensor(torch, rng.integers(100, 600_000, m), i32)
+
+    cases = []
+    # config 8: GROUP BY lo_custkey, 71% of the docs pass the filter
+    cases.append(("config8_shape", [rev(n)], _tensor(torch, rng.integers(0, 90_000, n), i32),
+                  _tensor(torch, rng.random(n) < 0.71, b), 90_112, None))
+    # config 9: 1.4% of the docs pass; their slots are the first ~57k of
+    # U = 2^20, the other docs' slots lie anywhere
+    m9 = rng.random(n) < 0.0143
+    g9 = rng.integers(0, 1 << 20, n)
+    g9[m9] = rng.integers(0, 57_000, int(m9.sum()))
+    cases.append(("config9_shape", [rev(n)], _tensor(torch, g9, i32), _tensor(torch, m9, b), 1 << 20, None))
+    # ng = 2^20 with a dense mask; L must not change the answer: the widest
+    # L that fits (14), L = 9, and L = 4, whose 65,536 buckets pass the
+    # shared histogram (a global atomic per doc)
+    dense = ([rev(n)], _tensor(torch, rng.integers(0, 1 << 20, n), i32), _tensor(torch, rng.random(n) < 0.9, b))
+    cases.append(("ng_2^20_dense_mask", *dense, 1 << 20, None))
+    cases.append(("ng_2^20_dense_mask_L14", *dense, 1 << 20, 14))
+    cases.append(("ng_2^20_dense_mask_L9", *dense, 1 << 20, 9))
+    cases.append(("ng_2^20_dense_mask_L4_global_hist", *dense, 1 << 20, 4))
+    # k = 8 at ng = 2^20: a 72 MB output, past the 50 MB L2
+    cases.append(("ng_2^20_k8_past_L2", [rev(n) for _ in range(8)], *dense[1:], 1 << 20, None))
+    gid2 = _tensor(torch, rng.integers(0, 100_003, n2), i32)
+    mask2 = _tensor(torch, rng.random(n2) < 0.6, b)
+    cases.append(("ng_100003_k2_not_a_multiple", [rev(n2), _tensor(torch, rng.integers(-10**6, 10**6, n2), i32)],
+                  gid2, mask2, 100_003, None))
+    cases.append(("k9_two_launches", [_tensor(torch, rng.integers(-(1 << 20), 1 << 20, n2), i32) for _ in range(9)],
+                  gid2, mask2, 100_003, None))
+    cases.append(("k0_counts_only", [], gid2, mask2, 100_003, None))
+    cases.append(("empty_mask", [rev(n2)], gid2, _tensor(torch, np.zeros(n2, bool), b), 100_003, None))
+    one = np.zeros(n2, bool)
+    one[777_777] = True
+    cases.append(("one_doc", [rev(n2)], gid2, _tensor(torch, one, b), 100_003, None))
+    i32_info = np.iinfo(np.int32)
+    ogid = rng.integers(-3, 50_300, n2)
+    ogid[::101] = i32_info.max
+    ogid[1::103] = i32_info.min
+    cases.append(("out_of_range_gids", [rev(n2)], _tensor(torch, ogid, i32), mask2, 50_000, None))
+    pool = np.array([i32_info.min, i32_info.max, -1, 0, 1], dtype=np.int64)
+    cases.append(("int32_extremes_k3", [_tensor(torch, rng.choice(pool, n2), i32) for _ in range(3)],
+                  _tensor(torch, rng.integers(0, 40_000, n2), i32), _tensor(torch, rng.random(n2) < 0.9, b), 40_000, None))
+    # skew: every doc in one bucket (bucket 1 of L = 12)
+    cases.append(("one_bucket", [rev(n)], _tensor(torch, rng.integers(1 << 12, 2 << 12, n), i32),
+                  _tensor(torch, rng.random(n) < 0.9, b), 1 << 20, None))
+    # n % 4 = 3: the last docs after the 4-doc steps; then group ids one
+    # element past an aligned start, which rules out the 16-byte loads
+    n3 = n2 - 3
+    cases.append(("tail_of_3_docs", [rev(n3)], gid2[:n3].contiguous(), mask2[:n3].contiguous(), 100_003, None))
+    cases.append(("unaligned_gid", [rev(n3)], gid2[1 : n3 + 1], mask2[1 : n3 + 1], 100_003, None))
+    return cases
+
+
+def pass_times(torch, fn, calls: int = 5) -> dict:
+    """Device ms per call of each kernel and memset that fn() launches,
+    from torch.profiler over `calls` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {
+        e.key[:60]: e.self_device_time_total / 1e3 / calls
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    }
+
+
+def check_two_level(torch, gb) -> dict:
+    results, keep, max_err = [], {}, 0.0
+    limit = gb.shared_limit(torch.device("cuda"))
+    for name, values, gid, mask, ng, bits in two_level_cases(torch):
+        k = len(values)
+        if gb.uses_shared_counters(min(k, gb.MAX_COLS), ng, gid.device):
+            raise AssertionError(f"{name}: (k={k}, ng={ng}) fits the flat kernel's shared counters")
+        got = gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng, bits)
+        torch.cuda.synchronize()
+        used = gb.two_level_bits(min(k, gb.MAX_COLS), ng, limit) if bits is None else bits
+        want = gb.grouped_multi_sum_plain(values, gid, mask, ng)
+        equal = torch.equal(got, want)
+        err = float((got - want).abs().max().item())
+        max_err = max(max_err, err)
+        results.append({"case": name, "k": k, "ng": ng, "n": gid.numel(), "L": used,
+                        "mask_on": int(mask.sum().item()), "equal": equal})
+        if not equal:
+            raise AssertionError(f"{name}: grouped_sum_count_2l kernel != plain version (max abs err {err})")
+        keep[name] = (values, gid, mask, ng, used)
+    emit({"phase": "kernel_vs_plain", "kernel": "grouped_sum_count_2l", "shared_limit": limit, "cases": results})
+
+    timings = {}
+    for name in ("config8_shape", "config9_shape", "ng_2^20_k8_past_L2"):
+        values, gid, mask, ng, bits = keep[name]
+        k, n, masked = len(values), gid.numel(), int(mask.sum().item())
+        ok, idx = _in_range(torch, gid, mask, ng)
+        src = torch.stack([torch.where(ok, v, 0).to(torch.int64) for v in values] + [ok.to(torch.int64)])
+        dst = torch.zeros(k + 1, ng, dtype=torch.int64, device="cuda")
+        out_bytes = (k + 1) * ng * 8
+        timings[name] = {
+            "shape": {"n": n, "k": k, "ng": ng, "L": bits, "mask_on": masked},
+            "kernel_ms": time_ms(torch, lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng), 50),
+            # the flat kernel's global-atomics branch at the same shape
+            "flat_global_ms": time_ms(torch, lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng), 50),
+            "plain_ms": time_ms(torch, lambda: gb.grouped_multi_sum_plain(values, gid, mask, ng), 10),
+            "library_ms": time_ms(torch, lambda: dst.index_add_(1, idx, src), 20),
+            "bound_ms": hbm_ms(n * (4 + 1 + 4 * k) + out_bytes),
+            "bound_data_ms": hbm_ms(n + masked * (4 + 4 * k) + out_bytes),
+            # every L whose counters fit, and the device time of each pass
+            "kernel_ms_by_L": {
+                L: time_ms(torch, lambda L=L: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng, L), 20)
+                for L in range(6, gb.fit_bits(k, limit) + 1)
+            },
+            "pass_ms": pass_times(torch, lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng)),
+            # device time alone, the output's zero fill included: the times
+            # above also hold the host's enqueue, which a shared host stretches
+            "kernel_device_ms": time_ms(torch, lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng), 50, queued=True),
+            "flat_global_device_ms": time_ms(torch, lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng), 50, queued=True),
+        }
+    emit({"phase": "kernel_timing", "kernel": "grouped_sum_count_2l", "timings": timings, "card": card_line()})
+    return {"max_abs_err": max_err, **timings["config8_shape"]}
 
 
 # ---------------------------------------------------------------------------
@@ -540,7 +707,8 @@ def check_sum_f32(torch, gs) -> dict:
 
 def make_ssb_data(n: int, seed: int = 0):
     """bench.py's SSB-flavoured lineorder generator (same draws, same order),
-    also returning the dictionary codes the oracle groups by."""
+    then the customer and supplier keys drawn after them, so configs 1-7 see
+    bench.py's data; also returns the dictionary codes the oracle groups by."""
     rng = np.random.default_rng(seed)
     year = rng.integers(1992, 1999, n).astype(np.int32)
     nation = rng.integers(0, 25, n)
@@ -553,10 +721,13 @@ def make_ssb_data(n: int, seed: int = 0):
         "lo_supplycost": rng.integers(50, 100_000, n).astype(np.int64),
         "lo_quantity": rng.integers(1, 51, n).astype(np.int32),
     }
+    data["lo_custkey"] = rng.integers(1, N_CUSTOMERS + 1, n).astype(np.int32)
+    data["lo_suppkey"] = rng.integers(1, N_SUPPLIERS + 1, n).astype(np.int32)
     return data, nation, category
 
 
-def oracle(data, nation, category) -> dict:
+def oracle(data, nation, category) -> tuple[dict, dict]:
+    """(rows of each config, groups in all of configs 8 and 9)."""
     year, qty = data["d_year"], data["lo_quantity"]
     rev, cost = data["lo_revenue"], data["lo_supplycost"]
     out = {"1_count_filter": [[int((nation == 7).sum())]]}
@@ -612,7 +783,23 @@ def oracle(data, nation, category) -> dict:
         [1992 + int(g // 25), CATEGORIES[int(g % 25)], int(cnt[g]), int(distinct[g])] for g in present
     ][:200]
     out["7_distinct"] = [[len(np.unique(nation[m])), len(np.unique(category[m])), float(rev[m].min())]]
-    return out
+
+    cust, supp = data["lo_custkey"], data["lo_suppkey"]
+    m = (year >= 1993) & (year <= 1997)
+    sums = np.bincount(cust[m], weights=rev[m], minlength=N_CUSTOMERS + 1)  # exact: integer partials < 2^53
+    cnt = np.bincount(cust[m], minlength=N_CUSTOMERS + 1)
+    present = np.flatnonzero(cnt)
+    top = present[np.lexsort((present, -sums[present]))][:10]
+    out["8_groupby_wide"] = [[int(c), float(sums[c]), int(cnt[c])] for c in top]
+
+    m = (year == 1997) & (qty <= 5)
+    pairs, inv = np.unique(cust[m].astype(np.int64) * (N_SUPPLIERS + 1) + supp[m], return_inverse=True)
+    sums = np.bincount(inv, weights=rev[m])
+    cnt = np.bincount(inv)
+    c_of, s_of = pairs // (N_SUPPLIERS + 1), pairs % (N_SUPPLIERS + 1)
+    top = np.lexsort((s_of, c_of, -sums))[:10]
+    out["9_groupby_sparse"] = [[int(c_of[g]), int(s_of[g]), float(sums[g]), int(cnt[g])] for g in top]
+    return out, {"8_groupby_wide": len(present), "9_groupby_sparse": len(pairs)}
 
 
 def rows_match(name: str, got: list, want: list) -> None:
@@ -634,12 +821,18 @@ def run_main_path(torch, counters: dict) -> dict:
 
     t0 = time.perf_counter()
     data, nation, category = make_ssb_data(N_ROWS)
-    want = oracle(data, nation, category)
+    want, groups = oracle(data, nation, category)
     t_gen = time.perf_counter() - t0
 
     schema = Schema.build(
         "lineorder",
-        dimensions=[("d_year", DataType.INT), ("c_nation", DataType.STRING), ("p_category", DataType.STRING)],
+        dimensions=[
+            ("d_year", DataType.INT),
+            ("c_nation", DataType.STRING),
+            ("p_category", DataType.STRING),
+            ("lo_custkey", DataType.INT),
+            ("lo_suppkey", DataType.INT),
+        ],
         metrics=[("lo_revenue", DataType.LONG), ("lo_supplycost", DataType.LONG), ("lo_quantity", DataType.INT)],
     )
     t0 = time.perf_counter()
@@ -668,6 +861,7 @@ def run_main_path(torch, counters: dict) -> dict:
             "build_s": t_build,
             "stage_s": t_stage,
             "staged_bytes": staged_bytes,
+            "oracle_groups": groups,
         }
     )
 
@@ -783,15 +977,21 @@ def main() -> int:
             "python": sys.version.split()[0],
         }
     )
-    report = build.build(["grouped_sum_count", "grouped_extreme", "grouped_sum_f32"])
+    report = build.build(["grouped_sum_count", "grouped_sum_count_2l", "grouped_extreme", "grouped_sum_f32"])
     emit({"phase": "build", "nvcc": build.nvcc_path(), "flags": list(build.NVCC_FLAGS), "report": report})
 
     timing = {
         "grouped_sum_count": check_kernels(torch, gb),
+        "grouped_sum_count_2l": check_two_level(torch, gb),
         "grouped_extreme": check_extreme(torch, ext),
         "grouped_sum_f32": check_sum_f32(torch, gs),
     }
-    counters = {"grouped_sum_count": gb.grouped_multi_sum, "grouped_extreme": ext.grouped_extreme, "presence": gs.presence}
+    counters = {
+        "grouped_sum_count": gb.grouped_multi_sum,
+        "grouped_extreme": ext.grouped_extreme,
+        "presence": gs.presence,
+        "grouped_sum_count_2l": gb.grouped_multi_sum_2l,
+    }
     main = run_main_path(torch, counters)
     # the sum entry of grouped_sum_f32 is not on the main path: the kernel's
     # main-path launches are its presence entry's
@@ -801,6 +1001,7 @@ def main() -> int:
     kernels = []
     for kname, replaces in (
         ("grouped_sum_count", "pinot_tpu/ops/groupby_pallas.py:318"),
+        ("grouped_sum_count_2l", "pinot_tpu/ops/groupby_pallas.py:396"),
         ("grouped_extreme", "pinot_tpu/ops/groupby_pallas.py:232"),
         ("grouped_sum_f32", "pinot_tpu/ops/groupby_pallas.py:152"),
     ):

@@ -1,5 +1,5 @@
-"""Exact group-by SUM + COUNT: the hand-written Hopper kernel and its plain
-torch version.
+"""Exact group-by SUM + COUNT: two hand-written Hopper kernels and their plain
+torch versions.
 
 `grouped_multi_sum(values, gid, mask, ng)` has the contract of the JAX
 package's `pallas_grouped_multi_sum_blocked` (pinot_tpu/ops/groupby_pallas.py):
@@ -7,11 +7,18 @@ exact per-group sums of each int32 column (float64) and per-group counts of the
 masked docs (int64). Docs with the mask off, or with a group id outside
 [0, ng), contribute nothing.
 
-The tensors' device decides what runs. A CUDA tensor launches the kernel in
-`csrc/grouped_sum_count.cu` (built by `ops/build.py`), and a failed build or
-launch raises; a CPU tensor takes the plain version, which tests and the
-kernel's on-card check compare against. `grouped_multi_sum.launches` counts
-kernel launches.
+The shape decides the kernel. While a block's (k+1) x ng int64 counters fit
+its shared memory (`uses_shared_counters`), the flat kernel in
+`csrc/grouped_sum_count.cu` runs, the counterpart of the Pallas
+`_make_planes_kernel`. Past that, the two-level kernel in
+`csrc/grouped_sum_count_2l.cu` (`grouped_multi_sum_2l`, gid = hi << L | lo),
+the counterpart of `_make_planes2_kernel`. Both compute the same function.
+
+The tensors' device decides what runs. A CUDA tensor launches a kernel (built
+by `ops/build.py`), and a failed build or launch raises; a CPU tensor takes the
+plain version, `grouped_multi_sum_plain`, which tests and the kernels' on-card
+check compare both kernels against. `grouped_multi_sum.launches` counts the
+flat kernel's launches, `grouped_multi_sum_2l.launches` the two-level kernel's.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 MAX_COLS = 8
 
 _SOURCE = "grouped_sum_count"
+_SOURCE_2L = "grouped_sum_count_2l"
 
 
 def _check(values: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor, ng: int) -> None:
@@ -75,10 +83,22 @@ def _library():
     return lib
 
 
+def _cuda_index(device: torch.device) -> int:
+    if device.type != "cuda":
+        raise ValueError(f"a CUDA device is needed, got {device}")
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
 def uses_shared_counters(k: int, ng: int, device: torch.device) -> bool:
-    """Whether the kernel keeps (k, ng)'s counters in shared memory on
-    `device` (False: the global-atomics path)."""
-    with torch.cuda.device(device):
+    """Whether the flat kernel keeps (k, ng)'s counters in shared memory on
+    the CUDA `device` (False: its global-atomics path, which the engine
+    leaves to the two-level kernel)."""
+    return _uses_shared(_cuda_index(device), k, ng)
+
+
+@functools.cache
+def _uses_shared(index: int, k: int, ng: int) -> bool:
+    with torch.cuda.device(index):
         r = _library().grouped_sum_count_uses_shared(k, ng)
     if r < 0:
         raise RuntimeError(f"CUDA error {-r} querying the shared-memory limit")
@@ -94,41 +114,182 @@ def _launch(lib, cols: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor
     grouped_multi_sum.launches += 1
 
 
-def grouped_multi_sum_kernel(values: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor, ng: int) -> torch.Tensor:
-    """The CUDA kernel: same result as grouped_multi_sum_plain."""
-    lib = _library()
+def _by_launch(launch, values: list[torch.Tensor], gid: torch.Tensor, ng: int) -> torch.Tensor:
+    """(k+1, ng) int64 from launches of at most MAX_COLS columns each; every
+    launch has its own counts row, and the first launch's counts are kept."""
     k = len(values)
     out = torch.zeros(k + 1, ng, dtype=torch.int64, device=gid.device)
     with torch.cuda.device(gid.device):
         if k <= MAX_COLS:
-            _launch(lib, values, gid, mask, ng, out)
+            launch(values, out)
             return out
-        # wider calls: one launch per MAX_COLS columns, each with its own
-        # counts row; the first launch's counts are kept
         for start in range(0, k, MAX_COLS):
             cols = values[start : start + MAX_COLS]
             part = torch.zeros(len(cols) + 1, ng, dtype=torch.int64, device=gid.device)
-            _launch(lib, cols, gid, mask, ng, part)
+            launch(cols, part)
             out[start : start + len(cols)] = part[:-1]
             if start == 0:
                 out[-1] = part[-1]
     return out
 
 
+def grouped_multi_sum_kernel(values: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor, ng: int) -> torch.Tensor:
+    """The flat CUDA kernel: same result as grouped_multi_sum_plain."""
+    lib = _library()
+    return _by_launch(lambda cols, out: _launch(lib, cols, gid, mask, ng, out), values, gid, ng)
+
+
+# -- the two-level form: gid = hi << L | lo ----------------------------------
+
+
+#: widest L the two-level kernel takes by default. Its reduce flushes each
+#: group a block saw with one global atomic, so the flush grows with the
+#: blocks times 2^L; past 2^12 groups a block that costs more than the wider
+#: buckets save in the partition (L sweep at configs 8-9's shapes, PERF.md)
+MAX_BITS = 12
+
+
+def fit_bits(k: int, limit: int) -> int:
+    """The widest L whose (2k+1) x 2^L 32-bit shared counters (a count and a
+    low and a high word per column) fit `limit` bytes."""
+    bits = 0
+    while (2 * k + 1) * 4 << (bits + 1) <= limit:
+        bits += 1
+    return bits
+
+
+def two_level_bits(k: int, ng: int, limit: int) -> int:
+    """L of the two-level gid: the widest whose counters fit `limit` bytes,
+    no wider than MAX_BITS and than ng needs."""
+    bits = min(fit_bits(k, limit), MAX_BITS)
+    while bits > 0 and 1 << (bits - 1) >= ng:
+        bits -= 1
+    return bits
+
+
+@functools.cache
+def _library_2l():
+    from pinot_tpu_torch.ops.build import load
+
+    lib = load(_SOURCE_2L)
+    lib.grouped_sum_count_2l.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int,
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_longlong,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_void_p,
+        ctypes.c_longlong,
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.grouped_sum_count_2l.restype = ctypes.c_int
+    lib.grouped_sum_count_2l_scratch.argtypes = [
+        ctypes.c_int,
+        ctypes.c_longlong,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong),
+    ]
+    lib.grouped_sum_count_2l_scratch.restype = ctypes.c_int
+    lib.grouped_sum_count_2l_shared_limit.argtypes = []
+    lib.grouped_sum_count_2l_shared_limit.restype = ctypes.c_int
+    return lib
+
+
+def shared_limit(device: torch.device) -> int:
+    """Opt-in shared memory of one block on the CUDA `device`, in bytes."""
+    return _shared_limit(_cuda_index(device))
+
+
+@functools.cache
+def _shared_limit(index: int) -> int:
+    with torch.cuda.device(index):
+        r = _library_2l().grouped_sum_count_2l_shared_limit()
+    if r < 0:
+        raise RuntimeError(f"CUDA error {-r} querying the shared-memory limit")
+    return r
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_bytes(index: int, k: int, n: int, ng: int, bits: int) -> int:
+    need = ctypes.c_longlong(0)
+    with torch.cuda.device(index):
+        err = _library_2l().grouped_sum_count_2l_scratch(k, n, ng, bits, ctypes.byref(need))
+    if err != 0:
+        raise RuntimeError(f"grouped_sum_count_2l planning failed with CUDA error {err} (k={k}, ng={ng}, L={bits})")
+    return need.value
+
+
+def _launch_2l(lib, cols, gid: torch.Tensor, mask: torch.Tensor, ng: int, bits: int, out: torch.Tensor) -> None:
+    n = gid.numel()
+    need = _scratch_bytes(gid.device.index, len(cols), n, ng, bits)
+    # freed when this returns: the caching allocator hands it out again only
+    # to work queued after the kernel on the same stream
+    scratch = torch.empty(need, dtype=torch.uint8, device=gid.device)
+    ptrs = (ctypes.c_void_p * max(len(cols), 1))(*[v.data_ptr() for v in cols])
+    stream = torch.cuda.current_stream(gid.device).cuda_stream
+    err = lib.grouped_sum_count_2l(
+        ptrs, len(cols), gid.data_ptr(), mask.data_ptr(), n, ng, bits, scratch.data_ptr(), need, out.data_ptr(), stream
+    )
+    if err != 0:
+        raise RuntimeError(f"grouped_sum_count_2l launch failed with CUDA error {err}")
+    grouped_multi_sum_2l.launches += 1
+
+
+def grouped_multi_sum_2l_kernel(
+    values: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor, ng: int, bits: int | None = None
+) -> torch.Tensor:
+    """The two-level CUDA kernel: same result as grouped_multi_sum_plain.
+    `bits` is L; by default the widest whose counters fit a block's shared
+    memory. Every L gives the same result."""
+    if bits is not None and not 0 <= bits <= 30:
+        raise ValueError(f"bits must lie in [0, 30], got {bits}")
+    lib = _library_2l()
+    limit = shared_limit(gid.device)
+
+    def launch(cols, out):
+        _launch_2l(lib, cols, gid, mask, ng, two_level_bits(len(cols), ng, limit) if bits is None else bits, out)
+
+    return _by_launch(launch, values, gid, ng)
+
+
+def _device_kind(gid: torch.Tensor, name: str) -> str:
+    if gid.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {gid.device}")
+    return gid.device.type
+
+
+def grouped_multi_sum_2l(values: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor, ng: int) -> torch.Tensor:
+    """grouped_multi_sum's function through the two-level kernel, as (k+1, ng)
+    int64: rows 0..k-1 the sums, row k the counts."""
+    _check(values, gid, mask, ng)
+    if _device_kind(gid, "grouped_multi_sum_2l") == "cuda":
+        return grouped_multi_sum_2l_kernel(values, gid, mask, ng)
+    return grouped_multi_sum_plain(values, gid, mask, ng)
+
+
+#: two-level kernel launches (the CPU path never adds to it)
+grouped_multi_sum_2l.launches = 0
+
+
 def grouped_multi_sum(
     values: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor, ng: int
 ) -> tuple[list[torch.Tensor], torch.Tensor]:
     """Exact per-group sums (float64, exact while |sum| < 2^53) of each int32
-    column and per-group counts (int64) of masked docs."""
+    column and per-group counts (int64) of masked docs: on a card the flat
+    kernel while its counters fit shared memory, else the two-level one."""
     _check(values, gid, mask, ng)
-    if gid.device.type == "cuda":
-        out = grouped_multi_sum_kernel(values, gid, mask, ng)
-    elif gid.device.type == "cpu":
+    if _device_kind(gid, "grouped_multi_sum") == "cpu":
         out = grouped_multi_sum_plain(values, gid, mask, ng)
+    elif uses_shared_counters(min(len(values), MAX_COLS), ng, gid.device):
+        out = grouped_multi_sum_kernel(values, gid, mask, ng)
     else:
-        raise ValueError(f"grouped_multi_sum runs on cuda or cpu tensors, got {gid.device}")
+        out = grouped_multi_sum_2l_kernel(values, gid, mask, ng)
     return [out[j].to(torch.float64) for j in range(len(values))], out[-1]
 
 
-#: kernel launches (the CPU path never adds to it)
+#: flat kernel launches (the CPU path never adds to it)
 grouped_multi_sum.launches = 0

@@ -12,7 +12,9 @@ The engine runs on `device`, "cuda" unless the caller asks for another; on a
 machine without a card the default raises rather than running elsewhere.
 Star-tree swaps, the host executor, segment pruning, upsert validity and the
 scan-stats / heat / accounting / trace hooks of the reference are not ported
-yet; query shapes that need them raise NotImplementedError.
+yet; query shapes that need them raise NotImplementedError (DeviceFallback
+where the reference reruns on its host executor, e.g. a sparse group-by
+segment with more present groups than its slots).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from pinot_tpu_torch.query import reduce as reduce_mod
 from pinot_tpu_torch.query.context import QueryContext, QueryType, expand_star
 from pinot_tpu_torch.query.kernels import dispatch_plan_packed
 from pinot_tpu_torch.query.optimizer import optimize_filter
-from pinot_tpu_torch.query.plan import SegmentPlan, group_strides, plan_segment
+from pinot_tpu_torch.query.plan import DeviceFallback, SegmentPlan, group_strides, plan_segment
 from pinot_tpu_torch.query.result import ResultTable
 from pinot_tpu_torch.query.sql import parse_sql
 from pinot_tpu_torch.segment.segment import ImmutableSegment
@@ -109,6 +111,17 @@ class QueryEngine:
         if ctx.query_type == QueryType.AGGREGATION:
             matched, parts = out
             return self._convert_agg(seg, ctx, plan, parts), int(matched)
+        if plan.spec[2][0] == "groups_sparse":
+            matched, counts, parts, uniq, n_unique = out
+            if int(n_unique) > plan.spec[2][2]:
+                # more present groups than compact slots: the clipped slots
+                # collided and the partial is unusable
+                raise DeviceFallback(
+                    f"segment {seg.name}: {int(n_unique)} present groups exceed the {plan.spec[2][2]} sparse "
+                    "slots; the reference reruns such a segment on its host executor (host_exec), "
+                    "which is not ported"
+                )
+            return self._convert_groups(seg, ctx, plan, np.asarray(counts), parts, dense_gids=uniq), int(matched)
         matched, counts, parts = out
         return self._convert_groups(seg, ctx, plan, np.asarray(counts), parts), int(matched)
 
@@ -131,17 +144,19 @@ class QueryEngine:
 
     @staticmethod
     def _convert_groups(
-        seg: ImmutableSegment, ctx: QueryContext, plan: SegmentPlan, counts: np.ndarray, parts
+        seg: ImmutableSegment, ctx: QueryContext, plan: SegmentPlan, counts: np.ndarray, parts, dense_gids=None
     ) -> dict[str, np.ndarray]:
         """Present groups (count > 0) -> a group frame: key columns decoded
         through the dictionaries, one column per partial (DISTINCTCOUNT: an
-        object column of value sets)."""
+        object column of value sets). `dense_gids` maps the sparse path's
+        slots to their dense gids; on the dense path a slot IS its gid."""
         pg = np.nonzero(counts)[0]
+        gids = pg if dense_gids is None else np.asarray(dense_gids)[pg]
         cards = [ci.cardinality for _, ci in plan.group_cols]
         strides = group_strides(cards, np.int64)
         frame: dict[str, np.ndarray] = {}
         for i, (_, ci) in enumerate(plan.group_cols):
-            ids = (pg // strides[i]) % max(cards[i], 1)
+            ids = (gids // strides[i]) % max(cards[i], 1)
             vals = ci.dictionary.get_many(ids)
             frame[f"k{i}"] = vals.astype(str) if vals.dtype == object else vals
         for i, (a, spec_entry, p) in enumerate(zip(ctx.aggregations, plan.spec[3], parts)):

@@ -12,14 +12,18 @@ launch on the tensors' device, and nothing syncs with the host until
 `dispatch_plan_packed`'s unpack makes the one device->host copy per segment.
 
 Every grouped COUNT and every int32 SUM/AVG goes through one exact group-by
-kernel (`ops.groupby.grouped_multi_sum`), as the reference routes them through
-its Pallas byte-plane kernel. Grouped MIN/MAX/MINMAXRANGE go through the
-extreme kernel (`ops.extreme.grouped_extreme`, the counterpart of the Pallas
-`_make_extreme_kernel`), where the reference uses XLA's segment_min/max, and
-DISTINCTCOUNT's presence vectors through the presence entry of the one-hot-sum
-counterpart (`ops.grouped_sum_f32.presence`), where the reference scatters with
-`.at[...].max(mask)`. The tensors' device decides what runs: on a CUDA device
-the hand-written kernels, on the CPU their plain torch versions.
+kernel (`ops.groupby.grouped_multi_sum`: the flat kernel, or the two-level one
+when the counters pass a block's shared memory), as the reference routes them
+through its Pallas byte-plane kernels. A group-key product past
+MAX_DENSE_GROUPS takes the sort-compaction path (`groups_sparse`), and the
+aggregation runs over U compact slots. Grouped MIN/MAX/MINMAXRANGE go through
+the extreme kernel (`ops.extreme.grouped_extreme`, the counterpart of the
+Pallas `_make_extreme_kernel`), where the reference uses XLA's
+segment_min/max, and DISTINCTCOUNT's presence vectors through the presence
+entry of the one-hot-sum counterpart (`ops.grouped_sum_f32.presence`), where
+the reference scatters with `.at[...].max(mask)`. The tensors' device decides
+what runs: on a CUDA device the hand-written kernels, on the CPU their plain
+torch versions.
 
 Accumulator dtype policy (Pinot parity: SUM/MIN/MAX/AVG return DOUBLE, COUNT
 returns LONG): float64 value accumulators, int64 counts. Integer sums are
@@ -282,6 +286,8 @@ def _agg_eval(fspec, gspec, aggs, cols, ops, valid):
     matched = mask.sum(dtype=_I)
     if gspec is None:
         return matched, tuple(_agg_scalar(a, cols, ops, mask) for a in aggs)
+    if gspec[0] == "groups_sparse":
+        return _sparse_groups(gspec, aggs, cols, ops, mask, matched)
     if gspec[0] != "groups":
         raise _unsupported(gspec[0], "group")
     _, gcols, ng, strides_idx = gspec
@@ -293,6 +299,31 @@ def _agg_eval(fspec, gspec, aggs, cols, ops, valid):
         gid = gid + term
     counts, parts = _grouped_all(aggs, cols, ops, mask, gid, ng)
     return matched, counts, parts
+
+
+def _sparse_groups(gspec, aggs, cols, ops, mask, matched):
+    """High-cardinality product: 64-bit dense gids -> device sort -> run
+    compaction into U slots -> aggregation over the slots. The slot table
+    `uniq` (slot -> dense gid, 2^62 past the last present group) rides back so
+    the host decodes the keys; n_unique > U (colliding clipped slots) is
+    caught on the host. The sort and the search are torch's, as the
+    reference's are jnp's."""
+    _, gcols, u, strides_idx = gspec
+    strides = ops[strides_idx]
+    gid64 = torch.zeros(mask.shape[0], dtype=_I, device=mask.device)
+    for i, c in enumerate(gcols):
+        gid64 = gid64 + cols[c].to(_I) * strides[i]
+    sent = 1 << 62
+    sg = torch.sort(torch.where(mask, gid64, sent)).values
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=mask.device), sg[1:] != sg[:-1]]) & (sg < sent)
+    n_unique = first.sum(dtype=torch.int32)
+    # torch's cumsum of int32 is int64 (jnp's stays int32): the same values
+    slot = torch.clamp(torch.cumsum(first.to(torch.int32), 0) - 1, 0, u - 1)
+    # include_self: the sentinel fill takes part, as in .at[slot].min(sg)
+    uniq = torch.full((u,), sent, dtype=_I, device=mask.device).scatter_reduce_(0, slot, sg, "amin", include_self=True)
+    cid = torch.clamp(torch.searchsorted(uniq, gid64), 0, u - 1).to(torch.int32)
+    counts, parts = _grouped_all(aggs, cols, ops, mask, cid, u)
+    return matched, counts, parts, uniq, n_unique
 
 
 def build_fn(spec: tuple):

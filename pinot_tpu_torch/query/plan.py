@@ -18,11 +18,13 @@ same program in both packages.
    LUT over dict ids, gathered per doc.
  * Dense group ids are sum(ids_i * stride_i) — the cardinality-product scheme
    of DictionaryBasedGroupKeyGenerator.java:119-130 — with the group count
-   rounded up to a multiple of 256 as the reference rounds it.
+   rounded up to a multiple of 256 as the reference rounds it. Past
+   MAX_DENSE_GROUPS (read when a query is planned) the product goes to the
+   sparse spec `groups_sparse`, whose U slots hold the present groups.
 
 Query shapes whose lowering needs a module that is not ported yet (the host
-executor, transforms, sketches, null handling, multi-value columns, the sparse
-group path, selection) raise NotImplementedError; `DeviceFallback`, which the
+executor, transforms, sketches, null handling, multi-value columns,
+selection) raise NotImplementedError; `DeviceFallback`, which the
 reference answers with its host executor (e.g. DISTINCTCOUNT of a raw column,
 or a grouped presence matrix over MAX_PRESENCE_CELLS), is one such error here.
 """
@@ -474,10 +476,17 @@ class _Lowering:
         for c in cards:
             num_groups *= max(c, 1)
         if num_groups > MAX_DENSE_GROUPS:
-            raise NotImplementedError(
-                f"group-key cardinality product {num_groups} needs the sparse group path, "
-                "which is not ported to pinot_tpu_torch yet"
-            )
+            # high-cardinality product: the sort-compaction path. Dense 64-bit
+            # gids are sorted on the device and their runs compacted into U
+            # slots; the aggregation runs over the slots. U bounds the PRESENT
+            # groups (<= n_docs), not the product; a segment with more present
+            # groups than U raises DeviceFallback in the engine.
+            if num_groups >= (1 << 62):
+                raise DeviceFallback("group cardinality product overflows int64 gids")
+            strides64 = group_strides(cards, np.int64)
+            u = min(_pow2(max(self.seg.n_docs, 256)), MAX_DENSE_GROUPS)
+            self._group_ng = u
+            return ("groups_sparse", tuple(cols), u, self.op_idx(strides64))
         strides = group_strides(cards, np.int32)
         # round ng to 256 steps, as the reference does (its Pallas group-tile
         # edge), so both packages size every grouped output identically

@@ -173,7 +173,7 @@ def test_ids_value_matches_reference(segs, aggs):
         ("agg", ("const", True), None, (("funnel_steps", "region", 8, (("const", True),)),)),
         ("agg", ("const", True), None, (("masked", ("const", True), ("count",)),)),
         ("agg", ("const", True), ("groups", ("region",), 256, 0), (("hll", ("gather", "region", 0), 8),)),
-        ("agg", ("const", True), ("groups_sparse", ("region",), 256, 0), (("count",),)),
+        ("agg", ("const", True), ("groups_mv", ("region",), 256, 0, "region", 0), (("count",),)),
         ("select", ("const", True), (("raw", "quantity"),), 10),
     ],
 )
