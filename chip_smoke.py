@@ -15,7 +15,11 @@
    f32, i32 and f64 values) and grouped_sum_f32 (f32 sums / counts and the
    DISTINCTCOUNT presence flags). Tolerance: exact equality (== , NaN equal
    to NaN) for everything but f32 sums, which add in a run-dependent order
-   and are held to rtol 1e-4, atol 1e-2.
+   and are held to rtol 1e-4, atol 1e-2. Two choices of the wrappers are
+   timed on both sides: `dispatch_band`, the flat against the two-level
+   exact group-by where grouped_multi_sum switches between them, and
+   `extreme_finish`, grouped_extreme's finish folded into its last block
+   against a separate finish kernel.
 3. Main path: generates the SSB-flavoured lineorder (16M rows, seed 0, the
    generator of bench.py, then lo_custkey and lo_suppkey), builds 4 segments
    of 4M rows with the package's SegmentBuilder, stages them on the card and
@@ -32,6 +36,7 @@ JSON object with one entry per kernel.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -98,13 +103,13 @@ CONFIGS.update(
     }
 )
 #: kernel launches per segment of each config: (grouped_sum_count,
-#: grouped_extreme, presence, grouped_sum_count_2l)
+#: grouped_extremes, presence, grouped_sum_count_2l)
 LAUNCHES_PER_SEGMENT = {
     "1_count_filter": (0, 0, 0, 0),
     "2_filtered_agg": (0, 0, 0, 0),
     "3_q1_groupby": (1, 0, 0, 0),
     "4_q4_groupby_orderby": (1, 0, 0, 0),
-    "5_groupby_minmax": (1, 5, 0, 0),  # MIN, MAX, MINMAXRANGE (2) of int32, MAX of float64
+    "5_groupby_minmax": (1, 1, 0, 0),  # MIN, MAX, MINMAXRANGE of int32 and MAX of float64: one launch
     "6_groupby_distinct": (1, 0, 1, 0),
     "7_distinct": (0, 0, 2, 0),
     "8_groupby_wide": (0, 0, 0, 1),
@@ -143,10 +148,21 @@ def time_ms(torch, fn, iters: int, warmup: int = 2, queued: bool = False) -> flo
     device waits for it; with `queued` the device first spins for ~1 ms, so
     the host has enqueued all of fn before the span starts and the span is
     device time alone."""
+    return _timed(torch, fn, iters, warmup, queued)[0]
+
+
+def device_and_host_ms(torch, fn, iters: int = 50) -> tuple[float, float]:
+    """(device ms alone, host ms): time_ms(queued=True), and the mean wall
+    time of the fn() calls themselves on the host clock. The device is
+    spinning while fn runs, so that is the host's enqueue of fn's work."""
+    return _timed(torch, fn, iters, 2, True)
+
+
+def _timed(torch, fn, iters: int, warmup: int, queued: bool) -> tuple[float, float]:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
-    total = 0.0
+    total = host = 0.0
     for _ in range(iters):
         flush.zero_()
         if queued:
@@ -154,11 +170,13 @@ def time_ms(torch, fn, iters: int, warmup: int = 2, queued: bool = False) -> flo
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         fn()
+        host += time.perf_counter() - t0
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
-    return total / iters
+    return total / iters, host / iters * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -166,15 +184,40 @@ def time_ms(torch, fn, iters: int, warmup: int = 2, queued: bool = False) -> flo
 # ---------------------------------------------------------------------------
 
 
-def kernel_cases(torch, gb):
-    """(name, values, gid, mask, ng, expect_shared) at the main path's shape
+def ssb_shapes(torch, n: int = 4_194_304, seed: int = 6):
+    """Config 3-5's group ids, masks and value columns over one segment of
+    SSB-like data (make_ssb_data's distributions): config 3 ng 256 with 7
+    groups (d_year) and a 3.8% mask; configs 4 and 5 the 64% mask of
+    lo_quantity > 5 AND d_year BETWEEN 1993 AND 1997, config 4 ng 4608 with
+    4375 groups (d_year, c_nation, p_category), 3125 of them masked, config 5
+    ng 256 with 175 groups (d_year, c_nation), 125 of them masked."""
+    rng = np.random.default_rng(seed)
+    year, nation, cat = rng.integers(0, 7, n), rng.integers(0, 25, n), rng.integers(0, 25, n)
+    qty, rev, cost = rng.integers(1, 51, n), rng.integers(100, 600_000, n), rng.integers(50, 100_000, n)
+    i32, b = torch.int32, torch.bool
+    m45 = _tensor(torch, (qty > 5) & (year >= 1) & (year <= 5), b)
+    return {
+        "year": _tensor(torch, year, i32),
+        "m3": _tensor(torch, ((nation == 1) | (nation == 2)) & (qty < 25), b),
+        "g4": _tensor(torch, year * 625 + nation * 25 + cat, i32),
+        "g5": _tensor(torch, year * 25 + nation, i32),
+        "m45": m45,
+        "qty": _tensor(torch, qty, i32),
+        "rev": _tensor(torch, rev, i32),
+        "cost": _tensor(torch, cost, i32),
+        "profit": _tensor(torch, rev - cost, i32),
+        "ratio": _tensor(torch, rev / qty, torch.float64),
+    }
+
+
+def kernel_cases(torch, ssb):
+    """(name, values, gid, mask, ng, expect_shared) at the main path's shapes
     and at the edges of the kernel's contract."""
     rng = np.random.default_rng(1)
-    dev = "cuda"
     i32 = np.iinfo(np.int32)
 
     def t(a, dtype=torch.int32):
-        return torch.as_tensor(a).to(dtype).to(dev).contiguous()
+        return _tensor(torch, a, dtype)
 
     n = 4_194_304
     q4_gid = rng.integers(0, 4375, n)
@@ -186,6 +229,11 @@ def kernel_cases(torch, gb):
         4608,
         True,
     )
+    main = [
+        ("config3_shape", [ssb["rev"]], ssb["year"], ssb["m3"], 256, True),
+        ("config4_shape", [ssb["profit"]], ssb["g4"], ssb["m45"], 4608, True),
+        ("config5_shape_k0", [], ssb["g5"], ssb["m45"], 256, True),
+    ]
     n2 = 1 << 20
     extremes = rng.choice(np.array([i32.min, i32.max, -1, 0, 1], dtype=np.int64), size=(3, n2))
     gid2 = rng.integers(-3, 259, n2)  # a few ids outside [0, 256): dropped
@@ -207,15 +255,60 @@ def kernel_cases(torch, gb):
         1 << 20,
         False,
     )
-    return [q4, ext, empty, wide, big]
+    # contention: 7 present groups of ng 256 under a 90% mask
+    hot = ("contention_7_groups_90pct", [ssb["rev"]], ssb["year"], t(rng.random(ssb["year"].numel()) < 0.9, torch.bool),
+           256, True)
+    # sums near +-2^31 a doc over ~2^18 docs a group: the high words carry
+    # both ways, and one group's sum stays positive, one's negative
+    near = np.array([i32.max, i32.max - 1, i32.min, i32.min + 1], dtype=np.int64)
+    cgid = rng.integers(0, 6, n2)
+    cval = rng.choice(near, n2)
+    cval[cgid == 4] = i32.max
+    cval[cgid == 5] = i32.min
+    carry = ("sums_near_2^31_carry", [t(cval), t(-cval - 1)], t(cgid), t(rng.random(n2) < 0.95, torch.bool), 6, True)
+    tail_v, tail_g, tail_m = t(rng.integers(-50, 50, n2 + 3)), t(rng.integers(0, 256, n2 + 3)), t(rng.random(n2 + 3) < 0.8, torch.bool)
+    tails = [(f"tail_of_{r}_docs", [tail_v[: n2 + r]], tail_g[: n2 + r], tail_m[: n2 + r], 256, True) for r in (1, 2, 3)]
+    # views from element 1: 4-byte aligned pointers, no 16-byte loads
+    unaligned = ("unaligned_views", [tail_v[1 : n2 + 1]], tail_g[1 : n2 + 1], tail_m[1 : n2 + 1], 256, True)
+    one = ("ng_1", [t(rng.integers(-(1 << 30), 1 << 30, n2))], t(rng.integers(-1, 2, n2)), t(rng.random(n2) < 0.7, torch.bool), 1, True)
+    return [q4, *main, ext, empty, wide, big, hot, carry, *tails, unaligned, one]
 
 
-def check_kernels(torch, gb) -> dict:
+def _b1_timing(torch, gb, values, gid, mask, ng) -> dict:
+    """Device time alone, the host's enqueue and the span with it, the plain
+    version's and index_add_'s times, and the bounds, for one shape."""
+    k, n = len(values), gid.numel()
+    fn = lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng)  # noqa: E731
+    # the yardstick: ONE PyTorch call computing the same function on the
+    # same inputs, prepared outside the timed region
+    ok, idx = _in_range(torch, gid, mask, ng)
+    src = torch.stack([torch.where(ok, v, 0).to(torch.int64) for v in values] + [ok.to(torch.int64)])
+    dst = torch.zeros(k + 1, ng, dtype=torch.int64, device=gid.device)
+    device_ms, host_ms = device_and_host_ms(torch, fn)
+    out = {
+        "shape": {"n": n, "k": k, "ng": ng, "mask_on": int(mask.sum().item()),
+                  "groups": int(torch.unique(gid[mask]).numel())},
+        "kernel_device_ms": device_ms,
+        "kernel_host_ms": host_ms,
+        "kernel_ms": time_ms(torch, fn, iters=50),
+        "plain_ms": time_ms(torch, lambda: gb.grouped_multi_sum_plain(values, gid, mask, ng), iters=10),
+        "library_ms": time_ms(torch, lambda: dst.index_add_(1, idx, src), iters=10),
+    }
+    # bytes over the HBM rate: every input once, the output once; and the
+    # data-dependent form, where only docs with the mask on need their group
+    # id and values read
+    out_bytes = (k + 1) * ng * 8
+    out["bound_ms"] = hbm_ms(n * (4 + 1 + 4 * k) + out_bytes)
+    out["bound_data_ms"] = hbm_ms(n + out["shape"]["mask_on"] * (4 + 4 * k) + out_bytes)
+    return out
+
+
+def check_kernels(torch, gb, ssb) -> dict:
     results = []
     max_err = 0.0
-    q4 = None
-    for name, values, gid, mask, ng, expect_shared in kernel_cases(torch, gb):
-        shared = gb.uses_shared_counters(len(values), ng, gid.device)
+    keep = {}
+    for name, values, gid, mask, ng, expect_shared in kernel_cases(torch, ssb):
+        shared = gb.uses_shared_counters(min(len(values), gb.MAX_COLS), ng, gid.device)
         if shared != expect_shared:
             raise AssertionError(f"{name}: shared-memory path {shared}, expected {expect_shared}")
         got = gb.grouped_multi_sum_kernel(values, gid, mask, ng)
@@ -227,44 +320,17 @@ def check_kernels(torch, gb) -> dict:
         results.append({"case": name, "k": len(values), "ng": ng, "n": gid.numel(), "shared_counters": shared, "equal": equal})
         if not equal:
             raise AssertionError(f"{name}: kernel != plain version (max abs err {err})")
-        if name == "q4_shape":
-            q4 = (values, gid, mask, ng)
+        keep[name] = (values, gid, mask, ng)
     emit({"phase": "kernel_vs_plain", "kernel": "grouped_sum_count", "cases": results})
 
-    values, gid, mask, ng = q4
-    k, n = len(values), gid.numel()
-    kernel_ms = time_ms(torch, lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng), iters=50)
-    plain_ms = time_ms(torch, lambda: gb.grouped_multi_sum_plain(values, gid, mask, ng), iters=20)
-    # the yardstick: ONE PyTorch call computing the same function on the same
-    # inputs, prepared outside the timed region
-    ok = mask & (gid >= 0) & (gid < ng)
-    idx = torch.where(ok, gid, 0).to(torch.int64)
-    src = torch.stack([torch.where(ok, v, 0).to(torch.int64) for v in values] + [ok.to(torch.int64)])
-    dst = torch.zeros(k + 1, ng, dtype=torch.int64, device="cuda")
-    library_ms = time_ms(torch, lambda: dst.index_add_(1, idx, src), iters=20)
-    # bytes over the HBM rate: every input once, the output once; and the
-    # data-dependent form, where only docs with the mask on need their group
-    # id and values read
-    out_bytes = (k + 1) * ng * 8
-    bound_bytes = n * (4 + 1 + 4 * k) + out_bytes
-    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
-    data_bytes = n + int(mask.sum().item()) * (4 + 4 * k) + out_bytes
-    bound_data_ms = data_bytes / HBM_BYTES_PER_S * 1e3
-    timing = {
-        "phase": "kernel_timing",
-        "kernel": "grouped_sum_count",
-        "shape": {"n": n, "k": k, "ng": ng},
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "library_ms": library_ms,
-        "bound_ms": bound_ms,
-        "bound_bytes": bound_bytes,
-        "bound_data_ms": bound_data_ms,
-        "bound_data_bytes": data_bytes,
-        "card": card_line(),
+    # Q4's shape (continuity with earlier runs) and every shape the main path
+    # launches the kernel at
+    timings = {
+        name: _b1_timing(torch, gb, *keep[name])
+        for name in ("q4_shape", "config3_shape", "config4_shape", "config5_shape_k0")
     }
-    emit(timing)
-    return {"max_abs_err": max_err, **timing}
+    emit({"phase": "kernel_timing", "kernel": "grouped_sum_count", "timings": timings, "card": card_line()})
+    return {"max_abs_err": max_err, **timings["q4_shape"]}
 
 
 def same(torch, got, want) -> bool:
@@ -439,7 +505,46 @@ def check_two_level(torch, gb) -> dict:
             "flat_global_device_ms": time_ms(torch, lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng), 50, queued=True),
         }
     emit({"phase": "kernel_timing", "kernel": "grouped_sum_count_2l", "timings": timings, "card": card_line()})
+    emit({"phase": "dispatch_band", "timings": dispatch_band(torch, gb), "card": card_line()})
     return {"max_abs_err": max_err, **timings["config8_shape"]}
+
+
+#: (k, ng) on both sides of where grouped_multi_sum leaves the flat kernel
+#: for the two-level one on an H100 (232,448 B a block): the flat kernel's
+#: (2k+1) x ng 32-bit counters fit up to ng 58,112 at k = 0 and 19,370 at
+#: k = 1; 64-bit counters, (k+1) x ng x 8 B, fitted up to 29,056 and 14,528
+BAND = [(0, 24_576), (0, 40_960), (0, 57_344), (0, 61_440), (1, 12_288), (1, 18_432), (1, 22_528)]
+
+
+def dispatch_band(torch, gb) -> dict:
+    """Device time alone of the flat and the two-level kernel, each checked
+    against the plain version, at the BAND shapes: one 4M-doc segment, ids
+    uniform over ng, a 70% mask. Where grouped_multi_sum takes each is
+    `engine_takes`."""
+    rng = np.random.default_rng(9)
+    n = 4_194_304
+    mask = _tensor(torch, rng.random(n) < 0.7, torch.bool)
+    value = _tensor(torch, rng.integers(100, 600_000, n), torch.int32)
+    out = {}
+    for k, ng in BAND:
+        gid = _tensor(torch, rng.integers(0, ng, n), torch.int32)
+        values = [value][:k]
+        want = gb.grouped_multi_sum_plain(values, gid, mask, ng)
+        flat = lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng)  # noqa: E731
+        two = lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng)  # noqa: E731
+        for name, fn in (("flat", flat), ("two_level", two)):
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"k={k} ng={ng}: the {name} kernel != plain version")
+        shared = gb.uses_shared_counters(k, ng, gid.device)
+        blocks = gb._plan(gid.device.index, k, ng, n)[0]
+        out[f"k{k}_ng{ng}"] = {
+            "flat_shared_counters": shared,
+            "flat_blocks": blocks,
+            "engine_takes": "flat" if shared else "two_level",
+            "flat_device_ms": time_ms(torch, flat, 50, queued=True),
+            "two_level_device_ms": time_ms(torch, two, 50, queued=True),
+        }
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -509,10 +614,59 @@ def extreme_cases(torch):
     return cases
 
 
-def check_extreme(torch, ext) -> dict:
+def multi_cases(torch, ssb):
+    """(name, columns, outputs, gid, mask, ng, counts or None, expect_shared)
+    for grouped_extremes: config 5's five outputs over one (gid, mask), and
+    the edges of the multi-output contract."""
+    rng = np.random.default_rng(8)
+    f32, f64, i32, b = torch.float32, torch.float64, torch.int32, torch.bool
+    cases = []
+
+    def add(name, columns, outputs, gid, mask, ng, shared):
+        counts = _counts(torch, gid, mask, ng) if any(c.dtype == i32 for c in columns) else None
+        cases.append((name, columns, outputs, gid, mask, ng, counts, shared))
+
+    # config 5: MIN(lo_quantity), MAX(lo_revenue), MINMAXRANGE(lo_supplycost),
+    # MAX(lo_revenue / lo_quantity)
+    five = [(0, True), (1, False), (2, True), (2, False), (3, False)]
+    add("config5_five_outputs", [ssb["qty"], ssb["rev"], ssb["cost"], ssb["ratio"]], five, ssb["g5"], ssb["m45"], 256, True)
+    n2 = 1 << 20
+    gid2 = _tensor(torch, rng.integers(0, 256, n2), i32)
+    mask2 = _tensor(torch, rng.random(n2) < 0.7, b)
+    i32c = _tensor(torch, rng.integers(-(1 << 31), 1 << 31, n2), i32)
+    f64c = _tensor(torch, rng.normal(0, 1e6, n2), f64)
+    add("same_column_min_and_max", [f64c, i32c], [(0, True), (0, False), (1, False), (1, True)], gid2, mask2, 256, True)
+    add("repeated_outputs", [i32c], [(0, True), (0, True), (0, False)], gid2, mask2, 256, True)
+    specials = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, 1.5, -1.5])
+    x = rng.choice(specials, n2, p=[0.0005, 0.3, 0.3, 0.001, 0.001, 0.1985, 0.199])
+    y = rng.choice(specials, n2, p=[0.0002, 0.35, 0.35, 0.0004, 0.0004, 0.149, 0.15])
+    add("nan_signed_zero_across_outputs", [_tensor(torch, x, f32), _tensor(torch, y, f64), i32c],
+        [(0, True), (0, False), (1, True), (1, False), (2, False)], gid2, mask2, 256, True)
+    none = _tensor(torch, np.zeros(n2, bool), b)
+    add("all_off_mask", [_tensor(torch, x, f32), i32c, f64c], [(0, True), (1, False), (2, True), (2, False)],
+        gid2, none, 256, True)
+    ogid = _tensor(torch, rng.integers(-3, 300, n2), i32)  # ids outside [0, 256): dropped
+    add("ids_out_of_range", [i32c, f64c, _tensor(torch, x, f32)], [(0, True), (1, False), (2, True), (2, False)],
+        ogid, mask2, 256, True)
+    cols9 = [_tensor(torch, rng.normal(0, 1, n2), f32), i32c, _tensor(torch, rng.integers(-9, 9, n2), i32), f64c,
+             _tensor(torch, rng.uniform(-1, 1, n2), f64)]
+    nine = [(0, True), (0, False), (1, True), (1, False), (2, True), (2, False), (3, True), (3, False), (4, False)]
+    add("nine_outputs_two_launches", cols9, nine, gid2, mask2, 256, True)
+    # ng past a block's shared memory: keys in global memory, finish kernel
+    n = 4_194_304
+    bgid = _tensor(torch, rng.integers(0, 1 << 16, n), i32)
+    bmask = _tensor(torch, rng.random(n) < 0.5, b)
+    add("ng_2^16_past_shared", [_tensor(torch, rng.normal(0, 1, n), f64), _tensor(torch, rng.integers(-1000, 1001, n), i32)],
+        [(0, True), (0, False), (1, True), (1, False)], bgid, bmask, 1 << 16, False)
+    # views from element 1: no 16-byte loads
+    add("unaligned_views", [i32c[1:], f64c[1:]], [(0, True), (1, False)], gid2[1:], mask2[1:], 256, True)
+    return cases
+
+
+def check_extreme(torch, ext, ssb) -> dict:
     results, max_err, keep = [], 0.0, {}
     for name, values, gid, mask, ng, is_min, counts, expect_shared in extreme_cases(torch):
-        shared = ext.uses_shared_keys(values.dtype, ng, gid.device)
+        shared = ext.uses_shared_keys([values.dtype], ng, gid.device)
         if shared != expect_shared:
             raise AssertionError(f"{name}: shared-memory path {shared}, expected {expect_shared}")
         got = ext.grouped_extreme_kernel(values, gid, mask, ng, is_min, counts)
@@ -528,34 +682,134 @@ def check_extreme(torch, ext) -> dict:
         if not equal:
             raise AssertionError(f"{name}: grouped_extreme kernel != plain version (max abs err {err})")
         keep[name] = (values, gid, mask, ng, is_min, counts)
+    for name, columns, outputs, gid, mask, ng, counts, expect_shared in multi_cases(torch, ssb):
+        distinct = list(dict.fromkeys(outputs))
+        shared = ext.uses_shared_keys([columns[c].dtype for c, _ in distinct[: ext.MAX_OUTPUTS]], ng, gid.device)
+        if shared != expect_shared:
+            raise AssertionError(f"{name}: shared-memory path {shared}, expected {expect_shared}")
+        before = ext.grouped_extremes.launches
+        got = ext.grouped_extremes_kernel(columns, outputs, gid, mask, ng, counts)
+        torch.cuda.synchronize()
+        launches = ext.grouped_extremes.launches - before
+        if launches != -(-len(distinct) // ext.MAX_OUTPUTS):
+            raise AssertionError(f"{name}: {launches} launches for {len(distinct)} distinct outputs")
+        want = ext.grouped_extremes_plain(columns, outputs, gid, mask, ng, counts)
+        equal = all(same(torch, g, w) for g, w in zip(got, want))
+        err = max(abs_err(torch, g, w) for g, w in zip(got, want))
+        max_err = max(max_err, err)
+        results.append(
+            {"case": name, "outputs": len(outputs), "dtypes": [str(columns[c].dtype) for c, _ in outputs], "ng": ng,
+             "n": gid.numel(), "shared_keys": shared, "launches": launches,
+             "nan_groups": sum(int(g.isnan().sum().item()) for g in got), "equal": equal}
+        )
+        if not equal:
+            raise AssertionError(f"{name}: grouped_extremes kernel != plain version (max abs err {err})")
+        keep[name] = (columns, outputs, gid, mask, ng, counts)
     emit({"phase": "kernel_vs_plain", "kernel": "grouped_extreme", "cases": results})
 
     timings = {}
     for name in ("q4_shape_i32_min", "q4_shape_f32_min", "q4_shape_f64_max", "engine_ng256_i32_min", "engine_ng256_f64_max"):
         values, gid, mask, ng, is_min, counts = keep[name]
-        n, vbytes = gid.numel(), values.element_size()
-        ok, idx = _in_range(torch, gid, mask, ng)
+        timings[name] = _b3_timing(torch, ext, [values], [(0, is_min)], gid, mask, ng, counts)
+    # the main path's one shape: config 5's five outputs in one launch; the
+    # library time is one scatter_reduce_ per output, summed (no single
+    # PyTorch call computes all five)
+    timings["config5_five_outputs"] = _b3_timing(torch, ext, *keep["config5_five_outputs"])
+    emit({"phase": "kernel_timing", "kernel": "grouped_extreme", "timings": timings, "card": card_line()})
+    emit({"phase": "extreme_finish", "timings": finish_timings(torch, ext, ssb), "card": card_line()})
+    return {"max_abs_err": max_err, **timings["config5_five_outputs"]}
+
+
+@contextlib.contextmanager
+def _finish_in(ext, fold: bool):
+    """grouped_extremes launches planned meanwhile finish in their pass's
+    last block (fold) or in a separate finish kernel, whatever the plan
+    says."""
+    real = ext._plan
+
+    def plan(index, widths, ng, n):
+        blocks, smem, finish, scratch = real(index, widths, ng, n)
+        # the finish kernel strides over the cells, so any grid is right;
+        # this is the plan's own (256 threads a block)
+        return blocks, smem, 0 if fold else -(-len(widths) * ng // 256), scratch
+
+    ext._spec.cache_clear()
+    ext._plan = plan
+    try:
+        yield
+    finally:
+        ext._plan = real
+        ext._spec.cache_clear()
+
+
+def finish_timings(torch, ext, ssb) -> dict:
+    """The extreme kernel's finish folded into its last block against a
+    separate finish kernel, each checked against the plain version: device
+    time alone and the host's enqueue, at config 5's five outputs (1280
+    cells) and at four outputs (MIN and MAX of an int32 and a float64
+    column) over ng 256-4096 (1024-16384 cells), one 4M-doc segment."""
+    rng = np.random.default_rng(10)
+    n = 4_194_304
+    mask = _tensor(torch, rng.random(n) < 0.65, torch.bool)
+    cols = [ssb["rev"], ssb["ratio"]]
+    four = [(0, True), (0, False), (1, True), (1, False)]
+    shapes = {"config5_five_outputs": ([ssb["qty"], ssb["rev"], ssb["cost"], ssb["ratio"]],
+                                       [(0, True), (1, False), (2, True), (2, False), (3, False)], ssb["g5"], ssb["m45"], 256)}
+    for ng in (256, 512, 1024, 2048, 4096):
+        shapes[f"four_outputs_ng{ng}"] = (cols, four, _tensor(torch, rng.integers(0, ng, n), torch.int32), mask, ng)
+    out = {}
+    for name, (columns, outputs, gid, m, ng) in shapes.items():
+        counts = _counts(torch, gid, m, ng)
+        want = ext.grouped_extremes_plain(columns, outputs, gid, m, ng, counts)
+        fn = lambda: ext.grouped_extremes_kernel(columns, outputs, gid, m, ng, counts)  # noqa: E731
+        widths = tuple(ext._DTYPES[columns[c].dtype][1] for c, _ in outputs)
+        row = {"cells": len(outputs) * ng, "plan_folds": ext._plan(gid.device.index, widths, ng, n)[2] == 0}
+        if name == "config5_five_outputs" and not row["plan_folds"]:
+            raise AssertionError("config 5's outputs take a separate finish kernel: two kernels a group-by")
+        for how, fold in (("fold", True), ("finish_kernel", False)):
+            with _finish_in(ext, fold):
+                if not all(same(torch, g, w) for g, w in zip(fn(), want)):
+                    raise AssertionError(f"{name}: grouped_extremes ({how}) != plain version")
+                row[f"{how}_device_ms"], row[f"{how}_host_ms"] = device_and_host_ms(torch, fn)
+        out[name] = row
+    return out
+
+
+def _b3_timing(torch, ext, columns, outputs, gid, mask, ng, counts) -> dict:
+    n, masked = gid.numel(), int(mask.sum().item())
+    ok, idx = _in_range(torch, gid, mask, ng)
+    scatter = []
+    for c, is_min in outputs:
+        values = columns[c]
         fill = (np.iinfo(np.int32).max if is_min else np.iinfo(np.int32).min) if values.dtype == torch.int32 else (
             math.inf if is_min else -math.inf
         )
         src = torch.where(ok, values, fill)
-        dst = torch.full((ng,), fill, dtype=values.dtype, device="cuda")
-        # outputs written once (f32 for f32 values, f64 otherwise), and the
-        # int32 form reads the per-group counts
-        out_bytes = ng * (4 if values.dtype == torch.float32 else 8) + (ng * 8 if counts is not None else 0)
-        masked = int(mask.sum().item())
-        timings[name] = {
-            "shape": {"n": n, "ng": ng, "dtype": str(values.dtype), "is_min": is_min},
-            "kernel_ms": time_ms(torch, lambda: ext.grouped_extreme_kernel(values, gid, mask, ng, is_min, counts), 50),
-            "plain_ms": time_ms(torch, lambda: ext.grouped_extreme_plain(values, gid, mask, ng, is_min, counts), 20),
-            "library_ms": time_ms(
-                torch, lambda: dst.scatter_reduce_(0, idx, src, reduce="amin" if is_min else "amax", include_self=True), 20
-            ),
-            "bound_ms": hbm_ms(n * (4 + 1 + vbytes) + out_bytes),
-            "bound_data_ms": hbm_ms(n + masked * (4 + vbytes) + out_bytes),
-        }
-    emit({"phase": "kernel_timing", "kernel": "grouped_extreme", "timings": timings, "card": card_line()})
-    return {"max_abs_err": max_err, **timings["q4_shape_i32_min"]}
+        dst = torch.full((ng,), fill, dtype=values.dtype, device=gid.device)
+        scatter.append((dst, src, "amin" if is_min else "amax"))
+
+    def library():
+        for dst, src, how in scatter:
+            dst.scatter_reduce_(0, idx, src, reduce=how, include_self=True)
+
+    fn = lambda: ext.grouped_extremes_kernel(columns, outputs, gid, mask, ng, counts)  # noqa: E731
+    # each distinct column read once; outputs written once (f32 for f32
+    # values, f64 otherwise); the int32 form reads the per-group counts
+    col_bytes = sum(columns[c].element_size() for c in dict.fromkeys(c for c, _ in outputs))
+    out_bytes = sum(ng * (4 if columns[c].dtype == torch.float32 else 8) for c, _ in outputs)
+    out_bytes += ng * 8 if counts is not None else 0
+    device_ms, host_ms = device_and_host_ms(torch, fn)
+    return {
+        "shape": {"n": n, "ng": ng, "mask_on": masked,
+                  "outputs": [[str(columns[c].dtype), "min" if is_min else "max"] for c, is_min in outputs]},
+        "kernel_device_ms": device_ms,
+        "kernel_host_ms": host_ms,
+        "kernel_ms": time_ms(torch, fn, 50),
+        "plain_ms": time_ms(torch, lambda: ext.grouped_extremes_plain(columns, outputs, gid, mask, ng, counts), 10),
+        "library_ms": time_ms(torch, library, 10),
+        "bound_ms": hbm_ms(n * (4 + 1 + col_bytes) + out_bytes),
+        "bound_data_ms": hbm_ms(n + masked * (4 + col_bytes) + out_bytes),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -667,10 +921,14 @@ def check_sum_f32(torch, gs) -> dict:
     n, masked = gid.numel(), int(mask.sum().item())
     ok, idx = _in_range(torch, gid, mask, ng)
     src = torch.where(ok, values, 0.0)
-    dst = torch.zeros(ng, dtype=torch.float32, device="cuda")
+    dst = torch.zeros(ng, dtype=torch.float32, device=gid.device)
+    fn = lambda: gs.grouped_sum_kernel(values, gid, mask, ng)  # noqa: E731
+    device_ms, host_ms = device_and_host_ms(torch, fn)
     timings["q4_shape_sum"] = {
         "shape": {"n": n, "ng": ng},
-        "kernel_ms": time_ms(torch, lambda: gs.grouped_sum_kernel(values, gid, mask, ng), 50),
+        "kernel_device_ms": device_ms,
+        "kernel_host_ms": host_ms,
+        "kernel_ms": time_ms(torch, fn, 50),
         "plain_ms": time_ms(torch, lambda: gs.grouped_sum_plain(values, gid, mask, ng), 20),
         "library_ms": time_ms(torch, lambda: dst.index_add_(0, idx, src), 20),
         "bound_ms": hbm_ms(n * (4 + 1 + 4) + 4 * ng),
@@ -686,11 +944,15 @@ def check_sum_f32(torch, gs) -> dict:
             cell = gid.to(torch.int64) * pad + cell
         idx = torch.where(ok, cell, 0)
         src = ok.to(torch.uint8)
-        dst = torch.zeros(ng * pad, dtype=torch.uint8, device="cuda")
+        dst = torch.zeros(ng * pad, dtype=torch.uint8, device=ids.device)
         per_doc = 4 + (4 if gid is not None else 0)
+        fn = lambda: gs.presence_kernel(ids, mask, pad, gid, ng)  # noqa: E731
+        device_ms, host_ms = device_and_host_ms(torch, fn)
         timings[name] = {
             "shape": {"n": n, "ng": ng, "pad": pad, "mask_on": masked},
-            "kernel_ms": time_ms(torch, lambda: gs.presence_kernel(ids, mask, pad, gid, ng), 50),
+            "kernel_device_ms": device_ms,
+            "kernel_host_ms": host_ms,
+            "kernel_ms": time_ms(torch, fn, 50),
             "plain_ms": time_ms(torch, lambda: gs.presence_plain(ids, mask, pad, gid, ng), 20),
             "library_ms": time_ms(torch, lambda: dst.scatter_reduce_(0, idx, src, reduce="amax"), 20),
             "bound_ms": hbm_ms(n * (per_doc + 1) + ng * pad),
@@ -980,15 +1242,16 @@ def main() -> int:
     report = build.build(["grouped_sum_count", "grouped_sum_count_2l", "grouped_extreme", "grouped_sum_f32"])
     emit({"phase": "build", "nvcc": build.nvcc_path(), "flags": list(build.NVCC_FLAGS), "report": report})
 
+    ssb = ssb_shapes(torch)
     timing = {
-        "grouped_sum_count": check_kernels(torch, gb),
+        "grouped_sum_count": check_kernels(torch, gb, ssb),
         "grouped_sum_count_2l": check_two_level(torch, gb),
-        "grouped_extreme": check_extreme(torch, ext),
+        "grouped_extreme": check_extreme(torch, ext, ssb),
         "grouped_sum_f32": check_sum_f32(torch, gs),
     }
     counters = {
         "grouped_sum_count": gb.grouped_multi_sum,
-        "grouped_extreme": ext.grouped_extreme,
+        "grouped_extreme": ext.grouped_extremes,
         "presence": gs.presence,
         "grouped_sum_count_2l": gb.grouped_multi_sum_2l,
     }
@@ -1015,6 +1278,9 @@ def main() -> int:
                 "launches": launches[kname],
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["kernel_ms"],
+                "device_ms": t["kernel_device_ms"],
+                "host_ms": t.get("kernel_host_ms"),
+                "shape": t["shape"],
                 "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_data_ms"],
                 "bound_by": "bytes",

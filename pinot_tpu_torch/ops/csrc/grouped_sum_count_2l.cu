@@ -32,13 +32,11 @@
 // Past kMaxSharedBuckets buckets (a small L over a large ng) passes 1 and 3
 // count and reserve with global atomics instead.
 //
-// Shared counters are 32-bit words: the card has no 64-bit shared atomic add
-// (nvcc emits a compare-and-swap loop for one). A count is one word (a block
-// adds fewer than 2^32 docs). A sum is two, low and high: the add into the
-// low word returns its old value, so the adding thread knows whether its add
-// wrapped and carries one into the high word, together with the value's sign
-// extension. Every add is an integer add exact modulo 2^64, so the result
-// does not depend on where the partition placed each doc.
+// Shared counters are 32-bit words (steps.cuh's add_wide): the card has no
+// 64-bit shared atomic add. A count is one word (a block adds fewer than 2^32
+// docs). A sum is two, low and high, with the carry taken from the low
+// word's old value. Every add is an integer add exact modulo 2^64, so the
+// result does not depend on where the partition placed each doc.
 //
 // Bound: memory. The docs' group ids and mask are read twice (passes 1 and
 // 3; four docs a step with one 16-byte and one 4-byte load where the
@@ -60,8 +58,12 @@
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
+#include "steps.cuh"
 
 namespace {
+
+using pinot::for_steps;
+using pinot::taken;
 
 constexpr int kMaxCols = 8;
 constexpr int kThreads = 512;
@@ -85,61 +87,6 @@ struct Cols {
 // 2, 4 or a multiple of 4 words so that it is written and read with vector
 // accesses (one store request a doc for k <= 3).
 __host__ __device__ constexpr int record_words(int k) { return k < 2 ? k + 1 : (k + 4) / 4 * 4; }
-
-// Calls f(d0, m, g, full) for each step of this block's share that has a
-// mask byte on: docs d0 .. d0+V-1, their mask bytes in m (byte i for doc
-// d0+i) and group ids in g. V docs a step (V = 4: one 16-byte load of group
-// ids and one 4-byte load of mask bytes), neighbouring threads on
-// neighbouring steps, the loads of kUnroll steps issued together. The last
-// n % V docs are steps of one doc (full = false) on the first threads of
-// block 0. The docs a block meets depend on the grid alone, so passes 1 and 3
-// meet the same ones.
-template <int V, typename F>
-__device__ __forceinline__ void for_steps(const int32_t* __restrict__ gid, const uint8_t* __restrict__ mask,
-                                          long long n, F&& f) {
-  constexpr int kUnroll = 4;
-  const long long steps = n / V;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (long long s0 = t; s0 < steps; s0 += kUnroll * stride) {
-    uint32_t m[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long s = s0 + u * stride;
-      m[u] = s >= steps ? 0u : (V == 4 ? reinterpret_cast<const uint32_t*>(mask)[s] : mask[s]);
-    }
-    int g[kUnroll][V];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (m[u] == 0u) continue;
-      const long long s = s0 + u * stride;
-      if constexpr (V == 4) {
-        const int4 q = reinterpret_cast<const int4*>(gid)[s];
-        g[u][0] = q.x;
-        g[u][1] = q.y;
-        g[u][2] = q.z;
-        g[u][3] = q.w;
-      } else {
-        g[u][0] = gid[s];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (m[u] != 0u) f((s0 + u * stride) * V, m[u], g[u], true);
-    }
-  }
-  if (V > 1 && t < n - steps * V) {
-    const long long d = steps * V + t;
-    int g[V] = {};
-    g[0] = gid[d];
-    if (mask[d]) f(d, 1u, g, false);
-  }
-}
-
-// Whether doc i of a step is taken: its mask byte is on and its group id in [0, ng).
-__device__ __forceinline__ bool taken(uint32_t m, int i, int g, int ng) {
-  return ((m >> (8 * i)) & 0xFFu) != 0u && g >= 0 && g < ng;
-}
 
 template <int V, bool kShared>
 __global__ void __launch_bounds__(kThreads)
@@ -328,11 +275,7 @@ __global__ void __launch_bounds__(kReduceThreads)
         return;
       }
       unsigned int* low = acc + (1 + 2 * j) * width + l;
-      const unsigned int u = static_cast<unsigned int>(v);
-      const unsigned int old = atomicAdd(low, u);
-      // sign extension plus the carry out of this add, modulo 2^32
-      const unsigned int high = (v < 0 ? 0xFFFFFFFFu : 0u) + (old + u < old ? 1u : 0u);
-      if (high != 0u) atomicAdd(low + width, high);
+      pinot::add_wide(low, low + width, v);
     });
   }
   __syncthreads();
@@ -343,7 +286,7 @@ __global__ void __launch_bounds__(kReduceThreads)
     atomicAdd(counts + g, static_cast<unsigned long long>(n_c));
     for (int j = 0; j < k; ++j) {
       const unsigned int* low = acc + (1 + 2 * j) * width + c;
-      const unsigned long long v = static_cast<unsigned long long>(low[width]) << 32 | low[0];
+      const unsigned long long v = pinot::wide(low[0], low[width]);
       if (v != 0ULL) atomicAdd(out + static_cast<long long>(j) * ng + g, v);
     }
   }
@@ -372,8 +315,7 @@ cudaError_t device(Device* out) {
     }
   }
   Device d{};
-  if ((err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-  if ((err = pinot::shared_limit(&d.limit)) != cudaSuccess) return err;
+  if ((err = pinot::device_shape(&d.sms, &d.limit)) != cudaSuccess) return err;
   err = cudaFuncSetAttribute(reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, d.limit);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices) {

@@ -7,12 +7,18 @@ exact per-group sums of each int32 column (float64) and per-group counts of the
 masked docs (int64). Docs with the mask off, or with a group id outside
 [0, ng), contribute nothing.
 
-The shape decides the kernel. While a block's (k+1) x ng int64 counters fit
-its shared memory (`uses_shared_counters`), the flat kernel in
+The shape decides the kernel. While a block's (2k+1) x ng 32-bit counters
+(a count, and a low and a high word a sum) fit its shared memory
+(`uses_shared_counters`), the flat kernel in
 `csrc/grouped_sum_count.cu` runs, the counterpart of the Pallas
 `_make_planes_kernel`. Past that, the two-level kernel in
 `csrc/grouped_sum_count_2l.cu` (`grouped_multi_sum_2l`, gid = hi << L | lo),
 the counterpart of `_make_planes2_kernel`. Both compute the same function.
+Where the 32-bit counters moved that limit (k = 0 at ng 29k-58k, k = 1 at
+ng 14.5k-19.4k on an H100) the flat kernel took 0.039-0.047 ms of device
+time against the two-level kernel's 0.051-0.072, and past it its global
+branch tied (k = 0) or lost (k = 1): chip_smoke.py's dispatch_band, H100
+80GB HBM3 at 700 W, one 4M-doc segment.
 
 The tensors' device decides what runs. A CUDA tensor launches a kernel (built
 by `ops/build.py`), and a failed build or launch raises; a CPU tensor takes the
@@ -66,20 +72,12 @@ def _library():
     from pinot_tpu_torch.ops.build import load
 
     lib = load(_SOURCE)
-    fn = lib.grouped_sum_count
-    fn.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_int,
-        ctypes.c_void_p,
-        ctypes.c_void_p,
-        ctypes.c_longlong,
-        ctypes.c_int,
-        ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    lib.grouped_sum_count_uses_shared.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.grouped_sum_count_uses_shared.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # values, k, gid, mask, n, ng, blocks, smem, out, stream
+    lib.grouped_sum_count.argtypes = [ctypes.POINTER(ptr), i32, ptr, ptr, ctypes.c_longlong, i32, i32, i32, ptr, ptr]
+    lib.grouped_sum_count.restype = i32
+    lib.grouped_sum_count_plan.argtypes = [i32, i32, ctypes.c_longlong, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.grouped_sum_count_plan.restype = i32
     return lib
 
 
@@ -93,22 +91,30 @@ def uses_shared_counters(k: int, ng: int, device: torch.device) -> bool:
     """Whether the flat kernel keeps (k, ng)'s counters in shared memory on
     the CUDA `device` (False: its global-atomics path, which the engine
     leaves to the two-level kernel)."""
-    return _uses_shared(_cuda_index(device), k, ng)
+    return _plan(_cuda_index(device), k, ng, 0)[1] > 0
 
 
-@functools.cache
-def _uses_shared(index: int, k: int, ng: int) -> bool:
+@functools.lru_cache(maxsize=256)
+def _plan(index: int, k: int, ng: int, n: int) -> tuple[int, int]:
+    """(blocks, dynamic shared bytes, 0 for the global branch) of the flat
+    kernel for (k, ng, n) on device `index`: planned once per shape, so a
+    launch makes no runtime query."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(index):
-        r = _library().grouped_sum_count_uses_shared(k, ng)
-    if r < 0:
-        raise RuntimeError(f"CUDA error {-r} querying the shared-memory limit")
-    return bool(r)
+        err = _library().grouped_sum_count_plan(k, ng, n, ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"grouped_sum_count planning failed with CUDA error {err} (k={k}, ng={ng}, n={n})")
+    return blocks.value, smem.value
 
 
 def _launch(lib, cols: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor, ng: int, out: torch.Tensor) -> None:
+    n = gid.numel()
+    blocks, smem = _plan(gid.device.index, len(cols), ng, n)
     ptrs = (ctypes.c_void_p * max(len(cols), 1))(*[v.data_ptr() for v in cols])
     stream = torch.cuda.current_stream(gid.device).cuda_stream
-    err = lib.grouped_sum_count(ptrs, len(cols), gid.data_ptr(), mask.data_ptr(), gid.numel(), ng, out.data_ptr(), stream)
+    err = lib.grouped_sum_count(
+        ptrs, len(cols), gid.data_ptr(), mask.data_ptr(), n, ng, blocks, smem, out.data_ptr(), stream
+    )
     if err != 0:
         raise RuntimeError(f"grouped_sum_count launch failed with CUDA error {err}")
     grouped_multi_sum.launches += 1

@@ -16,10 +16,12 @@ kernel (`ops.groupby.grouped_multi_sum`: the flat kernel, or the two-level one
 when the counters pass a block's shared memory), as the reference routes them
 through its Pallas byte-plane kernels. A group-key product past
 MAX_DENSE_GROUPS takes the sort-compaction path (`groups_sparse`), and the
-aggregation runs over U compact slots. Grouped MIN/MAX/MINMAXRANGE go through
-the extreme kernel (`ops.extreme.grouped_extreme`, the counterpart of the
-Pallas `_make_extreme_kernel`), where the reference uses XLA's
-segment_min/max, and DISTINCTCOUNT's presence vectors through the presence
+aggregation runs over U compact slots. Every grouped MIN/MAX/MINMAXRANGE of a
+group-by goes through one call of the extreme kernel
+(`ops.extreme.grouped_extremes`, the counterpart of the Pallas
+`_make_extreme_kernel`), one pass over the docs for all of them, where the
+reference makes one XLA segment_min/max per aggregate (which XLA fuses;
+eager torch would not), and DISTINCTCOUNT's presence vectors through the presence
 entry of the one-hot-sum counterpart (`ops.grouped_sum_f32.presence`), where
 the reference scatters with `.at[...].max(mask)`. The tensors' device decides
 what runs: on a CUDA device the hand-written kernels, on the CPU their plain
@@ -46,7 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pinot_tpu_torch.ops.extreme import grouped_extreme
+from pinot_tpu_torch.ops.extreme import grouped_extremes
 from pinot_tpu_torch.ops.groupby import grouped_multi_sum
 from pinot_tpu_torch.ops.grouped_sum_f32 import presence
 
@@ -223,31 +225,35 @@ def _f64_grouped_sum(v, gid, mask, ng):
     return torch.zeros(ng, dtype=_F, device=v.device).index_add_(0, idx, src)
 
 
-def _agg_grouped(kind, v_raw, mask, gid, ng, counts):
-    """Grouped partial of one aggregation over its evaluated value, for the
-    aggregations the exact kernel does not take: MIN/MAX/MINMAXRANGE of any
-    type and SUM/AVG of non-int32 values."""
-    is_i32 = v_raw.dtype == torch.int32
-    if kind == "sum":  # non-int32 only: int32 sums ride the exact kernel
-        return _f64_grouped_sum(v_raw.to(_F), gid, mask, ng)
-    if kind == "avg":
-        return (_f64_grouped_sum(v_raw.to(_F), gid, mask, ng), counts)
-    # MIN/MAX of int32 values stay int32 (an empty group is one with count
-    # 0); every other type is compared as float64, as the reference does
-    v = v_raw.contiguous() if is_i32 else v_raw.to(_F).contiguous()
-    hit = counts if is_i32 else None
-    if kind == "min":
-        return grouped_extreme(v, gid, mask, ng, True, hit)
-    if kind == "max":
-        return grouped_extreme(v, gid, mask, ng, False, hit)
-    # minmaxrange
-    return (grouped_extreme(v, gid, mask, ng, True, hit), grouped_extreme(v, gid, mask, ng, False, hit))
+def _grouped_extremes(aggs, values, mask, gid, ng, counts):
+    """{agg index: its MIN / MAX / (MIN, MAX) partial} for every grouped
+    MIN/MAX/MINMAXRANGE, from ONE grouped_extremes call: one column per
+    distinct value spec, one output per distinct (column, MIN or MAX).
+    MIN/MAX of int32 values stay int32 (an empty group is one with count 0);
+    every other type is compared as float64, as the reference does."""
+    columns, col_of, outputs, want = [], {}, [], {}
+    for i, a in enumerate(aggs):
+        if a[0] not in ("min", "max", "minmaxrange"):
+            continue
+        c = col_of.get(a[1])
+        if c is None:
+            v = values[i]
+            c = col_of[a[1]] = len(columns)
+            columns.append(v.contiguous() if v.dtype == torch.int32 else v.to(_F).contiguous())
+        want[i] = [(c, True)] * (a[0] != "max") + [(c, False)] * (a[0] != "min")
+        outputs += want[i]
+    if not outputs:
+        return {}
+    hit = counts if any(v.dtype == torch.int32 for v in columns) else None
+    got = iter(grouped_extremes(columns, outputs, gid, mask, ng, hit))
+    return {i: next(got) if len(o) == 1 else (next(got), next(got)) for i, o in want.items()}
 
 
 def _grouped_all(aggs, cols, ops, mask, gid, ng):
     """Group counts + every agg partial. The count and ALL int32 SUM/AVG aggs
-    fuse into ONE exact group-by kernel launch; the remaining aggs
-    (min/max/non-int32 sums, distinct presence) use their per-agg kernels."""
+    fuse into ONE exact group-by kernel launch, every MIN/MAX/MINMAXRANGE into
+    ONE extreme-kernel call; non-int32 SUM/AVG and distinct presence use their
+    own ops."""
     values, kernel_vals, owner = {}, [], {}
     for i, a in enumerate(aggs):
         if a[0] in ("count", "distinct_ids"):
@@ -259,6 +265,7 @@ def _grouped_all(aggs, cols, ops, mask, gid, ng):
             owner[i] = len(kernel_vals)
             kernel_vals.append(v.contiguous())
     sums, counts = grouped_multi_sum(kernel_vals, gid, mask, ng)
+    extremes = _grouped_extremes(aggs, values, mask, gid, ng, counts)
     parts = []
     for i, a in enumerate(aggs):
         if a[0] == "count":
@@ -269,8 +276,11 @@ def _grouped_all(aggs, cols, ops, mask, gid, ng):
             parts.append(presence(cols[a[1]].contiguous(), mask, a[2], gid=gid, ng=ng))
         elif i in owner:
             parts.append(sums[owner[i]] if a[0] == "sum" else (sums[owner[i]], counts))
-        else:
-            parts.append(_agg_grouped(a[0], values[i], mask, gid, ng, counts))
+        elif i in extremes:
+            parts.append(extremes[i])
+        else:  # SUM / AVG of non-int32 values
+            s = _f64_grouped_sum(values[i].to(_F), gid, mask, ng)
+            parts.append(s if a[0] == "sum" else (s, counts))
     return counts, tuple(parts)
 
 

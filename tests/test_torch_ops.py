@@ -1,8 +1,8 @@
 """The port's ops API (pinot_tpu_torch/ops/extreme.py, ops/grouped_sum_f32.py)
 against the JAX package's Pallas kernels, run in interpret mode on the CPU as
 tests/test_pallas_ops.py runs them, and the engine's forms of the same
-functions against the reference engine's XLA reductions
-(pinot_tpu/query/kernels.py). Inputs come from numpy with a seed and go to
+functions (grouped_extreme, grouped_extremes, grouped presence) against the
+reference engine's XLA reductions (pinot_tpu/query/kernels.py). Inputs come from numpy with a seed and go to
 both packages.
 
 Tolerances: MIN/MAX, COUNT and presence must be exactly equal (-0.0 == +0.0,
@@ -212,19 +212,144 @@ def test_scalar_presence_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# grouped_extremes: every MIN / MAX of a group-by in one call
+# ---------------------------------------------------------------------------
+
+
+def _reference_extreme(v, gid, mask, ng, is_min):
+    """The reference engine's grouped MIN / MAX of one aggregate: int32
+    values through `_int_grouped_extreme`, the rest as float64 through
+    segment_min / segment_max (pinot_tpu/query/kernels.py)."""
+    j = (jnp.asarray(gid), jnp.asarray(mask))
+    if v.dtype == np.int32:
+        return np.asarray(_int_grouped_extreme(jnp.asarray(v), j[0], j[1], ng, is_min))
+    red = jax.ops.segment_min if is_min else jax.ops.segment_max
+    fill = np.inf if is_min else -np.inf
+    return np.asarray(red(jnp.where(j[1], jnp.asarray(v), fill), j[0], num_segments=ng))
+
+
+def _mixed_columns(rng, n):
+    """int32 extremes, a float64 column with NaN / +-0.0 / +-inf, and a plain
+    int32 column."""
+    pool = np.array([I32.min, I32.max, I32.min + 1, I32.max - 1, -1, 0, 1], dtype=np.int64)
+    a = rng.choice(pool, n).astype(np.int32)
+    x = rng.normal(0, 1e6, n)
+    x[rng.random(n) < 0.003] = np.nan
+    x[rng.random(n) < 0.05] = 0.0
+    x[rng.random(n) < 0.05] = -0.0
+    x[rng.random(n) < 0.01] = np.inf
+    x[rng.random(n) < 0.01] = -np.inf
+    c = rng.integers(-1000, 1000, n).astype(np.int32)
+    return [a, x, c]
+
+
+@pytest.mark.parametrize("ng", [37, 256])
+def test_grouped_extremes_match_reference_output_by_output(ng):
+    """int32 and float64 columns in one call, a column with both its MIN and
+    its MAX, an empty group (3) and NaN groups: each output equals the
+    reference's reduction of that aggregate."""
+    rng, gid, mask = _engine_inputs(ng + 5, ng)
+    columns = _mixed_columns(rng, N)
+    outputs = [(0, True), (1, False), (2, True), (2, False), (1, True), (0, False)]
+    counts = _t(np.bincount(gid[mask], minlength=ng).astype(np.int64))
+    got = ops.grouped_extremes([_t(c) for c in columns], outputs, _t(gid), _t(mask), ng, counts)
+    assert len(got) == len(outputs)
+    for (c, is_min), g in zip(outputs, got):
+        want = _reference_extreme(columns[c], gid, mask, ng, is_min)
+        _same(g.numpy(), want)
+        assert g[3] == (np.inf if is_min else -np.inf)
+    assert np.isnan(got[1].numpy()).any() and np.isnan(got[4].numpy()).any()
+
+
+def test_grouped_extremes_nine_outputs_and_repeats():
+    """Past MAX_OUTPUTS distinct outputs, and a repeated (column, is_min):
+    every output still equals the reference's, in the order asked."""
+    ng = 64
+    rng, gid, mask = _engine_inputs(21, ng)
+    columns = _mixed_columns(rng, N) + [rng.uniform(-1, 1, N), rng.integers(-9, 9, N).astype(np.int32)]
+    outputs = [(0, True), (0, False), (1, True), (1, False), (2, True), (2, False), (3, True), (3, False), (4, False),
+               (1, True)]
+    assert len(set(outputs)) == extreme.MAX_OUTPUTS + 1
+    counts = _t(np.bincount(gid[mask], minlength=ng).astype(np.int64))
+    got = ops.grouped_extremes([_t(c) for c in columns], outputs, _t(gid), _t(mask), ng, counts)
+    for (c, is_min), g in zip(outputs, got):
+        _same(g.numpy(), _reference_extreme(columns[c], gid, mask, ng, is_min))
+
+
+def test_grouped_extremes_float32_and_single_forms_agree():
+    """A float32 column keeps a float32 result, as grouped_min / grouped_max
+    give it; each output of one call equals the one-output form."""
+    ng = 256
+    vals, gid, mask = _inputs(13, ng)
+    wide = np.random.default_rng(13).normal(0, 1e6, N)
+    got = ops.grouped_extremes([_t(vals), _t(wide)], [(0, False), (0, True), (1, True)], _t(gid), _t(mask), ng)
+    assert [g.dtype for g in got] == [torch.float32, torch.float32, torch.float64]
+    _same(got[0].numpy(), ops.grouped_max(_t(vals), _t(gid), _t(mask), ng).numpy())
+    _same(got[1].numpy(), ops.grouped_min(_t(vals), _t(gid), _t(mask), ng).numpy())
+    _same(got[2].numpy(), ops.grouped_extreme(_t(wide), _t(gid), _t(mask), ng, True).numpy())
+
+
+def test_config5_like_query_makes_one_extremes_call_a_segment(monkeypatch):
+    """Config 5's MIN, MAX, MINMAXRANGE and MAX of a quotient reach the
+    extreme op as ONE grouped_extremes call per segment: four columns (the
+    quotient as float64), five outputs."""
+    from pinot_tpu_torch.common import DataType, Schema
+    from pinot_tpu_torch.query import QueryEngine
+    from pinot_tpu_torch.query import kernels as qk
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    schema = Schema.build(
+        "lineorder",
+        dimensions=[("d_year", DataType.INT), ("c_nation", DataType.STRING)],
+        metrics=[("lo_revenue", DataType.LONG), ("lo_supplycost", DataType.LONG), ("lo_quantity", DataType.INT)],
+    )
+    segments = []
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        n = 3000
+        data = {
+            "d_year": rng.integers(1992, 1999, n).astype(np.int32),
+            "c_nation": np.array([f"NATION_{i:02d}" for i in range(25)], dtype=object)[rng.integers(0, 25, n)],
+            "lo_revenue": rng.integers(100, 600_000, n).astype(np.int64),
+            "lo_supplycost": rng.integers(50, 100_000, n).astype(np.int64),
+            "lo_quantity": rng.integers(1, 51, n).astype(np.int32),
+        }
+        segments.append(SegmentBuilder(schema).build(data, f"lineorder_{seed}"))
+    calls = []
+    real = qk.grouped_extremes
+
+    def spy(columns, outputs, *args, **kw):
+        calls.append(([c.dtype for c in columns], list(outputs)))
+        return real(columns, outputs, *args, **kw)
+
+    monkeypatch.setattr(qk, "grouped_extremes", spy)
+    res = QueryEngine(segments, device="cpu").execute(
+        "SELECT d_year, c_nation, COUNT(*), MIN(lo_quantity), MAX(lo_revenue), MINMAXRANGE(lo_supplycost), "
+        "MAX(lo_revenue / lo_quantity) FROM lineorder WHERE lo_quantity > 5 AND d_year BETWEEN 1993 AND 1997 "
+        "GROUP BY d_year, c_nation ORDER BY d_year, c_nation LIMIT 200"
+    )
+    assert len(res.rows) == 125
+    assert len(calls) == len(segments)
+    for dtypes, outputs in calls:
+        assert dtypes == [torch.int32, torch.int32, torch.int32, torch.float64]
+        assert outputs == [(0, True), (1, False), (2, True), (2, False), (3, False)]
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
 
 def test_cpu_path_never_counts_a_launch():
     vals, gid, mask = _inputs(1, 16, n=500)
-    before = (extreme.grouped_extreme.launches, grouped_sum_f32.grouped_sum.launches, grouped_sum_f32.presence.launches)
+    before = (extreme.grouped_extremes.launches, grouped_sum_f32.grouped_sum.launches, grouped_sum_f32.presence.launches)
     ops.grouped_min(_t(vals), _t(gid), _t(mask), 16)
+    ops.grouped_extremes([_t(vals)], [(0, True), (0, False)], _t(gid), _t(mask), 16)
     ops.grouped_sum(_t(vals), _t(gid), _t(mask), 16)
     ops.grouped_count(_t(gid), _t(mask), 16)
     ops.presence(_t(gid), _t(mask), 16)
     ops.presence(_t(gid), _t(mask), 16, gid=_t(gid), ng=16)
-    after = (extreme.grouped_extreme.launches, grouped_sum_f32.grouped_sum.launches, grouped_sum_f32.presence.launches)
+    after = (extreme.grouped_extremes.launches, grouped_sum_f32.grouped_sum.launches, grouped_sum_f32.presence.launches)
     assert after == before
 
 
@@ -242,6 +367,14 @@ _I = dict(dtype=torch.int32)
         lambda: ops.grouped_extreme(torch.zeros(8, **_I), torch.zeros(8, **_I), torch.ones(8, dtype=torch.bool), 4, True),
         lambda: ops.grouped_extreme(torch.zeros(8, dtype=torch.int64), torch.zeros(8, **_I),
                                     torch.ones(8, dtype=torch.bool), 4, True),
+        # grouped_extremes: an output past the columns, no outputs, an int32
+        # column's MIN without the counts, a float16 column
+        lambda: ops.grouped_extremes([torch.zeros(8)], [(1, True)], torch.zeros(8, **_I), torch.ones(8, dtype=torch.bool), 4),
+        lambda: ops.grouped_extremes([torch.zeros(8)], [], torch.zeros(8, **_I), torch.ones(8, dtype=torch.bool), 4),
+        lambda: ops.grouped_extremes([torch.zeros(8), torch.zeros(8, **_I)], [(0, True), (1, True)],
+                                     torch.zeros(8, **_I), torch.ones(8, dtype=torch.bool), 4),
+        lambda: ops.grouped_extremes([torch.zeros(8, dtype=torch.float16)], [(0, True)], torch.zeros(8, **_I),
+                                     torch.ones(8, dtype=torch.bool), 4),
         lambda: ops.grouped_sum(torch.zeros(8), torch.zeros(8, **_I), torch.ones(7, dtype=torch.bool), 4),
         lambda: ops.grouped_count(torch.zeros(8, **_I), torch.ones(8, dtype=torch.bool), -1),
         lambda: ops.presence(torch.zeros(8, dtype=torch.int64), torch.ones(8, dtype=torch.bool), 4),
@@ -260,6 +393,8 @@ def test_other_devices_raise():
     m = torch.zeros(8, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.grouped_min(torch.zeros(8, device="meta"), i, m, 4)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.grouped_extremes([torch.zeros(8, device="meta")], [(0, False)], i, m, 4)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.grouped_count(i, m, 4)
     with pytest.raises(ValueError, match="cuda or cpu"):
