@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""A/B on one card of the exact group-by kernel (grouped_sum_count) and the
-extreme kernel (grouped_extreme) of another checkout of pinot_tpu_torch and
-of this one, in turns: other, this, this, other.
+"""A/B on one card of the package's kernels in another checkout of
+pinot_tpu_torch and in this one, in turns: other, this, this, other.
 
     python3 chip_ab.py OTHER_ROOT
 
 OTHER_ROOT holds another pinot_tpu_torch/, for example the parent commit's:
     git archive HEAD~1 pinot_tpu_torch | tar -x -C _checkout/parent
 Each turn runs in a process of its own (two packages of one name do not load
-into one), builds the two kernels from its checkout's sources, and times them
-with chip_smoke's timing loop at chip_smoke's shapes: the flat kernel at Q4's
-shape, configs 3, 4 and 5's and 7 groups under a 90% mask; the extreme kernel
-for config 5's five outputs (one call per output where the checkout has no
-grouped_extremes) and for an int32 MIN at Q4's shape. Each result is held
-against the checkout's plain version. Prints one JSON line per turn: device
-ms alone, the host's enqueue ms and the span ms per shape, and the card's
-name and power limit.
+into one), builds the kernels from its checkout's sources, and times them
+with chip_smoke's timing loop at chip_smoke's shapes: the flat exact group-by
+(B1) at Q4's shape, configs 3, 4 and 5's and 7 groups under a 90% mask; the
+two-level exact group-by (B2, `grouped_multi_sum_2l`) at configs 8 and 9's
+shapes and past the L2; the extreme kernel (B3) for config 5's five outputs
+(one call per output where the checkout has no grouped_extremes) and an
+int32 MIN at Q4's shape; the
+presence kernel (B4) at configs 6 and 7's real shapes (config 7's two columns
+in one call, or two one-column calls where the checkout has no `presences`),
+Q4's grouped shape and config 6's shape at an off-path 70% mask. Each result
+is held against the checkout's plain version. Then the checkout's engine
+runs chip_smoke's main path over the same 16M-row lineorder: configs 1-7
+are checked against the oracle and their wall times taken (p50 of 11
+executes after 2 warm-ups; configs 8-9 take seconds a turn and are left
+out). Prints one JSON line per turn: device ms alone, the host's enqueue ms
+and the span ms per shape, the walls, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -28,6 +35,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 B1_SHAPES = ("q4_shape", "config3_shape", "config4_shape", "config5_shape_k0", "contention_7_groups_90pct")
+B2_SHAPES = ("config8_shape", "config9_shape", "ng_2^20_k8_past_L2")
+B4_SHAPES = ("config6_shape", "config7_shape", "config7_one_column", "q4_shape_grouped_pad32",
+             "off_path_ng256_pad32_70pct", "off_path_scalar_two_columns_70pct")
+WALL_CONFIGS = ("1_count_filter", "2_filtered_agg", "3_q1_groupby", "4_q4_groupby_orderby", "5_groupby_minmax",
+                "6_groupby_distinct", "7_distinct")
 
 
 def turn(root: str) -> dict:
@@ -40,6 +52,7 @@ def turn(root: str) -> dict:
     from pinot_tpu_torch.ops import build
     from pinot_tpu_torch.ops import extreme as ext
     from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
 
     if not os.path.abspath(gb.__file__).startswith(os.path.abspath(root)):
         raise RuntimeError(f"{gb.__file__} is not under {root}")
@@ -51,13 +64,18 @@ def turn(root: str) -> dict:
         return {"device_ms": device_ms, "host_ms": host_ms, "span_ms": cs.time_ms(torch, fn, 50)}
 
     t0 = time.perf_counter()
-    build.build(["grouped_sum_count", "grouped_extreme"])
-    out = {"root": root, "build_s": time.perf_counter() - t0, "b1": {}, "b3": {}}
+    build.build(["grouped_sum_count", "grouped_sum_count_2l", "grouped_extreme", "grouped_sum_f32"])
+    out = {"root": root, "build_s": time.perf_counter() - t0, "b1": {}, "b2": {}, "b3": {}, "b4": {}}
     ssb = cs.ssb_shapes(torch)
     for name, values, gid, mask, ng, _ in cs.kernel_cases(torch, ssb):
         if name in B1_SHAPES:
             fn = lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng)  # noqa: E731
             out["b1"][name] = timed(fn, torch.equal(fn(), gb.grouped_multi_sum_plain(values, gid, mask, ng)))
+
+    for name, values, gid, mask, ng, *_ in cs.two_level_cases(torch):
+        if name in B2_SHAPES:
+            fn = lambda: gb.grouped_multi_sum_2l(values, gid, mask, ng)  # noqa: E731
+            out["b2"][name] = timed(fn, torch.equal(fn(), gb.grouped_multi_sum_plain(values, gid, mask, ng)))
 
     five = next(c for c in cs.multi_cases(torch, ssb) if c[0] == "config5_five_outputs")
     _, cols, outputs, gid, mask, ng, counts, _ = five
@@ -71,6 +89,25 @@ def turn(root: str) -> dict:
     _, values, gid, mask, ng, is_min, counts, _ = q4
     fn = lambda: ext.grouped_extreme_kernel(values, gid, mask, ng, is_min, counts)  # noqa: E731
     out["b3"]["q4_shape_i32_min"] = timed(fn, cs.same(torch, fn(), ext.grouped_extreme_plain(values, gid, mask, ng, is_min, counts)))
+
+    for name, columns, pads, mask, gid, ng, _ in cs.presence_cases(torch):
+        if name not in B4_SHAPES:
+            continue
+        if hasattr(gs, "presences_kernel"):
+            fn = lambda: gs.presences_kernel(columns, pads, mask, gid, ng)  # noqa: E731
+        else:
+            fn = lambda: [gs.presence_kernel(c, mask, p, gid, ng) for c, p in zip(columns, pads)]  # noqa: E731
+        want = [gs.presence_plain(c, mask, p, gid, ng) for c, p in zip(columns, pads)]
+        out["b4"][name] = timed(fn, all(torch.equal(g, w) for g, w in zip(fn(), want)))
+
+    data, nation, category = cs.make_ssb_data(cs.N_ROWS)
+    oracle, _ = cs.oracle(data, nation, category)
+    engine, _, _ = cs.ssb_engine(data)
+    del data
+    out["walls"] = {}
+    for name in WALL_CONFIGS:
+        cs.rows_match(name, engine.execute(cs.CONFIGS[name]).rows, oracle[name])
+        out["walls"][name] = cs.wall_p50(engine, cs.CONFIGS[name], runs=11)
     out["card"] = cs.card_line()
     return out
 

@@ -11,13 +11,14 @@
    version and the PyTorch library call beside the bound. Kernels:
    grouped_sum_count (exact int sums + counts), grouped_sum_count_2l (the
    same function for large group counts, two-level gid; timed beside
-   grouped_sum_count's global-atomics branch), grouped_extreme (MIN/MAX of
-   f32, i32 and f64 values) and grouped_sum_f32 (f32 sums / counts and the
-   DISTINCTCOUNT presence flags). Tolerance: exact equality (== , NaN equal
-   to NaN) for everything but f32 sums, which add in a run-dependent order
-   and are held to rtol 1e-4, atol 1e-2. Two choices of the wrappers are
-   timed on both sides: `dispatch_band`, the flat against the two-level
-   exact group-by where grouped_multi_sum switches between them, and
+   grouped_sum_count's global-atomics branch, with its passes and L),
+   grouped_extreme (MIN/MAX of f32, i32 and f64 values) and grouped_sum_f32
+   (f32 sums / counts, and the DISTINCTCOUNT presence flags of one or many
+   id columns a launch). Tolerance: exact equality (== , NaN equal to NaN)
+   for everything but f32 sums, which add in a run-dependent order and are
+   held to rtol 1e-4, atol 1e-2. Two choices of the wrappers are timed on
+   both sides: `dispatch_band`, the flat against the two-level exact
+   group-by where grouped_multi_sum switches between them, and
    `extreme_finish`, grouped_extreme's finish folded into its last block
    against a separate finish kernel.
 3. Main path: generates the SSB-flavoured lineorder (16M rows, seed 0, the
@@ -111,7 +112,7 @@ LAUNCHES_PER_SEGMENT = {
     "4_q4_groupby_orderby": (1, 0, 0, 0),
     "5_groupby_minmax": (1, 1, 0, 0),  # MIN, MAX, MINMAXRANGE of int32 and MAX of float64: one launch
     "6_groupby_distinct": (1, 0, 1, 0),
-    "7_distinct": (0, 0, 2, 0),
+    "7_distinct": (0, 0, 1, 0),  # both DISTINCTCOUNTs in one presence launch
     "8_groupby_wide": (0, 0, 0, 1),
     "9_groupby_sparse": (0, 0, 0, 1),
 }
@@ -375,13 +376,18 @@ def _counts(torch, gid, mask, ng):
 
 
 def two_level_cases(torch):
-    """(name, values, gid, mask, ng, L or None for the default): configs 8
-    and 9's shapes, ng = 2^20 with a dense mask under three L, and the edges
-    of the kernel's contract. Every case lies past the flat kernel's shared
-    counters, where the engine takes the two-level kernel."""
+    """(name, values, gid, mask, ng, L or None for the default, branches):
+    configs 8 and 9's shapes, ng = 2^20 with a dense mask under four L, and
+    the edges of the kernel's contract, each edge both where its buckets are
+    dense (records and the reduce) and where they are sparse (the partition
+    adds straight into the output). `branches` is the set of bucket branches
+    the case's launches take on an H100 (132 SMs): check_two_level asserts
+    it. Every case lies past the flat kernel's shared counters, where the
+    engine takes the two-level kernel."""
     rng = np.random.default_rng(5)
     i32, b = torch.int32, torch.bool
     n, n2 = 4_194_304, 1 << 20
+    D, S, DS = {"dense"}, {"sparse"}, {"dense", "sparse"}
 
     def rev(m):
         return _tensor(torch, rng.integers(100, 600_000, m), i32)
@@ -389,51 +395,82 @@ def two_level_cases(torch):
     cases = []
     # config 8: GROUP BY lo_custkey, 71% of the docs pass the filter
     cases.append(("config8_shape", [rev(n)], _tensor(torch, rng.integers(0, 90_000, n), i32),
-                  _tensor(torch, rng.random(n) < 0.71, b), 90_112, None))
+                  _tensor(torch, rng.random(n) < 0.71, b), 90_112, None, D))
     # config 9: 1.4% of the docs pass; their slots are the first ~57k of
     # U = 2^20, the other docs' slots lie anywhere
     m9 = rng.random(n) < 0.0143
     g9 = rng.integers(0, 1 << 20, n)
     g9[m9] = rng.integers(0, 57_000, int(m9.sum()))
-    cases.append(("config9_shape", [rev(n)], _tensor(torch, g9, i32), _tensor(torch, m9, b), 1 << 20, None))
-    # ng = 2^20 with a dense mask; L must not change the answer: the widest
-    # L that fits (14), L = 9, and L = 4, whose 65,536 buckets pass the
-    # shared histogram (a global atomic per doc)
+    cases.append(("config9_shape", [rev(n)], _tensor(torch, g9, i32), _tensor(torch, m9, b), 1 << 20, None, S))
+    # ng = 2^20 with a dense mask; L must not change the answer: the default
+    # (12), the widest L that fits (14), L = 9, and L = 4, whose 65,536
+    # buckets pass the shared histogram (a global atomic per doc)
     dense = ([rev(n)], _tensor(torch, rng.integers(0, 1 << 20, n), i32), _tensor(torch, rng.random(n) < 0.9, b))
-    cases.append(("ng_2^20_dense_mask", *dense, 1 << 20, None))
-    cases.append(("ng_2^20_dense_mask_L14", *dense, 1 << 20, 14))
-    cases.append(("ng_2^20_dense_mask_L9", *dense, 1 << 20, 9))
-    cases.append(("ng_2^20_dense_mask_L4_global_hist", *dense, 1 << 20, 4))
+    cases.append(("ng_2^20_dense_mask", *dense, 1 << 20, None, D))
+    cases.append(("ng_2^20_dense_mask_L14", *dense, 1 << 20, 14, S))
+    cases.append(("ng_2^20_dense_mask_L9", *dense, 1 << 20, 9, D))
+    cases.append(("ng_2^20_dense_mask_L4_global_hist", *dense, 1 << 20, 4, DS))
     # k = 8 at ng = 2^20: a 72 MB output, past the 50 MB L2
-    cases.append(("ng_2^20_k8_past_L2", [rev(n) for _ in range(8)], *dense[1:], 1 << 20, None))
+    cases.append(("ng_2^20_k8_past_L2", [rev(n) for _ in range(8)], *dense[1:], 1 << 20, None, D))
     gid2 = _tensor(torch, rng.integers(0, 100_003, n2), i32)
     mask2 = _tensor(torch, rng.random(n2) < 0.6, b)
     cases.append(("ng_100003_k2_not_a_multiple", [rev(n2), _tensor(torch, rng.integers(-10**6, 10**6, n2), i32)],
-                  gid2, mask2, 100_003, None))
+                  gid2, mask2, 100_003, None, S))
+    # the first launch (k = 8, L = 11) is dense, the second (k = 1) sparse
     cases.append(("k9_two_launches", [_tensor(torch, rng.integers(-(1 << 20), 1 << 20, n2), i32) for _ in range(9)],
-                  gid2, mask2, 100_003, None))
-    cases.append(("k0_counts_only", [], gid2, mask2, 100_003, None))
-    cases.append(("empty_mask", [rev(n2)], gid2, _tensor(torch, np.zeros(n2, bool), b), 100_003, None))
+                  gid2, mask2, 100_003, None, DS))
+    cases.append(("k0_counts_only", [], gid2, mask2, 100_003, None, S))
+    cases.append(("k0_counts_only_dense", [], *dense[1:], 1 << 20, None, D))
+    cases.append(("empty_mask", [rev(n2)], gid2, _tensor(torch, np.zeros(n2, bool), b), 100_003, None, set()))
     one = np.zeros(n2, bool)
     one[777_777] = True
-    cases.append(("one_doc", [rev(n2)], gid2, _tensor(torch, one, b), 100_003, None))
+    cases.append(("one_doc", [rev(n2)], gid2, _tensor(torch, one, b), 100_003, None, S))
     i32_info = np.iinfo(np.int32)
-    ogid = rng.integers(-3, 50_300, n2)
-    ogid[::101] = i32_info.max
-    ogid[1::103] = i32_info.min
-    cases.append(("out_of_range_gids", [rev(n2)], _tensor(torch, ogid, i32), mask2, 50_000, None))
+
+    def out_of_range(m, ng):
+        g = rng.integers(-3, ng + 300, m)
+        g[::101] = i32_info.max
+        g[1::103] = i32_info.min
+        return _tensor(torch, g, i32)
+
+    cases.append(("out_of_range_gids_sparse", [rev(n2)], out_of_range(n2, 50_000), mask2, 50_000, None, S))
+    cases.append(("out_of_range_gids_dense", [rev(n)], out_of_range(n, 1 << 20), dense[2], 1 << 20, None, D))
     pool = np.array([i32_info.min, i32_info.max, -1, 0, 1], dtype=np.int64)
-    cases.append(("int32_extremes_k3", [_tensor(torch, rng.choice(pool, n2), i32) for _ in range(3)],
-                  _tensor(torch, rng.integers(0, 40_000, n2), i32), _tensor(torch, rng.random(n2) < 0.9, b), 40_000, None))
+    cases.append(("int32_extremes_k3_sparse", [_tensor(torch, rng.choice(pool, n2), i32) for _ in range(3)],
+                  _tensor(torch, rng.integers(0, 40_000, n2), i32), _tensor(torch, rng.random(n2) < 0.9, b), 40_000,
+                  None, S))
+    cases.append(("int32_extremes_k3_dense", [_tensor(torch, rng.choice(pool, n), i32) for _ in range(3)],
+                  *dense[1:], 1 << 20, None, D))
     # skew: every doc in one bucket (bucket 1 of L = 12)
     cases.append(("one_bucket", [rev(n)], _tensor(torch, rng.integers(1 << 12, 2 << 12, n), i32),
-                  _tensor(torch, rng.random(n) < 0.9, b), 1 << 20, None))
+                  _tensor(torch, rng.random(n) < 0.9, b), 1 << 20, None, D))
     # n % 4 = 3: the last docs after the 4-doc steps; then group ids one
     # element past an aligned start, which rules out the 16-byte loads
-    n3 = n2 - 3
-    cases.append(("tail_of_3_docs", [rev(n3)], gid2[:n3].contiguous(), mask2[:n3].contiguous(), 100_003, None))
-    cases.append(("unaligned_gid", [rev(n3)], gid2[1 : n3 + 1], mask2[1 : n3 + 1], 100_003, None))
+    n3, n4 = n2 - 3, n - 3
+    cases.append(("tail_of_3_docs_sparse", [rev(n3)], gid2[:n3].contiguous(), mask2[:n3].contiguous(), 100_003,
+                  None, S))
+    cases.append(("unaligned_gid_sparse", [rev(n3)], gid2[1 : n3 + 1], mask2[1 : n3 + 1], 100_003, None, S))
+    cases.append(("tail_of_3_docs_dense", [rev(n4)], dense[1][:n4].contiguous(), dense[2][:n4].contiguous(),
+                  1 << 20, None, D))
+    cases.append(("unaligned_gid_dense", [rev(n4)], dense[1][1 : n4 + 1], dense[2][1 : n4 + 1], 1 << 20, None, D))
     return cases
+
+
+def bucket_branches(torch, gb, k, gid, mask, ng, bits, limit) -> list[dict]:
+    """For each launch of a two-level call (MAX_COLS columns at most a
+    launch): its L, the kernel's own sparse limit, and how many hi buckets
+    hold docs past it (dense: records and the reduce) and at most it
+    (sparse: straight into the output; empty buckets not counted)."""
+    ok, idx = _in_range(torch, gid, mask, ng)
+    out = []
+    for start in range(0, max(k, 1), gb.MAX_COLS):
+        cols = min(gb.MAX_COLS, k - start) if k else 0
+        L = gb.two_level_bits(cols, ng, limit) if bits is None else bits
+        top = gb.sparse_max(cols, gid.numel(), ng, L, gid.device)
+        totals = torch.bincount(idx[ok] >> L, minlength=(ng + (1 << L) - 1) >> L)
+        out.append({"k": cols, "L": L, "sparse_max": top, "dense": int((totals > top).sum().item()),
+                    "sparse": int(((totals > 0) & (totals <= top)).sum().item())})
+    return out
 
 
 def pass_times(torch, fn, calls: int = 5) -> dict:
@@ -458,21 +495,29 @@ def pass_times(torch, fn, calls: int = 5) -> dict:
 def check_two_level(torch, gb) -> dict:
     results, keep, max_err = [], {}, 0.0
     limit = gb.shared_limit(torch.device("cuda"))
-    for name, values, gid, mask, ng, bits in two_level_cases(torch):
+    for name, values, gid, mask, ng, bits, branches in two_level_cases(torch):
         k = len(values)
         if gb.uses_shared_counters(min(k, gb.MAX_COLS), ng, gid.device):
             raise AssertionError(f"{name}: (k={k}, ng={ng}) fits the flat kernel's shared counters")
+        before = gb.grouped_multi_sum_2l.launches
         got = gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng, bits)
         torch.cuda.synchronize()
+        launches = gb.grouped_multi_sum_2l.launches - before
         used = gb.two_level_bits(min(k, gb.MAX_COLS), ng, limit) if bits is None else bits
+        buckets = bucket_branches(torch, gb, k, gid, mask, ng, bits, limit)
+        took = {b for b in ("dense", "sparse") if any(row[b] for row in buckets)}
         want = gb.grouped_multi_sum_plain(values, gid, mask, ng)
         equal = torch.equal(got, want)
         err = float((got - want).abs().max().item())
         max_err = max(max_err, err)
-        results.append({"case": name, "k": k, "ng": ng, "n": gid.numel(), "L": used,
-                        "mask_on": int(mask.sum().item()), "equal": equal})
+        results.append({"case": name, "k": k, "ng": ng, "n": gid.numel(), "L": used, "launches": launches,
+                        "mask_on": int(mask.sum().item()), "buckets": buckets, "equal": equal})
         if not equal:
             raise AssertionError(f"{name}: grouped_sum_count_2l kernel != plain version (max abs err {err})")
+        if launches != max(1, -(-k // gb.MAX_COLS)):
+            raise AssertionError(f"{name}: {launches} launches for k={k}")
+        if took != branches:
+            raise AssertionError(f"{name}: buckets took {sorted(took)}, expected {sorted(branches)}: {buckets}")
         keep[name] = (values, gid, mask, ng, used)
     emit({"phase": "kernel_vs_plain", "kernel": "grouped_sum_count_2l", "shared_limit": limit, "cases": results})
 
@@ -482,27 +527,30 @@ def check_two_level(torch, gb) -> dict:
         k, n, masked = len(values), gid.numel(), int(mask.sum().item())
         ok, idx = _in_range(torch, gid, mask, ng)
         src = torch.stack([torch.where(ok, v, 0).to(torch.int64) for v in values] + [ok.to(torch.int64)])
-        dst = torch.zeros(k + 1, ng, dtype=torch.int64, device="cuda")
+        dst = torch.zeros(k + 1, ng, dtype=torch.int64, device=gid.device)
         out_bytes = (k + 1) * ng * 8
+        fn = lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng)  # noqa: E731
+        device_ms, host_ms = device_and_host_ms(torch, fn)
         timings[name] = {
             "shape": {"n": n, "k": k, "ng": ng, "L": bits, "mask_on": masked},
-            "kernel_ms": time_ms(torch, lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng), 50),
+            # device time alone (the output's zero fill included), the host's
+            # enqueue meanwhile, and the span with it
+            "kernel_device_ms": device_ms,
+            "kernel_host_ms": host_ms,
+            "kernel_ms": time_ms(torch, fn, 50),
             # the flat kernel's global-atomics branch at the same shape
-            "flat_global_ms": time_ms(torch, lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng), 50),
+            "flat_global_device_ms": time_ms(torch, lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng), 50,
+                                             queued=True),
             "plain_ms": time_ms(torch, lambda: gb.grouped_multi_sum_plain(values, gid, mask, ng), 10),
             "library_ms": time_ms(torch, lambda: dst.index_add_(1, idx, src), 20),
             "bound_ms": hbm_ms(n * (4 + 1 + 4 * k) + out_bytes),
             "bound_data_ms": hbm_ms(n + masked * (4 + 4 * k) + out_bytes),
-            # every L whose counters fit, and the device time of each pass
-            "kernel_ms_by_L": {
-                L: time_ms(torch, lambda L=L: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng, L), 20)
-                for L in range(6, gb.fit_bits(k, limit) + 1)
+            # the L values around the default, and the device time of each pass
+            "device_ms_by_L": {
+                L: time_ms(torch, lambda L=L: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng, L), 20, queued=True)
+                for L in range(max(6, bits - 2), gb.fit_bits(k, limit) + 1)
             },
-            "pass_ms": pass_times(torch, lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng)),
-            # device time alone, the output's zero fill included: the times
-            # above also hold the host's enqueue, which a shared host stretches
-            "kernel_device_ms": time_ms(torch, lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng), 50, queued=True),
-            "flat_global_device_ms": time_ms(torch, lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng), 50, queued=True),
+            "pass_ms": pass_times(torch, fn),
         }
     emit({"phase": "kernel_timing", "kernel": "grouped_sum_count_2l", "timings": timings, "card": card_line()})
     emit({"phase": "dispatch_band", "timings": dispatch_band(torch, gb), "card": card_line()})
@@ -510,10 +558,9 @@ def check_two_level(torch, gb) -> dict:
 
 
 #: (k, ng) on both sides of where grouped_multi_sum leaves the flat kernel
-#: for the two-level one on an H100 (232,448 B a block): the flat kernel's
-#: (2k+1) x ng 32-bit counters fit up to ng 58,112 at k = 0 and 19,370 at
-#: k = 1; 64-bit counters, (k+1) x ng x 8 B, fitted up to 29,056 and 14,528
-BAND = [(0, 24_576), (0, 40_960), (0, 57_344), (0, 61_440), (1, 12_288), (1, 18_432), (1, 22_528)]
+#: on an H100 (232,448 B a block): the flat kernel's (2k+1) x ng 32-bit
+#: counters fit up to ng 58,112 at k = 0 and 19,370 at k = 1
+BAND = [(0, 57_344), (0, 61_440), (1, 18_432), (1, 22_528)]
 
 
 def dispatch_band(torch, gb) -> dict:
@@ -530,20 +577,21 @@ def dispatch_band(torch, gb) -> dict:
         gid = _tensor(torch, rng.integers(0, ng, n), torch.int32)
         values = [value][:k]
         want = gb.grouped_multi_sum_plain(values, gid, mask, ng)
-        flat = lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng)  # noqa: E731
-        two = lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng)  # noqa: E731
-        for name, fn in (("flat", flat), ("two_level", two)):
+        runs = {
+            "flat": lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng),
+            "two_level": lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng),
+        }
+        shared = gb.uses_shared_counters(k, ng, gid.device)
+        row = {
+            "flat_shared_counters": shared,
+            "flat_blocks": gb._plan(gid.device.index, k, ng, n)[0],
+            "engine_takes": "flat" if shared else "two_level",
+        }
+        for name, fn in runs.items():
             if not torch.equal(fn(), want):
                 raise AssertionError(f"k={k} ng={ng}: the {name} kernel != plain version")
-        shared = gb.uses_shared_counters(k, ng, gid.device)
-        blocks = gb._plan(gid.device.index, k, ng, n)[0]
-        out[f"k{k}_ng{ng}"] = {
-            "flat_shared_counters": shared,
-            "flat_blocks": blocks,
-            "engine_takes": "flat" if shared else "two_level",
-            "flat_device_ms": time_ms(torch, flat, 50, queued=True),
-            "two_level_device_ms": time_ms(torch, two, 50, queued=True),
-        }
+            row[f"{name}_device_ms"] = time_ms(torch, fn, 50, queued=True)
+        out[f"k{k}_ng{ng}"] = row
     return out
 
 
@@ -848,34 +896,48 @@ def sum_f32_cases(torch):
 
 
 def presence_cases(torch):
-    """(name, ids, mask, pad, gid or None, ng, expect_shared): Q4's shape,
-    the engine's shapes (config 6: ng = 256, pad = 32; config 7: scalar,
-    pad = 32, both at config 6-7's selectivity and at 70%), and the edges."""
+    """(name, id columns, pads, mask, gid or None, ng, expect_shared): the
+    main path's shapes at configs 6-7's real mask (0.066% of the docs:
+    config 6 grouped, ng 256, pad 32; config 7 two scalar columns of pad 32
+    in one call, and one of them alone, the parent's one call), Q4's shape,
+    the same shapes at an off-path 70% mask, and the edges."""
     rng = np.random.default_rng(4)
     i32, b = torch.int32, torch.bool
     n = 4_194_304
     ids = _tensor(torch, rng.integers(0, 25, n), i32)
+    ids2 = _tensor(torch, rng.integers(0, 25, n), i32)
     mask = _tensor(torch, rng.random(n) < 0.7, b)
     sparse = _tensor(torch, rng.random(n) < 0.00066, b)
     q4_gid = _tensor(torch, rng.integers(0, 4375, n), i32)
     egid = _tensor(torch, rng.integers(0, 175, n), i32)
     none = _tensor(torch, np.zeros(n, bool), b)
     oids = _tensor(torch, rng.integers(-2, 40, n), i32)  # ids outside [0, 32): dropped
-    ogid = _tensor(torch, rng.integers(-3, 300, n), i32)
+    ogid = rng.integers(-3, 300, n)
+    ogid[::97] = np.iinfo(np.int32).max
+    ogid = _tensor(torch, ogid, i32)
     big_ids = _tensor(torch, rng.integers(0, 1000, n), i32)
     big_gid = _tensor(torch, rng.integers(0, 1 << 14, n), i32)
+    ids33 = _tensor(torch, rng.integers(-1, 35, n), i32)  # pad 33: two flag words a group
+    nine = [_tensor(torch, rng.integers(0, 1 << (j + 1), n), i32) for j in range(9)]
+    n3 = n - 3  # n % 4 = 1: a one-doc tail
     return [
-        ("q4_shape_grouped_pad32", ids, mask, 32, q4_gid, 4608, True),
-        ("q4_shape_scalar_pad32", ids, mask, 32, None, 1, True),
-        ("engine_ng256_pad32", ids, mask, 32, egid, 256, True),
-        ("engine_ng256_pad32_sparse", ids, sparse, 32, egid, 256, True),
-        ("engine_scalar_pad32", ids, mask, 32, None, 1, True),
-        ("engine_scalar_pad32_sparse", ids, sparse, 32, None, 1, True),
-        ("empty_mask_grouped", ids, none, 32, egid, 256, True),
-        ("empty_mask_scalar", ids, none, 32, None, 1, True),
-        ("out_of_range_grouped", oids, mask, 32, ogid, 256, True),
-        ("out_of_range_scalar", oids, mask, 32, None, 1, True),
-        ("cells_2^24_global", big_ids, mask, 1024, big_gid, 1 << 14, False),
+        ("config6_shape", [ids], [32], sparse, egid, 256, True),
+        ("config7_shape", [ids, ids2], [32, 32], sparse, None, 1, True),
+        ("config7_one_column", [ids], [32], sparse, None, 1, True),
+        ("q4_shape_grouped_pad32", [ids], [32], mask, q4_gid, 4608, True),
+        ("q4_shape_scalar_pad32", [ids], [32], mask, None, 1, True),
+        ("off_path_ng256_pad32_70pct", [ids], [32], mask, egid, 256, True),
+        ("off_path_scalar_two_columns_70pct", [ids, ids2], [32, 32], mask, None, 1, True),
+        ("empty_mask_grouped", [ids], [32], none, egid, 256, True),
+        ("empty_mask_scalar_two_columns", [ids, ids2], [32, 32], none, None, 1, True),
+        ("out_of_range_grouped", [oids, ids33], [32, 33], mask, ogid, 256, True),
+        ("out_of_range_scalar", [oids, ids], [32, 16], mask, None, 1, True),
+        ("pad33_and_pad8_grouped", [ids33, ids], [33, 8], sparse, egid, 256, True),
+        ("nine_columns_two_launches", nine, [1 << (j + 1) for j in range(9)], mask, egid, 256, True),
+        ("cells_2^24_global", [big_ids], [1024], mask, big_gid, 1 << 14, False),
+        ("global_pad1024_and_pad32", [big_ids, ids], [1024, 32], mask, big_gid, 1 << 14, False),
+        ("tail_of_1_doc", [ids[:n3], ids2[:n3]], [32, 32], mask[:n3], egid[:n3], 256, True),
+        ("unaligned_views", [ids[1:], ids2[1:]], [32, 32], mask[1:], egid[1:], 256, True),
     ]
 
 
@@ -899,21 +961,26 @@ def check_sum_f32(torch, gs) -> dict:
         if not ok:
             raise AssertionError(f"{name}: grouped_sum_f32 kernel != plain version (max abs err {err})")
         keep[name] = (values, gid, mask, ng)
-    for name, ids, mask, pad, gid, ng, expect_shared in presence_cases(torch):
-        shared = gs.uses_shared(gs.presence_state_bytes(pad, ng), ids.device)
+    for name, columns, pads, mask, gid, ng, expect_shared in presence_cases(torch):
+        grouped = gid is not None
+        shared = gs.uses_shared_flags(pads[: gs.MAX_COLS], ng, mask.device, grouped)
         if shared != expect_shared:
-            raise AssertionError(f"{name}: shared-memory path {shared}, expected {expect_shared}")
-        got = gs.presence_kernel(ids, mask, pad, gid, ng)
+            raise AssertionError(f"{name}: shared flags {shared}, expected {expect_shared}")
+        before = gs.presence.launches
+        got = gs.presences_kernel(columns, pads, mask, gid, ng)
         torch.cuda.synchronize()
-        want = gs.presence_plain(ids, mask, pad, gid, ng)
-        equal = same(torch, got, want)
+        launches = gs.presence.launches - before
+        if launches != -(-len(columns) // gs.MAX_COLS):
+            raise AssertionError(f"{name}: {launches} presence launches for {len(columns)} columns")
+        want = gs.presences_plain(columns, pads, mask, gid, ng)
+        equal = all(same(torch, g, w) for g, w in zip(got, want)) and len(got) == len(want)
         results.append(
-            {"case": name, "pad": pad, "ng": ng, "n": ids.numel(), "shared": shared,
-             "present": int(got.sum().item()), "equal": equal}
+            {"case": name, "pads": pads, "ng": ng, "n": mask.numel(), "shared": shared, "launches": launches,
+             "present": [int(g.sum().item()) for g in got], "equal": equal}
         )
         if not equal:
             raise AssertionError(f"{name}: presence kernel != plain version")
-        keep[name] = (ids, mask, pad, gid, ng)
+        keep[name] = (columns, pads, mask, gid, ng)
     emit({"phase": "kernel_vs_plain", "kernel": "grouped_sum_f32", "cases": results})
 
     timings = {}
@@ -934,32 +1001,50 @@ def check_sum_f32(torch, gs) -> dict:
         "bound_ms": hbm_ms(n * (4 + 1 + 4) + 4 * ng),
         "bound_data_ms": hbm_ms(n + masked * (4 + 4) + 4 * ng),
     }
-    for name in ("engine_ng256_pad32", "engine_scalar_pad32", "engine_ng256_pad32_sparse", "q4_shape_grouped_pad32"):
-        ids, mask, pad, gid, ng = keep[name]
-        n, masked = ids.numel(), int(mask.sum().item())
+    # the main path's shapes (configs 6 and 7 at their real mask; config 7's
+    # two columns in one launch, and one column alone), then off the path:
+    # Q4's grouped shape and a 70% mask
+    for name in ("config6_shape", "config7_shape", "config7_one_column", "q4_shape_grouped_pad32",
+                 "off_path_ng256_pad32_70pct", "off_path_scalar_two_columns_70pct"):
+        timings[name] = _b4_timing(torch, gs, *keep[name])
+    emit({"phase": "kernel_timing", "kernel": "grouped_sum_f32", "timings": timings, "card": card_line()})
+    return {"max_abs_err": max_err, **timings["config6_shape"]}
+
+
+def _b4_timing(torch, gs, columns, pads, mask, gid, ng) -> dict:
+    """Device time alone, the host's enqueue and the span of one presences
+    call, the plain version's time, the library's (one scatter_reduce_ amax
+    a column, summed) and the bounds."""
+    n, masked = mask.numel(), int(mask.sum().item())
+    scatter = []
+    for ids, pad in zip(columns, pads):
         ok = mask & (ids >= 0) & (ids < pad)
         cell = ids.to(torch.int64)
         if gid is not None:
             ok &= (gid >= 0) & (gid < ng)
             cell = gid.to(torch.int64) * pad + cell
-        idx = torch.where(ok, cell, 0)
-        src = ok.to(torch.uint8)
-        dst = torch.zeros(ng * pad, dtype=torch.uint8, device=ids.device)
-        per_doc = 4 + (4 if gid is not None else 0)
-        fn = lambda: gs.presence_kernel(ids, mask, pad, gid, ng)  # noqa: E731
-        device_ms, host_ms = device_and_host_ms(torch, fn)
-        timings[name] = {
-            "shape": {"n": n, "ng": ng, "pad": pad, "mask_on": masked},
-            "kernel_device_ms": device_ms,
-            "kernel_host_ms": host_ms,
-            "kernel_ms": time_ms(torch, fn, 50),
-            "plain_ms": time_ms(torch, lambda: gs.presence_plain(ids, mask, pad, gid, ng), 20),
-            "library_ms": time_ms(torch, lambda: dst.scatter_reduce_(0, idx, src, reduce="amax"), 20),
-            "bound_ms": hbm_ms(n * (per_doc + 1) + ng * pad),
-            "bound_data_ms": hbm_ms(n + masked * per_doc + ng * pad),
-        }
-    emit({"phase": "kernel_timing", "kernel": "grouped_sum_f32", "timings": timings, "card": card_line()})
-    return {"max_abs_err": max_err, **timings["engine_ng256_pad32"]}
+        scatter.append((torch.zeros(ng * pad, dtype=torch.uint8, device=mask.device), torch.where(ok, cell, 0),
+                        ok.to(torch.uint8)))
+
+    def library():
+        for dst, idx, src in scatter:
+            dst.scatter_reduce_(0, idx, src, reduce="amax")
+
+    # each doc's mask byte; a masked doc's ids (and group id); the flags once
+    per_doc = 4 * len(columns) + (4 if gid is not None else 0)
+    out_bytes = ng * sum(pads)
+    fn = lambda: gs.presences_kernel(columns, pads, mask, gid, ng)  # noqa: E731
+    device_ms, host_ms = device_and_host_ms(torch, fn)
+    return {
+        "shape": {"n": n, "ng": ng, "pads": pads, "mask_on": masked},
+        "kernel_device_ms": device_ms,
+        "kernel_host_ms": host_ms,
+        "kernel_ms": time_ms(torch, fn, 50),
+        "plain_ms": time_ms(torch, lambda: gs.presences_plain(columns, pads, mask, gid, ng), 20),
+        "library_ms": time_ms(torch, library, 20),
+        "bound_ms": hbm_ms(n * (per_doc + 1) + out_bytes),
+        "bound_data_ms": hbm_ms(n + masked * per_doc + out_bytes),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1076,15 +1161,13 @@ def rows_match(name: str, got: list, want: list) -> None:
                 raise AssertionError(f"{name} row {r} col {c}: got {a!r}, oracle {b!r}")
 
 
-def run_main_path(torch, counters: dict) -> dict:
+def ssb_engine(data: dict):
+    """N_SEGMENTS segments of `data` and a QueryEngine over them on the card,
+    from the pinot_tpu_torch first on the path, and the seconds the build
+    took."""
     from pinot_tpu_torch.common import DataType, Schema
     from pinot_tpu_torch.query import QueryEngine
     from pinot_tpu_torch.segment import SegmentBuilder
-
-    t0 = time.perf_counter()
-    data, nation, category = make_ssb_data(N_ROWS)
-    want, groups = oracle(data, nation, category)
-    t_gen = time.perf_counter() - t0
 
     schema = Schema.build(
         "lineorder",
@@ -1104,10 +1187,30 @@ def run_main_path(torch, counters: dict) -> dict:
         builder.build({c: v[i * per : (i + 1) * per] for c, v in data.items()}, f"lineorder_{i}")
         for i in range(N_SEGMENTS)
     ]
-    t_build = time.perf_counter() - t0
-    del data
+    return QueryEngine(segments, device="cuda"), segments, time.perf_counter() - t0
 
-    engine = QueryEngine(segments, device="cuda")
+
+def wall_p50(engine, sql: str, warm: int = 2, runs: int = 5) -> dict:
+    """Host-clock ms of `runs` executes of `sql` after `warm` warm-ups, each
+    ending in the device->host copies, and their median."""
+    for _ in range(warm):
+        engine.execute(sql)
+    ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        engine.execute(sql)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"p50_ms": float(np.median(ms)), "runs_ms": ms}
+
+
+def run_main_path(torch, counters: dict) -> dict:
+    t0 = time.perf_counter()
+    data, nation, category = make_ssb_data(N_ROWS)
+    want, groups = oracle(data, nation, category)
+    t_gen = time.perf_counter() - t0
+
+    engine, segments, t_build = ssb_engine(data)
+    del data
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     staged = [seg.to_device_cached("cuda") for seg in segments]
@@ -1148,20 +1251,10 @@ def run_main_path(torch, counters: dict) -> dict:
             raise AssertionError(f"the main path never launched {k}")
     emit({"phase": "main_path", "results_match_oracle": True, "launches_per_config": launches, "launches": main_launches})
 
-    wall = {}
-    for name, sql in CONFIGS.items():
-        for _ in range(2):
-            engine.execute(sql)
-        ms = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            engine.execute(sql)  # ends in the device->host copies
-            ms.append((time.perf_counter() - t0) * 1e3)
-        wall[name] = {"p50_ms": float(np.median(ms)), "runs_ms": ms}
     emit(
         {
             "phase": "main_path_timing",
-            "wall": wall,
+            "wall": {name: wall_p50(engine, sql) for name, sql in CONFIGS.items()},
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "card": card_line(),
         }

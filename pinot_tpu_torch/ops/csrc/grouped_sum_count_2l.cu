@@ -18,17 +18,23 @@
 // zeroing the bucket totals:
 //   1. histogram: masked in-range docs per hi bucket, counted per block in
 //      shared memory; each block writes its row and adds it to the totals;
-//   2. scan: exclusive prefix sum of the bucket totals (one block);
+//   2. scan: exclusive prefix sum of the bucket totals (one block), and a
+//      cursor per bucket: its offset, or kDirect for a sparse bucket, one
+//      with at most kSparse x 2^L docs for each of its reduce blocks.
+//      Folding the scan into the histogram's last block (a ticket after
+//      __threadfence) cost the histogram more than the launch it saved:
+//      0.0135 ms against 0.0106 + 0.0024 at config 8's shape (PERF.md);
 //   3. partition: each block reserves its run in every bucket it touches with
-//      one global atomic per (block, bucket), then writes each masked doc's
-//      record (lo, then its k values, padded for vector stores) to a slot of
-//      its run, so the docs of one bucket lie together. Passes 1 and 3 run
-//      the same one-wave grid-stride loop, so every block meets the same
-//      docs in both;
-//   4. reduce: a grid of (bucket, chunk) blocks. A block whose share of its
-//      bucket is small next to 2^L adds each doc straight into the output
-//      with global 64-bit atomics; else it adds its chunk into shared
-//      counters and flushes the groups it saw once, with global atomics.
+//      one global atomic per (block, bucket), then each masked doc takes a
+//      slot of its run. A slot of kDirect or more is a sparse bucket's: the
+//      doc adds straight into the output with global 64-bit atomics, no
+//      record and no reduce work. Else the doc's record (lo, then its k
+//      values, padded for vector stores) goes to its slot, so the docs of
+//      one bucket lie together. Passes 1 and 3 run the same one-wave
+//      grid-stride loop, so every block meets the same docs in both;
+//   4. reduce: a grid of (bucket, chunk) blocks; a dense bucket's block adds
+//      its chunk of records into shared counters and flushes the groups it
+//      saw once, with global atomics; a sparse bucket's blocks exit.
 // Past kMaxSharedBuckets buckets (a small L over a large ng) passes 1 and 3
 // count and reserve with global atomics instead.
 //
@@ -40,13 +46,21 @@
 //
 // Bound: memory. The docs' group ids and mask are read twice (passes 1 and
 // 3; four docs a step with one 16-byte and one 4-byte load where the
-// pointers are aligned), the masked docs' values once, the masked docs'
-// records cross the scratch buffer twice (4 + 4k B and padding written,
-// then read) and the output is written once. What the partition costs is
-// its store requests, not its bytes: a record goes out as one to three
-// vector stores, and a warp's records of one bucket lie side by side. The
-// scratch (N records at most, and the bucket tables) is allocated by the
-// caller through torch; nothing here allocates.
+// pointers are aligned), the masked docs' values once, a dense bucket's
+// records cross the scratch buffer twice (4 + 4k B and padding written, then
+// read) and the output is written once. The scratch (N records at most, and
+// the bucket tables) is allocated by the caller through torch; nothing here
+// allocates.
+//
+// Weighed and dropped on the card's numbers (H100 80GB HBM3 at 700 W, device
+// time alone, config 8's shape: ng 90,112, k = 1, 2.98M masked docs): one
+// pass through a thread-block cluster of 8 (or 16) blocks holding the
+// counters in distributed shared memory, each doc adding into its owner
+// block's slice with remote atomics. It took 0.096-0.112 ms against this
+// kernel's 0.078: the remote adds run at about one per four cycles an SM
+// (counts alone at k = 0: 2.9M adds in 0.055 ms), whatever the atomics'
+// form (generic or PTX .shared::cluster), the block size (512 or 1024
+// threads) or the flush (3.5 us of it); PERF.md.
 //
 // Docs with the mask off, or with a group id outside [0, ng), contribute
 // nothing, as in the flat kernel.
@@ -74,9 +88,16 @@ constexpr int kBlocksPerSm = 2048 / kThreads;
 // buckets whose counts and cursors passes 1 and 3 keep in shared memory
 // (48 KB of 32-bit counters: within the default limit, no opt-in)
 constexpr int kMaxSharedBuckets = 12288;
-// a reduce block whose share of its bucket is at most 2^L >> kSparseShift
-// docs adds them straight into the output
-constexpr int kSparseShift = 3;
+// a bucket with at most kSparse x 2^L docs for each of its reduce blocks is
+// sparse: the partition adds its docs straight into the output. At config
+// 9's shape (14 buckets of ~4,300 docs, 2^L = 4096) that took the kernel
+// from 0.0495 to 0.0452 ms; 8 x 2^L turned config 8's buckets (~135k docs)
+// sparse too and took it from 0.077 to 0.102 (PERF.md)
+constexpr int kSparse = 2;
+// the cursor of a sparse bucket, and past it: a record's slot is below
+// n <= INT_MAX, so a doc whose cursor add returns kDirect or more is a
+// sparse bucket's and goes straight into the output
+constexpr unsigned int kDirect = 0x80000000u;
 constexpr int kMaxDevices = 64;
 
 struct Cols {
@@ -87,6 +108,38 @@ struct Cols {
 // 2, 4 or a multiple of 4 words so that it is written and read with vector
 // accesses (one store request a doc for k <= 3).
 __host__ __device__ constexpr int record_words(int k) { return k < 2 ? k + 1 : (k + 4) / 4 * 4; }
+
+// offsets[b] = totals[0] + ... + totals[b-1], offsets[n_hi] = the total, and
+// cursor[b] = offsets[b], or kDirect for a sparse bucket (at most
+// sparse_max docs). One block: each thread sums a contiguous run of
+// buckets, the block scans the runs' sums, each thread writes its run.
+__global__ void __launch_bounds__(kScanThreads)
+    scan_kernel(const unsigned int* __restrict__ totals, int n_hi, long long sparse_max,
+                unsigned int* __restrict__ offsets, unsigned int* __restrict__ cursor) {
+  __shared__ unsigned int part[kScanThreads];
+  const int t = threadIdx.x;
+  const int per = (n_hi + kScanThreads - 1) / kScanThreads;
+  const int begin = min(n_hi, t * per);
+  const int end = min(n_hi, begin + per);
+  unsigned int sum = 0u;
+  for (int b = begin; b < end; ++b) sum += totals[b];
+  part[t] = sum;
+  __syncthreads();
+  for (int off = 1; off < kScanThreads; off <<= 1) {  // inclusive scan of the runs' sums
+    const unsigned int add = t >= off ? part[t - off] : 0u;
+    __syncthreads();
+    part[t] += add;
+    __syncthreads();
+  }
+  unsigned int run = part[t] - sum;
+  for (int b = begin; b < end; ++b) {
+    const unsigned int c = totals[b];
+    offsets[b] = run;
+    cursor[b] = c <= sparse_max ? kDirect : run;
+    run += c;
+  }
+  if (t == kScanThreads - 1) offsets[n_hi] = part[t];
+}
 
 template <int V, bool kShared>
 __global__ void __launch_bounds__(kThreads)
@@ -115,44 +168,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// offsets[b] = totals[0] + ... + totals[b-1], offsets[n_hi] = the total, and
-// cursor[b] = offsets[b]. One block: each thread sums a contiguous run of
-// buckets, the block scans the runs' sums, each thread writes its run.
-__global__ void __launch_bounds__(kScanThreads)
-    scan_kernel(const unsigned int* __restrict__ totals, int n_hi, unsigned int* __restrict__ offsets,
-                unsigned int* __restrict__ cursor) {
-  __shared__ unsigned int part[kScanThreads];
-  const int t = threadIdx.x;
-  const int per = (n_hi + kScanThreads - 1) / kScanThreads;
-  const int begin = min(n_hi, t * per);
-  const int end = min(n_hi, begin + per);
-  unsigned int sum = 0u;
-  for (int b = begin; b < end; ++b) sum += totals[b];
-  part[t] = sum;
-  __syncthreads();
-  for (int off = 1; off < kScanThreads; off <<= 1) {  // inclusive scan of the runs' sums
-    const unsigned int add = t >= off ? part[t - off] : 0u;
-    __syncthreads();
-    part[t] += add;
-    __syncthreads();
-  }
-  unsigned int run = part[t] - sum;
-  for (int b = begin; b < end; ++b) {
-    offsets[b] = run;
-    cursor[b] = run;
-    run += totals[b];
-  }
-  if (t == kScanThreads - 1) offsets[n_hi] = part[t];
-}
-
 template <int V, bool kShared>
 __global__ void __launch_bounds__(kThreads)
     partition_kernel(Cols cols, int k, const int32_t* __restrict__ gid, const uint8_t* __restrict__ mask,
                      long long n, int ng, int bits, int n_hi, const unsigned int* __restrict__ per_block,
-                     unsigned int* __restrict__ cursor, int32_t* __restrict__ rec) {
+                     unsigned int* __restrict__ cursor, int32_t* __restrict__ rec,
+                     unsigned long long* __restrict__ out) {
   extern __shared__ unsigned int next[];
   if (kShared) {
-    // this block's run in each bucket: one global atomic per bucket it touches
+    // this block's run in each bucket it touches: one global atomic per
+    // bucket (a sparse bucket's returns kDirect or more)
     const unsigned int* mine = per_block + static_cast<long long>(blockIdx.x) * n_hi;
     for (int b = threadIdx.x; b < n_hi; b += blockDim.x) {
       const unsigned int c = mine[b];
@@ -163,6 +188,7 @@ __global__ void __launch_bounds__(kThreads)
   unsigned int* slots = kShared ? next : cursor;
   const int lo_mask = (1 << bits) - 1;
   const int w = record_words(k);
+  unsigned long long* counts = out + static_cast<long long>(k) * ng;
   for_steps<V>(gid, mask, n, [&](long long d0, uint32_t m, const int* g, bool full) {
     // the step's values, loaded before any record is stored (the compiler
     // may not move a load of a column above a store to the scratch)
@@ -184,8 +210,18 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < V; ++i) {
       if (!taken(m, i, g[i], ng)) continue;
       // the lanes of a warp that hit one cursor take neighbouring slots
-      const long long pos = atomicAdd(slots + (g[i] >> bits), 1u);
-      int32_t* r = rec + pos * w;
+      const unsigned int pos = atomicAdd(slots + (g[i] >> bits), 1u);
+      if (pos >= kDirect) {
+        atomicAdd(counts + g[i], 1ULL);
+#pragma unroll
+        for (int j = 0; j < kMaxCols; ++j) {
+          if (j >= k) break;
+          atomicAdd(out + static_cast<long long>(j) * ng + g[i],
+                    static_cast<unsigned long long>(static_cast<long long>(v[j][i])));
+        }
+        continue;
+      }
+      int32_t* r = rec + static_cast<long long>(pos) * w;
       const int lo = g[i] & lo_mask;
       if (w == 1) {
         r[0] = lo;
@@ -239,31 +275,23 @@ __device__ __forceinline__ void read_record(const int32_t* __restrict__ r, int k
 
 __global__ void __launch_bounds__(kReduceThreads)
     reduce_kernel(int k, const int32_t* __restrict__ rec, const unsigned int* __restrict__ offsets, int bits,
-                  int chunks, int ng, unsigned long long* __restrict__ out) {
+                  int chunks, long long sparse_max, int ng, unsigned long long* __restrict__ out) {
   // 2^L counts, then a low and a high word per column: (2k+1) x 2^L words
   extern __shared__ unsigned int acc[];
   const int bucket = blockIdx.x / chunks;
   const int chunk = blockIdx.x - bucket * chunks;
   const long long first = offsets[bucket];
   const long long end = offsets[bucket + 1];
+  // the same for every thread of the block: a sparse bucket's docs went
+  // into the output in the partition, or nothing of this bucket is left
+  if (end - first <= sparse_max) return;
   const long long begin = first + static_cast<long long>(chunk) * blockDim.x;
-  if (begin >= end) return;  // the same for every thread of the block: nothing of this bucket is left for it
+  if (begin >= end) return;
   const int width = 1 << bits;
   const int w = record_words(k);
   const long long base = static_cast<long long>(bucket) << bits;
   const long long step = static_cast<long long>(chunks) * blockDim.x;
   unsigned long long* counts = out + static_cast<long long>(k) * ng;
-
-  if (end - first <= static_cast<long long>(chunks) * (width >> kSparseShift)) {
-    // few docs for each block of this bucket: straight into the output
-    for (long long i = begin + threadIdx.x; i < end; i += step) {
-      read_record(rec + i * w, k, w, [&](int l, int j, int v) {
-        unsigned long long* row = j < 0 ? counts : out + static_cast<long long>(j) * ng;
-        atomicAdd(row + base + l, j < 0 ? 1ULL : static_cast<unsigned long long>(static_cast<long long>(v)));
-      });
-    }
-    return;
-  }
 
   const int words = (2 * k + 1) * width;
   for (int c = threadIdx.x; c < words; c += blockDim.x) acc[c] = 0u;
@@ -333,6 +361,7 @@ struct Plan {
   bool shared_hist;
   unsigned int blocks;  // grid of passes 1 and 3
   int chunks;           // reduce blocks per bucket
+  long long sparse_max;  // a bucket with at most this many docs is sparse
   size_t reduce_smem;
   long long totals, offsets, cursor, per_block, rec, words;
 };
@@ -357,6 +386,7 @@ cudaError_t make_plan(int k, long long n, int ng, int bits, Plan* p) {
   const long long chunks = dev.sms / p->n_hi;
   p->chunks = static_cast<int>(chunks < 1 ? 1 : chunks);
   if (static_cast<long long>(p->n_hi) * p->chunks > INT_MAX) return cudaErrorInvalidValue;
+  p->sparse_max = static_cast<long long>(p->chunks) * kSparse << bits;
 
   long long w = 0;
   p->totals = w;
@@ -379,12 +409,12 @@ bool valid(int k, long long n, int ng, int bits) {
 template <int V, bool kShared>
 void launch_passes(const Plan& p, Cols cols, int k, const int32_t* g, const uint8_t* m, long long n, int ng,
                    int bits, unsigned int* totals, unsigned int* offsets, unsigned int* cursor,
-                   unsigned int* per_block, int32_t* rec, cudaStream_t s) {
+                   unsigned int* per_block, int32_t* rec, unsigned long long* o, cudaStream_t s) {
   const size_t smem = kShared ? static_cast<size_t>(p.n_hi) * sizeof(unsigned int) : 0;
   histogram_kernel<V, kShared><<<p.blocks, kThreads, smem, s>>>(g, m, n, ng, bits, p.n_hi, totals, per_block);
-  scan_kernel<<<1, kScanThreads, 0, s>>>(totals, p.n_hi, offsets, cursor);
+  scan_kernel<<<1, kScanThreads, 0, s>>>(totals, p.n_hi, p.sparse_max, offsets, cursor);
   partition_kernel<V, kShared><<<p.blocks, kThreads, smem, s>>>(cols, k, g, m, n, ng, bits, p.n_hi, per_block,
-                                                                cursor, rec);
+                                                                cursor, rec, o);
 }
 
 }  // namespace
@@ -405,6 +435,19 @@ extern "C" int grouped_sum_count_2l_scratch(int k, long long n, int ng, int bits
   const cudaError_t err = make_plan(k, n, ng, bits, &p);
   if (err != cudaSuccess) return err;
   *bytes = p.words * static_cast<long long>(sizeof(unsigned int));
+  return cudaSuccess;
+}
+
+// The most masked in-range docs a hi bucket may hold and still be sparse
+// (its docs added straight into the output by the partition) for (k, n, ng,
+// bits) on the current device, into *docs. Returns the CUDA error (0 on
+// success).
+extern "C" int grouped_sum_count_2l_sparse_max(int k, long long n, int ng, int bits, long long* docs) {
+  if (!valid(k, n, ng, bits)) return cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t err = make_plan(k, n, ng, bits, &p);
+  if (err != cudaSuccess) return err;
+  *docs = p.sparse_max;
   return cudaSuccess;
 }
 
@@ -444,15 +487,16 @@ extern "C" int grouped_sum_count_2l(const void* const* values, int k, const void
   bool vec = reinterpret_cast<uintptr_t>(gid) % 16 == 0 && reinterpret_cast<uintptr_t>(mask) % 4 == 0;
   for (int j = 0; j < k; ++j) vec = vec && reinterpret_cast<uintptr_t>(values[j]) % 16 == 0;
   if (vec && p.shared_hist) {
-    launch_passes<4, true>(p, cols, k, g, m, n, ng, bits, totals, offsets, cursor, per_block, rec, s);
+    launch_passes<4, true>(p, cols, k, g, m, n, ng, bits, totals, offsets, cursor, per_block, rec, o, s);
   } else if (vec) {
-    launch_passes<4, false>(p, cols, k, g, m, n, ng, bits, totals, offsets, cursor, per_block, rec, s);
+    launch_passes<4, false>(p, cols, k, g, m, n, ng, bits, totals, offsets, cursor, per_block, rec, o, s);
   } else if (p.shared_hist) {
-    launch_passes<1, true>(p, cols, k, g, m, n, ng, bits, totals, offsets, cursor, per_block, rec, s);
+    launch_passes<1, true>(p, cols, k, g, m, n, ng, bits, totals, offsets, cursor, per_block, rec, o, s);
   } else {
-    launch_passes<1, false>(p, cols, k, g, m, n, ng, bits, totals, offsets, cursor, per_block, rec, s);
+    launch_passes<1, false>(p, cols, k, g, m, n, ng, bits, totals, offsets, cursor, per_block, rec, o, s);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  reduce_kernel<<<p.n_hi * p.chunks, kReduceThreads, p.reduce_smem, s>>>(k, rec, offsets, bits, p.chunks, ng, o);
+  reduce_kernel<<<p.n_hi * p.chunks, kReduceThreads, p.reduce_smem, s>>>(k, rec, offsets, bits, p.chunks,
+                                                                         p.sparse_max, ng, o);
   return cudaGetLastError();
 }

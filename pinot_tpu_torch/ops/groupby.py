@@ -200,6 +200,8 @@ def _library_2l():
         ctypes.POINTER(ctypes.c_longlong),
     ]
     lib.grouped_sum_count_2l_scratch.restype = ctypes.c_int
+    lib.grouped_sum_count_2l_sparse_max.argtypes = lib.grouped_sum_count_2l_scratch.argtypes
+    lib.grouped_sum_count_2l_sparse_max.restype = ctypes.c_int
     lib.grouped_sum_count_2l_shared_limit.argtypes = []
     lib.grouped_sum_count_2l_shared_limit.restype = ctypes.c_int
     return lib
@@ -227,6 +229,18 @@ def _scratch_bytes(index: int, k: int, n: int, ng: int, bits: int) -> int:
     if err != 0:
         raise RuntimeError(f"grouped_sum_count_2l planning failed with CUDA error {err} (k={k}, ng={ng}, L={bits})")
     return need.value
+
+
+def sparse_max(k: int, n: int, ng: int, bits: int, device: torch.device) -> int:
+    """The most masked in-range docs a hi bucket of the two-level kernel may
+    hold on the CUDA `device` and still be sparse, its docs added straight
+    into the output with no record: the kernel's own plan for (k, n, ng, L)."""
+    docs = ctypes.c_longlong(0)
+    with torch.cuda.device(_cuda_index(device)):
+        err = _library_2l().grouped_sum_count_2l_sparse_max(k, n, ng, bits, ctypes.byref(docs))
+    if err != 0:
+        raise RuntimeError(f"grouped_sum_count_2l planning failed with CUDA error {err} (k={k}, ng={ng}, L={bits})")
+    return docs.value
 
 
 def _launch_2l(lib, cols, gid: torch.Tensor, mask: torch.Tensor, ng: int, bits: int, out: torch.Tensor) -> None:

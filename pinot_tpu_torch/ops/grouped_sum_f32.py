@@ -1,7 +1,7 @@
 """Per-group float32 SUM / COUNT and DISTINCTCOUNT presence: the hand-written
 Hopper kernel and its plain torch versions.
 
-Both functions launch `csrc/grouped_sum_f32.cu`, the counterpart of the JAX
+Every function launches `csrc/grouped_sum_f32.cu`, the counterpart of the JAX
 package's one-hot-sum Pallas kernel (pinot_tpu/ops/groupby_pallas.py):
 
 * `grouped_sum(values, gid, mask, ng)` / `grouped_count(gid, mask, ng)` have
@@ -16,10 +16,15 @@ package's one-hot-sum Pallas kernel (pinot_tpu/ops/groupby_pallas.py):
   masked doc has that id, and with `gid` the grouped form, a bool (ng, pad)
   matrix, the reference engine's `.at[gid, ids].max(mask)` presence. Ids
   outside [0, pad) and group ids outside [0, ng) contribute nothing.
+* `presences(columns, pads, mask, gid=None, ng=1)` is the engine's form:
+  `presence` of each id column over one mask and one gid, for every
+  DISTINCTCOUNT of a query in one pass; a kernel launch takes up to MAX_COLS
+  columns, wider calls split. `presence` is its one-column call.
 
 The tensors' device decides what runs. A CUDA tensor launches the kernel (a
 failed build or launch raises); a CPU tensor takes the plain version.
-`grouped_sum.launches` and `presence.launches` count kernel launches.
+`grouped_sum.launches` counts the sum entry's kernel launches and
+`presence.launches` the presence entry's, from either presence function.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import functools
 import torch
 
 _SOURCE = "grouped_sum_f32"
+#: id columns per presence launch; wider calls split
+MAX_COLS = 8
 
 
 def _check_ids(name: str, t: torch.Tensor, shape) -> None:
@@ -61,20 +68,24 @@ def _library():
 
     lib = load(_SOURCE)
     ptr, n, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    pptr, pi = ctypes.POINTER(ptr), ctypes.POINTER(i)
     # values, gid, mask, n, ng, out, stream
     lib.grouped_sum_f32.argtypes = [ptr, ptr, ptr, n, i, ptr, ptr]
     lib.grouped_sum_f32.restype = ctypes.c_int
-    # ids, gid, mask, n, pad, ng, out, stream
-    lib.presence_flags.argtypes = [ptr, ptr, ptr, n, i, i, ptr, ptr]
-    lib.presence_flags.restype = ctypes.c_int
+    # grouped, words, n, blocks, smem
+    lib.presence_plan.argtypes = [i, n, n, pi, pi]
+    lib.presence_plan.restype = ctypes.c_int
+    # ncols, ids, pads, gid, mask, n, ng, blocks, smem, outs, table, stream
+    lib.presences.argtypes = [i, pptr, pi, ptr, ptr, n, i, i, i, pptr, ptr, ptr]
+    lib.presences.restype = ctypes.c_int
     lib.grouped_sum_f32_uses_shared.argtypes = [ctypes.c_longlong]
     lib.grouped_sum_f32_uses_shared.restype = ctypes.c_int
     return lib
 
 
 def uses_shared(state_bytes: int, device: torch.device) -> bool:
-    """Whether per-block state of `state_bytes` (ng * 4 for a sum,
-    presence_state_bytes for presence) stays in shared memory on `device`."""
+    """Whether a sum's per-block state of `state_bytes` (ng * 4) stays in
+    shared memory on `device`."""
     with torch.cuda.device(device):
         r = _library().grouped_sum_f32_uses_shared(state_bytes)
     if r < 0:
@@ -82,9 +93,10 @@ def uses_shared(state_bytes: int, device: torch.device) -> bool:
     return bool(r)
 
 
-def presence_state_bytes(pad: int, ng: int) -> int:
-    """A block's presence flags: ng * pad bytes, rounded up to 16."""
-    return (ng * pad + 15) // 16 * 16
+def presence_words(pads, ng: int) -> int:
+    """A block's presence flags of one launch over id columns of `pads`:
+    ceil(pad / 32) 32-bit words a (column, group)."""
+    return ng * sum(-(-pad // 32) for pad in pads)
 
 
 # ---------------------------------------------------------------------------
@@ -164,46 +176,120 @@ def presence_plain(ids, mask, pad: int, gid=None, ng: int = 1) -> torch.Tensor:
     return flags if gid is None else flags.view(ng, pad)
 
 
-def presence_kernel(ids, mask, pad: int, gid=None, ng: int = 1) -> torch.Tensor:
-    """The CUDA kernel: same result as presence_plain."""
-    lib = _library()
-    flags = torch.zeros(ng * pad, dtype=torch.bool, device=ids.device)
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = lib.presence_flags(
-            ids.data_ptr(),
-            None if gid is None else gid.data_ptr(),
-            mask.data_ptr(),
-            ids.numel(),
-            pad,
-            ng,
-            flags.data_ptr(),
-            stream,
-        )
+def presences_plain(columns, pads, mask, gid=None, ng: int = 1) -> list[torch.Tensor]:
+    """The plain version: presence_plain of each column."""
+    return [presence_plain(ids, mask, pad, gid, ng) for ids, pad in zip(columns, pads)]
+
+
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(index: int, grouped: bool, words: int, n: int) -> tuple[int, int]:
+    """(blocks, dynamic shared bytes or 0 for byte flags in global memory) of
+    a presence launch on device `index`: planned once per shape, so a launch
+    makes no runtime query."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _library().presence_plan(int(grouped), words, n, ctypes.byref(blocks), ctypes.byref(smem))
     if err != 0:
-        raise RuntimeError(f"presence_flags launch failed with CUDA error {err}")
+        raise RuntimeError(f"presence planning failed with CUDA error {err} (words={words}, n={n})")
+    return blocks.value, smem.value
+
+
+def uses_shared_flags(pads, ng: int, device: torch.device, grouped: bool = True) -> bool:
+    """Whether one launch keeps the flags of id columns of `pads` over ng
+    groups as bits in shared memory on the CUDA `device` (False: byte flags
+    in global memory)."""
+    return _plan(_index(device), grouped, presence_words(pads, ng), 0)[1] > 0
+
+
+@functools.lru_cache(maxsize=256)
+def _spec(index: int, grouped: bool, pads: tuple[int, ...], ng: int, n: int):
+    """The plan and the ctypes pads array of one launch, built once per
+    shape."""
+    return _plan(index, grouped, presence_words(pads, ng), n), (ctypes.c_int * len(pads))(*pads)
+
+
+def _launch(lib, columns, pads, mask, gid, ng: int) -> list[torch.Tensor]:
+    """One launch for at most MAX_COLS columns: one zeroed buffer holds a
+    view a column and, on the shared path, the kernel's bit table."""
+    n = mask.numel()
+    (blocks, smem), c_pads = _spec(mask.device.index, gid is not None, tuple(pads), ng, n)
+    sizes = [ng * pad for pad in pads]
+    starts = [sum(sizes[:j]) for j in range(len(sizes))]
+    table = -(-sum(sizes) // 4) * 4  # the table's byte offset, 4-byte aligned
+    buf = torch.zeros(table + smem, dtype=torch.uint8, device=mask.device)
+    base = buf.data_ptr()
+    m = len(columns)
+    err = lib.presences(
+        m,
+        (ctypes.c_void_p * m)(*[ids.data_ptr() for ids in columns]),
+        c_pads,
+        None if gid is None else gid.data_ptr(),
+        mask.data_ptr(),
+        n,
+        ng,
+        blocks,
+        smem,
+        (ctypes.c_void_p * m)(*[base + s for s in starts]),
+        base + table if smem else None,
+        torch.cuda.current_stream(mask.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"presences launch failed with CUDA error {err}")
     presence.launches += 1
-    return flags if gid is None else flags.view(ng, pad)
+    flags = buf.view(torch.bool)
+    views = [flags[s : s + size] for s, size in zip(starts, sizes)]
+    return views if gid is None else [v.view(ng, pad) for v, pad in zip(views, pads)]
+
+
+def presences_kernel(columns, pads, mask, gid=None, ng: int = 1) -> list[torch.Tensor]:
+    """The CUDA kernel: same results as presences_plain."""
+    lib = _library()
+    out = []
+    with torch.cuda.device(mask.device):
+        for start in range(0, len(columns), MAX_COLS):
+            out += _launch(lib, columns[start : start + MAX_COLS], pads[start : start + MAX_COLS], mask, gid, ng)
+    return out
+
+
+def presences(columns, pads, mask, gid=None, ng: int = 1) -> list[torch.Tensor]:
+    """DISTINCTCOUNT presence of each id column over one mask (and gid): a
+    bool (pad,) vector each, or with `gid` a bool (ng, pad) matrix each."""
+    if not columns or len(columns) != len(pads):
+        raise ValueError(f"need one pad per id column, got {len(columns)} columns and {len(pads)} pads")
+    if ng <= 0 or any(pad <= 0 for pad in pads):
+        raise ValueError(f"pads and ng must be positive, got pads={list(pads)} ng={ng}")
+    _check_mask(mask, columns[0])
+    for ids in columns:
+        _check_ids("ids", ids, mask.shape)
+        if ids.device != mask.device:
+            raise ValueError(f"mask on {mask.device}, ids on {ids.device}")
+    if gid is None:
+        if ng != 1:
+            raise ValueError("the scalar form (gid=None) has ng == 1")
+    else:
+        _check_ids("gid", gid, mask.shape)
+        if gid.device != mask.device:
+            raise ValueError(f"gid on {gid.device}, ids on {mask.device}")
+    if _route(mask, "presence"):
+        return presences_kernel(columns, pads, mask, gid, ng)
+    return presences_plain(columns, pads, mask, gid, ng)
+
+
+def presence_kernel(ids, mask, pad: int, gid=None, ng: int = 1) -> torch.Tensor:
+    """The CUDA kernel for one column: same result as presence_plain."""
+    return presences_kernel([ids], [pad], mask, gid, ng)[0]
 
 
 def presence(ids, mask, pad: int, gid=None, ng: int = 1) -> torch.Tensor:
     """DISTINCTCOUNT presence: bool (pad,) over the ids of masked docs, or
     with `gid` bool (ng, pad) per group."""
-    if pad <= 0 or ng <= 0:
-        raise ValueError(f"pad and ng must be positive, got pad={pad} ng={ng}")
-    _check_ids("ids", ids, None)
-    _check_mask(mask, ids)
-    if gid is None:
-        if ng != 1:
-            raise ValueError("the scalar form (gid=None) has ng == 1")
-    else:
-        _check_ids("gid", gid, ids.shape)
-        if gid.device != ids.device:
-            raise ValueError(f"gid on {gid.device}, ids on {ids.device}")
-    if _route(ids, "presence"):
-        return presence_kernel(ids, mask, pad, gid, ng)
-    return presence_plain(ids, mask, pad, gid, ng)
+    return presences([ids], [pad], mask, gid, ng)[0]
 
 
-#: kernel launches of the PRESENCE entry (the CPU path never adds to it)
+#: kernel launches of the presence entry, from presence and presences (the
+#: CPU path never adds to it)
 presence.launches = 0

@@ -21,9 +21,10 @@ group-by goes through one call of the extreme kernel
 (`ops.extreme.grouped_extremes`, the counterpart of the Pallas
 `_make_extreme_kernel`), one pass over the docs for all of them, where the
 reference makes one XLA segment_min/max per aggregate (which XLA fuses;
-eager torch would not), and DISTINCTCOUNT's presence vectors through the presence
-entry of the one-hot-sum counterpart (`ops.grouped_sum_f32.presence`), where
-the reference scatters with `.at[...].max(mask)`. The tensors' device decides
+eager torch would not), and every DISTINCTCOUNT's presence vector of a query
+through one call of the presence entry of the one-hot-sum counterpart
+(`ops.grouped_sum_f32.presences`, one pass over the docs for all of them),
+where the reference scatters with `.at[...].max(mask)` per aggregate. The tensors' device decides
 what runs: on a CUDA device the hand-written kernels, on the CPU their plain
 torch versions.
 
@@ -50,7 +51,7 @@ import torch
 
 from pinot_tpu_torch.ops.extreme import grouped_extremes
 from pinot_tpu_torch.ops.groupby import grouped_multi_sum
-from pinot_tpu_torch.ops.grouped_sum_f32 import presence
+from pinot_tpu_torch.ops.grouped_sum_f32 import presences
 
 _F = torch.float64
 _I = torch.int64
@@ -179,9 +180,6 @@ def _agg_scalar(aspec, cols, ops, mask):
     kind = aspec[0]
     if kind == "count":
         return mask.sum(dtype=_I)
-    if kind == "distinct_ids":
-        # DISTINCTCOUNT: presence over the column's dict-id space
-        return presence(cols[aspec[1]].contiguous(), mask, aspec[2])
     if kind not in ("sum", "min", "max", "avg", "minmaxrange"):
         raise _unsupported(kind, "aggregation")
     v_raw = _value(aspec[1], cols, ops, mask.shape[0])
@@ -210,6 +208,18 @@ def _agg_scalar(aspec, cols, ops, mask):
     if is_i32:
         return (_int_scalar_extreme(v_raw, mask, True), _int_scalar_extreme(v_raw, mask, False))
     return (torch.where(mask, v, float("inf")).min(), torch.where(mask, v, float("-inf")).max())
+
+
+def _presences(aggs, cols, mask, gid=None, ng=1):
+    """{agg index: its presence} for every DISTINCTCOUNT (`distinct_ids`)
+    of `aggs`, from ONE presences call: a (pad,) vector each over the
+    column's dict-id space, or with gid an (ng, pad) matrix each (the plan
+    keeps ng * pad under its budget)."""
+    which = [i for i, a in enumerate(aggs) if a[0] == "distinct_ids"]
+    if not which:
+        return {}
+    got = presences([cols[aggs[i][1]].contiguous() for i in which], [aggs[i][2] for i in which], mask, gid=gid, ng=ng)
+    return dict(zip(which, got))
 
 
 def _in_range(gid, ng):
@@ -252,8 +262,8 @@ def _grouped_extremes(aggs, values, mask, gid, ng, counts):
 def _grouped_all(aggs, cols, ops, mask, gid, ng):
     """Group counts + every agg partial. The count and ALL int32 SUM/AVG aggs
     fuse into ONE exact group-by kernel launch, every MIN/MAX/MINMAXRANGE into
-    ONE extreme-kernel call; non-int32 SUM/AVG and distinct presence use their
-    own ops."""
+    ONE extreme-kernel call, every DISTINCTCOUNT into ONE presences call;
+    non-int32 SUM/AVG use their own ops."""
     values, kernel_vals, owner = {}, [], {}
     for i, a in enumerate(aggs):
         if a[0] in ("count", "distinct_ids"):
@@ -266,14 +276,13 @@ def _grouped_all(aggs, cols, ops, mask, gid, ng):
             kernel_vals.append(v.contiguous())
     sums, counts = grouped_multi_sum(kernel_vals, gid, mask, ng)
     extremes = _grouped_extremes(aggs, values, mask, gid, ng, counts)
+    flags = _presences(aggs, cols, mask, gid, ng)
     parts = []
     for i, a in enumerate(aggs):
         if a[0] == "count":
             parts.append(counts)
-        elif a[0] == "distinct_ids":
-            # grouped DISTINCTCOUNT: a (ng, pad) presence matrix; the plan
-            # keeps ng * pad under its budget
-            parts.append(presence(cols[a[1]].contiguous(), mask, a[2], gid=gid, ng=ng))
+        elif i in flags:
+            parts.append(flags[i])
         elif i in owner:
             parts.append(sums[owner[i]] if a[0] == "sum" else (sums[owner[i]], counts))
         elif i in extremes:
@@ -295,7 +304,8 @@ def _agg_eval(fspec, gspec, aggs, cols, ops, valid):
     mask = valid & _filter(fspec, cols, ops, n_padded, valid.device)
     matched = mask.sum(dtype=_I)
     if gspec is None:
-        return matched, tuple(_agg_scalar(a, cols, ops, mask) for a in aggs)
+        flags = _presences(aggs, cols, mask)
+        return matched, tuple(flags[i] if i in flags else _agg_scalar(a, cols, ops, mask) for i, a in enumerate(aggs))
     if gspec[0] == "groups_sparse":
         return _sparse_groups(gspec, aggs, cols, ops, mask, matched)
     if gspec[0] != "groups":

@@ -27,7 +27,11 @@ from pinot_tpu.ops import (
     pallas_grouped_sum,
     pallas_presence,
 )
+from pinot_tpu.common import DataType as JDT
+from pinot_tpu.common import Schema as JSchema
+from pinot_tpu.query import QueryEngine as JEngine
 from pinot_tpu.query.kernels import _int_grouped_extreme
+from pinot_tpu.segment import SegmentBuilder as JBuilder
 from pinot_tpu_torch import ops
 from pinot_tpu_torch.ops import extreme, grouped_sum_f32
 
@@ -336,6 +340,120 @@ def test_config5_like_query_makes_one_extremes_call_a_segment(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# presences: every DISTINCTCOUNT of a query in one call
+# ---------------------------------------------------------------------------
+
+
+def _pallas_presence_of(ids, mask, pad, gid=None, ng=1):
+    """The reference's pallas_presence of one column; the grouped form as
+    presence over the cells gid * pad + id (-1 where either is out of
+    range), cut into (ng, pad)."""
+    if gid is None:
+        return np.asarray(pallas_presence(jnp.asarray(ids), jnp.asarray(mask), pad))
+    ok = (ids >= 0) & (ids < pad) & (gid >= 0) & (gid < ng)
+    cell = np.where(ok, gid.astype(np.int64) * pad + ids, -1).astype(np.int32)
+    return np.asarray(pallas_presence(jnp.asarray(cell), jnp.asarray(mask), ng * pad)).reshape(ng, pad)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("pads", [[32, 25], [33, 8, 64], [40]])
+def test_presences_match_pallas(grouped, pads):
+    """Each output of the multi-column entry equals the reference's
+    pallas_presence of its column over the same mask (and gid): pads past
+    32 (two flag words a group on the card), ids and group ids out of
+    range."""
+    ng = 37 if grouped else 1
+    rng = np.random.default_rng(sum(pads) + grouped)
+    mask = rng.random(N) < (0.05 if grouped else 0.003)  # some cells stay empty
+    columns = [rng.integers(-2, pad + 3, N).astype(np.int32) for pad in pads]
+    gid = None
+    if grouped:
+        gid = rng.integers(-2, ng + 2, N).astype(np.int32)
+        gid[::97] = I32.max
+    got = ops.presences([_t(c) for c in columns], pads, _t(mask), None if gid is None else _t(gid), ng)
+    assert len(got) == len(pads)
+    for ids, pad, g in zip(columns, pads, got):
+        want = _pallas_presence_of(ids, mask, pad, gid, ng)
+        assert g.dtype == torch.bool and g.shape == want.shape and np.array_equal(g.numpy(), want)
+        assert 0 < want.sum() < want.size
+
+
+def test_presences_nine_columns_equal_one_column_calls():
+    """Past MAX_COLS columns (two launches on the card) every output equals
+    the one-column presence."""
+    ng = 16
+    rng = np.random.default_rng(77)
+    mask, gid = _t(rng.random(N) < 0.3), _t(rng.integers(0, ng, N).astype(np.int32))
+    pads = [1 << (j + 1) for j in range(grouped_sum_f32.MAX_COLS + 1)]
+    columns = [_t(rng.integers(0, pad, N).astype(np.int32)) for pad in pads]
+    got = ops.presences(columns, pads, mask, gid, ng)
+    for ids, pad, g in zip(columns, pads, got):
+        assert torch.equal(g, ops.presence(ids, mask, pad, gid=gid, ng=ng))
+
+
+def _ssb_columns(DT):
+    return dict(
+        dimensions=[("d_year", DT.INT), ("c_nation", DT.STRING), ("p_category", DT.STRING)],
+        metrics=[("lo_revenue", DT.LONG), ("lo_quantity", DT.INT)],
+    )
+
+
+def _ssb_data(seed, n=3000):
+    rng = np.random.default_rng(seed)
+    return {
+        "d_year": rng.integers(1992, 1999, n).astype(np.int32),
+        "c_nation": np.array([f"NATION_{i:02d}" for i in range(25)], dtype=object)[rng.integers(0, 25, n)],
+        "p_category": np.array([f"MFGR#{i // 10 + 1}{i % 10 + 1}" for i in range(25)], dtype=object)[
+            rng.integers(0, 25, n)
+        ],
+        "lo_revenue": rng.integers(100, 600_000, n).astype(np.int64),
+        "lo_quantity": rng.integers(1, 51, n).astype(np.int32),
+    }
+
+
+@pytest.mark.parametrize(
+    "sql,distincts",
+    [
+        # config 7: two DISTINCTCOUNTs (pad 32 each) and a MIN under one filter
+        ("SELECT COUNT(DISTINCT c_nation), DISTINCTCOUNT(p_category), MIN(lo_revenue) FROM lineorder "
+         "WHERE lo_quantity < 3 AND lo_revenue < 200000", 2),
+        # config 6: a grouped DISTINCTCOUNT
+        ("SELECT d_year, p_category, COUNT(*), DISTINCTCOUNT(c_nation) FROM lineorder "
+         "WHERE lo_quantity < 3 AND lo_revenue < 200000 GROUP BY d_year, p_category ORDER BY d_year, p_category "
+         "LIMIT 200", 1),
+    ],
+)
+def test_distinctcount_queries_make_one_presences_call_a_segment(monkeypatch, sql, distincts):
+    """Configs 6 and 7's shapes equal the reference engine on the CPU, with
+    every DISTINCTCOUNT of a segment in ONE presences call and no kernel
+    launch."""
+    from pinot_tpu_torch.common import DataType, Schema
+    from pinot_tpu_torch.query import QueryEngine
+    from pinot_tpu_torch.query import kernels as qk
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    datas = [_ssb_data(seed) for seed in range(3)]
+    jsegs = [JBuilder(JSchema.build("lineorder", **_ssb_columns(JDT))).build(d, f"s{i}") for i, d in enumerate(datas)]
+    psegs = [SegmentBuilder(Schema.build("lineorder", **_ssb_columns(DataType))).build(d, f"s{i}")
+             for i, d in enumerate(datas)]
+    calls = []
+    real = qk.presences
+
+    def spy(columns, pads, *args, **kw):
+        calls.append(list(pads))
+        return real(columns, pads, *args, **kw)
+
+    monkeypatch.setattr(qk, "presences", spy)
+    before = grouped_sum_f32.presence.launches
+    got = QueryEngine(psegs, device="cpu").execute(sql)
+    want = JEngine(jsegs).execute(sql)
+    assert got.columns == want.columns and got.rows == want.rows and len(got.rows) > 0
+    assert [[type(x) for x in r] for r in got.rows] == [[type(x) for x in r] for r in want.rows]
+    assert calls == [[32] * distincts] * len(psegs)
+    assert grouped_sum_f32.presence.launches == before
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -349,6 +467,7 @@ def test_cpu_path_never_counts_a_launch():
     ops.grouped_count(_t(gid), _t(mask), 16)
     ops.presence(_t(gid), _t(mask), 16)
     ops.presence(_t(gid), _t(mask), 16, gid=_t(gid), ng=16)
+    ops.presences([_t(gid), _t(gid)], [16, 40], _t(mask), gid=_t(gid), ng=16)
     after = (extreme.grouped_extremes.launches, grouped_sum_f32.grouped_sum.launches, grouped_sum_f32.presence.launches)
     assert after == before
 
@@ -381,6 +500,10 @@ _I = dict(dtype=torch.int32)
         lambda: ops.presence(torch.zeros(8, **_I), torch.ones(8, dtype=torch.bool), 0),
         lambda: ops.presence(torch.zeros(8, **_I), torch.ones(8, dtype=torch.bool), 4, ng=3),
         lambda: ops.presence(torch.zeros(8, **_I), torch.ones(8, dtype=torch.bool), 4, gid=torch.zeros(7, **_I), ng=3),
+        # presences: no columns, a pad short, a column of another length
+        lambda: ops.presences([], [], torch.ones(8, dtype=torch.bool)),
+        lambda: ops.presences([torch.zeros(8, **_I)] * 2, [4], torch.ones(8, dtype=torch.bool)),
+        lambda: ops.presences([torch.zeros(8, **_I), torch.zeros(7, **_I)], [4, 4], torch.ones(8, dtype=torch.bool)),
     ],
 )
 def test_rejects_bad_inputs(call):

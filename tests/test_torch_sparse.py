@@ -151,6 +151,13 @@ def test_two_level_bits():
     assert gb.two_level_bits(1, 2, limit) == 1
 
 
+def test_sparse_limit_needs_a_card():
+    """Which hi buckets the two-level kernel calls sparse comes from its own
+    plan on the card; the CPU has no stand-in."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        gb.sparse_max(1, 4_194_304, 90_112, 12, torch.device("cpu"))
+
+
 def test_shape_queries_need_a_card():
     """Which kernel a shape takes is asked of the card; the CPU has no
     stand-in limit and always takes the plain version."""
