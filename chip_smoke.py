@@ -21,14 +21,25 @@
    group-by where grouped_multi_sum switches between them, and
    `extreme_finish`, grouped_extreme's finish folded into its last block
    against a separate finish kernel.
-3. Main path: generates the SSB-flavoured lineorder (16M rows, seed 0, the
+3. New device steps: the torch steps of this slice's path that no
+   hand-written kernel carries (DISTINCTCOUNTHLL's register update, scalar
+   and grouped; SELECTION's first-k compaction; SELECTION ORDER BY's stable
+   top-k), each at its main-path shape, held exactly against the same step
+   on the CPU and timed beside its bytes bound and a one-call PyTorch
+   alternative.
+4. Main path: generates the SSB-flavoured lineorder (16M rows, seed 0, the
    generator of bench.py, then lo_custkey and lo_suppkey), builds 4 segments
    of 4M rows with the package's SegmentBuilder, stages them on the card and
-   runs configs 1-9 (BASELINE 1-4, grouped MIN/MAX, grouped and scalar
-   DISTINCTCOUNT, a 90k-group GROUP BY, a sparse customer x supplier GROUP
-   BY) through QueryEngine(..., device="cuda").execute. Every result row is
-   held against a numpy oracle over the raw arrays; the kernels' launch
-   counters are reset just before that run and read just after, per config.
+   runs configs 1-9 and 11-13 (BASELINE 1-4, grouped MIN/MAX, grouped and
+   scalar DISTINCTCOUNT, a 90k-group GROUP BY, a sparse customer x supplier
+   GROUP BY, SELECTION ORDER BY, DISTINCT ORDER BY, SELECTION) through
+   QueryEngine(..., device="cuda").execute; and config 10, BASELINE config 5
+   (bench.py's `events` table, 2M rows in one segment with a star tree on
+   (country, device): a star-tree GROUP BY and a DISTINCTCOUNTHLL, both
+   submitted before either resolves). Every result row is held against a
+   numpy oracle over the raw arrays, config 10's registers against
+   np_hll_registers; the kernels' launch counters are reset just before
+   that run and read just after, per config.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -103,6 +114,28 @@ CONFIGS.update(
         ),
     }
 )
+CONFIGS.update(
+    {
+        # "top rows by revenue": ~2.3M rows pass, ~4 a revenue value, so the
+        # top 20 tie across segments and within them
+        "11_selection_orderby": (
+            "SELECT lo_custkey, c_nation, lo_revenue FROM lineorder WHERE d_year = 1995 "
+            "ORDER BY lo_revenue DESC LIMIT 20"
+        ),
+        "12_distinct_orderby": (
+            "SELECT DISTINCT d_year, c_nation FROM lineorder WHERE lo_quantity < 3 "
+            "ORDER BY d_year DESC, c_nation LIMIT 50"
+        ),
+        "13_selection": "SELECT d_year, p_category, lo_quantity FROM lineorder WHERE c_nation = 'NATION_07' LIMIT 10",
+    }
+)
+#: BASELINE config 5 (bench.py's _bench_config5): its two queries, over the
+#: `events` table
+EVENTS_ROWS = 2_000_000
+CONFIG_10 = {
+    "10_star": "SELECT country, SUM(impressions) FROM events GROUP BY country ORDER BY SUM(impressions) DESC LIMIT 5",
+    "10_hll": "SELECT DISTINCTCOUNTHLL(user_id) FROM events",
+}
 #: kernel launches per segment of each config: (grouped_sum_count,
 #: grouped_extremes, presence, grouped_sum_count_2l)
 LAUNCHES_PER_SEGMENT = {
@@ -115,6 +148,13 @@ LAUNCHES_PER_SEGMENT = {
     "7_distinct": (0, 0, 1, 0),  # both DISTINCTCOUNTs in one presence launch
     "8_groupby_wide": (0, 0, 0, 1),
     "9_groupby_sparse": (0, 0, 0, 1),
+    # config 10's one segment: the star GROUP BY's counts over the star
+    # table (its SUM is of a DOUBLE pre-agg column: index_add_); the HLL
+    # update is torch
+    "10_star_and_hll": (1, 0, 0, 0),
+    "11_selection_orderby": (0, 0, 0, 0),  # top-k: torch
+    "12_distinct_orderby": (1, 0, 0, 0),  # DISTINCT: a group-by's counts
+    "13_selection": (0, 0, 0, 0),  # first-k: torch
 }
 #: SSB's customer and supplier key ranges at scale factor 3 (~16M x 6/16
 #: lineorder rows)
@@ -186,12 +226,13 @@ def _timed(torch, fn, iters: int, warmup: int, queued: bool) -> tuple[float, flo
 
 
 def ssb_shapes(torch, n: int = 4_194_304, seed: int = 6):
-    """Config 3-5's group ids, masks and value columns over one segment of
-    SSB-like data (make_ssb_data's distributions): config 3 ng 256 with 7
-    groups (d_year) and a 3.8% mask; configs 4 and 5 the 64% mask of
+    """Config 3-5's and 12's group ids, masks and value columns over one
+    segment of SSB-like data (make_ssb_data's distributions): config 3 ng 256
+    with 7 groups (d_year) and a 3.8% mask; configs 4 and 5 the 64% mask of
     lo_quantity > 5 AND d_year BETWEEN 1993 AND 1997, config 4 ng 4608 with
     4375 groups (d_year, c_nation, p_category), 3125 of them masked, config 5
-    ng 256 with 175 groups (d_year, c_nation), 125 of them masked."""
+    ng 256 with 175 groups (d_year, c_nation), 125 of them masked; config 12
+    config 5's groups under the 4% mask of lo_quantity < 3."""
     rng = np.random.default_rng(seed)
     year, nation, cat = rng.integers(0, 7, n), rng.integers(0, 25, n), rng.integers(0, 25, n)
     qty, rev, cost = rng.integers(1, 51, n), rng.integers(100, 600_000, n), rng.integers(50, 100_000, n)
@@ -203,6 +244,7 @@ def ssb_shapes(torch, n: int = 4_194_304, seed: int = 6):
         "g4": _tensor(torch, year * 625 + nation * 25 + cat, i32),
         "g5": _tensor(torch, year * 25 + nation, i32),
         "m45": m45,
+        "m12": _tensor(torch, qty < 3, b),
         "qty": _tensor(torch, qty, i32),
         "rev": _tensor(torch, rev, i32),
         "cost": _tensor(torch, cost, i32),
@@ -234,6 +276,9 @@ def kernel_cases(torch, ssb):
         ("config3_shape", [ssb["rev"]], ssb["year"], ssb["m3"], 256, True),
         ("config4_shape", [ssb["profit"]], ssb["g4"], ssb["m45"], 4608, True),
         ("config5_shape_k0", [], ssb["g5"], ssb["m45"], 256, True),
+        ("config12_shape_k0", [], ssb["g5"], ssb["m12"], 256, True),
+        # config 10's star GROUP BY country: 90 star rows, one doc pad
+        ("config10_star_shape_k0", [], t(np.arange(1024) // 3 % 30), t(np.arange(1024) < 90, torch.bool), 256, True),
     ]
     n2 = 1 << 20
     extremes = rng.choice(np.array([i32.min, i32.max, -1, 0, 1], dtype=np.int64), size=(3, n2))
@@ -328,7 +373,8 @@ def check_kernels(torch, gb, ssb) -> dict:
     # launches the kernel at
     timings = {
         name: _b1_timing(torch, gb, *keep[name])
-        for name in ("q4_shape", "config3_shape", "config4_shape", "config5_shape_k0")
+        for name in ("q4_shape", "config3_shape", "config4_shape", "config5_shape_k0", "config12_shape_k0",
+                     "config10_star_shape_k0")
     }
     emit({"phase": "kernel_timing", "kernel": "grouped_sum_count", "timings": timings, "card": card_line()})
     return {"max_abs_err": max_err, **timings["q4_shape"]}
@@ -1146,7 +1192,18 @@ def oracle(data, nation, category) -> tuple[dict, dict]:
     c_of, s_of = pairs // (N_SUPPLIERS + 1), pairs % (N_SUPPLIERS + 1)
     top = np.lexsort((s_of, c_of, -sums))[:10]
     out["9_groupby_sparse"] = [[int(c_of[g]), int(s_of[g]), float(sums[g]), int(cnt[g])] for g in top]
-    return out, {"8_groupby_wide": len(present), "9_groupby_sparse": len(pairs)}
+
+    # ties by revenue go by segment, then by doc: by global doc order
+    docs = np.flatnonzero(year == 1995)
+    top = docs[np.lexsort((docs, -rev[docs]))][:20]
+    out["11_selection_orderby"] = [[int(cust[i]), NATIONS[nation[i]], int(rev[i])] for i in top]
+    m = qty < 3
+    yn = np.unique((year[m].astype(np.int64) - 1992) * 25 + nation[m])
+    yn = yn[np.lexsort((yn % 25, -(yn // 25)))][:50]  # d_year DESC, c_nation
+    out["12_distinct_orderby"] = [[1992 + int(g // 25), NATIONS[int(g % 25)]] for g in yn]
+    first = np.flatnonzero(nation == 7)[:10]
+    out["13_selection"] = [[int(year[i]), CATEGORIES[category[i]], int(qty[i])] for i in first]
+    return out, {"8_groupby_wide": len(present), "9_groupby_sparse": len(pairs), "11_matched": len(docs)}
 
 
 def rows_match(name: str, got: list, want: list) -> None:
@@ -1193,17 +1250,225 @@ def ssb_engine(data: dict):
 def wall_p50(engine, sql: str, warm: int = 2, runs: int = 5) -> dict:
     """Host-clock ms of `runs` executes of `sql` after `warm` warm-ups, each
     ending in the device->host copies, and their median."""
+    return wall_p50_of(lambda: engine.execute(sql), warm, runs)
+
+
+def wall_p50_of(fn, warm: int = 2, runs: int = 5) -> dict:
     for _ in range(warm):
-        engine.execute(sql)
+        fn()
     ms = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        engine.execute(sql)
+        fn()
         ms.append((time.perf_counter() - t0) * 1e3)
     return {"p50_ms": float(np.median(ms)), "runs_ms": ms}
 
 
+# ---------------------------------------------------------------------------
+# config 10: BASELINE config 5, a star tree and DISTINCTCOUNTHLL
+# ---------------------------------------------------------------------------
+
+
+def make_events(n: int, seed: int = 0) -> dict:
+    """bench.py's `events` table: _bench_config5's draws, in its column order."""
+    rng = np.random.default_rng(seed)
+    return {
+        "country": np.array([f"C{i:02d}" for i in range(30)], dtype=object)[rng.integers(0, 30, n)],
+        "device": np.array(["phone", "desktop", "tablet"], dtype=object)[rng.integers(0, 3, n)],
+        "user_id": rng.integers(0, 5_000_000, n).astype(np.int64),
+        "impressions": rng.integers(1, 1000, n).astype(np.int64),
+    }
+
+
+def events_segment(data: dict):
+    """One segment of `data` with bench.py's star tree on (country, device),
+    that star-tree config, and the seconds the build took."""
+    from pinot_tpu_torch.common import DataType, IndexingConfig, Schema, StarTreeIndexConfig, TableConfig
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    schema = Schema.build(
+        "events",
+        dimensions=[("country", DataType.STRING), ("device", DataType.STRING), ("user_id", DataType.LONG)],
+        metrics=[("impressions", DataType.LONG)],
+    )
+    star = StarTreeIndexConfig(["country", "device"], ["SUM__impressions", "COUNT__*"])
+    t0 = time.perf_counter()
+    seg = SegmentBuilder(schema, TableConfig("events", IndexingConfig(star_tree_configs=[star]))).build(data, "s0")
+    return seg, star, time.perf_counter() - t0
+
+
+def events_oracle(data: dict) -> dict:
+    """Config 10's answers: the star query's rows (exact integer sums), the
+    star table's rows (distinct (country, device) pairs), the exact distinct
+    count of user_id and its HLL registers from np_hll_registers."""
+    from pinot_tpu_torch.query.sketches import np_hll_registers
+
+    names, country = np.unique(data["country"].astype(str), return_inverse=True)
+    _, device = np.unique(data["device"].astype(str), return_inverse=True)
+    sums = np.bincount(country, weights=data["impressions"])  # exact: integer partials < 2^53
+    top = np.argsort(-sums, kind="stable")[:5]
+    return {
+        "10_star": [[str(names[c]), float(sums[c])] for c in top],
+        "star_rows": len(np.unique(country * 3 + device)),
+        "distinct_users": len(np.unique(data["user_id"])),
+        "registers": np_hll_registers(data["user_id"]),
+    }
+
+
+def drive_config10(engine):
+    """bench.py's dev(): both queries submitted before either resolves."""
+    r_star, r_hll = engine.submit(CONFIG_10["10_star"]), engine.submit(CONFIG_10["10_hll"])
+    return r_star(), r_hll()
+
+
+def check_config10(engine, seg, want: dict) -> dict:
+    """Config 10 against its oracle: the star query's rows exactly, its
+    numDocsScanned the star table's rows (the swap ran), the HLL estimate
+    within 10% of the exact distinct count (bench.py's check), and the
+    registers of the segment's program bit for bit np_hll_registers'."""
+    from pinot_tpu_torch.query.kernels import dispatch_plan_packed
+    from pinot_tpu_torch.query.plan import plan_segment
+
+    star, hll = drive_config10(engine)
+    rows_match("10_star", star.rows, want["10_star"])
+    if star.num_docs_scanned != want["star_rows"]:
+        raise AssertionError(f"10_star: docsScanned {star.num_docs_scanned}, star table rows {want['star_rows']}")
+    est, exact = hll.rows[0][0], want["distinct_users"]
+    if type(est) is not int or abs(est - exact) / exact >= 0.1:
+        raise AssertionError(f"10_hll: estimate {est!r}, exact distinct count {exact}")
+    _, (regs,) = dispatch_plan_packed(plan_segment(seg, engine.make_context(CONFIG_10["10_hll"])),
+                                      seg.to_device_cached("cuda"))()
+    if regs.dtype != np.int32 or not np.array_equal(regs, want["registers"]):
+        cells = int((regs != want["registers"]).sum())
+        raise AssertionError(f"10_hll: registers differ from np_hll_registers in {cells} cells")
+    return {"star_docs_scanned": star.num_docs_scanned, "hll_estimate": est, "distinct_users": exact,
+            "relative_error": (est - exact) / exact, "hll_docs_scanned": hll.num_docs_scanned}
+
+
+def config10_first_query(torch, engine, seg, star_cfg) -> dict:
+    """The costs config 10 pays once, apart from the walls: the star table's
+    build (repeated here alone; the segment build made the one in use), the
+    hash table of user_id's dictionary (hash_any over its values, as
+    Dictionary.hll_hash_pad makes it), and the first submit-and-resolve of
+    both queries, which builds and stages the star segment and the hash
+    table."""
+    from pinot_tpu_torch.query.sketches import hash_any
+    from pinot_tpu_torch.segment.startree import build_star_table
+
+    t0 = time.perf_counter()
+    st = build_star_table(seg, star_cfg)
+    t_star = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hashes = hash_any(seg.columns["user_id"].dictionary.values)
+    t_hash = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drive_config10(engine)
+    t_first = time.perf_counter() - t0
+    return {"star_table_build_s": t_star, "star_rows": st.n_rows, "hash_table_s": t_hash,
+            "hash_table_values": len(hashes), "first_submit_resolve_ms": t_first * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# the new device steps: torch steps of the slice's path, no hand kernel
+# ---------------------------------------------------------------------------
+
+
+def _step_timing(torch, fn, cpu_fn, nbytes: int, library=None) -> dict:
+    """The step on the card against the same step on CPU copies (exact),
+    device time alone (L2 flushed) and the host's enqueue, the CPU step's
+    wall time, one PyTorch call's time and the bytes bound."""
+    got = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = cpu_fn()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("the step on the card differs from the same step on the CPU")
+    device_ms, host_ms = device_and_host_ms(torch, fn)
+    return {
+        "equal": True,
+        "device_ms": device_ms,
+        "host_ms": host_ms,
+        "ms": time_ms(torch, fn, 20),
+        "plain_cpu_ms": cpu_ms,
+        "library_ms": None if library is None else time_ms(torch, library, 20),
+        "bound_ms": hbm_ms(nbytes),
+        "bound_by": "bytes",
+    }
+
+
+def check_new_steps(torch, ev_seg, ssb_seg) -> dict:
+    """The HLL register update at config 10's shape (2M docs, user_id's
+    2^21-entry hash table), the grouped update at ng 256 (GROUP BY country,
+    device: 90 groups), select's first-k compaction at config 13's shape
+    (4M docs, 4% on, k = 10) and select_ob's stable top-k at config 11's
+    (4M docs, 14% on, k = 20), over staged segment columns."""
+    from pinot_tpu_torch.query import kernels as K
+    from pinot_tpu_torch.query.sketches import HLL_M, hll_ranks, hll_update, hll_update_grouped
+
+    def cpu(t):
+        return t.cpu() if isinstance(t, torch.Tensor) else t
+
+    out = {}
+    ev = ev_seg.to_device_cached("cuda")
+    ids, n = ev.arrays["user_id"], ev.padded
+    valid = torch.arange(n, device="cuda") < ev.n_docs
+    table = K.stage_operand(ev_seg.columns["user_id"].dictionary.hll_hash_pad(), "cuda")
+    gid = ev.arrays["country"] * 3 + ev.arrays["device"]
+
+    def hashes(ids, table):
+        return K._gather(table, ids).to(torch.int64) & 0xFFFFFFFF
+
+    idx, rank = hll_ranks(hashes(ids, table), valid)
+    flat = gid.to(torch.int64) * HLL_M + idx
+    regs = torch.zeros(HLL_M, dtype=torch.int32, device="cuda")
+    grid = torch.zeros(256 * HLL_M, dtype=torch.int32, device="cuda")
+    args = [cpu(t) for t in (ids, table, valid, gid)]
+    out["hll_update"] = {
+        "shape": {"n": n, "table": table.numel(), "registers": HLL_M},
+        # ids and the mask once, the hash table once, the registers once
+        **_step_timing(torch, lambda: hll_update(hashes(ids, table), valid),
+                       lambda: hll_update(hashes(args[0], args[1]), args[2]),
+                       n * 5 + table.numel() * 4 + HLL_M * 4,
+                       lambda: regs.scatter_reduce_(0, idx, rank, "amax")),
+    }
+    out["hll_update_grouped"] = {
+        "shape": {"n": n, "ng": 256, "groups": 90, "registers": HLL_M},
+        **_step_timing(torch, lambda: hll_update_grouped(hashes(ids, table), valid, gid, 256),
+                       lambda: hll_update_grouped(hashes(args[0], args[1]), args[2], args[3], 256),
+                       n * 9 + table.numel() * 4 + 256 * HLL_M * 4,
+                       lambda: grid.scatter_reduce_(0, flat, rank, "amax")),
+    }
+
+    seg = ssb_seg.to_device_cached("cuda")
+    n = seg.padded
+    valid = torch.arange(n, device="cuda") < seg.n_docs
+    nation = ssb_seg.columns["c_nation"].dictionary.index_of("NATION_07")
+    mask = valid & (seg.arrays["c_nation"] == nation)
+    mask_cpu = mask.cpu()
+    out["select_first_k"] = {
+        "shape": {"n": n, "mask_on": int(mask.sum().item()), "k": 10},
+        **_step_timing(torch, lambda: K.first_k(mask, 10), lambda: K.first_k(mask_cpu, 10), n + 10 * 8,
+                       lambda: torch.nonzero(mask)),
+    }
+    year = ssb_seg.columns["d_year"].dictionary.index_of(1995)
+    on = valid & (seg.arrays["d_year"] == year)
+    sort_key = torch.where(on, seg.arrays["lo_revenue"].to(torch.float64), float("-inf"))
+    key_cpu = sort_key.cpu()
+    out["select_ob_top_k"] = {
+        "shape": {"n": n, "mask_on": int(on.sum().item()), "k": 20, "key": "float64 sort key"},
+        **_step_timing(torch, lambda: K.top_k_stable(K.total_order_key(sort_key), 20),
+                       lambda: K.top_k_stable(K.total_order_key(key_cpu), 20), n * 8 + 20 * 8,
+                       lambda: torch.topk(sort_key, 20)),
+    }
+    emit({"phase": "new_device_steps", "steps": out, "card": card_line()})
+    return out
+
+
 def run_main_path(torch, counters: dict) -> dict:
+    from pinot_tpu_torch.query import QueryEngine
+
     t0 = time.perf_counter()
     data, nation, category = make_ssb_data(N_ROWS)
     want, groups = oracle(data, nation, category)
@@ -1230,37 +1495,75 @@ def run_main_path(torch, counters: dict) -> dict:
         }
     )
 
+    t0 = time.perf_counter()
+    events = make_events(EVENTS_ROWS)
+    want_10 = events_oracle(events)
+    t_gen = time.perf_counter() - t0
+    ev_seg, star_cfg, t_build = events_segment(events)
+    del events
+    ev_engine = QueryEngine([ev_seg], device="cuda")
+    t0 = time.perf_counter()
+    ev_staged = ev_seg.to_device_cached("cuda")
+    torch.cuda.synchronize()
+    emit(
+        {
+            "phase": "config10_setup",
+            "rows": EVENTS_ROWS,
+            "generate_s": t_gen,
+            "build_s_with_star_tree": t_build,
+            "stage_s": time.perf_counter() - t0,
+            "staged_bytes": sum(t.numel() * t.element_size() for t in ev_staged.arrays.values()),
+            "user_id_cardinality": ev_seg.columns["user_id"].cardinality,
+            "star_rows": want_10["star_rows"],
+        }
+    )
+    # paid once, not part of the walls
+    emit({"phase": "config10_first_query", **config10_first_query(torch, ev_engine, ev_seg, star_cfg)})
+    new_steps = check_new_steps(torch, ev_seg, segments[0])
+
     # the main path: every count from 0, one execute per config, counts read
     # after each config and at the end
     for fn in counters.values():
         fn.launches = 0
     launches = {}
-    for name, sql in CONFIGS.items():
+
+    def counted(name, n_segments, run):
         before = [fn.launches for fn in counters.values()]
-        res = engine.execute(sql)
+        out = run()
         launches[name] = {k: fn.launches - b for (k, fn), b in zip(counters.items(), before)}
-        rows_match(name, res.rows, want[name])
-        expect = dict(zip(counters, (N_SEGMENTS * c for c in LAUNCHES_PER_SEGMENT[name])))
+        expect = dict(zip(counters, (n_segments * c for c in LAUNCHES_PER_SEGMENT[name])))
         if launches[name] != expect:
             raise AssertionError(f"{name}: launches {launches[name]}, expected {expect}")
+        return out
+
+    for name, sql in CONFIGS.items():
+        res = counted(name, N_SEGMENTS, lambda: engine.execute(sql))
+        rows_match(name, res.rows, want[name])
         if res.num_docs_scanned <= 0 or res.total_docs != N_ROWS:
             raise AssertionError(f"{name}: docsScanned {res.num_docs_scanned}, totalDocs {res.total_docs}")
+    config10 = counted("10_star_and_hll", 1, lambda: check_config10(ev_engine, ev_seg, want_10))
     main_launches = {k: fn.launches for k, fn in counters.items()}
     for k, v in main_launches.items():
         if v == 0:
             raise AssertionError(f"the main path never launched {k}")
-    emit({"phase": "main_path", "results_match_oracle": True, "launches_per_config": launches, "launches": main_launches})
+    emit({"phase": "main_path", "results_match_oracle": True, "config10": config10,
+          "launches_per_config": launches, "launches": main_launches})
 
+    walls = {name: wall_p50(engine, sql) for name, sql in CONFIGS.items()}
+    walls.update({name: wall_p50(ev_engine, sql) for name, sql in CONFIG_10.items()})
+    walls["10_both_submitted"] = wall_p50_of(lambda: drive_config10(ev_engine))
     emit(
         {
             "phase": "main_path_timing",
-            "wall": {name: wall_p50(engine, sql) for name, sql in CONFIGS.items()},
+            "wall": walls,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "card": card_line(),
         }
     )
-    emit({"phase": "where_the_time_goes", "configs": {name: breakdown(torch, engine, sql) for name, sql in CONFIGS.items()}})
-    return {"launches": main_launches}
+    split = {name: breakdown(torch, engine, sql) for name, sql in CONFIGS.items()}
+    split.update({name: breakdown(torch, ev_engine, sql) for name, sql in CONFIG_10.items()})
+    emit({"phase": "where_the_time_goes", "configs": split})
+    return {"launches": main_launches, "new_steps": new_steps}
 
 
 def breakdown(torch, engine, sql: str) -> dict:

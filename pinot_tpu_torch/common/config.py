@@ -3,9 +3,9 @@
 Reference parity: TableConfig / IndexingConfig (pinot-spi/.../config/table/).
 Field names match the JAX package's `common/config.py`, so a configuration
 written for either package reads the same. The builder encodes columns from
-`no_dictionary_columns` / `dictionary_columns`; every other index field is
-declared here only so that the builder can refuse it by name until the index
-is ported.
+`no_dictionary_columns` / `dictionary_columns` and builds the star-tree
+tables of `star_tree_configs`; every other index field is declared here only
+so that the builder can refuse it by name until the index is ported.
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ UNSUPPORTED_INDEX_FIELDS = (
     "inverted_index_columns",
     "range_index_columns",
     "bloom_filter_columns",
-    "star_tree_configs",
     "text_index_columns",
     "json_index_columns",
     "geo_index_columns",
@@ -28,13 +27,38 @@ UNSUPPORTED_INDEX_FIELDS = (
 
 
 @dataclass
+class StarTreeIndexConfig:
+    """Parity with StarTreeIndexConfig (dimensionsSplitOrder,
+    functionColumnPairs, maxLeafRecords)."""
+
+    dimensions_split_order: list[str] = field(default_factory=list)
+    function_column_pairs: list[str] = field(default_factory=list)  # e.g. "SUM__revenue"
+    max_leaf_records: int = 10000
+
+    def to_dict(self) -> dict:
+        return {
+            "dimensionsSplitOrder": self.dimensions_split_order,
+            "functionColumnPairs": self.function_column_pairs,
+            "maxLeafRecords": self.max_leaf_records,
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "StarTreeIndexConfig":
+        return StarTreeIndexConfig(
+            d.get("dimensionsSplitOrder", []),
+            d.get("functionColumnPairs", []),
+            d.get("maxLeafRecords", 10000),
+        )
+
+
+@dataclass
 class IndexingConfig:
     no_dictionary_columns: list[str] = field(default_factory=list)
     dictionary_columns: list[str] = field(default_factory=list)
     inverted_index_columns: list[str] = field(default_factory=list)
     range_index_columns: list[str] = field(default_factory=list)
     bloom_filter_columns: list[str] = field(default_factory=list)
-    star_tree_configs: list = field(default_factory=list)
+    star_tree_configs: list[StarTreeIndexConfig] = field(default_factory=list)
     text_index_columns: list[str] = field(default_factory=list)
     json_index_columns: list[str] = field(default_factory=list)
     geo_index_columns: list[list[str]] = field(default_factory=list)

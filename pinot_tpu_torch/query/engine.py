@@ -10,21 +10,25 @@ reduce over the partials.
 
 The engine runs on `device`, "cuda" unless the caller asks for another; on a
 machine without a card the default raises rather than running elsewhere.
-Star-tree swaps, the host executor, segment pruning, upsert validity and the
-scan-stats / heat / accounting / trace hooks of the reference are not ported
-yet; query shapes that need them raise NotImplementedError (DeviceFallback
-where the reference reruns on its host executor, e.g. a sparse group-by
-segment with more present groups than its slots).
+A segment with star-tree tables answers a matching aggregation or group-by
+from its pre-aggregated table (`startree_exec`), resolved at dispatch. The
+host executor, segment pruning, upsert validity and the scan-stats / heat /
+accounting / trace hooks of the reference are not ported yet; query shapes
+that need them raise NotImplementedError (DeviceFallback where the reference
+reruns on its host executor, e.g. a sparse group-by segment with more
+present groups than its slots).
 """
 
 from __future__ import annotations
 
+import socket
 import time
 
 import numpy as np
 import torch
 
 from pinot_tpu_torch.query import reduce as reduce_mod
+from pinot_tpu_torch.query import startree_exec
 from pinot_tpu_torch.query.context import QueryContext, QueryType, expand_star
 from pinot_tpu_torch.query.kernels import dispatch_plan_packed
 from pinot_tpu_torch.query.optimizer import optimize_filter
@@ -62,7 +66,11 @@ class QueryEngine:
             return reduce_mod.reduce_aggregation(ctx, partials)
         if ctx.query_type == QueryType.GROUP_BY:
             return reduce_mod.reduce_group_by(ctx, partials)
-        raise NotImplementedError(f"{ctx.query_type.value} queries are not ported to pinot_tpu_torch yet")
+        if ctx.query_type == QueryType.DISTINCT:
+            return reduce_mod.reduce_distinct(ctx, partials)
+        if ctx.query_type == QueryType.SELECTION_ORDER_BY:
+            return reduce_mod.reduce_selection_order_by(ctx, partials)
+        return reduce_mod.reduce_selection(ctx, partials)
 
     def execute(self, sql: str) -> ResultTable:
         """Synchronous execute = submit + immediate resolve."""
@@ -98,19 +106,39 @@ class QueryEngine:
 
     # ------------------------------------------------------------------
 
+    def _execute_segment(self, seg: ImmutableSegment, ctx: QueryContext):
+        """(partial, matched docs) of one segment, synchronously."""
+        return self._finish_segment(seg, ctx, self._dispatch_segment(seg, ctx))
+
     def _dispatch_segment(self, seg: ImmutableSegment, ctx: QueryContext):
-        """Async half of segment execution: plan + ENQUEUE the device program.
-        Returns (plan, unpack) with the program still in flight."""
+        """Async half of segment execution. Returns ("ready", partial,
+        matched) when the segment resolved on the host (the star-tree swap,
+        which runs its small program over the star table at once), else
+        ("dev", plan, unpack) with the device program still in flight."""
+        if seg.extras.get("startree"):
+            res = startree_exec.try_execute(self, seg, ctx)
+            if res is not None:
+                return ("ready",) + res
         plan = plan_segment(seg, ctx)
-        return plan, dispatch_plan_packed(plan, seg.to_device_cached(self.device))
+        return ("dev", plan, dispatch_plan_packed(plan, seg.to_device_cached(self.device)))
 
     def _finish_segment(self, seg: ImmutableSegment, ctx: QueryContext, disp):
-        """Sync half: convert an in-flight dispatch to (partial, matched)."""
-        plan, unpack = disp
+        """Sync half: convert a dispatch to (partial, matched)."""
+        if disp[0] == "ready":
+            return disp[1], disp[2]
+        _, plan, unpack = disp
         out = unpack()  # the one device->host copy for this segment
-        if ctx.query_type == QueryType.AGGREGATION:
+        qt = ctx.query_type
+        if qt == QueryType.AGGREGATION:
             matched, parts = out
             return self._convert_agg(seg, ctx, plan, parts), int(matched)
+        if qt == QueryType.SELECTION:
+            matched, outs = out
+            return self._convert_selection(seg, plan, int(matched), outs), int(matched)
+        if qt == QueryType.SELECTION_ORDER_BY:
+            matched, keys, outs = out
+            return self._convert_selection_ob(seg, plan, int(matched), keys, outs), int(matched)
+        # GROUP_BY and DISTINCT
         if plan.spec[2][0] == "groups_sparse":
             matched, counts, parts, uniq, n_unique = out
             if int(n_unique) > plan.spec[2][2]:
@@ -136,6 +164,8 @@ class QueryEngine:
             elif a.func in reduce_mod.DISTINCT_AGGS:
                 # presence over dict ids -> the set of present values
                 out.append(_present_values(seg, spec_entry[1], np.asarray(p)))
+            elif a.func == "distinctcounthll":
+                out.append(np.asarray(p))  # the register vector
             elif a.func in ("avg", "minmaxrange"):
                 out.append((float(p[0]), int(p[1]) if a.func == "avg" else float(p[1])))
             else:
@@ -148,8 +178,10 @@ class QueryEngine:
     ) -> dict[str, np.ndarray]:
         """Present groups (count > 0) -> a group frame: key columns decoded
         through the dictionaries, one column per partial (DISTINCTCOUNT: an
-        object column of value sets). `dense_gids` maps the sparse path's
-        slots to their dense gids; on the dense path a slot IS its gid."""
+        object column of value sets; DISTINCTCOUNTHLL: of register vectors).
+        DISTINCT's frame has the keys alone. `dense_gids` maps the sparse
+        path's slots to their dense gids; on the dense path a slot IS its
+        gid."""
         pg = np.nonzero(counts)[0]
         gids = pg if dense_gids is None else np.asarray(dense_gids)[pg]
         cards = [ci.cardinality for _, ci in plan.group_cols]
@@ -169,9 +201,66 @@ class QueryEngine:
                 for j in range(len(pg)):
                     cells[j] = _present_values(seg, spec_entry[1], pres[j])
                 frame[f"a{i}p0"] = cells
+            elif a.func == "distinctcounthll":
+                regs = np.asarray(p)[pg]
+                cells = np.empty(len(pg), dtype=object)
+                for j in range(len(pg)):
+                    cells[j] = regs[j]
+                frame[f"a{i}p0"] = cells
             else:
                 frame[f"a{i}p0"] = np.asarray(p)[pg]
         return frame
+
+    @staticmethod
+    def _convert_selection(seg: ImmutableSegment, plan: SegmentPlan, matched: int, outs) -> dict[str, np.ndarray]:
+        n = min(matched, plan.spec[3])
+        return {f"c{i}": _decode(seg, d, np.asarray(o)[:n]) for i, (d, o) in enumerate(zip(plan.select_decode, outs))}
+
+    @staticmethod
+    def _convert_selection_ob(
+        seg: ImmutableSegment, plan: SegmentPlan, matched: int, keys_out, outs
+    ) -> dict[str, np.ndarray]:
+        """The segment's top rows with their sort values as __key columns:
+        one per ORDER BY key (a composite rank decomposes back into each
+        key's value), dictionary keys decoded."""
+        n = min(matched, plan.spec[5])
+        frame: dict[str, np.ndarray] = {}
+        keys = np.asarray(keys_out)[:n]
+        if plan.ob_decomp:
+            comp = keys.astype(np.int64)
+            strides = group_strides([card for _, card, _, _, _ in plan.ob_decomp], np.int64)
+            for i, (col, card, desc, kind, off) in enumerate(plan.ob_decomp):
+                rank = (comp // strides[i]) % card
+                if desc:
+                    rank = card - 1 - rank
+                frame[f"__key{i}"] = _dict_values(seg, col, rank) if kind == "ids" else rank + off
+        elif plan.spec[3][0] == "ids":
+            frame["__key0"] = _dict_values(seg, plan.spec[3][1], keys.astype(np.int64))
+        else:
+            frame["__key0"] = keys
+        for i, (dec, o) in enumerate(zip(plan.select_decode, outs)):
+            frame[f"c{i}"] = _decode(seg, dec, np.asarray(o)[:n])
+        return frame
+
+
+def _dict_values(seg: ImmutableSegment, col: str, ids: np.ndarray) -> np.ndarray:
+    vals = seg.columns[col].dictionary.get_many(ids)
+    return vals.astype(str) if vals.dtype == object else vals
+
+
+def _decode(seg: ImmutableSegment, dec: tuple, v: np.ndarray) -> np.ndarray:
+    """A selection projection's device values -> its column values."""
+    kind = dec[0]
+    if kind == "dict":
+        return _dict_values(seg, dec[1], v.astype(np.int64))
+    if kind == "virt":
+        # virtual columns: v carries the selected doc ids
+        if dec[1] == "$docId":
+            return v.astype(np.int64)
+        if dec[1] == "$segmentName":
+            return np.full(len(v), seg.name, dtype=object)
+        return np.full(len(v), socket.gethostname(), dtype=object)
+    return v
 
 
 def _present_values(seg: ImmutableSegment, col: str, presence: np.ndarray) -> set:

@@ -24,9 +24,12 @@ reference makes one XLA segment_min/max per aggregate (which XLA fuses;
 eager torch would not), and every DISTINCTCOUNT's presence vector of a query
 through one call of the presence entry of the one-hot-sum counterpart
 (`ops.grouped_sum_f32.presences`, one pass over the docs for all of them),
-where the reference scatters with `.at[...].max(mask)` per aggregate. The tensors' device decides
-what runs: on a CUDA device the hand-written kernels, on the CPU their plain
-torch versions.
+where the reference scatters with `.at[...].max(mask)` per aggregate.
+DISTINCTCOUNTHLL's register update (`sketches.hll_update`, a scatter-max) and
+the selection programs (`select`: the first k matching docs by a cumsum and a
+binary search; `select_ob`: a top-k with the reference's tie order) are torch ops,
+as the reference's are jnp ops. The tensors' device decides what runs: on a
+CUDA device the hand-written kernels, on the CPU their plain torch versions.
 
 Accumulator dtype policy (Pinot parity: SUM/MIN/MAX/AVG return DOUBLE, COUNT
 returns LONG): float64 value accumulators, int64 counts. Integer sums are
@@ -46,12 +49,16 @@ Spec tags outside this module's set raise NotImplementedError naming the tag.
 
 from __future__ import annotations
 
+import threading
+import weakref
+
 import numpy as np
 import torch
 
 from pinot_tpu_torch.ops.extreme import grouped_extremes
 from pinot_tpu_torch.ops.groupby import grouped_multi_sum
 from pinot_tpu_torch.ops.grouped_sum_f32 import presences
+from pinot_tpu_torch.query.sketches import hash_device, hll_update, hll_update_grouped
 
 _F = torch.float64
 _I = torch.int64
@@ -84,6 +91,8 @@ def _value(vspec, cols, ops, n_padded):
     kind = vspec[0]
     if kind in ("raw", "ids"):
         return cols[vspec[1]]
+    if kind == "docid":
+        return torch.arange(n_padded, dtype=torch.int32, device=next(iter(cols.values())).device)
     if kind == "dictval":
         return _gather(ops[vspec[2]], cols[vspec[1]])
     if kind == "lit":
@@ -176,10 +185,22 @@ def _int_scalar_extreme(v, mask, is_min):
     return torch.where(mask.any(), r.to(_F), empty)
 
 
+def _hashes_for(hspec, cols, ops, n_padded):
+    """Per-doc uint32 hashes (int64 tensor) of an `hll` spec's values:
+    ("gather", col, op) gathers the dictionary's hash table (staged as int32
+    bit patterns) by dict id; ("mix", vspec) hashes numeric values on the
+    device."""
+    if hspec[0] == "gather":
+        return _gather(ops[hspec[2]], cols[hspec[1]]).to(_I) & 0xFFFFFFFF
+    return hash_device(_value(hspec[1], cols, ops, n_padded))
+
+
 def _agg_scalar(aspec, cols, ops, mask):
     kind = aspec[0]
     if kind == "count":
         return mask.sum(dtype=_I)
+    if kind == "hll":
+        return hll_update(_hashes_for(aspec[1], cols, ops, mask.shape[0]), mask, aspec[2])
     if kind not in ("sum", "min", "max", "avg", "minmaxrange"):
         raise _unsupported(kind, "aggregation")
     v_raw = _value(aspec[1], cols, ops, mask.shape[0])
@@ -263,10 +284,10 @@ def _grouped_all(aggs, cols, ops, mask, gid, ng):
     """Group counts + every agg partial. The count and ALL int32 SUM/AVG aggs
     fuse into ONE exact group-by kernel launch, every MIN/MAX/MINMAXRANGE into
     ONE extreme-kernel call, every DISTINCTCOUNT into ONE presences call;
-    non-int32 SUM/AVG use their own ops."""
+    non-int32 SUM/AVG and DISTINCTCOUNTHLL's registers use their own ops."""
     values, kernel_vals, owner = {}, [], {}
     for i, a in enumerate(aggs):
-        if a[0] in ("count", "distinct_ids"):
+        if a[0] in ("count", "distinct_ids", "hll"):
             continue
         if a[0] not in ("sum", "min", "max", "avg", "minmaxrange"):
             raise _unsupported(a[0], "aggregation")
@@ -283,6 +304,9 @@ def _grouped_all(aggs, cols, ops, mask, gid, ng):
             parts.append(counts)
         elif i in flags:
             parts.append(flags[i])
+        elif a[0] == "hll":
+            hashes = _hashes_for(a[1], cols, ops, mask.shape[0])
+            parts.append(hll_update_grouped(hashes, mask, gid, ng, a[2]))
         elif i in owner:
             parts.append(sums[owner[i]] if a[0] == "sum" else (sums[owner[i]], counts))
         elif i in extremes:
@@ -346,20 +370,88 @@ def _sparse_groups(gspec, aggs, cols, ops, mask, matched):
     return matched, counts, parts, uniq, n_unique
 
 
+def first_k(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the first k set docs of `mask` in doc order, padded with
+    doc 0 (jnp.nonzero(mask, size=k, fill_value=0)), without a host sync:
+    the j-th set doc is the first position where the running count of set
+    docs reaches j, one binary search of the cumsum per slot."""
+    count = torch.cumsum(mask, 0)
+    idx = torch.searchsorted(count, torch.arange(1, k + 1, dtype=count.dtype, device=mask.device))
+    return torch.where(idx < mask.shape[0], idx, 0)
+
+
+def total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 key of float64 values in IEEE total order (-NaN < -inf < ... <
+    -0.0 < +0.0 < ... < +inf < +NaN), the order XLA's top_k ranks by."""
+    bits = x.contiguous().view(_I)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFFFFFFFFFF, bits)
+
+
+def top_k_stable(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest int64 keys, largest first and ties by the
+    lower index (lax.top_k's order), without a host sync. torch.topk
+    promises no order among ties, so its k-th value only sets the
+    threshold: every key above it is taken, then the lowest-index docs
+    equal to it up to k, and a stable sort of those k orders them."""
+    if k == 0:
+        return torch.zeros(0, dtype=_I, device=key.device)
+    kth = torch.topk(key, k, sorted=False).values.min()
+    above, at = key > kth, key == kth
+    take = above | (at & (torch.cumsum(at, 0) <= k - above.sum()))
+    idx = first_k(take, k)
+    return idx[torch.sort(key[idx], descending=True, stable=True).indices]
+
+
 def build_fn(spec: tuple):
     """Build the program for a plan spec: run(cols, ops, n_docs, n_padded)
-    with cols a dict of device tensors and ops a tuple of staged operands."""
+    with cols a dict of device tensors and ops a tuple of staged operands.
+    Kinds: "agg" (aggregation, group-by, DISTINCT), "select" (the first k
+    matching docs' projections) and "select_ob" (the top k by one key)."""
     kind = spec[0]
-    if kind != "agg":
-        raise _unsupported(kind, "program")
-    _, fspec, gspec, aggs = spec
 
-    def run(cols, ops, n_docs, n_padded):
+    def valid_docs(cols, n_docs, n_padded):
         device = next(iter(cols.values())).device
-        valid = torch.arange(n_padded, dtype=torch.int32, device=device) < n_docs
-        return _agg_eval(fspec, gspec, aggs, cols, ops, valid)
+        return torch.arange(n_padded, dtype=torch.int32, device=device) < n_docs
 
-    return run
+    def doc_mask(fspec, cols, ops, n_docs, n_padded):
+        valid = valid_docs(cols, n_docs, n_padded)
+        return valid & _filter(fspec, cols, ops, n_padded, valid.device)
+
+    if kind == "agg":
+        _, fspec, gspec, aggs = spec
+
+        def run(cols, ops, n_docs, n_padded):
+            return _agg_eval(fspec, gspec, aggs, cols, ops, valid_docs(cols, n_docs, n_padded))
+
+        return run
+
+    if kind == "select":
+        _, fspec, proj, k = spec
+
+        def run_select(cols, ops, n_docs, n_padded):
+            mask = doc_mask(fspec, cols, ops, n_docs, n_padded)
+            idx = first_k(mask, k)
+            outs = tuple(_gather(_value(p, cols, ops, n_padded), idx) for p in proj)
+            return mask.sum(dtype=_I), outs
+
+        return run_select
+
+    if kind == "select_ob":
+        _, fspec, proj, kspec, desc, k = spec
+
+        def run_ob(cols, ops, n_docs, n_padded):
+            mask = doc_mask(fspec, cols, ops, n_docs, n_padded)
+            key = _value(kspec, cols, ops, n_padded).to(_F)
+            # masked docs rank at -inf, ASC negates the key (the reference's
+            # ranking, ties and NaN included)
+            sort_key = torch.where(mask, key if desc else -key, float("-inf"))
+            idx = top_k_stable(total_order_key(sort_key), min(k, n_padded))
+            outs = tuple(_gather(_value(p, cols, ops, n_padded), idx) for p in proj)
+            return mask.sum(dtype=_I), _gather(key, idx), outs
+
+        return run_ob
+
+    raise _unsupported(kind, "program")
 
 
 # ---------------------------------------------------------------------------
@@ -385,9 +477,59 @@ def _unflatten(defs, leaves):
     return tuple(_unflatten(d, leaves) for d in defs)
 
 
+#: device copies of operands their owner declared long-lived
+#: (`Dictionary.hll_hash_pad`), one per (array, device). Per-query operands
+#: (literals, LUTs) never enter: their ids do not recur. An entry goes when
+#: its host array is collected (a weakref callback), so the cache lives no
+#: longer than the owners. The lock covers concurrent query threads.
+_OP_CACHE_LOCK = threading.Lock()
+_STABLE_OPS: dict[int, weakref.ref] = {}
+_OP_DEVICE_CACHE: dict[tuple[int, str], tuple[weakref.ref, torch.Tensor]] = {}
+
+
+def _op_cache_drop(key: int) -> None:
+    with _OP_CACHE_LOCK:
+        _STABLE_OPS.pop(key, None)
+        for k in [k for k in _OP_DEVICE_CACHE if k[0] == key]:
+            del _OP_DEVICE_CACHE[k]
+
+
+def mark_stable_operand(o: np.ndarray) -> np.ndarray:
+    """Declare a host array stable (immutable and reused across queries):
+    its device copy is staged once per device and kept until the array is
+    collected."""
+    key = id(o)
+    with _OP_CACHE_LOCK:
+        _STABLE_OPS[key] = weakref.ref(o, lambda _r, k=key: _op_cache_drop(k))
+    return o
+
+
+def _to_tensor(o, device) -> torch.Tensor:
+    a = np.asarray(o)
+    if a.dtype == np.uint32:
+        # uint32 tables (hashes) ride as their int32 bit patterns; readers
+        # widen them to int64 and mask to 32 bits
+        a = a.view(np.int32)
+    return torch.tensor(a, device=device)
+
+
 def stage_operand(o, device) -> torch.Tensor:
-    """Copy one plan operand (numpy array or scalar) to the device."""
-    return torch.tensor(np.asarray(o), device=device)
+    """Copy one plan operand (numpy array or scalar) to the device; an array
+    marked stable is copied once per device and its copy reused."""
+    if isinstance(o, np.ndarray):
+        key = (id(o), str(device))
+        with _OP_CACHE_LOCK:
+            ref = _STABLE_OPS.get(key[0])
+            stable = ref is not None and ref() is o
+            ent = _OP_DEVICE_CACHE.get(key) if stable else None
+        if ent is not None and ent[0]() is o:
+            return ent[1]
+        if stable:
+            t = _to_tensor(o, device)
+            with _OP_CACHE_LOCK:
+                _OP_DEVICE_CACHE[key] = (weakref.ref(o), t)
+            return t
+    return _to_tensor(o, device)
 
 
 def plan_inputs(plan, device_segment):

@@ -22,11 +22,17 @@ same program in both packages.
    MAX_DENSE_GROUPS (read when a query is planned) the product goes to the
    sparse spec `groups_sparse`, whose U slots hold the present groups.
 
+ * SELECTION lowers to a `select` program (the first LIMIT + OFFSET matching
+   docs), SELECTION ORDER BY to `select_ob` (the top LIMIT + OFFSET docs by
+   one key: a dict id, a value, or for several keys one int32 composite rank
+   from `multi_ob_spec`), and DISTINCT to a group-by with no aggregates.
+
 Query shapes whose lowering needs a module that is not ported yet (the host
-executor, transforms, sketches, null handling, multi-value columns,
-selection) raise NotImplementedError; `DeviceFallback`, which the
-reference answers with its host executor (e.g. DISTINCTCOUNT of a raw column,
-or a grouped presence matrix over MAX_PRESENCE_CELLS), is one such error here.
+executor, transforms, the other sketches, null handling, multi-value
+columns) raise NotImplementedError; `DeviceFallback`, which the reference
+answers with its host executor (e.g. DISTINCTCOUNT of a raw column, a
+grouped presence matrix over MAX_PRESENCE_CELLS, an expression ORDER BY key
+among several), is one such error here.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from pinot_tpu_torch.common.types import DataType
 from pinot_tpu_torch.query import ast
 from pinot_tpu_torch.query.ast import CompareOp, Expr, FilterExpr
 from pinot_tpu_torch.query.context import AggregationInfo, QueryContext, QueryType, null_handling_enabled
+from pinot_tpu_torch.query.sketches import HLL_LOG2M, HLL_M
 from pinot_tpu_torch.segment.segment import ImmutableSegment
 
 MAX_DENSE_GROUPS = 1 << 20
@@ -51,11 +58,25 @@ VIRTUAL_COLUMNS = ("$docId", "$segmentName", "$hostName")
 _STRING_TYPES = (DataType.STRING, DataType.BYTES, DataType.JSON)
 
 #: aggregations with a device lowering in this package
-PORTED_AGGS = ("count", "sum", "min", "max", "avg", "minmaxrange", "distinctcount", "distinctcountbitmap")
+PORTED_AGGS = (
+    "count",
+    "sum",
+    "min",
+    "max",
+    "avg",
+    "minmaxrange",
+    "distinctcount",
+    "distinctcountbitmap",
+    "distinctcounthll",
+)
 
 #: largest grouped DISTINCTCOUNT presence matrix (ng * pad cells) lowered to
 #: the device; the reference answers larger ones with its host executor
 MAX_PRESENCE_CELLS = 1 << 24
+
+#: largest grouped DISTINCTCOUNTHLL register matrix (ng * 2^log2m cells)
+#: lowered to the device
+MAX_HLL_CELLS = 1 << 22
 
 
 class DeviceFallback(NotImplementedError):
@@ -87,6 +108,13 @@ class SegmentPlan:
     columns: tuple[str, ...]  # device arrays the program reads, in order
     # host-side decode info
     group_cols: list[tuple[str, Any]] = field(default_factory=list)  # (col, ColumnIndex)
+    # per projection of a selection: ("dict", col) | ("rawcol", col) |
+    # ("virt", name) | ("expr", None)
+    select_decode: list[tuple] = field(default_factory=list)
+    # multi-key ORDER BY composite: [(col, card, desc, kind, offset)], most
+    # significant key first; the host decomposes the composite rank back
+    # into per-key sort values
+    ob_decomp: list[tuple] | None = None
 
 
 class _Lowering:
@@ -450,9 +478,73 @@ class _Lowering:
                     self.use_col(info.arg.name)
                     return ("distinct_ids", info.arg.name, pad)
             raise DeviceFallback("DISTINCTCOUNT on raw/expression args runs host-side")
+        if info.func == "distinctcounthll":
+            if grouped and self._group_ng * HLL_M > MAX_HLL_CELLS:
+                raise DeviceFallback("grouped HLL register matrix exceeds device budget")
+            return self._hll_spec(info)
         if info.arg is None:
             raise PlanError(f"{info.func} requires an argument")
         return (info.func, self.value_spec(info.arg))
+
+    def _hll_spec(self, info: AggregationInfo) -> tuple:
+        if isinstance(info.arg, ast.Identifier):
+            ci = self.seg.columns.get(info.arg.name)
+            if ci is None:
+                raise PlanError(f"unknown column {info.arg.name!r}")
+            if ci.is_dict_encoded:
+                # the dictionary's memoized hash table, a stable operand: its
+                # staged copy survives across queries
+                self.use_col(info.arg.name)
+                return ("hll", ("gather", info.arg.name, self.op_idx(ci.dictionary.hll_hash_pad())), HLL_LOG2M)
+        # raw numeric column / numeric expression: hashed on the device
+        if info.arg is None:
+            raise PlanError("distinctcounthll requires an argument")
+        return ("hll", ("mix", self.value_spec(info.arg)), HLL_LOG2M)
+
+    # -- ORDER BY ------------------------------------------------------------
+
+    def multi_ob_spec(self, order_by) -> tuple:
+        """Composite rank key for a multi-key ORDER BY (the sorting twin of
+        DictionaryBasedGroupKeyGenerator's cardinality product): ascending
+        composite order is the requested multi-key order. Each key maps to
+        its rank (a dict id is its value's rank; a bounded int shifts by its
+        minimum), DESC flips it (card - 1 - rank), and the ranks combine by
+        cardinality-product strides into one int32. Returns (kspec, decomp)."""
+        entries = []  # (col, card, desc, kind, offset)
+        total = 1
+        for ob in order_by:
+            if not isinstance(ob.expr, ast.Identifier):
+                raise DeviceFallback("expression ORDER BY keys run host-side")
+            ci = self.seg.columns.get(ob.expr.name)
+            if ci is None:
+                raise PlanError(f"unknown column {ob.expr.name!r}")
+            if ci.is_dict_encoded:
+                entries.append((ob.expr.name, max(ci.cardinality, 1), ob.desc, "ids", 0))
+            elif np.issubdtype(ci.forward.dtype, np.integer):
+                lo_v, hi_v = int(ci.stats.min_value), int(ci.stats.max_value)
+                card = hi_v - lo_v + 1
+                i32 = np.iinfo(np.int32)
+                # the offset and extreme literals ride as int32 operands
+                if card <= 0 or card > (1 << 31) or lo_v < i32.min or hi_v > i32.max:
+                    raise DeviceFallback("wide-range int ORDER BY key runs host-side")
+                entries.append((ob.expr.name, card, ob.desc, "rawoff", lo_v))
+            else:
+                raise DeviceFallback("float/string-raw multi-key ORDER BY runs host-side")
+            total *= entries[-1][1]
+            if total > (1 << 31) - 1:
+                raise DeviceFallback("ORDER BY key-rank product exceeds int32; host-side")
+        strides = group_strides([e[1] for e in entries], np.int64).tolist()
+        kspec = None
+        for (col, card, desc, kind, off), stride in zip(entries, strides):
+            self.use_col(col)
+            base: tuple = ("ids" if kind == "ids" else "raw", col)
+            if kind == "rawoff" and off != 0:
+                base = ("bin", "-", base, ("lit", self.op_idx(np.int32(off))))
+            if desc:
+                base = ("bin", "-", ("lit", self.op_idx(np.int32(card - 1))), base)
+            term = base if stride == 1 else ("bin", "*", base, ("lit", self.op_idx(np.int32(stride))))
+            kspec = term if kspec is None else ("bin", "+", kspec, term)
+        return kspec, entries
 
     # -- group-by ------------------------------------------------------------
 
@@ -550,19 +642,72 @@ def _like_to_regex(pattern: str) -> str:
 
 
 def plan_segment(seg: ImmutableSegment, ctx: QueryContext) -> SegmentPlan:
-    """Lower an aggregation or group-by query against one segment."""
+    """Lower a query against one segment. Raises DeviceFallback where the
+    reference would run the segment on its host executor."""
     if null_handling_enabled(ctx.options):
         raise NotImplementedError("enableNullHandling is not ported to pinot_tpu_torch yet")
-    if ctx.query_type not in (QueryType.AGGREGATION, QueryType.GROUP_BY):
-        raise NotImplementedError(f"{ctx.query_type.value} queries are not ported to pinot_tpu_torch yet")
     lo = _Lowering(seg, ctx)
     fspec = lo.filter_spec(ctx.filter)
-    grouped = ctx.query_type == QueryType.GROUP_BY
-    gspec = lo.group_spec() if grouped else None
-    aggs = tuple(lo.agg_spec(a, grouped) for a in ctx.aggregations)
-    return SegmentPlan(
-        spec=("agg", fspec, gspec, aggs),
-        operands=tuple(lo.operands),
-        columns=tuple(lo.columns),
-        group_cols=[(c, seg.columns[c]) for c in (gspec[1] if gspec else ())],
-    )
+
+    def plan(spec, **decode) -> SegmentPlan:
+        return SegmentPlan(spec=spec, operands=tuple(lo.operands), columns=tuple(lo.columns), **decode)
+
+    if ctx.query_type in (QueryType.AGGREGATION, QueryType.GROUP_BY):
+        grouped = ctx.query_type == QueryType.GROUP_BY
+        gspec = lo.group_spec() if grouped else None
+        aggs = tuple(lo.agg_spec(a, grouped) for a in ctx.aggregations)
+        return plan(("agg", fspec, gspec, aggs), group_cols=[(c, seg.columns[c]) for c in (gspec[1] if gspec else ())])
+
+    if ctx.query_type == QueryType.DISTINCT:
+        # a group-by over the selected columns with no aggregates
+        saved = ctx.group_by
+        ctx.group_by = [it.expr for it in ctx.select_items]
+        try:
+            gspec = lo.group_spec()
+        finally:
+            ctx.group_by = saved
+        return plan(("agg", fspec, gspec, ()), group_cols=[(c, seg.columns[c]) for c in gspec[1]])
+
+    # SELECTION / SELECTION_ORDER_BY
+    proj, decode = [], []
+    for item in ctx.select_items:
+        e = item.expr
+        if isinstance(e, ast.Star):
+            raise DeviceFallback("SELECT * expansion handled by engine")
+        if isinstance(e, ast.Identifier):
+            if e.name in VIRTUAL_COLUMNS:
+                # $docId / $segmentName / $hostName: doc ids come off the
+                # device, the constants decode on the host
+                proj.append(("docid",))
+                decode.append(("virt", e.name))
+                continue
+            ci = seg.columns.get(e.name)
+            if ci is None:
+                raise PlanError(f"unknown column {e.name!r}")
+            if ci.is_mv:
+                raise DeviceFallback("MV column selection runs host-side (ragged rows)")
+            lo.use_col(e.name)
+            if ci.is_dict_encoded:
+                proj.append(("ids", e.name))
+                decode.append(("dict", e.name))
+            else:
+                proj.append(("raw", e.name))
+                decode.append(("rawcol", e.name))
+        else:
+            proj.append(lo.value_spec(e))
+            decode.append(("expr", None))
+    k = ctx.limit + ctx.offset
+    if ctx.query_type != QueryType.SELECTION_ORDER_BY:
+        return plan(("select", fspec, tuple(proj), k), select_decode=decode)
+    if len(ctx.order_by) != 1:
+        # several keys: one int32 composite rank, one top-k for all of them
+        kspec, ob_decomp = lo.multi_ob_spec(ctx.order_by)
+        return plan(("select_ob", fspec, tuple(proj), kspec, False, k), select_decode=decode, ob_decomp=ob_decomp)
+    ob = ctx.order_by[0]
+    key = ob.expr
+    if isinstance(key, ast.Identifier) and key.name in seg.columns and seg.columns[key.name].is_dict_encoded:
+        lo.use_col(key.name)
+        kspec = ("ids", key.name)  # dict id order is value order
+    else:
+        kspec = lo.value_spec(key)
+    return plan(("select_ob", fspec, tuple(proj), kspec, ob.desc, k), select_decode=decode)

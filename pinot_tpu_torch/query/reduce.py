@@ -2,19 +2,26 @@
 
 Reference parity: BrokerReduceService.reduceOnDataTable (pinot-core/.../query/
 reduce/BrokerReduceService.java:54,61) and the per-type reducers
-(GroupByDataTableReducer, AggregationDataTableReducer) plus HavingFilterHandler
-/ PostAggregationHandler. This is the JAX package's `query/reduce.py` for the
-aggregations this package lowers (COUNT, SUM, MIN, MAX, AVG, MINMAXRANGE,
-DISTINCTCOUNT), written in numpy alone: it keeps the reference's merge order,
-so ties under ORDER BY come out in the reference's row order.
+(GroupByDataTableReducer, AggregationDataTableReducer, SelectionDataTableReducer,
+DistinctDataTableReducer) plus HavingFilterHandler / PostAggregationHandler.
+This is the JAX package's `query/reduce.py` for the aggregations this package
+lowers (COUNT, SUM, MIN, MAX, AVG, MINMAXRANGE, DISTINCTCOUNT,
+DISTINCTCOUNTHLL) and for SELECTION, SELECTION ORDER BY and DISTINCT, written
+in numpy alone: it keeps the reference's merge order, so ties under ORDER BY
+come out in the reference's row order, and the reference's row values (see
+`frame_rows`).
 
 Partial formats:
   AGGREGATION: list aligned with ctx.aggregations; entries by func:
       count -> int, sum/min/max -> float, avg -> (sum, count),
-      minmaxrange -> (min, max), distinctcount -> set of values
-  GROUP_BY: a "group frame", a dict of equal-length numpy arrays with key
-      columns k0..k{n-1} and partial columns a{i}p{j} (agg i, part j);
-      DISTINCTCOUNT's column holds a set per group (dtype object)
+      minmaxrange -> (min, max), distinctcount -> set of values,
+      distinctcounthll -> int32 register vector (or a set of values)
+  GROUP_BY / DISTINCT: a "group frame", a dict of equal-length numpy arrays
+      with key columns k0..k{n-1} and partial columns a{i}p{j} (agg i, part
+      j); DISTINCTCOUNT's column holds a set per group, DISTINCTCOUNTHLL's a
+      register vector per group (dtype object)
+  SELECTION: a frame with positional columns c0..c{n-1}
+  SELECTION_ORDER_BY: the same plus sort columns __key0..__key{m-1}
 """
 
 from __future__ import annotations
@@ -24,13 +31,36 @@ from typing import Any
 
 import numpy as np
 
+from pinot_tpu_torch.common.sorting import sort_nulls_largest
 from pinot_tpu_torch.query import ast
 from pinot_tpu_torch.query.context import QueryContext, canonical
 from pinot_tpu_torch.query.result import ResultTable
+from pinot_tpu_torch.query.sketches import hll_estimate
 
 
 def frame_len(frame: dict[str, np.ndarray]) -> int:
     return len(next(iter(frame.values()))) if frame else 0
+
+
+def concat_frames(frames: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+    """The non-empty frames' rows, in order (pd.concat's)."""
+    frames = [f for f in frames if frame_len(f)]
+    if not frames:
+        return {}
+    return {c: np.concatenate([f[c] for f in frames]) for c in frames[0]}
+
+
+def frame_rows(columns: list[np.ndarray]) -> list[list]:
+    """Rows of Python values, as the reference's `DataFrame.values.tolist()`
+    gives them: the columns share one dtype first (numeric columns promote,
+    so an INT column beside a DOUBLE one comes out as floats; any string or
+    object column makes every value its own Python object)."""
+    if not columns:
+        return []
+    if all(c.dtype.kind in "iuf" for c in columns):
+        dt = np.result_type(*columns)
+        return np.column_stack([c.astype(dt) for c in columns]).tolist()
+    return [list(r) for r in zip(*(c.astype(object).tolist() for c in columns))]
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +196,18 @@ def _merge_agg_partials(func: str, a, b):
         return (min(a[0], b[0]), max(a[1], b[1]))
     if func in DISTINCT_AGGS:
         return a | b
+    if func == "distinctcounthll":
+        # registers merge by elementwise max; exact sets by union
+        if isinstance(a, (set, frozenset)):
+            return a | b
+        return np.maximum(a, b)
     raise AssertionError(func)
+
+
+def _hll_count(p) -> int:
+    """DISTINCTCOUNTHLL of a merged partial: an exact set counts its values,
+    registers give the HLL estimate."""
+    return len(p) if isinstance(p, (set, frozenset)) else hll_estimate(np.asarray(p))
 
 
 def _finalize(a, p):
@@ -184,6 +225,8 @@ def _finalize(a, p):
         return float(p[1]) - float(p[0])
     if func in DISTINCT_AGGS:
         return len(p)
+    if func == "distinctcounthll":
+        return _hll_count(p)
     raise AssertionError(func)
 
 
@@ -209,6 +252,8 @@ def _finalize_column(a, parts) -> list:
         return (hi - lo).tolist()
     if func in DISTINCT_AGGS:
         return [len(s) for s in parts]
+    if func == "distinctcounthll":
+        return [_hll_count(p) for p in parts]
     raise AssertionError(func)
 
 
@@ -239,6 +284,7 @@ def _empty_partial(func: str):
         "minmaxrange": (float("inf"), float("-inf")),
         "distinctcount": set(),
         "distinctcountbitmap": set(),
+        "distinctcounthll": set(),
     }[func]
 
 
@@ -270,6 +316,13 @@ def _merge_column(func: str, vals: np.ndarray, group: np.ndarray, n_groups: int)
         for g, s in zip(group.tolist(), vals):
             out[g] |= s
         return out
+    if func == "hll":
+        # a group's partials fold in row order (the reference's reduce over
+        # each group's series)
+        out = np.full(n_groups, None, dtype=object)
+        for g, r in zip(group.tolist(), vals):
+            out[g] = r if out[g] is None else _merge_agg_partials("distinctcounthll", out[g], r)
+        return out
     if func == "sum":
         if vals.dtype.kind == "f":
             out = np.zeros(n_groups, dtype=np.float64)
@@ -293,15 +346,15 @@ _PART_MERGE = {
     "minmaxrange": ("min", "max"),
     "distinctcount": ("union",),
     "distinctcountbitmap": ("union",),
+    "distinctcounthll": ("hll",),
 }
 
 
 def reduce_group_by(ctx: QueryContext, frames: list[dict[str, np.ndarray]]) -> list[list]:
     nkeys = len(ctx.group_by)
-    frames = [f for f in frames if frame_len(f)]
-    if not frames:
+    cols = concat_frames(frames)
+    if not cols:
         return []
-    cols = {c: np.concatenate([f[c] for f in frames]) for c in frames[0]}
     group, first = group_index([cols[f"k{i}"] for i in range(nkeys)])
     n_rows = len(first)
     key_vals = [cols[f"k{i}"][first].tolist() for i in range(nkeys)]
@@ -417,6 +470,50 @@ class _OrderKey:
         if _is_null_partial(self.v) or _is_null_partial(other.v):
             return _is_null_partial(self.v) and _is_null_partial(other.v)
         return self.v == other.v
+
+
+def reduce_distinct(ctx: QueryContext, frames: list[dict[str, np.ndarray]]) -> list[list]:
+    """Distinct key rows: the first occurrence of each across the frames
+    (drop_duplicates' order), then the ORDER BY, OFFSET and LIMIT."""
+    cols = concat_frames(frames)
+    if not cols:
+        return []
+    keys = [cols[f"k{i}"] for i in range(len(ctx.select_items))]
+    _, first = group_index(keys)
+    keys = [k[first] for k in keys]
+    if ctx.order_by:
+        aliases = _alias_map(ctx)
+        name_of = {canonical(it.expr): i for i, it in enumerate(ctx.select_items)}
+        by, asc = [], []
+        for ob in ctx.order_by:
+            cn = canonical(ob.expr)
+            if cn not in name_of and aliases and cn in aliases:
+                cn = canonical(aliases[cn])
+            if cn not in name_of:
+                raise ValueError(f"DISTINCT ORDER BY must reference selected columns: {cn}")
+            by.append(keys[name_of[cn]])
+            asc.append(not ob.desc)
+        perm = sort_nulls_largest(by, asc)
+        keys = [k[perm] for k in keys]
+    return frame_rows([k[ctx.offset : ctx.offset + ctx.limit] for k in keys])
+
+
+def reduce_selection(ctx: QueryContext, frames: list[dict[str, np.ndarray]]) -> list[list]:
+    """The frames' rows in segment order, then OFFSET and LIMIT."""
+    cols = concat_frames(frames)
+    return frame_rows([v[ctx.offset : ctx.offset + ctx.limit] for v in cols.values()])
+
+
+def reduce_selection_order_by(ctx: QueryContext, frames: list[dict[str, np.ndarray]]) -> list[list]:
+    """Every segment's top rows sorted by the __key columns (stable: ties keep
+    segment order, then each segment's order), then OFFSET and LIMIT."""
+    cols = concat_frames(frames)
+    if not cols:
+        return []
+    key_cols = [c for c in cols if c.startswith("__key")]
+    asc = [not ob.desc for ob in ctx.order_by[: len(key_cols)]]
+    perm = sort_nulls_largest([cols[c] for c in key_cols], asc)[ctx.offset : ctx.offset + ctx.limit]
+    return frame_rows([v[perm] for c, v in cols.items() if c not in key_cols])
 
 
 def build_result(ctx: QueryContext, rows: list[list], **stats) -> ResultTable:

@@ -13,7 +13,8 @@ Encoding decisions (IndexingConfig semantics, as in the JAX package):
   - STRING/BYTES/JSON are ALWAYS dictionary-encoded: only ids ever reach the
     device.
 
-This package builds single-value dictionary and raw columns only; a schema or
+This package builds single-value dictionary and raw columns and the star-tree
+tables of `star_tree_configs` (into `seg.extras["startree"]`); a schema or
 table config that asks for anything else raises NotImplementedError naming it.
 """
 
@@ -27,6 +28,7 @@ from pinot_tpu_torch.common.config import UNSUPPORTED_INDEX_FIELDS, TableConfig
 from pinot_tpu_torch.common.types import DataType, FieldType, Schema
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.segment import ColumnIndex, ImmutableSegment
+from pinot_tpu_torch.segment.startree import build_star_table
 from pinot_tpu_torch.segment.stats import ColumnStats
 
 
@@ -109,4 +111,6 @@ class SegmentBuilder:
                 stats = ColumnStats.collect(col, dt, vals, card)
                 fwd = vals
             seg.columns[col] = ColumnIndex(col, dt, dictionary, fwd, stats)
+        for st_cfg in self.config.indexing.star_tree_configs:
+            seg.extras.setdefault("startree", []).append(build_star_table(seg, st_cfg))
         return seg

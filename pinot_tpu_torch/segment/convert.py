@@ -18,6 +18,15 @@ carrying a model's weights across.
             },
             ...
         },
+        "startree": [                           # optional: star-tree tables
+            {
+                "dimensions": [...],            # split order
+                "function_column_pairs": [...],
+                "n_rows": 90,
+                "arrays": {"<column>": np.ndarray, ...},
+            },
+            ...
+        ],
     }
 """
 
@@ -28,6 +37,7 @@ import numpy as np
 from pinot_tpu_torch.common.types import Schema
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.segment import ColumnIndex, ImmutableSegment
+from pinot_tpu_torch.segment.startree import StarTable
 from pinot_tpu_torch.segment.stats import ColumnStats
 
 
@@ -58,4 +68,8 @@ def segment_from_numpy(desc: dict) -> ImmutableSegment:
             )
         stats = ColumnStats.from_dict(cd["stats"])
         seg.columns[col] = ColumnIndex(col, spec.data_type, dictionary, fwd, stats)
+    for st in desc.get("startree", ()):
+        arrays = {name: np.ascontiguousarray(a) for name, a in st["arrays"].items()}
+        table = StarTable(list(st["dimensions"]), list(st["function_column_pairs"]), int(st["n_rows"]), arrays)
+        seg.extras.setdefault("startree", []).append(table)
     return seg

@@ -44,6 +44,27 @@ class Dictionary:
             values, ids = np.unique(np.asarray(column, dtype=data_type.np_dtype), return_inverse=True)
         return Dictionary(data_type, values), ids.reshape(-1).astype(np.int32)
 
+    def hll_hash_pad(self) -> np.ndarray:
+        """uint32 hash of every dictionary value (`sketches.hash_any`),
+        zero-padded to a power of two, memoized. The memo is valid because a
+        dictionary never changes after construction. The array is marked as a
+        stable operand, so the kernel layer stages it once per device and
+        keeps that copy while the array lives, instead of copying a multi-MB
+        table with every DISTINCTCOUNTHLL query."""
+        hv = getattr(self, "_hll_hash_pad", None)
+        if hv is None:
+            from pinot_tpu_torch.query.kernels import mark_stable_operand
+            from pinot_tpu_torch.query.sketches import hash_any
+
+            hv = hash_any(self.values)
+            pad = 1 << max(int(np.ceil(np.log2(max(len(hv), 1)))), 0)
+            if len(hv) == 0:
+                hv = np.zeros(1, dtype=np.uint32)
+            if len(hv) < pad:
+                hv = np.concatenate([hv, np.zeros(pad - len(hv), dtype=np.uint32)])
+            self._hll_hash_pad = hv = mark_stable_operand(hv)
+        return hv
+
     # -- lookups ------------------------------------------------------------
 
     def __len__(self) -> int:

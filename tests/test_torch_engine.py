@@ -227,6 +227,10 @@ QUERIES = [
     # groups that the filter leaves empty in some segment (see
     # test_filter_empties_a_group_in_one_segment)
     ("lineorder", EMPTY_IN_ONE_SEGMENT, ()),
+    # DISTINCTCOUNTHLL, SELECTION and DISTINCT (once shapes the port raised on)
+    ("lineorder", "SELECT DISTINCTCOUNTHLL(nation) FROM lineorder", ()),
+    ("lineorder", "SELECT region, year FROM lineorder LIMIT 3", ()),
+    ("lineorder", "SELECT DISTINCT region FROM lineorder", ()),
 ]
 
 
@@ -249,13 +253,13 @@ def test_engine_matches_reference(engines, table, sql, approx, mode):
     "sql",
     [
         "SELECT COUNT(*) FROM lineorder WHERE quantity IN (1, 2, 3)",  # in_sorted
-        "SELECT DISTINCTCOUNTHLL(nation) FROM lineorder",  # sketches
+        "SELECT PERCENTILEEST(quantity, 50) FROM lineorder",  # the other sketches
         "SELECT DISTINCTCOUNT(quantity) FROM lineorder",  # raw column: host executor
         "SELECT region, DISTINCTCOUNT(quantity + 1) FROM lineorder GROUP BY region",  # expression
         "SELECT COUNT(*) FILTER (WHERE year = 1995) FROM lineorder",  # masked
         "SELECT year - 1990, COUNT(*) FROM lineorder GROUP BY year - 1990",  # host executor
-        "SELECT region, year FROM lineorder LIMIT 3",  # selection
-        "SELECT DISTINCT region FROM lineorder",
+        "EXPLAIN PLAN FOR SELECT region, year FROM lineorder LIMIT 3",
+        "SELECT region FROM lineorder ORDER BY ABS(quantity) LIMIT 3",  # transform as a sort key
         "SELECT SUM(ABS(quantity)) FROM lineorder",  # transforms
         "SET enableNullHandling = true; SELECT SUM(quantity) FROM lineorder",
     ],

@@ -1,0 +1,181 @@
+"""Random queries through the port and the JAX package, drawn from
+tests/test_query_fuzz.py's generator: aggregations (DISTINCTCOUNTHLL among
+them), group-bys with HAVING and ORDER BY, SELECTION, SELECTION ORDER BY and
+DISTINCT, with random filters, over 4 segments of a mixed-type table, one of
+them a single doc. The port runs on device="cpu" over its own segments built
+from the same arrays. Rows must be equal, with the reference's Python types
+and row order, and so must numDocsScanned; only float values may differ,
+within rtol 1e-12 (DOUBLE sums add in another order).
+
+Some shapes the generator draws have no device lowering, and the reference
+runs them on its host executor, which the port has not ported: the port
+raises NotImplementedError naming them. Those queries are counted and
+skipped, not failed; each run asserts they stay a small minority and that
+every one of them is a shape listed in UNPORTED."""
+
+import math
+
+import numpy as np
+import pytest
+
+from pinot_tpu.common import DataType as JDT
+from pinot_tpu.common import Schema as JSchema
+from pinot_tpu.query import QueryEngine as JEngine
+from pinot_tpu.segment import SegmentBuilder as JBuilder
+from pinot_tpu_torch.common import DataType, Schema
+from pinot_tpu_torch.query import QueryEngine
+from pinot_tpu_torch.segment import SegmentBuilder
+
+STR_VALS = [f"s{i:02d}" for i in range(15)]
+SIZES = [2000, 1500, 1, 2500]
+
+#: what the port raises on, by the words of its message: the host executor's
+#: shapes (DeviceFallback) and modules not ported yet
+UNPORTED = (
+    "DISTINCTCOUNT on raw/expression args runs host-side",
+    "GROUP BY on raw column",
+    "grouped HLL register matrix exceeds device budget",
+    "float/string-raw multi-key ORDER BY runs host-side",
+)
+#: largest share of a run's queries the port may skip
+MAX_SKIPPED = 0.15
+
+
+def _data(seed, n):
+    rng = np.random.default_rng(seed)
+    return {
+        "d1": np.asarray(STR_VALS, dtype=object)[rng.integers(0, len(STR_VALS), n)],
+        "d2": np.asarray(["x", "y", "z"], dtype=object)[rng.integers(0, 3, n)],
+        "k": rng.integers(0, 50, n).astype(np.int32),
+        "m1": rng.integers(-100, 1000, n).astype(np.int64),
+        "m2": np.round(rng.normal(0, 50, n), 4),
+    }
+
+
+def _schema(DT, S):
+    return S.build(
+        "f",
+        dimensions=[("d1", DT.STRING), ("d2", DT.STRING), ("k", DT.INT)],
+        metrics=[("m1", DT.LONG), ("m2", DT.DOUBLE)],
+    )
+
+
+@pytest.fixture(scope="module")
+def engines():
+    datas = [_data(97 + i, n) for i, n in enumerate(SIZES)]
+    ref = JEngine([JBuilder(_schema(JDT, JSchema)).build(d, f"f{i}") for i, d in enumerate(datas)])
+    port = QueryEngine(
+        [SegmentBuilder(_schema(DataType, Schema)).build(d, f"f{i}") for i, d in enumerate(datas)], device="cpu"
+    )
+    return ref, port
+
+
+# -- generator ---------------------------------------------------------------
+
+
+def _predicate(rng) -> str:
+    kind = rng.integers(0, 6)
+    if kind == 0:
+        return f"d1 = '{STR_VALS[rng.integers(0, len(STR_VALS))]}'"
+    if kind == 1:
+        return f"k {['<', '>=', '<>'][rng.integers(0, 3)]} {int(rng.integers(0, 50))}"
+    if kind == 2:
+        lo = int(rng.integers(-100, 500))
+        return f"m1 BETWEEN {lo} AND {lo + int(rng.integers(1, 400))}"
+    if kind == 3:
+        vs = sorted(set(STR_VALS[i] for i in rng.integers(0, len(STR_VALS), 3)))
+        return f"d1 IN ({', '.join(repr(v) for v in vs)})"
+    if kind == 4:
+        return f"m2 > {float(np.round(rng.normal(0, 30), 2))}"
+    return f"d2 <> '{['x', 'y', 'z'][rng.integers(0, 3)]}'"
+
+
+def _filter(rng) -> str:
+    n = int(rng.integers(1, 4))
+    preds = [_predicate(rng) for _ in range(n)]
+    if n == 1:
+        return preds[0]
+    return f" {'AND' if rng.random() < 0.6 else 'OR'} ".join(f"({p})" for p in preds)
+
+
+AGGS = [
+    "COUNT(*)",
+    "SUM(m1)",
+    "MIN(m1)",
+    "MAX(m2)",
+    "AVG(m2)",
+    "MINMAXRANGE(k)",
+    "DISTINCTCOUNT(k)",
+    "DISTINCTCOUNT(d1)",
+    "DISTINCTCOUNTHLL(d1)",
+    "DISTINCTCOUNTHLL(m1)",
+    "DISTINCTCOUNTHLL(m2)",
+    "DISTINCTCOUNT(m1)",  # a raw column: the reference's host executor
+]
+KEYS = [["d1"], ["d2"], ["k"], ["d1", "d2"], ["d2", "k"], ["k", "d1", "d2"]]
+COLS = ["d1", "d2", "k", "m1", "m2", "$docId"]
+
+
+def _pick(rng, items, lo, hi):
+    return [items[i] for i in rng.choice(len(items), size=int(rng.integers(lo, hi + 1)), replace=False)]
+
+
+def _limit(rng) -> str:
+    lim = f" LIMIT {int(rng.integers(1, 60))}"
+    return lim + (f" OFFSET {int(rng.integers(1, 20))}" if rng.random() < 0.3 else "")
+
+
+def _query(rng) -> str:
+    kind = rng.integers(0, 5)
+    where = f" WHERE {_filter(rng)}" if rng.random() < 0.85 else ""
+    if kind == 0:
+        return f"SELECT {', '.join(_pick(rng, AGGS, 1, 3))} FROM f{where}"
+    if kind == 1:
+        keys, aggs = KEYS[rng.integers(0, len(KEYS))], _pick(rng, AGGS[:-1], 1, 2)
+        sql = f"SELECT {', '.join(keys + aggs)} FROM f{where} GROUP BY {', '.join(keys)}"
+        if rng.random() < 0.3:
+            sql += f" HAVING COUNT(*) > {int(rng.integers(0, 40))}"
+        obs = [f"{aggs[0]} DESC"] + keys if rng.random() < 0.5 else keys
+        return sql + f" ORDER BY {', '.join(obs)} LIMIT {int(rng.integers(1, 400))}"
+    if kind == 2:
+        return f"SELECT {', '.join(_pick(rng, COLS, 1, 4))} FROM f{where}{_limit(rng)}"
+    if kind == 3:
+        obs = [f"{c}{' DESC' if rng.random() < 0.5 else ''}" for c in _pick(rng, COLS[:-1], 1, 2)]
+        return f"SELECT {', '.join(_pick(rng, COLS, 1, 3))} FROM f{where} ORDER BY {', '.join(obs)}{_limit(rng)}"
+    keys = _pick(rng, ["d1", "d2", "k"], 1, 3)
+    order = ""
+    if rng.random() < 0.6:
+        obs = _pick(rng, keys, 1, len(keys))
+        order = " ORDER BY " + ", ".join(f"{c}{' DESC' if rng.random() < 0.5 else ''}" for c in obs)
+    return f"SELECT DISTINCT {', '.join(keys)} FROM f{where}{order}{_limit(rng)}"
+
+
+def _same(a, b) -> bool:
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, float):
+        return a == b or (a != a and b != b) or math.isclose(a, b, rel_tol=1e-12)
+    return a == b
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_random_queries_match_reference(engines, seed):
+    ref, port = engines
+    rng = np.random.default_rng(1000 + seed)
+    n_queries = 40
+    skipped = []
+    for _ in range(n_queries):
+        sql = _query(rng)
+        want = ref.execute(sql)
+        try:
+            got = port.execute(sql)
+        except NotImplementedError as e:
+            assert any(name in str(e) for name in UNPORTED), (sql, e)
+            skipped.append(sql)
+            continue
+        assert got.columns == want.columns, sql
+        assert len(got.rows) == len(want.rows), (sql, got.rows[:3], want.rows[:3])
+        for g, w in zip(got.rows, want.rows):
+            assert all(_same(a, b) for a, b in zip(g, w)), (sql, g, w)
+        assert got.num_docs_scanned == want.num_docs_scanned, sql
+    assert len(skipped) <= MAX_SKIPPED * n_queries, skipped

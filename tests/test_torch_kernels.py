@@ -169,18 +169,35 @@ def test_ids_value_matches_reference(segs, aggs):
     "spec",
     [
         ("agg", ("in_sorted", ("raw", "quantity"), 0), None, (("count",),)),
-        ("agg", ("const", True), None, (("sum", ("docid",)),)),
+        ("agg", ("const", True), None, (("sum", ("fn", "abs", (("raw", "quantity"),))),)),
         ("agg", ("const", True), None, (("funnel_steps", "region", 8, (("const", True),)),)),
         ("agg", ("const", True), None, (("masked", ("const", True), ("count",)),)),
-        ("agg", ("const", True), ("groups", ("region",), 256, 0), (("hll", ("gather", "region", 0), 8),)),
+        ("agg", ("const", True), ("groups", ("region",), 256, 0), (("hist", ("raw", "quantity"), 0, 0, 16),)),
         ("agg", ("const", True), ("groups_mv", ("region",), 256, 0, "region", 0), (("count",),)),
-        ("select", ("const", True), (("raw", "quantity"),), 10),
+        ("mask", ("const", True)),
     ],
 )
 def test_unsupported_tags_raise(segs, spec):
     _, port, _ = segs
     with pytest.raises(NotImplementedError, match="not ported"):
         _run_port(port, spec, ("quantity", "region"), (np.ones(1, dtype=np.int32),))
+
+
+@pytest.mark.parametrize(
+    "spec",
+    [
+        ("agg", ("const", True), None, (("sum", ("docid",)),)),
+        ("agg", ("const", True), ("groups", ("region",), 256, 0), (("hll", ("gather", "region", 1), 8),)),
+        ("select", ("const", True), (("raw", "quantity"),), 10),
+    ],
+)
+def test_once_unported_tags_match_reference(segs, spec):
+    """The `docid` value tag, the grouped `hll` aggregate and the `select`
+    program, which this test file once listed among the unported tags."""
+    ref, port, _ = segs
+    operands = (np.ones(1, dtype=np.int32), ref.columns["region"].dictionary.hll_hash_pad())
+    columns = ("quantity", "region")
+    _assert_leaves(_run_port(port, spec, columns, operands), _run_jax(ref, spec, columns, operands), True)
 
 
 def test_pack_roundtrip_keeps_int64_exact():

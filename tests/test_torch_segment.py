@@ -60,8 +60,9 @@ def _data(seed, n):
 
 
 def describe(seg) -> dict:
-    """A reference segment as segment_from_numpy's plain-data description."""
-    return {
+    """A reference segment as segment_from_numpy's plain-data description,
+    its star-tree tables included."""
+    desc = {
         "name": seg.name,
         "schema": seg.schema.to_json(),
         "n_docs": seg.n_docs,
@@ -74,6 +75,17 @@ def describe(seg) -> dict:
             for c, ci in seg.columns.items()
         },
     }
+    if seg.extras.get("startree"):
+        desc["startree"] = [
+            {
+                "dimensions": st.dimensions,
+                "function_column_pairs": st.function_column_pairs,
+                "n_rows": st.n_rows,
+                "arrays": st.arrays,
+            }
+            for st in seg.extras["startree"]
+        ]
+    return desc
 
 
 def _assert_same_segment(ref, port):
@@ -220,7 +232,7 @@ def test_default_staging_device_is_the_card(pair):
         dict(inverted_index_columns=["year"]),
         dict(range_index_columns=["year"]),
         dict(bloom_filter_columns=["year"]),
-        dict(star_tree_configs=[object()]),
+        dict(text_index_columns=["region"]),
         dict(vector_index_columns=["v"]),
         dict(fst_index_columns=["region"]),
         dict(null_handling=True),
