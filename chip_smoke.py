@@ -40,6 +40,16 @@
    numpy oracle over the raw arrays, config 10's registers against
    np_hll_registers; the kernels' launch counters are reset just before
    that run and read just after, per config.
+5. Host executor: configs 14-16 run queries the package answers on its host
+   executor (numpy), where the reference does: 14, GROUP BY the raw metric
+   lo_quantity; 15, PERCENTILE / MODE / STDDEV_POP, which have no device
+   lowering; 16, a GROUP BY with DISTINCTCOUNT(lo_custkey) over the four
+   4M-row segments plus a fifth, realtime-sized one of 10,000 rows: the
+   large segments' presence matrix passes the device budget and they go to
+   the host, the small one runs on the card (one grouped_sum_count and one
+   presence launch), and one reduce merges both kinds of partial. Each is
+   held against a numpy oracle; the engine's count of segments by executor
+   is asserted (4 host for 14 and 15; 4 host and 1 device for 16).
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -156,6 +166,45 @@ LAUNCHES_PER_SEGMENT = {
     "12_distinct_orderby": (1, 0, 0, 0),  # DISTINCT: a group-by's counts
     "13_selection": (0, 0, 0, 0),  # first-k: torch
 }
+#: configs the host executor answers, where the reference answers them on
+#: its host: GROUP BY a raw metric, host-only aggregations, and a query whose
+#: segments split between the host and the card
+HOST_CONFIGS = {
+    # "order-size mix": lo_quantity is a raw metric, so every segment groups
+    # on the host (~2.3M rows pass)
+    "14_groupby_raw_metric": (
+        "SELECT lo_quantity, COUNT(*), SUM(lo_revenue), AVG(lo_supplycost) FROM lineorder WHERE d_year = 1995 "
+        "GROUP BY lo_quantity ORDER BY lo_quantity LIMIT 50"
+    ),
+    # "yearly revenue percentiles": aggregations with no device lowering
+    "15_host_aggregations": (
+        "SELECT d_year, PERCENTILE(lo_revenue, 95), MODE(lo_quantity), STDDEV_POP(lo_supplycost), COUNT(*) "
+        "FROM lineorder WHERE c_nation = 'NATION_03' GROUP BY d_year ORDER BY d_year LIMIT 10"
+    ),
+    # "distinct buyers per market, with a consuming segment": ng 768 x the
+    # lo_custkey pad passes MAX_PRESENCE_CELLS in a 4M-row segment (pad
+    # 131,072), not in the 10,000-row one (pad 16,384)
+    "16_mixed_executors": (
+        "SELECT c_nation, p_category, COUNT(*), DISTINCTCOUNT(lo_custkey) FROM lineorder WHERE d_year = 1997 "
+        "GROUP BY c_nation, p_category ORDER BY DISTINCTCOUNT(lo_custkey) DESC, c_nation, p_category LIMIT 20"
+    ),
+}
+#: config 16's fifth segment: a realtime table's small consuming segment
+SMALL_ROWS = 10_000
+#: launches of each host config in all, and its segments by executor
+HOST_LAUNCHES = {
+    "14_groupby_raw_metric": (0, 0, 0, 0),
+    "15_host_aggregations": (0, 0, 0, 0),
+    "16_mixed_executors": (1, 0, 1, 0),  # the small segment's COUNT and presence
+}
+HOST_MODES = {
+    "14_groupby_raw_metric": {"host": N_SEGMENTS},
+    "15_host_aggregations": {"host": N_SEGMENTS},
+    "16_mixed_executors": {"host": N_SEGMENTS, "device": 1},
+}
+#: result columns held to rtol 1e-12 (AVG, STDDEV, PERCENTILE); every other
+#: cell must be equal
+APPROX_COLUMNS = {"2_filtered_agg": {3}, "14_groupby_raw_metric": {3}, "15_host_aggregations": {1, 3}}
 #: SSB's customer and supplier key ranges at scale factor 3 (~16M x 6/16
 #: lineorder rows)
 N_CUSTOMERS = 90_000
@@ -1206,27 +1255,72 @@ def oracle(data, nation, category) -> tuple[dict, dict]:
     return out, {"8_groupby_wide": len(present), "9_groupby_sparse": len(pairs), "11_matched": len(docs)}
 
 
+def host_oracle(data, nation, category, small) -> dict:
+    """Rows of configs 14-16; `small` is config 16's fifth segment's data."""
+    year, qty = data["d_year"], data["lo_quantity"]
+    rev, cost = data["lo_revenue"], data["lo_supplycost"]
+    out = {}
+    m = year == 1995
+    cnt = np.bincount(qty[m], minlength=51)
+    rsum = np.bincount(qty[m], weights=rev[m], minlength=51)  # exact: integer partials < 2^53
+    csum = np.bincount(qty[m], weights=cost[m], minlength=51)
+    out["14_groupby_raw_metric"] = [
+        [int(q), int(cnt[q]), float(rsum[q]), float(csum[q]) / int(cnt[q])] for q in np.flatnonzero(cnt)
+    ][:50]
+
+    rows = []
+    for y in range(1992, 1999):
+        g = (nation == 3) & (year == y)
+        if not g.any():
+            continue
+        r = np.sort(rev[g].astype(np.float64))
+        vals, counts = np.unique(qty[g], return_counts=True)
+        rows.append(
+            [
+                y,
+                float(r[int((len(r) - 1) * 95 / 100.0)]),  # exact_percentile: the value at (n-1)*pct/100
+                float(vals[np.flatnonzero(counts == counts.max())[0]]),  # MODE ties go to the smallest value
+                float(np.std(cost[g].astype(np.float64))),
+                int(g.sum()),
+            ]
+        )
+    out["15_host_aggregations"] = rows[:10]
+
+    keys, custs = [], []
+    for d, n_, c_ in ((data, nation, category), small):
+        m = d["d_year"] == 1997
+        keys.append(n_[m].astype(np.int64) * 25 + c_[m])
+        custs.append(d["lo_custkey"][m].astype(np.int64))
+    key, cust = np.concatenate(keys), np.concatenate(custs)
+    cnt = np.bincount(key, minlength=625)
+    distinct = np.bincount(np.unique(key * (N_CUSTOMERS + 1) + cust) // (N_CUSTOMERS + 1), minlength=625)
+    present = sorted(np.flatnonzero(cnt), key=lambda g: (-distinct[g], NATIONS[g // 25], CATEGORIES[g % 25]))
+    out["16_mixed_executors"] = [
+        [NATIONS[int(g // 25)], CATEGORIES[int(g % 25)], int(cnt[g]), int(distinct[g])] for g in present
+    ][:20]
+    return out
+
+
 def rows_match(name: str, got: list, want: list) -> None:
     if len(got) != len(want):
         raise AssertionError(f"{name}: {len(got)} rows, oracle {len(want)}")
+    approx = APPROX_COLUMNS.get(name, ())
     for r, (g, w) in enumerate(zip(got, want)):
         for c, (a, b) in enumerate(zip(g, w)):
-            # AVG is a float quotient: 1e-12 relative; everything else exact (MIN/MAX
-    # of the float64 quotient too: both sides divide with IEEE rounding)
-            same = math.isclose(a, b, rel_tol=1e-12) if (name == "2_filtered_agg" and c == 3) else a == b
+            # float quotients and moments: 1e-12 relative; everything else
+            # exact (MIN/MAX of the float64 quotient too: both sides divide
+            # with IEEE rounding)
+            same = math.isclose(a, b, rel_tol=1e-12) if c in approx else a == b
             if not same or type(a) is not type(b):
                 raise AssertionError(f"{name} row {r} col {c}: got {a!r}, oracle {b!r}")
 
 
-def ssb_engine(data: dict):
-    """N_SEGMENTS segments of `data` and a QueryEngine over them on the card,
-    from the pinot_tpu_torch first on the path, and the seconds the build
-    took."""
+def ssb_builder():
+    """The package's SegmentBuilder for the lineorder schema."""
     from pinot_tpu_torch.common import DataType, Schema
-    from pinot_tpu_torch.query import QueryEngine
     from pinot_tpu_torch.segment import SegmentBuilder
 
-    schema = Schema.build(
+    return SegmentBuilder(Schema.build(
         "lineorder",
         dimensions=[
             ("d_year", DataType.INT),
@@ -1236,10 +1330,18 @@ def ssb_engine(data: dict):
             ("lo_suppkey", DataType.INT),
         ],
         metrics=[("lo_revenue", DataType.LONG), ("lo_supplycost", DataType.LONG), ("lo_quantity", DataType.INT)],
-    )
+    ))
+
+
+def ssb_engine(data: dict):
+    """N_SEGMENTS segments of `data` and a QueryEngine over them on the card,
+    from the pinot_tpu_torch first on the path, and the seconds the build
+    took."""
+    from pinot_tpu_torch.query import QueryEngine
+
     t0 = time.perf_counter()
     per = N_ROWS // N_SEGMENTS
-    builder = SegmentBuilder(schema)
+    builder = ssb_builder()
     segments = [
         builder.build({c: v[i * per : (i + 1) * per] for c, v in data.items()}, f"lineorder_{i}")
         for i in range(N_SEGMENTS)
@@ -1471,11 +1573,15 @@ def run_main_path(torch, counters: dict) -> dict:
 
     t0 = time.perf_counter()
     data, nation, category = make_ssb_data(N_ROWS)
+    small, small_nation, small_category = make_ssb_data(SMALL_ROWS, seed=1)
     want, groups = oracle(data, nation, category)
+    want.update(host_oracle(data, nation, category, (small, small_nation, small_category)))
     t_gen = time.perf_counter() - t0
 
     engine, segments, t_build = ssb_engine(data)
     del data
+    small_seg = ssb_builder().build(small, "lineorder_consuming")
+    mixed_engine = QueryEngine(segments + [small_seg], device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     staged = [seg.to_device_cached("cuda") for seg in segments]
@@ -1527,31 +1633,46 @@ def run_main_path(torch, counters: dict) -> dict:
         fn.launches = 0
     launches = {}
 
-    def counted(name, n_segments, run):
+    def counted(name, expect_launches, run):
         before = [fn.launches for fn in counters.values()]
         out = run()
         launches[name] = {k: fn.launches - b for (k, fn), b in zip(counters.items(), before)}
-        expect = dict(zip(counters, (n_segments * c for c in LAUNCHES_PER_SEGMENT[name])))
+        expect = dict(zip(counters, expect_launches))
         if launches[name] != expect:
             raise AssertionError(f"{name}: launches {launches[name]}, expected {expect}")
         return out
 
+    def per_segment(name, n_segments):
+        return [n_segments * c for c in LAUNCHES_PER_SEGMENT[name]]
+
     for name, sql in CONFIGS.items():
-        res = counted(name, N_SEGMENTS, lambda: engine.execute(sql))
+        res = counted(name, per_segment(name, N_SEGMENTS), lambda: engine.execute(sql))
         rows_match(name, res.rows, want[name])
         if res.num_docs_scanned <= 0 or res.total_docs != N_ROWS:
             raise AssertionError(f"{name}: docsScanned {res.num_docs_scanned}, totalDocs {res.total_docs}")
-    config10 = counted("10_star_and_hll", 1, lambda: check_config10(ev_engine, ev_seg, want_10))
+    config10 = counted("10_star_and_hll", per_segment("10_star_and_hll", 1), lambda: check_config10(ev_engine, ev_seg, want_10))
+    modes = {}
+    for name, sql in HOST_CONFIGS.items():
+        eng = mixed_engine if name == "16_mixed_executors" else engine
+        eng.segment_modes.clear()
+        res = counted(name, HOST_LAUNCHES[name], lambda: eng.execute(sql))
+        rows_match(name, res.rows, want[name])
+        modes[name] = dict(eng.segment_modes)
+        if modes[name] != HOST_MODES[name]:
+            raise AssertionError(f"{name}: segments by executor {modes[name]}, expected {HOST_MODES[name]}")
     main_launches = {k: fn.launches for k, fn in counters.items()}
     for k, v in main_launches.items():
         if v == 0:
             raise AssertionError(f"the main path never launched {k}")
     emit({"phase": "main_path", "results_match_oracle": True, "config10": config10,
-          "launches_per_config": launches, "launches": main_launches})
+          "launches_per_config": launches, "launches": main_launches, "segments_by_executor": modes})
 
     walls = {name: wall_p50(engine, sql) for name, sql in CONFIGS.items()}
     walls.update({name: wall_p50(ev_engine, sql) for name, sql in CONFIG_10.items()})
     walls["10_both_submitted"] = wall_p50_of(lambda: drive_config10(ev_engine))
+    host_engines = {name: mixed_engine if name == "16_mixed_executors" else engine for name in HOST_CONFIGS}
+    # the host configs take seconds a query: 1 warm-up and 3 runs
+    walls.update({name: wall_p50(host_engines[name], sql, warm=1, runs=3) for name, sql in HOST_CONFIGS.items()})
     emit(
         {
             "phase": "main_path_timing",
@@ -1562,6 +1683,7 @@ def run_main_path(torch, counters: dict) -> dict:
     )
     split = {name: breakdown(torch, engine, sql) for name, sql in CONFIGS.items()}
     split.update({name: breakdown(torch, ev_engine, sql) for name, sql in CONFIG_10.items()})
+    split.update({name: breakdown(torch, host_engines[name], sql) for name, sql in HOST_CONFIGS.items()})
     emit({"phase": "where_the_time_goes", "configs": split})
     return {"launches": main_launches, "new_steps": new_steps}
 
@@ -1577,16 +1699,24 @@ def breakdown(torch, engine, sql: str) -> dict:
     torch.cuda.synchronize()
     t = [time.perf_counter()]
     ctx = engine.make_context(sql)
-    pend = [(seg, engine._dispatch_segment(seg, ctx)) for seg in engine.segments]
+    t_parse = time.perf_counter()
+    pend, dispatch_ms = [], []
+    for seg in engine.segments:
+        t0 = time.perf_counter()
+        pend.append((seg, engine._dispatch_segment(seg, ctx)))
+        dispatch_ms.append((time.perf_counter() - t0) * 1e3)
     t.append(time.perf_counter())
     torch.cuda.synchronize()
     t.append(time.perf_counter())
-    partials = [engine._finish_segment(seg, ctx, disp)[0] for seg, disp in pend]
+    finished = [engine._finish_segment(seg, ctx, disp) for seg, disp in pend]
     t.append(time.perf_counter())
-    engine.reduce(ctx, partials)
+    engine.reduce(ctx, [f[0] for f in finished])
     t.append(time.perf_counter())
     seams = ["parse_plan_enqueue_ms", "device_drain_ms", "copy_convert_ms", "reduce_ms"]
     out = {k: (t[i + 1] - t[i]) * 1e3 for i, k in enumerate(seams)}
+    # a host segment's dispatch is its planning attempt and its host_exec run
+    out["parse_ms"] = (t_parse - t[0]) * 1e3
+    out["segments"] = [{"mode": f[2], "dispatch_ms": ms} for f, ms in zip(finished, dispatch_ms)]
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

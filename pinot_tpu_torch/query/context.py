@@ -13,7 +13,7 @@ from dataclasses import dataclass, field
 from enum import Enum
 
 from pinot_tpu_torch.common.errors import QueryErrorCode
-
+from pinot_tpu_torch.query.aggregates import TWO_ARG_AGGS
 from pinot_tpu_torch.query.ast import (
     Expr,
     FilterExpr,
@@ -140,22 +140,6 @@ AGG_FUNCS = {
     "distinctcounthllplusmv",
     "distinctcountrawhllmv",
     "distinctcountrawhllplusmv",
-}
-
-# Two-value-argument aggregations of the reference's extended registry
-# (query/aggregates.py, `TWO_ARG_AGGS`): their second argument parses as a
-# value expression, not a literal.
-TWO_ARG_AGGS = {
-    "avgvalueintegersumtuplesketch",
-    "covar_pop",
-    "covar_samp",
-    "distinctcountrawintegersumtuplesketch",
-    "distinctcounttuplesketch",
-    "exprmax",
-    "exprmin",
-    "firstwithtime",
-    "lastwithtime",
-    "sumvaluesintegersumtuplesketch",
 }
 
 FUNNEL_AGGS = {

@@ -10,25 +10,29 @@ reduce over the partials.
 
 The engine runs on `device`, "cuda" unless the caller asks for another; on a
 machine without a card the default raises rather than running elsewhere.
-A segment with star-tree tables answers a matching aggregation or group-by
-from its pre-aggregated table (`startree_exec`), resolved at dispatch. The
-host executor, segment pruning, upsert validity and the scan-stats / heat /
-accounting / trace hooks of the reference are not ported yet; query shapes
-that need them raise NotImplementedError (DeviceFallback where the reference
-reruns on its host executor, e.g. a sparse group-by segment with more
-present groups than its slots).
+Each segment takes one of three executors, chosen at dispatch as the
+reference chooses: the star-tree swap, when a star table of the segment
+matches (`startree_exec`); the host executor (`host_exec`, numpy), when
+planning raises DeviceFallback or a sparse group-by segment holds more
+present groups than its slots; else the device program. Only DeviceFallback
+reroutes a segment: a NotImplementedError (a spec tag not ported yet), a
+CUDA error or a failed kernel build reaches the caller. `segment_modes`
+counts the executor of every segment resolved ("startree", "host",
+"device"). Segment pruning, upsert validity and the scan-stats / heat /
+accounting / trace hooks of the reference are not ported yet.
 """
 
 from __future__ import annotations
 
 import socket
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
+from pinot_tpu_torch.query import ast, host_exec, startree_exec
 from pinot_tpu_torch.query import reduce as reduce_mod
-from pinot_tpu_torch.query import startree_exec
 from pinot_tpu_torch.query.context import QueryContext, QueryType, expand_star
 from pinot_tpu_torch.query.kernels import dispatch_plan_packed
 from pinot_tpu_torch.query.optimizer import optimize_filter
@@ -44,6 +48,8 @@ class QueryEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("QueryEngine(device='cuda'): no CUDA device is available; pass device='cpu' to run on the CPU")
         self.segments = list(segments)
+        #: executor of every segment resolved so far, by mode
+        self.segment_modes: Counter = Counter()
 
     # ------------------------------------------------------------------
 
@@ -57,7 +63,26 @@ class QueryEngine:
         ctx = QueryContext.from_statement(stmt)
         if stmt.explain or stmt.explain_analyze:
             raise NotImplementedError("EXPLAIN is not ported to pinot_tpu_torch yet")
+        self._compute_hints(ctx)
         return ctx
+
+    def _compute_hints(self, ctx: QueryContext) -> None:
+        """Cross-segment planning hints: global [min, max] bounds per
+        PERCENTILEEST aggregation, so every segment builds its histogram over
+        the same bin edges."""
+        for a in ctx.aggregations:
+            if a.func != "percentileest" or not isinstance(a.arg, ast.Identifier):
+                continue
+            los, his = [], []
+            for seg in self.segments:
+                ci = seg.columns.get(a.arg.name)
+                if ci is None or not isinstance(ci.stats.min_value, (int, float)):
+                    break
+                los.append(float(ci.stats.min_value))
+                his.append(float(ci.stats.max_value))
+            else:
+                if los:
+                    ctx.hints.setdefault("est_bounds", {})[a.name] = (min(los), max(his))
 
     @staticmethod
     def reduce(ctx: QueryContext, partials: list) -> list[list]:
@@ -89,9 +114,10 @@ class QueryEngine:
             partials = []
             scanned = 0
             for seg, disp in pend:
-                partial, matched = self._finish_segment(seg, ctx, disp)
+                partial, matched, mode = self._finish_segment(seg, ctx, disp)
                 partials.append(partial)
                 scanned += int(matched)
+                self.segment_modes[mode] += 1
             rows = self.reduce(ctx, partials)
             return reduce_mod.build_result(
                 ctx,
@@ -108,50 +134,51 @@ class QueryEngine:
 
     def _execute_segment(self, seg: ImmutableSegment, ctx: QueryContext):
         """(partial, matched docs) of one segment, synchronously."""
-        return self._finish_segment(seg, ctx, self._dispatch_segment(seg, ctx))
+        return self._finish_segment(seg, ctx, self._dispatch_segment(seg, ctx))[:2]
 
     def _dispatch_segment(self, seg: ImmutableSegment, ctx: QueryContext):
         """Async half of segment execution. Returns ("ready", partial,
-        matched) when the segment resolved on the host (the star-tree swap,
-        which runs its small program over the star table at once), else
-        ("dev", plan, unpack) with the device program still in flight."""
+        matched, mode) when the segment resolved on the host (the star-tree
+        swap, which runs its small program over the star table at once, or
+        the host executor), else ("dev", plan, unpack) with the device
+        program still in flight."""
         if seg.extras.get("startree"):
             res = startree_exec.try_execute(self, seg, ctx)
             if res is not None:
-                return ("ready",) + res
-        plan = plan_segment(seg, ctx)
+                return ("ready",) + res + ("startree",)
+        try:
+            plan = plan_segment(seg, ctx)
+        except DeviceFallback:
+            return ("ready",) + host_exec.execute_segment(seg, ctx) + ("host",)
         return ("dev", plan, dispatch_plan_packed(plan, seg.to_device_cached(self.device)))
 
     def _finish_segment(self, seg: ImmutableSegment, ctx: QueryContext, disp):
-        """Sync half: convert a dispatch to (partial, matched)."""
+        """Sync half: convert a dispatch to (partial, matched, mode)."""
         if disp[0] == "ready":
-            return disp[1], disp[2]
+            return disp[1:]
         _, plan, unpack = disp
         out = unpack()  # the one device->host copy for this segment
         qt = ctx.query_type
         if qt == QueryType.AGGREGATION:
             matched, parts = out
-            return self._convert_agg(seg, ctx, plan, parts), int(matched)
+            return self._convert_agg(seg, ctx, plan, parts), int(matched), "device"
         if qt == QueryType.SELECTION:
             matched, outs = out
-            return self._convert_selection(seg, plan, int(matched), outs), int(matched)
+            return self._convert_selection(seg, plan, int(matched), outs), int(matched), "device"
         if qt == QueryType.SELECTION_ORDER_BY:
             matched, keys, outs = out
-            return self._convert_selection_ob(seg, plan, int(matched), keys, outs), int(matched)
+            return self._convert_selection_ob(seg, plan, int(matched), keys, outs), int(matched), "device"
         # GROUP_BY and DISTINCT
         if plan.spec[2][0] == "groups_sparse":
             matched, counts, parts, uniq, n_unique = out
             if int(n_unique) > plan.spec[2][2]:
                 # more present groups than compact slots: the clipped slots
-                # collided and the partial is unusable
-                raise DeviceFallback(
-                    f"segment {seg.name}: {int(n_unique)} present groups exceed the {plan.spec[2][2]} sparse "
-                    "slots; the reference reruns such a segment on its host executor (host_exec), "
-                    "which is not ported"
-                )
-            return self._convert_groups(seg, ctx, plan, np.asarray(counts), parts, dense_gids=uniq), int(matched)
+                # collided and the partial is unusable; rerun on the host
+                return host_exec.execute_segment(seg, ctx) + ("host",)
+            partial = self._convert_groups(seg, ctx, plan, np.asarray(counts), parts, dense_gids=uniq)
+            return partial, int(matched), "device"
         matched, counts, parts = out
-        return self._convert_groups(seg, ctx, plan, np.asarray(counts), parts), int(matched)
+        return self._convert_groups(seg, ctx, plan, np.asarray(counts), parts), int(matched), "device"
 
     # -- device output -> host partial conversions ----------------------
 

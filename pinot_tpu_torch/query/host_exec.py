@@ -1,0 +1,707 @@
+"""Host (numpy) executor: where a segment runs when its planning raises
+DeviceFallback.
+
+Reference parity: plays the role of Pinot's non-optimized operator paths (e.g.
+NoDictionary*GroupKeyGenerator, ExpressionFilterOperator) for query shapes the
+device lowering does not cover: GROUP BY on a raw column or an expression,
+DISTINCTCOUNT of a raw column, the aggregations with no device lowering
+(PERCENTILE, MODE, the `aggregates.EXT_AGGS` family, ...), string transforms.
+This is the JAX package's `query/host_exec.py` written in numpy alone: it
+produces the SAME partial formats as the device path (see reduce.py), so the
+broker reduce never knows which executor ran a segment, and its group frames
+keep pandas' `groupby(sort=False, dropna=False)` semantics: groups in order of
+first appearance (a NaN key is a group of its own), each group's rows in row
+order, NaN-skipping reducers where the reference's pandas ones skip.
+
+Two evaluations differ in cost and not in result from the reference's: a
+predicate over a dictionary column is evaluated once per dictionary value and
+gathered by id, and a GROUP BY / DISTINCT key on a dictionary column groups by
+its ids and decodes each group's first row (ids and values are one-to-one).
+
+Segments of this package carry no multi-value columns and no null vectors, so
+the reference's MV and null-handling branches have no counterpart here:
+`enableNullHandling` and an MV column raise NotImplementedError naming ROADMAP
+A4, and the index probes (map, JSON, text, vector) name A6.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+import socket
+
+import numpy as np
+
+from pinot_tpu_torch.query import ast
+from pinot_tpu_torch.query import funnel
+from pinot_tpu_torch.query.aggregates import EXT_AGGS, _td_comp, _theta_compute, parse_theta_extra
+from pinot_tpu_torch.query.context import QueryContext, null_handling_enabled
+from pinot_tpu_torch.query.plan import _FLIP, PlanError, _like_to_regex, group_strides
+from pinot_tpu_torch.query.quantile_sketch import td_from_values
+from pinot_tpu_torch.query.reduce import group_index, parts_of
+from pinot_tpu_torch.query.sketches import np_est_hist, np_hll_registers
+from pinot_tpu_torch.query.transforms import DEVICE_FUNCS, STRING_FUNCS, apply_string_func, rewrite_time_convert
+from pinot_tpu_torch.segment.segment import ImmutableSegment
+
+#: aggregations whose FILTER (WHERE) the group frame applies with a mask;
+#: every other one NaN-masks its excluded rows and skips them
+_FILTERED_OK = ("count", "sum", "min", "max", "avg", "minmaxrange")
+
+
+def _not_staged(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to pinot_tpu_torch yet (ROADMAP A4: MV and null staging)")
+
+
+def _no_index(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to pinot_tpu_torch yet (ROADMAP A6: indexes)")
+
+
+def _column(seg: ImmutableSegment, name: str):
+    ci = seg.columns.get(name)
+    if ci is None:
+        raise PlanError(f"unknown column {name!r}")
+    if ci.is_mv:
+        raise _not_staged(f"multi-value column {name!r}")
+    return ci
+
+
+def _dict_column(seg: ImmutableSegment, expr):
+    """The ColumnIndex when `expr` names a dictionary-encoded column, else None."""
+    if isinstance(expr, ast.Identifier) and expr.name in seg.columns:
+        ci = _column(seg, expr.name)
+        if ci.is_dict_encoded:
+            return ci
+    return None
+
+
+# ---------------------------------------------------------------------------
+# value expressions
+# ---------------------------------------------------------------------------
+
+
+def eval_value(seg: ImmutableSegment, expr: ast.Expr) -> np.ndarray:
+    """Per-doc values of a value expression over the whole segment."""
+    if isinstance(expr, ast.Identifier):
+        if expr.name == "$docId":
+            return np.arange(seg.n_docs, dtype=np.int64)
+        if expr.name == "$segmentName":
+            return np.full(seg.n_docs, seg.name, dtype=object)
+        if expr.name == "$hostName":
+            return np.full(seg.n_docs, socket.gethostname(), dtype=object)
+        return _column(seg, expr.name).materialize()
+    if isinstance(expr, ast.Literal):
+        return np.full(seg.n_docs, expr.value)
+    if isinstance(expr, ast.BinaryOp):
+        l = eval_value(seg, expr.left)
+        r = eval_value(seg, expr.right)
+        if expr.op == "+":
+            return l + r
+        if expr.op == "-":
+            return l - r
+        if expr.op == "*":
+            return l * r
+        if expr.op == "/":
+            return l.astype(np.float64) / r.astype(np.float64)
+        if expr.op == "%":
+            return np.mod(l, r)
+    if isinstance(expr, ast.CaseWhen):
+        conds = [filter_mask(seg, c) for c, _ in expr.whens]
+        vals = [np.asarray(eval_value(seg, v)) for _, v in expr.whens]
+        n = seg.n_docs
+        vals = [np.broadcast_to(v, (n,)) if v.ndim == 0 else v for v in vals]
+        if expr.else_ is not None:
+            default = np.asarray(eval_value(seg, expr.else_))
+            default = np.broadcast_to(default, (n,)) if default.ndim == 0 else default
+        else:
+            # null-handling-disabled default (CaseTransformFunction parity):
+            # 0 for numeric branches, 'null' for string branches
+            is_str = any(v.dtype == object or v.dtype.kind in "US" for v in vals)
+            default = np.full(n, "null" if is_str else 0, dtype=object if is_str else np.float64)
+        if any(v.dtype == object or v.dtype.kind in "US" for v in vals):
+            vals = [v.astype(object) for v in vals]
+            default = default.astype(object)
+        return np.select(conds, vals, default=default)
+    if isinstance(expr, ast.FunctionCall):
+        return _eval_function(seg, expr)
+    raise PlanError(f"unsupported value expression in host executor: {expr}")
+
+
+def _eval_function(seg: ImmutableSegment, expr: ast.FunctionCall) -> np.ndarray:
+    name = expr.name
+    if name in ("timeconvert", "datetimeconvert"):
+        rw = rewrite_time_convert(expr)
+        if rw is not None:
+            return eval_value(seg, rw)
+    if name == "map_value":
+        # map_value(col, 'key'): per-row document parse (this package builds
+        # no map index)
+        if len(expr.args) != 2 or not isinstance(expr.args[0], ast.Identifier) or not isinstance(expr.args[1], ast.Literal):
+            raise PlanError("map_value requires (column, 'key')")
+        col, key = expr.args[0].name, str(expr.args[1].value)
+        out = np.full(seg.n_docs, None, dtype=object)
+        for i, v in enumerate(_column(seg, col).materialize()):
+            if isinstance(v, dict):
+                doc = v
+            else:
+                try:
+                    doc = json.loads(v) if v else {}
+                except (ValueError, TypeError):
+                    continue  # non-JSON row -> None
+            if isinstance(doc, dict):
+                out[i] = doc.get(key)
+        return out
+    if name == "lookup":
+        raise NotImplementedError("lookUp (dimension tables) is not ported to pinot_tpu_torch yet (ROADMAP A9)")
+    if name == "cast":
+        v = eval_value(seg, expr.args[0])
+        target = str(expr.args[1].value).upper()
+        if target in ("INT", "LONG", "TIMESTAMP", "BOOLEAN"):
+            return np.trunc(v.astype(np.float64)).astype(np.int64) if np.issubdtype(v.dtype, np.floating) else v
+        if target in ("FLOAT", "DOUBLE"):
+            return v.astype(np.float64)
+        if target == "STRING":
+            return np.asarray([str(x) for x in v], dtype=object)
+        raise PlanError(f"unsupported CAST target {target}")
+    if name == "coalesce":
+        # first non-null argument per row (CoalesceTransformFunction): null =
+        # a NaN/None cell (no column here has a null vector). Accumulate in
+        # object space; all-numeric results narrow back.
+        out = np.full(seg.n_docs, None, dtype=object)
+        filled = np.zeros(seg.n_docs, dtype=bool)
+        for a in expr.args:
+            v = np.asarray(eval_value(seg, a))
+            v = np.broadcast_to(v, (seg.n_docs,)) if v.ndim == 0 else v
+            if v.dtype == object:
+                miss = np.asarray([x is None for x in v], dtype=bool)
+            elif np.issubdtype(v.dtype, np.floating):
+                miss = np.isnan(v)
+            else:
+                miss = np.zeros(seg.n_docs, dtype=bool)
+            take = ~filled & ~miss
+            out[take] = v[take]
+            filled |= take
+            if filled.all():
+                break
+        if filled.all() and all(
+            isinstance(x, (int, float, np.integer, np.floating)) and not isinstance(x, bool) for x in out
+        ):
+            return out.astype(np.float64)
+        return out
+    if name in DEVICE_FUNCS:
+        _, fn = DEVICE_FUNCS[name]
+        # the functions take their array namespace first: numpy here
+        args = [eval_value(seg, a) for a in expr.args]
+        return np.asarray(fn(np, *args))
+    if name in STRING_FUNCS:
+        base = eval_value(seg, expr.args[0])
+        lit_args = tuple(a.value for a in expr.args[1:] if isinstance(a, ast.Literal))
+        derived, _ = apply_string_func(name, base, lit_args)
+        return derived
+    raise PlanError(f"unsupported value expression in host executor: {expr}")
+
+
+def eval_rows(seg: ImmutableSegment, expr: ast.Expr, rows: np.ndarray) -> np.ndarray:
+    """eval_value(seg, expr)[rows], reading only `rows` where expr is a column."""
+    if isinstance(expr, ast.Identifier) and expr.name in seg.columns:
+        return _column(seg, expr.name).materialize(rows)
+    return eval_value(seg, expr)[rows]
+
+
+# ---------------------------------------------------------------------------
+# filters
+# ---------------------------------------------------------------------------
+
+
+_CMPS = {
+    ast.CompareOp.EQ: lambda a, b: a == b,
+    ast.CompareOp.NEQ: lambda a, b: a != b,
+    ast.CompareOp.LT: lambda a, b: a < b,
+    ast.CompareOp.LTE: lambda a, b: a <= b,
+    ast.CompareOp.GT: lambda a, b: a > b,
+    ast.CompareOp.GTE: lambda a, b: a >= b,
+}
+
+
+def _pred_mask(seg: ImmutableSegment, expr, pred) -> np.ndarray:
+    """pred over expr's per-doc values, as a bool doc mask. pred is elementwise,
+    so over a dictionary column it runs once per dictionary value and the
+    result gathers by id."""
+    ci = _dict_column(seg, expr)
+    if ci is None:
+        return np.asarray(pred(eval_value(seg, expr)), dtype=bool)
+    lut = np.asarray(pred(ci.dictionary.values), dtype=bool)
+    if lut.ndim == 0:  # numpy decided the comparison for every value at once
+        return np.full(seg.n_docs, bool(lut))
+    return lut[ci.forward]
+
+
+def filter_mask(seg: ImmutableSegment, f: ast.FilterExpr | None) -> np.ndarray:
+    n = seg.n_docs
+    if f is None:
+        return np.ones(n, dtype=bool)
+    if isinstance(f, ast.And):
+        m = np.ones(n, dtype=bool)
+        for c in f.children:
+            m &= filter_mask(seg, c)
+        return m
+    if isinstance(f, ast.Or):
+        m = np.zeros(n, dtype=bool)
+        for c in f.children:
+            m |= filter_mask(seg, c)
+        return m
+    if isinstance(f, ast.Not):
+        return ~filter_mask(seg, f.child)
+    if isinstance(f, ast.Compare):
+        left, op, right = f.left, f.op, f.right
+        if isinstance(left, ast.Literal) and not isinstance(right, ast.Literal):
+            left, right = right, left
+            op = _FLIP[op]
+        if not isinstance(right, ast.Literal):
+            return np.asarray(_CMPS[op](eval_value(seg, left), eval_value(seg, right)), dtype=bool)
+        rv = right.value
+
+        def cmp(lv):
+            if isinstance(rv, str) and lv.dtype == object:
+                lv = lv.astype(str)
+            return _CMPS[op](lv, rv)
+
+        return _pred_mask(seg, left, cmp)
+    if isinstance(f, ast.Between):
+        lo = f.low.value if isinstance(f.low, ast.Literal) else None
+        hi = f.high.value if isinstance(f.high, ast.Literal) else None
+        if lo is None or hi is None:
+            raise PlanError("BETWEEN bounds must be literals")
+
+        def between(v):
+            if v.dtype == object:
+                v = v.astype(str)
+            return (v >= lo) & (v <= hi)
+
+        m = _pred_mask(seg, f.expr, between)
+        return ~m if f.negated else m
+    if isinstance(f, ast.In):
+        vals = [x.value for x in f.values if isinstance(x, ast.Literal)]
+
+        def isin(v):
+            want = vals
+            if v.dtype == object:
+                v = v.astype(str)
+                want = [str(x) for x in vals]
+            return np.isin(v, np.asarray(want))
+
+        m = _pred_mask(seg, f.expr, isin)
+        return ~m if f.negated else m
+    if isinstance(f, ast.Like):
+        rx = re.compile(_like_to_regex(f.pattern))
+        m = _pred_mask(seg, f.expr, lambda v: [bool(rx.fullmatch(x)) for x in v.astype(str)])
+        return ~m if f.negated else m
+    if isinstance(f, ast.RegexpLike):
+        rx = re.compile(f.pattern)
+        return _pred_mask(seg, f.expr, lambda v: [bool(rx.search(x)) for x in v.astype(str)])
+    if isinstance(f, ast.IsNull):
+        # no null vectors (Pinot default null handling): IS NULL matches nothing
+        return np.full(n, bool(f.negated))
+    if isinstance(f, ast.BoolAssert):
+        v = np.asarray(eval_value(seg, f.expr))
+        if v.dtype == object or v.dtype.kind in ("U", "S"):
+            truthy = np.asarray([x is not None and bool(x) and str(x).lower() not in ("false", "0") for x in v], dtype=bool)
+        else:
+            truthy = v.astype(np.float64) != 0
+        pos = truthy if f.want_true else ~truthy
+        # IS NOT TRUE / IS NOT FALSE include the null rows (3-valued NOT)
+        return ~pos if f.negated else pos
+    if isinstance(f, ast.DistinctFrom):
+        with np.errstate(invalid="ignore"):
+            m = np.asarray(eval_value(seg, f.left) != eval_value(seg, f.right), dtype=bool)
+        return ~m if f.negated else m
+    if isinstance(f, ast.PredicateFunction):
+        return predicate_function_mask(seg, f)
+    raise PlanError(f"unsupported filter in host executor: {f}")
+
+
+def predicate_function_mask(seg: ImmutableSegment, f: ast.PredicateFunction) -> np.ndarray:
+    """ST_WITHIN_DISTANCE as a haversine over the columns; the index-probe
+    predicates (TEXT_MATCH, JSON_MATCH, VECTOR_SIMILARITY) need indexes this
+    package does not build."""
+    if f.name == "st_within_distance":
+        from pinot_tpu_torch.query.transforms import haversine
+
+        if len(f.args) != 5 or not all(isinstance(a, ast.Literal) for a in f.args[2:]):
+            raise PlanError("ST_WITHIN_DISTANCE(lat, lng, qlat, qlng, radius_m)")
+        qlat, qlng, radius = (float(a.value) for a in f.args[2:])
+        lat = eval_value(seg, f.args[0]).astype(np.float64)
+        lng = eval_value(seg, f.args[1]).astype(np.float64)
+        return haversine(np, lat, lng, np.float64(qlat), np.float64(qlng)) <= radius
+    if f.name in ("text_match", "json_match", "vector_similarity"):
+        raise _no_index(f"{f.name.upper()} (its index)")
+    raise PlanError(f"unknown predicate function {f.name}")
+
+
+# ---------------------------------------------------------------------------
+# missing values (FILTER (WHERE) exclusions), as pandas treats them
+# ---------------------------------------------------------------------------
+
+
+def _isna(v: np.ndarray) -> np.ndarray:
+    """pandas' isna over a column: NaN in float columns; None or NaN in
+    object columns."""
+    if v.dtype.kind == "f":
+        return np.isnan(v)
+    if v.dtype == object:
+        return np.fromiter((x is None or (isinstance(x, float) and x != x) for x in v), bool, len(v))
+    return np.zeros(len(v), dtype=bool)
+
+
+def _dropna(v: np.ndarray) -> np.ndarray:
+    return v[~_isna(v)]
+
+
+def _dropna_typed(v: np.ndarray) -> np.ndarray:
+    """dropna() that restores int64 dtype for object cells holding ints —
+    hash-based sketches must see the original integer bit patterns."""
+    v2 = _dropna(v)
+    if v2.dtype == object and len(v2):
+        first = v2[0]
+        if isinstance(first, (int, np.integer)) and not isinstance(first, bool):
+            return v2.astype(np.int64)
+    return v2
+
+
+def _nan_mask_values(v: np.ndarray, excluded: np.ndarray, func: str) -> np.ndarray:
+    """Substitute excluded rows with NaN/None so the reducers skip them.
+    Strings and identity-sensitive functions keep object/None cells: a
+    float64 cast would collapse int values above 2^53 AND change the hash
+    bit-pattern HLL/theta sketches use."""
+    identity = v.dtype.kind in "iu" and (func.startswith("distinct") or func in ("idset", "mode", "sumprecision"))
+    if v.dtype == object or v.dtype.kind in "US" or identity:
+        v = v.astype(object)
+        v[excluded] = None
+        return v
+    return np.where(excluded, np.nan, v.astype(np.float64))
+
+
+# ---------------------------------------------------------------------------
+# partial producers (formats documented in reduce.py)
+# ---------------------------------------------------------------------------
+
+
+def _theta_filter_masks(seg: ImmutableSegment, extra: tuple) -> list[np.ndarray]:
+    """Doc masks for a filtered DISTINCTCOUNTTHETASKETCH's filter predicates
+    (one per clause)."""
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    _params, filters, _postagg = parse_theta_extra(extra)
+    return [filter_mask(seg, parse_sql(f"SELECT * FROM _t WHERE {f}").where) for f in filters]
+
+
+def _theta_filtered_partial(seg: ImmutableSegment, a, mask: np.ndarray):
+    """DISTINCTCOUNTTHETASKETCH with filter expressions: one KMV sketch per
+    filter predicate, combined at reduce by the SET_* post-aggregation."""
+    fmasks = _theta_filter_masks(seg, a.extra)
+    v = eval_value(seg, a.arg)
+    if not fmasks:
+        return _theta_compute(v[mask], None, ())
+    return ("multi", [_theta_compute(v[mask & fm], None, ()) for fm in fmasks])
+
+
+def _mode_counter(v: np.ndarray) -> dict:
+    vals, counts = np.unique(v, return_counts=True)
+    return {float(k): int(c) for k, c in zip(vals, counts)}
+
+
+def agg_partials(seg: ImmutableSegment, ctx: QueryContext, query_mask: np.ndarray) -> list:
+    out = []
+    for a in ctx.aggregations:
+        # FILTER (WHERE ...) intersects into the query mask per aggregation
+        mask = query_mask if a.filter is None else query_mask & filter_mask(seg, a.filter)
+        if a.func == "count":
+            out.append(int(mask.sum()))
+            continue
+        if a.func in funnel.FUNNEL_AGGS:
+            out.append(funnel.segment_partial(seg, a, mask))
+            continue
+        if a.func == "distinctcounttheta" and a.extra:
+            out.append(_theta_filtered_partial(seg, a, mask))
+            continue
+        if a.func in EXT_AGGS:
+            v = eval_value(seg, a.arg)[mask] if a.arg is not None else None
+            v2 = eval_value(seg, a.arg2)[mask] if a.arg2 is not None else None
+            out.append(EXT_AGGS[a.func].compute(v, v2, a.extra))
+            continue
+        rows = np.flatnonzero(mask)
+        if a.func in ("distinctcount", "distinctcountbitmap"):
+            out.append(set(eval_rows(seg, a.arg, rows).tolist()))
+            continue
+        if a.func == "distinctcounthll":
+            out.append(np_hll_registers(eval_rows(seg, a.arg, rows)))
+            continue
+        if a.func == "mode":
+            out.append(_mode_counter(eval_rows(seg, a.arg, rows)))
+            continue
+        v = eval_rows(seg, a.arg, rows).astype(np.float64)
+        if a.func == "percentileest":
+            bounds = ctx.hints.get("est_bounds", {}).get(a.name)
+            if bounds is None:
+                out.append(v)  # exact-values mode (merged by concatenation)
+            else:
+                lo, hi = bounds
+                out.append((np_est_hist(v, lo, hi), lo, hi))
+        elif a.func == "percentiletdigest":
+            out.append(td_from_values(v, _td_comp(a.extra)))
+        elif a.func == "percentile":
+            out.append(v)
+        elif a.func == "sum":
+            out.append(float(v.sum()) if len(v) else 0.0)
+        elif a.func == "min":
+            out.append(float(v.min()) if len(v) else float("inf"))
+        elif a.func == "max":
+            out.append(float(v.max()) if len(v) else float("-inf"))
+        elif a.func == "avg":
+            out.append((float(v.sum()), int(len(v))))
+        elif a.func == "minmaxrange":
+            out.append((float(v.min()) if len(v) else float("inf"), float(v.max()) if len(v) else float("-inf")))
+        else:
+            raise PlanError(f"unsupported aggregation in host executor: {a.func}")
+    return out
+
+
+class _Groups:
+    """Rows grouped in order of first appearance: `group[r]` is row r's
+    group, and `pieces(v)` gives each group's values in row order (what a
+    pandas groupby hands each group's reducer)."""
+
+    def __init__(self, group: np.ndarray, n_groups: int):
+        self.group = group
+        self.size = np.bincount(group, minlength=n_groups).astype(np.int64)
+        self.order = np.argsort(group, kind="stable")
+        self.ends = np.cumsum(self.size)
+        self.starts = self.ends - self.size
+
+    def pieces(self, v: np.ndarray) -> list[np.ndarray]:
+        sv = v[self.order]
+        return [sv[s:e] for s, e in zip(self.starts.tolist(), self.ends.tolist())]
+
+    def cells(self, fn, *cols) -> np.ndarray:
+        """fn over each group's pieces of `cols`, one object cell a group."""
+        parts = [self.pieces(c) for c in cols]
+        out = np.empty(len(self.size), dtype=object)
+        for g in range(len(self.size)):
+            out[g] = fn(*(p[g] for p in parts))
+        return out
+
+    def sum(self, v: np.ndarray) -> np.ndarray:
+        """Per-group sum skipping NaN (pandas' sum): exact int64 for integer
+        and bool columns, float64 otherwise."""
+        if v.dtype.kind in "iub":
+            return np.add.reduceat(v.astype(np.int64)[self.order], self.starts)
+        v = v.astype(np.float64)
+        return np.add.reduceat(np.where(np.isnan(v), 0.0, v)[self.order], self.starts)
+
+    def extreme(self, v: np.ndarray, is_min: bool) -> np.ndarray:
+        """Per-group min / max skipping NaN (NaN where a group has only NaN)."""
+        if v.dtype.kind in "iub":
+            ufunc = np.minimum if is_min else np.maximum
+            return ufunc.reduceat(v[self.order], self.starts).astype(np.float64)
+        ufunc = np.fmin if is_min else np.fmax
+        return ufunc.reduceat(v.astype(np.float64)[self.order], self.starts)
+
+
+def _key_columns(seg: ImmutableSegment, exprs: list, rows: np.ndarray):
+    """(grouping arrays, decode(first rows) -> key columns): a dictionary
+    column groups by its ids; any other key by its values, strings as
+    fixed-width text (the reference's `astype(str)`). Keys that are all
+    dictionary columns group by one combined id."""
+    keys, decoders, cards = [], [], []
+    for e in exprs:
+        ci = _dict_column(seg, e)
+        if ci is not None:
+            ids = ci.forward[rows]
+            keys.append(ids)
+            cards.append(max(ci.cardinality, 1))
+            decoders.append(lambda first, ci=ci, ids=ids: _as_key(ci.dictionary.get_many(ids[first])))
+        else:
+            v = _as_key(eval_rows(seg, e, rows))
+            keys.append(v)
+            decoders.append(lambda first, v=v: v[first])
+    if len(keys) > 1 and len(cards) == len(keys) and math.prod(cards) < (1 << 62):
+        keys = [sum(k.astype(np.int64) * s for k, s in zip(keys, group_strides(cards).tolist()))]
+    return keys, decoders
+
+
+def _as_key(v: np.ndarray) -> np.ndarray:
+    return v.astype(str) if v.dtype == object else v
+
+
+def _frame_column(v: np.ndarray) -> np.ndarray:
+    """A value column as a group's reducer sees it: text as Python strings
+    (the reference's reducers get a DataFrame column's to_numpy())."""
+    return v.astype(object) if v.dtype.kind in "US" else v
+
+
+def _empty_group_frame(ctx: QueryContext) -> dict[str, np.ndarray]:
+    cols = {f"k{i}": np.empty(0, dtype=object) for i in range(len(ctx.group_by))}
+    for i, a in enumerate(ctx.aggregations):
+        for j in range(parts_of(a.func)):
+            cols[f"a{i}p{j}"] = np.empty(0, dtype=object)
+    return cols
+
+
+def group_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray) -> dict[str, np.ndarray]:
+    """The segment's group frame: keys k0.., partials a{i}p{j}, one row a
+    group in order of first appearance."""
+    rows = np.flatnonzero(mask)
+    if len(rows) == 0:
+        return _empty_group_frame(ctx)
+    keys, decoders = _key_columns(seg, ctx.group_by, rows)
+    group, first = group_index(keys)
+    grp = _Groups(group, len(first))
+    frame: dict[str, np.ndarray] = {f"k{i}": dec(first) for i, dec in enumerate(decoders)}
+    for i, a in enumerate(ctx.aggregations):
+        fmask = filter_mask(seg, a.filter)[rows] if a.filter is not None else None
+        for j, part in enumerate(_group_partials(seg, ctx, a, rows, fmask, grp)):
+            frame[f"a{i}p{j}"] = part
+    return frame
+
+
+def _group_partials(seg, ctx, a, rows, fmask, grp: _Groups) -> list[np.ndarray]:
+    """One aggregation's partial columns over a group frame's groups."""
+    filtered = fmask is not None
+    if a.func == "count":
+        return [grp.sum(fmask) if filtered else grp.size]
+    if a.func in funnel.FUNNEL_AGGS:
+        return [_funnel_cells(seg, a, rows, fmask, grp)]
+    v = _frame_column(eval_rows(seg, a.arg, rows))
+    if a.func == "distinctcounttheta" and a.extra:
+        fms = _theta_filter_masks(seg, a.extra)
+        fms = [fm[rows] & fmask if filtered else fm[rows] for fm in fms]
+        if not fms:
+            return [grp.cells(lambda x: _theta_compute(x, None, ()), v)]
+        return [
+            grp.cells(
+                lambda x, *ms: ("multi", [_theta_compute(x[m], None, ()) for m in ms]), v, *fms
+            )
+        ]
+    na = False  # the reducers skip missing values
+    if filtered:
+        v = _nan_mask_values(v, ~fmask, a.func)
+        na = a.func not in _FILTERED_OK
+    keep = _dropna if na else (lambda x: x)
+    if a.func == "sum":
+        return [np.nan_to_num(grp.sum(v).astype(np.float64))]
+    if a.func in ("min", "max"):
+        out = grp.extreme(v, a.func == "min")
+        if filtered:
+            out = np.where(np.isnan(out), np.inf if a.func == "min" else -np.inf, out)
+        return [out]
+    if a.func == "avg":
+        return [np.nan_to_num(grp.sum(v).astype(np.float64)), grp.sum(fmask) if filtered else grp.size]
+    if a.func == "minmaxrange":
+        lo, hi = grp.extreme(v, True), grp.extreme(v, False)
+        if filtered:
+            lo = np.where(np.isnan(lo), np.inf, lo)
+            hi = np.where(np.isnan(hi), -np.inf, hi)
+        return [lo, hi]
+    if a.func in ("distinctcount", "distinctcountbitmap"):
+        return [grp.cells(lambda x: set(keep(x).tolist()), v)]
+    if a.func == "distinctcounthll":
+        return [grp.cells(lambda x: np_hll_registers(_dropna_typed(x) if na else x), v)]
+    bounds = ctx.hints.get("est_bounds", {}).get(a.name)
+    if a.func == "percentileest" and bounds:
+        lo_b, hi_b = bounds
+        return [grp.cells(lambda x: (np_est_hist(np.asarray(keep(x)), lo_b, hi_b), lo_b, hi_b), v)]
+    if a.func == "percentiletdigest":
+        comp = _td_comp(a.extra)
+        return [grp.cells(lambda x: td_from_values(np.asarray(keep(x), dtype=np.float64), comp), v)]
+    if a.func in ("percentile", "percentileest"):
+        return [grp.cells(lambda x: np.asarray(keep(x), dtype=np.float64), v)]
+    if a.func == "mode":
+        return [grp.cells(lambda x: _mode_counter(np.asarray(keep(x))), v)]
+    if a.func in EXT_AGGS:
+        spec = EXT_AGGS[a.func]
+        if a.arg2 is not None:
+            w = _frame_column(eval_rows(seg, a.arg2, rows))
+
+            def two(x, y):
+                if na:
+                    ok = ~_isna(x)
+                    x, y = x[ok], y[ok]
+                return spec.compute(x, y, a.extra)
+
+            return [grp.cells(two, v, w)]
+        return [grp.cells(lambda x: spec.compute(_dropna_typed(x) if na else x, None, a.extra), v)]
+    raise PlanError(f"unsupported aggregation in host executor: {a.func}")
+
+
+def _funnel_cells(seg, a, rows, fmask, grp: _Groups) -> np.ndarray:
+    """Per-group funnel partials: each row's step bits, then the count
+    variants' per-step id sets or the windowed variants' event lists."""
+    bits = np.zeros(len(rows), dtype=np.int64)
+    for k, s in enumerate(a.extra[-1]):
+        sm = filter_mask(seg, s)[rows]
+        if fmask is not None:
+            sm = sm & fmask  # FILTER(WHERE): excluded docs join no step
+        bits |= sm.astype(np.int64) << k
+    if funnel.is_windowed(a.func):
+        corr = _frame_column(eval_rows(seg, a.arg2, rows))
+        ts = np.asarray(eval_rows(seg, a.arg, rows), dtype=np.float64)
+
+        def windowed(b, c, t):
+            keep = b != 0
+            return funnel.events_partial(c[keep], t[keep], b[keep])
+
+        return grp.cells(windowed, bits, corr, ts)
+    corr = _frame_column(eval_rows(seg, a.arg, rows))
+    n = len(a.extra[-1])
+    return grp.cells(lambda b, c: [set(c[(b & (1 << k)) != 0].tolist()) for k in range(n)], bits, corr)
+
+
+def distinct_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray) -> dict[str, np.ndarray]:
+    """The distinct key rows of the segment, first occurrences in row order
+    (pandas' drop_duplicates)."""
+    rows = np.flatnonzero(mask)
+    keys, decoders = _key_columns(seg, [it.expr for it in ctx.select_items], rows)
+    if len(rows) == 0:
+        return {f"k{i}": k for i, k in enumerate(keys)}
+    _, first = group_index(keys)
+    return {f"k{i}": dec(first) for i, dec in enumerate(decoders)}
+
+
+def selection_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray, k: int) -> dict[str, np.ndarray]:
+    idx = np.flatnonzero(mask)[:k]
+    return {f"c{i}": eval_rows(seg, it.expr, idx) for i, it in enumerate(ctx.select_items)}
+
+
+def selection_ob_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray, k: int) -> dict[str, np.ndarray]:
+    """The segment's top k rows by the ORDER BY keys (stable, nulls largest),
+    with the sort values as __key columns."""
+    from pinot_tpu_torch.common.sorting import sort_nulls_largest
+
+    rows = np.flatnonzero(mask)
+    keys = [_as_key(eval_rows(seg, ob.expr, rows)) for ob in ctx.order_by]
+    perm = sort_nulls_largest(keys, [not ob.desc for ob in ctx.order_by])[:k]
+    frame = {f"__key{j}": v[perm] for j, v in enumerate(keys)}
+    for i, it in enumerate(ctx.select_items):
+        frame[f"c{i}"] = eval_rows(seg, it.expr, rows[perm])
+    return frame
+
+
+def execute_segment(seg: ImmutableSegment, ctx: QueryContext) -> tuple:
+    """(partial, matched docs) of one segment on the host."""
+    from pinot_tpu_torch.query.context import QueryType
+
+    if null_handling_enabled(ctx.options):
+        raise _not_staged("enableNullHandling")
+    mask = filter_mask(seg, ctx.filter)
+    matched = int(mask.sum())
+    qt = ctx.query_type
+    k = ctx.limit + ctx.offset
+    if qt == QueryType.AGGREGATION:
+        return agg_partials(seg, ctx, mask), matched
+    if qt == QueryType.GROUP_BY:
+        return group_frame(seg, ctx, mask), matched
+    if qt == QueryType.DISTINCT:
+        return distinct_frame(seg, ctx, mask), matched
+    if qt == QueryType.SELECTION_ORDER_BY:
+        return selection_ob_frame(seg, ctx, mask, k), matched
+    return selection_frame(seg, ctx, mask, k), matched

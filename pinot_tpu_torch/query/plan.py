@@ -27,12 +27,18 @@ same program in both packages.
    one key: a dict id, a value, or for several keys one int32 composite rank
    from `multi_ob_spec`), and DISTINCT to a group-by with no aggregates.
 
-Query shapes whose lowering needs a module that is not ported yet (the host
-executor, transforms, the other sketches, null handling, multi-value
-columns) raise NotImplementedError; `DeviceFallback`, which the reference
-answers with its host executor (e.g. DISTINCTCOUNT of a raw column, a
-grouped presence matrix over MAX_PRESENCE_CELLS, an expression ORDER BY key
-among several), is one such error here.
+Query shapes with no device lowering raise `DeviceFallback` where the
+reference raises it, and the engine answers such a segment with the host
+executor (`host_exec.py`), as the reference's does: GROUP BY on a raw column
+or an expression, DISTINCTCOUNT of a raw column, a grouped presence matrix
+over MAX_PRESENCE_CELLS, PERCENTILE / MODE / the EXT_AGGS family, funnels
+inside a GROUP BY, string-valued transforms. Where the reference lowers to a
+spec tag this package's program does not have yet (`fn` for DEVICE_FUNCS,
+`hist` for PERCENTILEEST, `masked` for FILTER (WHERE), `funnel_steps`,
+`docmask`), the planner emits the reference's spec all the same and the
+program raises NotImplementedError naming the tag (`kernels._unsupported`):
+such a shape never goes to the host in its place, and a DeviceFallback of
+another part of the same query still does, in the reference's order.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ from pinot_tpu_torch.common.types import DataType
 from pinot_tpu_torch.query import ast
 from pinot_tpu_torch.query.ast import CompareOp, Expr, FilterExpr
 from pinot_tpu_torch.query.context import AggregationInfo, QueryContext, QueryType, null_handling_enabled
-from pinot_tpu_torch.query.sketches import HLL_LOG2M, HLL_M
+from pinot_tpu_torch.query.sketches import EST_BINS, HLL_LOG2M, HLL_M
+from pinot_tpu_torch.query.transforms import DEVICE_FUNCS, STRING_FUNCS, apply_string_func, rewrite_time_convert
 from pinot_tpu_torch.segment.segment import ImmutableSegment
 
 MAX_DENSE_GROUPS = 1 << 20
@@ -57,31 +64,19 @@ VIRTUAL_COLUMNS = ("$docId", "$segmentName", "$hostName")
 
 _STRING_TYPES = (DataType.STRING, DataType.BYTES, DataType.JSON)
 
-#: aggregations with a device lowering in this package
-PORTED_AGGS = (
-    "count",
-    "sum",
-    "min",
-    "max",
-    "avg",
-    "minmaxrange",
-    "distinctcount",
-    "distinctcountbitmap",
-    "distinctcounthll",
-)
-
 #: largest grouped DISTINCTCOUNT presence matrix (ng * pad cells) lowered to
-#: the device; the reference answers larger ones with its host executor
+#: the device; a larger one sends the segment to the host executor
 MAX_PRESENCE_CELLS = 1 << 24
 
-#: largest grouped DISTINCTCOUNTHLL register matrix (ng * 2^log2m cells)
-#: lowered to the device
+#: largest grouped DISTINCTCOUNTHLL register matrix (ng * 2^log2m cells),
+#: and grouped PERCENTILEEST histogram matrix (ng * EST_BINS cells), lowered
+#: to the device
 MAX_HLL_CELLS = 1 << 22
 
 
-class DeviceFallback(NotImplementedError):
-    """Query shape has no device lowering; the reference runs it on its host
-    executor, which is not ported yet."""
+class DeviceFallback(Exception):
+    """Query shape has no device lowering: the segment runs on the host
+    executor. Not a NotImplementedError, so no handler of those swallows it."""
 
 
 class PlanError(ValueError):
@@ -192,6 +187,12 @@ class _Lowering:
 
     def _function_value(self, expr: ast.FunctionCall) -> tuple:
         name = expr.name
+        if name in ("timeconvert", "datetimeconvert"):
+            rw = rewrite_time_convert(expr)
+            if rw is not None:
+                return self.value_spec(rw)
+        if name == "map_value":
+            raise DeviceFallback("map_value runs host-side (map index probe)")
         if name == "cast":
             if len(expr.args) != 2 or not isinstance(expr.args[1], ast.Literal):
                 raise PlanError("CAST requires CAST(expr AS type)")
@@ -201,7 +202,72 @@ class _Lowering:
             if target in ("FLOAT", "DOUBLE"):
                 return ("cast_float", self.value_spec(expr.args[0]))
             raise DeviceFallback(f"CAST to {target} runs host-side")
-        raise NotImplementedError(f"transform function {name}(...) is not ported to pinot_tpu_torch yet")
+        if name in DEVICE_FUNCS:
+            arity, _ = DEVICE_FUNCS[name]
+            if len(expr.args) != arity:
+                raise PlanError(f"{name} expects {arity} args, got {len(expr.args)}")
+            return ("fn", name, tuple(self.value_spec(a) for a in expr.args))
+        if name in STRING_FUNCS:
+            # numeric-returning string functions (strlen, startswith, ...) over
+            # a dict column become a derived value table gathered by ids —
+            # cardinality-sized host work, doc-sized device gather
+            derived, is_str, col = self._derived_string_values(expr)
+            if is_str:
+                raise DeviceFallback(f"string-valued {name}(...) runs host-side")
+            self.use_col(col)
+            pad = _pow2(max(len(derived), 1))
+            dv = derived
+            if len(dv) == 0:
+                dv = np.zeros(1, dtype=np.float64)
+            if len(dv) < pad:
+                dv = np.concatenate([dv, np.full(pad - len(dv), dv[-1])])
+            return ("dictval", col, self.op_idx(dv))
+        raise DeviceFallback(f"transform function {name} has no device lowering yet")
+
+    def _derived_string_values(self, expr: ast.FunctionCall):
+        """Evaluate a string function over a dict column's VALUES on the host.
+        Returns (derived value array, returns_string, column name)."""
+        if not expr.args or not isinstance(expr.args[0], ast.Identifier):
+            raise DeviceFallback(f"{expr.name} over non-column args runs host-side")
+        col = expr.args[0].name
+        ci = self.seg.columns.get(col)
+        if ci is None:
+            raise PlanError(f"unknown column {col!r}")
+        if not ci.is_dict_encoded:
+            raise DeviceFallback(f"{expr.name} over raw column runs host-side")
+        lit_args = []
+        for a in expr.args[1:]:
+            if not isinstance(a, ast.Literal):
+                raise DeviceFallback(f"{expr.name} with non-literal args runs host-side")
+            lit_args.append(a.value)
+        derived, is_str = apply_string_func(expr.name, ci.dictionary.values, tuple(lit_args))
+        return derived, is_str, col
+
+    def _string_fn_lut(self, expr: ast.FunctionCall, pred) -> tuple:
+        """A predicate over a string function of a dict column lowers to a LUT
+        over dict ids (evaluated once per distinct value on the host)."""
+        derived, is_str, col = self._derived_string_values(expr)
+        if not is_str:
+            raise PlanError(f"{expr.name} is not string-valued")
+        self.use_col(col)
+        lut = np.zeros(_pow2(max(len(derived), 1)), dtype=bool)
+        for i, v in enumerate(derived):
+            if pred(str(v)):
+                lut[i] = True
+        if not lut.any():
+            return ("const", False)
+        if lut[: max(len(derived), 1)].all():
+            return ("const", True)
+        return ("in_lut", col, self.op_idx(lut))
+
+    @staticmethod
+    def _is_string_fn(expr) -> bool:
+        if not (isinstance(expr, ast.FunctionCall) and expr.name in STRING_FUNCS):
+            return False
+        is_str = STRING_FUNCS[expr.name][2]
+        if callable(is_str):  # arg-dependent result type (jsonextractscalar)
+            return is_str(tuple(a.value for a in expr.args[1:] if isinstance(a, ast.Literal)))
+        return is_str
 
     # -- filters -------------------------------------------------------------
 
@@ -246,12 +312,29 @@ class _Lowering:
             # null handling): IS NULL matches nothing
             return ("const", bool(f.negated))
         if isinstance(f, ast.DistinctFrom):
-            raise NotImplementedError("IS [NOT] DISTINCT FROM is not ported to pinot_tpu_torch yet")
+            # no column of this package has a null vector: the reference's
+            # null terms vanish and IS DISTINCT FROM is the NEQ compare
+            neq = self._compare(ast.Compare(CompareOp.NEQ, f.left, f.right))
+            return ("not", neq) if f.negated else neq
         if isinstance(f, ast.PredicateFunction):
-            raise NotImplementedError(f"predicate function {f.name} is not ported to pinot_tpu_torch yet")
+            return self._predicate_function(f)
         if isinstance(f, ast.BoolAssert):
             raise DeviceFallback("IS [NOT] TRUE/FALSE runs host-side")
         raise PlanError(f"unsupported filter: {f}")
+
+    def _predicate_function(self, f: ast.PredicateFunction) -> tuple:
+        if f.name == "st_within_distance":
+            # ST_WITHIN_DISTANCE(lat, lng, qlat, qlng, radius_m): a compare
+            # over the haversine distance
+            if len(f.args) != 5 or not isinstance(f.args[4], ast.Literal):
+                raise PlanError("ST_WITHIN_DISTANCE(lat, lng, qlat, qlng, radius_m)")
+            dist = ast.FunctionCall("st_distance", tuple(f.args[:4]))
+            return ("cmp_lit", "LTE", self.value_spec(dist), self.op_idx(np.float64(f.args[4].value)))
+        # TEXT_MATCH / JSON_MATCH / VECTOR_SIMILARITY: the reference probes an
+        # index on the host and hands the program a `docmask` operand
+        raise NotImplementedError(
+            f"predicate function {f.name} (its index and the docmask spec tag) is not ported to pinot_tpu_torch yet"
+        )
 
     def _compare(self, f: ast.Compare) -> tuple:
         left, op, right = f.left, f.op, f.right
@@ -272,6 +355,17 @@ class _Lowering:
             if ci.is_dict_encoded:
                 return self._dict_compare(left.name, ci, op, value)
             return self._raw_compare(left.name, ci, op, value)
+        if self._is_string_fn(left):
+            sv = str(value)
+            pred = {
+                CompareOp.EQ: lambda v: v == sv,
+                CompareOp.NEQ: lambda v: v != sv,
+                CompareOp.LT: lambda v: v < sv,
+                CompareOp.LTE: lambda v: v <= sv,
+                CompareOp.GT: lambda v: v > sv,
+                CompareOp.GTE: lambda v: v >= sv,
+            }[op]
+            return self._string_fn_lut(left, pred)
         # predicate over computed expression, e.g. a+b > 5
         vs = self.value_spec(left)
         return ("cmp_lit", op.name, vs, self.op_idx(np.float64(value)))
@@ -405,6 +499,12 @@ class _Lowering:
                 if f.negated:
                     return ("const", not spec[1]) if spec[0] == "const" else ("not", spec)
                 return spec
+        if self._is_string_fn(f.expr):
+            vals = {str(v) for v in values}
+            spec = self._string_fn_lut(f.expr, lambda v: v in vals)
+            if f.negated:
+                return ("const", not spec[1]) if spec[0] == "const" else ("not", spec)
+            return spec
         # raw numeric IN: sorted-membership probe (the program evaluator has
         # no "in_sorted" tag yet and raises when it meets one)
         vs = self.value_spec(f.expr)
@@ -433,8 +533,10 @@ class _Lowering:
         return ("not", spec) if f.negated else spec
 
     def _regex_lut(self, expr: Expr, pattern: str, full: bool) -> tuple:
-        if isinstance(expr, ast.FunctionCall):
-            raise NotImplementedError(f"LIKE/REGEXP_LIKE over {expr.name}(...) is not ported to pinot_tpu_torch yet")
+        if self._is_string_fn(expr):
+            rx = re.compile(pattern)
+            match = rx.fullmatch if full else rx.search
+            return self._string_fn_lut(expr, lambda v: bool(match(v)))
         if not isinstance(expr, ast.Identifier):
             raise PlanError("LIKE/REGEXP_LIKE requires a column")
         ci = self.seg.columns.get(expr.name)
@@ -463,8 +565,6 @@ class _Lowering:
 
             inner = dataclasses.replace(info, filter=None)
             return ("masked", self.filter_spec(info.filter), self.agg_spec(inner, grouped))
-        if info.func not in PORTED_AGGS:
-            raise NotImplementedError(f"aggregation {info.func} is not ported to pinot_tpu_torch yet")
         if info.func == "count":
             return ("count",)
         if info.func in ("distinctcount", "distinctcountbitmap"):
@@ -482,9 +582,51 @@ class _Lowering:
             if grouped and self._group_ng * HLL_M > MAX_HLL_CELLS:
                 raise DeviceFallback("grouped HLL register matrix exceeds device budget")
             return self._hll_spec(info)
-        if info.arg is None:
-            raise PlanError(f"{info.func} requires an argument")
-        return (info.func, self.value_spec(info.arg))
+        if info.func == "percentileest":
+            if grouped and self._group_ng * EST_BINS > MAX_HLL_CELLS:
+                raise DeviceFallback("grouped percentileest histogram matrix exceeds device budget")
+            return self._hist_spec(info)
+        if info.func in ("percentile", "percentiletdigest", "mode"):
+            raise DeviceFallback(f"{info.func} runs host-side (full-values / counter intermediate)")
+        if info.func in ("sum", "min", "max", "avg", "minmaxrange"):
+            if info.arg is None:
+                raise PlanError(f"{info.func} requires an argument")
+            return (info.func, self.value_spec(info.arg))
+        if info.func in ("countmv", "summv", "minmv", "maxmv", "avgmv", "distinctcountmv"):
+            # the reference lowers these over an MV column; this package
+            # stages none (ROADMAP A4)
+            raise PlanError(f"{info.func} requires a multi-value column")
+        if info.func in ("funnelcount", "funnelcompletecount"):
+            # the reference's per-step presence vectors over the correlation
+            # column's dict-id space (the program has no funnel_steps tag yet)
+            if grouped:
+                raise DeviceFallback("funnel aggregations inside GROUP BY run host-side")
+            if not isinstance(info.arg, ast.Identifier):
+                raise DeviceFallback("FUNNELCOUNT correlation expression runs host-side")
+            ci = self.seg.columns.get(info.arg.name)
+            if ci is None or not ci.is_dict_encoded or ci.is_mv:
+                raise DeviceFallback("FUNNELCOUNT needs a dict-encoded SV correlation column")
+            stepspecs = tuple(self.filter_spec(s) for s in info.extra[-1])
+            col = self.use_col(info.arg.name)
+            return ("funnel_steps", col, _pow2(max(ci.cardinality, 1)), stepspecs)
+        raise DeviceFallback(f"aggregation {info.func} has no device lowering yet")
+
+    def _hist_spec(self, info: AggregationInfo) -> tuple:
+        """PERCENTILEEST's fixed-bin histogram over the engine's global
+        bounds (the program has no hist tag yet)."""
+        bounds = self.ctx.hints.get("est_bounds", {}).get(info.name)
+        if bounds is None:
+            raise DeviceFallback("percentileest without global bounds runs host-side")
+        lo, hi = bounds
+        if not (hi > lo):
+            raise DeviceFallback("degenerate percentileest bounds run host-side")
+        return (
+            "hist",
+            self.value_spec(info.arg),
+            self.op_idx(np.float64(lo)),
+            self.op_idx(np.float64(EST_BINS / (hi - lo))),
+            EST_BINS,
+        )
 
     def _hll_spec(self, info: AggregationInfo) -> tuple:
         if isinstance(info.arg, ast.Identifier):
@@ -643,7 +785,7 @@ def _like_to_regex(pattern: str) -> str:
 
 def plan_segment(seg: ImmutableSegment, ctx: QueryContext) -> SegmentPlan:
     """Lower a query against one segment. Raises DeviceFallback where the
-    reference would run the segment on its host executor."""
+    segment runs on the host executor, as in the reference."""
     if null_handling_enabled(ctx.options):
         raise NotImplementedError("enableNullHandling is not ported to pinot_tpu_torch yet")
     lo = _Lowering(seg, ctx)

@@ -4,22 +4,24 @@ Reference parity: BrokerReduceService.reduceOnDataTable (pinot-core/.../query/
 reduce/BrokerReduceService.java:54,61) and the per-type reducers
 (GroupByDataTableReducer, AggregationDataTableReducer, SelectionDataTableReducer,
 DistinctDataTableReducer) plus HavingFilterHandler / PostAggregationHandler.
-This is the JAX package's `query/reduce.py` for the aggregations this package
-lowers (COUNT, SUM, MIN, MAX, AVG, MINMAXRANGE, DISTINCTCOUNT,
-DISTINCTCOUNTHLL) and for SELECTION, SELECTION ORDER BY and DISTINCT, written
-in numpy alone: it keeps the reference's merge order, so ties under ORDER BY
-come out in the reference's row order, and the reference's row values (see
-`frame_rows`).
+This is the JAX package's `query/reduce.py` written in numpy alone: it keeps
+the reference's merge order, so ties under ORDER BY come out in the
+reference's row order, and the reference's row values (see `frame_rows`).
+Partials from the device path and from the host executor (host_exec.py) have
+one format and merge in one pass, so one query may mix both.
 
 Partial formats:
   AGGREGATION: list aligned with ctx.aggregations; entries by func:
       count -> int, sum/min/max -> float, avg -> (sum, count),
       minmaxrange -> (min, max), distinctcount -> set of values,
-      distinctcounthll -> int32 register vector (or a set of values)
+      distinctcounthll -> int32 register vector (or a set of values),
+      percentile -> float64 values, percentileest -> (histogram, lo, hi) or
+      float64 values, percentiletdigest -> a t-digest, mode -> {value: count},
+      funnels -> funnel.py's, the EXT_AGGS family -> aggregates.py's
   GROUP_BY / DISTINCT: a "group frame", a dict of equal-length numpy arrays
       with key columns k0..k{n-1} and partial columns a{i}p{j} (agg i, part
-      j); DISTINCTCOUNT's column holds a set per group, DISTINCTCOUNTHLL's a
-      register vector per group (dtype object)
+      j); an object-valued partial (a set, registers, values, a sketch, a
+      counter) is one cell of an object column
   SELECTION: a frame with positional columns c0..c{n-1}
   SELECTION_ORDER_BY: the same plus sort columns __key0..__key{m-1}
 """
@@ -33,9 +35,12 @@ import numpy as np
 
 from pinot_tpu_torch.common.sorting import sort_nulls_largest
 from pinot_tpu_torch.query import ast
+from pinot_tpu_torch.query import funnel
+from pinot_tpu_torch.query.aggregates import EXT_AGGS, exact_percentile
 from pinot_tpu_torch.query.context import QueryContext, canonical
+from pinot_tpu_torch.query.quantile_sketch import td_create, td_merge, td_quantile
 from pinot_tpu_torch.query.result import ResultTable
-from pinot_tpu_torch.query.sketches import hll_estimate
+from pinot_tpu_torch.query.sketches import hist_estimate, hll_estimate
 
 
 def frame_len(frame: dict[str, np.ndarray]) -> int:
@@ -184,6 +189,10 @@ def _is_null_partial(x) -> bool:
 
 
 def _merge_agg_partials(func: str, a, b):
+    if func in funnel.FUNNEL_AGGS:
+        return funnel.merge(func, a, b)
+    if func in EXT_AGGS:
+        return EXT_AGGS[func].merge(a, b)
     if func in ("sum", "count"):
         return a + b
     if func == "min":
@@ -201,6 +210,19 @@ def _merge_agg_partials(func: str, a, b):
         if isinstance(a, (set, frozenset)):
             return a | b
         return np.maximum(a, b)
+    if func == "percentileest":
+        if isinstance(a, tuple) and len(a) == 3:  # (hist counts, lo, hi)
+            return (a[0] + b[0], a[1], a[2])
+        return np.concatenate([a, b])  # exact-values mode
+    if func == "percentiletdigest":
+        return td_merge(a, b)
+    if func == "percentile":
+        return np.concatenate([a, b])
+    if func == "mode":
+        out = dict(a)
+        for k, v in b.items():
+            out[k] = out.get(k, 0) + v
+        return out
     raise AssertionError(func)
 
 
@@ -213,6 +235,10 @@ def _hll_count(p) -> int:
 def _finalize(a, p):
     """Finalize a merged partial. `a` is the AggregationInfo."""
     func = a.func
+    if func in funnel.FUNNEL_AGGS:
+        return funnel.finalize(func, p, a.extra)
+    if func in EXT_AGGS:
+        return EXT_AGGS[func].finalize(p, a.extra)
     if func == "count":
         return int(p)
     if func in ("sum", "min", "max"):
@@ -227,12 +253,26 @@ def _finalize(a, p):
         return len(p)
     if func == "distinctcounthll":
         return _hll_count(p)
+    if func == "percentileest":
+        if isinstance(p, tuple):
+            return hist_estimate(np.asarray(p[0]), p[1], p[2], a.extra[0])
+        return exact_percentile(p, a.extra[0])
+    if func == "percentiletdigest":
+        return td_quantile(p, a.extra[0])
+    if func == "percentile":
+        return exact_percentile(p, a.extra[0])
+    if func == "mode":
+        if not p:
+            return float("-inf")
+        best = max(p.values())
+        return float(min(k for k, v in p.items() if v == best))  # Pinot MODE ties -> MIN
     raise AssertionError(func)
 
 
 def _finalize_column(a, parts) -> list:
-    """Finalize one aggregation over ALL merged groups at once (one numpy
-    pass + tolist, identical values to per-row _finalize)."""
+    """Finalize one aggregation over ALL merged groups at once: the numeric
+    reducers in one numpy pass + tolist (identical values to per-row
+    _finalize), every object-valued partial through _finalize."""
     func = a.func
     if func == "count":
         return np.asarray(parts, dtype=np.int64).tolist()
@@ -252,9 +292,7 @@ def _finalize_column(a, parts) -> list:
         return (hi - lo).tolist()
     if func in DISTINCT_AGGS:
         return [len(s) for s in parts]
-    if func == "distinctcounthll":
-        return [_hll_count(p) for p in parts]
-    raise AssertionError(func)
+    return [_finalize(a, p) for p in parts]
 
 
 def _alias_map(ctx: QueryContext) -> dict[str, ast.Expr]:
@@ -264,7 +302,7 @@ def _alias_map(ctx: QueryContext) -> dict[str, ast.Expr]:
 def reduce_aggregation(ctx: QueryContext, partials: list[list]) -> list[list]:
     """Merge AGGREGATION partials -> single result row per the select list."""
     if not partials:
-        merged = [_empty_partial(a.func) for a in ctx.aggregations]
+        merged = [_empty_partial(a.func, a.extra) for a in ctx.aggregations]
     else:
         merged = list(partials[0])
         for p in partials[1:]:
@@ -274,7 +312,17 @@ def reduce_aggregation(ctx: QueryContext, partials: list[list]) -> list[list]:
     return [[eval_scalar(it.expr, env, aliases) for it in ctx.select_items]]
 
 
-def _empty_partial(func: str):
+def _empty_partial(func: str, extra: tuple = ()):
+    if func in funnel.FUNNEL_AGGS:
+        return funnel.empty_partial(func, extra)
+    if func in EXT_AGGS:
+        return EXT_AGGS[func].empty(extra)
+    if func == "percentiletdigest":
+        return td_create()
+    if func in ("percentile", "percentileest"):
+        return np.zeros(0)
+    if func == "mode":
+        return {}
     return {
         "count": 0,
         "sum": 0.0,
@@ -305,25 +353,25 @@ def group_index(keys: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
     return rank[inv.reshape(-1)], first[order]
 
 
-def _merge_column(func: str, vals: np.ndarray, group: np.ndarray, n_groups: int) -> np.ndarray:
-    """Per-group merge of one partial column, with pandas' missing-value
-    semantics: sum skips NaN, min/max skip NaN unless a group has only NaN;
-    union merges a column of sets."""
-    if func == "union":
+def _merge_column(func: str, how: str, vals: np.ndarray, group: np.ndarray, n_groups: int) -> np.ndarray:
+    """Per-group merge of one partial column of aggregation `func`, with
+    pandas' missing-value semantics: sum skips NaN, min/max skip NaN unless a
+    group has only NaN; union merges a column of sets; fold merges any other
+    object partial with _merge_agg_partials, in row order (the reference's
+    reduce over each group's series)."""
+    if how == "union":
         out = np.empty(n_groups, dtype=object)
         for g in range(n_groups):
             out[g] = set()
         for g, s in zip(group.tolist(), vals):
             out[g] |= s
         return out
-    if func == "hll":
-        # a group's partials fold in row order (the reference's reduce over
-        # each group's series)
+    if how == "fold":
         out = np.full(n_groups, None, dtype=object)
         for g, r in zip(group.tolist(), vals):
-            out[g] = r if out[g] is None else _merge_agg_partials("distinctcounthll", out[g], r)
+            out[g] = r if out[g] is None else _merge_agg_partials(func, out[g], r)
         return out
-    if func == "sum":
+    if how == "sum":
         if vals.dtype.kind == "f":
             out = np.zeros(n_groups, dtype=np.float64)
             np.add.at(out, group, np.where(np.isnan(vals), 0.0, vals))
@@ -332,11 +380,12 @@ def _merge_column(func: str, vals: np.ndarray, group: np.ndarray, n_groups: int)
             np.add.at(out, group, vals.astype(np.int64))
         return out
     out = np.full(n_groups, np.nan)
-    (np.fmin if func == "min" else np.fmax).at(out, group, vals.astype(np.float64))
+    (np.fmin if how == "min" else np.fmax).at(out, group, vals.astype(np.float64))
     return out
 
 
-#: per-part merge of each aggregation's partial columns
+#: per-part merge of each aggregation's partial columns; every aggregation
+#: not listed has one object partial, merged by "fold"
 _PART_MERGE = {
     "count": ("sum",),
     "sum": ("sum",),
@@ -346,8 +395,12 @@ _PART_MERGE = {
     "minmaxrange": ("min", "max"),
     "distinctcount": ("union",),
     "distinctcountbitmap": ("union",),
-    "distinctcounthll": ("hll",),
 }
+
+
+def parts_of(func: str) -> int:
+    """Partial columns of an aggregation in a group frame."""
+    return len(_PART_MERGE.get(func, ("fold",)))
 
 
 def reduce_group_by(ctx: QueryContext, frames: list[dict[str, np.ndarray]]) -> list[list]:
@@ -361,8 +414,8 @@ def reduce_group_by(ctx: QueryContext, frames: list[dict[str, np.ndarray]]) -> l
     fin_cols = []
     for i, a in enumerate(ctx.aggregations):
         parts = [
-            _merge_column(how, cols[f"a{i}p{j}"], group, n_rows).tolist()
-            for j, how in enumerate(_PART_MERGE[a.func])
+            _merge_column(a.func, how, cols[f"a{i}p{j}"], group, n_rows).tolist()
+            for j, how in enumerate(_PART_MERGE.get(a.func, ("fold",)))
         ]
         fin_cols.append(_finalize_column(a, parts[0] if len(parts) == 1 else tuple(parts)))
 

@@ -2,9 +2,10 @@
 
 Reference parity: DistinctCountHLLAggregationFunction (pinot-core/.../query/
 aggregation/function/DistinctCountHLLAggregationFunction.java, default
-log2m=12). This is the HLL half of the JAX package's `query/sketches.py`: the
-same hash, the same register index and rank, the same estimate, so registers
-built by either package merge with the other's.
+log2m=12) and PercentileEstAggregationFunction. This is the JAX package's
+`query/sketches.py`: the same hash, the same register index and rank, the
+same estimate, so registers built by either package merge with the other's,
+and the same fixed-bin histogram for PERCENTILEEST.
 
  * Registers are a dense (m,) int32 vector per (segment, agg); the per-doc
    update is hash -> (register index, rank) -> scatter-max. Merges are
@@ -29,6 +30,7 @@ import torch
 
 HLL_LOG2M = 12  # Pinot default log2m
 HLL_M = 1 << HLL_LOG2M
+EST_BINS = 4096
 
 _M32 = 0xFFFFFFFF
 _C1 = 0x85EBCA6B
@@ -100,6 +102,34 @@ def np_hll_registers(values: np.ndarray, log2m: int = HLL_LOG2M) -> np.ndarray:
     regs = np.zeros(m, dtype=np.int32)
     np.maximum.at(regs, idx, rank)
     return regs
+
+
+def np_est_hist(values: np.ndarray, lo: float, hi: float) -> np.ndarray:
+    """Fixed-bin histogram counts over the engine's global [lo, hi] bounds,
+    the one binning formula every PERCENTILEEST partial producer shares."""
+    v = np.asarray(values, dtype=np.float64)
+    if hi > lo:
+        b = np.clip(((v - lo) * (EST_BINS / (hi - lo))).astype(np.int64), 0, EST_BINS - 1)
+        return np.bincount(b, minlength=EST_BINS).astype(np.int64)
+    counts = np.zeros(EST_BINS, dtype=np.int64)
+    counts[0] = len(v)
+    return counts
+
+
+def hist_estimate(counts: np.ndarray, lo: float, hi: float, pct: float) -> float:
+    """Percentile estimate from a fixed-bin histogram (inclusive-rank rule,
+    matching sorted-array index (len-1)*pct/100): the containing bin's
+    midpoint."""
+    total = int(counts.sum())
+    if total == 0:
+        return float("-inf")
+    if hi <= lo:
+        return float(lo)
+    target = int((total - 1) * pct / 100.0)
+    cum = np.cumsum(counts)
+    b = int(np.searchsorted(cum, target + 1))
+    width = (hi - lo) / len(counts)
+    return float(lo + (b + 0.5) * width)
 
 
 # ---------------------------------------------------------------------------

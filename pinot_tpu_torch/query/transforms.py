@@ -1,0 +1,502 @@
+"""Transform (scalar) function registry.
+
+Reference parity: the 73 vectorized transform functions of
+pinot-core/.../operator/transform/function/ plus the @ScalarFunction registry
+(pinot-spi/.../annotations/ScalarFunction.java:45, FunctionRegistry.java:70).
+This is the JAX package's `query/transforms.py` carried over unchanged, in
+three tiers:
+
+ 1. NUMERIC functions (`DEVICE_FUNCS`) — elementwise ops over an array
+    namespace passed as the first argument (abs/ceil/floor/exp/ln/sqrt/
+    power/mod/...). The host executor passes numpy; the reference's device
+    program passes jnp (this package's program has no `fn` tag yet).
+ 2. DATETIME functions — epoch-millis integer arithmetic (year/month/day
+    extraction via civil-from-days), in the same namespace-generic form.
+ 3. STRING functions (`STRING_FUNCS`) — applied to a dictionary column's
+    VALUES on the host (cardinality-sized work instead of doc-count-sized),
+    producing a derived value table gathered by the existing ids; over a raw
+    column or with non-literal arguments they run per row on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# ---------------------------------------------------------------------------
+# tier 1-2: device-side numeric/datetime functions
+# name -> (n_args, builder(jnp, *args) -> array)
+# ---------------------------------------------------------------------------
+
+
+def _civil_from_millis(jnp, ms):
+    """epoch millis -> (year, month, day) via Howard Hinnant's civil_from_days
+    algorithm (integer-only, vectorizes cleanly on the VPU)."""
+    days = jnp.floor_divide(ms, 86_400_000)
+    z = days + 719468
+    era = jnp.floor_divide(z, 146097)
+    doe = z - era * 146097
+    yoe = jnp.floor_divide(doe - jnp.floor_divide(doe, 1460) + jnp.floor_divide(doe, 36524) - jnp.floor_divide(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + jnp.floor_divide(yoe, 4) - jnp.floor_divide(yoe, 100))
+    mp = jnp.floor_divide(5 * doy + 2, 153)
+    d = doy - jnp.floor_divide(153 * mp + 2, 5) + 1
+    m = mp + jnp.where(mp < 10, 3, -9)
+    y = y + jnp.where(m <= 2, 1, 0)
+    return y, m, d
+
+
+def _days_from_civil(jnp, y, m, d):
+    """(year, month, day) -> epoch days (inverse of _civil_from_millis)."""
+    y = y - jnp.where(m <= 2, 1, 0)
+    era = jnp.floor_divide(y, 400)
+    yoe = y - era * 400
+    doy = jnp.floor_divide(153 * (m + jnp.where(m > 2, -3, 9)) + 2, 5) + d - 1
+    doe = yoe * 365 + jnp.floor_divide(yoe, 4) - jnp.floor_divide(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def _dayofyear(jnp, ms):
+    days = jnp.floor_divide(ms, 86_400_000)
+    y, _m, _d = _civil_from_millis(jnp, ms)
+    return days - _days_from_civil(jnp, y, jnp.ones_like(y), jnp.ones_like(y)) + 1
+
+
+def _isoweekday(jnp, ms):
+    # epoch day 0 = Thursday -> ISO weekday (1=Mon..7=Sun)
+    days = jnp.floor_divide(ms, 86_400_000)
+    return jnp.mod(days + 3, 7) + 1
+
+
+def _iso_weeks_in_year(jnp, y):
+    p = lambda yy: jnp.mod(
+        yy + jnp.floor_divide(yy, 4) - jnp.floor_divide(yy, 100) + jnp.floor_divide(yy, 400), 7
+    )
+    return 52 + jnp.where((p(y) == 4) | (p(y - 1) == 3), 1, 0)
+
+
+def _weekofyear(jnp, ms):
+    """ISO-8601 week number (integer-only, vectorized)."""
+    y, _m, _d = _civil_from_millis(jnp, ms)
+    doy = _dayofyear(jnp, ms)
+    wd = _isoweekday(jnp, ms)
+    w0 = jnp.floor_divide(doy - wd + 10, 7)
+    # both substitutions test the ORIGINAL w0: an early-January date in week
+    # 53 of the previous year must not be re-tested against this year's count
+    w = jnp.where(w0 < 1, _iso_weeks_in_year(jnp, y - 1), w0)
+    return jnp.where(w0 > _iso_weeks_in_year(jnp, y), 1, w)
+
+
+def _trunc_month(jnp, ms, month_fn):
+    y, m, _d = _civil_from_millis(jnp, ms)
+    one = jnp.ones_like(y)
+    return _days_from_civil(jnp, y, month_fn(jnp, m, one), one) * 86_400_000
+
+
+def _round_half_up(jnp, x):
+    # Pinot rounds HALF_UP (away from zero), not numpy's banker's rounding
+    return jnp.sign(x) * jnp.floor(jnp.abs(x) + 0.5)
+
+
+def _round_dec(jnp, x, s):
+    f = jnp.power(10.0, s.astype(jnp.float64))
+    return _round_half_up(jnp, x.astype(jnp.float64) * f) / f
+
+
+def _trunc_dec(jnp, x, s):
+    f = jnp.power(10.0, s.astype(jnp.float64))
+    return jnp.trunc(x.astype(jnp.float64) * f) / f
+
+
+DEVICE_FUNCS: dict[str, tuple[int, object]] = {
+    "abs": (1, lambda jnp, x: jnp.abs(x)),
+    # trigonometry (Sin/Cos/...TransformFunction)
+    "sin": (1, lambda jnp, x: jnp.sin(x.astype(jnp.float64))),
+    "cos": (1, lambda jnp, x: jnp.cos(x.astype(jnp.float64))),
+    "tan": (1, lambda jnp, x: jnp.tan(x.astype(jnp.float64))),
+    "cot": (1, lambda jnp, x: 1.0 / jnp.tan(x.astype(jnp.float64))),
+    "asin": (1, lambda jnp, x: jnp.arcsin(x.astype(jnp.float64))),
+    "acos": (1, lambda jnp, x: jnp.arccos(x.astype(jnp.float64))),
+    "atan": (1, lambda jnp, x: jnp.arctan(x.astype(jnp.float64))),
+    "atan2": (2, lambda jnp, y, x: jnp.arctan2(y.astype(jnp.float64), x.astype(jnp.float64))),
+    "sinh": (1, lambda jnp, x: jnp.sinh(x.astype(jnp.float64))),
+    "cosh": (1, lambda jnp, x: jnp.cosh(x.astype(jnp.float64))),
+    "tanh": (1, lambda jnp, x: jnp.tanh(x.astype(jnp.float64))),
+    "degrees": (1, lambda jnp, x: jnp.degrees(x.astype(jnp.float64))),
+    "radians": (1, lambda jnp, x: jnp.radians(x.astype(jnp.float64))),
+    # rounding / roots
+    "cbrt": (1, lambda jnp, x: jnp.cbrt(x.astype(jnp.float64))),
+    "round": (1, lambda jnp, x: _round_half_up(jnp, x.astype(jnp.float64))),
+    "rounddecimal": (2, _round_dec),
+    "truncate": (2, _trunc_dec),
+    "log": (1, lambda jnp, x: jnp.log(x.astype(jnp.float64))),
+    "ceil": (1, lambda jnp, x: jnp.ceil(x.astype(jnp.float64))),
+    "floor": (1, lambda jnp, x: jnp.floor(x.astype(jnp.float64))),
+    "exp": (1, lambda jnp, x: jnp.exp(x.astype(jnp.float64))),
+    "ln": (1, lambda jnp, x: jnp.log(x.astype(jnp.float64))),
+    "log2": (1, lambda jnp, x: jnp.log2(x.astype(jnp.float64))),
+    "log10": (1, lambda jnp, x: jnp.log10(x.astype(jnp.float64))),
+    "sqrt": (1, lambda jnp, x: jnp.sqrt(x.astype(jnp.float64))),
+    "sign": (1, lambda jnp, x: jnp.sign(x).astype(jnp.float64)),
+    "power": (2, lambda jnp, x, y: jnp.power(x.astype(jnp.float64), y.astype(jnp.float64))),
+    "pow": (2, lambda jnp, x, y: jnp.power(x.astype(jnp.float64), y.astype(jnp.float64))),
+    "mod": (2, lambda jnp, x, y: jnp.mod(x, y)),
+    "least": (2, lambda jnp, x, y: jnp.minimum(x, y)),
+    "greatest": (2, lambda jnp, x, y: jnp.maximum(x, y)),
+    "add": (2, lambda jnp, x, y: x + y),
+    "sub": (2, lambda jnp, x, y: x - y),
+    "mult": (2, lambda jnp, x, y: x * y),
+    "div": (2, lambda jnp, x, y: x.astype(jnp.float64) / y.astype(jnp.float64)),
+    # datetime extracts over epoch millis (Pinot: year(ts), month(ts), ...)
+    "year": (1, lambda jnp, ms: _civil_from_millis(jnp, ms)[0]),
+    "month": (1, lambda jnp, ms: _civil_from_millis(jnp, ms)[1]),
+    "dayofmonth": (1, lambda jnp, ms: _civil_from_millis(jnp, ms)[2]),
+    "hour": (1, lambda jnp, ms: jnp.mod(jnp.floor_divide(ms, 3_600_000), 24)),
+    "minute": (1, lambda jnp, ms: jnp.mod(jnp.floor_divide(ms, 60_000), 60)),
+    "second": (1, lambda jnp, ms: jnp.mod(jnp.floor_divide(ms, 1_000), 60)),
+    "millissinceepoch": (1, lambda jnp, ms: ms),
+    "millisecond": (1, lambda jnp, ms: jnp.mod(ms, 1_000)),
+    "dayofweek": (1, _isoweekday),
+    "dayofyear": (1, _dayofyear),
+    "quarter": (1, lambda jnp, ms: jnp.floor_divide(_civil_from_millis(jnp, ms)[1] + 2, 3)),
+    "week": (1, _weekofyear),
+    "weekofyear": (1, _weekofyear),
+    "datetrunc_day": (1, lambda jnp, ms: jnp.floor_divide(ms, 86_400_000) * 86_400_000),
+    "datetrunc_hour": (1, lambda jnp, ms: jnp.floor_divide(ms, 3_600_000) * 3_600_000),
+    "datetrunc_minute": (1, lambda jnp, ms: jnp.floor_divide(ms, 60_000) * 60_000),
+    "datetrunc_second": (1, lambda jnp, ms: jnp.floor_divide(ms, 1_000) * 1_000),
+    "datetrunc_week": (
+        1,
+        # ISO weeks start Monday; epoch day 0 = Thursday -> shift by 3
+        lambda jnp, ms: (
+            jnp.floor_divide(jnp.floor_divide(ms, 86_400_000) + 3, 7) * 7 - 3
+        )
+        * 86_400_000,
+    ),
+    "datetrunc_month": (1, lambda jnp, ms: _trunc_month(jnp, ms, lambda j, m, one: m)),
+    "datetrunc_quarter": (
+        1,
+        lambda jnp, ms: _trunc_month(jnp, ms, lambda j, m, one: (j.floor_divide(m - 1, 3)) * 3 + 1),
+    ),
+    "datetrunc_year": (1, lambda jnp, ms: _trunc_month(jnp, ms, lambda j, m, one: one)),
+    # geo: great-circle distance in meters over (lat, lng, qlat, qlng) degrees
+    # (Pinot ST_DISTANCE parity; vectorized haversine instead of H3 walks;
+    # the SAME formula backs the host pruner via indexes.haversine_m)
+    "st_distance": (4, lambda jnp, lat, lng, qlat, qlng: _st_distance(jnp, lat, lng, qlat, qlng)),
+}
+
+
+#: mean earth radius in meters (the reference's segment/indexes.py constant)
+_EARTH_R_M = 6371008.8
+
+
+def haversine(xp, lat1, lng1, lat2, lng2):
+    """Great-circle distance in meters, generic over the array module."""
+    p1, p2 = xp.radians(lat1), xp.radians(lat2)
+    dp = p2 - p1
+    dl = xp.radians(lng2) - xp.radians(lng1)
+    a = xp.sin(dp / 2) ** 2 + xp.cos(p1) * xp.cos(p2) * xp.sin(dl / 2) ** 2
+    return 2 * _EARTH_R_M * xp.arcsin(xp.sqrt(a))
+
+
+def _st_distance(jnp, lat, lng, qlat, qlng):
+    f64 = lambda x: x.astype(jnp.float64) if hasattr(x, "astype") else x
+    return haversine(jnp, f64(lat), f64(lng), f64(qlat), f64(qlng))
+
+
+# ---------------------------------------------------------------------------
+# Scalar-function registration SPI (FunctionRegistry / @ScalarFunction
+# parity, pinot-spi/.../annotations/ScalarFunction.java:45): user functions
+# plug into the SAME registries the built-ins live in, so they run on every
+# execution path that evaluates the registries.
+# ---------------------------------------------------------------------------
+
+
+def register_device_function(name: str, arity: int, fn) -> None:
+    """Register a numeric scalar function: fn(xp, *arrays) -> array, where
+    xp is the array module (numpy in the host executor). The function must
+    be elementwise with no data-dependent Python control flow."""
+    key = name.lower()
+    if key in DEVICE_FUNCS:
+        raise ValueError(f"device function {name!r} already registered")
+    if key in STRING_FUNCS:
+        raise ValueError(f"{name!r} is already a string function")
+    DEVICE_FUNCS[key] = (int(arity), fn)
+
+
+def register_string_function(
+    name: str, arg_counts: tuple[int, ...], fn, returns_string: bool
+) -> None:
+    """Register a string scalar function: fn(value: str, *literal_args).
+    Applied to dictionary VALUES host-side (cardinality-sized work); numeric
+    results become device-gatherable derived tables."""
+    key = name.lower()
+    if key in STRING_FUNCS:
+        raise ValueError(f"string function {name!r} already registered")
+    if key in DEVICE_FUNCS:
+        raise ValueError(f"{name!r} is already a device function")
+    STRING_FUNCS[key] = (tuple(int(c) for c in arg_counts), fn, returns_string)
+
+
+def unregister_function(name: str) -> None:
+    key = name.lower()
+    DEVICE_FUNCS.pop(key, None)
+    STRING_FUNCS.pop(key, None)
+
+
+# ---------------------------------------------------------------------------
+# TIMECONVERT / DATETIMECONVERT: epoch-unit conversions rewritten at plan
+# time into integer arithmetic ASTs shared by the device and host lowerings
+# (TimeConversionTransformFunction / DateTimeConversionTransformFunction).
+# SimpleDateFormat outputs are not supported (strings never ride the device).
+# ---------------------------------------------------------------------------
+
+_UNIT_MS = {
+    "MILLISECONDS": 1,
+    "SECONDS": 1_000,
+    "MINUTES": 60_000,
+    "HOURS": 3_600_000,
+    "DAYS": 86_400_000,
+}
+
+
+def _unit_ms(u: str) -> int:
+    uu = u.upper()
+    if uu not in _UNIT_MS:
+        raise ValueError(f"unsupported time unit {u!r}")
+    return _UNIT_MS[uu]
+
+
+def rewrite_time_convert(expr) -> "object | None":
+    """Rewrite TIMECONVERT(v,'fromUnit','toUnit') or DATETIMECONVERT(v,
+    'S:UNIT:EPOCH','S:UNIT:EPOCH','N:UNIT') into CAST(v*a/b bucketed, 'LONG')
+    AST nodes both execution paths lower natively. Returns None when expr is
+    not one of these calls (caller continues normal dispatch)."""
+    from pinot_tpu_torch.query import ast
+
+    if not isinstance(expr, ast.FunctionCall):
+        return None
+    name = expr.name
+    lits = [a.value for a in expr.args[1:] if isinstance(a, ast.Literal)]
+
+    def _cast_long(e):
+        return ast.FunctionCall("cast", [e, ast.Literal("LONG")])
+
+    def _mul(e, k: int):
+        return e if k == 1 else ast.BinaryOp("*", e, ast.Literal(k))
+
+    def _div_floor(e, k: int):
+        # CAST(x / k, LONG) truncates; inputs are non-negative epochs
+        return e if k == 1 else _cast_long(ast.BinaryOp("/", e, ast.Literal(k)))
+
+    if name == "timeconvert":
+        if len(expr.args) != 3 or len(lits) != 2:
+            raise ValueError("TIMECONVERT requires (value, 'fromUnit', 'toUnit')")
+        f, t = _unit_ms(str(lits[0])), _unit_ms(str(lits[1]))
+        return _cast_long(_div_floor(_mul(expr.args[0], f), t))
+    if name == "datetimeconvert":
+        if len(expr.args) != 4 or len(lits) != 3:
+            raise ValueError(
+                "DATETIMECONVERT requires (value, 'inFmt', 'outFmt', 'granularity')"
+            )
+
+        def _epoch_fmt(s: str) -> int:
+            parts = str(s).split(":")
+            if len(parts) < 3 or parts[2].upper() != "EPOCH":
+                raise ValueError(f"only 'N:UNIT:EPOCH' datetime formats are supported, got {s!r}")
+            return int(parts[0]) * _unit_ms(parts[1])
+
+        fin = _epoch_fmt(lits[0])
+        fout = _epoch_fmt(lits[1])
+        g = str(lits[2]).split(":")
+        gran = int(g[0]) * _unit_ms(g[1]) if len(g) >= 2 else fout
+        ms = _mul(expr.args[0], fin)
+        bucketed = _mul(_div_floor(ms, gran), gran)
+        return _cast_long(_div_floor(bucketed, fout))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# tier 3: string functions applied to dictionary values (host, card-sized)
+# name -> (n_args, fn(value:str, *literal_args) -> str|int)
+# functions returning int produce a numeric derived table (e.g. strlen).
+# ---------------------------------------------------------------------------
+
+
+def _substr(v: str, start, length=None):
+    s = int(start)
+    if length is None:
+        return v[s:]
+    return v[s : s + int(length)]
+
+
+def _pad(v: str, n: int, p: str, left: bool) -> str:
+    """StringUtils.leftPad/rightPad semantics: multi-char pad strings repeat;
+    inputs already >= n return unchanged (no truncation)."""
+    if len(v) >= n or not p:
+        return v
+    fill = (p * ((n - len(v)) // len(p) + 1))[: n - len(v)]
+    return fill + v if left else v + fill
+
+
+def _hexdigest(algo: str):
+    import hashlib
+
+    def fn(v: str) -> str:
+        return hashlib.new(algo, v.encode("utf-8")).hexdigest()
+
+    return fn
+
+
+def _url_encode(v: str) -> str:
+    from urllib.parse import quote
+
+    return quote(v, safe="")
+
+
+def _url_decode(v: str) -> str:
+    from urllib.parse import unquote
+
+    return unquote(v)
+
+
+def _b64_encode(v: str) -> str:
+    import base64
+
+    return base64.b64encode(v.encode("utf-8")).decode("ascii")
+
+
+def _b64_decode(v: str) -> str:
+    import base64
+
+    return base64.b64decode(v.encode("ascii")).decode("utf-8")
+
+
+def _regexp_replace(v: str, pattern, repl) -> str:
+    import re
+
+    # Pinot (Java Matcher.replaceAll) uses $N group references; \g<N> keeps
+    # multi-digit refs unambiguous ($12 stays group 1 + '2' like Java's
+    # longest-valid-group rule can't — we bind single digits, the common
+    # case) and makes $0 the whole match instead of an octal escape
+    py_repl = re.sub(r"\$(\d)", r"\\g<\1>", str(repl))
+    return re.sub(str(pattern), py_repl, v)
+
+
+def _regexp_extract(v: str, pattern, group=0, default=""):
+    import re
+
+    m = re.search(str(pattern), v)
+    if m is None:
+        return str(default)
+    return m.group(int(group))
+
+
+def _json_path_tokens(path: str) -> list:
+    """Tokenize a simple JsonPath subset: $.a.b[0].c — rejects anything the
+    subset doesn't cover (wildcards, filters) instead of silently skipping."""
+    import re
+
+    if not path.startswith("$"):
+        raise ValueError(f"jsonPath must start with '$': {path!r}")
+    toks: list = []
+    rest = path[1:]
+    pat = re.compile(r"\.([A-Za-z_][\w\-]*)|\[(\d+)\]|\['([^']+)'\]")
+    pos = 0
+    while pos < len(rest):
+        m = pat.match(rest, pos)
+        if m is None:
+            raise ValueError(f"unsupported jsonPath syntax at {rest[pos:]!r} in {path!r}")
+        key, idx, qkey = m.groups()
+        toks.append(int(idx) if idx else (key or qkey))
+        pos = m.end()
+    return toks
+
+
+def json_extract_scalar(v: str, path: str, result_type: str, default=None):
+    """JSONEXTRACTSCALAR(col, 'path', 'type'[, default]) over one document
+    (JsonExtractScalarTransformFunction parity, simple-path subset)."""
+    import json
+
+    rt = result_type.upper()
+    miss = default if default is not None else ("" if rt == "STRING" else float("nan"))
+    try:
+        cur = json.loads(v) if isinstance(v, str) else v
+    except (ValueError, TypeError):
+        return miss
+    for tok in _json_path_tokens(path):
+        if isinstance(tok, int):
+            if not isinstance(cur, list) or tok >= len(cur):
+                return miss
+            cur = cur[tok]
+        else:
+            if not isinstance(cur, dict) or tok not in cur:
+                return miss
+            cur = cur[tok]
+    if rt == "STRING":
+        return cur if isinstance(cur, str) else json.dumps(cur)
+    if rt in ("INT", "LONG"):
+        try:
+            return int(cur)
+        except (ValueError, TypeError):
+            return miss
+    try:
+        return float(cur)
+    except (ValueError, TypeError):
+        return miss
+
+
+def _json_is_str(args: tuple) -> bool:
+    return len(args) >= 2 and str(args[1]).upper() == "STRING"
+
+
+STRING_FUNCS: dict[str, tuple[tuple[int, ...], object, object]] = {
+    # name: (allowed arg counts (beyond the column), fn, returns_string —
+    # bool, or callable(args)->bool when the type depends on literal args)
+    "upper": ((0,), lambda v: v.upper(), True),
+    "lower": ((0,), lambda v: v.lower(), True),
+    "reverse": ((0,), lambda v: v[::-1], True),
+    "trim": ((0,), lambda v: v.strip(), True),
+    "ltrim": ((0,), lambda v: v.lstrip(), True),
+    "rtrim": ((0,), lambda v: v.rstrip(), True),
+    "length": ((0,), lambda v: len(v), False),
+    "strlen": ((0,), lambda v: len(v), False),
+    "substr": ((1, 2), _substr, True),
+    "replace": ((2,), lambda v, a, b: v.replace(str(a), str(b)), True),
+    "concat": ((1,), lambda v, suffix: v + str(suffix), True),
+    "startswith": ((1,), lambda v, p: int(v.startswith(str(p))), False),
+    "endswith": ((1,), lambda v, p: int(v.endswith(str(p))), False),
+    # round-3 additions (Lpad/Rpad/StrPos/Repeat/Remove/Url*/hash family/
+    # Base64/Ascii/RegexpReplace/RegexpExtract scalar-function parity)
+    "lpad": ((2,), lambda v, n, p: _pad(v, int(n), str(p), left=True), True),
+    "rpad": ((2,), lambda v, n, p: _pad(v, int(n), str(p), left=False), True),
+    "strpos": ((1,), lambda v, sub: v.find(str(sub)), False),
+    "repeat": ((1,), lambda v, n: v * int(n), True),
+    "remove": ((1,), lambda v, r: v.replace(str(r), ""), True),
+    "urlencode": ((0,), _url_encode, True),
+    "urldecode": ((0,), _url_decode, True),
+    "md5": ((0,), _hexdigest("md5"), True),
+    "sha": ((0,), _hexdigest("sha1"), True),
+    "sha256": ((0,), _hexdigest("sha256"), True),
+    "sha512": ((0,), _hexdigest("sha512"), True),
+    "tobase64": ((0,), _b64_encode, True),
+    "frombase64": ((0,), _b64_decode, True),
+    "ascii": ((0,), lambda v: ord(v[0]) if v else 0, False),
+    "codepoint": ((0,), lambda v: ord(v[0]) if v else 0, False),
+    "regexpreplace": ((2,), _regexp_replace, True),
+    "regexpextract": ((1, 2, 3), _regexp_extract, True),
+    "jsonextractscalar": ((2, 3), json_extract_scalar, _json_is_str),
+}
+
+
+def apply_string_func(name: str, values: np.ndarray, args: tuple) -> tuple[np.ndarray, bool]:
+    """Apply a string function to a dictionary's value array. Returns
+    (derived values, returns_string)."""
+    counts, fn, is_str = STRING_FUNCS[name]
+    if len(args) not in counts:
+        raise ValueError(f"{name} expects {counts} extra args, got {len(args)}")
+    if callable(is_str):
+        is_str = is_str(args)
+    out = [fn(str(v), *args) for v in values]
+    if is_str:
+        return np.asarray(out, dtype=object), True
+    return np.asarray(out, dtype=np.float64), False

@@ -57,6 +57,11 @@ class ColumnIndex:
     def cardinality(self) -> int:
         return self.dictionary.cardinality if self.dictionary else self.stats.cardinality
 
+    def materialize(self, doc_ids: np.ndarray | None = None) -> np.ndarray:
+        """Decode to raw values (optionally only for given docIds)."""
+        fwd = self.forward if doc_ids is None else self.forward[doc_ids]
+        return self.dictionary.get_many(fwd) if self.dictionary is not None else fwd
+
 
 @dataclass
 class ImmutableSegment:

@@ -231,6 +231,11 @@ QUERIES = [
     ("lineorder", "SELECT DISTINCTCOUNTHLL(nation) FROM lineorder", ()),
     ("lineorder", "SELECT region, year FROM lineorder LIMIT 3", ()),
     ("lineorder", "SELECT DISTINCT region FROM lineorder", ()),
+    # the host executor (once shapes the port raised on): a raw column, an
+    # expression key
+    ("lineorder", "SELECT DISTINCTCOUNT(quantity) FROM lineorder", ()),
+    ("lineorder", "SELECT region, DISTINCTCOUNT(quantity + 1) FROM lineorder GROUP BY region", ()),
+    ("lineorder", "SELECT year - 1990, COUNT(*) FROM lineorder GROUP BY year - 1990", ()),
 ]
 
 
@@ -254,10 +259,10 @@ def test_engine_matches_reference(engines, table, sql, approx, mode):
     [
         "SELECT COUNT(*) FROM lineorder WHERE quantity IN (1, 2, 3)",  # in_sorted
         "SELECT PERCENTILEEST(quantity, 50) FROM lineorder",  # the other sketches
-        "SELECT DISTINCTCOUNT(quantity) FROM lineorder",  # raw column: host executor
-        "SELECT region, DISTINCTCOUNT(quantity + 1) FROM lineorder GROUP BY region",  # expression
+        "SELECT COUNT(*) FROM lineorder WHERE quantity > year",  # cmp2
+        "SELECT SUM(CASE WHEN year = 1995 THEN 1 ELSE 0 END) FROM lineorder",  # case
         "SELECT COUNT(*) FILTER (WHERE year = 1995) FROM lineorder",  # masked
-        "SELECT year - 1990, COUNT(*) FROM lineorder GROUP BY year - 1990",  # host executor
+        "SELECT FUNNELCOUNT(STEPS(year = 1995, year = 1996), CORRELATE_BY(nation)) FROM lineorder",  # funnel_steps
         "EXPLAIN PLAN FOR SELECT region, year FROM lineorder LIMIT 3",
         "SELECT region FROM lineorder ORDER BY ABS(quantity) LIMIT 3",  # transform as a sort key
         "SELECT SUM(ABS(quantity)) FROM lineorder",  # transforms
@@ -286,9 +291,9 @@ def test_filter_empties_a_group_in_one_segment(engines):
 
 def test_presence_budget_raises():
     """A grouped DISTINCTCOUNT whose (ng, pad) presence matrix passes 2^24
-    cells raises DeviceFallback (the reference answers it on its host
-    executor, which is not ported)."""
-    from pinot_tpu_torch.query.plan import MAX_PRESENCE_CELLS, DeviceFallback
+    cells: planning raises DeviceFallback, and the engine answers the segment
+    on the host executor with the reference's rows."""
+    from pinot_tpu_torch.query.plan import MAX_PRESENCE_CELLS, DeviceFallback, plan_segment
 
     rng = np.random.default_rng(11)
     n = 5000
@@ -297,17 +302,24 @@ def test_presence_budget_raises():
         "b": np.array([f"b{i % 400:03d}" for i in range(n)], dtype=object),
         "c": np.array([f"c{i:04d}" for i in range(n)], dtype=object),
     }
-    schema = Schema.build("t", dimensions=[("a", DataType.STRING), ("b", DataType.STRING), ("c", DataType.STRING)])
+    dims = [("a", "STRING"), ("b", "STRING"), ("c", "STRING")]
+    ref = JEngine([JBuilder(JSchema.build("t", dimensions=[(c, JDT[t]) for c, t in dims])).build(data, "s0")])
+    schema = Schema.build("t", dimensions=[(c, DataType[t]) for c, t in dims])
     engine = QueryEngine([SegmentBuilder(schema).build(data, "s0")], device="cpu")
     # GROUP BY a: ng = 5120 (5000 keys rounded to 256) * pad 8192 (5000 ids)
     assert 5120 * 8192 > MAX_PRESENCE_CELLS
+    sql = "SELECT a, DISTINCTCOUNT(c) FROM t GROUP BY a ORDER BY a DESC LIMIT 5"
     with pytest.raises(DeviceFallback, match="presence matrix"):
-        engine.execute("SELECT a, DISTINCTCOUNT(c) FROM t GROUP BY a LIMIT 5")
-    # under the budget the same shape runs
+        plan_segment(engine.segments[0], engine.make_context(sql))
+    got, want = engine.execute(sql), ref.execute(sql)
+    assert got.rows == want.rows and [type(x) for x in got.rows[0]] == [type(x) for x in want.rows[0]]
+    # under the budget the same shape runs on the device
+    engine.segment_modes.clear()
     assert engine.execute("SELECT b, DISTINCTCOUNT(c) FROM t GROUP BY b ORDER BY b LIMIT 2").rows == [
         ["b000", 13],
         ["b001", 13],
     ]
+    assert engine.segment_modes == {"device": 1}
 
 
 def test_engine_defaults_to_the_card(engines):

@@ -308,8 +308,9 @@ def test_sparse_program_matches_reference(engines, sql):
 
 def test_sparse_slot_overflow_raises(monkeypatch):
     """More present groups than slots (MAX_DENSE_GROUPS lowered to 64, as
-    tests/test_sparse_groupby.py lowers it) raise DeviceFallback naming the
-    host executor, which the reference reruns such a segment on."""
+    tests/test_sparse_groupby.py lowers it): the segment plans on the device,
+    its clipped slots collide, and the engine reruns it on the host executor,
+    as the reference does, with the reference's rows."""
     n = 4096
     data = {
         "a": np.arange(n, dtype=np.int32) % 3000,
@@ -318,29 +319,40 @@ def test_sparse_slot_overflow_raises(monkeypatch):
         "v": np.ones(n, dtype=np.int64),
         "s": np.array(["x"] * n, dtype=object),
     }
+    ref = JEngine([JBuilder(JSchema.build("o", **_columns(JDT))).build(data, "o0")])
     engine = QueryEngine([SegmentBuilder(Schema.build("o", **_columns(DataType))).build(data, "o0")], device="cpu")
     monkeypatch.setattr(plan_mod, "MAX_DENSE_GROUPS", 64)
-    with pytest.raises(plan_mod.DeviceFallback, match="host executor"):
-        engine.execute("SELECT a, b, SUM(v) FROM o GROUP BY a, b ORDER BY a, b LIMIT 5")
+    sql = "SELECT a, b, SUM(v) FROM o GROUP BY a, b ORDER BY a, b LIMIT 5"
+    ctx = engine.make_context(sql)
+    assert plan_mod.plan_segment(engine.segments[0], ctx).spec[2][:3] == ("groups_sparse", ("a", "b"), 64)
+    engine.segment_modes.clear()
+    _assert_same_result(engine.execute(sql), ref.execute(sql))
+    assert engine.segment_modes == {"host": 1}
     # 64 slots hold a filter's 40 present groups
     res = engine.execute("SELECT a, b, SUM(v) FROM o WHERE b < 20 GROUP BY a, b ORDER BY a, b LIMIT 5")
     assert res.rows == [[0, 0, 1.0], [1, 0, 1.0], [2, 1, 1.0], [3, 1, 1.0], [4, 2, 1.0]]
+    assert engine.segment_modes == {"host": 1, "device": 1}
 
 
 def test_sparse_distinctcount_budget_raises(engines):
     """DISTINCTCOUNT under the sparse path whose U x pad presence cells
-    (16384 x 2048) pass the 2^24 budget raises, where the reference answers
-    on its host executor."""
-    _, port, _, _ = engines
+    (16384 x 2048) pass the 2^24 budget: planning raises DeviceFallback, and
+    the engine answers on the host executor with the reference's rows."""
+    ref, port, _, psegs = engines
+    sql = "SELECT a, b, DISTINCTCOUNT(b) FROM t GROUP BY a, b ORDER BY a, b LIMIT 5"
     with pytest.raises(plan_mod.DeviceFallback, match="presence matrix"):
-        port.execute("SELECT a, b, DISTINCTCOUNT(b) FROM t GROUP BY a, b LIMIT 5")
+        plan_mod.plan_segment(psegs[0], port.make_context(sql))
+    _assert_same_result(port.execute(sql), ref.execute(sql))
 
 
 def test_sparse_gid_overflow_raises():
-    """A product of cardinalities past 2^62 has no int64 dense gid."""
+    """A product of cardinalities past 2^62 has no int64 dense gid: planning
+    raises DeviceFallback, and the host executor groups by the values."""
     n = 70_000
     keys = {f"k{i}": np.arange(n, dtype=np.int32) for i in range(4)}
-    schema = Schema.build("w", dimensions=[(c, DataType.INT) for c in keys])
-    engine = QueryEngine([SegmentBuilder(schema).build(keys, "w0")], device="cpu")
+    ref = JEngine([JBuilder(JSchema.build("w", dimensions=[(c, JDT.INT) for c in keys])).build(keys, "w0")])
+    engine = QueryEngine([SegmentBuilder(Schema.build("w", dimensions=[(c, DataType.INT) for c in keys])).build(keys, "w0")], device="cpu")
+    sql = "SELECT k0, k1, k2, k3, COUNT(*) FROM w GROUP BY k0, k1, k2, k3 ORDER BY k0 DESC LIMIT 5"
     with pytest.raises(plan_mod.DeviceFallback, match="overflows int64"):
-        engine.execute("SELECT k0, k1, k2, k3, COUNT(*) FROM w GROUP BY k0, k1, k2, k3 LIMIT 5")
+        plan_mod.plan_segment(engine.segments[0], engine.make_context(sql))
+    _assert_same_result(engine.execute(sql), ref.execute(sql))
