@@ -50,6 +50,22 @@
    presence launch), and one reduce merges both kinds of partial. Each is
    held against a numpy oracle; the engine's count of segments by executor
    is asserted (4 host for 14 and 15; 4 host and 1 device for 16).
+6. Spec tags and null handling: configs 17-20 run over the same 16M rows
+   through the same engine: 17, FILTER (WHERE) (four distinct masks a
+   segment: four grouped_sum_count launches, one grouped_extreme launch);
+   18, CASE, IN over a raw column, a column compare and SQRT; 19,
+   PERCENTILEEST grouped (histograms of ng 256 x 4096 cells: the two-level
+   kernel) and scalar (4096 cells: the flat one); 20, FUNNELCOUNT (one
+   presence launch a step). Config 21 builds the same rows into 4 more
+   segments with null vectors (lo_supplycost null on a seeded 3% of the rows
+   and on every row of 1998) and runs a Kleene WHERE with null-handling
+   SUM / COUNT / MIN / AVG by year (1998's SUM, MIN and AVG are NULL) and an
+   IS NULL count, every segment on the device. Each is held against a numpy
+   oracle, with its launches a segment asserted; `new_device_steps_tags`
+   times the histogram binning, the IN probe, the CASE fold and YEAR over
+   4M docs, each held exactly against the same step on the CPU; the
+   two-level kernel is held against its plain version at the histogram
+   shapes (k = 0, ng 2^20 and 2^22) before the main path relies on them.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -202,6 +218,62 @@ HOST_MODES = {
     "15_host_aggregations": {"host": N_SEGMENTS},
     "16_mixed_executors": {"host": N_SEGMENTS, "device": 1},
 }
+#: the single-value spec tags (configs 17-20, over the same 16M rows)
+TAG_CONFIGS = {
+    # "year-over-year revenue by nation": FILTER (WHERE), four distinct masks
+    "17_filter_where": (
+        "SELECT c_nation, SUM(lo_revenue) FILTER (WHERE d_year = 1997), SUM(lo_revenue) FILTER (WHERE d_year = 1996), "
+        "COUNT(*) FILTER (WHERE lo_quantity > 40), MAX(lo_supplycost) FILTER (WHERE d_year = 1997), COUNT(*) "
+        "FROM lineorder GROUP BY c_nation ORDER BY c_nation LIMIT 25"
+    ),
+    # "banded revenue": CASE, IN over a raw column, a column compare, a transform
+    "18_case_in_cmp_fn": (
+        "SELECT d_year, SUM(CASE WHEN lo_quantity <= 10 THEN lo_revenue WHEN lo_quantity <= 30 THEN lo_revenue / 2 "
+        "ELSE 0 END), MAX(SQRT(lo_supplycost)), COUNT(*) FROM lineorder "
+        "WHERE lo_quantity IN (1, 5, 10, 20, 30, 40, 50) AND lo_revenue > lo_supplycost * 3 "
+        "GROUP BY d_year ORDER BY d_year LIMIT 10"
+    ),
+    # "revenue distribution by year": PERCENTILEEST, grouped (ng 256 x 4096
+    # histogram cells: the two-level kernel) and scalar (4096: the flat one)
+    "19_percentileest": (
+        "SELECT d_year, PERCENTILEEST(lo_revenue, 90), PERCENTILEEST(lo_supplycost, 50) FROM lineorder "
+        "WHERE c_nation = 'NATION_05' GROUP BY d_year ORDER BY d_year LIMIT 10"
+    ),
+    "19_percentileest_scalar": (
+        "SELECT PERCENTILEEST(lo_revenue, 90), PERCENTILEEST(lo_supplycost, 50) FROM lineorder "
+        "WHERE c_nation = 'NATION_05'"
+    ),
+    # "repeat buyers": FUNNELCOUNT, one presence launch a step
+    "20_funnelcount": (
+        "SELECT FUNNELCOUNT(STEPS(d_year = 1995, d_year = 1996, d_year = 1997), CORRELATE_BY(lo_custkey)) "
+        "FROM lineorder WHERE c_nation = 'NATION_11'"
+    ),
+}
+#: config 21, "cost completeness": the same rows in 4 more segments with
+#: null vectors, lo_supplycost null on a seeded 3% of the rows and on every
+#: row of 1998, queried under enableNullHandling
+NULL_CONFIGS = {
+    "21_null_kleene": (
+        "SET enableNullHandling = true; SELECT d_year, SUM(lo_supplycost), COUNT(lo_supplycost), "
+        "MIN(lo_supplycost), AVG(lo_supplycost), COUNT(*) FROM lineorder_n "
+        "WHERE lo_supplycost > 90000 OR c_nation = 'NATION_03' GROUP BY d_year ORDER BY d_year"
+    ),
+    "21_null_docmask": (
+        "SET enableNullHandling = true; SELECT COUNT(*) FROM lineorder_n WHERE lo_supplycost IS NULL AND d_year = 1995"
+    ),
+}
+NULL_SHARE, NULL_SEED, NULL_YEAR = 0.03, 21, 1998
+LAUNCHES_PER_SEGMENT.update(
+    {
+        "17_filter_where": (4, 1, 0, 0),  # masks: 1997, 1996, lo_quantity > 40, none
+        "18_case_in_cmp_fn": (1, 1, 0, 0),  # the CASE sum is float64: index_add_
+        "19_percentileest": (1, 0, 0, 2),  # counts (ng 256), two histograms (ng 2^20)
+        "19_percentileest_scalar": (2, 0, 0, 0),  # two histograms (ng 4096)
+        "20_funnelcount": (0, 0, 3, 0),
+        "21_null_kleene": (2, 1, 0, 0),  # masks: the non-null one, none; MIN of int64 as float64
+        "21_null_docmask": (0, 0, 0, 0),
+    }
+)
 #: result columns held to rtol 1e-12 (AVG, STDDEV, PERCENTILE); every other
 #: cell must be equal
 APPROX_COLUMNS = {"2_filtered_agg": {3}, "14_groupby_raw_metric": {3}, "15_host_aggregations": {1, 3}}
@@ -542,6 +614,16 @@ def two_level_cases(torch):
     # n % 4 = 3: the last docs after the 4-doc steps; then group ids one
     # element past an aligned start, which rules out the 16-byte loads
     n3, n4 = n2 - 3, n - 3
+    # grouped PERCENTILEEST's histograms: gid = group x 4096 + bin, k = 0, at
+    # config 19's shape (7 years present of ng 256, 4% of the docs) and at
+    # the planner's largest, ng 2^22 (1024 groups), a bucket a group
+    bins = rng.integers(0, 4096, n)
+    cases.append(("hist_ng_2^20", [], _tensor(torch, rng.integers(0, 7, n) * 4096 + bins, i32),
+                  _tensor(torch, rng.random(n) < 0.04, b), 1 << 20, None, D))
+    cases.append(("hist_ng_2^22_sparse", [], _tensor(torch, rng.integers(0, 1024, n) * 4096 + bins, i32),
+                  _tensor(torch, rng.random(n) < 0.04, b), 1 << 22, None, S))
+    cases.append(("hist_ng_2^22_dense", [], _tensor(torch, rng.integers(0, 300, n) * 4096 + bins, i32),
+                  _tensor(torch, rng.random(n) < 0.9, b), 1 << 22, None, D))
     cases.append(("tail_of_3_docs_sparse", [rev(n3)], gid2[:n3].contiguous(), mask2[:n3].contiguous(), 100_003,
                   None, S))
     cases.append(("unaligned_gid_sparse", [rev(n3)], gid2[1 : n3 + 1], mask2[1 : n3 + 1], 100_003, None, S))
@@ -617,7 +699,7 @@ def check_two_level(torch, gb) -> dict:
     emit({"phase": "kernel_vs_plain", "kernel": "grouped_sum_count_2l", "shared_limit": limit, "cases": results})
 
     timings = {}
-    for name in ("config8_shape", "config9_shape", "ng_2^20_k8_past_L2"):
+    for name in ("config8_shape", "config9_shape", "ng_2^20_k8_past_L2", "hist_ng_2^20", "hist_ng_2^22_sparse"):
         values, gid, mask, ng, bits = keep[name]
         k, n, masked = len(values), gid.numel(), int(mask.sum().item())
         ok, idx = _in_range(torch, gid, mask, ng)
@@ -1301,6 +1383,71 @@ def host_oracle(data, nation, category, small) -> dict:
     return out
 
 
+def null_mask(year: np.ndarray) -> np.ndarray:
+    """Config 21's nulls of lo_supplycost: a seeded NULL_SHARE of the rows and
+    every row of NULL_YEAR."""
+    return (year == NULL_YEAR) | (np.random.default_rng(NULL_SEED).random(len(year)) < NULL_SHARE)
+
+
+def _est(v: np.ndarray, lo: float, hi: float, pct: float) -> float:
+    """PERCENTILEEST of `v` over the global bounds [lo, hi]: 4096 fixed bins,
+    the bin holding rank (n-1)*pct/100, its midpoint."""
+    if len(v) == 0:
+        return float("-inf")
+    b = np.clip(np.floor((v.astype(np.float64) - lo) * (4096 / (hi - lo))), 0, 4095).astype(np.int64)
+    cum = np.cumsum(np.bincount(b, minlength=4096))
+    return float(lo + (int(np.searchsorted(cum, int((len(v) - 1) * pct / 100.0) + 1)) + 0.5) * ((hi - lo) / 4096))
+
+
+def tag_oracle(data, nation) -> dict:
+    """Rows of configs 17-21."""
+    year, qty = data["d_year"], data["lo_quantity"]
+    rev, cost, cust = data["lo_revenue"], data["lo_supplycost"], data["lo_custkey"]
+    out = {}
+    rows = []
+    for k in range(25):
+        m = nation == k
+        r97, r96, c97 = rev[m & (year == 1997)], rev[m & (year == 1996)], cost[m & (year == 1997)]
+        rows.append([NATIONS[k], float(r97.sum()), float(r96.sum()), int((m & (qty > 40)).sum()),
+                     float(c97.max()) if len(c97) else float("-inf"), int(m.sum())])
+    out["17_filter_where"] = rows
+
+    m = np.isin(qty, [1, 5, 10, 20, 30, 40, 50]) & (rev > cost * 3)
+    band = np.where(qty <= 10, rev.astype(np.float64), np.where(qty <= 30, rev / 2.0, 0.0))
+    out["18_case_in_cmp_fn"] = [
+        [y, float(band[m & (year == y)].sum()), float(np.sqrt(cost[m & (year == y)].astype(np.float64)).max()),
+         int((m & (year == y)).sum())]
+        for y in range(1992, 1999) if (m & (year == y)).any()
+    ]  # the sums are of halves below 2^52: exact in any order
+
+    m = nation == 5
+    bounds = [(float(v.min()), float(v.max())) for v in (rev, cost)]  # the engine's global bounds
+
+    def est(sel):
+        return [_est(v[sel], lo, hi, pct) for v, (lo, hi), pct in zip((rev, cost), bounds, (90, 50))]
+
+    out["19_percentileest"] = [[y] + est(m & (year == y)) for y in range(1992, 1999) if (m & (year == y)).any()]
+    out["19_percentileest_scalar"] = [est(m)]
+
+    m = nation == 11
+    steps = [set(np.unique(cust[m & (year == y)]).tolist()) for y in (1995, 1996, 1997)]
+    out["20_funnelcount"] = [[[len(steps[0]), len(steps[0] & steps[1]), len(steps[0] & steps[1] & steps[2])]]]
+
+    null = null_mask(year)
+    passed = (~null & (cost > 90000)) | (nation == 3)  # Kleene: a null cost is unknown, not false
+    rows = []
+    for y in range(1992, 1999):
+        g = passed & (year == y)
+        if not g.any():
+            continue
+        v = cost[g & ~null]
+        rows.append([y, float(v.sum()) if len(v) else None, len(v), float(v.min()) if len(v) else None,
+                     float(v.sum()) / len(v) if len(v) else None, int(g.sum())])
+    out["21_null_kleene"] = rows
+    out["21_null_docmask"] = [[int((null & (year == 1995)).sum())]]
+    return out
+
+
 def rows_match(name: str, got: list, want: list) -> None:
     if len(got) != len(want):
         raise AssertionError(f"{name}: {len(got)} rows, oracle {len(want)}")
@@ -1315,13 +1462,14 @@ def rows_match(name: str, got: list, want: list) -> None:
                 raise AssertionError(f"{name} row {r} col {c}: got {a!r}, oracle {b!r}")
 
 
-def ssb_builder():
-    """The package's SegmentBuilder for the lineorder schema."""
-    from pinot_tpu_torch.common import DataType, Schema
+def ssb_builder(name: str = "lineorder", null_handling: bool = False):
+    """The package's SegmentBuilder for the lineorder schema (with null
+    vectors kept, under `null_handling`)."""
+    from pinot_tpu_torch.common import DataType, IndexingConfig, Schema, TableConfig
     from pinot_tpu_torch.segment import SegmentBuilder
 
     return SegmentBuilder(Schema.build(
-        "lineorder",
+        name,
         dimensions=[
             ("d_year", DataType.INT),
             ("c_nation", DataType.STRING),
@@ -1330,7 +1478,7 @@ def ssb_builder():
             ("lo_suppkey", DataType.INT),
         ],
         metrics=[("lo_revenue", DataType.LONG), ("lo_supplycost", DataType.LONG), ("lo_quantity", DataType.INT)],
-    ))
+    ), TableConfig(name, IndexingConfig(null_handling=null_handling)))
 
 
 def ssb_engine(data: dict):
@@ -1346,6 +1494,26 @@ def ssb_engine(data: dict):
         builder.build({c: v[i * per : (i + 1) * per] for c, v in data.items()}, f"lineorder_{i}")
         for i in range(N_SEGMENTS)
     ]
+    return QueryEngine(segments, device="cuda"), segments, time.perf_counter() - t0
+
+
+def null_engine_of(data: dict):
+    """Config 21's table: N_SEGMENTS segments of `data` named lineorder_n,
+    lo_supplycost None where null_mask says, built with null vectors; a
+    QueryEngine over them on the card, and the seconds the build took."""
+    from pinot_tpu_torch.query import QueryEngine
+
+    t0 = time.perf_counter()
+    per = N_ROWS // N_SEGMENTS
+    null = null_mask(data["d_year"])
+    builder = ssb_builder("lineorder_n", null_handling=True)
+    segments = []
+    for i in range(N_SEGMENTS):
+        part = {c: v[i * per : (i + 1) * per] for c, v in data.items()}
+        cost = part["lo_supplycost"].astype(object)
+        cost[null[i * per : (i + 1) * per]] = None
+        part["lo_supplycost"] = cost
+        segments.append(builder.build(part, f"lineorder_n_{i}"))
     return QueryEngine(segments, device="cuda"), segments, time.perf_counter() - t0
 
 
@@ -1568,6 +1736,64 @@ def check_new_steps(torch, ev_seg, ssb_seg) -> dict:
     return out
 
 
+def check_tag_steps(torch, engine, seg) -> dict:
+    """The torch steps of configs 18-19 that no hand-written kernel carries,
+    at their main-path shapes over one 4M-row segment, each held exactly
+    against the same step on the CPU: PERCENTILEEST's binning (config 19's
+    lo_revenue), the IN probe of a sorted list (config 18's lo_quantity), the
+    CASE fold (config 18's), and one transform, YEAR over a 4M-doc epoch-ms
+    column (seeded on the card)."""
+    from pinot_tpu_torch.query import kernels as K
+    from pinot_tpu_torch.query import torch_ns
+    from pinot_tpu_torch.query.plan import plan_segment
+    from pinot_tpu_torch.query.transforms import DEVICE_FUNCS
+
+    def staged(sql, device):
+        plan = plan_segment(seg, engine.make_context(sql))
+        return (plan, *K.plan_inputs(plan, seg.to_device_cached(device)))
+
+    out = {}
+    n = seg.to_device_cached("cuda").padded
+    plan, cols, ops = staged(TAG_CONFIGS["19_percentileest"], "cuda")
+    _, ccols, cops = staged(TAG_CONFIGS["19_percentileest"], "cpu")
+    hist = plan.spec[3][0]
+    v = cols["lo_revenue"].to(torch.float64)
+    lo, inv_w = float(ops[hist[2]]), float(ops[hist[3]])
+    edges = lo + torch.arange(1, 4096, dtype=torch.float64, device="cuda") / inv_w
+    out["hist_bins"] = {
+        "shape": {"n": n, "bins": 4096, "column": "lo_revenue (int32)"},
+        # lo_revenue once (int32), the int32 bins once
+        **_step_timing(torch, lambda: K._bins(hist, cols, ops, n), lambda: K._bins(hist, ccols, cops, n), n * 8,
+                       lambda: torch.bucketize(v, edges, right=True)),
+    }
+    plan, cols, ops = staged(TAG_CONFIGS["18_case_in_cmp_fn"], "cuda")
+    _, ccols, cops = staged(TAG_CONFIGS["18_case_in_cmp_fn"], "cpu")
+    probe = plan.spec[1][1][0]
+    assert probe[0] == "in_sorted", probe
+    dev = cols["lo_quantity"].device
+    out["in_sorted_probe"] = {
+        "shape": {"n": n, "list": int(ops[probe[2]].numel()), "column": "lo_quantity (int32)"},
+        **_step_timing(torch, lambda: K._filter(probe, cols, ops, n, dev), lambda: K._filter(probe, ccols, cops, n, torch.device("cpu")),
+                       n * 5, lambda: torch.isin(cols["lo_quantity"], ops[probe[2]])),
+    }
+    case = plan.spec[3][0][1]
+    assert case[0] == "case", case
+    out["case_fold"] = {
+        "shape": {"n": n, "whens": len(case[1]), "reads": "lo_quantity, lo_revenue (int32)"},
+        **_step_timing(torch, lambda: K._value(case, cols, ops, n), lambda: K._value(case, ccols, cops, n), n * 16),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    ts = torch.randint(-(1 << 41), 1 << 41, (n,), generator=gen, device="cuda", dtype=torch.int64)
+    ts_cpu = ts.cpu()
+    year = DEVICE_FUNCS["year"][1]
+    out["transform_year"] = {
+        "shape": {"n": n, "column": "epoch ms (int64)"},
+        **_step_timing(torch, lambda: torch_ns.apply(year, [ts]), lambda: torch_ns.apply(year, [ts_cpu]), n * 16),
+    }
+    emit({"phase": "new_device_steps_tags", "steps": out, "card": card_line()})
+    return out
+
+
 def run_main_path(torch, counters: dict) -> dict:
     from pinot_tpu_torch.query import QueryEngine
 
@@ -1576,9 +1802,11 @@ def run_main_path(torch, counters: dict) -> dict:
     small, small_nation, small_category = make_ssb_data(SMALL_ROWS, seed=1)
     want, groups = oracle(data, nation, category)
     want.update(host_oracle(data, nation, category, (small, small_nation, small_category)))
+    want.update(tag_oracle(data, nation))
     t_gen = time.perf_counter() - t0
 
     engine, segments, t_build = ssb_engine(data)
+    null_engine, null_segments, t_null_build = null_engine_of(data)
     del data
     small_seg = ssb_builder().build(small, "lineorder_consuming")
     mixed_engine = QueryEngine(segments + [small_seg], device="cuda")
@@ -1598,6 +1826,10 @@ def run_main_path(torch, counters: dict) -> dict:
             "stage_s": t_stage,
             "staged_bytes": staged_bytes,
             "oracle_groups": groups,
+            # config 21's four segments with null vectors, built from the
+            # same rows (their staging is paid in config 21's first query)
+            "null_build_s": t_null_build,
+            "null_rows": {seg.name: int(seg.null_mask({"lo_supplycost"}).sum()) for seg in null_segments},
         }
     )
 
@@ -1626,6 +1858,12 @@ def run_main_path(torch, counters: dict) -> dict:
     # paid once, not part of the walls
     emit({"phase": "config10_first_query", **config10_first_query(torch, ev_engine, ev_seg, star_cfg)})
     new_steps = check_new_steps(torch, ev_seg, segments[0])
+    new_steps.update(check_tag_steps(torch, engine, segments[0]))
+    # config 21's staging and its null masks' one copy each, paid once
+    t0 = time.perf_counter()
+    null_engine.execute(NULL_CONFIGS["21_null_kleene"])
+    torch.cuda.synchronize()
+    emit({"phase": "config21_first_query", "ms": (time.perf_counter() - t0) * 1e3})
 
     # the main path: every count from 0, one execute per config, counts read
     # after each config and at the end
@@ -1660,6 +1898,18 @@ def run_main_path(torch, counters: dict) -> dict:
         modes[name] = dict(eng.segment_modes)
         if modes[name] != HOST_MODES[name]:
             raise AssertionError(f"{name}: segments by executor {modes[name]}, expected {HOST_MODES[name]}")
+    for name, sql in TAG_CONFIGS.items():
+        res = counted(name, per_segment(name, N_SEGMENTS), lambda: engine.execute(sql))
+        rows_match(name, res.rows, want[name])
+    for name, sql in NULL_CONFIGS.items():
+        null_engine.segment_modes.clear()
+        res = counted(name, per_segment(name, N_SEGMENTS), lambda: null_engine.execute(sql))
+        rows_match(name, res.rows, want[name])
+        modes[name] = dict(null_engine.segment_modes)
+        if modes[name] != {"device": N_SEGMENTS}:
+            raise AssertionError(f"{name}: segments by executor {modes[name]}, expected all {N_SEGMENTS} on the device")
+    if not any(r[1] is None and r[3] is None and r[4] is None for r in want["21_null_kleene"] if r[0] == NULL_YEAR):
+        raise AssertionError("21_null_kleene: the all-null year is not NULL")
     main_launches = {k: fn.launches for k, fn in counters.items()}
     for k, v in main_launches.items():
         if v == 0:
@@ -1673,6 +1923,8 @@ def run_main_path(torch, counters: dict) -> dict:
     host_engines = {name: mixed_engine if name == "16_mixed_executors" else engine for name in HOST_CONFIGS}
     # the host configs take seconds a query: 1 warm-up and 3 runs
     walls.update({name: wall_p50(host_engines[name], sql, warm=1, runs=3) for name, sql in HOST_CONFIGS.items()})
+    walls.update({name: wall_p50(engine, sql) for name, sql in TAG_CONFIGS.items()})
+    walls.update({name: wall_p50(null_engine, sql) for name, sql in NULL_CONFIGS.items()})
     emit(
         {
             "phase": "main_path_timing",
@@ -1684,6 +1936,8 @@ def run_main_path(torch, counters: dict) -> dict:
     split = {name: breakdown(torch, engine, sql) for name, sql in CONFIGS.items()}
     split.update({name: breakdown(torch, ev_engine, sql) for name, sql in CONFIG_10.items()})
     split.update({name: breakdown(torch, host_engines[name], sql) for name, sql in HOST_CONFIGS.items()})
+    split.update({name: breakdown(torch, engine, sql) for name, sql in TAG_CONFIGS.items()})
+    split.update({name: breakdown(torch, null_engine, sql) for name, sql in NULL_CONFIGS.items()})
     emit({"phase": "where_the_time_goes", "configs": split})
     return {"launches": main_launches, "new_steps": new_steps}
 

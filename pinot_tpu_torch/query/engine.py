@@ -12,11 +12,12 @@ The engine runs on `device`, "cuda" unless the caller asks for another; on a
 machine without a card the default raises rather than running elsewhere.
 Each segment takes one of three executors, chosen at dispatch as the
 reference chooses: the star-tree swap, when a star table of the segment
-matches (`startree_exec`); the host executor (`host_exec`, numpy), when
-planning raises DeviceFallback or a sparse group-by segment holds more
-present groups than its slots; else the device program. Only DeviceFallback
-reroutes a segment: a NotImplementedError (a spec tag not ported yet), a
-CUDA error or a failed kernel build reaches the caller. `segment_modes`
+matches, unless null handling is on and the segment has null vectors
+(`startree_exec`); the host executor (`host_exec`, numpy), when planning raises DeviceFallback or a
+sparse group-by segment holds more present groups than its slots; else the
+device program. Only DeviceFallback reroutes a segment: a
+NotImplementedError (a spec tag not ported yet), a CUDA error or a failed
+kernel build reaches the caller. `segment_modes`
 counts the executor of every segment resolved ("startree", "host",
 "device"). Segment pruning, upsert validity and the scan-stats / heat /
 accounting / trace hooks of the reference are not ported yet.
@@ -33,7 +34,7 @@ import torch
 
 from pinot_tpu_torch.query import ast, host_exec, startree_exec
 from pinot_tpu_torch.query import reduce as reduce_mod
-from pinot_tpu_torch.query.context import QueryContext, QueryType, expand_star
+from pinot_tpu_torch.query.context import QueryContext, QueryType, expand_star, null_handling_enabled
 from pinot_tpu_torch.query.kernels import dispatch_plan_packed
 from pinot_tpu_torch.query.optimizer import optimize_filter
 from pinot_tpu_torch.query.plan import DeviceFallback, SegmentPlan, group_strides, plan_segment
@@ -142,7 +143,9 @@ class QueryEngine:
         swap, which runs its small program over the star table at once, or
         the host executor), else ("dev", plan, unpack) with the device
         program still in flight."""
-        if seg.extras.get("startree"):
+        # the star tables pre-aggregate the null placeholders in: under null
+        # handling a segment with null vectors takes the per-doc path
+        if seg.extras.get("startree") and not (null_handling_enabled(ctx.options) and seg.extras.get("null")):
             res = startree_exec.try_execute(self, seg, ctx)
             if res is not None:
                 return ("ready",) + res + ("startree",)
@@ -186,13 +189,21 @@ class QueryEngine:
     def _convert_agg(seg: ImmutableSegment, ctx: QueryContext, plan: SegmentPlan, parts) -> list:
         out = []
         for a, spec_entry, p in zip(ctx.aggregations, plan.spec[3], parts):
+            spec_entry = _unwrapped(spec_entry)
             if a.func == "count":
                 out.append(int(p))
             elif a.func in reduce_mod.DISTINCT_AGGS:
                 # presence over dict ids -> the set of present values
                 out.append(_present_values(seg, spec_entry[1], np.asarray(p)))
+            elif a.func in ("funnelcount", "funnelcompletecount"):
+                # (K, pad) presence rows -> each step's set of values
+                pres = np.asarray(p)
+                out.append([_present_values(seg, spec_entry[1], pres[k]) for k in range(pres.shape[0])])
             elif a.func == "distinctcounthll":
                 out.append(np.asarray(p))  # the register vector
+            elif a.func == "percentileest":
+                lo, hi = ctx.hints["est_bounds"][a.name]
+                out.append((np.asarray(p), lo, hi))
             elif a.func in ("avg", "minmaxrange"):
                 out.append((float(p[0]), int(p[1]) if a.func == "avg" else float(p[1])))
             else:
@@ -219,6 +230,7 @@ class QueryEngine:
             vals = ci.dictionary.get_many(ids)
             frame[f"k{i}"] = vals.astype(str) if vals.dtype == object else vals
         for i, (a, spec_entry, p) in enumerate(zip(ctx.aggregations, plan.spec[3], parts)):
+            spec_entry = _unwrapped(spec_entry)
             if a.func in ("avg", "minmaxrange"):
                 frame[f"a{i}p0"] = np.asarray(p[0])[pg]
                 frame[f"a{i}p1"] = np.asarray(p[1])[pg]
@@ -233,6 +245,13 @@ class QueryEngine:
                 cells = np.empty(len(pg), dtype=object)
                 for j in range(len(pg)):
                     cells[j] = regs[j]
+                frame[f"a{i}p0"] = cells
+            elif a.func == "percentileest":
+                lo, hi = ctx.hints["est_bounds"][a.name]
+                hists = np.asarray(p)[pg]
+                cells = np.empty(len(pg), dtype=object)
+                for j in range(len(pg)):
+                    cells[j] = (hists[j], lo, hi)
                 frame[f"a{i}p0"] = cells
             else:
                 frame[f"a{i}p0"] = np.asarray(p)[pg]
@@ -268,6 +287,13 @@ class QueryEngine:
         for i, (dec, o) in enumerate(zip(plan.select_decode, outs)):
             frame[f"c{i}"] = _decode(seg, dec, np.asarray(o)[:n])
         return frame
+
+
+def _unwrapped(spec_entry: tuple) -> tuple:
+    """An aggregate's spec inside its FILTER (WHERE) / null-handling masks."""
+    while spec_entry[0] in ("masked", "masked_nan_empty"):
+        spec_entry = spec_entry[2]
+    return spec_entry
 
 
 def _dict_values(seg: ImmutableSegment, col: str, ids: np.ndarray) -> np.ndarray:

@@ -18,10 +18,14 @@ predicate over a dictionary column is evaluated once per dictionary value and
 gathered by id, and a GROUP BY / DISTINCT key on a dictionary column groups by
 its ids and decodes each group's first row (ids and values are one-to-one).
 
-Segments of this package carry no multi-value columns and no null vectors, so
-the reference's MV and null-handling branches have no counterpart here:
-`enableNullHandling` and an MV column raise NotImplementedError naming ROADMAP
-A4, and the index probes (map, JSON, text, vector) name A6.
+Under enableNullHandling it reads the segments' null vectors as the
+reference's does: a WHERE or FILTER is three-valued (`filter_mask_null_aware`,
+Kleene logic), aggregations skip the docs where their argument is null, a
+null GROUP BY key forms a group of its own, and a selected null cell comes
+out as None. Segments of this package carry no multi-value columns: the
+reference's MV branches have no counterpart here, and an MV column raises
+NotImplementedError naming ROADMAP A4b; the index probes (map, JSON, text,
+vector) name A6.
 """
 
 from __future__ import annotations
@@ -36,7 +40,12 @@ import numpy as np
 from pinot_tpu_torch.query import ast
 from pinot_tpu_torch.query import funnel
 from pinot_tpu_torch.query.aggregates import EXT_AGGS, _td_comp, _theta_compute, parse_theta_extra
-from pinot_tpu_torch.query.context import QueryContext, null_handling_enabled
+from pinot_tpu_torch.query.context import (
+    QueryContext,
+    _collect_filter_identifiers,
+    _collect_identifiers,
+    null_handling_enabled,
+)
 from pinot_tpu_torch.query.plan import _FLIP, PlanError, _like_to_regex, group_strides
 from pinot_tpu_torch.query.quantile_sketch import td_from_values
 from pinot_tpu_torch.query.reduce import group_index, parts_of
@@ -50,7 +59,7 @@ _FILTERED_OK = ("count", "sum", "min", "max", "avg", "minmaxrange")
 
 
 def _not_staged(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to pinot_tpu_torch yet (ROADMAP A4: MV and null staging)")
+    return NotImplementedError(f"{what} is not ported to pinot_tpu_torch yet (ROADMAP A4b: MV columns)")
 
 
 def _no_index(what: str) -> NotImplementedError:
@@ -165,19 +174,19 @@ def _eval_function(seg: ImmutableSegment, expr: ast.FunctionCall) -> np.ndarray:
         raise PlanError(f"unsupported CAST target {target}")
     if name == "coalesce":
         # first non-null argument per row (CoalesceTransformFunction): null =
-        # a NaN/None cell (no column here has a null vector). Accumulate in
-        # object space; all-numeric results narrow back.
+        # the null vector or a NaN/None cell. Accumulate in object space;
+        # all-numeric results narrow back.
         out = np.full(seg.n_docs, None, dtype=object)
         filled = np.zeros(seg.n_docs, dtype=bool)
         for a in expr.args:
             v = np.asarray(eval_value(seg, a))
             v = np.broadcast_to(v, (seg.n_docs,)) if v.ndim == 0 else v
+            miss = expr_null_mask(seg, a)
+            miss = np.zeros(seg.n_docs, dtype=bool) if miss is None else miss.copy()
             if v.dtype == object:
-                miss = np.asarray([x is None for x in v], dtype=bool)
+                miss |= np.asarray([x is None for x in v], dtype=bool)
             elif np.issubdtype(v.dtype, np.floating):
-                miss = np.isnan(v)
-            else:
-                miss = np.zeros(seg.n_docs, dtype=bool)
+                miss |= np.isnan(v)
             take = ~filled & ~miss
             out[take] = v[take]
             filled |= take
@@ -300,20 +309,32 @@ def filter_mask(seg: ImmutableSegment, f: ast.FilterExpr | None) -> np.ndarray:
         rx = re.compile(f.pattern)
         return _pred_mask(seg, f.expr, lambda v: [bool(rx.search(x)) for x in v.astype(str)])
     if isinstance(f, ast.IsNull):
-        # no null vectors (Pinot default null handling): IS NULL matches nothing
+        if isinstance(f.expr, ast.Identifier):
+            nulls = seg.null_mask({f.expr.name})
+            if nulls is not None:
+                return ~nulls if f.negated else nulls.copy()
+        # no null vector (Pinot default null handling): IS NULL matches nothing
         return np.full(n, bool(f.negated))
     if isinstance(f, ast.BoolAssert):
         v = np.asarray(eval_value(seg, f.expr))
+        nulls = expr_null_mask(seg, f.expr)
         if v.dtype == object or v.dtype.kind in ("U", "S"):
             truthy = np.asarray([x is not None and bool(x) and str(x).lower() not in ("false", "0") for x in v], dtype=bool)
         else:
             truthy = v.astype(np.float64) != 0
         pos = truthy if f.want_true else ~truthy
+        if nulls is not None:
+            pos = pos & ~nulls
         # IS NOT TRUE / IS NOT FALSE include the null rows (3-valued NOT)
         return ~pos if f.negated else pos
     if isinstance(f, ast.DistinctFrom):
+        nl = expr_null_mask(seg, f.left)
+        nr = expr_null_mask(seg, f.right)
+        nl = np.zeros(n, dtype=bool) if nl is None else nl
+        nr = np.zeros(n, dtype=bool) if nr is None else nr
         with np.errstate(invalid="ignore"):
-            m = np.asarray(eval_value(seg, f.left) != eval_value(seg, f.right), dtype=bool)
+            neq = np.asarray(eval_value(seg, f.left) != eval_value(seg, f.right), dtype=bool)
+        m = (neq & ~nl & ~nr) | (nl ^ nr)
         return ~m if f.negated else m
     if isinstance(f, ast.PredicateFunction):
         return predicate_function_mask(seg, f)
@@ -336,6 +357,89 @@ def predicate_function_mask(seg: ImmutableSegment, f: ast.PredicateFunction) -> 
     if f.name in ("text_match", "json_match", "vector_similarity"):
         raise _no_index(f"{f.name.upper()} (its index)")
     raise PlanError(f"unknown predicate function {f.name}")
+
+
+# ---------------------------------------------------------------------------
+# null handling
+# ---------------------------------------------------------------------------
+
+
+def expr_null_mask(seg: ImmutableSegment, expr) -> np.ndarray | None:
+    """Docs where `expr` is null, or None when it never is: where any column
+    it reads is null (nulls propagate through expressions), except that
+    COALESCE is null only where every argument is."""
+    if isinstance(expr, ast.FunctionCall) and expr.name == "coalesce":
+        m = None
+        for a in expr.args:
+            am = expr_null_mask(seg, a)
+            if am is None:
+                return None  # an argument that is never null
+            m = am if m is None else (m & am)
+        return m
+    idents: set[str] = set()
+    _collect_identifiers(expr, idents)
+    return seg.null_mask(idents)
+
+
+def _null_doc_mask(seg: ImmutableSegment, a) -> np.ndarray | None:
+    """Docs where an argument column of aggregation `a` is null, or None when
+    no argument column has a null vector (the segment memoizes the mask)."""
+    return seg.null_mask({x.name for x in (a.arg, a.arg2) if isinstance(x, ast.Identifier)})
+
+
+def filter_mask_null_aware(seg: ImmutableSegment, f: ast.FilterExpr | None) -> np.ndarray:
+    """Three-valued filter evaluation under enableNullHandling: a predicate
+    over a null input is UNKNOWN, AND / OR / NOT combine by Kleene logic, and
+    only definitely-true docs survive."""
+    return _filter3(seg, f)[0]
+
+
+def _filter3(seg: ImmutableSegment, f: ast.FilterExpr | None) -> tuple[np.ndarray, np.ndarray]:
+    """(true mask, unknown mask) of one filter node."""
+    n = seg.n_docs
+    if f is None:
+        return np.ones(n, dtype=bool), np.zeros(n, dtype=bool)
+    if isinstance(f, ast.And):
+        t, u, any_false = np.ones(n, dtype=bool), np.zeros(n, dtype=bool), np.zeros(n, dtype=bool)
+        for c in f.children:
+            ct, cu = _filter3(seg, c)
+            t &= ct
+            u |= cu
+            any_false |= ~ct & ~cu
+        return t, u & ~any_false  # FALSE dominates UNKNOWN
+    if isinstance(f, ast.Or):
+        t, u = np.zeros(n, dtype=bool), np.zeros(n, dtype=bool)
+        for c in f.children:
+            ct, cu = _filter3(seg, c)
+            t |= ct
+            u |= cu
+        return t, u & ~t  # TRUE dominates UNKNOWN
+    if isinstance(f, ast.Not):
+        ct, cu = _filter3(seg, f.child)
+        return ~ct & ~cu, cu  # NOT(unknown) = unknown
+    if isinstance(f, (ast.IsNull, ast.DistinctFrom, ast.BoolAssert)):
+        # never unknown: these read the null vectors themselves
+        return filter_mask(seg, f), np.zeros(n, dtype=bool)
+    # a leaf predicate: unknown wherever a column it reads is null
+    t = filter_mask(seg, f)
+    refs: set[str] = set()
+    _collect_filter_identifiers(f, refs)
+    nulls = seg.null_mask(refs)
+    if nulls is None or not nulls.any():
+        return t, np.zeros(n, dtype=bool)
+    return t & ~nulls, nulls
+
+
+def _selection_nulls(seg: ImmutableSegment, ctx: QueryContext, expr) -> np.ndarray | None:
+    """A selected expression's null mask under enableNullHandling (its null
+    cells then come out as None, not as the stored placeholder), else None."""
+    return expr_null_mask(seg, expr) if null_handling_enabled(ctx.options) else None
+
+
+def _null_subst(v: np.ndarray, nm: np.ndarray) -> np.ndarray:
+    out = v.astype(object)
+    out[nm] = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -410,11 +514,23 @@ def _mode_counter(v: np.ndarray) -> dict:
     return {float(k): int(c) for k, c in zip(vals, counts)}
 
 
+def _agg_filter(seg: ImmutableSegment, f, null_on: bool) -> np.ndarray:
+    """An aggregation's FILTER (WHERE ...) mask: three-valued under null
+    handling, as the WHERE."""
+    return filter_mask_null_aware(seg, f) if null_on else filter_mask(seg, f)
+
+
 def agg_partials(seg: ImmutableSegment, ctx: QueryContext, query_mask: np.ndarray) -> list:
+    null_on = null_handling_enabled(ctx.options)
     out = []
     for a in ctx.aggregations:
-        # FILTER (WHERE ...) intersects into the query mask per aggregation
-        mask = query_mask if a.filter is None else query_mask & filter_mask(seg, a.filter)
+        # FILTER (WHERE ...) intersects into the query mask per aggregation;
+        # under null handling the docs where the argument is null drop out
+        mask = query_mask if a.filter is None else query_mask & _agg_filter(seg, a.filter, null_on)
+        if null_on:
+            nulls = _null_doc_mask(seg, a)
+            if nulls is not None:
+                mask = mask & ~nulls
         if a.func == "count":
             out.append(int(mask.sum()))
             continue
@@ -452,7 +568,8 @@ def agg_partials(seg: ImmutableSegment, ctx: QueryContext, query_mask: np.ndarra
         elif a.func == "percentile":
             out.append(v)
         elif a.func == "sum":
-            out.append(float(v.sum()) if len(v) else 0.0)
+            # None: no non-null doc under null handling (NULL at the reduce)
+            out.append(float(v.sum()) if len(v) else (None if null_on else 0.0))
         elif a.func == "min":
             out.append(float(v.min()) if len(v) else float("inf"))
         elif a.func == "max":
@@ -498,6 +615,14 @@ class _Groups:
         v = v.astype(np.float64)
         return np.add.reduceat(np.where(np.isnan(v), 0.0, v)[self.order], self.starts)
 
+    def sum_or_nan(self, v: np.ndarray) -> np.ndarray:
+        """Per-group float64 sum skipping NaN, NaN where a group has no other
+        value (pandas' sum(min_count=1))."""
+        s = self.sum(v).astype(np.float64)
+        if v.dtype.kind != "f":
+            return s
+        return np.where(self.sum(~np.isnan(v)) == 0, np.nan, s)
+
     def extreme(self, v: np.ndarray, is_min: bool) -> np.ndarray:
         """Per-group min / max skipping NaN (NaN where a group has only NaN)."""
         if v.dtype.kind in "iub":
@@ -507,26 +632,42 @@ class _Groups:
         return ufunc.reduceat(v.astype(np.float64)[self.order], self.starts)
 
 
-def _key_columns(seg: ImmutableSegment, exprs: list, rows: np.ndarray):
+def _key_columns(seg: ImmutableSegment, exprs: list, rows: np.ndarray, null_keys: bool = False):
     """(grouping arrays, decode(first rows) -> key columns): a dictionary
     column groups by its ids; any other key by its values, strings as
     fixed-width text (the reference's `astype(str)`). Keys that are all
-    dictionary columns group by one combined id."""
-    keys, decoders, cards = [], [], []
+    dictionary columns group by one combined id. With `null_keys` (null
+    handling), the docs where a key is null group apart, by a null flag
+    beside the key, and decode as missing (`_null_key`)."""
+    keys, decoders, cards, flags = [], [], [], []
     for e in exprs:
         ci = _dict_column(seg, e)
         if ci is not None:
             ids = ci.forward[rows]
             keys.append(ids)
             cards.append(max(ci.cardinality, 1))
-            decoders.append(lambda first, ci=ci, ids=ids: _as_key(ci.dictionary.get_many(ids[first])))
+            dec = lambda first, ci=ci, ids=ids: _as_key(ci.dictionary.get_many(ids[first]))  # noqa: E731
         else:
             v = _as_key(eval_rows(seg, e, rows))
             keys.append(v)
-            decoders.append(lambda first, v=v: v[first])
+            dec = lambda first, v=v: v[first]  # noqa: E731
+        nulls = expr_null_mask(seg, e) if null_keys else None
+        if nulls is not None and nulls[rows].any():
+            null = nulls[rows]
+            flags.append(null)
+            dec = lambda first, dec=dec, null=null: _null_key(dec(first), null[first])  # noqa: E731
+        decoders.append(dec)
     if len(keys) > 1 and len(cards) == len(keys) and math.prod(cards) < (1 << 62):
         keys = [sum(k.astype(np.int64) * s for k, s in zip(keys, group_strides(cards).tolist()))]
-    return keys, decoders
+    return keys + flags, decoders
+
+
+def _null_key(v: np.ndarray, null: np.ndarray) -> np.ndarray:
+    """A key column with its null groups' cells missing, as pandas groups a
+    column holding None: numbers become float64 with NaN, text keeps None."""
+    if v.dtype.kind in "iufb":
+        return np.where(null, np.nan, v.astype(np.float64))
+    return _null_subst(v, null)
 
 
 def _as_key(v: np.ndarray) -> np.ndarray:
@@ -550,24 +691,32 @@ def _empty_group_frame(ctx: QueryContext) -> dict[str, np.ndarray]:
 def group_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray) -> dict[str, np.ndarray]:
     """The segment's group frame: keys k0.., partials a{i}p{j}, one row a
     group in order of first appearance."""
+    null_on = null_handling_enabled(ctx.options)
     rows = np.flatnonzero(mask)
     if len(rows) == 0:
         return _empty_group_frame(ctx)
-    keys, decoders = _key_columns(seg, ctx.group_by, rows)
+    keys, decoders = _key_columns(seg, ctx.group_by, rows, null_keys=null_on)
     group, first = group_index(keys)
     grp = _Groups(group, len(first))
     frame: dict[str, np.ndarray] = {f"k{i}": dec(first) for i, dec in enumerate(decoders)}
     for i, a in enumerate(ctx.aggregations):
-        fmask = filter_mask(seg, a.filter)[rows] if a.filter is not None else None
-        for j, part in enumerate(_group_partials(seg, ctx, a, rows, fmask, grp)):
+        fmask = _agg_filter(seg, a.filter, null_on)[rows] if a.filter is not None else None
+        nulls = _null_doc_mask(seg, a) if null_on else None
+        nulls = nulls[rows] if nulls is not None and nulls.any() else None
+        for j, part in enumerate(_group_partials(seg, ctx, a, rows, fmask, nulls, grp)):
             frame[f"a{i}p{j}"] = part
     return frame
 
 
-def _group_partials(seg, ctx, a, rows, fmask, grp: _Groups) -> list[np.ndarray]:
-    """One aggregation's partial columns over a group frame's groups."""
+def _group_partials(seg, ctx, a, rows, fmask, nulls, grp: _Groups) -> list[np.ndarray]:
+    """One aggregation's partial columns over a group frame's groups. `nulls`:
+    under null handling, the rows where its argument is null (else None)."""
     filtered = fmask is not None
+    null_on = null_handling_enabled(ctx.options)
     if a.func == "count":
+        if nulls is not None and a.arg is not None:
+            # COUNT(col) under null handling counts the non-null rows
+            return [grp.sum(~nulls & fmask if filtered else ~nulls)]
         return [grp.sum(fmask) if filtered else grp.size]
     if a.func in funnel.FUNNEL_AGGS:
         return [_funnel_cells(seg, a, rows, fmask, grp)]
@@ -586,16 +735,24 @@ def _group_partials(seg, ctx, a, rows, fmask, grp: _Groups) -> list[np.ndarray]:
     if filtered:
         v = _nan_mask_values(v, ~fmask, a.func)
         na = a.func not in _FILTERED_OK
+    if nulls is not None:
+        v = _nan_mask_values(v, nulls, a.func)
+        na = True
     keep = _dropna if na else (lambda x: x)
     if a.func == "sum":
-        return [np.nan_to_num(grp.sum(v).astype(np.float64))]
+        # under null handling a group with no non-null value sums to NaN
+        return [grp.sum_or_nan(v) if null_on else np.nan_to_num(grp.sum(v).astype(np.float64))]
     if a.func in ("min", "max"):
         out = grp.extreme(v, a.func == "min")
-        if filtered:
+        if filtered or nulls is not None:
             out = np.where(np.isnan(out), np.inf if a.func == "min" else -np.inf, out)
         return [out]
     if a.func == "avg":
-        return [np.nan_to_num(grp.sum(v).astype(np.float64)), grp.sum(fmask) if filtered else grp.size]
+        s = grp.sum_or_nan(v) if null_on else np.nan_to_num(grp.sum(v).astype(np.float64))
+        if nulls is not None:
+            # the rows both FILTER-passing and non-null: v's non-NaN cells
+            return [s, grp.sum(~np.isnan(v))]
+        return [s, grp.sum(fmask) if filtered else grp.size]
     if a.func == "minmaxrange":
         lo, hi = grp.extreme(v, True), grp.extreme(v, False)
         if filtered:
@@ -667,9 +824,17 @@ def distinct_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray) -
     return {f"k{i}": dec(first) for i, dec in enumerate(decoders)}
 
 
+def _selected(seg: ImmutableSegment, ctx: QueryContext, expr, rows: np.ndarray) -> np.ndarray:
+    """A selected expression's values at `rows`, null cells None under null
+    handling."""
+    v = eval_rows(seg, expr, rows)
+    nm = _selection_nulls(seg, ctx, expr)
+    return v if nm is None else _null_subst(v, nm[rows])
+
+
 def selection_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray, k: int) -> dict[str, np.ndarray]:
     idx = np.flatnonzero(mask)[:k]
-    return {f"c{i}": eval_rows(seg, it.expr, idx) for i, it in enumerate(ctx.select_items)}
+    return {f"c{i}": _selected(seg, ctx, it.expr, idx) for i, it in enumerate(ctx.select_items)}
 
 
 def selection_ob_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray, k: int) -> dict[str, np.ndarray]:
@@ -678,11 +843,20 @@ def selection_ob_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarra
     from pinot_tpu_torch.common.sorting import sort_nulls_largest
 
     rows = np.flatnonzero(mask)
-    keys = [_as_key(eval_rows(seg, ob.expr, rows)) for ob in ctx.order_by]
+    keys = []
+    for ob in ctx.order_by:
+        v = eval_rows(seg, ob.expr, rows)
+        nm = _selection_nulls(seg, ctx, ob.expr)
+        if nm is None:
+            keys.append(_as_key(v))
+        elif v.dtype == object or v.dtype.kind in "US":
+            keys.append(_null_subst(v, nm[rows]))  # None ranks as the largest value
+        else:
+            keys.append(np.where(nm[rows], np.nan, v.astype(np.float64)))
     perm = sort_nulls_largest(keys, [not ob.desc for ob in ctx.order_by])[:k]
     frame = {f"__key{j}": v[perm] for j, v in enumerate(keys)}
     for i, it in enumerate(ctx.select_items):
-        frame[f"c{i}"] = eval_rows(seg, it.expr, rows[perm])
+        frame[f"c{i}"] = _selected(seg, ctx, it.expr, rows[perm])
     return frame
 
 
@@ -690,9 +864,7 @@ def execute_segment(seg: ImmutableSegment, ctx: QueryContext) -> tuple:
     """(partial, matched docs) of one segment on the host."""
     from pinot_tpu_torch.query.context import QueryType
 
-    if null_handling_enabled(ctx.options):
-        raise _not_staged("enableNullHandling")
-    mask = filter_mask(seg, ctx.filter)
+    mask = filter_mask_null_aware(seg, ctx.filter) if null_handling_enabled(ctx.options) else filter_mask(seg, ctx.filter)
     matched = int(mask.sum())
     qt = ctx.query_type
     k = ctx.limit + ctx.offset

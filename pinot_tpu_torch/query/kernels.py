@@ -31,6 +31,17 @@ binary search; `select_ob`: a top-k with the reference's tie order) are torch op
 as the reference's are jnp ops. The tensors' device decides what runs: on a
 CUDA device the hand-written kernels, on the CPU their plain torch versions.
 
+Aggregations under a FILTER (WHERE) or a null-handling mask (`masked`,
+`masked_nan_empty`) split by their effective mask, and each distinct mask
+runs the set above once: a FILTERed GROUP BY costs one exact group-by launch
+(and one extreme / presences call, if it has such aggregates) per distinct
+mask. PERCENTILEEST's histogram (`hist`) is the group counts with gid = bin
+(grouped: gid * nbins + bin), so it goes through the exact group-by kernels
+too; FUNNELCOUNT's steps (`funnel_steps`) are one presences call a step. The
+transforms (`fn`, DEVICE_FUNCS over `torch_ns`), CASE, the compare, IN and
+doc-mask filters and the Kleene tree of null handling (`k3root`) are torch
+ops, as the reference's are jnp ops.
+
 Accumulator dtype policy (Pinot parity: SUM/MIN/MAX/AVG return DOUBLE, COUNT
 returns LONG): float64 value accumulators, int64 counts. Integer sums are
 exact: int32 values accumulate in int64 and convert to float64 once, the same
@@ -42,9 +53,12 @@ JAX semantics the evaluator reproduces where torch's differ:
    ops promote both sides explicitly with torch.promote_types;
  * gathers clip out-of-range indices (torch raises), see `_gather`;
  * scatters drop out-of-range group ids, see `_in_range`;
- * `jnp.mod` is floor-mod: torch.remainder, not fmod.
+ * `jnp.mod` is floor-mod: torch.remainder, not fmod (`torch_ns.remainder`,
+   which also gives XLA's 0 for an integer divisor of 0).
 
-Spec tags outside this module's set raise NotImplementedError naming the tag.
+Spec tags outside this module's set raise NotImplementedError naming the tag:
+the multi-value tags (`mv_any`, `mv_*`, `groups_mv`, `groups_mv2`; ROADMAP
+A4b) and the multistage `mask` program (A8).
 """
 
 from __future__ import annotations
@@ -58,7 +72,9 @@ import torch
 from pinot_tpu_torch.ops.extreme import grouped_extremes
 from pinot_tpu_torch.ops.groupby import grouped_multi_sum
 from pinot_tpu_torch.ops.grouped_sum_f32 import presences
+from pinot_tpu_torch.query import torch_ns
 from pinot_tpu_torch.query.sketches import hash_device, hll_update, hll_update_grouped
+from pinot_tpu_torch.query.transforms import DEVICE_FUNCS
 
 _F = torch.float64
 _I = torch.int64
@@ -97,6 +113,17 @@ def _value(vspec, cols, ops, n_padded):
         return _gather(ops[vspec[2]], cols[vspec[1]])
     if kind == "lit":
         return ops[vspec[1]]
+    if kind == "fn":
+        _, fn = DEVICE_FUNCS[vspec[1]]
+        return torch_ns.apply(fn, [_value(a, cols, ops, n_padded) for a in vspec[2]])
+    if kind == "case":
+        # reversed fold: the first matching WHEN wins
+        device = next(iter(cols.values())).device
+        out = torch.broadcast_to(_value(vspec[2], cols, ops, n_padded).to(_F), (n_padded,))
+        for fspec, branch in reversed(vspec[1]):
+            cond = _filter(fspec, cols, ops, n_padded, device)
+            out = torch.where(cond, _value(branch, cols, ops, n_padded).to(_F), out)
+        return out
     if kind == "cast_int":
         v = _value(vspec[1], cols, ops, n_padded)
         # truncate toward zero (Pinot CAST AS INT/LONG semantics)
@@ -118,7 +145,7 @@ def _value(vspec, cols, ops, n_padded):
         if op == "*":
             return l * r
         if op == "%":
-            return torch.remainder(l, r)
+            return torch_ns.remainder(l, r)
         raise AssertionError(op)
     raise _unsupported(kind, "value")
 
@@ -133,8 +160,44 @@ _CMPS = {
 }
 
 
+def _is_int(dt: torch.dtype) -> bool:
+    return not dt.is_floating_point and dt != torch.bool
+
+
+def _filter_k3(fspec, cols, ops, n_padded, device):
+    """Three-valued filter evaluation: the (true, unknown) doc-mask pair, with
+    Kleene logic (AND: FALSE dominates UNKNOWN; OR: TRUE dominates; NOT of
+    unknown is unknown), as the host executor's _filter3."""
+    kind = fspec[0]
+    if kind == "k3_and":
+        t, u, any_false = None, None, None
+        for c in fspec[1]:
+            ct, cu = _filter_k3(c, cols, ops, n_padded, device)
+            f = ~ct & ~cu
+            t, u, any_false = (ct, cu, f) if t is None else (t & ct, u | cu, any_false | f)
+        return t, u & ~any_false
+    if kind == "k3_or":
+        t, u = None, None
+        for c in fspec[1]:
+            ct, cu = _filter_k3(c, cols, ops, n_padded, device)
+            t, u = (ct, cu) if t is None else (t | ct, u | cu)
+        return t, u & ~t
+    if kind == "k3_not":
+        ct, cu = _filter_k3(fspec[1], cols, ops, n_padded, device)
+        return ~ct & ~cu, cu
+    if kind == "k3_exact":
+        return _filter(fspec[1], cols, ops, n_padded, device), torch.zeros(n_padded, dtype=torch.bool, device=device)
+    if kind == "k3_leaf":
+        nulls = ops[fspec[2]]
+        return _filter(fspec[1], cols, ops, n_padded, device) & ~nulls, nulls
+    raise _unsupported(kind, "three-valued filter")
+
+
 def _filter(fspec, cols, ops, n_padded, device):
     kind = fspec[0]
+    if kind == "k3root":
+        # three-valued WHERE: only definitely-true docs survive
+        return _filter_k3(fspec[1], cols, ops, n_padded, device)[0]
     if kind == "const":
         return torch.full((n_padded,), bool(fspec[1]), dtype=torch.bool, device=device)
     if kind in ("and", "or"):
@@ -152,6 +215,9 @@ def _filter(fspec, cols, ops, n_padded, device):
         # sorted-column predicate: [start, end) doc interval, no column read
         i = torch.arange(n_padded, dtype=torch.int32, device=device)
         return (i >= ops[fspec[1]]) & (i < ops[fspec[2]])
+    if kind == "docmask":
+        # a doc mask the planner computed on the host (a null vector)
+        return ops[fspec[1]]
     if kind == "in_lut":
         return _gather(ops[fspec[2]], cols[fspec[1]])
     if kind == "cmp_raw":
@@ -164,6 +230,30 @@ def _filter(fspec, cols, ops, n_padded, device):
     if kind == "cmp_lit":
         v = _value(fspec[2], cols, ops, n_padded)
         return _CMPS[fspec[1]](v.to(_F), ops[fspec[3]])
+    if kind == "cmp2":
+        l = _value(fspec[2], cols, ops, n_padded)
+        r = _value(fspec[3], cols, ops, n_padded)
+        return _CMPS[fspec[1]](l.to(_F), r.to(_F))
+    if kind == "in_vals":
+        v = _value(fspec[1], cols, ops, n_padded).to(_F)
+        return (v[:, None] == ops[fspec[2]][None, :]).any(dim=1)
+    if kind == "in_sorted":
+        # membership by a probe of the sorted list (padded by repeating its
+        # max): one binary search and one gather a doc, flat in the list's
+        # length. torch.searchsorted takes one dtype on both sides: integers
+        # widen the narrower side (narrowing the list could wrap an
+        # out-of-range literal and break its order), anything else compares
+        # as float64
+        v = _value(fspec[1], cols, ops, n_padded)
+        vals = ops[fspec[2]]
+        if not (_is_int(v.dtype) and _is_int(vals.dtype)):
+            v, vals = v.to(_F), vals.to(_F)
+        elif torch.iinfo(vals.dtype).bits > torch.iinfo(v.dtype).bits:
+            v = v.to(vals.dtype)
+        else:
+            vals = vals.to(v.dtype)
+        pos = torch.searchsorted(vals, v.contiguous()).clamp(0, vals.shape[0] - 1)
+        return torch.index_select(vals, 0, pos) == v
     raise _unsupported(kind, "filter")
 
 
@@ -195,12 +285,33 @@ def _hashes_for(hspec, cols, ops, n_padded):
     return hash_device(_value(hspec[1], cols, ops, n_padded))
 
 
+def _bins(aspec, cols, ops, n_padded) -> torch.Tensor:
+    """PERCENTILEEST's histogram bin of every doc (int32): floor((v - lo) *
+    inv_w) clamped into [0, nbins - 1] in float64 before the conversion (XLA's
+    conversion saturates an out-of-range float, torch's is undefined there);
+    a NaN value bins at 0, where XLA's conversion puts it."""
+    v = _value(aspec[1], cols, ops, n_padded).to(_F)
+    b = torch.floor((v - ops[aspec[2]]) * ops[aspec[3]])
+    return torch.nan_to_num(b, nan=0.0).clamp(0, aspec[4] - 1).to(torch.int32)
+
+
 def _agg_scalar(aspec, cols, ops, mask):
     kind = aspec[0]
     if kind == "count":
         return mask.sum(dtype=_I)
     if kind == "hll":
         return hll_update(_hashes_for(aspec[1], cols, ops, mask.shape[0]), mask, aspec[2])
+    if kind == "hist":
+        # the histogram is the group counts with gid = bin
+        return grouped_multi_sum([], _bins(aspec, cols, ops, mask.shape[0]), mask, aspec[4])[1]
+    if kind == "funnel_steps":
+        # un-ordered funnel: per step, the presence of the correlation ids
+        # under the step's mask, one presences call a step, stacked (K, pad)
+        _, col, pad, steps = aspec
+        ids = cols[col].contiguous()
+        return torch.stack(
+            [presences([ids], [pad], mask & _filter(s, cols, ops, mask.shape[0], mask.device))[0] for s in steps]
+        )
     if kind not in ("sum", "min", "max", "avg", "minmaxrange"):
         raise _unsupported(kind, "aggregation")
     v_raw = _value(aspec[1], cols, ops, mask.shape[0])
@@ -287,7 +398,7 @@ def _grouped_all(aggs, cols, ops, mask, gid, ng):
     non-int32 SUM/AVG and DISTINCTCOUNTHLL's registers use their own ops."""
     values, kernel_vals, owner = {}, [], {}
     for i, a in enumerate(aggs):
-        if a[0] in ("count", "distinct_ids", "hll"):
+        if a[0] in ("count", "distinct_ids", "hll", "hist"):
             continue
         if a[0] not in ("sum", "min", "max", "avg", "minmaxrange"):
             raise _unsupported(a[0], "aggregation")
@@ -307,6 +418,13 @@ def _grouped_all(aggs, cols, ops, mask, gid, ng):
         elif a[0] == "hll":
             hashes = _hashes_for(a[1], cols, ops, mask.shape[0])
             parts.append(hll_update_grouped(hashes, mask, gid, ng, a[2]))
+        elif a[0] == "hist":
+            # per-group histograms: the counts of cells gid * nbins + bin
+            nbins = a[4]
+            cell, ok = _in_range(gid, ng)
+            cell = (cell.to(torch.int32) * nbins + _bins(a, cols, ops, mask.shape[0])).contiguous()
+            hist = grouped_multi_sum([], cell, mask & ok, ng * nbins)[1]
+            parts.append(hist.reshape(ng, nbins))
         elif i in owner:
             parts.append(sums[owner[i]] if a[0] == "sum" else (sums[owner[i]], counts))
         elif i in extremes:
@@ -322,14 +440,80 @@ def _grouped_all(aggs, cols, ops, mask, gid, ng):
 # ---------------------------------------------------------------------------
 
 
+def _mask_key(spec, ops):
+    """A filter spec with each operand index replaced by the identity of its
+    staged operand: equal keys are equal masks. (Every int of a filter spec
+    that is not a bool is an operand index; `plan_inputs` stages equal scalar
+    operands as one tensor, so `year = 1997` in two FILTERs is one key.)"""
+    if isinstance(spec, tuple):
+        return tuple(_mask_key(x, ops) for x in spec)
+    if type(spec) is int:
+        return ("op", id(ops[spec]))
+    return spec
+
+
+def _by_mask(aggs, ops) -> list[tuple[tuple, list[tuple[int, tuple, bool]]]]:
+    """The aggregates split by their effective mask, the chain of nested
+    FILTER (WHERE) / null-handling wrappers (`masked`, `masked_nan_empty`)
+    ANDed with the query's mask: [(wrapper filter specs, [(agg index, inner
+    spec, whether empty groups give NaN)])], the unwrapped set first (also
+    when empty: it gives the group counts)."""
+    groups: dict = {(): ((), [])}
+    for i, a in enumerate(aggs):
+        filters, nan_empty = [], False
+        while a[0] in ("masked", "masked_nan_empty"):
+            nan_empty = nan_empty or a[0] == "masked_nan_empty"
+            filters.append(a[1])
+            a = a[2]
+        key = tuple(_mask_key(f, ops) for f in filters)
+        groups.setdefault(key, (tuple(filters), []))[1].append((i, a, nan_empty))
+    return list(groups.values())
+
+
+def _and_filters(mask, filters, cols, ops):
+    for f in filters:
+        mask = mask & _filter(f, cols, ops, mask.shape[0], mask.device)
+    return mask
+
+
+def _scalar_all(aggs, cols, ops, mask):
+    """Every scalar partial: per effective mask, one presences call for its
+    DISTINCTCOUNTs, the rest one op each; a null-handling SUM whose mask is
+    empty gives NaN (NULL at the reduce)."""
+    parts = [None] * len(aggs)
+    for filters, members in _by_mask(aggs, ops):
+        m = _and_filters(mask, filters, cols, ops)
+        inner = [a for _, a, _ in members]
+        flags = _presences(inner, cols, m)
+        for j, (i, a, nan_empty) in enumerate(members):
+            r = flags[j] if j in flags else _agg_scalar(a, cols, ops, m)
+            parts[i] = torch.where(m.any(), r.to(_F), float("nan")) if nan_empty else r
+    return tuple(parts)
+
+
+def _grouped_masked(aggs, cols, ops, mask, gid, ng):
+    """Group counts + every grouped partial: one `_grouped_all` per effective
+    mask (so one exact group-by launch, one extreme call and one presences
+    call per distinct mask); a null-handling SUM gives NaN in a group its
+    mask leaves empty, by that mask's own counts."""
+    counts, parts = None, [None] * len(aggs)
+    for filters, members in _by_mask(aggs, ops):
+        m = _and_filters(mask, filters, cols, ops)
+        c, got = _grouped_all([a for _, a, _ in members], cols, ops, m, gid, ng)
+        if not filters:
+            counts = c
+        for (i, _, nan_empty), r in zip(members, got):
+            parts[i] = torch.where(c == 0, float("nan"), r.to(_F)) if nan_empty else r
+    return counts, tuple(parts)
+
+
 def _agg_eval(fspec, gspec, aggs, cols, ops, valid):
     """The full aggregation program body over an explicit doc-validity mask."""
     n_padded = valid.shape[0]
     mask = valid & _filter(fspec, cols, ops, n_padded, valid.device)
     matched = mask.sum(dtype=_I)
     if gspec is None:
-        flags = _presences(aggs, cols, mask)
-        return matched, tuple(flags[i] if i in flags else _agg_scalar(a, cols, ops, mask) for i, a in enumerate(aggs))
+        return matched, _scalar_all(aggs, cols, ops, mask)
     if gspec[0] == "groups_sparse":
         return _sparse_groups(gspec, aggs, cols, ops, mask, matched)
     if gspec[0] != "groups":
@@ -341,7 +525,7 @@ def _agg_eval(fspec, gspec, aggs, cols, ops, valid):
         ids, stride = _promote(cols[c], strides[i])
         gid, term = _promote(gid, ids * stride)
         gid = gid + term
-    counts, parts = _grouped_all(aggs, cols, ops, mask, gid, ng)
+    counts, parts = _grouped_masked(aggs, cols, ops, mask, gid, ng)
     return matched, counts, parts
 
 
@@ -366,7 +550,7 @@ def _sparse_groups(gspec, aggs, cols, ops, mask, matched):
     # include_self: the sentinel fill takes part, as in .at[slot].min(sg)
     uniq = torch.full((u,), sent, dtype=_I, device=mask.device).scatter_reduce_(0, slot, sg, "amin", include_self=True)
     cid = torch.clamp(torch.searchsorted(uniq, gid64), 0, u - 1).to(torch.int32)
-    counts, parts = _grouped_all(aggs, cols, ops, mask, cid, u)
+    counts, parts = _grouped_masked(aggs, cols, ops, mask, cid, u)
     return matched, counts, parts, uniq, n_unique
 
 
@@ -542,8 +726,16 @@ def plan_inputs(plan, device_segment):
         any_col = next(iter(device_segment.arrays))
         cols = {"__shape__": device_segment.arrays[any_col]}
     device = next(iter(cols.values())).device
-    ops = tuple(stage_operand(o, device) for o in plan.operands)
-    return cols, ops
+    # equal scalar operands (the literal of `year = 1997` in two FILTERs)
+    # stage as one tensor: _mask_key then sees one mask
+    staged: dict = {}
+    ops = []
+    for o in plan.operands:
+        key = ("value", np.asarray(o).dtype.str, np.asarray(o).tobytes()) if np.ndim(o) == 0 else ("array", id(o))
+        if key not in staged:
+            staged[key] = stage_operand(o, device)
+        ops.append(staged[key])
+    return cols, tuple(ops)
 
 
 def pack(leaves: list[torch.Tensor]) -> torch.Tensor:

@@ -32,13 +32,16 @@ reference raises it, and the engine answers such a segment with the host
 executor (`host_exec.py`), as the reference's does: GROUP BY on a raw column
 or an expression, DISTINCTCOUNT of a raw column, a grouped presence matrix
 over MAX_PRESENCE_CELLS, PERCENTILE / MODE / the EXT_AGGS family, funnels
-inside a GROUP BY, string-valued transforms. Where the reference lowers to a
-spec tag this package's program does not have yet (`fn` for DEVICE_FUNCS,
-`hist` for PERCENTILEEST, `masked` for FILTER (WHERE), `funnel_steps`,
-`docmask`), the planner emits the reference's spec all the same and the
-program raises NotImplementedError naming the tag (`kernels._unsupported`):
-such a shape never goes to the host in its place, and a DeviceFallback of
-another part of the same query still does, in the reference's order.
+inside a GROUP BY, string-valued transforms, and under enableNullHandling a
+nullable GROUP BY key or selection.
+
+ * enableNullHandling lowers as the reference's: a WHERE over a column with
+   a null vector becomes the Kleene (true, unknown) tree (`k3root`), every
+   leaf carrying its columns' null mask as a `docmask` operand; an
+   aggregation over such a column is wrapped in a mask of its non-null docs
+   (`masked`; a SUM in `masked_nan_empty`, NaN where no doc survives). The
+   masks come from the segment's memo (`ImmutableSegment.null_docmask`), one
+   array a column set, staged once a device.
 """
 
 from __future__ import annotations
@@ -52,10 +55,17 @@ import numpy as np
 from pinot_tpu_torch.common.types import DataType
 from pinot_tpu_torch.query import ast
 from pinot_tpu_torch.query.ast import CompareOp, Expr, FilterExpr
-from pinot_tpu_torch.query.context import AggregationInfo, QueryContext, QueryType, null_handling_enabled
+from pinot_tpu_torch.query.context import (
+    AggregationInfo,
+    QueryContext,
+    QueryType,
+    _collect_filter_identifiers,
+    _collect_identifiers,
+    null_handling_enabled,
+)
 from pinot_tpu_torch.query.sketches import EST_BINS, HLL_LOG2M, HLL_M
 from pinot_tpu_torch.query.transforms import DEVICE_FUNCS, STRING_FUNCS, apply_string_func, rewrite_time_convert
-from pinot_tpu_torch.segment.segment import ImmutableSegment
+from pinot_tpu_torch.segment.segment import ImmutableSegment, padded_len
 
 MAX_DENSE_GROUPS = 1 << 20
 
@@ -119,6 +129,9 @@ class _Lowering:
         self.operands: list[Any] = []
         self.columns: list[str] = []
         self._group_ng = 1  # set by group_spec; the presence budget reads it
+        # null docmask operand index per column set: one operand however many
+        # Kleene leaves read it
+        self._null_mask_ops: dict[frozenset, int] = {}
 
     # -- operand / column registration --------------------------------------
 
@@ -132,6 +145,50 @@ class _Lowering:
         if col not in self.columns:
             self.columns.append(col)
         return col
+
+    # -- null handling ------------------------------------------------------
+
+    def null_wrap(self, info: AggregationInfo, spec: tuple) -> tuple:
+        """enableNullHandling: AND the mask of the docs where no argument
+        column of the aggregation is null over it (NullableSingleInput-
+        AggregationFunction parity); no null vector, the spec unchanged. A SUM
+        is wrapped even without one: a FILTER or WHERE that leaves no doc
+        must give NULL too, so its program gives NaN for an empty mask."""
+        cols = {a.name for a in (info.arg, info.arg2) if isinstance(a, ast.Identifier)}
+        nulls = self.seg.null_mask(cols)
+        inner = spec
+        while inner[0] == "masked":
+            inner = inner[2]
+        has_nulls = nulls is not None and nulls.any()
+        if inner[0] == "sum":
+            return ("masked_nan_empty", self.null_docmask_spec(cols, True) if has_nulls else ("const", True), spec)
+        if not has_nulls:
+            return spec
+        return ("masked", self.null_docmask_spec(cols, True), spec)
+
+    def null_docmask_spec(self, cols, negate: bool) -> tuple:
+        """The segment's memoized mask of the docs where any of `cols` is null
+        (or, negated, where none is), as a `docmask` operand."""
+        return ("docmask", self.op_idx(self.seg.null_docmask(cols, negate)))
+
+    def docmask_spec(self, mask: np.ndarray) -> tuple:
+        """A doc mask computed on the host, padded to the segment's padded
+        length, as a `docmask` operand."""
+        m = np.zeros(padded_len(self.seg.n_docs), dtype=bool)
+        m[: len(mask)] = mask
+        return ("docmask", self.op_idx(m))
+
+    def _expr_null_spec(self, expr: Expr) -> tuple | None:
+        """`docmask` of the docs where `expr` is null (host_exec.expr_null_mask),
+        or None when it never is."""
+        from pinot_tpu_torch.query.host_exec import expr_null_mask
+
+        if isinstance(expr, ast.FunctionCall) and expr.name == "coalesce":
+            nulls = expr_null_mask(self.seg, expr)
+            return None if nulls is None else self.docmask_spec(nulls)
+        cols: set[str] = set()
+        _collect_identifiers(expr, cols)
+        return None if self.seg.null_mask(cols) is None else self.null_docmask_spec(cols, False)
 
     # -- value expressions ---------------------------------------------------
 
@@ -168,8 +225,9 @@ class _Lowering:
         if isinstance(expr, ast.FunctionCall):
             return self._function_value(expr)
         if isinstance(expr, ast.CaseWhen):
-            # CASE lowers as in the reference; the program evaluator has no
-            # "case" tag yet and raises when it meets one
+            # CASE -> a fold of wheres over the WHEN masks. A missing ELSE is
+            # the numeric default 0 (Pinot without null handling); string
+            # results run on the host
             branch_vals = [v for _, v in expr.whens] + ([expr.else_] if expr.else_ is not None else [])
             for val in branch_vals:
                 if isinstance(val, ast.Literal) and not isinstance(val.value, (int, float, bool)):
@@ -308,19 +366,69 @@ class _Lowering:
         if isinstance(f, ast.RegexpLike):
             return self._regex_lut(f.expr, f.pattern, full=False)
         if isinstance(f, ast.IsNull):
-            # segments of this package carry no null vector (Pinot default
-            # null handling): IS NULL matches nothing
+            if isinstance(f.expr, ast.Identifier) and self.seg.extras.get("null", {}).get(f.expr.name) is not None:
+                return self.null_docmask_spec({f.expr.name}, bool(f.negated))
+            # no null vector (Pinot default null handling): IS NULL matches nothing
             return ("const", bool(f.negated))
         if isinstance(f, ast.DistinctFrom):
-            # no column of this package has a null vector: the reference's
-            # null terms vanish and IS DISTINCT FROM is the NEQ compare
-            neq = self._compare(ast.Compare(CompareOp.NEQ, f.left, f.right))
-            return ("not", neq) if f.negated else neq
+            return self._distinct_from(f)
         if isinstance(f, ast.PredicateFunction):
             return self._predicate_function(f)
         if isinstance(f, ast.BoolAssert):
             raise DeviceFallback("IS [NOT] TRUE/FALSE runs host-side")
         raise PlanError(f"unsupported filter: {f}")
+
+    def where_spec(self, f: FilterExpr | None) -> tuple:
+        """The WHERE lowering: under enableNullHandling, a filter that reads a
+        column with a null vector becomes the three-valued tree (`k3root`);
+        otherwise filter_spec's."""
+        if f is not None and null_handling_enabled(self.ctx.options):
+            refs: set[str] = set()
+            _collect_filter_identifiers(f, refs)
+            if any(self.seg.extras.get("null", {}).get(c) is not None for c in refs):
+                return ("k3root", self.filter3_spec(f))
+        return self.filter_spec(f)
+
+    def filter3_spec(self, f: FilterExpr) -> tuple:
+        """The three-valued lowering, node for node host_exec._filter3's: each
+        leaf predicate carries the union of its columns' null masks as a
+        `docmask` operand (`k3_leaf`); IS NULL and IS DISTINCT FROM are never
+        unknown (`k3_exact`)."""
+        if isinstance(f, ast.And):
+            return ("k3_and", tuple(self.filter3_spec(c) for c in f.children))
+        if isinstance(f, ast.Or):
+            return ("k3_or", tuple(self.filter3_spec(c) for c in f.children))
+        if isinstance(f, ast.Not):
+            return ("k3_not", self.filter3_spec(f.child))
+        if isinstance(f, (ast.IsNull, ast.DistinctFrom)):
+            return ("k3_exact", self.filter_spec(f))
+        spec = self.filter_spec(f)
+        refs: set[str] = set()
+        _collect_filter_identifiers(f, refs)
+        nullable = frozenset(c for c in refs if self.seg.extras.get("null", {}).get(c) is not None)
+        if not nullable:
+            return ("k3_exact", spec)
+        idx = self._null_mask_ops.get(nullable)
+        if idx is None:
+            if not self.seg.null_mask(nullable).any():
+                return ("k3_exact", spec)
+            idx = self.null_docmask_spec(nullable, False)[1]
+            self._null_mask_ops[nullable] = idx
+        return ("k3_leaf", spec, idx)
+
+    def _distinct_from(self, f: ast.DistinctFrom) -> tuple:
+        """IS [NOT] DISTINCT FROM: (l != r and both non-null) or exactly one
+        null, from the NEQ compare and the two sides' null masks."""
+        neq = self._compare(ast.Compare(CompareOp.NEQ, f.left, f.right))
+        nl, nr = self._expr_null_spec(f.left), self._expr_null_spec(f.right)
+        if nl is None and nr is None:
+            spec = neq
+        else:
+            nl = nl or ("const", False)
+            nr = nr or ("const", False)
+            xor = ("or", (("and", (nl, ("not", nr))), ("and", (nr, ("not", nl)))))
+            spec = ("or", (("and", (neq, ("not", nl), ("not", nr))), xor))
+        return ("not", spec) if f.negated else spec
 
     def _predicate_function(self, f: ast.PredicateFunction) -> tuple:
         if f.name == "st_within_distance":
@@ -332,9 +440,7 @@ class _Lowering:
             return ("cmp_lit", "LTE", self.value_spec(dist), self.op_idx(np.float64(f.args[4].value)))
         # TEXT_MATCH / JSON_MATCH / VECTOR_SIMILARITY: the reference probes an
         # index on the host and hands the program a `docmask` operand
-        raise NotImplementedError(
-            f"predicate function {f.name} (its index and the docmask spec tag) is not ported to pinot_tpu_torch yet"
-        )
+        raise NotImplementedError(f"predicate function {f.name} (its index) is not ported to pinot_tpu_torch yet (ROADMAP A6)")
 
     def _compare(self, f: ast.Compare) -> tuple:
         left, op, right = f.left, f.op, f.right
@@ -505,8 +611,7 @@ class _Lowering:
             if f.negated:
                 return ("const", not spec[1]) if spec[0] == "const" else ("not", spec)
             return spec
-        # raw numeric IN: sorted-membership probe (the program evaluator has
-        # no "in_sorted" tag yet and raises when it meets one)
+        # raw numeric IN: a probe of the sorted literal list
         vs = self.value_spec(f.expr)
         int_ok = all(isinstance(v, (int, bool)) or (isinstance(v, float) and v == int(v)) for v in values)
         col_dt = None
@@ -559,12 +664,12 @@ class _Lowering:
 
     def agg_spec(self, info: AggregationInfo, grouped: bool) -> tuple:
         if info.filter is not None:
-            # FILTER (WHERE ...): the reference's wrapper spec; the program
-            # evaluator has no "masked" tag yet and raises when it meets one
+            # FILTER (WHERE ...): the aggregation under its own mask,
+            # three-valued under null handling as the WHERE
             import dataclasses
 
             inner = dataclasses.replace(info, filter=None)
-            return ("masked", self.filter_spec(info.filter), self.agg_spec(inner, grouped))
+            return ("masked", self.where_spec(info.filter), self.agg_spec(inner, grouped))
         if info.func == "count":
             return ("count",)
         if info.func in ("distinctcount", "distinctcountbitmap"):
@@ -594,11 +699,11 @@ class _Lowering:
             return (info.func, self.value_spec(info.arg))
         if info.func in ("countmv", "summv", "minmv", "maxmv", "avgmv", "distinctcountmv"):
             # the reference lowers these over an MV column; this package
-            # stages none (ROADMAP A4)
+            # stages none (ROADMAP A4b)
             raise PlanError(f"{info.func} requires a multi-value column")
         if info.func in ("funnelcount", "funnelcompletecount"):
-            # the reference's per-step presence vectors over the correlation
-            # column's dict-id space (the program has no funnel_steps tag yet)
+            # per-step presence vectors over the correlation column's dict-id
+            # space
             if grouped:
                 raise DeviceFallback("funnel aggregations inside GROUP BY run host-side")
             if not isinstance(info.arg, ast.Identifier):
@@ -613,7 +718,7 @@ class _Lowering:
 
     def _hist_spec(self, info: AggregationInfo) -> tuple:
         """PERCENTILEEST's fixed-bin histogram over the engine's global
-        bounds (the program has no hist tag yet)."""
+        bounds."""
         bounds = self.ctx.hints.get("est_bounds", {}).get(info.name)
         if bounds is None:
             raise DeviceFallback("percentileest without global bounds runs host-side")
@@ -786,10 +891,15 @@ def _like_to_regex(pattern: str) -> str:
 def plan_segment(seg: ImmutableSegment, ctx: QueryContext) -> SegmentPlan:
     """Lower a query against one segment. Raises DeviceFallback where the
     segment runs on the host executor, as in the reference."""
-    if null_handling_enabled(ctx.options):
-        raise NotImplementedError("enableNullHandling is not ported to pinot_tpu_torch yet")
+    from pinot_tpu_torch.query.host_exec import expr_null_mask
+
+    null_on = null_handling_enabled(ctx.options)
+    if null_on and any(expr_null_mask(seg, g) is not None for g in ctx.group_by):
+        # null keys form a group of their own: the host executor puts None in
+        # the key column
+        raise DeviceFallback("null-handling group-by key runs host-side")
     lo = _Lowering(seg, ctx)
-    fspec = lo.filter_spec(ctx.filter)
+    fspec = lo.where_spec(ctx.filter)
 
     def plan(spec, **decode) -> SegmentPlan:
         return SegmentPlan(spec=spec, operands=tuple(lo.operands), columns=tuple(lo.columns), **decode)
@@ -798,6 +908,8 @@ def plan_segment(seg: ImmutableSegment, ctx: QueryContext) -> SegmentPlan:
         grouped = ctx.query_type == QueryType.GROUP_BY
         gspec = lo.group_spec() if grouped else None
         aggs = tuple(lo.agg_spec(a, grouped) for a in ctx.aggregations)
+        if null_on:
+            aggs = tuple(lo.null_wrap(a, s) for a, s in zip(ctx.aggregations, aggs))
         return plan(("agg", fspec, gspec, aggs), group_cols=[(c, seg.columns[c]) for c in (gspec[1] if gspec else ())])
 
     if ctx.query_type == QueryType.DISTINCT:
@@ -811,6 +923,12 @@ def plan_segment(seg: ImmutableSegment, ctx: QueryContext) -> SegmentPlan:
         return plan(("agg", fspec, gspec, ()), group_cols=[(c, seg.columns[c]) for c in gspec[1]])
 
     # SELECTION / SELECTION_ORDER_BY
+    if null_on and any(
+        expr_null_mask(seg, e) is not None for e in [it.expr for it in ctx.select_items] + [ob.expr for ob in ctx.order_by]
+    ):
+        # null cells come out as None (through expressions too) and sort as
+        # the largest value: the host executor reads the null vectors
+        raise DeviceFallback("null-handling selection runs host-side")
     proj, decode = [], []
     for item in ctx.select_items:
         e = item.expr

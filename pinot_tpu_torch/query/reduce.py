@@ -37,7 +37,7 @@ from pinot_tpu_torch.common.sorting import sort_nulls_largest
 from pinot_tpu_torch.query import ast
 from pinot_tpu_torch.query import funnel
 from pinot_tpu_torch.query.aggregates import EXT_AGGS, exact_percentile
-from pinot_tpu_torch.query.context import QueryContext, canonical
+from pinot_tpu_torch.query.context import QueryContext, canonical, null_handling_enabled
 from pinot_tpu_torch.query.quantile_sketch import td_create, td_merge, td_quantile
 from pinot_tpu_torch.query.result import ResultTable
 from pinot_tpu_torch.query.sketches import hist_estimate, hll_estimate
@@ -188,12 +188,21 @@ def _is_null_partial(x) -> bool:
     return x is None or (isinstance(x, float) and x != x)
 
 
-def _merge_agg_partials(func: str, a, b):
+def _merge_agg_partials(func: str, a, b, null_on: bool = False):
     if func in funnel.FUNNEL_AGGS:
         return funnel.merge(func, a, b)
     if func in EXT_AGGS:
         return EXT_AGGS[func].merge(a, b)
-    if func in ("sum", "count"):
+    if func == "sum":
+        # a null partial ("no non-null doc seen") is the merge's identity:
+        # None always, NaN only under null handling (without it a stored NaN
+        # DOUBLE keeps IEEE propagation)
+        if a is None or (null_on and _is_null_partial(a)):
+            return b
+        if b is None or (null_on and _is_null_partial(b)):
+            return a
+        return a + b
+    if func == "count":
         return a + b
     if func == "min":
         return min(a, b)
@@ -232,8 +241,11 @@ def _hll_count(p) -> int:
     return len(p) if isinstance(p, (set, frozenset)) else hll_estimate(np.asarray(p))
 
 
-def _finalize(a, p):
-    """Finalize a merged partial. `a` is the AggregationInfo."""
+def _finalize(a, p, null_on: bool = False):
+    """Finalize a merged partial. `a` is the AggregationInfo. Under null
+    handling (`null_on`) an aggregation that saw no non-null value gives NULL
+    (None), not its neutral default (SumAggregationFunction with
+    nullHandlingEnabled keeps a null holder)."""
     func = a.func
     if func in funnel.FUNNEL_AGGS:
         return funnel.finalize(func, p, a.extra)
@@ -241,14 +253,24 @@ def _finalize(a, p):
         return EXT_AGGS[func].finalize(p, a.extra)
     if func == "count":
         return int(p)
-    if func in ("sum", "min", "max"):
-        return float(p)
+    if func == "sum":
+        return None if null_on and _is_null_partial(p) else float(p)
+    if func in ("min", "max"):
+        v = float(p)
+        if null_on and (_is_null_partial(v) or v == (math.inf if func == "min" else -math.inf)):
+            return None
+        return v
     if func == "avg":
         if not p[1]:
-            return float("-inf")  # Pinot: avg of 0 docs -> default
+            return None if null_on else float("-inf")  # Pinot: avg of 0 docs -> default
+        if null_on and _is_null_partial(p[0]):
+            return None
         return float(p[0]) / p[1]
     if func == "minmaxrange":
-        return float(p[1]) - float(p[0])
+        lo, hi = float(p[0]), float(p[1])
+        if null_on and (_is_null_partial(lo) or _is_null_partial(hi) or (lo == math.inf and hi == -math.inf)):
+            return None
+        return hi - lo
     if func in DISTINCT_AGGS:
         return len(p)
     if func == "distinctcounthll":
@@ -256,20 +278,26 @@ def _finalize(a, p):
     if func == "percentileest":
         if isinstance(p, tuple):
             return hist_estimate(np.asarray(p[0]), p[1], p[2], a.extra[0])
+        if null_on and len(p) == 0:
+            return None
         return exact_percentile(p, a.extra[0])
     if func == "percentiletdigest":
+        if null_on and p[1] == 0:
+            return None  # an empty digest
         return td_quantile(p, a.extra[0])
     if func == "percentile":
+        if null_on and len(p) == 0:
+            return None
         return exact_percentile(p, a.extra[0])
     if func == "mode":
         if not p:
-            return float("-inf")
+            return None if null_on else float("-inf")
         best = max(p.values())
         return float(min(k for k, v in p.items() if v == best))  # Pinot MODE ties -> MIN
     raise AssertionError(func)
 
 
-def _finalize_column(a, parts) -> list:
+def _finalize_column(a, parts, null_on: bool = False) -> list:
     """Finalize one aggregation over ALL merged groups at once: the numeric
     reducers in one numpy pass + tolist (identical values to per-row
     _finalize), every object-valued partial through _finalize."""
@@ -277,22 +305,34 @@ def _finalize_column(a, parts) -> list:
     if func == "count":
         return np.asarray(parts, dtype=np.int64).tolist()
     if func in ("sum", "min", "max"):
-        return np.asarray(parts, dtype=np.float64).tolist()
+        arr = np.asarray(parts, dtype=np.float64)
+        out = arr.tolist()
+        if null_on:
+            bad = np.isnan(arr)
+            if func != "sum":
+                bad |= arr == (np.inf if func == "min" else -np.inf)
+            for j in np.flatnonzero(bad):
+                out[j] = None
+        return out
     if func == "avg":
         s = np.asarray(parts[0], dtype=np.float64)
         c = np.asarray(parts[1], dtype=np.float64)
         with np.errstate(divide="ignore", invalid="ignore"):
             out = (s / c).tolist()
-        for j in np.flatnonzero(c == 0):
-            out[j] = float("-inf")  # Pinot: avg of 0 docs -> default
+        for j in np.flatnonzero((c == 0) | (np.isnan(s) if null_on else False)):
+            out[j] = None if null_on else float("-inf")  # Pinot: avg of 0 docs -> default
         return out
     if func == "minmaxrange":
         lo = np.asarray(parts[0], dtype=np.float64)
         hi = np.asarray(parts[1], dtype=np.float64)
-        return (hi - lo).tolist()
+        out = (hi - lo).tolist()
+        if null_on:
+            for j in np.flatnonzero(np.isnan(lo) | np.isnan(hi) | ((lo == np.inf) & (hi == -np.inf))):
+                out[j] = None
+        return out
     if func in DISTINCT_AGGS:
         return [len(s) for s in parts]
-    return [_finalize(a, p) for p in parts]
+    return [_finalize(a, p, null_on) for p in parts]
 
 
 def _alias_map(ctx: QueryContext) -> dict[str, ast.Expr]:
@@ -301,13 +341,15 @@ def _alias_map(ctx: QueryContext) -> dict[str, ast.Expr]:
 
 def reduce_aggregation(ctx: QueryContext, partials: list[list]) -> list[list]:
     """Merge AGGREGATION partials -> single result row per the select list."""
+    null_on = null_handling_enabled(ctx.options)
     if not partials:
-        merged = [_empty_partial(a.func, a.extra) for a in ctx.aggregations]
+        # no segment contributed: under null handling a SUM saw no value
+        merged = [None if null_on and a.func == "sum" else _empty_partial(a.func, a.extra) for a in ctx.aggregations]
     else:
         merged = list(partials[0])
         for p in partials[1:]:
-            merged = [_merge_agg_partials(a.func, m, x) for a, m, x in zip(ctx.aggregations, merged, p)]
-    env: dict[str, Any] = {a.name: _finalize(a, p) for a, p in zip(ctx.aggregations, merged)}
+            merged = [_merge_agg_partials(a.func, m, x, null_on) for a, m, x in zip(ctx.aggregations, merged, p)]
+    env: dict[str, Any] = {a.name: _finalize(a, p, null_on) for a, p in zip(ctx.aggregations, merged)}
     aliases = _alias_map(ctx)
     return [[eval_scalar(it.expr, env, aliases) for it in ctx.select_items]]
 
@@ -336,13 +378,29 @@ def _empty_partial(func: str, extra: tuple = ()):
     }[func]
 
 
+def _split_none(keys: list[np.ndarray]) -> list[np.ndarray]:
+    """Each object key column holding None as its None flag beside it, with
+    the None cells filled by another of its values (np.unique cannot order
+    None): None keys form a group of their own."""
+    out = []
+    for k in keys:
+        if k.dtype == object:
+            null = np.fromiter((x is None for x in k), bool, len(k))
+            if null.any():
+                k = k.copy()
+                k[null] = k[~null][0] if not null.all() else 0
+                out.append(null)
+        out.append(k)
+    return out
+
+
 def group_index(keys: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
     """(group of each row, first row of each group), with groups numbered in
     order of first appearance — pandas groupby(sort=False, dropna=False)
     order, which the reference's merge uses."""
     n = len(keys[0])
     code = np.zeros(n, dtype=np.int64)
-    for k in keys:
+    for k in _split_none(keys):
         uniq, inv = np.unique(k, return_inverse=True)
         # re-densify after every key so the combined code stays below n*card
         _, code = np.unique(code * len(uniq) + inv.reshape(-1), return_inverse=True)
@@ -355,10 +413,11 @@ def group_index(keys: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
 
 def _merge_column(func: str, how: str, vals: np.ndarray, group: np.ndarray, n_groups: int) -> np.ndarray:
     """Per-group merge of one partial column of aggregation `func`, with
-    pandas' missing-value semantics: sum skips NaN, min/max skip NaN unless a
-    group has only NaN; union merges a column of sets; fold merges any other
-    object partial with _merge_agg_partials, in row order (the reference's
-    reduce over each group's series)."""
+    pandas' missing-value semantics: sum skips NaN ("sum_or_nan": NaN where a
+    group has only NaN, pandas' min_count=1), min/max skip NaN unless a group
+    has only NaN; union merges a column of sets; fold merges any other object
+    partial with _merge_agg_partials, in row order (the reference's reduce
+    over each group's series)."""
     if how == "union":
         out = np.empty(n_groups, dtype=object)
         for g in range(n_groups):
@@ -371,10 +430,12 @@ def _merge_column(func: str, how: str, vals: np.ndarray, group: np.ndarray, n_gr
         for g, r in zip(group.tolist(), vals):
             out[g] = r if out[g] is None else _merge_agg_partials(func, out[g], r)
         return out
-    if how == "sum":
+    if how in ("sum", "sum_or_nan"):
         if vals.dtype.kind == "f":
             out = np.zeros(n_groups, dtype=np.float64)
             np.add.at(out, group, np.where(np.isnan(vals), 0.0, vals))
+            if how == "sum_or_nan":
+                out[np.bincount(group, weights=~np.isnan(vals), minlength=n_groups) == 0] = np.nan
         else:
             out = np.zeros(n_groups, dtype=np.int64)
             np.add.at(out, group, vals.astype(np.int64))
@@ -408,16 +469,22 @@ def reduce_group_by(ctx: QueryContext, frames: list[dict[str, np.ndarray]]) -> l
     cols = concat_frames(frames)
     if not cols:
         return []
+    null_on = null_handling_enabled(ctx.options)
     group, first = group_index([cols[f"k{i}"] for i in range(nkeys)])
     n_rows = len(first)
     key_vals = [cols[f"k{i}"][first].tolist() for i in range(nkeys)]
+    if null_on:
+        # a NaN key is the null group too
+        key_vals = [[None if _is_null_partial(k) else k for k in col] for col in key_vals]
     fin_cols = []
     for i, a in enumerate(ctx.aggregations):
-        parts = [
-            _merge_column(a.func, how, cols[f"a{i}p{j}"], group, n_rows).tolist()
-            for j, how in enumerate(_PART_MERGE.get(a.func, ("fold",)))
-        ]
-        fin_cols.append(_finalize_column(a, parts[0] if len(parts) == 1 else tuple(parts)))
+        hows = _PART_MERGE.get(a.func, ("fold",))
+        if null_on and a.func in ("sum", "avg"):
+            # a group whose partials are all NaN (no non-null value) stays
+            # NaN, and finalizes to NULL
+            hows = ("sum_or_nan",) + hows[1:]
+        parts = [_merge_column(a.func, how, cols[f"a{i}p{j}"], group, n_rows).tolist() for j, how in enumerate(hows)]
+        fin_cols.append(_finalize_column(a, parts[0] if len(parts) == 1 else tuple(parts), null_on))
 
     aliases = _alias_map(ctx)
     group_names = [canonical(g) for g in ctx.group_by]

@@ -8,8 +8,9 @@ three tiers:
 
  1. NUMERIC functions (`DEVICE_FUNCS`) — elementwise ops over an array
     namespace passed as the first argument (abs/ceil/floor/exp/ln/sqrt/
-    power/mod/...). The host executor passes numpy; the reference's device
-    program passes jnp (this package's program has no `fn` tag yet).
+    power/mod/...). The host executor passes numpy; the per-segment program
+    passes `torch_ns.XP`, a namespace over torch tensors (the reference's
+    device program passes jnp).
  2. DATETIME functions — epoch-millis integer arithmetic (year/month/day
     extraction via civil-from-days), in the same namespace-generic form.
  3. STRING functions (`STRING_FUNCS`) — applied to a dictionary column's

@@ -13,7 +13,8 @@ Encoding decisions (IndexingConfig semantics, as in the JAX package):
   - STRING/BYTES/JSON are ALWAYS dictionary-encoded: only ids ever reach the
     device.
 
-This package builds single-value dictionary and raw columns and the star-tree
+This package builds single-value dictionary and raw columns, the null
+vectors of `null_handling` (into `seg.extras["null"]`) and the star-tree
 tables of `star_tree_configs` (into `seg.extras["startree"]`); a schema or
 table config that asks for anything else raises NotImplementedError naming it.
 """
@@ -27,7 +28,7 @@ import numpy as np
 from pinot_tpu_torch.common.config import UNSUPPORTED_INDEX_FIELDS, TableConfig
 from pinot_tpu_torch.common.types import DataType, FieldType, Schema
 from pinot_tpu_torch.segment.dictionary import Dictionary
-from pinot_tpu_torch.segment.segment import ColumnIndex, ImmutableSegment
+from pinot_tpu_torch.segment.segment import ColumnIndex, ImmutableSegment, bm_from_bool
 from pinot_tpu_torch.segment.startree import build_star_table
 from pinot_tpu_torch.segment.stats import ColumnStats
 
@@ -40,18 +41,21 @@ def _pivot(rows: Sequence[Mapping[str, Any]], schema: Schema) -> dict[str, np.nd
     return {c: np.asarray(vals, dtype=object) for c, vals in cols.items()}
 
 
-def _fill_nulls(raw: np.ndarray, dt: DataType) -> np.ndarray:
+def _separate_nulls(raw: np.ndarray, dt: DataType) -> tuple[np.ndarray, np.ndarray | None]:
     """Replace None entries with the type's default null placeholder
-    (FieldSpec DEFAULT_* parity)."""
+    (FieldSpec DEFAULT_* parity) and return (values, null bool mask or None).
+    A nullable LONG column's placeholder is int64 min, so its staged copy
+    stays int64 (see ImmutableSegment.to_device)."""
     if raw.dtype != object:
-        return raw
+        return raw, None
     nulls = np.asarray([v is None for v in raw], dtype=bool)
     if nulls.any():
         raw = raw.copy()
         raw[nulls] = dt.default_null
+    found = nulls if nulls.any() else None
     if dt in (DataType.STRING, DataType.BYTES, DataType.JSON):
-        return raw
-    return raw.astype(dt.np_dtype)
+        return raw, found
+    return raw.astype(dt.np_dtype), found
 
 
 class SegmentBuilder:
@@ -63,12 +67,10 @@ class SegmentBuilder:
         idx = self.config.indexing
         for name in UNSUPPORTED_INDEX_FIELDS:
             if getattr(idx, name):
-                raise NotImplementedError(f"IndexingConfig.{name} is not supported by pinot_tpu_torch yet")
-        if idx.null_handling:
-            raise NotImplementedError("IndexingConfig.null_handling is not supported by pinot_tpu_torch yet")
+                raise NotImplementedError(f"IndexingConfig.{name} is not supported by pinot_tpu_torch yet (ROADMAP A6)")
         for spec in schema.fields.values():
             if not spec.single_value:
-                raise NotImplementedError(f"multi-value column {spec.name!r} is not supported by pinot_tpu_torch yet")
+                raise NotImplementedError(f"multi-value column {spec.name!r} is not supported by pinot_tpu_torch yet (ROADMAP A4b)")
 
     def _use_dictionary(self, col: str) -> bool:
         spec = self.schema[col]
@@ -99,7 +101,9 @@ class SegmentBuilder:
             if len(raw) != n_docs:
                 raise ValueError(f"column {col!r} length {len(raw)} != {n_docs}")
             dt = self.schema[col].data_type
-            raw = _fill_nulls(raw, dt)
+            raw, nulls = _separate_nulls(raw, dt)
+            if nulls is not None and self.config.indexing.null_handling:
+                seg.extras.setdefault("null", {})[col] = bm_from_bool(nulls)
             if self._use_dictionary(col):
                 dictionary, ids = Dictionary.from_column(dt, raw)
                 stats = ColumnStats.from_dictionary(col, dt, ids, dictionary)

@@ -18,6 +18,8 @@ carrying a model's weights across.
             },
             ...
         },
+        "null": {"<column>": np.ndarray},       # optional: null-vector bitmaps
+                                                # (little-endian uint64 words)
         "startree": [                           # optional: star-tree tables
             {
                 "dimensions": [...],            # split order
@@ -50,7 +52,7 @@ def segment_from_numpy(desc: dict) -> ImmutableSegment:
             raise ValueError(f"segment description has no column {col!r}")
         spec = schema[col]
         if not spec.single_value:
-            raise NotImplementedError(f"multi-value column {col!r} is not supported by pinot_tpu_torch yet")
+            raise NotImplementedError(f"multi-value column {col!r} is not supported by pinot_tpu_torch yet (ROADMAP A4b)")
         cd = desc["columns"][col]
         fwd = np.ascontiguousarray(cd["forward"])
         if fwd.ndim != 1 or len(fwd) != n_docs:
@@ -68,6 +70,10 @@ def segment_from_numpy(desc: dict) -> ImmutableSegment:
             )
         stats = ColumnStats.from_dict(cd["stats"])
         seg.columns[col] = ColumnIndex(col, spec.data_type, dictionary, fwd, stats)
+    for col, bitmap in desc.get("null", {}).items():
+        if col not in seg.columns:
+            raise ValueError(f"null vector of unknown column {col!r}")
+        seg.extras.setdefault("null", {})[col] = np.ascontiguousarray(bitmap, dtype=np.uint64)
     for st in desc.get("startree", ()):
         arrays = {name: np.ascontiguousarray(a) for name, a in st["arrays"].items()}
         table = StarTable(list(st["dimensions"]), list(st["function_column_pairs"]), int(st["n_rows"]), arrays)

@@ -34,6 +34,19 @@ def padded_len(n_docs: int) -> int:
     return max(DOC_PAD, ((n_docs + DOC_PAD - 1) // DOC_PAD) * DOC_PAD)
 
 
+def bm_from_bool(mask: np.ndarray) -> np.ndarray:
+    """Bool mask -> little-endian uint64-word bitmap, zero-padded to whole
+    words (the JAX package's null-vector format)."""
+    nwords = (len(mask) + 63) // 64
+    bits = np.zeros(nwords * 64, dtype=np.uint8)
+    bits[: len(mask)] = mask.astype(np.uint8)
+    return np.packbits(bits, bitorder="little").view(np.uint64)
+
+
+def bm_to_bool(a: np.ndarray, n_docs: int) -> np.ndarray:
+    return np.unpackbits(np.asarray(a).view(np.uint8), bitorder="little")[:n_docs].astype(bool)
+
+
 @dataclass
 class ColumnIndex:
     """All materialized per-column data for one single-value segment column."""
@@ -69,10 +82,45 @@ class ImmutableSegment:
     schema: Schema
     n_docs: int
     columns: dict[str, ColumnIndex] = field(default_factory=dict)
-    # extra index structures attach here once they are ported
+    # index structures beside the columns: "null" (column -> null-vector
+    # bitmap, see bm_from_bool), "startree" (its star tables)
     extras: dict[str, Any] = field(default_factory=dict)
     # staged copies by device, filled by to_device_cached
     _device_cache: dict[str, "DeviceSegment"] = field(default_factory=dict, repr=False, compare=False)
+    # decoded null masks and their padded doc masks, by key
+    _null_cache: dict[Any, np.ndarray | None] = field(default_factory=dict, repr=False, compare=False)
+
+    def null_mask(self, cols) -> np.ndarray | None:
+        """Docs where any of `cols` is null (the union of their null vectors),
+        or None when none of them has a null vector. Memoized: one bitmap
+        expansion a column set, however many queries read it."""
+        key = ("union", frozenset(cols))
+        if key not in self._null_cache:
+            nulls = None
+            for name in sorted(key[1]):
+                nv = self.extras.get("null", {}).get(name)
+                if nv is not None:
+                    b = bm_to_bool(nv, self.n_docs)
+                    nulls = b if nulls is None else (nulls | b)
+            self._null_cache[key] = nulls
+        return self._null_cache[key]
+
+    def null_docmask(self, cols, negate: bool) -> np.ndarray:
+        """null_mask(cols) (or its complement) as a doc mask of padded_len
+        docs, the tail off: one array object a segment, declared a stable
+        operand, so its staged copy is made once a device."""
+        key = ("docmask", frozenset(cols), negate)
+        if key not in self._null_cache:
+            from pinot_tpu_torch.query.kernels import mark_stable_operand
+
+            nulls = self.null_mask(cols)
+            m = np.zeros(padded_len(self.n_docs), dtype=bool)
+            if nulls is not None:
+                m[: self.n_docs] = ~nulls if negate else nulls
+            elif negate:
+                m[: self.n_docs] = True
+            self._null_cache[key] = mark_stable_operand(m)
+        return self._null_cache[key]
 
     def to_device_cached(self, device: str | torch.device = "cuda") -> "DeviceSegment":
         """Memoized staging: one staged copy per segment and device, shared by

@@ -334,16 +334,10 @@ def test_expressions_on_the_host(m_engines, monkeypatch, i):
 @pytest.mark.parametrize("i", range(len(EXPRESSIONS)))
 def test_expressions_unforced(m_engines, i):
     """The same queries with each engine choosing its executor per segment:
-    what the port cannot lower raises NotImplementedError naming a spec tag
-    the reference lowers on its device (never the host in its place)."""
+    the port lowers each where the reference does (the `fn`, `case`, `cmp2`
+    and `in_sorted` tags on the device), with the reference's rows."""
     ref, port = m_engines
-    want = ref.execute(EXPRESSIONS[i])
-    try:
-        got = port.execute(EXPRESSIONS[i])
-    except NotImplementedError as e:
-        assert "spec tag" in str(e), e
-        return
-    _assert_same(got, want, EXPRESSIONS[i])
+    _assert_same(port.execute(EXPRESSIONS[i]), ref.execute(EXPRESSIONS[i]), EXPRESSIONS[i])
 
 
 # -- NaN keys -----------------------------------------------------------------
@@ -422,7 +416,7 @@ PLAN_SHAPES = [
 def test_plan_sites_match_reference(m_engines, sql):
     """Where the reference's planner raises DeviceFallback the port's raises
     it with the same words; where the reference plans, the port emits the
-    same spec (spec tags it has not ported raise at dispatch, not here)."""
+    same spec."""
     from pinot_tpu.query.plan import plan_segment as jplan_segment
 
     ref, port = m_engines

@@ -168,11 +168,6 @@ def test_ids_value_matches_reference(segs, aggs):
 @pytest.mark.parametrize(
     "spec",
     [
-        ("agg", ("in_sorted", ("raw", "quantity"), 0), None, (("count",),)),
-        ("agg", ("const", True), None, (("sum", ("fn", "abs", (("raw", "quantity"),))),)),
-        ("agg", ("const", True), None, (("funnel_steps", "region", 8, (("const", True),)),)),
-        ("agg", ("const", True), None, (("masked", ("const", True), ("count",)),)),
-        ("agg", ("const", True), ("groups", ("region",), 256, 0), (("hist", ("raw", "quantity"), 0, 0, 16),)),
         ("agg", ("const", True), ("groups_mv", ("region",), 256, 0, "region", 0), (("count",),)),
         ("mask", ("const", True)),
     ],
@@ -189,11 +184,17 @@ def test_unsupported_tags_raise(segs, spec):
         ("agg", ("const", True), None, (("sum", ("docid",)),)),
         ("agg", ("const", True), ("groups", ("region",), 256, 0), (("hll", ("gather", "region", 1), 8),)),
         ("select", ("const", True), (("raw", "quantity"),), 10),
+        ("agg", ("in_sorted", ("raw", "quantity"), 0), None, (("count",),)),
+        ("agg", ("const", True), None, (("sum", ("fn", "abs", (("raw", "quantity"),))),)),
+        ("agg", ("const", True), None, (("funnel_steps", "region", 8, (("const", True),)),)),
+        ("agg", ("const", True), None, (("masked", ("const", True), ("count",)),)),
+        ("agg", ("const", True), ("groups", ("region",), 256, 0), (("hist", ("raw", "quantity"), 0, 0, 16),)),
     ],
 )
 def test_once_unported_tags_match_reference(segs, spec):
-    """The `docid` value tag, the grouped `hll` aggregate and the `select`
-    program, which this test file once listed among the unported tags."""
+    """Tags this test file once listed among the unported ones: the `docid`
+    and `fn` value tags, the `in_sorted` filter, the grouped `hll`, `masked`,
+    `funnel_steps` and grouped `hist` aggregates and the `select` program."""
     ref, port, _ = segs
     operands = (np.ones(1, dtype=np.int32), ref.columns["region"].dictionary.hll_hash_pad())
     columns = ("quantity", "region")

@@ -75,6 +75,8 @@ def describe(seg) -> dict:
             for c, ci in seg.columns.items()
         },
     }
+    if seg.extras.get("null"):
+        desc["null"] = dict(seg.extras["null"])
     if seg.extras.get("startree"):
         desc["startree"] = [
             {
@@ -153,6 +155,34 @@ def test_row_input_and_nulls_match_reference():
     ref = JBuilder(schema(JDT, JSchema)).build(rows, "s")
     port = SegmentBuilder(schema(DataType, Schema)).build(rows, "s")
     _assert_same_segment(ref, port)
+
+
+def test_null_vectors_match_reference():
+    """Under `null_handling` the builder keeps each column's null vector, the
+    bitmap the reference keeps, byte for byte, and segment_from_numpy carries
+    the reference's across; without it no vector is kept."""
+    from pinot_tpu.common.config import IndexingConfig as JIndexingConfig
+
+    rng = np.random.default_rng(8)
+    n = 300
+    data = _data(9, n)
+    for c in ("region", "year", "revenue", "discount"):
+        v = data[c].astype(object)
+        v[rng.random(n) < 0.2] = None
+        data[c] = v
+    ref = JBuilder(_schema(JDT, JSchema), JTableConfig("t", indexing=JIndexingConfig(null_handling=True))).build(data, "s")
+    built = SegmentBuilder(_schema(DataType, Schema), TableConfig("t", IndexingConfig(null_handling=True))).build(data, "s")
+    carried = segment_from_numpy(describe(ref))
+    assert sorted(ref.extras["null"]) == ["discount", "region", "revenue", "year"]
+    for port in (built, carried):
+        _assert_same_segment(ref, port)
+        assert sorted(port.extras["null"]) == sorted(ref.extras["null"])
+        for c, bm in ref.extras["null"].items():
+            assert port.extras["null"][c].dtype == bm.dtype and np.array_equal(port.extras["null"][c], bm), c
+            assert np.array_equal(port.null_mask({c}), np.asarray([x is None for x in data[c]])), c
+    # a nullable LONG column holds int64 min at its nulls: staged as int64
+    assert built.to_device("cpu").arrays["revenue"].dtype == torch.int64
+    assert "null" not in SegmentBuilder(_schema(DataType, Schema)).build(data, "s").extras
 
 
 def test_segment_from_numpy_carries_reference_across(pair):
@@ -235,7 +265,7 @@ def test_default_staging_device_is_the_card(pair):
         dict(text_index_columns=["region"]),
         dict(vector_index_columns=["v"]),
         dict(fst_index_columns=["region"]),
-        dict(null_handling=True),
+        dict(json_index_columns=["region"]),
     ],
 )
 def test_unsupported_table_config_raises(indexing):
