@@ -66,6 +66,25 @@
    4M docs, each held exactly against the same step on the CPU; the
    two-level kernel is held against its plain version at the histogram
    shapes (k = 0, ng 2^20 and 2^22) before the main path relies on them.
+7. Multi-value columns: configs 22-27 run over `mvt`, 16M rows (seed 22)
+   in 16 segments of 1M rows that enter the package through
+   segment_from_numpy: SV year, region, revenue; MV tags (0-4 values a doc,
+   Zipf s = 1 over 1,000 strings) and nums (0-4 values a doc over [0,
+   100)). 22, MV any-match: a tag search, an exclusion (NOT IN), and
+   `nums > 95 AND nums < 3` (non-zero: the optimizer must not merge the two
+   ranges of an MV column); 23, the *MV aggregations and DISTINCTCOUNTMV
+   (one presence launch a segment); 24, the *MV aggregations by year (B1
+   and B3 over nums' value space); 25, GROUP BY tags (groups_mv, doc-space
+   values gathered to the values) and DISTINCT tags; 26, GROUP BY tags,
+   nums (groups_mv2, ~8M pairs a segment, ng 100,096: the two-level
+   kernel); 27, three shapes the reference also answers on its host (a
+   ragged selection, DISTINCTCOUNTMV by year, SUMMV under an MV key), every
+   segment on the host executor. Each is held against a numpy oracle over
+   the raw flat arrays, with its launches a segment and its segments by
+   executor asserted; `new_device_steps_mv` times mv_any's scatter-OR, the
+   value-space gather and groups_mv2's pair expansion over one segment; B1
+   and B2 are held against their plain versions at configs 25's and 26's
+   value-space shapes (and B1 at 2^23 pairs) in the kernel phase.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -274,9 +293,70 @@ LAUNCHES_PER_SEGMENT.update(
         "21_null_docmask": (0, 0, 0, 0),
     }
 )
+#: configs 22-27: the `mvt` table, MV_ROWS rows in MV_SEGMENTS segments: SV
+#: year (1992-1998), region (5 values), revenue ([0, 10^6)); MV tags (0-4
+#: values a doc, Zipf s = 1 over N_TAGS strings tag0000..tag0999) and nums
+#: (0-4 values a doc, uniform over [0, 100))
+MV_ROWS = 16_000_000
+MV_SEGMENTS = 16
+N_TAGS = 1000
+MV_REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+MV_CONFIGS = {
+    # "tag search": MV any-match (mv_any), an exclusion, and a two-value
+    # match the optimizer must not merge into an empty range
+    "22_tag_search": "SELECT COUNT(*), SUM(revenue) FROM mvt WHERE tags = 'tag0042'",
+    "22_tag_exclusion": (
+        "SELECT COUNT(*), SUM(revenue) FROM mvt WHERE tags NOT IN ('tag0001', 'tag0007') AND year >= 1995"
+    ),
+    "22_two_values": "SELECT COUNT(*) FROM mvt WHERE nums > 95 AND nums < 3",
+    # "MV totals": the *MV aggregations, DISTINCTCOUNTMV one presence launch
+    "23_mv_totals": (
+        "SELECT COUNTMV(nums), SUMMV(nums), MINMV(nums), MAXMV(nums), AVGMV(nums), DISTINCTCOUNTMV(tags) "
+        "FROM mvt WHERE year = 1997"
+    ),
+    # "MV totals by year": B1 and B3 over the nums value space
+    "24_mv_totals_by_year": (
+        "SELECT year, COUNTMV(nums), SUMMV(nums), MINMV(nums), MAXMV(nums), AVGMV(nums) FROM mvt "
+        "GROUP BY year ORDER BY year"
+    ),
+    # "top tags": GROUP BY one MV key (groups_mv), doc-space values gathered
+    "25_top_tags": (
+        "SELECT tags, COUNT(*), SUM(revenue), MAX(revenue) FROM mvt WHERE year >= 1995 GROUP BY tags "
+        "ORDER BY COUNT(*) DESC, tags LIMIT 20"
+    ),
+    "25_distinct_tags": "SELECT DISTINCT tags FROM mvt WHERE year = 1998 ORDER BY tags LIMIT 50",
+    # "tag x num pairs": two MV keys (groups_mv2), ng 100,096: the two-level
+    # kernel over ~8M pairs a segment
+    "26_tag_num_pairs": (
+        "SELECT tags, nums, COUNT(*), SUM(year) FROM mvt GROUP BY tags, nums "
+        "ORDER BY COUNT(*) DESC, tags, nums LIMIT 20"
+    ),
+}
+#: config 27: shapes the reference also answers on its host
+MV_HOST_CONFIGS = {
+    "27_ragged_selection": "SELECT tags, nums, year FROM mvt WHERE tags = 'tag0042' AND year = 1996 LIMIT 10",
+    "27_distinctcountmv_by_year": "SELECT year, DISTINCTCOUNTMV(tags) FROM mvt GROUP BY year ORDER BY year",
+    "27_mv_agg_under_mv_key": "SELECT tags, SUMMV(nums) FROM mvt GROUP BY tags ORDER BY tags LIMIT 20",
+}
+LAUNCHES_PER_SEGMENT.update(
+    {
+        "22_tag_search": (0, 0, 0, 0),
+        "22_tag_exclusion": (0, 0, 0, 0),
+        "22_two_values": (0, 0, 0, 0),
+        "23_mv_totals": (0, 0, 1, 0),  # the scalar *MV reductions are torch ops
+        "24_mv_totals_by_year": (2, 1, 0, 0),  # doc-space counts; nums' value space: sums, then MIN and MAX
+        "25_top_tags": (1, 1, 0, 0),
+        "25_distinct_tags": (1, 0, 0, 0),
+        "26_tag_num_pairs": (0, 0, 0, 1),
+        "27_ragged_selection": (0, 0, 0, 0),
+        "27_distinctcountmv_by_year": (0, 0, 0, 0),
+        "27_mv_agg_under_mv_key": (0, 0, 0, 0),
+    }
+)
 #: result columns held to rtol 1e-12 (AVG, STDDEV, PERCENTILE); every other
 #: cell must be equal
-APPROX_COLUMNS = {"2_filtered_agg": {3}, "14_groupby_raw_metric": {3}, "15_host_aggregations": {1, 3}}
+APPROX_COLUMNS = {"2_filtered_agg": {3}, "14_groupby_raw_metric": {3}, "15_host_aggregations": {1, 3},
+                  "23_mv_totals": {4}, "24_mv_totals_by_year": {5}}
 #: SSB's customer and supplier key ranges at scale factor 3 (~16M x 6/16
 #: lineorder rows)
 N_CUSTOMERS = 90_000
@@ -374,6 +454,42 @@ def ssb_shapes(torch, n: int = 4_194_304, seed: int = 6):
     }
 
 
+def mv_shapes(torch, seed: int = 23) -> dict:
+    """Configs 25's and 26's value-space shapes over one MV segment (1M docs
+    of make_mv_data's distributions): 25, GROUP BY tags in tags' value space
+    (ng 1024, k 1: revenue gathered to the values, the mask year >= 1995
+    gathered and the padding off); 26, GROUP BY tags, nums in the pair space
+    (tags' values x Lb 4, ng 100,096, k 1: year; a pair is on while its
+    position is below its doc's nums length)."""
+    from pinot_tpu_torch.segment.segment import padded_len
+
+    d = make_mv_data(1_000_000, seed)
+    n = len(d["year"])
+    i32, b = torch.int32, torch.bool
+    tag_doc = np.repeat(np.arange(n), d["tags_lens"])
+    nv = len(tag_doc)
+    va = padded_len(nv)
+
+    def pad(a, fill=0):
+        return np.concatenate([a, np.full(va - len(a), fill, dtype=a.dtype)])
+
+    tag_ids = np.unique(d["tags"], return_inverse=True)[1]
+    mask25 = pad(d["year"][tag_doc] >= 1995, False)
+    n_off = mv_offsets(d, "nums")
+    lb = 4
+    j = np.arange(lb)
+    on = j[None, :] < d["nums_lens"][tag_doc][:, None]
+    pos = np.minimum(n_off[tag_doc][:, None] + j[None, :], len(d["nums"]) - 1)
+    gid26 = tag_ids[:, None].astype(np.int64) * 100 + d["nums"][pos]
+    return {
+        "mv25": ([_tensor(torch, pad(d["revenue"][tag_doc]), i32)], _tensor(torch, pad(tag_ids), i32),
+                 _tensor(torch, mask25, b), 1024),
+        "mv26": ([_tensor(torch, np.repeat(pad(d["year"][tag_doc]), lb), i32)],
+                 _tensor(torch, np.concatenate([gid26.reshape(-1), np.zeros((va - nv) * lb, np.int64)]), i32),
+                 _tensor(torch, np.concatenate([on.reshape(-1), np.zeros((va - nv) * lb, bool)]), b), 100_096),
+    }
+
+
 def kernel_cases(torch, ssb):
     """(name, values, gid, mask, ng, expect_shared) at the main path's shapes
     and at the edges of the kernel's contract."""
@@ -400,6 +516,11 @@ def kernel_cases(torch, ssb):
         ("config12_shape_k0", [], ssb["g5"], ssb["m12"], 256, True),
         # config 10's star GROUP BY country: 90 star rows, one doc pad
         ("config10_star_shape_k0", [], t(np.arange(1024) // 3 % 30), t(np.arange(1024) < 90, torch.bool), 256, True),
+        # config 25: GROUP BY tags in tags' value space (~2M values)
+        ("config25_shape", *ssb["mv25"], True),
+        # config 26's pair space (~8M pairs) at a small ng: the flat
+        # kernel's plan past 2^23 docs
+        ("config26_pairs_ng_256", ssb["mv26"][0], t(np.asarray(ssb["mv26"][1].cpu()) % 256), ssb["mv26"][2], 256, True),
     ]
     n2 = 1 << 20
     extremes = rng.choice(np.array([i32.min, i32.max, -1, 0, 1], dtype=np.int64), size=(3, n2))
@@ -495,7 +616,7 @@ def check_kernels(torch, gb, ssb) -> dict:
     timings = {
         name: _b1_timing(torch, gb, *keep[name])
         for name in ("q4_shape", "config3_shape", "config4_shape", "config5_shape_k0", "config12_shape_k0",
-                     "config10_star_shape_k0")
+                     "config10_star_shape_k0", "config25_shape")
     }
     emit({"phase": "kernel_timing", "kernel": "grouped_sum_count", "timings": timings, "card": card_line()})
     return {"max_abs_err": max_err, **timings["q4_shape"]}
@@ -542,7 +663,7 @@ def _counts(torch, gid, mask, ng):
 # ---------------------------------------------------------------------------
 
 
-def two_level_cases(torch):
+def two_level_cases(torch, ssb):
     """(name, values, gid, mask, ng, L or None for the default, branches):
     configs 8 and 9's shapes, ng = 2^20 with a dense mask under four L, and
     the edges of the kernel's contract, each edge both where its buckets are
@@ -569,6 +690,9 @@ def two_level_cases(torch):
     g9 = rng.integers(0, 1 << 20, n)
     g9[m9] = rng.integers(0, 57_000, int(m9.sum()))
     cases.append(("config9_shape", [rev(n)], _tensor(torch, g9, i32), _tensor(torch, m9, b), 1 << 20, None, S))
+    # config 26: GROUP BY tags, nums over ~8M pairs (Zipf tags: the first
+    # hi buckets hold most pairs); its branches are reported, not asserted
+    cases.append(("config26_shape", *ssb["mv26"], None, None))
     # ng = 2^20 with a dense mask; L must not change the answer: the default
     # (12), the widest L that fits (14), L = 9, and L = 4, whose 65,536
     # buckets pass the shared histogram (a global atomic per doc)
@@ -669,10 +793,10 @@ def pass_times(torch, fn, calls: int = 5) -> dict:
     }
 
 
-def check_two_level(torch, gb) -> dict:
+def check_two_level(torch, gb, ssb) -> dict:
     results, keep, max_err = [], {}, 0.0
     limit = gb.shared_limit(torch.device("cuda"))
-    for name, values, gid, mask, ng, bits, branches in two_level_cases(torch):
+    for name, values, gid, mask, ng, bits, branches in two_level_cases(torch, ssb):
         k = len(values)
         if gb.uses_shared_counters(min(k, gb.MAX_COLS), ng, gid.device):
             raise AssertionError(f"{name}: (k={k}, ng={ng}) fits the flat kernel's shared counters")
@@ -693,13 +817,14 @@ def check_two_level(torch, gb) -> dict:
             raise AssertionError(f"{name}: grouped_sum_count_2l kernel != plain version (max abs err {err})")
         if launches != max(1, -(-k // gb.MAX_COLS)):
             raise AssertionError(f"{name}: {launches} launches for k={k}")
-        if took != branches:
+        if branches is not None and took != branches:
             raise AssertionError(f"{name}: buckets took {sorted(took)}, expected {sorted(branches)}: {buckets}")
         keep[name] = (values, gid, mask, ng, used)
     emit({"phase": "kernel_vs_plain", "kernel": "grouped_sum_count_2l", "shared_limit": limit, "cases": results})
 
     timings = {}
-    for name in ("config8_shape", "config9_shape", "ng_2^20_k8_past_L2", "hist_ng_2^20", "hist_ng_2^22_sparse"):
+    for name in ("config8_shape", "config9_shape", "ng_2^20_k8_past_L2", "hist_ng_2^20", "hist_ng_2^22_sparse",
+                 "config26_shape"):
         values, gid, mask, ng, bits = keep[name]
         k, n, masked = len(values), gid.numel(), int(mask.sum().item())
         ok, idx = _in_range(torch, gid, mask, ng)
@@ -1448,6 +1573,165 @@ def tag_oracle(data, nation) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# configs 22-27: multi-value columns
+# ---------------------------------------------------------------------------
+
+
+def make_mv_data(n: int, seed: int = 22) -> dict:
+    """The `mvt` table as codes: SV year, region (index into MV_REGIONS),
+    revenue; each MV column as its per-doc value counts (`*_lens`) and flat
+    values (tag index, num), drawn vectorised."""
+    rng = np.random.default_rng(seed)
+    data = {
+        "year": rng.integers(1992, 1999, n).astype(np.int32),
+        "region": rng.integers(0, len(MV_REGIONS), n).astype(np.int32),
+        "revenue": rng.integers(0, 1_000_000, n).astype(np.int32),
+        "tags_lens": rng.integers(0, 5, n).astype(np.int32),
+        "nums_lens": rng.integers(0, 5, n).astype(np.int32),
+    }
+    zipf = np.cumsum(1.0 / np.arange(1, N_TAGS + 1))
+    u = rng.random(int(data["tags_lens"].sum())) * zipf[-1]
+    data["tags"] = np.minimum(np.searchsorted(zipf, u, side="right"), N_TAGS - 1).astype(np.int32)
+    data["nums"] = rng.integers(0, 100, int(data["nums_lens"].sum())).astype(np.int32)
+    return data
+
+
+def mv_schema():
+    from pinot_tpu_torch.common import DataType, FieldSpec, Schema
+
+    schema = Schema.build("mvt", dimensions=[("year", DataType.INT), ("region", DataType.STRING)],
+                          metrics=[("revenue", DataType.INT)])
+    schema.add(FieldSpec("tags", DataType.STRING, single_value=False))
+    schema.add(FieldSpec("nums", DataType.INT, single_value=False))
+    return schema
+
+
+def mv_segment(data: dict, offsets: dict, name: str, lo: int, hi: int):
+    """Docs [lo, hi) of the table as a segment, through segment_from_numpy:
+    dictionaries over the present codes, the MV columns flat with lens
+    (`offsets`: each MV column's mv_offsets)."""
+    from pinot_tpu_torch.common import DataType
+    from pinot_tpu_torch.segment import segment_from_numpy
+    from pinot_tpu_torch.segment.dictionary import Dictionary
+    from pinot_tpu_torch.segment.stats import ColumnStats
+
+    schema = mv_schema()
+    cols = {}
+
+    def dict_column(col, dt, codes, values, lens=None):
+        # codes index the sorted `values`: the present ones, renumbered
+        seen = np.bincount(codes, minlength=len(values)) > 0
+        ids = (np.cumsum(seen, dtype=np.int32) - 1)[codes]
+        vals = values[seen]
+        stats = ColumnStats.from_dictionary(col, dt, ids, Dictionary(dt, vals))
+        cols[col] = {"forward": ids, "dictionary": vals, "stats": stats.to_dict()}
+        if lens is not None:
+            cols[col]["lens"] = lens
+
+    dict_column("year", DataType.INT, data["year"][lo:hi] - 1992, np.arange(1992, 1999, dtype=np.int32))
+    dict_column("region", DataType.STRING, data["region"][lo:hi], np.array(MV_REGIONS, dtype=object))
+    rev = data["revenue"][lo:hi]
+    stats = ColumnStats.collect("revenue", DataType.INT, rev, len(np.unique(rev)))
+    cols["revenue"] = {"forward": rev, "dictionary": None, "stats": stats.to_dict()}
+    for col, values, dt in (("tags", np.array([f"tag{i:04d}" for i in range(N_TAGS)], dtype=object), DataType.STRING),
+                            ("nums", np.arange(100, dtype=np.int32), DataType.INT)):
+        off = offsets[col]
+        dict_column(col, dt, data[col][off[lo] : off[hi]], values, data[f"{col}_lens"][lo:hi])
+    return segment_from_numpy({"name": name, "schema": schema.to_json(), "n_docs": hi - lo, "columns": cols})
+
+
+def mv_offsets(data: dict, col: str) -> np.ndarray:
+    off = np.zeros(len(data[f"{col}_lens"]) + 1, dtype=np.int64)
+    np.cumsum(data[f"{col}_lens"], out=off[1:])
+    return off
+
+
+def mv_engine(data: dict):
+    """MV_SEGMENTS segments of the `mvt` table and a QueryEngine over them
+    on the card, and the seconds the build took."""
+    from pinot_tpu_torch.query import QueryEngine
+
+    t0 = time.perf_counter()
+    n = len(data["year"])
+    per = n // MV_SEGMENTS
+    offsets = {c: mv_offsets(data, c) for c in ("tags", "nums")}
+    segments = [mv_segment(data, offsets, f"mvt_{i}", i * per, (i + 1) * per if i < MV_SEGMENTS - 1 else n)
+                for i in range(MV_SEGMENTS)]
+    return QueryEngine(segments, device="cuda"), segments, time.perf_counter() - t0
+
+
+def mv_oracle(data: dict) -> dict:
+    """Rows of configs 22-27 from the raw flat arrays: each flat value
+    position counts once (a value twice in one doc counts twice)."""
+    year, rev, tags, nums = data["year"], data["revenue"], data["tags"], data["nums"]
+    n = len(year)
+    tag_doc = np.repeat(np.arange(n, dtype=np.int32), data["tags_lens"])
+    num_doc = np.repeat(np.arange(n, dtype=np.int32), data["nums_lens"])
+    names = [f"tag{i:04d}" for i in range(N_TAGS)]
+
+    def any_doc(doc_of, flat_mask):
+        return np.bincount(doc_of[flat_mask], minlength=n) > 0
+
+    out = {}
+    has42 = any_doc(tag_doc, tags == 42)
+    out["22_tag_search"] = [[int(has42.sum()), float(rev[has42].sum(dtype=np.int64))]]
+    m = ~any_doc(tag_doc, (tags == 1) | (tags == 7)) & (year >= 1995)
+    out["22_tag_exclusion"] = [[int(m.sum()), float(rev[m].sum(dtype=np.int64))]]
+    two = any_doc(num_doc, nums > 95) & any_doc(num_doc, nums < 3)
+    out["22_two_values"] = [[int(two.sum())]]
+    if not two.any():
+        raise AssertionError("22_two_values: the oracle's count is 0")
+
+    def totals(v):
+        s = int(v.sum(dtype=np.int64))
+        return [len(v), float(s), float(v.min()), float(v.max()), s / len(v)]
+
+    in97 = (year == 1997)
+    out["23_mv_totals"] = [totals(nums[in97[num_doc]]) + [len(np.unique(tags[in97[tag_doc]]))]]
+    out["24_mv_totals_by_year"] = [[y] + totals(nums[year[num_doc] == y]) for y in range(1992, 1999)]
+
+    sel = year[tag_doc] >= 1995
+    t, r = tags[sel], rev[tag_doc[sel]]
+    count = np.bincount(t, minlength=N_TAGS)
+    total = np.bincount(t, weights=r, minlength=N_TAGS)
+    top = np.full(N_TAGS, -1, dtype=np.int64)
+    np.maximum.at(top, t, r)
+    order = sorted(np.flatnonzero(count), key=lambda i: (-count[i], i))[:20]
+    out["25_top_tags"] = [[names[i], int(count[i]), float(total[i]), float(top[i])] for i in order]
+    out["25_distinct_tags"] = [[names[i]] for i in np.unique(tags[year[tag_doc] == 1998])[:50]]
+
+    # every doc's (tag, num) pairs, a slice of docs at a time
+    pairs = np.zeros(N_TAGS * 100, dtype=np.int64)
+    pair_years = np.zeros(N_TAGS * 100, dtype=np.int64)
+    t_off, n_off = mv_offsets(data, "tags"), mv_offsets(data, "nums")
+    for lo in range(0, n, 1 << 20):
+        hi = min(n, lo + (1 << 20))
+        pos = np.arange(t_off[lo], t_off[hi])
+        doc = tag_doc[pos]
+        ln = data["nums_lens"][doc].astype(np.int64)
+        rep = np.repeat(np.arange(len(pos)), ln)
+        within = np.arange(len(rep)) - np.repeat(np.cumsum(ln) - ln, ln)
+        key = tags[pos][rep].astype(np.int64) * 100 + nums[n_off[doc][rep] + within]
+        pairs += np.bincount(key, minlength=N_TAGS * 100)
+        pair_years += np.bincount(key, weights=year[doc][rep], minlength=N_TAGS * 100).astype(np.int64)
+    order = sorted(np.flatnonzero(pairs), key=lambda k: (-pairs[k], k))[:20]
+    out["26_tag_num_pairs"] = [[names[k // 100], int(k % 100), int(pairs[k]), float(pair_years[k])] for k in order]
+
+    docs = np.flatnonzero(has42 & (year == 1996))[:10].tolist()
+    out["27_ragged_selection"] = [
+        [[names[i] for i in tags[t_off[d] : t_off[d + 1]]], nums[n_off[d] : n_off[d + 1]].tolist(), int(year[d])]
+        for d in docs
+    ]
+    tag_year = year[tag_doc]
+    out["27_distinctcountmv_by_year"] = [[y, len(np.unique(tags[tag_year == y]))] for y in range(1992, 1999)]
+    doc_sum = np.bincount(num_doc, weights=nums, minlength=n)
+    per_tag = np.bincount(tags, weights=doc_sum[tag_doc], minlength=N_TAGS)
+    present = np.flatnonzero(np.bincount(tags, minlength=N_TAGS))[:20]
+    out["27_mv_agg_under_mv_key"] = [[names[i], float(per_tag[i])] for i in present]
+    return out
+
+
 def rows_match(name: str, got: list, want: list) -> None:
     if len(got) != len(want):
         raise AssertionError(f"{name}: {len(got)} rows, oracle {len(want)}")
@@ -1653,7 +1937,8 @@ def _step_timing(torch, fn, cpu_fn, nbytes: int, library=None) -> dict:
     t0 = time.perf_counter()
     want = cpu_fn()
     cpu_ms = (time.perf_counter() - t0) * 1e3
-    if not torch.equal(got.cpu(), want):
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
         raise AssertionError("the step on the card differs from the same step on the CPU")
     device_ms, host_ms = device_and_host_ms(torch, fn)
     return {
@@ -1794,6 +2079,75 @@ def check_tag_steps(torch, engine, seg) -> dict:
     return out
 
 
+def check_mv_steps(torch, engine, seg) -> dict:
+    """The torch steps of configs 22-26 that no hand-written kernel carries,
+    at their main-path shapes over one MV segment (1M docs), each held
+    exactly against the same step on the CPU: mv_any's scatter-OR of a flat
+    predicate into doc space (config 22's tag = 'tag0042'), the value-space
+    gather of a doc mask (config 23's year = 1997 to nums' values) and
+    groups_mv2's pair expansion (config 26's tag x num pairs)."""
+    from pinot_tpu_torch.query import kernels as K
+    from pinot_tpu_torch.query.plan import plan_segment
+
+    def staged(sql, device):
+        plan = plan_segment(seg, engine.make_context(sql))
+        return (plan, *K.plan_inputs(plan, seg.to_device_cached(device)))
+
+    out = {}
+    dev = seg.to_device_cached("cuda")
+    n = dev.padded
+    cpu = torch.device("cpu")
+    plan, cols, ops = staged(MV_CONFIGS["22_tag_search"], "cuda")
+    _, ccols, cops = staged(MV_CONFIGS["22_tag_search"], "cpu")
+    any_spec = plan.spec[1]
+    assert any_spec[0] == "mv_any", any_spec
+    vpad = cols["tags"].numel()
+    pred = K._filter(any_spec[2], cols, ops, vpad, cols["tags"].device)
+    pred &= torch.arange(vpad, device="cuda") < ops[any_spec[3]]
+    docs64 = cols["tags!docs"].to(torch.int64)
+    hits = torch.zeros(n + 1, dtype=torch.uint8, device="cuda")
+    out["mv_any_scatter_or"] = {
+        "shape": {"n_docs": n, "n_values": vpad, "hits": int(pred.sum().item())},
+        # the flat ids and owning docs once, the doc mask once
+        **_step_timing(torch, lambda: K._filter(any_spec, cols, ops, n, cols["tags"].device),
+                       lambda: K._filter(any_spec, ccols, cops, n, cpu), vpad * 8 + n,
+                       lambda: hits.scatter_reduce_(0, docs64, pred.to(torch.uint8), "amax")),
+    }
+    plan, cols, ops = staged(MV_CONFIGS["23_mv_totals"], "cuda")
+    _, ccols, cops = staged(MV_CONFIGS["23_mv_totals"], "cpu")
+    agg = plan.spec[3][0]
+    assert agg[0] == "mv_count", agg
+    mask = K._filter(plan.spec[1], cols, ops, n, cols["nums"].device) & (torch.arange(n, device="cuda") < seg.n_docs)
+    cmask = mask.cpu()
+    vpad = cols["nums"].numel()
+    docs = K._owner_docs("nums", cols, n)
+    out["value_space_gather"] = {
+        "shape": {"n_docs": n, "n_values": vpad, "mask_on": int(mask.sum().item())},
+        # the owning docs and the doc mask once, the value mask once
+        **_step_timing(torch, lambda: K._mv_vmask("nums", agg[2], cols, ops, mask),
+                       lambda: K._mv_vmask("nums", agg[2], ccols, cops, cmask), vpad * 5 + n,
+                       lambda: torch.index_select(mask, 0, docs)),
+    }
+    plan, cols, ops = staged(MV_CONFIGS["26_tag_num_pairs"], "cuda")
+    _, ccols, cops = staged(MV_CONFIGS["26_tag_num_pairs"], "cpu")
+    gspec = plan.spec[2]
+    assert gspec[0] == "groups_mv2", gspec
+    mask = torch.arange(n, device="cuda") < seg.n_docs
+    cmask = mask.cpu()
+    va, lb = cols[gspec[4]].numel(), gspec[9]
+    nb = cols[gspec[6]].numel()
+    out["mv2_pair_expansion"] = {
+        "shape": {"n_docs": n, "base": gspec[4], "base_values": va, "lb": lb, "pairs": va * lb, "ng": gspec[2]},
+        # the doc mask, the base's ids and owning docs, the offset and length
+        # tables and the other column's ids once; the pair mask, gid and
+        # owning doc once
+        **_step_timing(torch, lambda: K.mv2_pairs(gspec, cols, ops, mask), lambda: K.mv2_pairs(gspec, ccols, cops, cmask),
+                       n + va * 8 + (n + 1) * 8 + nb * 4 + va * lb * 9),
+    }
+    emit({"phase": "new_device_steps_mv", "steps": out, "card": card_line()})
+    return out
+
+
 def run_main_path(torch, counters: dict) -> dict:
     from pinot_tpu_torch.query import QueryEngine
 
@@ -1865,6 +2219,39 @@ def run_main_path(torch, counters: dict) -> dict:
     torch.cuda.synchronize()
     emit({"phase": "config21_first_query", "ms": (time.perf_counter() - t0) * 1e3})
 
+    # configs 22-27's table
+    t0 = time.perf_counter()
+    mv_data = make_mv_data(MV_ROWS)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want.update(mv_oracle(mv_data))
+    t_oracle = time.perf_counter() - t0
+    mv_eng, mv_segments, t_build = mv_engine(mv_data)
+    n_values = {c: int(mv_data[c].size) for c in ("tags", "nums")}
+    del mv_data
+    t0 = time.perf_counter()
+    mv_staged = [seg.to_device_cached("cuda") for seg in mv_segments]
+    torch.cuda.synchronize()
+    emit(
+        {
+            "phase": "mv_setup",
+            "rows": MV_ROWS,
+            "segments": MV_SEGMENTS,
+            "flat_values": n_values,
+            "generate_s": t_gen,
+            "oracle_s": t_oracle,
+            "build_s": t_build,
+            "stage_s": time.perf_counter() - t0,
+            "staged_bytes": sum(t.numel() * t.element_size() for s in mv_staged for t in s.arrays.values()),
+            "staged_bytes_by_column": {
+                c: sum(s.arrays[c].numel() * s.arrays[c].element_size() for s in mv_staged)
+                for c in mv_staged[0].arrays
+            },
+            "cardinality_seg0": {c: ci.cardinality for c, ci in mv_segments[0].columns.items()},
+        }
+    )
+    new_steps.update(check_mv_steps(torch, mv_eng, mv_segments[0]))
+
     # the main path: every count from 0, one execute per config, counts read
     # after each config and at the end
     for fn in counters.values():
@@ -1910,6 +2297,16 @@ def run_main_path(torch, counters: dict) -> dict:
             raise AssertionError(f"{name}: segments by executor {modes[name]}, expected all {N_SEGMENTS} on the device")
     if not any(r[1] is None and r[3] is None and r[4] is None for r in want["21_null_kleene"] if r[0] == NULL_YEAR):
         raise AssertionError("21_null_kleene: the all-null year is not NULL")
+    for name, sql in {**MV_CONFIGS, **MV_HOST_CONFIGS}.items():
+        mv_eng.segment_modes.clear()
+        res = counted(name, per_segment(name, MV_SEGMENTS), lambda: mv_eng.execute(sql))
+        rows_match(name, res.rows, want[name])
+        modes[name] = dict(mv_eng.segment_modes)
+        expect = {"host" if name in MV_HOST_CONFIGS else "device": MV_SEGMENTS}
+        if modes[name] != expect:
+            raise AssertionError(f"{name}: segments by executor {modes[name]}, expected {expect}")
+        if res.total_docs != MV_ROWS:
+            raise AssertionError(f"{name}: totalDocs {res.total_docs}")
     main_launches = {k: fn.launches for k, fn in counters.items()}
     for k, v in main_launches.items():
         if v == 0:
@@ -1917,14 +2314,18 @@ def run_main_path(torch, counters: dict) -> dict:
     emit({"phase": "main_path", "results_match_oracle": True, "config10": config10,
           "launches_per_config": launches, "launches": main_launches, "segments_by_executor": modes})
 
-    walls = {name: wall_p50(engine, sql) for name, sql in CONFIGS.items()}
-    walls.update({name: wall_p50(ev_engine, sql) for name, sql in CONFIG_10.items()})
-    walls["10_both_submitted"] = wall_p50_of(lambda: drive_config10(ev_engine))
+    # every config ran once on the main path already: configs 1-21 take one
+    # more warm-up, configs 22-26 two; the host configs (14-16, 27) take
+    # seconds a query: no more warm-up and 3 runs
+    walls = {name: wall_p50(engine, sql, warm=1) for name, sql in CONFIGS.items()}
+    walls.update({name: wall_p50(ev_engine, sql, warm=1) for name, sql in CONFIG_10.items()})
+    walls["10_both_submitted"] = wall_p50_of(lambda: drive_config10(ev_engine), warm=1)
     host_engines = {name: mixed_engine if name == "16_mixed_executors" else engine for name in HOST_CONFIGS}
-    # the host configs take seconds a query: 1 warm-up and 3 runs
-    walls.update({name: wall_p50(host_engines[name], sql, warm=1, runs=3) for name, sql in HOST_CONFIGS.items()})
-    walls.update({name: wall_p50(engine, sql) for name, sql in TAG_CONFIGS.items()})
-    walls.update({name: wall_p50(null_engine, sql) for name, sql in NULL_CONFIGS.items()})
+    walls.update({name: wall_p50(host_engines[name], sql, warm=0, runs=3) for name, sql in HOST_CONFIGS.items()})
+    walls.update({name: wall_p50(engine, sql, warm=1) for name, sql in TAG_CONFIGS.items()})
+    walls.update({name: wall_p50(null_engine, sql, warm=1) for name, sql in NULL_CONFIGS.items()})
+    walls.update({name: wall_p50(mv_eng, sql) for name, sql in MV_CONFIGS.items()})
+    walls.update({name: wall_p50(mv_eng, sql, warm=0, runs=3) for name, sql in MV_HOST_CONFIGS.items()})
     emit(
         {
             "phase": "main_path_timing",
@@ -1938,6 +2339,7 @@ def run_main_path(torch, counters: dict) -> dict:
     split.update({name: breakdown(torch, host_engines[name], sql) for name, sql in HOST_CONFIGS.items()})
     split.update({name: breakdown(torch, engine, sql) for name, sql in TAG_CONFIGS.items()})
     split.update({name: breakdown(torch, null_engine, sql) for name, sql in NULL_CONFIGS.items()})
+    split.update({name: breakdown(torch, mv_eng, sql) for name, sql in {**MV_CONFIGS, **MV_HOST_CONFIGS}.items()})
     emit({"phase": "where_the_time_goes", "configs": split})
     return {"launches": main_launches, "new_steps": new_steps}
 
@@ -2022,10 +2424,10 @@ def main() -> int:
     report = build.build(["grouped_sum_count", "grouped_sum_count_2l", "grouped_extreme", "grouped_sum_f32"])
     emit({"phase": "build", "nvcc": build.nvcc_path(), "flags": list(build.NVCC_FLAGS), "report": report})
 
-    ssb = ssb_shapes(torch)
+    ssb = {**ssb_shapes(torch), **mv_shapes(torch)}
     timing = {
         "grouped_sum_count": check_kernels(torch, gb, ssb),
-        "grouped_sum_count_2l": check_two_level(torch, gb),
+        "grouped_sum_count_2l": check_two_level(torch, gb, ssb),
         "grouped_extreme": check_extreme(torch, ext, ssb),
         "grouped_sum_f32": check_sum_f32(torch, gs),
     }

@@ -52,6 +52,11 @@ class QueryEngine:
         #: executor of every segment resolved so far, by mode
         self.segment_modes: Counter = Counter()
 
+    def mv_columns(self) -> set[str]:
+        """The multi-value columns of the engine's segments, those appended
+        to `segments` since it was made included."""
+        return {name for seg in self.segments for name, ci in seg.columns.items() if ci.is_mv}
+
     # ------------------------------------------------------------------
 
     def make_context(self, sql: str) -> QueryContext:
@@ -59,8 +64,8 @@ class QueryEngine:
         stmt = parse_sql(sql)
         expand_star(stmt, self.segments[0].schema if self.segments else None)
         # filter rewrites (QueryOptimizer parity) run here, where the schema
-        # is known; this package builds no MV columns
-        stmt.where = optimize_filter(stmt.where, mv_cols=set())
+        # is known: range merging skips MV columns (any-match semantics)
+        stmt.where = optimize_filter(stmt.where, mv_cols=self.mv_columns())
         ctx = QueryContext.from_statement(stmt)
         if stmt.explain or stmt.explain_analyze:
             raise NotImplementedError("EXPLAIN is not ported to pinot_tpu_torch yet")
@@ -190,9 +195,10 @@ class QueryEngine:
         out = []
         for a, spec_entry, p in zip(ctx.aggregations, plan.spec[3], parts):
             spec_entry = _unwrapped(spec_entry)
-            if a.func == "count":
+            func = reduce_mod.twin(a.func)  # an MV partial is its SV twin's
+            if func == "count":
                 out.append(int(p))
-            elif a.func in reduce_mod.DISTINCT_AGGS:
+            elif func in reduce_mod.DISTINCT_AGGS:
                 # presence over dict ids -> the set of present values
                 out.append(_present_values(seg, spec_entry[1], np.asarray(p)))
             elif a.func in ("funnelcount", "funnelcompletecount"):
@@ -204,8 +210,8 @@ class QueryEngine:
             elif a.func == "percentileest":
                 lo, hi = ctx.hints["est_bounds"][a.name]
                 out.append((np.asarray(p), lo, hi))
-            elif a.func in ("avg", "minmaxrange"):
-                out.append((float(p[0]), int(p[1]) if a.func == "avg" else float(p[1])))
+            elif func in ("avg", "minmaxrange"):
+                out.append((float(p[0]), int(p[1]) if func == "avg" else float(p[1])))
             else:
                 out.append(float(p))
         return out
@@ -231,7 +237,7 @@ class QueryEngine:
             frame[f"k{i}"] = vals.astype(str) if vals.dtype == object else vals
         for i, (a, spec_entry, p) in enumerate(zip(ctx.aggregations, plan.spec[3], parts)):
             spec_entry = _unwrapped(spec_entry)
-            if a.func in ("avg", "minmaxrange"):
+            if reduce_mod.twin(a.func) in ("avg", "minmaxrange"):
                 frame[f"a{i}p0"] = np.asarray(p[0])[pg]
                 frame[f"a{i}p1"] = np.asarray(p[1])[pg]
             elif a.func in reduce_mod.DISTINCT_AGGS:

@@ -22,10 +22,13 @@ Under enableNullHandling it reads the segments' null vectors as the
 reference's does: a WHERE or FILTER is three-valued (`filter_mask_null_aware`,
 Kleene logic), aggregations skip the docs where their argument is null, a
 null GROUP BY key forms a group of its own, and a selected null cell comes
-out as None. Segments of this package carry no multi-value columns: the
-reference's MV branches have no counterpart here, and an MV column raises
-NotImplementedError naming ROADMAP A4b; the index probes (map, JSON, text,
-vector) name A6.
+out as None. A multi-value column filters by any-match (NEQ and NOT IN
+match the docs where no value does), aggregates through the *MV functions
+(each a partial of its single-value twin's format), and as a GROUP BY or
+DISTINCT key explodes: each doc joins once per value (per cartesian
+combination of several MV keys), a doc with no value joins no group. A
+selected MV cell is a Python list. The index probes (map, JSON, text,
+vector) raise NotImplementedError naming ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -39,16 +42,17 @@ import numpy as np
 
 from pinot_tpu_torch.query import ast
 from pinot_tpu_torch.query import funnel
-from pinot_tpu_torch.query.aggregates import EXT_AGGS, _td_comp, _theta_compute, parse_theta_extra
+from pinot_tpu_torch.query.aggregates import EXT_AGGS, _hpp_p, _kll_k, _td_comp, _theta_compute, parse_theta_extra
 from pinot_tpu_torch.query.context import (
     QueryContext,
     _collect_filter_identifiers,
     _collect_identifiers,
     null_handling_enabled,
 )
+from pinot_tpu_torch.query.distinct_sketch import hllplus_registers
 from pinot_tpu_torch.query.plan import _FLIP, PlanError, _like_to_regex, group_strides
-from pinot_tpu_torch.query.quantile_sketch import td_from_values
-from pinot_tpu_torch.query.reduce import group_index, parts_of
+from pinot_tpu_torch.query.quantile_sketch import kll_from_values, td_from_values
+from pinot_tpu_torch.query.reduce import group_index, parts_of, stable_order
 from pinot_tpu_torch.query.sketches import np_est_hist, np_hll_registers
 from pinot_tpu_torch.query.transforms import DEVICE_FUNCS, STRING_FUNCS, apply_string_func, rewrite_time_convert
 from pinot_tpu_torch.segment.segment import ImmutableSegment
@@ -56,10 +60,6 @@ from pinot_tpu_torch.segment.segment import ImmutableSegment
 #: aggregations whose FILTER (WHERE) the group frame applies with a mask;
 #: every other one NaN-masks its excluded rows and skips them
 _FILTERED_OK = ("count", "sum", "min", "max", "avg", "minmaxrange")
-
-
-def _not_staged(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to pinot_tpu_torch yet (ROADMAP A4b: MV columns)")
 
 
 def _no_index(what: str) -> NotImplementedError:
@@ -70,18 +70,48 @@ def _column(seg: ImmutableSegment, name: str):
     ci = seg.columns.get(name)
     if ci is None:
         raise PlanError(f"unknown column {name!r}")
-    if ci.is_mv:
-        raise _not_staged(f"multi-value column {name!r}")
     return ci
 
 
 def _dict_column(seg: ImmutableSegment, expr):
-    """The ColumnIndex when `expr` names a dictionary-encoded column, else None."""
+    """The ColumnIndex when `expr` names a single-value dictionary-encoded
+    column, else None."""
     if isinstance(expr, ast.Identifier) and expr.name in seg.columns:
         ci = _column(seg, expr.name)
-        if ci.is_dict_encoded:
+        if ci.is_dict_encoded and not ci.is_mv:
             return ci
     return None
+
+
+def _mv_column(seg: ImmutableSegment, expr):
+    """The ColumnIndex when `expr` names a multi-value column, else None."""
+    if isinstance(expr, ast.Identifier):
+        ci = seg.columns.get(expr.name)
+        if ci is not None and ci.is_mv:
+            return ci
+    return None
+
+
+def _mv_flat_values(ci) -> np.ndarray:
+    return ci.dictionary.get_many(ci.forward) if ci.dictionary is not None else ci.forward
+
+
+def _mv_flat_pred(ci, pred) -> np.ndarray:
+    """pred over an MV column's flat values (per dictionary value, gathered
+    by id, when it has a dictionary)."""
+    if ci.dictionary is None:
+        return np.asarray(pred(ci.forward), dtype=bool)
+    lut = np.asarray(pred(ci.dictionary.values), dtype=bool)
+    if lut.ndim == 0:
+        return np.full(len(ci.forward), bool(lut))
+    return lut[ci.forward]
+
+
+def _mv_any_match(ci, flat_pred: np.ndarray) -> np.ndarray:
+    """A flat per-value predicate as per-doc any-match (the host twin of the
+    program's `mv_any`)."""
+    hits = ci.flat_docids()[np.asarray(flat_pred, dtype=bool)]
+    return np.bincount(hits, minlength=len(ci.lens)) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +227,34 @@ def _eval_function(seg: ImmutableSegment, expr: ast.FunctionCall) -> np.ndarray:
         ):
             return out.astype(np.float64)
         return out
+    if name in _ARRAY_FUNCS and len(expr.args) == 1:
+        mvci = _mv_column(seg, expr.args[0])
+        if mvci is not None:
+            return _ARRAY_FUNCS[name](mvci)
+    if name in _VECTOR_UNARY and len(expr.args) == 1:
+        mvci = _mv_column(seg, expr.args[0])
+        if mvci is not None:
+            vecs = _vectors_of(mvci)
+            if name == "vectordims":
+                return np.full(len(vecs), vecs.shape[1], dtype=np.int64)
+            return np.sqrt((vecs * vecs).sum(axis=-1))
+    if name in _VECTOR_BINARY and len(expr.args) == 2:
+        sides = []
+        for a in expr.args:
+            mvci = _mv_column(seg, a)
+            if mvci is not None:
+                sides.append(_vectors_of(mvci))
+            elif isinstance(a, ast.ArrayLiteral):
+                sides.append(np.asarray([float(v) for v in a.values])[None, :])
+            else:
+                sides = None
+                break
+        if sides is not None and sides[0].shape[-1] == sides[1].shape[-1]:
+            res = _vector_binary(name, sides[0], sides[1])
+            if res.shape[0] == 1 and seg.n_docs != 1:
+                # both sides literal: one value for every doc
+                res = np.full(seg.n_docs, float(res[0]))
+            return res
     if name in DEVICE_FUNCS:
         _, fn = DEVICE_FUNCS[name]
         # the functions take their array namespace first: numpy here
@@ -208,6 +266,76 @@ def _eval_function(seg: ImmutableSegment, expr: ast.FunctionCall) -> np.ndarray:
         derived, _ = apply_string_func(name, base, lit_args)
         return derived
     raise PlanError(f"unsupported value expression in host executor: {expr}")
+
+
+def _array_length(ci) -> np.ndarray:
+    return np.asarray(ci.lens, dtype=np.int64)
+
+
+def _array_numeric_reduce(ci, op: str) -> np.ndarray:
+    """Per-doc reduction over an MV column's values (Array{Sum,Min,Max,
+    Average}TransformFunction); an empty list reduces to NaN."""
+    flat = _mv_flat_values(ci)
+    if flat.dtype == object or flat.dtype.kind in ("U", "S"):
+        raise PlanError(f"{op} requires a numeric multi-value column")
+    flat = flat.astype(np.float64)
+    docs = ci.flat_docids()
+    n = len(ci.lens)
+    if op in ("arraysum", "arrayaverage"):
+        s = np.zeros(n, dtype=np.float64)
+        np.add.at(s, docs, flat)
+        if op == "arrayaverage":
+            s = s / np.maximum(np.asarray(ci.lens, dtype=np.float64), 1.0)
+    elif op == "arraymin":
+        s = np.full(n, np.inf)
+        np.minimum.at(s, docs, flat)
+    else:  # arraymax
+        s = np.full(n, -np.inf)
+        np.maximum.at(s, docs, flat)
+    return np.where(np.asarray(ci.lens) == 0, np.nan, s)
+
+
+_ARRAY_FUNCS = {
+    "arraylength": _array_length,
+    "cardinality": _array_length,
+    "arraysum": lambda ci: _array_numeric_reduce(ci, "arraysum"),
+    "arrayaverage": lambda ci: _array_numeric_reduce(ci, "arrayaverage"),
+    "arraymin": lambda ci: _array_numeric_reduce(ci, "arraymin"),
+    "arraymax": lambda ci: _array_numeric_reduce(ci, "arraymax"),
+}
+
+#: VectorTransformFunctions parity: the binary distances / similarity of a
+#: float MV column and an ARRAY[...] literal (or two MV columns), and the
+#: unary VECTORDIMS / VECTORNORM
+_VECTOR_BINARY = ("cosinedistance", "innerproduct", "l1distance", "l2distance")
+_VECTOR_UNARY = ("vectordims", "vectornorm")
+
+
+def _vectors_of(ci) -> np.ndarray:
+    """(n_docs, dim) float matrix of a uniform-length numeric MV column."""
+    flat = _mv_flat_values(ci)
+    if flat.dtype == object or flat.dtype.kind in ("U", "S"):
+        raise PlanError("vector functions require a numeric multi-value column")
+    lens = np.asarray(ci.lens)
+    if len(lens) == 0 or (lens != lens[0]).any() or lens[0] == 0:
+        raise PlanError("vector functions require uniform non-empty vector lengths")
+    return flat.astype(np.float64).reshape(len(lens), int(lens[0]))
+
+
+def _vector_binary(name: str, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    if name == "innerproduct":
+        return (a * b).sum(axis=-1)
+    if name == "l1distance":
+        return np.abs(a - b).sum(axis=-1)
+    if name == "l2distance":
+        return np.sqrt(((a - b) ** 2).sum(axis=-1))
+    # cosinedistance: 1 - cosine similarity, NaN for a zero-norm row
+    na = np.sqrt((a * a).sum(axis=-1))
+    nb = np.sqrt((b * b).sum(axis=-1))
+    denom = na * nb
+    with np.errstate(invalid="ignore", divide="ignore"):
+        sim = (a * b).sum(axis=-1) / denom
+    return np.where(denom == 0, np.nan, 1.0 - sim)
 
 
 def eval_rows(seg: ImmutableSegment, expr: ast.Expr, rows: np.ndarray) -> np.ndarray:
@@ -269,12 +397,19 @@ def filter_mask(seg: ImmutableSegment, f: ast.FilterExpr | None) -> np.ndarray:
         if not isinstance(right, ast.Literal):
             return np.asarray(_CMPS[op](eval_value(seg, left), eval_value(seg, right)), dtype=bool)
         rv = right.value
+        mvci = _mv_column(seg, left)
+        # an MV column: any value matches; NEQ is an exclusion, the docs where
+        # no value equals (an empty list included)
+        pos_op = ast.CompareOp.EQ if mvci is not None and op == ast.CompareOp.NEQ else op
 
         def cmp(lv):
             if isinstance(rv, str) and lv.dtype == object:
                 lv = lv.astype(str)
-            return _CMPS[op](lv, rv)
+            return _CMPS[pos_op](lv, rv)
 
+        if mvci is not None:
+            m = _mv_any_match(mvci, _mv_flat_pred(mvci, cmp))
+            return ~m if op == ast.CompareOp.NEQ else m
         return _pred_mask(seg, left, cmp)
     if isinstance(f, ast.Between):
         lo = f.low.value if isinstance(f.low, ast.Literal) else None
@@ -287,7 +422,8 @@ def filter_mask(seg: ImmutableSegment, f: ast.FilterExpr | None) -> np.ndarray:
                 v = v.astype(str)
             return (v >= lo) & (v <= hi)
 
-        m = _pred_mask(seg, f.expr, between)
+        mvci = _mv_column(seg, f.expr)
+        m = _mv_any_match(mvci, _mv_flat_pred(mvci, between)) if mvci is not None else _pred_mask(seg, f.expr, between)
         return ~m if f.negated else m
     if isinstance(f, ast.In):
         vals = [x.value for x in f.values if isinstance(x, ast.Literal)]
@@ -299,7 +435,8 @@ def filter_mask(seg: ImmutableSegment, f: ast.FilterExpr | None) -> np.ndarray:
                 want = [str(x) for x in vals]
             return np.isin(v, np.asarray(want))
 
-        m = _pred_mask(seg, f.expr, isin)
+        mvci = _mv_column(seg, f.expr)
+        m = _mv_any_match(mvci, _mv_flat_pred(mvci, isin)) if mvci is not None else _pred_mask(seg, f.expr, isin)
         return ~m if f.negated else m
     if isinstance(f, ast.Like):
         rx = re.compile(_like_to_regex(f.pattern))
@@ -509,6 +646,189 @@ def _theta_filtered_partial(seg: ImmutableSegment, a, mask: np.ndarray):
     return ("multi", [_theta_compute(v[mask & fm], None, ()) for fm in fmasks])
 
 
+# -- MV aggregations: partials in their single-value twin's format --------
+
+_MV_AGGS = (
+    "countmv",
+    "summv",
+    "minmv",
+    "maxmv",
+    "avgmv",
+    "distinctcountmv",
+    "minmaxrangemv",
+    "distinctsummv",
+    "distinctavgmv",
+    "distinctcountbitmapmv",
+    "distinctcounthllmv",
+    "percentilemv",
+    "percentileestmv",
+    "percentiletdigestmv",
+    "percentilekllmv",
+    "percentilerawestmv",
+    "percentilerawtdigestmv",
+    "percentilerawkllmv",
+    "distinctcounthllplusmv",
+    "distinctcountrawhllmv",
+    "distinctcountrawhllplusmv",
+)
+#: set partials (the twins merge by union)
+_MV_SET_AGGS = ("distinctcountmv", "distinctsummv", "distinctavgmv", "distinctcountbitmapmv", "distinctcounthllmv")
+#: the matched flat values (or a quantile sketch of them) as the partial
+_MV_VALUES_AGGS = (
+    "percentilemv",
+    "percentileestmv",
+    "percentiletdigestmv",
+    "percentilekllmv",
+    "percentilerawestmv",
+    "percentilerawtdigestmv",
+    "percentilerawkllmv",
+)
+#: HLL-register partials (the twins merge by elementwise max)
+_MV_REG_AGGS = ("distinctcounthllplusmv", "distinctcountrawhllmv", "distinctcountrawhllplusmv")
+
+
+def _mv_agg_column(seg: ImmutableSegment, a):
+    if not isinstance(a.arg, ast.Identifier):
+        raise PlanError(f"{a.func} requires an MV column argument")
+    ci = seg.columns.get(a.arg.name)
+    if ci is None or not ci.is_mv:
+        raise PlanError(f"{a.func} requires a multi-value column")
+    return ci
+
+
+def _mv_values_to_twin(func: str, arr: np.ndarray, extra: tuple):
+    """Matched flat values -> the twin's partial: a t-digest or a KLL sketch
+    for the sketch twins, else the float64 values."""
+    arr = np.asarray(arr, dtype=np.float64)
+    if func in ("percentiletdigestmv", "percentilerawtdigestmv", "percentilerawestmv"):
+        return td_from_values(arr, _td_comp(extra))
+    if func in ("percentilekllmv", "percentilerawkllmv"):
+        return kll_from_values(arr, _kll_k(extra))
+    return arr
+
+
+def _mv_registers(func: str, values: np.ndarray, extra: tuple) -> np.ndarray:
+    if func in ("distinctcounthllplusmv", "distinctcountrawhllplusmv"):
+        return hllplus_registers(values, _hpp_p(extra))
+    return np_hll_registers(values)
+
+
+def _mv_scalar_partial(func: str, flat: np.ndarray, extra: tuple = ()):
+    """The partial of an MV aggregation over the matched flat values."""
+    if func == "countmv":
+        return int(len(flat))
+    if func in _MV_SET_AGGS:
+        return set(flat.tolist())
+    if func in _MV_VALUES_AGGS:
+        return _mv_values_to_twin(func, flat, extra)
+    if func in _MV_REG_AGGS:
+        return _mv_registers(func, flat, extra)
+    v = flat.astype(np.float64)
+    if func == "summv":
+        return float(v.sum())
+    if func == "minmv":
+        return float(v.min()) if len(v) else float("inf")
+    if func == "maxmv":
+        return float(v.max()) if len(v) else float("-inf")
+    if func == "minmaxrangemv":
+        return (float(v.min()) if len(v) else float("inf"), float(v.max()) if len(v) else float("-inf"))
+    # avgmv
+    return (float(v.sum()), int(len(v)))
+
+
+def _mv_doc_partials(func: str, ci, rows: np.ndarray, keep: np.ndarray | None) -> list[np.ndarray]:
+    """Per-doc pre-aggregates of a numeric MV aggregation at the frame's
+    `rows` (doc ids, repeated where an MV key explodes a doc), so the group
+    merge needs only the twin's sum / min / max. `keep` (a FILTER (WHERE), at
+    `rows`): an excluded row keeps its place with a neutral partial."""
+    if func == "countmv":
+        lens = ci.lens[rows].astype(np.int64)
+        return [lens if keep is None else np.where(keep, lens, 0)]
+    v = _mv_flat_values(ci).astype(np.float64)
+    docids = ci.flat_docids()
+    n = len(ci.lens)
+
+    def doc_reduce(ufunc, start):
+        if ufunc is np.add:
+            out = np.bincount(docids, weights=v, minlength=n)  # in flat order, as add.at
+        else:
+            out = np.full(n, start)
+            ufunc.at(out, docids, v)
+        out = out[rows]
+        return out if keep is None else np.where(keep, out, start)
+
+    if func == "summv":
+        return [doc_reduce(np.add, 0.0)]
+    if func == "minmv":
+        return [doc_reduce(np.minimum, np.inf)]
+    if func == "maxmv":
+        return [doc_reduce(np.maximum, -np.inf)]
+    if func == "minmaxrangemv":
+        return [doc_reduce(np.minimum, np.inf), doc_reduce(np.maximum, -np.inf)]
+    # avgmv
+    lens = ci.lens[rows].astype(np.int64)
+    return [doc_reduce(np.add, 0.0), lens if keep is None else np.where(keep, lens, 0)]
+
+
+def _mv_group_values(ci, rows, keep, grp: "_Groups") -> tuple[np.ndarray, np.ndarray]:
+    """(group, flat position) of each value of an MV column the frame's rows
+    hold, in row order and within a row in value order (the reference
+    concatenates its rows' value arrays so); a row `keep` excludes holds
+    none."""
+    group = grp.group
+    if keep is not None:
+        rows, group = rows[keep], group[keep]
+    lens = ci.lens[rows].astype(np.int64)
+    take = np.repeat(np.arange(len(rows)), lens)
+    pos = ci.offsets()[:-1][rows][take] + (np.arange(len(take)) - np.repeat(np.cumsum(lens) - lens, lens))
+    return group[take], pos
+
+
+#: largest (groups x dictionary) presence count of a host MV set aggregation
+MV_PRESENCE_CELLS = 1 << 24
+
+
+def _mv_group_sets(ci, group: np.ndarray, pos: np.ndarray, n_groups: int) -> list[set]:
+    """Each group's set of an MV column's values at flat positions `pos`; of
+    a dictionary column from a (group, id) presence count, no sort."""
+    if ci.dictionary is not None and n_groups * max(ci.cardinality, 1) <= MV_PRESENCE_CELLS:
+        card = max(ci.cardinality, 1)
+        seen = np.bincount(group * card + ci.forward[pos], minlength=n_groups * card).reshape(n_groups, card) > 0
+        return [set(ci.dictionary.values[np.flatnonzero(row)].tolist()) for row in seen]
+    flat = _mv_flat_values(ci)
+    order = stable_order(group, n_groups)
+    bounds = np.searchsorted(group[order], np.arange(n_groups + 1))
+    return [set(flat[pos[order[bounds[g] : bounds[g + 1]]]].tolist()) for g in range(n_groups)]
+
+
+def _mv_group_partials(a, ci, rows, fmask, grp: "_Groups") -> list[np.ndarray]:
+    """An MV aggregation's partial columns over a group frame's groups."""
+    n_groups = len(grp.size)
+    out = np.empty(n_groups, dtype=object)
+    if a.func in _MV_VALUES_AGGS:
+        group, pos = _mv_group_values(ci, rows, fmask, grp)
+        order = stable_order(group, n_groups)
+        bounds = np.searchsorted(group[order], np.arange(n_groups + 1))
+        flat = _mv_flat_values(ci)[pos[order]].astype(np.float64)
+        for g in range(n_groups):
+            out[g] = _mv_values_to_twin(a.func, flat[bounds[g] : bounds[g + 1]], a.extra)
+        return [out]
+    if a.func in _MV_SET_AGGS or a.func in _MV_REG_AGGS:
+        for g, vals in enumerate(_mv_group_sets(ci, *_mv_group_values(ci, rows, fmask, grp), n_groups)):
+            # a register partial is made once from the group's merged set
+            out[g] = _mv_registers(a.func, np.asarray(list(vals)), a.extra) if a.func in _MV_REG_AGGS else vals
+        return [out]
+    docp = _mv_doc_partials(a.func, ci, rows, fmask)
+    if a.func in ("countmv", "summv"):
+        return [grp.sum(docp[0])]
+    if a.func in ("minmv", "maxmv"):
+        return [grp.extreme(docp[0], a.func == "minmv")]
+    if a.func == "minmaxrangemv":
+        return [grp.extreme(docp[0], True), grp.extreme(docp[1], False)]
+    # avgmv
+    return [grp.sum(docp[0]), grp.sum(docp[1])]
+
+
 def _mode_counter(v: np.ndarray) -> dict:
     vals, counts = np.unique(v, return_counts=True)
     return {float(k): int(c) for k, c in zip(vals, counts)}
@@ -533,6 +853,11 @@ def agg_partials(seg: ImmutableSegment, ctx: QueryContext, query_mask: np.ndarra
                 mask = mask & ~nulls
         if a.func == "count":
             out.append(int(mask.sum()))
+            continue
+        if a.func in _MV_AGGS:
+            ci = _mv_agg_column(seg, a)
+            flat = _mv_flat_values(ci)[mask[ci.flat_docids()]]
+            out.append(_mv_scalar_partial(a.func, flat, a.extra))
             continue
         if a.func in funnel.FUNNEL_AGGS:
             out.append(funnel.segment_partial(seg, a, mask))
@@ -591,7 +916,7 @@ class _Groups:
     def __init__(self, group: np.ndarray, n_groups: int):
         self.group = group
         self.size = np.bincount(group, minlength=n_groups).astype(np.int64)
-        self.order = np.argsort(group, kind="stable")
+        self.order = stable_order(group, n_groups)
         self.ends = np.cumsum(self.size)
         self.starts = self.ends - self.size
 
@@ -632,17 +957,69 @@ class _Groups:
         return ufunc.reduceat(v.astype(np.float64)[self.order], self.starts)
 
 
+def _explode(seg: ImmutableSegment, exprs: list, rows: np.ndarray) -> tuple[np.ndarray, dict[int, np.ndarray]]:
+    """The frame's rows with every MV key exploded (pandas' explode, one key
+    after the other): each doc repeats once per value of its first MV key,
+    each of those once per value of the next, ... A doc with no value of an
+    MV key (and a NaN value of a float one, which the reference's dropna
+    drops) leaves no row. Returns (the doc of each row, {key index: the flat
+    value position of each row})."""
+    pos: dict[int, np.ndarray] = {}
+    for i, e in enumerate(exprs):
+        ci = _mv_column(seg, e)
+        if ci is None:
+            continue
+        if not pos and len(rows) == len(ci.lens):
+            # every doc, no key exploded yet: the rows are the flat values
+            rows, pos[i] = ci.flat_docids().astype(np.int64), np.arange(len(ci.forward))
+        else:
+            lens = ci.lens[rows].astype(np.int64)
+            take = np.repeat(np.arange(len(rows)), lens)
+            within = np.arange(len(take)) - np.repeat(np.cumsum(lens) - lens, lens)
+            rows = rows[take]
+            pos = {k: p[take] for k, p in pos.items()}
+            pos[i] = ci.offsets()[:-1][rows] + within
+        flat = ci.dictionary.values if ci.dictionary is not None else ci.forward
+        if flat.dtype.kind == "f":
+            keep = ~np.isnan(flat[ci.forward[pos[i]]] if ci.dictionary is not None else flat[pos[i]])
+            rows = rows[keep]
+            pos = {k: p[keep] for k, p in pos.items()}
+    return rows, pos
+
+
+def _mv_key(v: np.ndarray) -> np.ndarray:
+    """An MV key column's values as the reference's exploded column holds
+    them: text as str, integers as int64, floats as float64."""
+    if v.dtype == object or v.dtype.kind in "US":
+        return v.astype(str)
+    if v.dtype.kind in "iu":
+        return v.astype(np.int64)
+    return v.astype(np.float64) if v.dtype.kind == "f" else v
+
+
 def _key_columns(seg: ImmutableSegment, exprs: list, rows: np.ndarray, null_keys: bool = False):
-    """(grouping arrays, decode(first rows) -> key columns): a dictionary
-    column groups by its ids; any other key by its values, strings as
-    fixed-width text (the reference's `astype(str)`). Keys that are all
-    dictionary columns group by one combined id. With `null_keys` (null
-    handling), the docs where a key is null group apart, by a null flag
+    """(grouping arrays, decode(first rows) -> key columns, the frame's
+    rows): a dictionary column groups by its ids; any other key by its
+    values, strings as fixed-width text (the reference's `astype(str)`). Keys
+    that are all dictionary columns group by one combined id. MV keys explode
+    (`_explode`), so the frame's rows are docs, repeated. With `null_keys`
+    (null handling), the docs where a key is null group apart, by a null flag
     beside the key, and decode as missing (`_null_key`)."""
+    rows, pos = _explode(seg, exprs, rows)
     keys, decoders, cards, flags = [], [], [], []
-    for e in exprs:
+    for i, e in enumerate(exprs):
+        mvci = _mv_column(seg, e)
         ci = _dict_column(seg, e)
-        if ci is not None:
+        if mvci is not None and mvci.is_dict_encoded:
+            ids = mvci.forward[pos[i]]
+            keys.append(ids)
+            cards.append(max(mvci.cardinality, 1))
+            dec = lambda first, ci=mvci, ids=ids: _mv_key(ci.dictionary.get_many(ids[first]))  # noqa: E731
+        elif mvci is not None:
+            v = _mv_key(mvci.forward[pos[i]])
+            keys.append(v)
+            dec = lambda first, v=v: v[first]  # noqa: E731
+        elif ci is not None:
             ids = ci.forward[rows]
             keys.append(ids)
             cards.append(max(ci.cardinality, 1))
@@ -659,7 +1036,7 @@ def _key_columns(seg: ImmutableSegment, exprs: list, rows: np.ndarray, null_keys
         decoders.append(dec)
     if len(keys) > 1 and len(cards) == len(keys) and math.prod(cards) < (1 << 62):
         keys = [sum(k.astype(np.int64) * s for k, s in zip(keys, group_strides(cards).tolist()))]
-    return keys + flags, decoders
+    return keys + flags, decoders, rows
 
 
 def _null_key(v: np.ndarray, null: np.ndarray) -> np.ndarray:
@@ -692,10 +1069,9 @@ def group_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray) -> d
     """The segment's group frame: keys k0.., partials a{i}p{j}, one row a
     group in order of first appearance."""
     null_on = null_handling_enabled(ctx.options)
-    rows = np.flatnonzero(mask)
+    keys, decoders, rows = _key_columns(seg, ctx.group_by, np.flatnonzero(mask), null_keys=null_on)
     if len(rows) == 0:
         return _empty_group_frame(ctx)
-    keys, decoders = _key_columns(seg, ctx.group_by, rows, null_keys=null_on)
     group, first = group_index(keys)
     grp = _Groups(group, len(first))
     frame: dict[str, np.ndarray] = {f"k{i}": dec(first) for i, dec in enumerate(decoders)}
@@ -713,6 +1089,8 @@ def _group_partials(seg, ctx, a, rows, fmask, nulls, grp: _Groups) -> list[np.nd
     under null handling, the rows where its argument is null (else None)."""
     filtered = fmask is not None
     null_on = null_handling_enabled(ctx.options)
+    if a.func in _MV_AGGS:
+        return _mv_group_partials(a, _mv_agg_column(seg, a), rows, fmask, grp)
     if a.func == "count":
         if nulls is not None and a.arg is not None:
             # COUNT(col) under null handling counts the non-null rows
@@ -816,8 +1194,7 @@ def _funnel_cells(seg, a, rows, fmask, grp: _Groups) -> np.ndarray:
 def distinct_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray) -> dict[str, np.ndarray]:
     """The distinct key rows of the segment, first occurrences in row order
     (pandas' drop_duplicates)."""
-    rows = np.flatnonzero(mask)
-    keys, decoders = _key_columns(seg, [it.expr for it in ctx.select_items], rows)
+    keys, decoders, rows = _key_columns(seg, [it.expr for it in ctx.select_items], np.flatnonzero(mask))
     if len(rows) == 0:
         return {f"k{i}": k for i, k in enumerate(keys)}
     _, first = group_index(keys)
@@ -826,8 +1203,13 @@ def distinct_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarray) -
 
 def _selected(seg: ImmutableSegment, ctx: QueryContext, expr, rows: np.ndarray) -> np.ndarray:
     """A selected expression's values at `rows`, null cells None under null
-    handling."""
+    handling, an MV column's cells Python lists."""
     v = eval_rows(seg, expr, rows)
+    if _mv_column(seg, expr) is not None:
+        cells = np.empty(len(v), dtype=object)
+        for j, c in enumerate(v):
+            cells[j] = c.tolist()
+        return cells
     nm = _selection_nulls(seg, ctx, expr)
     return v if nm is None else _null_subst(v, nm[rows])
 

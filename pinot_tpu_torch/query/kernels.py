@@ -51,14 +51,28 @@ JAX semantics the evaluator reproduces where torch's differ:
  * type promotion — a 0-d operand takes part in promotion like any array
    (torch would let the dimensioned side win within a category), so binary
    ops promote both sides explicitly with torch.promote_types;
- * gathers clip out-of-range indices (torch raises), see `_gather`;
- * scatters drop out-of-range group ids, see `_in_range`;
+ * gathers clip out-of-range indices (torch raises), see `_gather` and
+   `_owner_docs`;
+ * scatters drop out-of-range group ids, see `_in_range`, and `mv_any`'s
+   scatter over the owning docs lands the padding in a slot past the docs;
  * `jnp.mod` is floor-mod: torch.remainder, not fmod (`torch_ns.remainder`,
    which also gives XLA's 0 for an integer divisor of 0).
 
+Multi-value columns are flattened CSR (segment.ColumnIndex): a flat value
+vector and the owning doc of each value (`"{col}!docs"`, padding positions at
+`pad`, past the padded docs). `mv_any` evaluates its predicate over the flat
+values and ORs it into doc space; the *MV aggregations (`mv_count`,
+`mv_distinct_ids`, `mv_sum|min|max|avg`) gather the doc mask to the value
+positions and reduce as their single-value twins; a GROUP BY over one MV key
+(`groups_mv`) or two (`groups_mv2`, each doc's cartesian pairs in a dense
+pair space) runs the grouped set above in value space, every doc-space value
+and FILTER mask gathered through the owning docs first. A value space is its
+own set of launches: one exact group-by launch (and one extreme call) for all
+the grouped *MV aggregations of one MV column, one presences call for all the
+DISTINCTCOUNTMVs of one column.
+
 Spec tags outside this module's set raise NotImplementedError naming the tag:
-the multi-value tags (`mv_any`, `mv_*`, `groups_mv`, `groups_mv2`; ROADMAP
-A4b) and the multistage `mask` program (A8).
+the multistage `mask` program (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -90,6 +104,27 @@ def _unsupported(kind: str, what: str):
 def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx] with JAX's gather semantics: indices clip into range."""
     return torch.index_select(table, 0, idx.clamp(0, table.shape[0] - 1))
+
+
+def _take(v: torch.Tensor, idx: torch.Tensor | None) -> torch.Tensor:
+    """A doc-space vector in the grouped space: v[idx] for in-range idx, a
+    0-d v (a literal) as it is."""
+    return v if idx is None or v.dim() == 0 else torch.index_select(v, 0, idx)
+
+
+def _owner_docs(col: str, cols, n_padded: int) -> torch.Tensor:
+    """The owning doc of each flat value of MV column `col`, its padding
+    (`pad`, one past the padded docs) clipped to the last doc as JAX's
+    gathers clip it: every read through it is masked by the value validity."""
+    return cols[f"{col}!docs"].clamp(max=n_padded - 1)
+
+
+def _mv_vmask(col: str, nv_idx: int, cols, ops, mask) -> torch.Tensor:
+    """The per-flat-value mask of an MV aggregation: the doc mask gathered to
+    each value position, AND the flat padding's validity."""
+    flat = cols[col]
+    valid = torch.arange(flat.shape[0], dtype=torch.int32, device=flat.device) < ops[nv_idx]
+    return torch.index_select(mask, 0, _owner_docs(col, cols, mask.shape[0])) & valid
 
 
 def _promote(l: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -254,6 +289,17 @@ def _filter(fspec, cols, ops, n_padded, device):
             vals = vals.to(v.dtype)
         pos = torch.searchsorted(vals, v.contiguous()).clamp(0, vals.shape[0] - 1)
         return torch.index_select(vals, 0, pos) == v
+    if kind == "mv_any":
+        # MV any-match: the inner predicate over the flat values, masked to
+        # the real ones, OR'd into doc space by a count of hits a doc. The
+        # padding docids (pad) land in one slot past the docs, cut off
+        _, col, inner, nv_idx = fspec
+        flat = cols[col]
+        pred = _filter(inner, cols, ops, flat.shape[0], device)
+        pred = pred & (torch.arange(flat.shape[0], dtype=torch.int32, device=device) < ops[nv_idx])
+        hits = torch.zeros(n_padded + 1, dtype=torch.int32, device=device)
+        hits.index_add_(0, cols[f"{col}!docs"], pred.to(torch.int32))
+        return hits[:n_padded] > 0
     raise _unsupported(kind, "filter")
 
 
@@ -295,10 +341,29 @@ def _bins(aspec, cols, ops, n_padded) -> torch.Tensor:
     return torch.nan_to_num(b, nan=0.0).clamp(0, aspec[4] - 1).to(torch.int32)
 
 
+#: an *MV aggregation's single-value twin, which reduces its flat values
+_MV_INNER = {"mv_sum": "sum", "mv_min": "min", "mv_max": "max", "mv_avg": "avg"}
+
+
+def _mv_inner(aspec) -> tuple[str, int, tuple]:
+    """(MV column, n_values operand, twin spec) of a `mv_count` /
+    `mv_sum|min|max|avg` spec: the twin's reduction over the flat values
+    under the value mask."""
+    kind = aspec[0]
+    if kind == "mv_count":
+        return aspec[1], aspec[2], ("count",)
+    if kind in ("mv_sum", "mv_min", "mv_max", "mv_avg"):
+        return aspec[2], aspec[3], (_MV_INNER[kind], aspec[1])
+    raise AssertionError(aspec)
+
+
 def _agg_scalar(aspec, cols, ops, mask):
     kind = aspec[0]
     if kind == "count":
         return mask.sum(dtype=_I)
+    if kind in ("mv_count", "mv_sum", "mv_min", "mv_max", "mv_avg"):
+        col, nv_idx, inner = _mv_inner(aspec)
+        return _agg_scalar(inner, cols, ops, _mv_vmask(col, nv_idx, cols, ops, mask))
     if kind == "hll":
         return hll_update(_hashes_for(aspec[1], cols, ops, mask.shape[0]), mask, aspec[2])
     if kind == "hist":
@@ -342,16 +407,28 @@ def _agg_scalar(aspec, cols, ops, mask):
     return (torch.where(mask, v, float("inf")).min(), torch.where(mask, v, float("-inf")).max())
 
 
-def _presences(aggs, cols, mask, gid=None, ng=1):
+def _presences(aggs, cols, ops, mask, gid=None, ng=1, gather=None):
     """{agg index: its presence} for every DISTINCTCOUNT (`distinct_ids`)
     of `aggs`, from ONE presences call: a (pad,) vector each over the
     column's dict-id space, or with gid an (ng, pad) matrix each (the plan
-    keeps ng * pad under its budget)."""
-    which = [i for i, a in enumerate(aggs) if a[0] == "distinct_ids"]
-    if not which:
-        return {}
-    got = presences([cols[aggs[i][1]].contiguous() for i in which], [aggs[i][2] for i in which], mask, gid=gid, ng=ng)
-    return dict(zip(which, got))
+    keeps ng * pad under its budget). A scalar DISTINCTCOUNTMV
+    (`mv_distinct_ids`) is the presence of its flat ids under the value
+    mask: one more presences call for the DISTINCTCOUNTMVs of each MV
+    column."""
+    spaces: dict = {}  # None (the docs) or an MV column -> agg indices
+    for i, a in enumerate(aggs):
+        if a[0] == "distinct_ids":
+            spaces.setdefault(None, []).append(i)
+        elif a[0] == "mv_distinct_ids":
+            spaces.setdefault(a[1], []).append(i)
+    out = {}
+    for col, which in spaces.items():
+        if col is None:
+            m, ids = mask, [_take(cols[aggs[i][1]], gather).contiguous() for i in which]
+        else:
+            m, ids = _mv_vmask(col, aggs[which[0]][3], cols, ops, mask), [cols[col]] * len(which)
+        out.update(zip(which, presences(ids, [aggs[i][2] for i in which], m, gid=gid, ng=ng)))
+    return out
 
 
 def _in_range(gid, ng):
@@ -391,38 +468,59 @@ def _grouped_extremes(aggs, values, mask, gid, ng, counts):
     return {i: next(got) if len(o) == 1 else (next(got), next(got)) for i, o in want.items()}
 
 
-def _grouped_all(aggs, cols, ops, mask, gid, ng):
+def _grouped_all(aggs, cols, ops, mask, gid, ng, gather=None, doc_pad=None):
     """Group counts + every agg partial. The count and ALL int32 SUM/AVG aggs
     fuse into ONE exact group-by kernel launch, every MIN/MAX/MINMAXRANGE into
     ONE extreme-kernel call, every DISTINCTCOUNT into ONE presences call;
-    non-int32 SUM/AVG and DISTINCTCOUNTHLL's registers use their own ops."""
-    values, kernel_vals, owner = {}, [], {}
+    non-int32 SUM/AVG and DISTINCTCOUNTHLL's registers use their own ops.
+
+    `gather` (with `doc_pad`, the padded doc count): an MV GROUP BY, whose
+    mask and gid are in value (or pair) space; every doc-space value gathers
+    through the owning docs (`gather`, in range) first. Without it, the
+    grouped *MV aggregations of each MV column run this set once more in that
+    column's value space (its value mask, gid gathered to the values)."""
+    n = mask.shape[0] if gather is None else doc_pad
+    values, kernel_vals, owner, by_mv = {}, [], {}, {}
     for i, a in enumerate(aggs):
+        if a[0] in ("mv_count", "mv_sum", "mv_min", "mv_max", "mv_avg"):
+            if gather is not None:
+                raise AssertionError("MV aggregations under an MV GROUP BY are planned for the host")
+            col, nv_idx, inner = _mv_inner(a)
+            by_mv.setdefault(col, (nv_idx, []))[1].append((i, inner))
+            continue
         if a[0] in ("count", "distinct_ids", "hll", "hist"):
             continue
         if a[0] not in ("sum", "min", "max", "avg", "minmaxrange"):
             raise _unsupported(a[0], "aggregation")
-        values[i] = v = _value(a[1], cols, ops, mask.shape[0])
+        values[i] = v = _take(_value(a[1], cols, ops, n), gather)
         if a[0] in ("sum", "avg") and v.dtype == torch.int32:
             owner[i] = len(kernel_vals)
             kernel_vals.append(v.contiguous())
     sums, counts = grouped_multi_sum(kernel_vals, gid, mask, ng)
     extremes = _grouped_extremes(aggs, values, mask, gid, ng, counts)
-    flags = _presences(aggs, cols, mask, gid, ng)
+    flags = _presences(aggs, cols, ops, mask, gid, ng, gather)
+    mv_parts = {}
+    for col, (nv_idx, members) in by_mv.items():
+        vm = _mv_vmask(col, nv_idx, cols, ops, mask)
+        gid_v = torch.index_select(gid, 0, _owner_docs(col, cols, mask.shape[0]))
+        _, got = _grouped_all([inner for _, inner in members], cols, ops, vm, gid_v, ng)
+        mv_parts.update(zip([i for i, _ in members], got))
     parts = []
     for i, a in enumerate(aggs):
         if a[0] == "count":
             parts.append(counts)
         elif i in flags:
             parts.append(flags[i])
+        elif i in mv_parts:
+            parts.append(mv_parts[i])
         elif a[0] == "hll":
-            hashes = _hashes_for(a[1], cols, ops, mask.shape[0])
+            hashes = _take(_hashes_for(a[1], cols, ops, n), gather)
             parts.append(hll_update_grouped(hashes, mask, gid, ng, a[2]))
         elif a[0] == "hist":
             # per-group histograms: the counts of cells gid * nbins + bin
             nbins = a[4]
             cell, ok = _in_range(gid, ng)
-            cell = (cell.to(torch.int32) * nbins + _bins(a, cols, ops, mask.shape[0])).contiguous()
+            cell = (cell.to(torch.int32) * nbins + _take(_bins(a, cols, ops, n), gather)).contiguous()
             hist = grouped_multi_sum([], cell, mask & ok, ng * nbins)[1]
             parts.append(hist.reshape(ng, nbins))
         elif i in owner:
@@ -470,9 +568,12 @@ def _by_mask(aggs, ops) -> list[tuple[tuple, list[tuple[int, tuple, bool]]]]:
     return list(groups.values())
 
 
-def _and_filters(mask, filters, cols, ops):
+def _and_filters(mask, filters, cols, ops, gather=None, doc_pad=None):
+    """mask AND each filter's doc mask; under an MV GROUP BY (`gather`) the
+    doc masks gather to the value space of `mask` first."""
     for f in filters:
-        mask = mask & _filter(f, cols, ops, mask.shape[0], mask.device)
+        fm = _filter(f, cols, ops, mask.shape[0] if gather is None else doc_pad, mask.device)
+        mask = mask & _take(fm, gather)
     return mask
 
 
@@ -484,22 +585,23 @@ def _scalar_all(aggs, cols, ops, mask):
     for filters, members in _by_mask(aggs, ops):
         m = _and_filters(mask, filters, cols, ops)
         inner = [a for _, a, _ in members]
-        flags = _presences(inner, cols, m)
+        flags = _presences(inner, cols, ops, m)
         for j, (i, a, nan_empty) in enumerate(members):
             r = flags[j] if j in flags else _agg_scalar(a, cols, ops, m)
             parts[i] = torch.where(m.any(), r.to(_F), float("nan")) if nan_empty else r
     return tuple(parts)
 
 
-def _grouped_masked(aggs, cols, ops, mask, gid, ng):
+def _grouped_masked(aggs, cols, ops, mask, gid, ng, gather=None, doc_pad=None):
     """Group counts + every grouped partial: one `_grouped_all` per effective
     mask (so one exact group-by launch, one extreme call and one presences
     call per distinct mask); a null-handling SUM gives NaN in a group its
-    mask leaves empty, by that mask's own counts."""
+    mask leaves empty, by that mask's own counts. `gather` / `doc_pad`: an
+    MV GROUP BY's value space (see _grouped_all)."""
     counts, parts = None, [None] * len(aggs)
     for filters, members in _by_mask(aggs, ops):
-        m = _and_filters(mask, filters, cols, ops)
-        c, got = _grouped_all([a for _, a, _ in members], cols, ops, m, gid, ng)
+        m = _and_filters(mask, filters, cols, ops, gather, doc_pad)
+        c, got = _grouped_all([a for _, a, _ in members], cols, ops, m, gid, ng, gather, doc_pad)
         if not filters:
             counts = c
         for (i, _, nan_empty), r in zip(members, got):
@@ -516,17 +618,80 @@ def _agg_eval(fspec, gspec, aggs, cols, ops, valid):
         return matched, _scalar_all(aggs, cols, ops, mask)
     if gspec[0] == "groups_sparse":
         return _sparse_groups(gspec, aggs, cols, ops, mask, matched)
+    if gspec[0] == "groups_mv":
+        return (matched,) + _mv_groups(gspec, aggs, cols, ops, mask)
+    if gspec[0] == "groups_mv2":
+        return (matched,) + _mv2_groups(gspec, aggs, cols, ops, mask)
     if gspec[0] != "groups":
         raise _unsupported(gspec[0], "group")
     _, gcols, ng, strides_idx = gspec
     strides = ops[strides_idx]
-    gid = torch.zeros(n_padded, dtype=torch.int32, device=valid.device)
-    for i, c in enumerate(gcols):
-        ids, stride = _promote(cols[c], strides[i])
-        gid, term = _promote(gid, ids * stride)
-        gid = gid + term
+    gid = _dense_gid([cols[c] for c in gcols], strides, n_padded, valid.device)
     counts, parts = _grouped_masked(aggs, cols, ops, mask, gid, ng)
     return matched, counts, parts
+
+
+def _dense_gid(keys, strides, shape, device) -> torch.Tensor:
+    """sum(keys[i] * strides[i]) over `shape` (an int32 zero start, JAX's
+    promotion; keys broadcast to it)."""
+    gid = torch.zeros(shape, dtype=torch.int32, device=device)
+    for i, ids in enumerate(keys):
+        ids, stride = _promote(ids, strides[i])
+        gid, term = _promote(gid, ids * stride)
+        gid = gid + term
+    return gid
+
+
+def _mv_groups(gspec, aggs, cols, ops, mask):
+    """One MV key: the group ids live in value space, each doc contributes
+    once per value; the doc-space keys, values and masks gather through the
+    owning docs."""
+    _, gcols, ng, strides_idx, mv_col, nv_idx = gspec
+    n_padded = mask.shape[0]
+    docs = _owner_docs(mv_col, cols, n_padded)
+    vmask = _mv_vmask(mv_col, nv_idx, cols, ops, mask)
+    keys = [cols[c] if c == mv_col else torch.index_select(cols[c], 0, docs) for c in gcols]
+    gid = _dense_gid(keys, ops[strides_idx], docs.shape[0], mask.device)
+    return _grouped_masked(aggs, cols, ops, vmask, gid, ng, gather=docs, doc_pad=n_padded)
+
+
+def _mv2_groups(gspec, aggs, cols, ops, mask):
+    """Two MV keys: the grouped set over their pair space (`mv2_pairs`)."""
+    pvalid, gid, pair_docs = mv2_pairs(gspec, cols, ops, mask)
+    return _grouped_masked(aggs, cols, ops, pvalid, gid, gspec[2], gather=pair_docs, doc_pad=mask.shape[0])
+
+
+def mv2_pairs(gspec, cols, ops, mask):
+    """(pair mask, pair gid, pair's doc) of a `groups_mv2` spec: a dense
+    (base flat values x Lb) pair space, each valid pair one cartesian (a
+    value, b value) combination of one doc. Pair (v, j) reads b's flat value
+    at its doc's offset + j while j < its doc's b length; the offset and
+    length tables have pad + 1 entries, so the base's padding docids (pad)
+    read a zero length there."""
+    _, gcols, _, strides_idx, mv_a, nv_a, mv_b, off_idx, len_idx, lb = gspec
+    n_padded = mask.shape[0]
+    docids = cols[f"{mv_a}!docs"]
+    va = docids.shape[0]
+    vmask_a = _mv_vmask(mv_a, nv_a, cols, ops, mask)
+    d_off = torch.index_select(ops[off_idx], 0, docids)
+    d_len = torch.index_select(ops[len_idx], 0, docids)
+    j = torch.arange(lb, dtype=torch.int32, device=mask.device)
+    pvalid = (vmask_a[:, None] & (j[None, :] < d_len[:, None])).reshape(-1)
+    nb = cols[mv_b].shape[0]
+    # an invalid pair's index may pass b's values: clip it, as JAX does
+    fidx = (d_off[:, None] + j[None, :]).clamp(0, nb - 1).reshape(-1)
+    ids_b = torch.index_select(cols[mv_b], 0, fidx).reshape(va, lb)
+    docs = _owner_docs(mv_a, cols, n_padded)
+    keys = []
+    for c in gcols:
+        if c == mv_a:
+            keys.append(cols[c][:, None])
+        elif c == mv_b:
+            keys.append(ids_b)
+        else:
+            keys.append(torch.index_select(cols[c], 0, docs)[:, None])
+    gid = _dense_gid(keys, ops[strides_idx], (va, lb), mask.device).reshape(-1)
+    return pvalid, gid, docs[:, None].expand(va, lb).reshape(-1)
 
 
 def _sparse_groups(gspec, aggs, cols, ops, mask, matched):

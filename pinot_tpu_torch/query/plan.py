@@ -42,6 +42,16 @@ nullable GROUP BY key or selection.
    (`masked`; a SUM in `masked_nan_empty`, NaN where no doc survives). The
    masks come from the segment's memo (`ImmutableSegment.null_docmask`), one
    array a column set, staged once a device.
+
+ * A multi-value column's predicate is its flat per-value predicate wrapped
+   in `mv_any` (any value matches; a top-level NOT stays outside, so NEQ and
+   NOT IN exclude the docs where a value matches); COUNTMV / SUMMV / MINMV /
+   MAXMV / AVGMV lower to `mv_*` over the flat values, DISTINCTCOUNTMV to
+   `mv_distinct_ids`; a GROUP BY over one MV key to `groups_mv` (value-space
+   group ids) and over two to `groups_mv2` (a dense pair space of at most
+   MAX_MV2_PAIRS). An MV column in a value context, a selection or an ORDER
+   BY, three MV keys, a high-cardinality MV key and *MV aggregations under an
+   MV key fall back to the host, as in the reference.
 """
 
 from __future__ import annotations
@@ -144,7 +154,22 @@ class _Lowering:
             raise PlanError(f"unknown column {col!r} in table {self.ctx.table}")
         if col not in self.columns:
             self.columns.append(col)
+            if self.seg.columns[col].is_mv:
+                # a flattened MV column: the program also reads its owning docs
+                self.columns.append(f"{col}!docs")
         return col
+
+    def _mv_wrap(self, col: str, spec: tuple) -> tuple:
+        """A flat (per-value) predicate spec as MV any-match doc semantics. A
+        top-level NOT stays outside the wrap: Pinot's MV exclusions (NEQ, NOT
+        IN) match the docs where no value satisfies the positive form
+        (NotEqualsPredicateEvaluator applyMV)."""
+        if spec[0] == "const":
+            return spec
+        if spec[0] == "not":
+            return ("not", self._mv_wrap(col, spec[1]))
+        nv = self.op_idx(np.int32(len(self.seg.columns[col].forward)))
+        return ("mv_any", col, spec, nv)
 
     # -- null handling ------------------------------------------------------
 
@@ -203,6 +228,10 @@ class _Lowering:
             ci = self.seg.columns.get(expr.name)
             if ci is None:
                 raise PlanError(f"unknown column {expr.name!r}")
+            if ci.is_mv:
+                raise DeviceFallback(
+                    f"MV column {expr.name!r} in value context runs host-side (use the *MV aggregations)"
+                )
             if ci.data_type in _STRING_TYPES:
                 raise PlanError(f"column {expr.name!r} is not numeric")
             self.use_col(expr.name)
@@ -458,9 +487,12 @@ class _Lowering:
             ci = self.seg.columns.get(left.name)
             if ci is None:
                 raise PlanError(f"unknown column {left.name!r}")
-            if ci.is_dict_encoded:
-                return self._dict_compare(left.name, ci, op, value)
-            return self._raw_compare(left.name, ci, op, value)
+            inner = (
+                self._dict_compare(left.name, ci, op, value)
+                if ci.is_dict_encoded
+                else self._raw_compare(left.name, ci, op, value)
+            )
+            return self._mv_wrap(left.name, inner) if ci.is_mv else inner
         if self._is_string_fn(left):
             sv = str(value)
             pred = {
@@ -498,7 +530,9 @@ class _Lowering:
             lo, hi = d.id_range_for(value, None, True, True)
         if lo > hi:
             return ("const", False)
-        if lo == 0 and hi == d.cardinality - 1:
+        # not for MV: a doc with an empty value list matches no range, even
+        # the whole dictionary
+        if lo == 0 and hi == d.cardinality - 1 and not ci.is_mv:
             return ("const", True)
         return self._id_range_filter(col, ci, lo, hi)
 
@@ -553,14 +587,17 @@ class _Lowering:
         if isinstance(expr, ast.Identifier) and isinstance(low, ast.Literal) and isinstance(high, ast.Literal):
             ci0 = self.seg.columns.get(expr.name)
             if ci0 is not None and not ci0.is_dict_encoded and np.issubdtype(ci0.forward.dtype, np.integer):
-                # raw integer column: two native integer compares
-                return (
+                # raw integer column: two native integer compares. For MV the
+                # conjunction wraps as ONE flat predicate: a doc matches when
+                # a single value lies in the range
+                spec = (
                     "and",
                     (
                         self._raw_compare(expr.name, ci0, CompareOp.GTE if lo_incl else CompareOp.GT, low.value),
                         self._raw_compare(expr.name, ci0, CompareOp.LTE if hi_incl else CompareOp.LT, high.value),
                     ),
                 )
+                return self._mv_wrap(expr.name, spec) if ci0.is_mv else spec
         if not isinstance(low, ast.Literal) or not isinstance(high, ast.Literal):
             raise PlanError("BETWEEN bounds must be literals")
         if isinstance(expr, ast.Identifier):
@@ -571,9 +608,10 @@ class _Lowering:
                 lo, hi = ci.dictionary.id_range_for(low.value, high.value, lo_incl, hi_incl)
                 if lo > hi:
                     return ("const", False)
-                if lo == 0 and hi == ci.dictionary.cardinality - 1:
+                if lo == 0 and hi == ci.dictionary.cardinality - 1 and not ci.is_mv:
                     return ("const", True)
-                return self._id_range_filter(expr.name, ci, lo, hi)
+                spec = self._id_range_filter(expr.name, ci, lo, hi)
+                return self._mv_wrap(expr.name, spec) if ci.is_mv else spec
         vs = self.value_spec(expr)
         return (
             "and",
@@ -602,6 +640,8 @@ class _Lowering:
                     lut = np.zeros(_pow2(max(ci.dictionary.cardinality, 1)), dtype=bool)
                     lut[ids] = True
                     spec = ("in_lut", f.expr.name, self.op_idx(lut))
+                if ci.is_mv:
+                    spec = self._mv_wrap(f.expr.name, spec)
                 if f.negated:
                     return ("const", not spec[1]) if spec[0] == "const" else ("not", spec)
                 return spec
@@ -698,9 +738,7 @@ class _Lowering:
                 raise PlanError(f"{info.func} requires an argument")
             return (info.func, self.value_spec(info.arg))
         if info.func in ("countmv", "summv", "minmv", "maxmv", "avgmv", "distinctcountmv"):
-            # the reference lowers these over an MV column; this package
-            # stages none (ROADMAP A4b)
-            raise PlanError(f"{info.func} requires a multi-value column")
+            return self._mv_agg_spec(info, grouped)
         if info.func in ("funnelcount", "funnelcompletecount"):
             # per-step presence vectors over the correlation column's dict-id
             # space
@@ -715,6 +753,42 @@ class _Lowering:
             col = self.use_col(info.arg.name)
             return ("funnel_steps", col, _pow2(max(ci.cardinality, 1)), stepspecs)
         raise DeviceFallback(f"aggregation {info.func} has no device lowering yet")
+
+    def _mv_agg_spec(self, info: AggregationInfo, grouped: bool) -> tuple:
+        """The MV aggregations over the flattened layout
+        (core/query/aggregation/function/*MVAggregationFunction.java): the
+        doc mask gathers to value positions, and the reduction is the SV
+        twin's over the flat values."""
+        if not isinstance(info.arg, ast.Identifier):
+            raise PlanError(f"{info.func} requires an MV column argument")
+        ci = self.seg.columns.get(info.arg.name)
+        if ci is None:
+            raise PlanError(f"unknown column {info.arg.name!r}")
+        if not ci.is_mv:
+            raise PlanError(f"{info.func} requires a multi-value column, {info.arg.name!r} is single-value")
+        col = self.use_col(info.arg.name)
+        nv = self.op_idx(np.int32(len(ci.forward)))
+        if info.func == "countmv":
+            return ("mv_count", col, nv)
+        if info.func == "distinctcountmv":
+            if grouped:
+                raise DeviceFallback("DISTINCTCOUNTMV inside GROUP BY runs host-side for now")
+            if not ci.is_dict_encoded:
+                raise DeviceFallback("DISTINCTCOUNTMV on raw MV columns runs host-side")
+            return ("mv_distinct_ids", col, _pow2(max(ci.cardinality, 1)), nv)
+        if ci.data_type in _STRING_TYPES:
+            raise PlanError(f"{info.func} requires a numeric MV column")
+        if ci.is_dict_encoded:
+            dv = np.asarray(ci.dictionary.values)
+            pad = _pow2(max(len(dv), 1))
+            if len(dv) == 0:
+                dv = np.zeros(1, dtype=ci.data_type.np_dtype)
+            if len(dv) < pad:
+                dv = np.concatenate([dv, np.full(pad - len(dv), dv[-1], dtype=dv.dtype)])
+            vspec = ("dictval", col, self.op_idx(dv))
+        else:
+            vspec = ("raw", col)
+        return (f"mv_{info.func[:-2]}", vspec, col, nv)
 
     def _hist_spec(self, info: AggregationInfo) -> tuple:
         """PERCENTILEEST's fixed-bin histogram over the engine's global
@@ -765,6 +839,8 @@ class _Lowering:
             ci = self.seg.columns.get(ob.expr.name)
             if ci is None:
                 raise PlanError(f"unknown column {ob.expr.name!r}")
+            if ci.is_mv:
+                raise DeviceFallback("MV ORDER BY keys run host-side")
             if ci.is_dict_encoded:
                 entries.append((ob.expr.name, max(ci.cardinality, 1), ob.desc, "ids", 0))
             elif np.issubdtype(ci.forward.dtype, np.integer):
@@ -795,9 +871,14 @@ class _Lowering:
 
     # -- group-by ------------------------------------------------------------
 
+    #: cap on the (base MV flat values x other MV max-len) pair space of a
+    #: two-MV-key device group-by
+    MAX_MV2_PAIRS = 1 << 23
+
     def group_spec(self) -> tuple:
         cols = []
         cards = []
+        mv_cols: list[str] = []
         for g in self.ctx.group_by:
             if not isinstance(g, ast.Identifier):
                 raise DeviceFallback("expression GROUP BY keys run host-side for now")
@@ -808,9 +889,17 @@ class _Lowering:
                 raise PlanError(f"unknown column {g.name!r}")
             if not ci.is_dict_encoded:
                 raise DeviceFallback(f"GROUP BY on raw column {g.name} runs host-side for now")
+            if ci.is_mv:
+                mv_cols.append(g.name)
             self.use_col(g.name)
             cols.append(g.name)
             cards.append(ci.cardinality)
+        if len(mv_cols) > 2:
+            raise DeviceFallback("3+ MV GROUP BY keys run host-side (explode)")
+        if len(mv_cols) == 2 and mv_cols[0] == mv_cols[1]:
+            # a repeated MV key: the pair space would only hold the diagonal
+            # (v, v) combinations, not the whole cartesian square
+            raise DeviceFallback("repeated MV GROUP BY key runs host-side (explode)")
         num_groups = 1
         for c in cards:
             num_groups *= max(c, 1)
@@ -820,6 +909,8 @@ class _Lowering:
             # slots; the aggregation runs over the slots. U bounds the PRESENT
             # groups (<= n_docs), not the product; a segment with more present
             # groups than U raises DeviceFallback in the engine.
+            if mv_cols:
+                raise DeviceFallback("high-cardinality MV GROUP BY runs host-side")
             if num_groups >= (1 << 62):
                 raise DeviceFallback("group cardinality product overflows int64 gids")
             strides64 = group_strides(cards, np.int64)
@@ -831,7 +922,45 @@ class _Lowering:
         # edge), so both packages size every grouped output identically
         ng = ((max(num_groups, 1) + 255) // 256) * 256
         self._group_ng = ng
+        if len(mv_cols) == 2:
+            return self._group_spec_mv2(cols, ng, strides, mv_cols)
+        if mv_cols:
+            # one MV key: the group ids live in value space, each doc
+            # contributes once per value (Pinot's MV group-by semantics)
+            nv = self.op_idx(np.int32(len(self.seg.columns[mv_cols[0]].forward)))
+            return ("groups_mv", tuple(cols), ng, self.op_idx(strides), mv_cols[0], nv)
         return ("groups", tuple(cols), ng, self.op_idx(strides))
+
+    def _group_spec_mv2(self, cols, ng, strides, mv_cols) -> tuple:
+        """Two MV keys: each doc's cartesian pairs in a dense (base flat
+        values x other max-len) pair space. The base's flat layout gives one
+        axis; the other column gives Lb positions a base value, masked by its
+        per-doc length (DictionaryBasedGroupKeyGenerator's MV cartesian
+        semantics)."""
+
+        def maxlen(name: str) -> int:
+            lens = self.seg.columns[name].lens
+            return int(lens.max()) if len(lens) else 0
+
+        a, b = mv_cols
+        # the base that makes the smaller pair space
+        if padded_len(len(self.seg.columns[b].forward)) * maxlen(a) < padded_len(
+            len(self.seg.columns[a].forward)
+        ) * maxlen(b):
+            a, b = b, a
+        lb = maxlen(b)
+        if lb == 0:
+            # the other column has no value anywhere: no doc joins a group
+            raise DeviceFallback("MV GROUP BY key with no values runs host-side")
+        ci_b = self.seg.columns[b]
+        pairs = padded_len(len(self.seg.columns[a].forward)) * lb
+        if pairs > self.MAX_MV2_PAIRS:
+            raise DeviceFallback(f"two-MV-key pair space {pairs} exceeds device budget {self.MAX_MV2_PAIRS}")
+        # pad + 1 entries: the base's padding docids point one past the
+        # padded doc range, and a zero length there makes their pairs invalid
+        off_p, len_p = ci_b.doc_tables(padded_len(self.seg.n_docs))
+        nv_a = self.op_idx(np.int32(len(self.seg.columns[a].forward)))
+        return ("groups_mv2", tuple(cols), ng, self.op_idx(strides), a, nv_a, b, self.op_idx(off_p), self.op_idx(len_p), lb)
 
 
 _FLIP = {
@@ -910,6 +1039,15 @@ def plan_segment(seg: ImmutableSegment, ctx: QueryContext) -> SegmentPlan:
         aggs = tuple(lo.agg_spec(a, grouped) for a in ctx.aggregations)
         if null_on:
             aggs = tuple(lo.null_wrap(a, s) for a, s in zip(ctx.aggregations, aggs))
+        if gspec is not None and gspec[0] in ("groups_mv", "groups_mv2"):
+            # MV group ids are value space; an *MV aggregation is value space
+            # over a (maybe different) MV column: the two together run on the
+            # host (explode)
+            def has_mv(a):
+                return a[0].startswith("mv_") or (a[0] in ("masked", "masked_nan_empty") and has_mv(a[2]))
+
+            if any(has_mv(a) for a in aggs):
+                raise DeviceFallback("MV aggregations under an MV GROUP BY run host-side")
         return plan(("agg", fspec, gspec, aggs), group_cols=[(c, seg.columns[c]) for c in (gspec[1] if gspec else ())])
 
     if ctx.query_type == QueryType.DISTINCT:

@@ -17,7 +17,8 @@ Partial formats:
       distinctcounthll -> int32 register vector (or a set of values),
       percentile -> float64 values, percentileest -> (histogram, lo, hi) or
       float64 values, percentiletdigest -> a t-digest, mode -> {value: count},
-      funnels -> funnel.py's, the EXT_AGGS family -> aggregates.py's
+      funnels -> funnel.py's, the EXT_AGGS family -> aggregates.py's;
+      an *MV aggregation -> its single-value twin's (MV_TWIN)
   GROUP_BY / DISTINCT: a "group frame", a dict of equal-length numpy arrays
       with key columns k0..k{n-1} and partial columns a{i}p{j} (agg i, part
       j); an object-valued partial (a set, registers, values, a sketch, a
@@ -182,6 +183,39 @@ def eval_having(f: ast.FilterExpr, env: dict[str, Any], aliases: dict[str, ast.E
 #: aggregations whose partial is a set of values (merged by union)
 DISTINCT_AGGS = ("distinctcount", "distinctcountbitmap")
 
+#: MV aggregations give partials shaped exactly as their single-value twins'
+#: (CountMVAggregationFunction et al. reuse the SV merge logic in Pinot too),
+#: so the reduce merges and finalizes each as its twin
+MV_TWIN = {
+    "countmv": "count",
+    "summv": "sum",
+    "minmv": "min",
+    "maxmv": "max",
+    "avgmv": "avg",
+    "distinctcountmv": "distinctcount",
+    "minmaxrangemv": "minmaxrange",
+    "distinctsummv": "distinctsum",
+    "distinctavgmv": "distinctavg",
+    "distinctcountbitmapmv": "distinctcountbitmap",
+    "distinctcounthllmv": "distinctcounthll",
+    "percentilemv": "percentile",
+    "percentileestmv": "percentileest",
+    "percentiletdigestmv": "percentiletdigest",
+    "percentilekllmv": "percentilekll",
+    "percentilerawestmv": "percentilerawest",
+    "percentilerawtdigestmv": "percentilerawtdigest",
+    "percentilerawkllmv": "percentilerawkll",
+    "distinctcounthllplusmv": "distinctcounthllplus",
+    "distinctcountrawhllmv": "distinctcountrawhll",
+    "distinctcountrawhllplusmv": "distinctcountrawhllplus",
+}
+
+
+def twin(func: str) -> str:
+    """The aggregation whose partial format, merge and finalize `func` shares:
+    an MV aggregation's single-value twin, else `func` itself."""
+    return MV_TWIN.get(func, func)
+
 
 def _is_null_partial(x) -> bool:
     """True for None or NaN, the reference's null sentinels."""
@@ -191,6 +225,7 @@ def _is_null_partial(x) -> bool:
 def _merge_agg_partials(func: str, a, b, null_on: bool = False):
     if func in funnel.FUNNEL_AGGS:
         return funnel.merge(func, a, b)
+    func = twin(func)
     if func in EXT_AGGS:
         return EXT_AGGS[func].merge(a, b)
     if func == "sum":
@@ -249,6 +284,7 @@ def _finalize(a, p, null_on: bool = False):
     func = a.func
     if func in funnel.FUNNEL_AGGS:
         return funnel.finalize(func, p, a.extra)
+    func = twin(func)
     if func in EXT_AGGS:
         return EXT_AGGS[func].finalize(p, a.extra)
     if func == "count":
@@ -301,7 +337,7 @@ def _finalize_column(a, parts, null_on: bool = False) -> list:
     """Finalize one aggregation over ALL merged groups at once: the numeric
     reducers in one numpy pass + tolist (identical values to per-row
     _finalize), every object-valued partial through _finalize."""
-    func = a.func
+    func = twin(a.func)
     if func == "count":
         return np.asarray(parts, dtype=np.int64).tolist()
     if func in ("sum", "min", "max"):
@@ -344,7 +380,7 @@ def reduce_aggregation(ctx: QueryContext, partials: list[list]) -> list[list]:
     null_on = null_handling_enabled(ctx.options)
     if not partials:
         # no segment contributed: under null handling a SUM saw no value
-        merged = [None if null_on and a.func == "sum" else _empty_partial(a.func, a.extra) for a in ctx.aggregations]
+        merged = [None if null_on and twin(a.func) == "sum" else _empty_partial(a.func, a.extra) for a in ctx.aggregations]
     else:
         merged = list(partials[0])
         for p in partials[1:]:
@@ -357,6 +393,7 @@ def reduce_aggregation(ctx: QueryContext, partials: list[list]) -> list[list]:
 def _empty_partial(func: str, extra: tuple = ()):
     if func in funnel.FUNNEL_AGGS:
         return funnel.empty_partial(func, extra)
+    func = twin(func)
     if func in EXT_AGGS:
         return EXT_AGGS[func].empty(extra)
     if func == "percentiletdigest":
@@ -399,16 +436,60 @@ def group_index(keys: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
     order of first appearance — pandas groupby(sort=False, dropna=False)
     order, which the reference's merge uses."""
     n = len(keys[0])
-    code = np.zeros(n, dtype=np.int64)
+    if n == 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    dense = max(1 << 20, 4 * n)
+    code, card = np.zeros(n, dtype=np.int64), 1
     for k in _split_none(keys):
-        uniq, inv = np.unique(k, return_inverse=True)
-        # re-densify after every key so the combined code stays below n*card
-        _, code = np.unique(code * len(uniq) + inv.reshape(-1), return_inverse=True)
+        k_code, k_card = _factorize(k, dense)
+        if card * k_card > dense:
+            # re-densify so the combined code stays below n * k_card
+            _, code = np.unique(code, return_inverse=True)
+            code, card = code.reshape(-1), int(code.max()) + 1
+        code, card = code * k_card + k_code, card * k_card
+    if card <= dense:
+        return _dense_group_index(code, card)
     _, first, inv = np.unique(code, return_index=True, return_inverse=True)
     order = np.argsort(first, kind="stable")
     rank = np.empty(len(order), dtype=np.int64)
     rank[order] = np.arange(len(order))
     return rank[inv.reshape(-1)], first[order]
+
+
+def _factorize(k: np.ndarray, dense: int) -> tuple[np.ndarray, int]:
+    """(int64 code of each row, number of codes): one code per distinct value
+    of the key, in any order (group_index numbers the groups afterwards).
+    Integers of a small range are their offset from the minimum; text takes a
+    dict; anything else np.unique's inverse (NaN one value, as pandas)."""
+    if k.dtype.kind in "biu":
+        lo, hi = int(k.min()), int(k.max())
+        if hi - lo < dense and -(1 << 62) < lo and hi < 1 << 62:
+            return k.astype(np.int64) - lo, hi - lo + 1
+    if k.dtype.kind in "US":
+        ids: dict = {}
+        return np.fromiter((ids.setdefault(x, len(ids)) for x in k.tolist()), np.int64, len(k)), max(len(ids), 1)
+    uniq, inv = np.unique(k, return_inverse=True)
+    return inv.reshape(-1).astype(np.int64), max(len(uniq), 1)
+
+
+def _dense_group_index(code: np.ndarray, n_codes: int) -> tuple[np.ndarray, np.ndarray]:
+    """group_index of one key of small non-negative integers (dictionary ids,
+    their combined code): each code's first row by a scatter-min, no sort of
+    the rows."""
+    n = len(code)
+    first = np.full(n_codes, n, dtype=np.int64)
+    np.minimum.at(first, code, np.arange(n, dtype=np.int64))
+    present = np.flatnonzero(first < n)
+    present = present[np.argsort(first[present], kind="stable")]
+    rank = np.empty(n_codes, dtype=np.int64)
+    rank[present] = np.arange(len(present))
+    return rank[code], first[present]
+
+
+def stable_order(group: np.ndarray, n_groups: int) -> np.ndarray:
+    """argsort(group, kind="stable") of group ids in [0, n_groups); below
+    2^16 groups as 16-bit ids, which numpy sorts by radix."""
+    return np.argsort(group.astype(np.uint16) if n_groups <= 1 << 16 else group, kind="stable")
 
 
 def _merge_column(func: str, how: str, vals: np.ndarray, group: np.ndarray, n_groups: int) -> np.ndarray:
@@ -461,7 +542,7 @@ _PART_MERGE = {
 
 def parts_of(func: str) -> int:
     """Partial columns of an aggregation in a group frame."""
-    return len(_PART_MERGE.get(func, ("fold",)))
+    return len(_PART_MERGE.get(twin(func), ("fold",)))
 
 
 def reduce_group_by(ctx: QueryContext, frames: list[dict[str, np.ndarray]]) -> list[list]:
@@ -478,12 +559,13 @@ def reduce_group_by(ctx: QueryContext, frames: list[dict[str, np.ndarray]]) -> l
         key_vals = [[None if _is_null_partial(k) else k for k in col] for col in key_vals]
     fin_cols = []
     for i, a in enumerate(ctx.aggregations):
-        hows = _PART_MERGE.get(a.func, ("fold",))
-        if null_on and a.func in ("sum", "avg"):
+        func = twin(a.func)
+        hows = _PART_MERGE.get(func, ("fold",))
+        if null_on and func in ("sum", "avg"):
             # a group whose partials are all NaN (no non-null value) stays
             # NaN, and finalizes to NULL
             hows = ("sum_or_nan",) + hows[1:]
-        parts = [_merge_column(a.func, how, cols[f"a{i}p{j}"], group, n_rows).tolist() for j, how in enumerate(hows)]
+        parts = [_merge_column(func, how, cols[f"a{i}p{j}"], group, n_rows).tolist() for j, how in enumerate(hows)]
         fin_cols.append(_finalize_column(a, parts[0] if len(parts) == 1 else tuple(parts), null_on))
 
     aliases = _alias_map(ctx)
@@ -523,17 +605,22 @@ def _ob_column(ob, rows: list[dict], aliases) -> list:
 
 
 def _order_rows(rows: list[dict], order_by, aliases) -> list[dict]:
-    """ORDER BY over merged group rows. Numeric keys ride one stable
-    np.lexsort (nulls-as-largest, DESC via negation — same ordering as
-    _OrderKey); any non-numeric or precision-risky key (strings, |int|>2^53)
-    falls back to the general Python sort over the SAME pre-evaluated
-    columns, so eval_scalar never runs per-comparison either way."""
+    """ORDER BY over merged group rows. Numeric keys, and text keys as their
+    ranks, ride one stable np.lexsort (nulls-as-largest, DESC via negation —
+    same ordering as _OrderKey); any other or precision-risky key (mixed
+    types, |int|>2^53) falls back to the general Python sort over the SAME
+    pre-evaluated columns, so eval_scalar never runs per-comparison either
+    way."""
     cols = [_ob_column(ob, rows, aliases) for ob in order_by]
     descs = [ob.desc for ob in order_by]
     n = len(rows)
     lex: list[np.ndarray] = []
     numeric = True
     for vals, desc in zip(cols, descs):
+        ranked = _text_ranks(vals, desc)
+        if ranked is not None:
+            lex.extend(ranked)
+            continue
         arr = np.empty(n, np.float64)
         mask = np.empty(n, np.float64)
         for i, v in enumerate(vals):
@@ -566,6 +653,21 @@ def _order_rows(rows: list[dict], order_by, aliases) -> list[dict]:
         key=lambda i: tuple(_OrderKey(c[i], d) for c, d in zip(cols, descs)),
     )
     return [rows[i] for i in idx]
+
+
+def _text_ranks(vals: list, desc: bool) -> list[np.ndarray] | None:
+    """(null mask, rank) lexsort keys of a column of str values and nulls,
+    ranked in code-point order (Python's str order), or None for any other
+    column (and for text numpy cannot hold as it is: a trailing NUL)."""
+    null = [v is None or (isinstance(v, float) and v != v) for v in vals]
+    text = [v for v, nl in zip(vals, null) if not nl]
+    if not text or not all(type(v) is str and not v.endswith("\x00") for v in text):
+        return None
+    null = np.asarray(null, dtype=bool)
+    rank = np.zeros(len(vals), dtype=np.float64)
+    rank[~null] = np.unique(np.asarray(text), return_inverse=True)[1].reshape(-1)
+    mask = np.where(null, 0.0 if desc else 1.0, 1.0 if desc else 0.0)
+    return [mask, -rank if desc else rank]
 
 
 class _OrderKey:

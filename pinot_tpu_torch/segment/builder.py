@@ -13,9 +13,10 @@ Encoding decisions (IndexingConfig semantics, as in the JAX package):
   - STRING/BYTES/JSON are ALWAYS dictionary-encoded: only ids ever reach the
     device.
 
-This package builds single-value dictionary and raw columns, the null
-vectors of `null_handling` (into `seg.extras["null"]`) and the star-tree
-tables of `star_tree_configs` (into `seg.extras["startree"]`); a schema or
+This package builds single-value and multi-value (flattened CSR, see
+`ColumnIndex`) dictionary and raw columns, the null vectors of
+`null_handling` (into `seg.extras["null"]`; an MV column has none) and the
+star-tree tables of `star_tree_configs` (into `seg.extras["startree"]`); a
 table config that asks for anything else raises NotImplementedError naming it.
 """
 
@@ -68,9 +69,6 @@ class SegmentBuilder:
         for name in UNSUPPORTED_INDEX_FIELDS:
             if getattr(idx, name):
                 raise NotImplementedError(f"IndexingConfig.{name} is not supported by pinot_tpu_torch yet (ROADMAP A6)")
-        for spec in schema.fields.values():
-            if not spec.single_value:
-                raise NotImplementedError(f"multi-value column {spec.name!r} is not supported by pinot_tpu_torch yet (ROADMAP A4b)")
 
     def _use_dictionary(self, col: str) -> bool:
         spec = self.schema[col]
@@ -101,6 +99,9 @@ class SegmentBuilder:
             if len(raw) != n_docs:
                 raise ValueError(f"column {col!r} length {len(raw)} != {n_docs}")
             dt = self.schema[col].data_type
+            if not self.schema[col].single_value:
+                seg.columns[col] = self._build_mv_column(col, dt, raw)
+                continue
             raw, nulls = _separate_nulls(raw, dt)
             if nulls is not None and self.config.indexing.null_handling:
                 seg.extras.setdefault("null", {})[col] = bm_from_bool(nulls)
@@ -118,3 +119,25 @@ class SegmentBuilder:
         for st_cfg in self.config.indexing.star_tree_configs:
             seg.extras.setdefault("startree", []).append(build_star_table(seg, st_cfg))
         return seg
+
+    def _build_mv_column(self, col: str, dt: DataType, raw) -> ColumnIndex:
+        """A multi-value column -> flattened CSR ColumnIndex: the per-doc value
+        lists (None is an empty list) back to back in one vector, the
+        dictionary over the flat values, and int32 `lens`."""
+        lens = np.asarray([0 if v is None else len(v) for v in raw], dtype=np.int32)
+        parts = [np.asarray(v) for v in raw if v is not None and len(v)]
+        if parts:
+            flat = np.concatenate([p.astype(object) if p.dtype == object else p for p in parts])
+        else:
+            flat = np.zeros(0, dtype=dt.np_dtype)
+        if self._use_dictionary(col):
+            dictionary, fwd = Dictionary.from_column(dt, flat)
+            stats = ColumnStats.from_dictionary(col, dt, fwd, dictionary)
+        else:
+            dictionary = None
+            fwd = np.asarray(flat, dtype=dt.np_dtype)
+            stats = ColumnStats.collect(col, dt, fwd, len(np.unique(fwd)))
+        # a sorted flat vector does not mean sorted docs: the doc-range fast
+        # path never takes an MV column
+        stats.is_sorted = False
+        return ColumnIndex(col, dt, dictionary, fwd, stats, lens=lens)

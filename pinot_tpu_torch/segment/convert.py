@@ -12,9 +12,12 @@ carrying a model's weights across.
         "n_docs": 4000,
         "columns": {
             "<column>": {
-                "forward": np.ndarray,          # dict ids (int32) or raw values
+                "forward": np.ndarray,          # dict ids (int32) or raw values;
+                                                # an MV column's flat values
                 "dictionary": np.ndarray | None,  # sorted unique values
                 "stats": {...},                 # ColumnStats.to_dict() form
+                "lens": np.ndarray,             # MV only: int32 value count
+                                                # of each doc (sum = len(forward))
             },
             ...
         },
@@ -51,12 +54,19 @@ def segment_from_numpy(desc: dict) -> ImmutableSegment:
         if col not in desc["columns"]:
             raise ValueError(f"segment description has no column {col!r}")
         spec = schema[col]
-        if not spec.single_value:
-            raise NotImplementedError(f"multi-value column {col!r} is not supported by pinot_tpu_torch yet (ROADMAP A4b)")
         cd = desc["columns"][col]
         fwd = np.ascontiguousarray(cd["forward"])
-        if fwd.ndim != 1 or len(fwd) != n_docs:
-            raise ValueError(f"column {col!r}: forward array of shape {fwd.shape}, expected ({n_docs},)")
+        lens = None
+        n_values = n_docs
+        if not spec.single_value:
+            if cd.get("lens") is None:
+                raise ValueError(f"multi-value column {col!r} needs its per-doc value counts (\"lens\")")
+            lens = np.ascontiguousarray(cd["lens"], dtype=np.int32)
+            if lens.shape != (n_docs,) or (lens < 0).any():
+                raise ValueError(f"column {col!r}: lens of shape {lens.shape}, expected ({n_docs},) counts >= 0")
+            n_values = int(lens.sum(dtype=np.int64))
+        if fwd.ndim != 1 or len(fwd) != n_values:
+            raise ValueError(f"column {col!r}: forward array of shape {fwd.shape}, expected ({n_values},)")
         values = cd.get("dictionary")
         dictionary = None
         if values is not None:
@@ -69,7 +79,10 @@ def segment_from_numpy(desc: dict) -> ImmutableSegment:
                 f"column {col!r}: raw values must be {spec.data_type.np_dtype}, got {fwd.dtype}"
             )
         stats = ColumnStats.from_dict(cd["stats"])
-        seg.columns[col] = ColumnIndex(col, spec.data_type, dictionary, fwd, stats)
+        if lens is not None:
+            # the doc-range fast path never takes an MV column
+            stats.is_sorted = False
+        seg.columns[col] = ColumnIndex(col, spec.data_type, dictionary, fwd, stats, lens=lens)
     for col, bitmap in desc.get("null", {}).items():
         if col not in seg.columns:
             raise ValueError(f"null vector of unknown column {col!r}")

@@ -9,7 +9,9 @@ Device side: `DeviceSegment` — a dict of dense torch tensors on one device:
 dict-encoded columns as int32 id vectors, raw columns as native-dtype vectors,
 padded to a multiple of DOC_PAD. Filters become vector compares over these
 tensors; there is no row-at-a-time or block-at-a-time decode step because the
-columnar data is already resident on the device in compute layout.
+columnar data is already resident on the device in compute layout. A
+multi-value column stages as its flat value vector plus the vector of each
+value's owning doc (`"{col}!docs"`), both padded to a multiple of DOC_PAD.
 """
 
 from __future__ import annotations
@@ -49,13 +51,24 @@ def bm_to_bool(a: np.ndarray, n_docs: int) -> np.ndarray:
 
 @dataclass
 class ColumnIndex:
-    """All materialized per-column data for one single-value segment column."""
+    """All materialized per-column data for one segment column.
+
+    A multi-value column (the MV read API of ForwardIndexReader,
+    pinot-segment-spi/.../index/reader/ForwardIndexReader.java:200-332) is
+    flattened CSR: `forward` holds every value back to back and `lens` each
+    doc's value count. On the device every program stays a dense 1-D op:
+    predicates evaluate over the flat vector and OR into doc space; MV
+    aggregations gather the doc mask to value positions."""
 
     name: str
     data_type: DataType
     dictionary: Dictionary | None  # None => raw-encoded column
     forward: np.ndarray  # int32 dict ids, or raw values (np dtype of the type)
     stats: ColumnStats
+    lens: np.ndarray | None = None  # MV only: int32 per-doc value count
+    # MV: offsets(), flat_docids() and doc_tables(), memoized (the column is
+    # immutable)
+    _csr: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def is_dict_encoded(self) -> bool:
@@ -63,15 +76,56 @@ class ColumnIndex:
 
     @property
     def is_mv(self) -> bool:
-        # multi-value columns are not built by this package yet
-        return False
+        return self.lens is not None
 
     @property
     def cardinality(self) -> int:
         return self.dictionary.cardinality if self.dictionary else self.stats.cardinality
 
+    def offsets(self) -> np.ndarray:
+        """MV: each doc's start offset into the flat values, n_docs + 1 long
+        (read-only, memoized)."""
+        if "offsets" not in self._csr:
+            out = np.zeros(len(self.lens) + 1, dtype=np.int64)
+            np.cumsum(self.lens, out=out[1:])
+            out.flags.writeable = False
+            self._csr["offsets"] = out
+        return self._csr["offsets"]
+
+    def flat_docids(self) -> np.ndarray:
+        """MV: the owning doc of each flat value position (int32, read-only,
+        memoized)."""
+        if "docids" not in self._csr:
+            out = np.repeat(np.arange(len(self.lens), dtype=np.int32), self.lens)
+            out.flags.writeable = False
+            self._csr["docids"] = out
+        return self._csr["docids"]
+
+    def doc_tables(self, pad: int) -> tuple[np.ndarray, np.ndarray]:
+        """MV: each doc's (offset, value count) as int32 tables of pad + 1
+        entries, zero past the docs: groups_mv2's operands, memoized and
+        declared stable operands, so a device stages them once."""
+        if ("tables", pad) not in self._csr:
+            from pinot_tpu_torch.query.kernels import mark_stable_operand
+
+            n = len(self.lens)
+            off, lens = np.zeros(pad + 1, dtype=np.int32), np.zeros(pad + 1, dtype=np.int32)
+            off[:n] = self.offsets()[:n]
+            lens[:n] = self.lens
+            self._csr[("tables", pad)] = (mark_stable_operand(off), mark_stable_operand(lens))
+        return self._csr[("tables", pad)]
+
     def materialize(self, doc_ids: np.ndarray | None = None) -> np.ndarray:
-        """Decode to raw values (optionally only for given docIds)."""
+        """Decode to raw values (optionally only for given docIds). An MV
+        column gives an object array of per-doc value arrays."""
+        if self.is_mv:
+            flat = self.dictionary.get_many(self.forward) if self.dictionary is not None else self.forward
+            off = self.offsets()
+            docs = np.arange(len(self.lens)) if doc_ids is None else np.asarray(doc_ids)
+            out = np.empty(len(docs), dtype=object)
+            for i, d in enumerate(docs.tolist()):
+                out[i] = flat[off[d] : off[d + 1]]
+            return out
         fwd = self.forward if doc_ids is None else self.forward[doc_ids]
         return self.dictionary.get_many(fwd) if self.dictionary is not None else fwd
 
@@ -138,14 +192,25 @@ class ImmutableSegment:
         Dtype policy (the reference's): int64 raw columns are losslessly
         narrowed to int32 when their min/max fit; float64 stays float64 (query
         semantics, Pinot DOUBLE, depend on it). The tail pads with zeros.
+
+        An MV column stages its flat values and, as `"{col}!docs"`, each
+        value's owning doc (int32), both padded to padded_len(n_values). The
+        padding docids are `pad`, one past the padded doc range: the programs
+        mask those positions by the plan's n_values operand.
         """
         device = torch.device(device)
         pad = padded_len(self.n_docs)
         arrays: dict[str, torch.Tensor] = {}
         for name, ci in self.columns.items():
             fwd = ci.forward
-            if len(fwd) < pad:
-                fwd = np.concatenate([fwd, np.zeros(pad - len(fwd), dtype=fwd.dtype)])
+            size = pad
+            if ci.is_mv:
+                size = padded_len(len(fwd))
+                docids = np.full(size, pad, dtype=np.int32)
+                docids[: len(fwd)] = ci.flat_docids()
+                arrays[f"{name}!docs"] = torch.tensor(docids, device=device)
+            if len(fwd) < size:
+                fwd = np.concatenate([fwd, np.zeros(size - len(fwd), dtype=fwd.dtype)])
             if fwd.dtype == np.int64:
                 # dict ids are already int32; this is the raw-column path
                 if np.iinfo(np.int32).min <= ci.stats.min_value and ci.stats.max_value <= np.iinfo(np.int32).max:
@@ -162,7 +227,9 @@ class DeviceSegment:
     host: ImmutableSegment
     n_docs: int
     padded: int
-    arrays: dict[str, torch.Tensor]  # column -> tensor of shape (padded,)
+    # column -> tensor of shape (padded,); an MV column's flat values and
+    # "{col}!docs" have shape (padded_len(n_values),)
+    arrays: dict[str, torch.Tensor]
 
     @property
     def device(self) -> torch.device:

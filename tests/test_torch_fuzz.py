@@ -17,7 +17,12 @@ stay within MAX_SKIPPED of a run; both are empty now, so every query runs.
 The generator draws FILTER (WHERE), CASE, IN over a raw column, a column
 compared with a column and DEVICE_FUNCS transforms, and a second test runs
 it under `SET enableNullHandling = true` over a table whose m1, m2 and d1
-are null on a seeded 15% of the docs (null vectors kept)."""
+are null on a seeded 15% of the docs (null vectors kept). A third test draws
+over a table with two multi-value columns beside single-value ones (a STRING
+`tags` and an INT `vals`, 0-3 values a doc): MV any-match predicates and
+exclusions, the *MV aggregations, GROUP BY and DISTINCT over one or two MV
+keys, and selections of MV cells (a numpy array in the reference's rows, a
+list in the port's, compared value for value)."""
 
 import math
 
@@ -25,12 +30,13 @@ import numpy as np
 import pytest
 
 from pinot_tpu.common import DataType as JDT
+from pinot_tpu.common import FieldSpec as JFS
 from pinot_tpu.common import Schema as JSchema
 from pinot_tpu.common.config import IndexingConfig as JIndexingConfig
 from pinot_tpu.common.config import TableConfig as JTableConfig
 from pinot_tpu.query import QueryEngine as JEngine
 from pinot_tpu.segment import SegmentBuilder as JBuilder
-from pinot_tpu_torch.common import DataType, IndexingConfig, Schema, TableConfig
+from pinot_tpu_torch.common import DataType, FieldSpec, IndexingConfig, Schema, TableConfig
 from pinot_tpu_torch.query import QueryEngine
 from pinot_tpu_torch.segment import SegmentBuilder
 
@@ -90,6 +96,36 @@ def null_engines():
     ref = JEngine([JBuilder(_schema(JDT, JSchema), jcfg).build(d, f"f{i}") for i, d in enumerate(datas)])
     port = QueryEngine(
         [SegmentBuilder(_schema(DataType, Schema), cfg).build(d, f"f{i}") for i, d in enumerate(datas)], device="cpu"
+    )
+    return ref, port
+
+
+def _mv_data(seed, n):
+    rng = np.random.default_rng(seed)
+    d = _data(seed, n)
+    out = {"d1": d["d1"], "k": d["k"], "m1": d["m1"]}
+    for c, draw in (("tags", lambda m: list(np.asarray(STR_VALS, dtype=object)[rng.integers(0, 8, m)])),
+                    ("vals", lambda m: rng.integers(0, 40, m).tolist())):
+        out[c] = np.empty(n, dtype=object)
+        for i, m in enumerate(rng.integers(0, 4, n)):
+            out[c][i] = draw(int(m))
+    return out
+
+
+def _mv_schema(DT, S, FS):
+    schema = S.build("f", dimensions=[("d1", DT.STRING), ("k", DT.INT)], metrics=[("m1", DT.LONG)])
+    schema.add(FS("tags", DT.STRING, single_value=False))
+    schema.add(FS("vals", DT.INT, single_value=False))
+    return schema
+
+
+@pytest.fixture(scope="module")
+def mv_engines():
+    datas = [_mv_data(500 + i, n) for i, n in enumerate(SIZES)]
+    ref = JEngine([JBuilder(_mv_schema(JDT, JSchema, JFS)).build(d, f"f{i}") for i, d in enumerate(datas)])
+    port = QueryEngine(
+        [SegmentBuilder(_mv_schema(DataType, Schema, FieldSpec)).build(d, f"f{i}") for i, d in enumerate(datas)],
+        device="cpu",
     )
     return ref, port
 
@@ -196,15 +232,79 @@ def _query(rng) -> str:
     return f"SELECT DISTINCT {', '.join(keys)} FROM f{where}{order}{_limit(rng)}"
 
 
+def _mv_predicate(rng) -> str:
+    kind = rng.integers(0, 8)
+    tag = f"'{STR_VALS[rng.integers(0, 9)]}'"
+    if kind == 0:
+        return f"tags = {tag}"
+    if kind == 1:
+        return f"tags <> {tag}"  # an exclusion: no value equals
+    if kind == 2:
+        vs = sorted(set(STR_VALS[i] for i in rng.integers(0, 9, 2)))
+        return f"tags {'NOT ' if rng.random() < 0.4 else ''}IN ({', '.join(repr(v) for v in vs)})"
+    if kind == 3:
+        lo = int(rng.integers(0, 40))
+        return f"vals BETWEEN {lo} AND {lo + int(rng.integers(0, 10))}"
+    if kind == 4:
+        return f"vals {['<', '>', '>=', '<>'][rng.integers(0, 4)]} {int(rng.integers(0, 40))}"
+    if kind == 5:
+        return f"k {['<', '>='][rng.integers(0, 2)]} {int(rng.integers(0, 50))}"
+    if kind == 6:
+        return f"d1 = '{STR_VALS[rng.integers(0, len(STR_VALS))]}'"
+    return f"m1 > {int(rng.integers(-100, 1000))}"
+
+
+MV_AGGS = [
+    "COUNT(*)",
+    "COUNTMV(vals)",
+    "SUMMV(vals)",
+    "MINMV(vals)",
+    "MAXMV(vals)",
+    "AVGMV(vals)",
+    "COUNTMV(tags)",
+    "SUM(m1)",
+    "MAX(k)",
+    "AVG(m1)",
+    "DISTINCTCOUNT(k)",
+    "SUMMV(vals) FILTER (WHERE k < 25)",
+    "DISTINCTCOUNTMV(tags)",  # last: scalar only on the device
+]
+MV_KEYS = [["tags"], ["vals"], ["tags", "d1"], ["k", "vals"], ["tags", "vals"], ["vals", "tags", "k"], ["d1"]]
+MV_COLS = ["tags", "vals", "d1", "k", "m1"]
+
+
+def _mv_query(rng) -> str:
+    kind = rng.integers(0, 4)
+    n = int(rng.integers(1, 3))
+    preds = [_mv_predicate(rng) for _ in range(n)]
+    cond = f" {'AND' if rng.random() < 0.6 else 'OR'} ".join(f"({p})" for p in preds)
+    where = f" WHERE {cond}" if rng.random() < 0.8 else ""
+    if kind == 0:
+        return f"SELECT {', '.join(_pick(rng, MV_AGGS, 1, 4))} FROM f{where}"
+    if kind == 1:
+        keys, aggs = MV_KEYS[rng.integers(0, len(MV_KEYS))], _pick(rng, MV_AGGS, 1, 3)
+        sql = f"SELECT {', '.join(keys + aggs)} FROM f{where} GROUP BY {', '.join(keys)}"
+        obs = [f"{aggs[0]} DESC"] + keys if rng.random() < 0.5 else keys
+        return sql + f" ORDER BY {', '.join(obs)} LIMIT {int(rng.integers(1, 300))}"
+    if kind == 2:
+        return f"SELECT {', '.join(_pick(rng, MV_COLS, 1, 3))} FROM f{where}{_limit(rng)}"
+    keys = MV_KEYS[rng.integers(0, len(MV_KEYS))]
+    return f"SELECT DISTINCT {', '.join(keys)} FROM f{where} ORDER BY {', '.join(keys)}{_limit(rng)}"
+
+
 #: STRING columns of the null-handling table that hold nulls
 NULL_TEXT = ("d1",)
 
 
 def _same(a, b) -> bool:
+    if isinstance(b, np.ndarray):
+        b = b.tolist()  # a selected MV cell of the reference
     if type(a) is not type(b):
         return False
     if isinstance(a, float):
         return a == b or (a != a and b != b) or math.isclose(a, b, rel_tol=1e-12)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
     return a == b
 
 
@@ -218,11 +318,16 @@ def test_random_null_handling_queries_match_reference(null_engines, seed):
     _run_random(null_engines, np.random.default_rng(2000 + seed), 30, "SET enableNullHandling = true; ")
 
 
-def _run_random(engines, rng, n_queries, prefix):
+@pytest.mark.parametrize("seed", range(3))
+def test_random_mv_queries_match_reference(mv_engines, seed):
+    _run_random(mv_engines, np.random.default_rng(3000 + seed), 30, "", _mv_query)
+
+
+def _run_random(engines, rng, n_queries, prefix, query=_query):
     ref, port = engines
     skipped = []
     for _ in range(n_queries):
-        sql = prefix + _query(rng)
+        sql = prefix + query(rng)
         want = ref.execute(sql)
         try:
             got = port.execute(sql)

@@ -1,6 +1,7 @@
 """The port's segment layer against the JAX package's: the builder array for
-array (forward, dictionary, stats), carrying a reference segment across with
-segment_from_numpy, and the staging dtype policy and padding of to_device."""
+array (forward, dictionary, stats, an MV column's lens), carrying a reference
+segment across with segment_from_numpy, and the staging dtype policy and
+padding of to_device (an MV column's flat values and owning docs too)."""
 
 import json
 
@@ -71,6 +72,7 @@ def describe(seg) -> dict:
                 "forward": ci.forward,
                 "dictionary": None if ci.dictionary is None else ci.dictionary.values,
                 "stats": ci.stats.to_dict(),
+                **({"lens": ci.lens} if ci.lens is not None else {}),
             }
             for c, ci in seg.columns.items()
         },
@@ -102,6 +104,9 @@ def _assert_same_segment(ref, port):
             assert pci.dictionary.values.dtype == rci.dictionary.values.dtype, c
             assert np.array_equal(pci.dictionary.values, rci.dictionary.values), c
         assert pci.stats.to_dict() == rci.stats.to_dict(), c
+        assert (pci.lens is None) == (rci.lens is None), c
+        if rci.lens is not None:
+            assert pci.lens.dtype == rci.lens.dtype and np.array_equal(pci.lens, rci.lens), c
 
 
 @pytest.fixture(scope="module")
@@ -274,9 +279,82 @@ def test_unsupported_table_config_raises(indexing):
         SegmentBuilder(_schema(DataType, Schema), TableConfig("t", IndexingConfig(**indexing)))
 
 
+def _mv_schema(DT, S, FS):
+    schema = S("mv")
+    schema.add(FS("tags", DT.STRING, single_value=False))
+    schema.add(FS("nums", DT.LONG, single_value=False))
+    schema.add(FS("big", DT.LONG, single_value=False))
+    schema.add(FS("score", DT.DOUBLE, single_value=False))
+    schema.add(FS("none", DT.INT, single_value=False))
+    return schema
+
+
+def _mv_data(n=700, seed=5):
+    """Per-doc lists (some empty, one None) of a STRING, a LONG that fits
+    int32, a LONG past int32, a DOUBLE and an always-empty INT column."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 5, n)
+    words = np.array([f"w{i}" for i in range(30)], dtype=object)
+    cols = {
+        "tags": [list(words[rng.integers(0, 30, k)]) for k in lens],
+        "nums": [rng.integers(-5, 100, k).tolist() for k in lens[::-1]],
+        "big": [rng.integers(-(1 << 40), 1 << 40, k).tolist() for k in lens],
+        "score": [np.round(rng.uniform(0, 1, k), 2).tolist() for k in lens[::-1]],
+        "none": [[] for _ in lens],
+    }
+    cols["tags"][3] = None
+    data = {}
+    for c, lists in cols.items():
+        data[c] = np.empty(n, dtype=object)
+        for i, v in enumerate(lists):
+            data[c][i] = v
+    return data
+
+
 def test_multi_value_column_raises():
+    """An MV column builds, carries and stages as the reference's (see
+    _check_mv_segment); its numeric columns dictionary-encoded."""
+    _check_mv_segment(raw=False)
+
+
+def test_multi_value_raw_columns_match_reference():
+    """The same with the numeric MV columns raw (no dictionary)."""
+    _check_mv_segment(raw=True)
+
+
+def _check_mv_segment(raw: bool):
+    """An MV column builds as the reference's (flat forward, dictionary,
+    stats, lens; no null vector, never sorted), carries across with
+    segment_from_numpy, and stages as the reference stages it: the flat
+    values (int64 narrowed where it fits) and "{col}!docs", both padded to
+    padded_len(n_values), padding docids at the padded doc count."""
+    from pinot_tpu.common import FieldSpec as JFS
+    from pinot_tpu.common.config import IndexingConfig as JIndexingConfig
     from pinot_tpu_torch.common import FieldSpec
 
-    schema = Schema("mv").add(FieldSpec("tags", DataType.STRING, single_value=False))
-    with pytest.raises(NotImplementedError, match="tags"):
-        SegmentBuilder(schema)
+    table = raw
+    raw = ["nums", "big", "score", "none"] if raw else []
+    jcfg = JTableConfig("mv", indexing=JIndexingConfig(no_dictionary_columns=raw))
+    cfg = TableConfig("mv", IndexingConfig(no_dictionary_columns=raw))
+    data = _mv_data()
+    ref = JBuilder(_mv_schema(JDT, JSchema, JFS), jcfg).build(data, "mv0")
+    port = SegmentBuilder(_mv_schema(DataType, Schema, FieldSpec), cfg).build(data, "mv0")
+    _assert_same_segment(ref, port)
+    assert all(ci.is_mv and not ci.stats.is_sorted for ci in port.columns.values())
+    assert "null" not in port.extras
+    for got in (port, segment_from_numpy(describe(ref))):
+        _assert_same_segment(ref, got)
+        jdev, dev = ref.to_device(), got.to_device("cpu")
+        assert set(dev.arrays) == set(jdev.arrays) == {c for c in ref.columns} | {f"{c}!docs" for c in ref.columns}
+        for c, t in dev.arrays.items():
+            want = np.asarray(jdev.arrays[c])
+            assert t.numpy().dtype == want.dtype and np.array_equal(t.numpy(), want), c
+    dev = port.to_device("cpu")
+    # raw: a LONG past int32 stays int64, one that fits narrows to int32;
+    # dictionary-encoded, both stage int32 ids
+    assert dev.arrays["big"].dtype == (torch.int64 if table else torch.int32)
+    assert dev.arrays["nums"].dtype == torch.int32
+    n_values = int(port.columns["tags"].lens.sum())
+    docs = dev.arrays["tags!docs"].numpy()
+    assert len(docs) == padded_len(n_values) and (docs[n_values:] == dev.padded).all()
+    assert list(port.columns["tags"].materialize([2])[0]) == data["tags"][2]

@@ -49,18 +49,7 @@ CBRT_RTOL = 4.5e-16
 SET_ON = "SET enableNullHandling = true; "
 
 #: reference tags this package's program does not handle yet, by ROADMAP item
-NOT_YET = {
-    "mv_any": "A4b",
-    "mv_count": "A4b",
-    "mv_distinct_ids": "A4b",
-    "mv_sum": "A4b",
-    "mv_min": "A4b",
-    "mv_max": "A4b",
-    "mv_avg": "A4b",
-    "groups_mv": "A4b",
-    "groups_mv2": "A4b",
-    "mask": "A8",
-}
+NOT_YET = {"mask": "A8"}
 
 
 @pytest.fixture(scope="module")
@@ -369,4 +358,4 @@ def test_every_reference_tag_is_handled_or_named():
             "masked_nan_empty", "funnel_steps", "hist"} <= ref_tags & port_tags
     assert ref_tags - port_tags == set(NOT_YET), ref_tags - port_tags
     assert not set(NOT_YET) & port_tags
-    assert set(NOT_YET.values()) == {"A4b", "A8"}
+    assert set(NOT_YET.values()) == {"A8"}
