@@ -18,10 +18,11 @@ presence kernel (B4) at configs 6 and 7's real shapes (config 7's two columns
 in one call, or two one-column calls where the checkout has no `presences`),
 Q4's grouped shape and config 6's shape at an off-path 70% mask. Each result
 is held against the checkout's plain version. Then the checkout's engine
-runs chip_smoke's main path over the same 16M-row lineorder: configs 1-7
-are checked against the oracle and their wall times taken (p50 of 11
-executes after 2 warm-ups; configs 8-9 take seconds a turn and are left
-out). Prints one JSON line per turn: device ms alone, the host's enqueue ms
+runs chip_smoke's main path over the same 16M-row lineorder: configs 1-7,
+12 and 13 are checked against the oracle and their wall times taken (p50 of
+11 executes after 2 warm-ups; configs 8-9 take seconds a turn and are left
+out). A checkout with a kernel registry has it off while its kernels are
+timed alone and on, as its engine's default, for the walls. Prints one JSON line per turn: device ms alone, the host's enqueue ms
 and the span ms per shape, the walls, and the card's name and power limit.
 """
 
@@ -39,7 +40,7 @@ B2_SHAPES = ("config8_shape", "config9_shape", "ng_2^20_k8_past_L2")
 B4_SHAPES = ("config6_shape", "config7_shape", "config7_one_column", "q4_shape_grouped_pad32",
              "off_path_ng256_pad32_70pct", "off_path_scalar_two_columns_70pct")
 WALL_CONFIGS = ("1_count_filter", "2_filtered_agg", "3_q1_groupby", "4_q4_groupby_orderby", "5_groupby_minmax",
-                "6_groupby_distinct", "7_distinct")
+                "6_groupby_distinct", "7_distinct", "12_distinct_orderby", "13_selection")
 
 
 def turn(root: str) -> dict:
@@ -56,6 +57,12 @@ def turn(root: str) -> dict:
 
     if not os.path.abspath(gb.__file__).startswith(os.path.abspath(root)):
         raise RuntimeError(f"{gb.__file__} is not under {root}")
+    try:  # a checkout with a kernel registry: off while the kernels are timed alone
+        from pinot_tpu_torch.common.kernel_obs import KERNELS
+    except ImportError:
+        KERNELS = None
+    if KERNELS is not None:
+        KERNELS.configure(enabled=False)
 
     def timed(fn, equal: bool) -> dict:
         if not equal:
@@ -66,13 +73,13 @@ def turn(root: str) -> dict:
     t0 = time.perf_counter()
     build.build(["grouped_sum_count", "grouped_sum_count_2l", "grouped_extreme", "grouped_sum_f32"])
     out = {"root": root, "build_s": time.perf_counter() - t0, "b1": {}, "b2": {}, "b3": {}, "b4": {}}
-    ssb = cs.ssb_shapes(torch)
+    ssb = {**cs.ssb_shapes(torch), **cs.mv_shapes(torch)}
     for name, values, gid, mask, ng, _ in cs.kernel_cases(torch, ssb):
         if name in B1_SHAPES:
             fn = lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng)  # noqa: E731
             out["b1"][name] = timed(fn, torch.equal(fn(), gb.grouped_multi_sum_plain(values, gid, mask, ng)))
 
-    for name, values, gid, mask, ng, *_ in cs.two_level_cases(torch):
+    for name, values, gid, mask, ng, *_ in cs.two_level_cases(torch, ssb):
         if name in B2_SHAPES:
             fn = lambda: gb.grouped_multi_sum_2l(values, gid, mask, ng)  # noqa: E731
             out["b2"][name] = timed(fn, torch.equal(fn(), gb.grouped_multi_sum_plain(values, gid, mask, ng)))
@@ -104,6 +111,8 @@ def turn(root: str) -> dict:
     oracle, _ = cs.oracle(data, nation, category)
     engine, _, _ = cs.ssb_engine(data)
     del data
+    if KERNELS is not None:
+        KERNELS.configure(enabled=True)  # the engine's default
     out["walls"] = {}
     for name in WALL_CONFIGS:
         cs.rows_match(name, engine.execute(cs.CONFIGS[name]).rows, oracle[name])

@@ -85,6 +85,24 @@
    value-space gather and groups_mv2's pair expansion over one segment; B1
    and B2 are held against their plain versions at configs 25's and 26's
    value-space shapes (and B1 at 2^23 pairs) in the kernel phase.
+8. The rest of the single-stage engine: configs 28-31 over the same 16M
+   lineorder rows stably sorted by d_year, in 16 segments of 1M rows (time
+   partitioned: d_year sorted in every segment). 28a-c, queries the
+   min/max pruner decides (one year: 13 segments pruned; two years; a year
+   with no data, with and without enableNullHandling); 29, GAPFILL over a
+   yearly series (`<>`: nothing pruned); 30a-b, the same segments as an
+   upsert table keyed by lo_custkey (the last row of each key valid,
+   90,000 of 16M), run again after 1% of the valid flags move to earlier
+   docs in place; 31, EXPLAIN PLAN FOR and EXPLAIN ANALYZE of 28a, then 8
+   queries through FCFSScheduler and PriorityScheduler (2 runners, 4 client
+   threads) beside the same 8 run serially. Rows against numpy oracles, the
+   pruned counts against the numpy count from each segment's [min, max],
+   the first query's staged segments against the unpruned ones, and, over
+   configs 28-30, the kernel registry's calls against the launch counters
+   (every roofline row at most 100% of the peak). `kernel_registry_cost`
+   times 28a with the registry on and off; `kernel_obs` gives, per kernel,
+   the registry's CUDA-event ms a call beside the kernel's device-alone time
+   at the same operands.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -104,6 +122,7 @@ import numpy as np
 
 N_ROWS = 16_000_000
 N_SEGMENTS = 4
+DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 L2_FLUSH_BYTES = 128 << 20  # > the 50 MB L2
 
@@ -2148,6 +2167,415 @@ def check_mv_steps(torch, engine, seg) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# configs 28-31: pruning, GAPFILL, upsert validity, EXPLAIN, the schedulers
+# ---------------------------------------------------------------------------
+
+#: configs 28-30's table: the lineorder rows stably sorted by d_year (time
+#: partitioned, as ingestion by time lays segments out), in TP_SEGMENTS
+#: segments of N_ROWS / TP_SEGMENTS rows; d_year is sorted in every segment
+TP_SEGMENTS = 16
+TP_CONFIGS = {
+    # a dashboard over one year: ~13 of 16 segments pruned by value
+    "28a_pruned_dashboard": (
+        "SELECT c_nation, p_category, SUM(lo_revenue), COUNT(*), MIN(lo_supplycost), MAX(lo_supplycost) "
+        "FROM lineorder WHERE d_year = 1997 GROUP BY c_nation, p_category ORDER BY SUM(lo_revenue) DESC LIMIT 1000"
+    ),
+    # top customers of the last two years: config 8's ng on the unpruned
+    # segments, the two-level kernel
+    "28b_pruned_top_customers": (
+        "SELECT lo_custkey, SUM(lo_revenue) FROM lineorder WHERE d_year BETWEEN 1997 AND 1998 "
+        "GROUP BY lo_custkey ORDER BY SUM(lo_revenue) DESC LIMIT 100"
+    ),
+    # a window with no data: every segment pruned; 0 against NULL
+    "28c_empty_window": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE d_year = 2005",
+    "28c_empty_window_nulls": (
+        "SET enableNullHandling = true; SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE d_year = 2005"
+    ),
+    # a yearly series with missing buckets (<> never prunes: all 16 run)
+    "29_gapfill": (
+        "SELECT GAPFILL(d_year, 1990, 2002, 1, FILL(r, 'FILL_PREVIOUS_VALUE')), SUM(lo_revenue) AS r "
+        "FROM lineorder WHERE d_year <> 1995 GROUP BY d_year ORDER BY d_year LIMIT 100"
+    ),
+}
+#: the same table as an upsert table keyed by lo_custkey, the last-ingested
+#: row of each key valid
+UPSERT_CONFIGS = {
+    "30a_upsert_by_nation": (
+        "SELECT c_nation, COUNT(*), SUM(lo_revenue) FROM lineorder GROUP BY c_nation ORDER BY c_nation LIMIT 25"
+    ),
+    "30b_upsert_distinct": "SELECT DISTINCTCOUNT(lo_custkey) FROM lineorder",
+}
+#: launches per segment that runs (a pruned one launches nothing)
+TP_LAUNCHES = {
+    "28a_pruned_dashboard": (1, 1, 0, 0),  # SUM + COUNT in one flat launch; MIN and MAX in one extreme launch
+    "28b_pruned_top_customers": (0, 0, 0, 1),  # ng 90,112: past the flat kernel's shared counters
+    "28c_empty_window": (0, 0, 0, 0),
+    "28c_empty_window_nulls": (0, 0, 0, 0),
+    "29_gapfill": (1, 0, 0, 0),
+    "30a_upsert_by_nation": (1, 0, 0, 0),
+    "30b_upsert_distinct": (0, 0, 1, 0),
+}
+#: share of the valid flags config 30's second run moves to earlier docs of
+#: the same keys
+UPSERT_MOVED = 0.01
+SCHEDULED = ("3_q1_groupby", "28a_pruned_dashboard", "29_gapfill", "30a_upsert_by_nation")
+
+
+def tp_order(year: np.ndarray) -> np.ndarray:
+    return np.argsort(year, kind="stable")
+
+
+def tp_bounds(n: int) -> list[tuple[int, int]]:
+    per = n // TP_SEGMENTS
+    return [(i * per, (i + 1) * per if i < TP_SEGMENTS - 1 else n) for i in range(TP_SEGMENTS)]
+
+
+def tp_engine_of(data: dict):
+    """Configs 28-29's table: `data` sorted by d_year, TP_SEGMENTS segments
+    through the package's SegmentBuilder, and a QueryEngine over them on the
+    card (nothing staged yet), with the seconds the build took."""
+    from pinot_tpu_torch.query import QueryEngine
+
+    t0 = time.perf_counter()
+    order = tp_order(data["d_year"])
+    builder = ssb_builder()
+    segments = []
+    for i, (lo, hi) in enumerate(tp_bounds(len(order))):
+        rows = order[lo:hi]
+        segments.append(builder.build({c: v[rows] for c, v in data.items()}, f"lineorder_tp_{i}"))
+    return QueryEngine(segments, device=DEVICE), segments, time.perf_counter() - t0
+
+
+def upsert_valid(cust: np.ndarray) -> np.ndarray:
+    """The last occurrence of each key, in ingestion (doc) order: one numpy
+    pass."""
+    n = len(cust)
+    live = np.zeros(n, dtype=bool)
+    _, first_of_reversed = np.unique(cust[::-1], return_index=True)
+    live[n - 1 - first_of_reversed] = True
+    return live
+
+
+def move_valid(live: np.ndarray, cust: np.ndarray, share: float, seed: int = 30) -> int:
+    """In place: a seeded `share` of the keys get their valid flag moved from
+    their last doc to an earlier doc of the same key. Returns the moves."""
+    n = len(cust)
+    order = np.lexsort((np.arange(n), cust))
+    k = cust[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    ends = np.r_[starts[1:], n]
+    rng = np.random.default_rng(seed)
+    groups = rng.choice(len(starts), size=int(len(starts) * share), replace=False)
+    groups = groups[ends[groups] - starts[groups] > 1]
+    pick = starts[groups] + (rng.random(len(groups)) * (ends[groups] - 1 - starts[groups])).astype(np.int64)
+    live[order[ends[groups] - 1]] = False
+    live[order[pick]] = True
+    return len(groups)
+
+
+def upsert_engine_of(segments: list, live: np.ndarray):
+    """Config 30's table: the time-partitioned segments (their columns and
+    staged copies shared) with a validity reading `live`, a view a segment,
+    so moving flags in place shows in the next query."""
+    import dataclasses
+
+    from pinot_tpu_torch.query import QueryEngine
+
+    out = []
+    for seg, (lo, hi) in zip(segments, tp_bounds(len(live))):
+        view = live[lo:hi]
+        out.append(dataclasses.replace(seg, extras={**seg.extras, "valid_docs": lambda nd, a=view: a[:nd]}))
+    return QueryEngine(out, device=DEVICE)
+
+
+def tp_oracle(year, nation, category, rev, cost, cust) -> dict:
+    """Rows of configs 28-29 over the raw arrays, and each config's pruned
+    segments: those whose [min, max] of d_year (sorted chunks) excludes the
+    predicate."""
+    out = {}
+    m = year == 1997
+    key = nation[m].astype(np.int64) * 25 + category[m]
+    sums = np.bincount(key, weights=rev[m], minlength=625)  # exact: integer partials < 2^53
+    cnt = np.bincount(key, minlength=625)
+    mins = np.full(625, np.iinfo(np.int64).max)
+    maxs = np.full(625, np.iinfo(np.int64).min)
+    np.minimum.at(mins, key, cost[m])
+    np.maximum.at(maxs, key, cost[m])
+    present = np.flatnonzero(cnt)
+    top = present[np.argsort(-sums[present], kind="stable")][:1000]
+    out["28a_pruned_dashboard"] = [
+        [NATIONS[g // 25], CATEGORIES[g % 25], float(sums[g]), int(cnt[g]), float(mins[g]), float(maxs[g])] for g in top
+    ]
+    m = (year >= 1997) & (year <= 1998)
+    sums = np.bincount(cust[m], weights=rev[m], minlength=N_CUSTOMERS + 1)
+    present = np.flatnonzero(np.bincount(cust[m], minlength=N_CUSTOMERS + 1))
+    top = present[np.argsort(-sums[present], kind="stable")][:100]
+    out["28b_pruned_top_customers"] = [[int(c), float(sums[c])] for c in top]
+    out["28c_empty_window"] = [[0, 0.0]]
+    out["28c_empty_window_nulls"] = [[0, None]]
+    m = year != 1995
+    sums = np.bincount(year[m] - 1992, weights=rev[m], minlength=7)
+    rows, prev = [], None
+    for y in range(1990, 2002):
+        if 1992 <= y <= 1998 and y != 1995:
+            prev = float(sums[y - 1992])
+            rows.append([y, prev])
+        else:
+            rows.append([y, prev])
+    out["29_gapfill"] = rows
+    sorted_year = np.sort(year)
+    spans = [(int(sorted_year[lo]), int(sorted_year[hi - 1])) for lo, hi in tp_bounds(len(year))]
+    tests = {
+        "28a_pruned_dashboard": lambda a, b: a <= 1997 <= b,
+        "28b_pruned_top_customers": lambda a, b: not (b < 1997 or a > 1998),
+        "28c_empty_window": lambda a, b: a <= 2005 <= b,
+        "28c_empty_window_nulls": lambda a, b: a <= 2005 <= b,
+        "29_gapfill": lambda a, b: True,
+    }
+    pruned = {name: sum(1 for a, b in spans if not t(a, b)) for name, t in tests.items()}
+    docs = {"28a_pruned_dashboard": int((year == 1997).sum())}
+    return {"rows": out, "pruned": pruned, "docs": docs, "spans": spans}
+
+
+def upsert_oracle(live, nation, rev, cust) -> dict:
+    cnt = np.bincount(nation[live], minlength=25)
+    sums = np.bincount(nation[live], weights=rev[live], minlength=25)
+    return {
+        "30a_upsert_by_nation": [[NATIONS[i], int(cnt[i]), float(sums[i])] for i in range(25) if cnt[i]],
+        "30b_upsert_distinct": [[int(len(np.unique(cust[live])))]],
+    }
+
+
+def check_explain(engine, want_docs: int, want_pruned: int) -> dict:
+    """Config 31's EXPLAIN PLAN FOR and EXPLAIN ANALYZE of 28a: the expected
+    operators, and the measured docsScanned and segmentsPruned against the
+    oracle's."""
+    import re
+
+    sql = TP_CONFIGS["28a_pruned_dashboard"]
+    plan = engine.execute("EXPLAIN PLAN FOR " + sql).rows
+    ops = [r[0] for r in plan]
+    need = ["BROKER_REDUCE(GROUP_BY)", "AGGREGATE_SUM", "AGGREGATE_COUNT", "AGGREGATE_MIN", "AGGREGATE_MAX",
+            "FILTER_SORTED_INDEX(d_year)"]
+    missing = [o for o in need if o not in ops]
+    if missing or not any(o.startswith("DEVICE_FUSED_PROGRAM(segment=") for o in ops) or not any(
+        o.startswith("GROUP_BY(keys=['c_nation', 'p_category'], ng=") for o in ops
+    ):
+        raise AssertionError(f"31 EXPLAIN: operators {ops}, missing {missing}")
+    analyze = engine.execute("EXPLAIN ANALYZE " + sql).rows
+    root = analyze[0][0]
+    docs = int(re.search(r"docsScanned=(\d+)", root).group(1))
+    pruned = int(re.search(r"segmentsPruned=(\d+)", root).group(1))
+    if (docs, pruned) != (want_docs, want_pruned):
+        raise AssertionError(f"31 EXPLAIN ANALYZE: docsScanned {docs}, segmentsPruned {pruned}; oracle {want_docs}, {want_pruned}")
+    return {"plan": plan, "analyze": analyze}
+
+
+def run_scheduled(kind: str, jobs: list, want: dict) -> dict:
+    """`jobs` ((name, engine, sql), ...) through a scheduler of `kind` with 2
+    runners, sent by 4 client threads; every result held against its
+    oracle. Returns the wall and the queries per second."""
+    import threading
+
+    from pinot_tpu_torch.query.scheduler import make_scheduler
+
+    sched = make_scheduler(kind, num_runners=2)
+    sched.start()
+    results: list = [None] * len(jobs)
+    errors: list = []
+
+    def client(i):
+        try:
+            for j in range(i, len(jobs), 4):
+                name, eng, sql = jobs[j]
+                results[j] = sched.submit(eng.execute, sql, table=name.split("_")[0]).result(timeout=600)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sched.stop()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for (name, _, _), res in zip(jobs, results):
+        rows_match(f"31 {kind} {name}", res.rows, want[name])
+    return {"wall_ms": wall * 1e3, "qps": len(jobs) / wall}
+
+
+def kernel_obs_phase(torch, tp_engine, up_engine) -> dict:
+    """Per kernel: the registry's device ms per call at one config (its CUDA
+    events, read at resolve) beside the kernel's device-alone time at the
+    same shape (the operands of its first call in that config, timed as
+    kernel_timing times), and the roofline rows of that run."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.query import kernels as qk
+
+    cases = [
+        ("28a_pruned_dashboard", tp_engine, "grouped_multi_sum", "ops.grouped_planes", gb.grouped_multi_sum_kernel),
+        ("28a_pruned_dashboard", tp_engine, "grouped_extremes", "ops.grouped_extreme", ext.grouped_extremes_kernel),
+        ("28b_pruned_top_customers", tp_engine, "grouped_multi_sum", "ops.grouped_planes2", gb.grouped_multi_sum_2l_kernel),
+        ("30b_upsert_distinct", up_engine, "presences", "ops.grouped_sum", gs.presences_kernel),
+    ]
+    sqls = {**TP_CONFIGS, **UPSERT_CONFIGS}
+    out = {}
+    for cfg, eng, fn_name, kname, kernel in cases:
+        real = getattr(qk, fn_name)
+        first = []
+
+        def spy(*a, real=real, first=first, **k):
+            if not first:
+                first.append((a, k))
+            return real(*a, **k)
+
+        setattr(qk, fn_name, spy)
+        try:
+            KERNELS.reset_stats()
+            eng.execute(sqls[cfg])
+            snap = KERNELS.stats_snapshot()
+            roof = KERNELS.roofline()["kernels"]
+        finally:
+            setattr(qk, fn_name, real)
+        rows = [v for (k, _), v in snap.items() if k == kname]
+        calls = sum(v["calls"] for v in rows)
+        args, kwargs = first[0]
+        KERNELS.configure(enabled=False)
+        try:
+            device_ms, host_ms = device_and_host_ms(torch, lambda: kernel(*args, **kwargs))
+        finally:
+            KERNELS.configure(enabled=True)
+        out[f"{cfg}:{kname}"] = {
+            "registry_calls": calls,
+            "registry_device_ms_per_call": sum(v["deviceMs"] for v in rows) / calls,
+            "registry_bytes_per_call": sum(v["bytesMoved"] for v in rows) / calls,
+            "kernel_device_ms_first_call_shape": device_ms,
+            "kernel_host_ms": host_ms,
+            "roofline": [r for r in roof if r["kernel"] == kname],
+        }
+    return out
+
+
+def run_slice8_main(torch, counted, counters, want, tp_want, engine, tp_eng, tp_segments, up_eng, upsert) -> dict:
+    """Configs 28-31 on the main path: each config's rows against its oracle,
+    its launches against the segments it runs, its pruned count against the
+    numpy count; the first query stages only the unpruned segments; config
+    30 again after UPSERT_MOVED of the valid flags moved; config 31's EXPLAIN
+    and scheduled runs; and, over configs 28-30, the kernel registry's calls
+    against the launch counters."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+
+    live, nation_tp, rev_tp, cust_tp = upsert
+    out: dict = {"pruned": {}}
+    KERNELS.reset_stats()
+    before = {k: fn.launches for k, fn in counters.items()}
+
+    def runs(name):
+        return TP_SEGMENTS - tp_want["pruned"].get(name, 0)
+
+    for name, sql in TP_CONFIGS.items():
+        tp_eng.segment_modes.clear()
+        t0 = time.perf_counter()
+        res = counted(name, [runs(name) * c for c in TP_LAUNCHES[name]], lambda: tp_eng.execute(sql))
+        if name == "28a_pruned_dashboard":
+            staged = [s for s in tp_segments if s._device_cache]
+            live_names = [s.name for s, (a, b) in zip(tp_segments, tp_want["spans"]) if a <= 1997 <= b]
+            if [s.name for s in staged] != live_names:
+                raise AssertionError(f"28a staged {[s.name for s in staged]}, unpruned {live_names}")
+            out["first_query"] = {
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "staged_segments": live_names,
+                "staged_bytes": sum(t.numel() * t.element_size() for s in staged for t in s.to_device_cached(DEVICE).arrays.values()),
+            }
+        rows_match(name, res.rows, want[name])
+        pruned = tp_want["pruned"][name]
+        got = (res.num_segments_pruned, res.num_segments_pruned_by_value, tp_eng.segment_modes["pruned"])
+        if got != (pruned, pruned, pruned) or res.num_segments_queried != TP_SEGMENTS:
+            raise AssertionError(f"{name}: pruned (total, by value, modes) {got}, numpy count {pruned}")
+        out["pruned"][name] = pruned
+    for name, sql in UPSERT_CONFIGS.items():
+        res = counted(name, [TP_SEGMENTS * c for c in TP_LAUNCHES[name]], lambda: up_eng.execute(sql))
+        rows_match(name, res.rows, want[name])
+    moved = move_valid(live, cust_tp, UPSERT_MOVED)
+    moved_want = upsert_oracle(live, nation_tp, rev_tp, cust_tp)
+    name = "30a_upsert_by_nation"
+    if moved_want[name] == want[name] or moved_want["30b_upsert_distinct"] != want["30b_upsert_distinct"]:
+        raise AssertionError("30: moving the valid flags left the oracle's rows unchanged")
+    res = counted(name + "_moved", [TP_SEGMENTS * c for c in TP_LAUNCHES[name]], lambda: up_eng.execute(UPSERT_CONFIGS[name]))
+    rows_match(name + "_moved", res.rows, moved_want[name])
+    want[name] = moved_want[name]
+    out["upsert"] = {"valid_docs": int(live.sum()), "moved": moved}
+
+    # the registry against the launch counters over configs 28-30
+    snap = KERNELS.stats_snapshot()
+    calls = {}
+    for (kname, _), v in snap.items():
+        calls[kname] = calls.get(kname, 0) + v["calls"]
+    delta = {k: fn.launches - before[k] for k, fn in counters.items()}
+    by_kernel = {"ops.grouped_planes": delta["grouped_sum_count"], "ops.grouped_extreme": delta["grouped_extreme"],
+                 "ops.grouped_sum": delta["presence"], "ops.grouped_planes2": delta["grouped_sum_count_2l"]}
+    if {k: calls.get(k, 0) for k in by_kernel} != by_kernel:
+        raise AssertionError(f"28-30: registry calls {calls}, launch counters {by_kernel}")
+    roof = KERNELS.roofline()["kernels"]
+    over = [r for r in roof if r["pctOfPeak"] > 100]
+    if over:
+        raise AssertionError(f"28-30: roofline rows above the peak: {over}")
+    out["registry"] = {"calls": calls, "launch_counters": by_kernel, "roofline": roof, "hbm": KERNELS.hbm_snapshot()}
+
+    # config 31: EXPLAIN of 28a, then 8 queries through two schedulers
+    n28a = runs("28a_pruned_dashboard")
+    out["explain"] = counted("31_explain", [n28a * c for c in TP_LAUNCHES["28a_pruned_dashboard"]],
+                             lambda: check_explain(tp_eng, tp_want["docs"]["28a_pruned_dashboard"],
+                                                   tp_want["pruned"]["28a_pruned_dashboard"]))
+    engines = {"3_q1_groupby": engine, "28a_pruned_dashboard": tp_eng, "29_gapfill": tp_eng, "30a_upsert_by_nation": up_eng}
+    sqls = {**CONFIGS, **TP_CONFIGS, **UPSERT_CONFIGS}
+    jobs = [(name, engines[name], sqls[name]) for name in SCHEDULED] * 2
+    per_round = [N_SEGMENTS * a + n28a * b + TP_SEGMENTS * (c + d) for a, b, c, d in zip(
+        LAUNCHES_PER_SEGMENT["3_q1_groupby"], TP_LAUNCHES["28a_pruned_dashboard"], TP_LAUNCHES["29_gapfill"],
+        TP_LAUNCHES["30a_upsert_by_nation"])]
+    expect = [2 * c for c in per_round]  # each query twice
+
+    def serial():
+        ms = []
+        for name, eng, sql in jobs:
+            t0 = time.perf_counter()
+            res = eng.execute(sql)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows_match(f"31 serial {name}", res.rows, want[name])
+        return {"sum_ms": sum(ms), "runs_ms": ms, "qps": len(jobs) / (sum(ms) / 1e3)}
+
+    sched = {"serial": counted("31_serial", expect, serial)}
+    for kind in ("fcfs", "priority"):
+        sched[kind] = counted(f"31_{kind}", expect, lambda: run_scheduled(kind, jobs, want))
+    out["scheduled"] = sched
+    return out
+
+
+def registry_cost(engine) -> dict:
+    """Config 28a's wall p50 with the kernel registry enabled and disabled,
+    in turns (on, off, on, off)."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+
+    sql = TP_CONFIGS["28a_pruned_dashboard"]
+    turns = []
+    try:
+        for enabled in (True, False, True, False):
+            KERNELS.configure(enabled=enabled)
+            turns.append({"enabled": enabled, **wall_p50(engine, sql, warm=1, runs=7)})
+    finally:
+        KERNELS.configure(enabled=True)
+    return {"config": "28a_pruned_dashboard", "turns": turns}
+
+
 def run_main_path(torch, counters: dict) -> dict:
     from pinot_tpu_torch.query import QueryEngine
 
@@ -2161,7 +2589,31 @@ def run_main_path(torch, counters: dict) -> dict:
 
     engine, segments, t_build = ssb_engine(data)
     null_engine, null_segments, t_null_build = null_engine_of(data)
-    del data
+    # configs 28-31's table: the same rows sorted by d_year, 16 segments
+    tp_eng, tp_segments, t_tp_build = tp_engine_of(data)
+    t0 = time.perf_counter()
+    order = tp_order(data["d_year"])
+    year_tp, nation_tp, category_tp = data["d_year"][order], nation[order], category[order]
+    rev_tp, cost_tp, cust_tp = data["lo_revenue"][order], data["lo_supplycost"][order], data["lo_custkey"][order]
+    tp_want = tp_oracle(year_tp, nation_tp, category_tp, rev_tp, cost_tp, cust_tp)
+    want.update(tp_want["rows"])
+    live = upsert_valid(cust_tp)
+    want.update(upsert_oracle(live, nation_tp, rev_tp, cust_tp))
+    up_eng = upsert_engine_of(tp_segments, live)
+    del data, order, year_tp, category_tp, cost_tp
+    emit(
+        {
+            "phase": "tp_setup",
+            "rows": N_ROWS,
+            "segments": TP_SEGMENTS,
+            "build_s": t_tp_build,
+            "oracle_s": time.perf_counter() - t0,
+            "year_spans": tp_want["spans"],
+            "pruned_expected": tp_want["pruned"],
+            "valid_docs": int(live.sum()),
+            "d_year_sorted_in_every_segment": all(s.columns["d_year"].stats.is_sorted for s in tp_segments),
+        }
+    )
     small_seg = ssb_builder().build(small, "lineorder_consuming")
     mixed_engine = QueryEngine(segments + [small_seg], device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -2254,6 +2706,9 @@ def run_main_path(torch, counters: dict) -> dict:
 
     # the main path: every count from 0, one execute per config, counts read
     # after each config and at the end
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+
+    KERNELS.configure(enabled=True)
     for fn in counters.values():
         fn.launches = 0
     launches = {}
@@ -2307,12 +2762,15 @@ def run_main_path(torch, counters: dict) -> dict:
             raise AssertionError(f"{name}: segments by executor {modes[name]}, expected {expect}")
         if res.total_docs != MV_ROWS:
             raise AssertionError(f"{name}: totalDocs {res.total_docs}")
+    slice8 = run_slice8_main(torch, counted, counters, want, tp_want, engine, tp_eng, tp_segments, up_eng,
+                             (live, nation_tp, rev_tp, cust_tp))
     main_launches = {k: fn.launches for k, fn in counters.items()}
     for k, v in main_launches.items():
         if v == 0:
             raise AssertionError(f"the main path never launched {k}")
     emit({"phase": "main_path", "results_match_oracle": True, "config10": config10,
-          "launches_per_config": launches, "launches": main_launches, "segments_by_executor": modes})
+          "launches_per_config": launches, "launches": main_launches, "segments_by_executor": modes,
+          "configs_28_31": slice8})
 
     # every config ran once on the main path already: configs 1-21 take one
     # more warm-up, configs 22-26 two; the host configs (14-16, 27) take
@@ -2326,6 +2784,9 @@ def run_main_path(torch, counters: dict) -> dict:
     walls.update({name: wall_p50(null_engine, sql, warm=1) for name, sql in NULL_CONFIGS.items()})
     walls.update({name: wall_p50(mv_eng, sql) for name, sql in MV_CONFIGS.items()})
     walls.update({name: wall_p50(mv_eng, sql, warm=0, runs=3) for name, sql in MV_HOST_CONFIGS.items()})
+    walls.update({name: wall_p50(tp_eng, sql, warm=1) for name, sql in TP_CONFIGS.items()})
+    walls.update({name: wall_p50(up_eng, sql, warm=1) for name, sql in UPSERT_CONFIGS.items()})
+    walls["31_serial_sum_of_scheduled"] = slice8["scheduled"]["serial"]
     emit(
         {
             "phase": "main_path_timing",
@@ -2340,7 +2801,11 @@ def run_main_path(torch, counters: dict) -> dict:
     split.update({name: breakdown(torch, engine, sql) for name, sql in TAG_CONFIGS.items()})
     split.update({name: breakdown(torch, null_engine, sql) for name, sql in NULL_CONFIGS.items()})
     split.update({name: breakdown(torch, mv_eng, sql) for name, sql in {**MV_CONFIGS, **MV_HOST_CONFIGS}.items()})
+    split.update({name: breakdown(torch, tp_eng, sql) for name, sql in TP_CONFIGS.items()})
+    split.update({name: breakdown(torch, up_eng, sql) for name, sql in UPSERT_CONFIGS.items()})
     emit({"phase": "where_the_time_goes", "configs": split})
+    emit({"phase": "kernel_registry_cost", **registry_cost(tp_eng), "card": card_line()})
+    emit({"phase": "kernel_obs", "kernels": kernel_obs_phase(torch, tp_eng, up_eng), "card": card_line()})
     return {"launches": main_launches, "new_steps": new_steps}
 
 
@@ -2359,12 +2824,15 @@ def breakdown(torch, engine, sql: str) -> dict:
     pend, dispatch_ms = [], []
     for seg in engine.segments:
         t0 = time.perf_counter()
-        pend.append((seg, engine._dispatch_segment(seg, ctx)))
+        pend += engine._dispatch_all(ctx, [seg])[0]  # the pruner first, as execute
         dispatch_ms.append((time.perf_counter() - t0) * 1e3)
     t.append(time.perf_counter())
     torch.cuda.synchronize()
     t.append(time.perf_counter())
-    finished = [engine._finish_segment(seg, ctx, disp) for seg, disp in pend]
+    finished = [
+        (disp[1], 0, "pruned") if disp[0] == "pruned" else engine._finish_segment(seg, ctx, disp)
+        for seg, disp, _ in pend
+    ]
     t.append(time.perf_counter())
     engine.reduce(ctx, [f[0] for f in finished])
     t.append(time.perf_counter())
@@ -2389,6 +2857,8 @@ def breakdown(torch, engine, sql: str) -> dict:
             "profiled_wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+            # host->device copies (config 30's validity masks, 1 MB a segment)
+            "htod_ms": sum(e.self_device_time_total for e in ops if "HtoD" in e.key) / 1e3,
             "top_device_ops": [
                 {"name": e.key[:80], "calls": e.count, "ms": e.self_device_time_total / 1e3} for e in ops[:8]
             ],
@@ -2403,6 +2873,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
     from pinot_tpu_torch.ops import build
     from pinot_tpu_torch.ops import extreme as ext
     from pinot_tpu_torch.ops import groupby as gb
@@ -2425,6 +2896,9 @@ def main() -> int:
     emit({"phase": "build", "nvcc": build.nvcc_path(), "flags": list(build.NVCC_FLAGS), "report": report})
 
     ssb = {**ssb_shapes(torch), **mv_shapes(torch)}
+    # the kernel phases time the kernels alone, without the registry's events
+    # and mask counts; it records from the main path on (run_main_path)
+    KERNELS.configure(enabled=False)
     timing = {
         "grouped_sum_count": check_kernels(torch, gb, ssb),
         "grouped_sum_count_2l": check_two_level(torch, gb, ssb),

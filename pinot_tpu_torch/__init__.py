@@ -11,8 +11,10 @@ and raises where there is none; pass device="cpu" to run the plain torch
 versions of the kernels on the CPU.
 
 Layer map (mirrors pinot_tpu's):
-  common/   - schema, types, config subset, error codes
+  common/   - schema, types, config subset, error codes; metrics, trace,
+              accounting, faults, segment heat, the kernel registry
   segment/  - dictionaries, stats, builder, device staging, carry-over
-  query/    - SQL parser, context, planner, per-segment program, reduce, engine
+  query/    - SQL parser, context, pruner, planner, per-segment program,
+              reduce, engine, scan stats, schedulers
   ops/      - hand-written CUDA kernels, their plain versions, their build
 """

@@ -31,7 +31,9 @@ either sign; the two compare equal.
 The tensors' device decides what runs. A CUDA tensor launches the kernel (a
 failed build or launch raises); a CPU tensor takes the plain version.
 `grouped_extremes.launches` counts kernel launches (one per call of up to
-MAX_OUTPUTS outputs).
+MAX_OUTPUTS outputs). Every launch (on the CPU, every grouped_extremes call)
+records through `common/kernel_obs.py`'s KERNELS as `ops.grouped_extreme`,
+the JAX package's name.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import ctypes
 import functools
 
 import torch
+
+from pinot_tpu_torch.common.kernel_obs import KERNELS, count_launch, streaming_cost
 
 _SOURCE = "grouped_extreme"
 #: distinct outputs per kernel launch; wider calls split
@@ -163,6 +167,17 @@ def _spec(index: int, dtypes: tuple[torch.dtype, ...], outputs: tuple[tuple[int,
     )
 
 
+def _shape(columns, outputs, gid, ng, counts) -> dict:
+    """A launch's shape for the registry's byte model: a masked doc's group id
+    and each distinct column's value, each output written once (float32 for
+    float32 values, float64 otherwise) and the counts read for int32 ones."""
+    used = dict.fromkeys(c for c, _ in outputs)
+    out_bytes = sum(ng * (4 if columns[c].dtype == torch.float32 else 8) for c, _ in outputs)
+    out_bytes += ng * 8 if counts is not None else 0
+    per_doc = 4 + sum(columns[c].element_size() for c in used)
+    return {"rows": gid.numel(), "groups": ng, "per_doc": per_doc, "out_bytes": out_bytes, "outputs": len(outputs)}
+
+
 def _launch(lib, columns, outputs, gid, mask, ng, counts) -> list[torch.Tensor]:
     """One launch for at most MAX_OUTPUTS distinct outputs."""
     n = gid.numel()
@@ -176,7 +191,7 @@ def _launch(lib, columns, outputs, gid, mask, ng, counts) -> list[torch.Tensor]:
     rows = buf[: m * row].view(torch.float64).view(m, ng)
     results = [rows[o].view(torch.float32)[:ng] if f32 else rows[o] for o, f32 in enumerate(narrow)]
     base = buf.data_ptr()
-    err = lib.grouped_extremes(
+    err = KERNELS.launch("ops.grouped_extreme", lambda: lib.grouped_extremes(
         len(used),
         (ctypes.c_void_p * len(used))(*[columns[c].data_ptr() for c in used]),
         dtypes,
@@ -195,10 +210,10 @@ def _launch(lib, columns, outputs, gid, mask, ng, counts) -> list[torch.Tensor]:
         nbytes,
         (ctypes.c_void_p * m)(*[base + o * row for o in range(m)]),
         torch.cuda.current_stream(gid.device).cuda_stream,
-    )
+    ), mask, **_shape(columns, outputs, gid, ng, counts))
     if err != 0:
         raise RuntimeError(f"grouped_extremes launch failed with CUDA error {err}")
-    grouped_extremes.launches += 1
+    count_launch(grouped_extremes)
     return results
 
 
@@ -223,12 +238,24 @@ def grouped_extremes(columns, outputs, gid, mask, ng: int, counts=None) -> list[
     if gid.device.type == "cuda":
         return grouped_extremes_kernel(columns, outputs, gid, mask, ng, counts)
     if gid.device.type == "cpu":
-        return grouped_extremes_plain(columns, outputs, gid, mask, ng, counts)
+        return KERNELS.launch(
+            "ops.grouped_extreme",
+            lambda: grouped_extremes_plain(columns, outputs, gid, mask, ng, counts),
+            mask,
+            **_shape(columns, outputs, gid, ng, counts),
+        )
     raise ValueError(f"grouped_extremes runs on cuda or cpu tensors, got {gid.device}")
 
 
 #: kernel launches (the CPU path never adds to it)
 grouped_extremes.launches = 0
+
+KERNELS.register(
+    "ops.grouped_extreme",
+    grouped_extremes_kernel,
+    cost_model=streaming_cost,
+    description="per-group MIN/MAX of masked f32 / i32 / f64 values (csrc/grouped_extreme.cu)",
+)
 
 
 def grouped_extreme_kernel(values, gid, mask, ng: int, is_min: bool, counts=None) -> torch.Tensor:

@@ -25,6 +25,9 @@ by `ops/build.py`), and a failed build or launch raises; a CPU tensor takes the
 plain version, `grouped_multi_sum_plain`, which tests and the kernels' on-card
 check compare both kernels against. `grouped_multi_sum.launches` counts the
 flat kernel's launches, `grouped_multi_sum_2l.launches` the two-level kernel's.
+Every launch (on the CPU, every call of the plain version through a wrapper)
+records through `common/kernel_obs.py`'s KERNELS, as `ops.grouped_planes`
+(flat) and `ops.grouped_planes2` (two-level), the JAX package's names.
 """
 
 from __future__ import annotations
@@ -34,11 +37,19 @@ import functools
 
 import torch
 
+from pinot_tpu_torch.common.kernel_obs import KERNELS, count_launch, streaming_cost
+
 #: columns per launch; wider calls split into several launches
 MAX_COLS = 8
 
 _SOURCE = "grouped_sum_count"
 _SOURCE_2L = "grouped_sum_count_2l"
+
+
+def _shape(k: int, n: int, ng: int) -> dict:
+    """A launch's shape for the registry's byte model: a masked doc's group
+    id and k values, and the (k+1, ng) int64 output."""
+    return {"rows": n, "groups": ng, "cols": k, "per_doc": 4 + 4 * k, "out_bytes": (k + 1) * ng * 8, "outputs": k + 1}
 
 
 def _check(values: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor, ng: int) -> None:
@@ -112,12 +123,17 @@ def _launch(lib, cols: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor
     blocks, smem = _plan(gid.device.index, len(cols), ng, n)
     ptrs = (ctypes.c_void_p * max(len(cols), 1))(*[v.data_ptr() for v in cols])
     stream = torch.cuda.current_stream(gid.device).cuda_stream
-    err = lib.grouped_sum_count(
-        ptrs, len(cols), gid.data_ptr(), mask.data_ptr(), n, ng, blocks, smem, out.data_ptr(), stream
+    err = KERNELS.launch(
+        "ops.grouped_planes",
+        lambda: lib.grouped_sum_count(
+            ptrs, len(cols), gid.data_ptr(), mask.data_ptr(), n, ng, blocks, smem, out.data_ptr(), stream
+        ),
+        mask,
+        **_shape(len(cols), n, ng),
     )
     if err != 0:
         raise RuntimeError(f"grouped_sum_count launch failed with CUDA error {err}")
-    grouped_multi_sum.launches += 1
+    count_launch(grouped_multi_sum)
 
 
 def _by_launch(launch, values: list[torch.Tensor], gid: torch.Tensor, ng: int) -> torch.Tensor:
@@ -251,12 +267,18 @@ def _launch_2l(lib, cols, gid: torch.Tensor, mask: torch.Tensor, ng: int, bits: 
     scratch = torch.empty(need, dtype=torch.uint8, device=gid.device)
     ptrs = (ctypes.c_void_p * max(len(cols), 1))(*[v.data_ptr() for v in cols])
     stream = torch.cuda.current_stream(gid.device).cuda_stream
-    err = lib.grouped_sum_count_2l(
-        ptrs, len(cols), gid.data_ptr(), mask.data_ptr(), n, ng, bits, scratch.data_ptr(), need, out.data_ptr(), stream
+    err = KERNELS.launch(
+        "ops.grouped_planes2",
+        lambda: lib.grouped_sum_count_2l(
+            ptrs, len(cols), gid.data_ptr(), mask.data_ptr(), n, ng, bits, scratch.data_ptr(), need, out.data_ptr(),
+            stream,
+        ),
+        mask,
+        **_shape(len(cols), n, ng),
     )
     if err != 0:
         raise RuntimeError(f"grouped_sum_count_2l launch failed with CUDA error {err}")
-    grouped_multi_sum_2l.launches += 1
+    count_launch(grouped_multi_sum_2l)
 
 
 def grouped_multi_sum_2l_kernel(
@@ -288,7 +310,12 @@ def grouped_multi_sum_2l(values: list[torch.Tensor], gid: torch.Tensor, mask: to
     _check(values, gid, mask, ng)
     if _device_kind(gid, "grouped_multi_sum_2l") == "cuda":
         return grouped_multi_sum_2l_kernel(values, gid, mask, ng)
-    return grouped_multi_sum_plain(values, gid, mask, ng)
+    return KERNELS.launch(
+        "ops.grouped_planes2",
+        lambda: grouped_multi_sum_plain(values, gid, mask, ng),
+        mask,
+        **_shape(len(values), gid.numel(), ng),
+    )
 
 
 #: two-level kernel launches (the CPU path never adds to it)
@@ -303,7 +330,12 @@ def grouped_multi_sum(
     kernel while its counters fit shared memory, else the two-level one."""
     _check(values, gid, mask, ng)
     if _device_kind(gid, "grouped_multi_sum") == "cpu":
-        out = grouped_multi_sum_plain(values, gid, mask, ng)
+        out = KERNELS.launch(
+            "ops.grouped_planes",
+            lambda: grouped_multi_sum_plain(values, gid, mask, ng),
+            mask,
+            **_shape(len(values), gid.numel(), ng),
+        )
     elif uses_shared_counters(min(len(values), MAX_COLS), ng, gid.device):
         out = grouped_multi_sum_kernel(values, gid, mask, ng)
     else:
@@ -313,3 +345,17 @@ def grouped_multi_sum(
 
 #: flat kernel launches (the CPU path never adds to it)
 grouped_multi_sum.launches = 0
+
+
+KERNELS.register(
+    "ops.grouped_planes",
+    grouped_multi_sum_kernel,
+    cost_model=streaming_cost,
+    description="exact per-group SUM of int32 columns + COUNT, counters in shared memory (csrc/grouped_sum_count.cu)",
+)
+KERNELS.register(
+    "ops.grouped_planes2",
+    grouped_multi_sum_2l_kernel,
+    cost_model=streaming_cost,
+    description="exact per-group SUM + COUNT for large ng, two-level gid (csrc/grouped_sum_count_2l.cu)",
+)

@@ -25,6 +25,9 @@ The tensors' device decides what runs. A CUDA tensor launches the kernel (a
 failed build or launch raises); a CPU tensor takes the plain version.
 `grouped_sum.launches` counts the sum entry's kernel launches and
 `presence.launches` the presence entry's, from either presence function.
+Both entries' launches (on the CPU, every call of a plain version through a
+wrapper) record through `common/kernel_obs.py`'s KERNELS as
+`ops.grouped_sum`, the JAX package's name for the kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import ctypes
 import functools
 
 import torch
+
+from pinot_tpu_torch.common.kernel_obs import KERNELS, count_launch, streaming_cost
 
 _SOURCE = "grouped_sum_f32"
 #: id columns per presence launch; wider calls split
@@ -104,6 +109,20 @@ def presence_words(pads, ng: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _sum_shape(values, gid, ng: int) -> dict:
+    """A sum launch's shape for the registry's byte model: a masked doc's
+    group id and value, the float32 sums written once."""
+    return {"rows": gid.numel(), "groups": ng, "per_doc": 4 if values is None else 8, "out_bytes": 4 * ng}
+
+
+def _presence_shape(columns, pads, mask, gid, ng: int) -> dict:
+    """A presence launch's shape for the registry's byte model: a masked
+    doc's ids (and group id), the flags written once."""
+    per_doc = 4 * len(columns) + (4 if gid is not None else 0)
+    return {"rows": mask.numel(), "groups": ng, "per_doc": per_doc, "out_bytes": ng * sum(pads),
+            "outputs": len(columns)}
+
+
 def grouped_sum_plain(values, gid, mask, ng: int) -> torch.Tensor:
     """The plain version: float32 index_add_ of the masked values (of 1 per
     masked doc when values is None)."""
@@ -119,18 +138,23 @@ def grouped_sum_kernel(values, gid, mask, ng: int) -> torch.Tensor:
     out = torch.zeros(ng, dtype=torch.float32, device=gid.device)
     with torch.cuda.device(gid.device):
         stream = torch.cuda.current_stream(gid.device).cuda_stream
-        err = lib.grouped_sum_f32(
-            None if values is None else values.data_ptr(),
-            gid.data_ptr(),
-            mask.data_ptr(),
-            gid.numel(),
-            ng,
-            out.data_ptr(),
-            stream,
+        err = KERNELS.launch(
+            "ops.grouped_sum",
+            lambda: lib.grouped_sum_f32(
+                None if values is None else values.data_ptr(),
+                gid.data_ptr(),
+                mask.data_ptr(),
+                gid.numel(),
+                ng,
+                out.data_ptr(),
+                stream,
+            ),
+            mask,
+            **_sum_shape(values, gid, ng),
         )
     if err != 0:
         raise RuntimeError(f"grouped_sum_f32 launch failed with CUDA error {err}")
-    grouped_sum.launches += 1
+    count_launch(grouped_sum)
     return out
 
 
@@ -147,7 +171,9 @@ def grouped_sum(values, gid, mask, ng: int) -> torch.Tensor:
             raise ValueError(f"values must be a tensor of shape {tuple(gid.shape)} on {gid.device}")
     if _route(gid, "grouped_sum"):
         return grouped_sum_kernel(values, gid, mask, ng)
-    return grouped_sum_plain(values, gid, mask, ng)
+    return KERNELS.launch(
+        "ops.grouped_sum", lambda: grouped_sum_plain(values, gid, mask, ng), mask, **_sum_shape(values, gid, ng)
+    )
 
 
 #: kernel launches of the SUM entry (the CPU path never adds to it)
@@ -223,7 +249,7 @@ def _launch(lib, columns, pads, mask, gid, ng: int) -> list[torch.Tensor]:
     buf = torch.zeros(table + smem, dtype=torch.uint8, device=mask.device)
     base = buf.data_ptr()
     m = len(columns)
-    err = lib.presences(
+    err = KERNELS.launch("ops.grouped_sum", lambda: lib.presences(
         m,
         (ctypes.c_void_p * m)(*[ids.data_ptr() for ids in columns]),
         c_pads,
@@ -236,10 +262,10 @@ def _launch(lib, columns, pads, mask, gid, ng: int) -> list[torch.Tensor]:
         (ctypes.c_void_p * m)(*[base + s for s in starts]),
         base + table if smem else None,
         torch.cuda.current_stream(mask.device).cuda_stream,
-    )
+    ), mask, **_presence_shape(columns, pads, mask, gid, ng))
     if err != 0:
         raise RuntimeError(f"presences launch failed with CUDA error {err}")
-    presence.launches += 1
+    count_launch(presence)
     flags = buf.view(torch.bool)
     views = [flags[s : s + size] for s, size in zip(starts, sizes)]
     return views if gid is None else [v.view(ng, pad) for v, pad in zip(views, pads)]
@@ -276,7 +302,12 @@ def presences(columns, pads, mask, gid=None, ng: int = 1) -> list[torch.Tensor]:
             raise ValueError(f"gid on {gid.device}, ids on {mask.device}")
     if _route(mask, "presence"):
         return presences_kernel(columns, pads, mask, gid, ng)
-    return presences_plain(columns, pads, mask, gid, ng)
+    return KERNELS.launch(
+        "ops.grouped_sum",
+        lambda: presences_plain(columns, pads, mask, gid, ng),
+        mask,
+        **_presence_shape(columns, pads, mask, gid, ng),
+    )
 
 
 def presence_kernel(ids, mask, pad: int, gid=None, ng: int = 1) -> torch.Tensor:
@@ -293,3 +324,10 @@ def presence(ids, mask, pad: int, gid=None, ng: int = 1) -> torch.Tensor:
 #: kernel launches of the presence entry, from presence and presences (the
 #: CPU path never adds to it)
 presence.launches = 0
+
+KERNELS.register(
+    "ops.grouped_sum",
+    presences_kernel,
+    cost_model=streaming_cost,
+    description="f32 per-group SUM / COUNT and DISTINCTCOUNT presence flags (csrc/grouped_sum_f32.cu)",
+)

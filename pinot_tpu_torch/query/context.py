@@ -233,10 +233,15 @@ class Deadline:
 
     def check(self, where: str = "") -> None:
         """Raise if cancelled or expired — the per-block / per-segment
-        enforcement point."""
+        enforcement point. A checkpoint that fires leaves a span event on the
+        active trace (no-op otherwise) before raising."""
+        from pinot_tpu_torch.common.trace import trace_event
+
         if self._cancelled.is_set():
+            trace_event("deadline.cancelled", where=where)
             raise QueryCancelledError(f"query cancelled{f' at {where}' if where else ''}")
         if self.expired:
+            trace_event("deadline.expired", where=where)
             raise QueryTimeoutError(
                 f"query exceeded its deadline{f' at {where}' if where else ''}"
             )

@@ -1242,11 +1242,14 @@ def selection_ob_frame(seg: ImmutableSegment, ctx: QueryContext, mask: np.ndarra
     return frame
 
 
-def execute_segment(seg: ImmutableSegment, ctx: QueryContext) -> tuple:
-    """(partial, matched docs) of one segment on the host."""
+def execute_segment(seg: ImmutableSegment, ctx: QueryContext, extra_mask=None) -> tuple:
+    """(partial, matched docs) of one segment on the host; `extra_mask` (the
+    upsert validity) is ANDed into the WHERE's mask."""
     from pinot_tpu_torch.query.context import QueryType
 
     mask = filter_mask_null_aware(seg, ctx.filter) if null_handling_enabled(ctx.options) else filter_mask(seg, ctx.filter)
+    if extra_mask is not None:
+        mask = mask & extra_mask
     matched = int(mask.sum())
     qt = ctx.query_type
     k = ctx.limit + ctx.offset

@@ -1017,9 +1017,11 @@ def _like_to_regex(pattern: str) -> str:
     return "".join(out)
 
 
-def plan_segment(seg: ImmutableSegment, ctx: QueryContext) -> SegmentPlan:
+def plan_segment(seg: ImmutableSegment, ctx: QueryContext, valid_mask=None) -> SegmentPlan:
     """Lower a query against one segment. Raises DeviceFallback where the
-    segment runs on the host executor, as in the reference."""
+    segment runs on the host executor, as in the reference. `valid_mask` is
+    an upsert validity snapshot the caller already took; without one the
+    segment's own `extras["valid_docs"]` is read."""
     from pinot_tpu_torch.query.host_exec import expr_null_mask
 
     null_on = null_handling_enabled(ctx.options)
@@ -1029,6 +1031,16 @@ def plan_segment(seg: ImmutableSegment, ctx: QueryContext) -> SegmentPlan:
         raise DeviceFallback("null-handling group-by key runs host-side")
     lo = _Lowering(seg, ctx)
     fspec = lo.where_spec(ctx.filter)
+    if valid_mask is None:
+        valid = seg.extras.get("valid_docs")
+        if valid is not None:
+            valid_mask = valid(seg.n_docs)
+    if valid_mask is not None:
+        # upsert visibility: only the latest doc of each primary key counts.
+        # The current validity rides as a docmask operand, copied into a
+        # fresh padded array for every query and never a stable operand: the
+        # caller may mutate the array it handed over in place
+        fspec = ("and", (lo.docmask_spec(np.asarray(valid_mask, dtype=bool)), fspec))
 
     def plan(spec, **decode) -> SegmentPlan:
         return SegmentPlan(spec=spec, operands=tuple(lo.operands), columns=tuple(lo.columns), **decode)

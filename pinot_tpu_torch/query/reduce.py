@@ -738,8 +738,55 @@ def reduce_selection_order_by(ctx: QueryContext, frames: list[dict[str, np.ndarr
     return frame_rows([v[perm] for c, v in cols.items() if c not in key_cols])
 
 
+def apply_gapfill(ctx: QueryContext, rows: list[list]) -> list[list]:
+    """Broker-side gap filling (reference: GapfillProcessor,
+    pinot-core/.../query/reduce/GapfillProcessor.java). Emits exactly one pass
+    over the [start, end) bucket range in step increments: rows whose time
+    value lands on a bucket are kept (rows outside the range are dropped);
+    missing buckets are synthesized with per-column FILL modes —
+    FILL_PREVIOUS_VALUE carries the last emitted value forward,
+    FILL_DEFAULT_VALUE emits 0, otherwise None."""
+    gf = ctx.gapfill
+    assert gf is not None
+    n = len(ctx.select_items)
+    integral = all(float(v).is_integer() for v in (gf.start, gf.step))
+    nbuckets = max(0, int(math.ceil((gf.end - gf.start) / gf.step)))
+    # bucket-index matching (not exact float equality) so fractional steps
+    # don't miss rows to rounding
+    by_bucket: dict[int, list[list]] = {}
+    for r in rows:
+        try:
+            idx = (float(r[gf.col_index]) - gf.start) / gf.step
+        except (TypeError, ValueError):
+            continue
+        b = int(round(idx))
+        if 0 <= b < nbuckets and abs(idx - b) < 1e-9:
+            by_bucket.setdefault(b, []).append(r)
+    out: list[list] = []
+    prev: list | None = None
+    for b in range(nbuckets):
+        t = gf.start + b * gf.step
+        hit = by_bucket.get(b)
+        if hit:
+            out.extend(hit)
+            prev = hit[-1]
+            continue
+        row: list = [None] * n
+        row[gf.col_index] = int(t) if integral else t
+        for j in range(n):
+            if j == gf.col_index:
+                continue
+            mode = gf.fills.get(j)
+            if mode == "FILL_PREVIOUS_VALUE" and prev is not None:
+                row[j] = prev[j]
+            elif mode == "FILL_DEFAULT_VALUE":
+                row[j] = 0
+        out.append(row)
+    return out
+
+
 def build_result(ctx: QueryContext, rows: list[list], **stats) -> ResultTable:
     if ctx.gapfill is not None:
-        raise NotImplementedError("GAPFILL is not ported to pinot_tpu_torch yet")
+        rows = apply_gapfill(ctx, rows)
     cols = [ctx.output_name(it) for it in ctx.select_items]
     return ResultTable(columns=cols, rows=rows, **stats)

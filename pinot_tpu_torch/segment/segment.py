@@ -16,6 +16,8 @@ value's owning doc (`"{col}!docs"`), both padded to a multiple of DOC_PAD.
 
 from __future__ import annotations
 
+import functools
+import threading
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -30,6 +32,9 @@ from pinot_tpu_torch.segment.stats import ColumnStats
 # shares tensor shapes. Padded tail rows are zeros and are masked out by the
 # engine via iota < n_docs.
 DOC_PAD = 1024
+
+# serializes staging, so two query threads stage a segment once
+_STAGE_LOCK = threading.Lock()
 
 
 def padded_len(n_docs: int) -> int:
@@ -176,14 +181,32 @@ class ImmutableSegment:
             self._null_cache[key] = mark_stable_operand(m)
         return self._null_cache[key]
 
+    @functools.cached_property
+    def size_bytes(self) -> int:
+        """Resident host-memory estimate (forward arrays + dictionaries), as
+        the reference's: what the accountant and the heat map charge a
+        segment's execution (computed once: the columns never change)."""
+        total = 0
+        for ci in self.columns.values():
+            if isinstance(ci.forward, np.ndarray):
+                total += ci.forward.nbytes
+            vals = getattr(ci.dictionary, "values", None)
+            if isinstance(vals, np.ndarray) and vals.dtype != object:
+                total += vals.nbytes
+        return total
+
     def to_device_cached(self, device: str | torch.device = "cuda") -> "DeviceSegment":
         """Memoized staging: one staged copy per segment and device, shared by
-        every engine that queries the segment."""
+        every engine that queries the segment, and by every thread: a second
+        thread asking while the first stages waits for its copy."""
         key = str(torch.device(device))
         ds = self._device_cache.get(key)
         if ds is None:
-            ds = self.to_device(device)
-            self._device_cache[key] = ds
+            with _STAGE_LOCK:
+                ds = self._device_cache.get(key)
+                if ds is None:
+                    ds = self.to_device(device)
+                    self._device_cache[key] = ds
         return ds
 
     def to_device(self, device: str | torch.device = "cuda") -> "DeviceSegment":

@@ -22,7 +22,10 @@ over a table with two multi-value columns beside single-value ones (a STRING
 `tags` and an INT `vals`, 0-3 values a doc): MV any-match predicates and
 exclusions, the *MV aggregations, GROUP BY and DISTINCT over one or two MV
 keys, and selections of MV cells (a numpy array in the reference's rows, a
-list in the port's, compared value for value)."""
+list in the port's, compared value for value). A fourth draws day ranges
+over a time-partitioned table (8 segments, rows sorted by day), with and
+without null handling: there the pruning funnel and the scan-path entry
+counts must be equal too, and about half of the segments prune."""
 
 import math
 
@@ -119,6 +122,48 @@ def _mv_schema(DT, S, FS):
     return schema
 
 
+TP_SEGMENTS = 8
+
+
+@pytest.fixture(scope="module")
+def tp_engines():
+    """The mixed-type table with a `day` column (0-99), its rows sorted by
+    day and cut into TP_SEGMENTS segments: a time-partitioned table, where
+    about half of the segments fall out of a day range."""
+    rng = np.random.default_rng(700)
+    data = _data(701, 8000)
+    data["day"] = np.sort(rng.integers(0, 100, 8000)).astype(np.int32)
+    cut = np.linspace(0, 8000, TP_SEGMENTS + 1).astype(int)
+    datas = [{c: v[a:b] for c, v in data.items()} for a, b in zip(cut[:-1], cut[1:])]
+
+    def schema(DT, S):
+        return S.build(
+            "f",
+            dimensions=[("d1", DT.STRING), ("d2", DT.STRING), ("k", DT.INT), ("day", DT.INT)],
+            metrics=[("m1", DT.LONG), ("m2", DT.DOUBLE)],
+        )
+
+    ref = JEngine([JBuilder(schema(JDT, JSchema)).build(d, f"f{i}") for i, d in enumerate(datas)])
+    port = QueryEngine([SegmentBuilder(schema(DataType, Schema)).build(d, f"f{i}") for i, d in enumerate(datas)], device="cpu")
+    return ref, port
+
+
+def _day_filter(rng) -> str:
+    """A range over the sorted day column, ANDed with a random filter half
+    of the time: the min/max pruner drops the segments it excludes."""
+    d = int(rng.integers(-5, 105))
+    p = [
+        f"day = {d}",
+        f"day < {d}",
+        f"day >= {d}",
+        f"day BETWEEN {d} AND {d + int(rng.integers(0, 25))}",
+        f"day IN ({d}, {d + 37})",
+        f"{d} > day",
+        f"day > {d} OR day < {d - 60}",
+    ][rng.integers(0, 7)]
+    return f"{p} AND ({_filter(rng)})" if rng.random() < 0.5 else p
+
+
 @pytest.fixture(scope="module")
 def mv_engines():
     datas = [_mv_data(500 + i, n) for i, n in enumerate(SIZES)]
@@ -207,9 +252,9 @@ def _limit(rng) -> str:
     return lim + (f" OFFSET {int(rng.integers(1, 20))}" if rng.random() < 0.3 else "")
 
 
-def _query(rng) -> str:
+def _query(rng, filt=None) -> str:
     kind = rng.integers(0, 5)
-    where = f" WHERE {_filter(rng)}" if rng.random() < 0.85 else ""
+    where = f" WHERE {(filt or _filter)(rng)}" if rng.random() < 0.85 else ""
     if kind == 0:
         return f"SELECT {', '.join(_pick(rng, AGGS, 1, 3))} FROM f{where}"
     if kind == 1:
@@ -323,7 +368,25 @@ def test_random_mv_queries_match_reference(mv_engines, seed):
     _run_random(mv_engines, np.random.default_rng(3000 + seed), 30, "", _mv_query)
 
 
-def _run_random(engines, rng, n_queries, prefix, query=_query):
+@pytest.mark.parametrize("prefix", ["", "SET enableNullHandling = true; "])
+@pytest.mark.parametrize("seed", range(3))
+def test_random_pruned_queries_match_reference(tp_engines, seed, prefix):
+    """Day ranges over the time-partitioned table: rows, numDocsScanned, the
+    pruning funnel and the scan-path entry counts equal the reference's on
+    every query; the queries prune about half of the segments."""
+    _, port = tp_engines
+    port.segment_modes.clear()
+    _run_random(tp_engines, np.random.default_rng(4000 + seed), 30, prefix, lambda rng: _query(rng, _day_filter), stats=True)
+    pruned, total = port.segment_modes["pruned"], sum(port.segment_modes.values())
+    assert 0.25 < pruned / total < 0.75, (pruned, total)
+
+
+#: the stats fields the time-partitioned run holds equal
+SCAN_STATS = ("num_segments_pruned", "num_segments_pruned_by_value", "num_segments_pruned_by_bloom",
+              "num_segments_pruned_by_geo", "num_entries_scanned_in_filter", "num_entries_scanned_post_filter")
+
+
+def _run_random(engines, rng, n_queries, prefix, query=_query, stats=False):
     ref, port = engines
     skipped = []
     for _ in range(n_queries):
@@ -344,4 +407,6 @@ def _run_random(engines, rng, n_queries, prefix, query=_query):
             assert all(_same(a, b) or (t and a is None and _same(float("nan"), b)) for a, b, t in zip(g, w, text)), (
                 sql, g, w)
         assert got.num_docs_scanned == want.num_docs_scanned, sql
+        for f in SCAN_STATS if stats else ():
+            assert getattr(got, f) == getattr(want, f), (sql, f)
     assert len(skipped) <= MAX_SKIPPED * n_queries, skipped

@@ -194,6 +194,10 @@ MORE = [
     # a WHERE that leaves no doc (and that no segment pruning decides)
     "SET enableNullHandling = true; SELECT SUMMV(nums), MINMV(nums), AVGMV(nums), COUNTMV(nums), SUM(year) FROM t "
     "WHERE year + 0 = 1900",
+    # the same WHERE in the form the pruner decides (year's min/max excludes
+    # 1900): every segment pruned, SUMMV and SUM NULL as in the reference
+    "SET enableNullHandling = true; SELECT SUMMV(nums), MINMV(nums), AVGMV(nums), COUNTMV(nums), SUM(year) FROM t "
+    "WHERE year = 1900",
     "SET enableNullHandling = true; SELECT year, SUMMV(nums) FILTER (WHERE year = 2020), MAXMV(nums) FROM t "
     "GROUP BY year ORDER BY year",
 ]
