@@ -104,6 +104,41 @@
    the registry's CUDA-event ms a call beside the kernel's device-alone time
    at the same operands.
 
+9. The sharded table and executor (bench.py's timed path): the same 16M
+   rows as one sharded table (build_sharded_table, rows_per_segment = n / 4
+   as bench.py on one device: S = 4 stacked segments), bench.py's Q4,
+   config 1's COUNT, Q2 and config 3's Q1 and configs 5-9 through
+   execute_sharded_result, each against the oracle, with its launches a query
+   (each kernel once over the flat 16M-doc vector: LAUNCHES_PER_SEGMENT's
+   one-segment tuple; counts from 0 just before the path, read just after)
+   and exactly one device->host copy and no read of a device scalar (counted
+   op by op under a TorchDispatchMode). Per query: the wall
+   p50 beside the per-segment engine's, the program's device time alone
+   (CUDA events) and the idle share it leaves of the wall,
+   the `exchange.sharded` CUDA-event span beside the bound of the true bytes
+   (every read column over S x P docs). `sharded_kernels` holds B1-B4 against
+   their plain versions at the operands of their first flat launch and times
+   both there. The proto fallback: a GROUP BY over two MV keys on a 1M-row MV
+   sharded table and config 9 with MAX_DENSE_GROUPS cut to 2^16 (the sparse
+   slots overflow) both rerun on the proto, equal the oracle, with the
+   proto's staged bytes; each rerun's launches are counted from 0 just
+   before it and read just after (FALLBACK_LAUNCHES), and every kernel call
+   it made is held against its plain version on the same operands.
+   `sharded_scale_path` is bench.py's scale block: 60M rows (seed 7,
+   bench.py's six columns), S = 4, Q4 and Q2 against the oracle, with their
+   launches counted from 0 just before and read just after (Q4's one flat
+   launch over n = S x P docs, Q2's none), and each kernel call held against
+   its plain version and timed there; `sharded_scale` gives its build
+   seconds, staged bytes, p50 and rows per second.
+10. The segment store, loader and indexes: the 4 lineorder segments written
+   (default codec, lz4) and loaded back, configs 3-4 from the loaded segments
+   equal to the in-memory engine's rows; configs 28-30's 16 segments with a
+   bloom filter on lo_custkey and an inverted index on c_nation (the index
+   SPI), a point lookup on the key held by the fewest segments against the
+   oracle, its bloom-pruned count beside the min/max-pruned count; a
+   200,000-row text / JSON table answering TEXT_MATCH and JSON_MATCH through
+   the program's docmask operand on the card, against the numpy oracle.
+
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel.
@@ -1394,16 +1429,33 @@ def make_ssb_data(n: int, seed: int = 0):
     return data, nation, category
 
 
+def q2_rows(data, nation) -> list:
+    """bench.py's Q2 (config 2): filtered SUM / MIN / MAX / AVG."""
+    year, qty, rev, cost = data["d_year"], data["lo_quantity"], data["lo_revenue"], data["lo_supplycost"]
+    m = (year >= 1994) & (year <= 1996) & (nation == 3)
+    return [[float(rev[m].sum()), float(qty[m].min()), float(rev[m].max()), float(cost[m].sum()) / int(m.sum())]]
+
+
+def q4_rows(data, nation, category) -> list:
+    """bench.py's Q4 (config 4): the top 10 (year, nation, category) groups
+    by profit."""
+    year, qty, rev, cost = data["d_year"], data["lo_quantity"], data["lo_revenue"], data["lo_supplycost"]
+    m = (qty > 5) & (year >= 1993) & (year <= 1997)
+    key = (year[m].astype(np.int64) - 1992) * 625 + nation[m] * 25 + category[m]
+    sums = np.bincount(key, weights=(rev[m] - cost[m]).astype(np.float64), minlength=7 * 625)
+    cnt = np.bincount(key, minlength=7 * 625)
+    present = np.flatnonzero(cnt)
+    top = present[np.argsort(-sums[present], kind="stable")][:10]
+    return [[1992 + int(g // 625), NATIONS[int(g // 25 % 25)], CATEGORIES[int(g % 25)], float(sums[g])] for g in top]
+
+
 def oracle(data, nation, category) -> tuple[dict, dict]:
     """(rows of each config, groups in all of configs 8 and 9)."""
     year, qty = data["d_year"], data["lo_quantity"]
     rev, cost = data["lo_revenue"], data["lo_supplycost"]
     out = {"1_count_filter": [[int((nation == 7).sum())]]}
 
-    m = (year >= 1994) & (year <= 1996) & (nation == 3)
-    out["2_filtered_agg"] = [
-        [float(rev[m].sum()), float(qty[m].min()), float(rev[m].max()), float(cost[m].sum()) / int(m.sum())]
-    ]
+    out["2_filtered_agg"] = q2_rows(data, nation)
 
     m = ((nation == 1) | (nation == 2)) & (qty < 25)
     yi = year[m] - 1992
@@ -1411,15 +1463,7 @@ def oracle(data, nation, category) -> tuple[dict, dict]:
     cnt = np.bincount(yi, minlength=7)
     out["3_q1_groupby"] = [[1992 + y, float(sums[y])] for y in range(7) if cnt[y]][:20]
 
-    m = (qty > 5) & (year >= 1993) & (year <= 1997)
-    key = (year[m].astype(np.int64) - 1992) * 625 + nation[m] * 25 + category[m]
-    sums = np.bincount(key, weights=(rev[m] - cost[m]).astype(np.float64), minlength=7 * 625)
-    cnt = np.bincount(key, minlength=7 * 625)
-    present = np.flatnonzero(cnt)
-    top = present[np.argsort(-sums[present], kind="stable")][:10]
-    out["4_q4_groupby_orderby"] = [
-        [1992 + int(g // 625), NATIONS[int(g // 25 % 25)], CATEGORIES[int(g % 25)], float(sums[g])] for g in top
-    ]
+    out["4_q4_groupby_orderby"] = q4_rows(data, nation, category)
 
     m = (qty > 5) & (year >= 1993) & (year <= 1997)
     key = (year[m].astype(np.int64) - 1992) * 25 + nation[m]  # (d_year, c_nation): NATION_xx sort by index
@@ -1765,23 +1809,28 @@ def rows_match(name: str, got: list, want: list) -> None:
                 raise AssertionError(f"{name} row {r} col {c}: got {a!r}, oracle {b!r}")
 
 
+def ssb_schema(name: str = "lineorder", keys: bool = True):
+    """The lineorder schema: bench.py's six columns, and with `keys` the
+    customer and supplier keys."""
+    from pinot_tpu_torch.common import DataType, Schema
+
+    dims = [("d_year", DataType.INT), ("c_nation", DataType.STRING), ("p_category", DataType.STRING)]
+    if keys:
+        dims += [("lo_custkey", DataType.INT), ("lo_suppkey", DataType.INT)]
+    return Schema.build(
+        name,
+        dimensions=dims,
+        metrics=[("lo_revenue", DataType.LONG), ("lo_supplycost", DataType.LONG), ("lo_quantity", DataType.INT)],
+    )
+
+
 def ssb_builder(name: str = "lineorder", null_handling: bool = False):
     """The package's SegmentBuilder for the lineorder schema (with null
     vectors kept, under `null_handling`)."""
-    from pinot_tpu_torch.common import DataType, IndexingConfig, Schema, TableConfig
+    from pinot_tpu_torch.common import IndexingConfig, TableConfig
     from pinot_tpu_torch.segment import SegmentBuilder
 
-    return SegmentBuilder(Schema.build(
-        name,
-        dimensions=[
-            ("d_year", DataType.INT),
-            ("c_nation", DataType.STRING),
-            ("p_category", DataType.STRING),
-            ("lo_custkey", DataType.INT),
-            ("lo_suppkey", DataType.INT),
-        ],
-        metrics=[("lo_revenue", DataType.LONG), ("lo_supplycost", DataType.LONG), ("lo_quantity", DataType.INT)],
-    ), TableConfig(name, IndexingConfig(null_handling=null_handling)))
+    return SegmentBuilder(ssb_schema(name), TableConfig(name, IndexingConfig(null_handling=null_handling)))
 
 
 def ssb_engine(data: dict):
@@ -2600,7 +2649,7 @@ def run_main_path(torch, counters: dict) -> dict:
     live = upsert_valid(cust_tp)
     want.update(upsert_oracle(live, nation_tp, rev_tp, cust_tp))
     up_eng = upsert_engine_of(tp_segments, live)
-    del data, order, year_tp, category_tp, cost_tp
+    del order, year_tp, category_tp, cost_tp
     emit(
         {
             "phase": "tp_setup",
@@ -2806,7 +2855,681 @@ def run_main_path(torch, counters: dict) -> dict:
     emit({"phase": "where_the_time_goes", "configs": split})
     emit({"phase": "kernel_registry_cost", **registry_cost(tp_eng), "card": card_line()})
     emit({"phase": "kernel_obs", "kernels": kernel_obs_phase(torch, tp_eng, up_eng), "card": card_line()})
-    return {"launches": main_launches, "new_steps": new_steps}
+    return {"launches": main_launches, "new_steps": new_steps, "engine": engine, "segments": segments,
+            "tp_segments": tp_segments, "data": data, "want": want}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the sharded table and executor (bench.py's timed path)
+# ---------------------------------------------------------------------------
+
+#: bench.py's configs (Q4, 1, Q2, Q1) and configs 5-9 through
+#: execute_sharded_result over the same 16M rows: each kernel launches over
+#: the flat vector of every segment, so a query's launches are those of ONE
+#: segment in LAUNCHES_PER_SEGMENT
+SHARDED_CONFIGS = (
+    "4_q4_groupby_orderby",
+    "1_count_filter",
+    "2_filtered_agg",
+    "3_q1_groupby",
+    "5_groupby_minmax",
+    "6_groupby_distinct",
+    "7_distinct",
+    "8_groupby_wide",
+    "9_groupby_sparse",
+)
+#: bench.py's rows_per_segment on one device: n // max(4, devices)
+SHARDED_SEGMENTS = 4
+#: bench.py's scale block: 60M rows of its generator under seed 7
+SCALE_ROWS, SCALE_SEED = 60_000_000, 7
+SCALE_CONFIGS = ("4_q4_groupby_orderby", "2_filtered_agg")
+#: the proto fallback's MV table (config 26's GROUP BY over two MV keys)
+MV_FALLBACK_ROWS = 1_000_000
+#: MAX_DENSE_GROUPS for the forced sparse overflow: config 9's ~228k present
+#: pairs pass U = 2^16 slots
+OVERFLOW_SLOTS = 1 << 16
+#: each proto rerun's launches (counters' order): config 26 raises before
+#: the flat program runs, so only the proto's two-level launch; config 9
+#: launches the two-level kernel over the flat vector, overflows, and again
+#: on the proto
+FALLBACK_LAUNCHES = {"26_tag_num_pairs": (0, 0, 0, 1), "9_groupby_sparse_overflow": (0, 0, 0, 2)}
+#: (config, wrapper in query.kernels, kernel): the first call of each wrapper
+#: in that config's sharded run is held against its plain version
+FLAT_CHECKS = (
+    ("4_q4_groupby_orderby", "grouped_multi_sum", "grouped_sum_count"),
+    ("5_groupby_minmax", "grouped_extremes", "grouped_extreme"),
+    ("6_groupby_distinct", "presences", "grouped_sum_f32"),
+    ("8_groupby_wide", "grouped_multi_sum", "grouped_sum_count_2l"),
+)
+
+
+def table_bytes(table) -> int:
+    return sum(t.numel() * t.element_size() for t in table.arrays.values()) + table.n_docs.numel() * 4
+
+
+def seg_staged_bytes(seg) -> int:
+    """Bytes of every staged copy of a segment (the proto, once a rerun has
+    staged it)."""
+    return sum(t.numel() * t.element_size() for ds in seg._device_cache.values() for t in ds.arrays.values())
+
+
+def host_transfers(torch, fn) -> dict:
+    """The device->host copies and the implicit host syncs of one fn(),
+    counted op by op under a TorchDispatchMode: a copy_ or a to() whose
+    source lies on the card and whose result lies on the host, and an
+    item() of a card tensor (a program that branched on a device value)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.copies, self.items = 0, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten.copy_.default and args[0].device.type == "cpu" and args[1].device.type == "cuda":
+                self.copies += 1
+            elif func is aten._to_copy.default and args[0].device.type == "cuda" and out.device.type == "cpu":
+                self.copies += 1
+            elif func is aten._local_scalar_dense.default and args[0].device.type == "cuda":
+                self.items += 1
+            return out
+
+    with Count() as c:
+        fn()
+    return {"dtoh_copies": c.copies, "device_scalar_reads": c.items}
+
+
+def program_device_ms(torch, table, sql, iters: int = 5) -> float:
+    """Device time alone of the sharded program (the query planned and its
+    operands staged once, outside): CUDA events around program() after the
+    L2 is flushed and the device has spun ~10 ms, long enough for the host
+    to enqueue every launch before the start event runs, so the span holds
+    no idle gap. The packed copy is not in it."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+    from pinot_tpu_torch.parallel import mesh as mesh_mod
+
+    _, _, program = mesh_mod._prepare(table, sql)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    total = 0.0
+    KERNELS.configure(enabled=False)  # the kernels alone, no event pairs
+    try:
+        program()
+        for _ in range(iters):
+            flush.zero_()
+            torch.cuda._sleep(20_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            program()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+    finally:
+        KERNELS.configure(enabled=True)
+    return total / iters
+
+
+def sharded_bound(table, sql) -> dict:
+    """The least time the sharded program and its copy could take on the
+    card's memory: every column it reads, read once over all S x P docs
+    (the registry's model, the reference's, counts one segment's P), the
+    docs' counts, and the packed vector written once, over 3.35 TB/s."""
+    from pinot_tpu_torch.parallel import mesh as mesh_mod
+
+    _, plan, program = mesh_mod._prepare(table, sql)
+    vec, _ = program()
+    cols = [c for c in plan.columns]
+    read = sum(table.arrays[c].numel() * table.arrays[c].element_size() for c in cols) + table.n_docs.numel() * 4
+    return {
+        "columns": cols,
+        "bytes": read + vec.numel() * 8,
+        "bound_ms": hbm_ms(read + vec.numel() * 8),
+        "packed_bytes": vec.numel() * 8,
+        "registry_rows": table.padded,
+    }
+
+
+def exchange_event_ms(table, sql) -> dict:
+    """One execute's "exchange.sharded" record: the CUDA event pair around
+    the program and its copy, and the registry's bytes (one segment's rows)."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+    from pinot_tpu_torch.parallel.mesh import execute_sharded_result
+
+    KERNELS.reset_stats()
+    execute_sharded_result(table, sql)
+    rows = [v for (k, _), v in KERNELS.stats_snapshot().items() if k == "exchange.sharded"]
+    return {
+        "calls": sum(v["calls"] for v in rows),
+        "event_ms": sum(v["deviceMs"] for v in rows),
+        "registry_bytes": sum(v["bytesMoved"] for v in rows),
+    }
+
+
+#: the query.kernels wrappers every kernel launch of a query goes through
+SPIED_WRAPPERS = ("grouped_multi_sum", "grouped_extremes", "presences")
+
+
+def spy_calls(run) -> dict:
+    """run() with every call of the SPIED_WRAPPERS recorded, in call order:
+    {wrapper: [(args, kwargs, result), ...]}. The calls run as they would;
+    the spy only keeps their operands."""
+    from pinot_tpu_torch.query import kernels as qk
+
+    calls = {n: [] for n in SPIED_WRAPPERS}
+    reals = {n: getattr(qk, n) for n in SPIED_WRAPPERS}
+
+    def spy(name, real):
+        def call(*a, **k):
+            got = real(*a, **k)
+            calls[name].append((a, k, got))
+            return got
+
+        return call
+
+    for n, real in reals.items():
+        setattr(qk, n, spy(n, real))
+    try:
+        run()
+    finally:
+        for n, real in reals.items():
+            setattr(qk, n, real)
+    return calls
+
+
+def hold_call(torch, fn_name, call, gb, ext, gs) -> dict:
+    """One recorded wrapper call held against its plain version on the same
+    operands (every output equal): the kernel it launched, its shape, and
+    the kernel and plain callables for timing. Raises on a mismatch."""
+    a, k, got = call
+    if fn_name == "grouped_multi_sum":
+        values, gid, mask, ng = a
+        flat = gb.uses_shared_counters(min(len(values), gb.MAX_COLS), ng, gid.device)
+        kname = "grouped_sum_count" if flat else "grouped_sum_count_2l"
+        kernel = (lambda: gb.grouped_multi_sum_kernel(values, gid, mask, ng)) if flat else (
+            lambda: gb.grouped_multi_sum_2l_kernel(values, gid, mask, ng))
+        plain = lambda: gb.grouped_multi_sum_plain(values, gid, mask, ng)  # noqa: E731
+        got = torch.stack([*(s.to(torch.int64) for s in got[0]), got[1]])
+        pairs = [(got, plain())]
+        shape = {"n": gid.numel(), "k": len(values), "ng": ng}
+    elif fn_name == "grouped_extremes":
+        columns, outputs, gid, mask, ng, counts = a
+        kname = "grouped_extreme"
+        kernel = lambda: ext.grouped_extremes_kernel(columns, outputs, gid, mask, ng, counts)  # noqa: E731
+        plain = lambda: ext.grouped_extremes_plain(columns, outputs, gid, mask, ng, counts)  # noqa: E731
+        pairs = list(zip(got, plain()))
+        shape = {"n": gid.numel(), "outputs": len(outputs), "ng": ng}
+    else:
+        columns, pads, mask = a
+        gid, ng = k.get("gid"), k.get("ng", 1)
+        kname = "grouped_sum_f32"
+        kernel = lambda: gs.presences_kernel(columns, pads, mask, gid=gid, ng=ng)  # noqa: E731
+        plain = lambda: gs.presences_plain(columns, pads, mask, gid=gid, ng=ng)  # noqa: E731
+        pairs = list(zip(got, plain()))
+        shape = {"n": mask.numel(), "columns": len(columns), "ng": ng, "pads": list(pads)}
+    for g, w in pairs:
+        if not same(torch, g, w):
+            raise AssertionError(f"{kname} at {shape} disagrees with its plain version")
+    return {
+        "kernel": kname,
+        **shape,
+        "max_abs_err": max(abs_err(torch, g, w) for g, w in pairs),
+        "run_kernel": kernel,
+        "run_plain": plain,
+    }
+
+
+def timed_hold(torch, held: dict) -> dict:
+    """A held call's kernel and plain version timed on its operands: device
+    time alone, registry off."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+
+    kernel, plain = held.pop("run_kernel"), held.pop("run_plain")
+    KERNELS.configure(enabled=False)
+    try:
+        device_ms, host_ms = device_and_host_ms(torch, kernel, iters=10)
+        plain_ms = time_ms(torch, plain, iters=3, warmup=1)
+    finally:
+        KERNELS.configure(enabled=True)
+    return {**held, "kernel_device_ms": device_ms, "kernel_host_ms": host_ms, "plain_ms": plain_ms}
+
+
+def hold_all(torch, calls: dict, gb, ext, gs) -> list:
+    """Every recorded call held against its plain version, untimed."""
+    out = []
+    for fn_name, recorded in calls.items():
+        for call in recorded:
+            held = hold_call(torch, fn_name, call, gb, ext, gs)
+            del held["run_kernel"], held["run_plain"]
+            out.append(held)
+    return out
+
+
+def check_launches(label: str, counters: dict, got: dict, calls: dict, expect: tuple) -> None:
+    """A path's launches equal `expect` (in the counters' order), and each
+    kernel that launched was reached through a recorded wrapper call."""
+    want = dict(zip(counters, expect))
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    if any(got.values()) and not any(calls.values()):
+        raise AssertionError(f"{label}: kernels launched through no spied wrapper")
+
+
+def check_flat_kernels(torch, table, gb, ext, gs) -> dict:
+    """Each kernel held against its plain version at the operands of its
+    first launch over the flat vector (FLAT_CHECKS), and both timed there."""
+    from pinot_tpu_torch.parallel.mesh import execute_sharded_result
+
+    out = {}
+    for cfg, fn_name, kname in FLAT_CHECKS:
+        calls = spy_calls(lambda: execute_sharded_result(table, CONFIGS[cfg]))
+        held = hold_call(torch, fn_name, calls[fn_name][0], gb, ext, gs)
+        del calls
+        if held["kernel"] != kname:
+            raise AssertionError(f"{cfg}: {fn_name} took {held['kernel']}, not {kname}")
+        out[kname] = {"config": cfg, **timed_hold(torch, held)}
+    return out
+
+
+def mv_fallback_table(mesh):
+    """A MV_FALLBACK_ROWS-row `mvt` (make_mv_data, seed 26) as a sharded
+    table of SHARDED_SEGMENTS segments, and config 26's oracle rows over it."""
+    from pinot_tpu_torch.parallel import build_sharded_table
+
+    data = make_mv_data(MV_FALLBACK_ROWS, seed=26)
+    want = mv_oracle(data)["26_tag_num_pairs"]
+    names = np.array([f"tag{i:04d}" for i in range(N_TAGS)], dtype=object)
+    cols = {
+        "year": data["year"],
+        "region": np.array(MV_REGIONS, dtype=object)[data["region"]],
+        "revenue": data["revenue"],
+    }
+    for c, values in (("tags", names), ("nums", None)):
+        off = mv_offsets(data, c)
+        flat = data[c] if values is None else values[data[c]]
+        cells = np.empty(MV_FALLBACK_ROWS, dtype=object)
+        for i, cell in enumerate(np.split(flat, off[1:-1])):
+            cells[i] = cell
+        cols[c] = cells
+    table = build_sharded_table(mv_schema(), cols, mesh, rows_per_segment=MV_FALLBACK_ROWS // SHARDED_SEGMENTS)
+    return table, want
+
+
+def run_sharded(torch, counters: dict, data: dict, want: dict, engine) -> dict:
+    """Phase 9: the 16M lineorder rows as one sharded table, bench.py's
+    configs and configs 5-9 through execute_sharded_result, each against the
+    oracle, with its launches (counts from 0 just before, read just after)
+    and one device->host copy a query; then the walls beside the per-segment
+    engine's, the flat kernels against their plain versions, and the proto
+    fallback. Returns the path's launches by kernel."""
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.parallel import build_sharded_table, make_mesh
+    from pinot_tpu_torch.parallel import mesh as mesh_mod
+    from pinot_tpu_torch.query import plan as plan_mod
+
+    mesh = make_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table = build_sharded_table(ssb_schema(), data, mesh, rows_per_segment=N_ROWS // SHARDED_SEGMENTS)
+    torch.cuda.synchronize()
+    emit(
+        {
+            "phase": "sharded_setup",
+            "rows": N_ROWS,
+            "segments": table.n_segments,
+            "padded": table.padded,
+            "flat_docs": table.n_segments * table.padded,
+            "build_s": time.perf_counter() - t0,
+            "staged_bytes": table_bytes(table),
+            "dtypes": {c: str(t.dtype) for c, t in table.arrays.items()},
+        }
+    )
+
+    fired = []
+    real_rerun = mesh_mod._run_on_proto
+
+    def rerun(t, sql):
+        fired.append(sql)
+        return real_rerun(t, sql)
+
+    mesh_mod._run_on_proto = rerun
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        launches = {}
+        for name in SHARDED_CONFIGS:
+            before = [fn.launches for fn in counters.values()]
+            res = mesh_mod.execute_sharded_result(table, CONFIGS[name])
+            launches[name] = {k: fn.launches - b for (k, fn), b in zip(counters.items(), before)}
+            expect = dict(zip(counters, LAUNCHES_PER_SEGMENT[name]))
+            if launches[name] != expect:
+                raise AssertionError(f"sharded {name}: launches {launches[name]}, expected {expect}")
+            rows_match(f"sharded {name}", res.rows, want[name])
+            if res.total_docs != N_ROWS or res.num_segments_queried != table.n_segments or res.num_docs_scanned <= 0:
+                raise AssertionError(f"sharded {name}: totalDocs {res.total_docs}, segments {res.num_segments_queried}")
+        path_launches = {k: fn.launches for k, fn in counters.items()}
+        for k, v in path_launches.items():
+            if v == 0:
+                raise AssertionError(f"the sharded path never launched {k}")
+        if fired:
+            raise AssertionError(f"the sharded path reran {fired} on the proto")
+        emit({"phase": "sharded_path", "results_match_oracle": True, "launches_per_config": launches,
+              "launches": path_launches})
+
+        per_query = {}
+        for name in SHARDED_CONFIGS:
+            sql = CONFIGS[name]
+            sharded = wall_p50_of(lambda: mesh_mod.execute_sharded_result(table, sql), warm=1)
+            per_segment = wall_p50(engine, sql, warm=1)
+            moves = host_transfers(torch, lambda: mesh_mod.execute_sharded_result(table, sql))
+            if moves != {"dtoh_copies": 1, "device_scalar_reads": 0}:
+                raise AssertionError(f"sharded {name}: {moves}, expected one device->host copy and no scalar read")
+            busy = program_device_ms(torch, table, sql)
+            per_query[name] = {
+                "sharded_p50_ms": sharded["p50_ms"],
+                "sharded_runs_ms": sharded["runs_ms"],
+                "per_segment_p50_ms": per_segment["p50_ms"],
+                "per_segment_runs_ms": per_segment["runs_ms"],
+                "launches": launches[name],
+                "program_device_ms": busy,
+                "device_idle_share": 1.0 - busy / sharded["p50_ms"],
+                **moves,
+                "per_segment": host_transfers(torch, lambda: engine.execute(sql)),
+                "exchange": exchange_event_ms(table, sql),
+                "bound": sharded_bound(table, sql),
+            }
+        emit({"phase": "sharded", "queries": per_query, "card": card_line()})
+        emit({"phase": "sharded_kernels", "kernels": check_flat_kernels(torch, table, gb, ext, gs),
+              "card": card_line()})
+
+        # the proto fallback: two MV keys, then a sparse group-by whose
+        # present groups pass its slots (U cut by MAX_DENSE_GROUPS); each
+        # rerun's launches counted from 0 just before its first run and read
+        # just after, and each kernel call of that run held against its plain
+        # version on the same operands
+        t0 = time.perf_counter()
+        mv_table, mv_want = mv_fallback_table(mesh)
+        t_mv = time.perf_counter() - t0
+        fallback = {}
+        fallback_launches = dict.fromkeys(counters, 0)
+        for label, tbl, sql, want_rows in (
+            ("26_tag_num_pairs", mv_table, MV_CONFIGS["26_tag_num_pairs"], mv_want),
+            ("9_groupby_sparse_overflow", table, CONFIGS["9_groupby_sparse"], want["9_groupby_sparse"]),
+        ):
+            saved = plan_mod.MAX_DENSE_GROUPS
+            if label.endswith("overflow"):
+                plan_mod.MAX_DENSE_GROUPS = OVERFLOW_SLOTS
+            n_fired = len(fired)
+            got = []
+            try:
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                calls = spy_calls(lambda: got.append(mesh_mod.execute_sharded_result(tbl, sql)))
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
+                run_launches = {k: fn.launches for k, fn in counters.items()}
+                check_launches(f"proto fallback {label}", counters, run_launches, calls, FALLBACK_LAUNCHES[label])
+                rows_match(f"proto fallback {label}", got[0].rows, want_rows)
+                held = hold_all(torch, calls, gb, ext, gs)
+                del calls, got
+                again = wall_p50_of(lambda: mesh_mod.execute_sharded_result(tbl, sql), warm=0, runs=3)
+            finally:
+                plan_mod.MAX_DENSE_GROUPS = saved
+            if len(fired) - n_fired != 4:
+                raise AssertionError(f"proto fallback {label}: {len(fired) - n_fired} reruns, expected 4")
+            for k, v in run_launches.items():
+                fallback_launches[k] += v
+            fallback[label] = {
+                "first_ms": first_ms,
+                "p50_ms": again["p50_ms"],
+                "runs_ms": again["runs_ms"],
+                "launches": run_launches,
+                "kernels_vs_plain": held,
+                "table_staged_bytes": table_bytes(tbl),
+                "proto_staged_bytes": seg_staged_bytes(tbl.proto),
+            }
+        emit({"phase": "proto_fallback", "results_match_oracle": True, "mv_table_build_s": t_mv,
+              "mv_rows": MV_FALLBACK_ROWS, "fired": len(fired), "queries": fallback,
+              "launches": fallback_launches,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(), "card": card_line()})
+    finally:
+        mesh_mod._run_on_proto = real_rerun
+    return {k: path_launches[k] + fallback_launches[k] for k in counters}
+
+
+def run_sharded_scale(torch, counters: dict) -> dict:
+    """bench.py's scale block: 60M rows of its generator (seed 7) as a
+    sharded table of SHARDED_SEGMENTS segments; Q4 and Q2 against the
+    oracle, with their launches (counts from 0 just before the path, read
+    just after), each kernel call of the path held against its plain version
+    on the same operands and timed there, then build seconds, staged bytes,
+    p50 and rows per second. Returns the path's launches by kernel."""
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.parallel import build_sharded_table, make_mesh
+    from pinot_tpu_torch.parallel.mesh import execute_sharded_result
+
+    t0 = time.perf_counter()
+    data, nation, category = make_ssb_data(SCALE_ROWS, seed=SCALE_SEED)
+    del data["lo_custkey"], data["lo_suppkey"]  # bench.py's six columns
+    want = {"4_q4_groupby_orderby": q4_rows(data, nation, category), "2_filtered_agg": q2_rows(data, nation)}
+    del nation, category
+    t_gen = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table = build_sharded_table(ssb_schema(keys=False), data, make_mesh(), rows_per_segment=SCALE_ROWS // SHARDED_SEGMENTS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del data
+
+    for fn in counters.values():
+        fn.launches = 0
+    launches, recorded = {}, {}
+    for name in SCALE_CONFIGS:
+        before = [fn.launches for fn in counters.values()]
+        got = []
+        recorded[name] = spy_calls(lambda: got.append(execute_sharded_result(table, CONFIGS[name])))
+        launches[name] = {k: fn.launches - b for (k, fn), b in zip(counters.items(), before)}
+        check_launches(f"scale {name}", counters, launches[name], recorded[name], LAUNCHES_PER_SEGMENT[name])
+        rows_match(f"scale {name}", got[0].rows, want[name])
+    path_launches = {k: fn.launches for k, fn in counters.items()}
+    held = {}
+    for name, calls in recorded.items():
+        held[name] = [
+            timed_hold(torch, hold_call(torch, fn_name, call, gb, ext, gs))
+            for fn_name, rec in calls.items()
+            for call in rec
+        ]
+    del recorded
+    emit({"phase": "sharded_scale_path", "results_match_oracle": True, "launches_per_config": launches,
+          "launches": path_launches, "kernels_vs_plain": held, "card": card_line()})
+
+    queries = {}
+    for name in SCALE_CONFIGS:
+        sql = CONFIGS[name]
+        w = wall_p50_of(lambda: execute_sharded_result(table, sql), warm=1, runs=5)
+        busy = program_device_ms(torch, table, sql)
+        queries[name] = {**w, "rows_per_s": SCALE_ROWS / (w["p50_ms"] / 1e3),
+                         "program_device_ms": busy, "device_idle_share": 1.0 - busy / w["p50_ms"],
+                         **host_transfers(torch, lambda: execute_sharded_result(table, sql)),
+                         "bound": sharded_bound(table, sql)}
+    emit(
+        {
+            "phase": "sharded_scale",
+            "rows": SCALE_ROWS,
+            "segments": table.n_segments,
+            "padded": table.padded,
+            "generate_and_oracle_s": t_gen,
+            "build_s": build_s,
+            "staged_bytes": table_bytes(table),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "results_match_oracle": True,
+            "queries": queries,
+            "card": card_line(),
+        }
+    )
+    return path_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the segment store, loader and indexes
+# ---------------------------------------------------------------------------
+
+#: bench.py's configs read back from the written segments
+STORE_CONFIGS = ("3_q1_groupby", "4_q4_groupby_orderby")
+#: configs 28-30's segments with a bloom filter on lo_custkey and an inverted
+#: index on c_nation
+TP_INDEXES = (("bloom_filter", "lo_custkey"), ("inverted_index", "c_nation"))
+#: the small text / JSON table of TEXT_MATCH and JSON_MATCH
+DOCS_ROWS = 200_000
+DOC_WORDS = ["espresso", "latte", "tea", "juice", "bagel", "muffin"]
+DOC_COLORS = ["red", "green", "blue"]
+DOCS_CONFIGS = {
+    "text_match": "SELECT COUNT(*), SUM(v) FROM docs WHERE TEXT_MATCH(descr, 'latte AND tea')",
+    "json_match": "SELECT COUNT(*), SUM(v) FROM docs WHERE JSON_MATCH(attrs, '\"$.color\"=''red''') AND v > 500",
+}
+
+
+def docs_table(seed: int = 31):
+    """DOCS_ROWS rows of three distinct words (`descr`, a text index), a
+    JSON attribute document (`attrs`, a JSON index) and a LONG `v`; the
+    numpy oracle of DOCS_CONFIGS."""
+    rng = np.random.default_rng(seed)
+    pick = np.argsort(rng.random((DOCS_ROWS, len(DOC_WORDS))), axis=1)[:, :3]
+    color = rng.integers(0, len(DOC_COLORS), DOCS_ROWS)
+    size = rng.integers(0, 5, DOCS_ROWS)
+    v = rng.integers(0, 1000, DOCS_ROWS).astype(np.int64)
+    data = {
+        "descr": np.array([" ".join(DOC_WORDS[i] for i in row) for row in pick.tolist()], dtype=object),
+        "attrs": np.array(
+            [f'{{"color": "{DOC_COLORS[c]}", "size": {s}}}' for c, s in zip(color.tolist(), size.tolist())], dtype=object
+        ),
+        "v": v,
+    }
+    has = (pick == DOC_WORDS.index("latte")).any(axis=1) & (pick == DOC_WORDS.index("tea")).any(axis=1)
+    red = (color == 0) & (v > 500)
+    want = {
+        "text_match": [[int(has.sum()), float(v[has].sum())]],
+        "json_match": [[int(red.sum()), float(v[red].sum())]],
+    }
+    return data, want
+
+
+def run_store(torch, engine, segments, tp_segments, data) -> None:
+    """Phase 10: the 4 lineorder segments written with the default codec and
+    loaded back (configs 3-4 from the loaded segments equal to the in-memory
+    engine's rows); configs 28-30's segments with a bloom filter and an
+    inverted index (a lo_custkey point lookup against the oracle, its bloom-
+    pruned count beside the min/max-pruned count); TEXT_MATCH and JSON_MATCH
+    over a text / JSON table through the program's docmask operand on the
+    card, against the numpy oracle."""
+    import tempfile
+
+    from pinot_tpu_torch.common import DataType, IndexingConfig, Schema, TableConfig
+    from pinot_tpu_torch.query import QueryEngine
+    from pinot_tpu_torch.query.plan import plan_segment
+    from pinot_tpu_torch.segment import SegmentBuilder, index_spi, load_segment, store, write_segment
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        t0 = time.perf_counter()
+        dirs = [write_segment(seg, tmp) for seg in segments]
+        write_s = time.perf_counter() - t0
+        files = [d / store.SEGMENT_FILE for d in dirs]
+        t0 = time.perf_counter()
+        loaded = [load_segment(d) for d in dirs]
+        load_s = time.perf_counter() - t0
+        codecs = {}
+        for f in files:
+            for e in store.SegmentFileReader(f, verify=False).entries.values():
+                codecs[e["codec"]] = codecs.get(e["codec"], 0) + 1
+        loaded_engine = QueryEngine(loaded, device="cuda")
+        queries = {}
+        for name in STORE_CONFIGS:
+            sql = CONFIGS[name]
+            t0 = time.perf_counter()
+            got = loaded_engine.execute(sql)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            want = engine.execute(sql)
+            rows_match(f"store {name}", got.rows, want.rows)
+            queries[name] = {
+                "first_query_ms": first_ms,
+                "loaded_p50_ms": wall_p50(loaded_engine, sql, warm=1)["p50_ms"],
+                "in_memory_p50_ms": wall_p50(engine, sql, warm=1)["p50_ms"],
+            }
+        out["lineorder"] = {
+            "segments": len(files),
+            "write_s": write_s,
+            "load_s": load_s,
+            "file_bytes": [f.stat().st_size for f in files],
+            "entries_by_codec": codecs,
+            "file_crc": [store.segment_file_crc(f) for f in files],
+            "queries": queries,
+        }
+        del loaded, loaded_engine
+
+    # configs 28-30's segments, indexed through the index SPI
+    t0 = time.perf_counter()
+    for seg in tp_segments:
+        for kind, col in TP_INDEXES:
+            spec = index_spi.get_index_type(kind)
+            seg.extras.setdefault(spec.target_key, {})[col] = spec.build(seg, col, None)
+    index_s = time.perf_counter() - t0
+    tp = QueryEngine(tp_segments, device="cuda")
+    holders = {}
+    for seg in tp_segments:
+        for k in seg.columns["lo_custkey"].dictionary.values.tolist():
+            holders[k] = holders.get(k, 0) + 1
+    key = min(holders, key=lambda k: (holders[k], k))
+    cust = data["lo_custkey"]
+    m = cust == key
+    sql = f"SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE lo_custkey = {key}"
+    res = tp.execute(sql)
+    rows_match("store bloom lookup", res.rows, [[int(m.sum()), float(data["lo_revenue"][m].sum())]])
+    if res.num_segments_pruned_by_bloom > TP_SEGMENTS - holders[key]:
+        raise AssertionError(f"bloom pruned {res.num_segments_pruned_by_bloom} segments, {holders[key]} hold {key}")
+    inv = tp.execute(CONFIGS["1_count_filter"])
+    rows_match("store inverted", inv.rows, [[int((data["c_nation"] == "NATION_07").sum())]])
+    if "c_nation:INVERTED_INDEX" not in inv.scan_profile["predicates"]:
+        raise AssertionError(f"no INVERTED_INDEX in {inv.scan_profile['predicates']}")
+    out["tp_indexes"] = {
+        "index_build_s": index_s,
+        "key": int(key),
+        "segments_holding_key": holders[key],
+        "pruned_by_bloom": res.num_segments_pruned_by_bloom,
+        "pruned_by_value": res.num_segments_pruned_by_value,
+        "lookup_p50_ms": wall_p50(tp, sql, warm=1)["p50_ms"],
+        "inverted_scan_profile": inv.scan_profile["predicates"],
+    }
+
+    # TEXT_MATCH / JSON_MATCH through the program's docmask operand
+    t0 = time.perf_counter()
+    docs, want = docs_table()
+    schema = Schema.build("docs", dimensions=[("descr", DataType.STRING), ("attrs", DataType.JSON)],
+                          metrics=[("v", DataType.LONG)])
+    cfg = TableConfig("docs", IndexingConfig(text_index_columns=["descr"], json_index_columns=["attrs"]))
+    seg = SegmentBuilder(schema, cfg).build(docs, "docs_0")
+    build_s = time.perf_counter() - t0
+    eng = QueryEngine([seg], device="cuda")
+    probes = {}
+    for name, sql in DOCS_CONFIGS.items():
+        if "docmask" not in repr(plan_segment(seg, eng.make_context(sql)).spec):
+            raise AssertionError(f"{name}: no docmask operand in the plan")
+        eng.segment_modes.clear()
+        got = eng.execute(sql)
+        rows_match(f"store {name}", got.rows, want[name])
+        if dict(eng.segment_modes) != {"device": 1}:
+            raise AssertionError(f"{name}: segments by executor {dict(eng.segment_modes)}")
+        probes[name] = {"p50_ms": wall_p50(eng, sql, warm=1)["p50_ms"], "scan_profile": got.scan_profile["predicates"]}
+    out["docs"] = {"rows": DOCS_ROWS, "build_s_with_indexes": build_s, "queries": probes}
+    emit({"phase": "store", "results_match": True, **out, "card": card_line()})
 
 
 def breakdown(torch, engine, sql: str) -> dict:
@@ -2868,6 +3591,7 @@ def breakdown(torch, engine, sql: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2912,9 +3636,17 @@ def main() -> int:
         "grouped_sum_count_2l": gb.grouped_multi_sum_2l,
     }
     main = run_main_path(torch, counters)
-    # the sum entry of grouped_sum_f32 is not on the main path: the kernel's
-    # main-path launches are its presence entry's
-    launches = {**main["launches"], "grouped_sum_f32": main["launches"]["presence"]}
+    data, engine = main.pop("data"), main.pop("engine")
+    sharded_launches = run_sharded(torch, counters, data, main.pop("want"), engine)
+    run_store(torch, engine, main.pop("segments"), main.pop("tp_segments"), data)
+    del data, engine
+    scale_launches = run_sharded_scale(torch, counters)
+    # each path's counts, read just after it: the main path's, the sharded
+    # path's (its proto reruns included) and the scale path's launches. The
+    # sum entry of grouped_sum_f32 is on none: the kernel's launches are its
+    # presence entry's
+    launches = {k: main["launches"][k] + sharded_launches[k] + scale_launches[k] for k in main["launches"]}
+    launches["grouped_sum_f32"] = launches["presence"]
 
     print(card_line(), flush=True)
     kernels = []
@@ -2943,6 +3675,7 @@ def main() -> int:
                 "library_ms": t["library_ms"],
             }
         )
+    emit({"phase": "run", "seconds": time.perf_counter() - t_start, "card": card_line()})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

@@ -12,9 +12,14 @@ versions of the kernels on the CPU.
 
 Layer map (mirrors pinot_tpu's):
   common/   - schema, types, config subset, error codes; metrics, trace,
-              accounting, faults, segment heat, the kernel registry
-  segment/  - dictionaries, stats, builder, device staging, carry-over
+              accounting, faults, segment heat, the kernel registry,
+              crash-consistent writes
+  segment/  - dictionaries, stats, builder, device staging, carry-over; the
+              segment file store and loader, the auxiliary indexes
   query/    - SQL parser, context, pruner, planner, per-segment program,
               reduce, engine, scan stats, schedulers
+  parallel/ - the sharded table and its one-program-a-query executor (one
+              device)
+  native/   - the segment files' codecs (C++ built with g++ at first use)
   ops/      - hand-written CUDA kernels, their plain versions, their build
 """

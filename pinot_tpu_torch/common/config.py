@@ -3,27 +3,16 @@
 Reference parity: TableConfig / IndexingConfig (pinot-spi/.../config/table/).
 Field names match the JAX package's `common/config.py`, so a configuration
 written for either package reads the same. The builder encodes columns from
-`no_dictionary_columns` / `dictionary_columns` and builds the star-tree
-tables of `star_tree_configs`; every other index field is declared here only
-so that the builder can refuse it by name until the index is ported.
+`no_dictionary_columns` / `dictionary_columns`, builds the star-tree tables
+of `star_tree_configs`, the null vectors of `null_handling`, and the
+auxiliary indexes of every `*_index_columns` / `bloom_filter_columns` field
+(segment/indexes.py); `extra["customIndexes"]` names plugin index types
+(segment/index_spi.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-
-#: IndexingConfig fields that ask for a structure the port does not build yet
-UNSUPPORTED_INDEX_FIELDS = (
-    "inverted_index_columns",
-    "range_index_columns",
-    "bloom_filter_columns",
-    "text_index_columns",
-    "json_index_columns",
-    "geo_index_columns",
-    "vector_index_columns",
-    "fst_index_columns",
-    "map_index_columns",
-)
 
 
 @dataclass
@@ -63,6 +52,8 @@ class IndexingConfig:
     json_index_columns: list[str] = field(default_factory=list)
     geo_index_columns: list[list[str]] = field(default_factory=list)
     vector_index_columns: list[str] = field(default_factory=list)
+    #: vector index flavor: EXACT (brute-force top-k, the default) or HNSW
+    vector_index_type: str = "EXACT"
     fst_index_columns: list[str] = field(default_factory=list)
     map_index_columns: list[str] = field(default_factory=list)
     #: null vector index per column (enableNullHandling parity)
@@ -73,3 +64,5 @@ class IndexingConfig:
 class TableConfig:
     table_name: str
     indexing: IndexingConfig = field(default_factory=IndexingConfig)
+    #: free-form settings; "customIndexes": {index type: [columns]}
+    extra: dict = field(default_factory=dict)

@@ -42,3 +42,16 @@ class QueryErrorCode(enum.IntEnum):
     #: wire datatable (de)serialization failure between query hops
     DATA_TABLE_SERIALIZATION = 550
 
+
+
+class SegmentCorruptedError(ValueError):
+    """A segment failed CRC / structural verification. Subclasses ValueError
+    (corrupt bytes are malformed values), as the JAX package's does, so
+    callers that guard segment decode with `except ValueError` keep working;
+    `error_code` maps it to SEGMENT_CORRUPTED and `path` names the bad copy."""
+
+    error_code = QueryErrorCode.SEGMENT_CORRUPTED
+
+    def __init__(self, message: str, path: str | None = None):
+        super().__init__(message)
+        self.path = path

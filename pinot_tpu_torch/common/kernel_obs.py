@@ -25,6 +25,11 @@ The JAX package's `common/kernel_obs.py`, re-based on the card:
   on their end event, when a snapshot is read (or when 4096 are held). On the CPU (the plain
   versions) a launch's time is the host wall of the call, recorded at once.
   A disabled registry records nothing and makes no event.
+- `timed_sync()` times a whole device program and its one device->host copy
+  (the sharded executor's `exchange.sharded`) with one CUDA event pair,
+  whose end event is the wait for the copy, and resolves the launches the
+  program made, which run on no segment's collector; their mask counts
+  ride at the end of the same copy.
 - Memory: live / peak bytes from `torch.cuda.memory_stats()`
   (`allocated_bytes.all.current` / `.peak`) when a card is in use, else a
   deterministic host-side estimator, so the CPU tests see the same math.
@@ -45,6 +50,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 from pinot_tpu_torch.common.accounting import default_accountant
@@ -304,19 +310,60 @@ class KernelRegistry:
         finally:
             _COLLECTOR.reset(token)
 
-    def resolve(self, pending: list, wait: bool = False) -> None:
+    def resolve(self, pending: list, wait: bool = False, masked: list | None = None) -> None:
         """Record launches whose end events have completed (with `wait`, wait
         for them first): read each event pair's elapsed time and each mask
-        count, in one device->host copy for all the counts."""
+        count, in one device->host copy for all the counts, unless the caller
+        copied them already (`masked`)."""
         if not pending:
             return
         if wait:
             for p in pending:
                 p.end.synchronize()
-        masked = torch.stack([p.masked for p in pending]).cpu().tolist()
+        if masked is None:
+            masked = torch.stack([p.masked for p in pending]).cpu().tolist()
         for p, m in zip(pending, masked):
             self._record(p.name, p.start.elapsed_time(p.end), {**p.shape, "masked": int(m)}, gauges=False)
         self._set_hbm_gauges()
+
+    def timed_sync(self, name: str, fn: Callable[[], torch.Tensor], device, **shape) -> np.ndarray:
+        """Run `fn`, which enqueues a device program on `device` and returns
+        its packed float64 output vector, and copy that vector to the host:
+        the one device->host copy its caller consumes (the sharded executor's).
+        The registry records the program and the copy under `name` and
+        resolves the kernel launches made inside `fn`, collected apart from
+        any segment's. On a card the launches' mask counts ride at the end of
+        the same copy, a CUDA event pair spans the program and the copy into
+        pinned memory, and the wait for the copy is the wait for the end
+        event: no fence and no second copy. On the CPU the host wall of both
+        is recorded. A disabled registry runs and copies."""
+        if not self._enabled:
+            return fn().cpu().numpy()
+        device = torch.device(device)
+        if device.type != "cuda":
+            t0 = time.perf_counter()
+            host = fn().cpu().numpy()
+            self.record(name, (time.perf_counter() - t0) * 1e3, **shape)
+            return host
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with self.collect() as launches:
+            start.record(stream)
+            out = fn()
+            k = len(launches)
+            if k:
+                out = torch.cat([out, torch.stack([p.masked for p in launches]).to(out.dtype)])
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        end.record(stream)
+        end.synchronize()
+        vec = host.numpy()
+        if k:
+            self.resolve(launches, masked=vec[-k:].tolist())
+            vec = vec[:-k]
+        self.record(name, start.elapsed_time(end), **shape)
+        return vec
 
     def _drain_orphans(self) -> None:
         with self._lock:

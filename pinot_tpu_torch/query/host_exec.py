@@ -27,8 +27,11 @@ match the docs where no value does), aggregates through the *MV functions
 (each a partial of its single-value twin's format), and as a GROUP BY or
 DISTINCT key explodes: each doc joins once per value (per cartesian
 combination of several MV keys), a doc with no value joins no group. A
-selected MV cell is a Python list. The index probes (map, JSON, text,
-vector) raise NotImplementedError naming ROADMAP A6.
+selected MV cell is a Python list. TEXT_MATCH, JSON_MATCH and
+VECTOR_SIMILARITY probe the segment's index (`predicate_function_mask`, which
+the planner also calls for the device program's `docmask` operand);
+ST_WITHIN_DISTANCE takes the geo index's candidates where the segment has
+one; map_value reads the map index where there is one.
 """
 
 from __future__ import annotations
@@ -60,10 +63,6 @@ from pinot_tpu_torch.segment.segment import ImmutableSegment
 #: aggregations whose FILTER (WHERE) the group frame applies with a mask;
 #: every other one NaN-masks its excluded rows and skips them
 _FILTERED_OK = ("count", "sum", "min", "max", "avg", "minmaxrange")
-
-
-def _no_index(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to pinot_tpu_torch yet (ROADMAP A6: indexes)")
 
 
 def _column(seg: ImmutableSegment, name: str):
@@ -173,11 +172,15 @@ def _eval_function(seg: ImmutableSegment, expr: ast.FunctionCall) -> np.ndarray:
         if rw is not None:
             return eval_value(seg, rw)
     if name == "map_value":
-        # map_value(col, 'key'): per-row document parse (this package builds
-        # no map index)
+        # map_value(col, 'key'): the dense per-key column of the map index
+        # where the segment has one, else a per-row document parse
+        # (StandardIndexes map entry parity)
         if len(expr.args) != 2 or not isinstance(expr.args[0], ast.Identifier) or not isinstance(expr.args[1], ast.Literal):
             raise PlanError("map_value requires (column, 'key')")
         col, key = expr.args[0].name, str(expr.args[1].value)
+        mi = seg.extras.get("map", {}).get(col)
+        if mi is not None:
+            return mi.value_column(key)
         out = np.full(seg.n_docs, None, dtype=object)
         for i, v in enumerate(_column(seg, col).materialize()):
             if isinstance(v, dict):
@@ -479,20 +482,64 @@ def filter_mask(seg: ImmutableSegment, f: ast.FilterExpr | None) -> np.ndarray:
 
 
 def predicate_function_mask(seg: ImmutableSegment, f: ast.PredicateFunction) -> np.ndarray:
-    """ST_WITHIN_DISTANCE as a haversine over the columns; the index-probe
-    predicates (TEXT_MATCH, JSON_MATCH, VECTOR_SIMILARITY) need indexes this
-    package does not build."""
-    if f.name == "st_within_distance":
-        from pinot_tpu_torch.query.transforms import haversine
+    """Index-probe predicates -> bool doc mask (TextMatch / JsonMatch /
+    VectorSimilarity filter-operator parity; shared by the device planner and
+    the host executor); ST_WITHIN_DISTANCE through the geo index's candidates
+    where the segment has one, else a haversine over the columns."""
+    n = seg.n_docs
 
-        if len(f.args) != 5 or not all(isinstance(a, ast.Literal) for a in f.args[2:]):
-            raise PlanError("ST_WITHIN_DISTANCE(lat, lng, qlat, qlng, radius_m)")
-        qlat, qlng, radius = (float(a.value) for a in f.args[2:])
+    def _col(i: int) -> str:
+        if len(f.args) <= i or not isinstance(f.args[i], ast.Identifier):
+            raise PlanError(f"{f.name} argument {i} must be a column")
+        return f.args[i].name
+
+    def _lit(i: int):
+        if len(f.args) <= i or not isinstance(f.args[i], ast.Literal):
+            raise PlanError(f"{f.name} argument {i} must be a literal")
+        return f.args[i].value
+
+    if f.name == "text_match":
+        col = _col(0)
+        ti = seg.extras.get("text", {}).get(col)
+        if ti is None:
+            raise PlanError(f"TEXT_MATCH requires a text index on column {col!r}")
+        return ti.search(str(_lit(1)))
+    if f.name == "json_match":
+        col = _col(0)
+        ji = seg.extras.get("json", {}).get(col)
+        if ji is None:
+            raise PlanError(f"JSON_MATCH requires a json index on column {col!r}")
+        return ji.match(str(_lit(1)))
+    if f.name == "vector_similarity":
+        col = _col(0)
+        vi = seg.extras.get("vector", {}).get(col)
+        if vi is None:
+            raise PlanError(f"VECTOR_SIMILARITY requires a vector index on column {col!r}")
+        if len(f.args) < 2 or not isinstance(f.args[1], ast.ArrayLiteral):
+            raise PlanError("VECTOR_SIMILARITY(col, ARRAY[...], topK)")
+        k = int(_lit(2)) if len(f.args) > 2 else 10
+        mask = np.zeros(n, dtype=bool)
+        mask[vi.top_k(np.asarray(f.args[1].values, dtype=np.float32), k)] = True
+        return mask
+    if f.name == "st_within_distance":
+        from pinot_tpu_torch.segment.indexes import haversine_m
+
+        qlat, qlng, radius = float(_lit(2)), float(_lit(3)), float(_lit(4))
+        if isinstance(f.args[0], ast.Identifier) and isinstance(f.args[1], ast.Identifier):
+            gi = seg.extras.get("geo", {}).get(f"{f.args[0].name},{f.args[1].name}")
+            if gi is not None:
+                # the grid cells' candidates first, the exact haversine over
+                # the (usually few) candidates only
+                cand = gi.candidate_docs(qlat, qlng, radius)
+                mask = np.zeros(n, dtype=bool)
+                if len(cand):
+                    lat_c = seg.columns[f.args[0].name].materialize(cand).astype(np.float64)
+                    lng_c = seg.columns[f.args[1].name].materialize(cand).astype(np.float64)
+                    mask[cand[haversine_m(lat_c, lng_c, qlat, qlng) <= radius]] = True
+                return mask
         lat = eval_value(seg, f.args[0]).astype(np.float64)
         lng = eval_value(seg, f.args[1]).astype(np.float64)
-        return haversine(np, lat, lng, np.float64(qlat), np.float64(qlng)) <= radius
-    if f.name in ("text_match", "json_match", "vector_similarity"):
-        raise _no_index(f"{f.name.upper()} (its index)")
+        return haversine_m(lat, lng, qlat, qlng) <= radius
     raise PlanError(f"unknown predicate function {f.name}")
 
 

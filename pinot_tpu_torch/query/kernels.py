@@ -803,6 +803,28 @@ def build_fn(spec: tuple):
     raise _unsupported(kind, "program")
 
 
+def build_masked_fn(spec: tuple):
+    """The aggregation program of `build_fn` over an explicit doc-validity
+    mask in place of n_docs: run(cols, ops, valid). The sharded executor
+    (`parallel/mesh.py`) flattens a table's (S, P) stacked segments into one
+    doc vector, so one program over it replaces one a segment (aggregates
+    are order-independent)."""
+    kind = spec[0]
+    assert kind == "agg", spec
+    _, fspec, gspec, aggs = spec
+    # groups_mv2's per-doc offset / length operand tables index the proto's
+    # doc space, which the flat layout has not: execute_sharded reruns those
+    # on the proto
+    assert gspec is None or gspec[0] != "groups_mv2", gspec
+
+    def run(cols, ops, valid):
+        # the doc length comes from the mask: cols may hold MV flat vectors,
+        # whose length is the value space
+        return _agg_eval(fspec, gspec, aggs, cols, ops, valid)
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # dispatch: one device program per segment, one device->host copy
 # ---------------------------------------------------------------------------
@@ -890,17 +912,21 @@ def plan_inputs(plan, device_segment):
         # dummy tensor for the device
         any_col = next(iter(device_segment.arrays))
         cols = {"__shape__": device_segment.arrays[any_col]}
-    device = next(iter(cols.values())).device
-    # equal scalar operands (the literal of `year = 1997` in two FILTERs)
-    # stage as one tensor: _mask_key then sees one mask
+    return cols, stage_operands(plan.operands, next(iter(cols.values())).device)
+
+
+def stage_operands(operands, device) -> tuple[torch.Tensor, ...]:
+    """A plan's operands on `device`. Equal scalar operands (the literal of
+    `year = 1997` in two FILTERs) stage as one tensor: _mask_key then sees
+    one mask."""
     staged: dict = {}
     ops = []
-    for o in plan.operands:
+    for o in operands:
         key = ("value", np.asarray(o).dtype.str, np.asarray(o).tobytes()) if np.ndim(o) == 0 else ("array", id(o))
         if key not in staged:
             staged[key] = stage_operand(o, device)
         ops.append(staged[key])
-    return cols, tuple(ops)
+    return tuple(ops)
 
 
 def pack(leaves: list[torch.Tensor]) -> torch.Tensor:

@@ -460,6 +460,8 @@ class _Lowering:
         return ("not", spec) if f.negated else spec
 
     def _predicate_function(self, f: ast.PredicateFunction) -> tuple:
+        from pinot_tpu_torch.query.host_exec import predicate_function_mask
+
         if f.name == "st_within_distance":
             # ST_WITHIN_DISTANCE(lat, lng, qlat, qlng, radius_m): a compare
             # over the haversine distance
@@ -467,9 +469,10 @@ class _Lowering:
                 raise PlanError("ST_WITHIN_DISTANCE(lat, lng, qlat, qlng, radius_m)")
             dist = ast.FunctionCall("st_distance", tuple(f.args[:4]))
             return ("cmp_lit", "LTE", self.value_spec(dist), self.op_idx(np.float64(f.args[4].value)))
-        # TEXT_MATCH / JSON_MATCH / VECTOR_SIMILARITY: the reference probes an
-        # index on the host and hands the program a `docmask` operand
-        raise NotImplementedError(f"predicate function {f.name} (its index) is not ported to pinot_tpu_torch yet (ROADMAP A6)")
+        # TEXT_MATCH / JSON_MATCH / VECTOR_SIMILARITY: the segment's index is
+        # probed on the host and the program gets its docs as a `docmask`
+        # operand (Pinot's index filter operators handing a bitmap to the tree)
+        return self.docmask_spec(predicate_function_mask(self.seg, f))
 
     def _compare(self, f: ast.Compare) -> tuple:
         left, op, right = f.left, f.op, f.right
@@ -690,12 +693,19 @@ class _Lowering:
         if not ci.is_dict_encoded:
             raise PlanError("LIKE/REGEXP_LIKE requires a dictionary-encoded column")
         self.use_col(expr.name)
-        rx = re.compile(pattern)
-        match = rx.fullmatch if full else rx.search
         lut = np.zeros(_pow2(max(ci.dictionary.cardinality, 1)), dtype=bool)
-        for i, v in enumerate(ci.dictionary.values):
-            if match(str(v)):
-                lut[i] = True
+        fst = self.seg.extras.get("fst", {}).get(expr.name)
+        if fst is not None:
+            # FST index: a prefix pattern is two binary searches; a general
+            # regex memoizes its dict-id LUT (nativefst parity)
+            ids = fst.matching_ids(pattern, full)
+            lut[: len(ids)] = ids
+        else:
+            rx = re.compile(pattern)
+            match = rx.fullmatch if full else rx.search
+            for i, v in enumerate(ci.dictionary.values):
+                if match(str(v)):
+                    lut[i] = True
         if not lut.any():
             return ("const", False)
         return ("in_lut", expr.name, self.op_idx(lut))

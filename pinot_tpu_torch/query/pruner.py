@@ -9,9 +9,9 @@ reduce and the segment accounting see every segment.
 
 The min/max test (`segment_can_match`, `_interval`, `_cmp_overlap`) is the
 port's own copy of the JAX package's `cluster/routing.py` helpers. Bloom and
-geo rejects read `seg.extras["bloom"]` / `seg.extras["geo"]`, which only the
-aux indexes set; the port's builder has none yet, so those reasons stay
-unused, as in the reference for a segment without such indexes.
+geo rejects read `seg.extras["bloom"]` / `seg.extras["geo"]`: the bloom
+filters and geo indexes of a built or a loaded segment (segment/indexes.py,
+h3.py).
 """
 
 from __future__ import annotations

@@ -269,14 +269,16 @@ def test_engine_matches_reference(engines, table, sql, approx, mode):
     "sql",
     [
         "EXPLAIN PLAN FOR SELECT region, year FROM lineorder LIMIT 3",  # answered since A5, see below
-        "SELECT COUNT(*) FROM lineorder WHERE TEXT_MATCH(region, 'ASIA')",  # its index: A6
+        "SELECT COUNT(*) FROM lineorder WHERE TEXT_MATCH(region, 'ASIA')",  # answered with a text index, see below
         "SELECT COUNT(*) FROM tagged WHERE tags = 'a'",  # an MV column: answered, see below
     ],
 )
 def test_unported_query_shapes_raise(engines, sql):
-    """The shapes the port does not answer yet raise NotImplementedError; an
-    MV column and EXPLAIN, which it answers now, give the reference's
-    result (the MV column built by either package's builder)."""
+    """The shapes the port did not answer in its first slices: an MV column,
+    EXPLAIN and TEXT_MATCH, which it answers now, give the reference's
+    result (the MV column built by either package's builder; TEXT_MATCH over
+    a text index each package builds, and without one the reference's
+    PlanError in both)."""
     by_table, _ = engines
     if sql.startswith("EXPLAIN"):
         ref, ports = by_table["lineorder"]
@@ -298,8 +300,27 @@ def test_unported_query_shapes_raise(engines, sql):
             got = QueryEngine([seg], device="cpu").execute(sql)
             assert got.rows == want.rows == [[1]] and got.num_docs_scanned == want.num_docs_scanned
         return
-    with pytest.raises(NotImplementedError):
+    from pinot_tpu.common.config import IndexingConfig as JIndexingConfig
+    from pinot_tpu.common.config import TableConfig as JTableConfig
+    from pinot_tpu.query.plan import PlanError as JPlanError
+    from pinot_tpu_torch.common import IndexingConfig, TableConfig
+    from pinot_tpu_torch.query.plan import PlanError
+
+    with pytest.raises(JPlanError, match="text index") as want:
+        by_table["lineorder"][0].execute(sql)
+    with pytest.raises(PlanError, match="text index") as got:
         by_table["lineorder"][1]["built"].execute(sql)
+    assert str(got.value) == str(want.value)
+    cols, datas = TABLES["lineorder"]
+    jcfg = JTableConfig("lineorder", indexing=JIndexingConfig(text_index_columns=["region"]))
+    cfg = TableConfig("lineorder", IndexingConfig(text_index_columns=["region"]))
+    ref = JEngine([JBuilder(JSchema.build("lineorder", **cols(JDT)), jcfg).build(d, f"s{i}") for i, d in enumerate(datas)])
+    port = QueryEngine(
+        [SegmentBuilder(Schema.build("lineorder", **cols(DataType)), cfg).build(d, f"s{i}") for i, d in enumerate(datas)],
+        device="cpu",
+    )
+    want, got = ref.execute(sql), port.execute(sql)
+    assert got.rows == want.rows and got.num_docs_scanned == want.num_docs_scanned and got.rows[0][0] > 0
 
 
 def test_filter_empties_a_group_in_one_segment(engines):
@@ -384,6 +405,13 @@ def test_import_leaves_no_jax_pandas_or_reference():
         " 'v': np.array([1, 2, 3], dtype=np.int32)}, 's0')\n"
         "res = QueryEngine([seg], device='cpu').execute('SELECT g, SUM(v) FROM t GROUP BY g ORDER BY g')\n"
         "assert res.rows == [['a', 4.0], ['b', 2.0]], res.rows\n"
+        "import tempfile, pinot_tpu_torch.native, pinot_tpu_torch.parallel\n"
+        "from pinot_tpu_torch.parallel.mesh import execute_sharded_result\n"
+        "from pinot_tpu_torch.segment import load_segment, write_segment\n"
+        "seg = load_segment(write_segment(seg, tempfile.mkdtemp()))\n"
+        "t = pinot_tpu_torch.parallel.build_sharded_table(s, {'g': np.array(['a', 'b', 'a'], dtype=object),"
+        " 'v': np.array([1, 2, 3], dtype=np.int32)}, pinot_tpu_torch.parallel.make_mesh('cpu'))\n"
+        "assert execute_sharded_result(t, 'SELECT g, SUM(v) FROM t GROUP BY g ORDER BY g').rows == res.rows\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'pinot_tpu'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -400,9 +428,10 @@ FORBIDDEN = {"jax", "jaxlib", "pandas", "pinot_tpu"}
     sorted(str(p.relative_to(REPO)) for p in (REPO / "pinot_tpu_torch").rglob("*.py")) + ["chip_smoke.py"],
 )
 def test_source_imports_nothing_forbidden(path):
-    """Every import in the port (and its card check) names a module whose
-    top-level package is not jax, pandas or the JAX package — matched on the
-    whole first component, so pinot_tpu_torch itself passes."""
+    """Every import in the port (its sharded executor and its native codecs
+    included) and its card check names a module whose top-level package is
+    not jax, pandas or the JAX package — matched on the whole first
+    component, so pinot_tpu_torch itself passes."""
     import ast
 
     tree = ast.parse((REPO / path).read_text())

@@ -60,11 +60,19 @@ def test_record_unregistered_is_silent_noop():
 
 
 def test_kernel_names_are_the_references():
-    """The port's four kernels carry the JAX package's names, so a roofline
-    row can be found across both packages."""
+    """The port's four kernels and the sharded program carry the JAX
+    package's names, so a roofline row can be found across both packages."""
     import pinot_tpu.ops.groupby_pallas  # noqa: F401  (registers the reference's kernels)
+    import pinot_tpu.parallel.mesh  # noqa: F401  (and its sharded program)
+    import pinot_tpu_torch.parallel.mesh  # noqa: F401
 
-    assert KERNELS.kernel_names() == ["ops.grouped_extreme", "ops.grouped_planes", "ops.grouped_planes2", "ops.grouped_sum"]
+    assert KERNELS.kernel_names() == [
+        "exchange.sharded",
+        "ops.grouped_extreme",
+        "ops.grouped_planes",
+        "ops.grouped_planes2",
+        "ops.grouped_sum",
+    ]
     assert set(KERNELS.kernel_names()) <= set(JKERNELS.kernel_names())
     assert kernel_obs.DEFAULT_HBM_PEAK_GBPS == 3350.0
 

@@ -1,6 +1,6 @@
 """Scan-path attribution, the pruning funnel and the segment-heat registry
 through the port and the JAX package: the cases of tests/test_scan_obs.py
-that need no aux index (the port's segments carry none until ROADMAP A6), on
+that need no aux index (tests/test_torch_indexes.py holds the index paths), on
 a time-partitioned table whose sorted year column takes SORTED_INDEX, a
 table with null vectors (NULL_INDEX) and a star-tree table
 (STARTREE_INDEX). The scan profile, the entry counts and the funnel must be

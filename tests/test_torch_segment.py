@@ -274,9 +274,18 @@ def test_default_staging_device_is_the_card(pair):
     ],
 )
 def test_unsupported_table_config_raises(indexing):
-    name = next(iter(indexing))
-    with pytest.raises(NotImplementedError, match=name):
-        SegmentBuilder(_schema(DataType, Schema), TableConfig("t", IndexingConfig(**indexing)))
+    """Each index field the builder refused until the indexes were ported:
+    now both packages build the same index from the same rows, field for
+    field (a vector column the schema lacks builds nothing in either)."""
+    from pinot_tpu.common.config import IndexingConfig as JIndexingConfig
+    from test_torch_store import assert_same
+
+    data = _data(3, 900)
+    ref = JBuilder(_schema(JDT, JSchema), JTableConfig("t", indexing=JIndexingConfig(**indexing))).build(data, "s0")
+    port = SegmentBuilder(_schema(DataType, Schema), TableConfig("t", IndexingConfig(**indexing))).build(data, "s0")
+    assert sorted(port.extras) == sorted(ref.extras)
+    assert_same(port.extras, ref.extras, "extras")
+    assert bool(port.extras) == (next(iter(indexing)) != "vector_index_columns")
 
 
 def _mv_schema(DT, S, FS):
