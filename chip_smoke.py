@@ -138,6 +138,29 @@
    oracle, its bloom-pruned count beside the min/max-pruned count; a
    200,000-row text / JSON table answering TEXT_MATCH and JSON_MATCH through
    the program's docmask operand on the card, against the numpy oracle.
+11. The mesh of slots: the same 16M rows over make_mesh(("cuda:0",) * 4),
+   D = 4 slots on the card, one segment each (S = 4, P = 4,000,768); phase
+   9's configs through execute_sharded_result, each equal to the oracle and
+   to the one-slot table's rows, with its launches (4x the one-slot count;
+   counts from 0 just before the path, read just after), one device->host
+   copy a query (config 9: one a slot) and no cross-card copy; its wall p50
+   beside the one-slot table's in the same phase, the mesh program's device
+   time and each slot's.
+12. The hash exchange: mesh_equi_join over the 4 slots, 4,000,000 left keys
+   from [1, 90,000] against the 90,000 right keys once each, the pairs
+   equal to numpy's; the declines (a duplicate right key, the sentinel key);
+   a forced overflow completed by the retry; hash_exchange delivering every
+   row once to its key's slot; exchange_group_partials equal to the sum;
+   the `exchange.join` event ms beside its bound.
+13. The multistage engine: bench.py's config 6 (4M fact rows of its
+   generator, seed 6; the 25-row nation_dim; its SQL) through
+   MultistageEngine(..., device="cuda"), its ordered rows equal to the
+   oracle, the exact group-by kernel launched at the leaf; then over the
+   same rows a query each engaging the device join and sort, the device
+   window, and the leaf's `mask` program (DEVICE_OP_STATS, a spy on the
+   program kinds), each against its oracle; walls, link_profile(), the
+   operators' host split and the numpy paths' host cost per row beside the
+   economic gates' constants.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -2904,7 +2927,9 @@ FLAT_CHECKS = (
 
 
 def table_bytes(table) -> int:
-    return sum(t.numel() * t.element_size() for t in table.arrays.values()) + table.n_docs.numel() * 4
+    """Bytes staged for a sharded table, over every slot."""
+    arrays = sum(t.numel() * t.element_size() for slots in table.arrays.values() for t in slots)
+    return arrays + sum(t.numel() for t in table.n_docs) * 4
 
 
 def seg_staged_bytes(seg) -> int:
@@ -2917,7 +2942,10 @@ def host_transfers(torch, fn) -> dict:
     """The device->host copies and the implicit host syncs of one fn(),
     counted op by op under a TorchDispatchMode: a copy_ or a to() whose
     source lies on the card and whose result lies on the host, and an
-    item() of a card tensor (a program that branched on a device value)."""
+    item() of a card tensor (a program that branched on a device value);
+    and the copies between two cards (a mesh slot's partial or bucket moving
+    to another card; none where the slots share one card, whose `.to()` of
+    its own device copies nothing)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     aten = torch.ops.aten
@@ -2925,7 +2953,7 @@ def host_transfers(torch, fn) -> dict:
     class Count(TorchDispatchMode):
         def __init__(self):
             super().__init__()
-            self.copies, self.items = 0, 0
+            self.copies, self.items, self.peer = 0, 0, 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
@@ -2935,11 +2963,15 @@ def host_transfers(torch, fn) -> dict:
                 self.copies += 1
             elif func is aten._local_scalar_dense.default and args[0].device.type == "cuda":
                 self.items += 1
+            elif func in (aten.copy_.default, aten._to_copy.default):
+                src, dst = (args[1], args[0]) if func is aten.copy_.default else (args[0], out)
+                if src.device.type == dst.device.type == "cuda" and src.device != dst.device:
+                    self.peer += 1
             return out
 
     with Count() as c:
         fn()
-    return {"dtoh_copies": c.copies, "device_scalar_reads": c.items}
+    return {"dtoh_copies": c.copies, "device_scalar_reads": c.items, "cross_card_copies": c.peer}
 
 
 def program_device_ms(torch, table, sql, iters: int = 5) -> float:
@@ -2980,14 +3012,17 @@ def sharded_bound(table, sql) -> dict:
     from pinot_tpu_torch.parallel import mesh as mesh_mod
 
     _, plan, program = mesh_mod._prepare(table, sql)
-    vec, _ = program()
+    vecs, _ = program()
     cols = [c for c in plan.columns]
-    read = sum(table.arrays[c].numel() * table.arrays[c].element_size() for c in cols) + table.n_docs.numel() * 4
+    read = sum(t.numel() * t.element_size() for c in cols for t in table.arrays[c]) + sum(
+        t.numel() for t in table.n_docs
+    ) * 4
+    packed = sum(v.numel() for v in vecs) * 8
     return {
         "columns": cols,
-        "bytes": read + vec.numel() * 8,
-        "bound_ms": hbm_ms(read + vec.numel() * 8),
-        "packed_bytes": vec.numel() * 8,
+        "bytes": read + packed,
+        "bound_ms": hbm_ms(read + packed),
+        "packed_bytes": packed,
         "registry_rows": table.padded,
     }
 
@@ -3163,7 +3198,8 @@ def run_sharded(torch, counters: dict, data: dict, want: dict, engine) -> dict:
     oracle, with its launches (counts from 0 just before, read just after)
     and one device->host copy a query; then the walls beside the per-segment
     engine's, the flat kernels against their plain versions, and the proto
-    fallback. Returns the path's launches by kernel."""
+    fallback. Returns the path's launches by kernel and the one-slot
+    table."""
     from pinot_tpu_torch.ops import extreme as ext
     from pinot_tpu_torch.ops import groupby as gb
     from pinot_tpu_torch.ops import grouped_sum_f32 as gs
@@ -3185,7 +3221,7 @@ def run_sharded(torch, counters: dict, data: dict, want: dict, engine) -> dict:
             "flat_docs": table.n_segments * table.padded,
             "build_s": time.perf_counter() - t0,
             "staged_bytes": table_bytes(table),
-            "dtypes": {c: str(t.dtype) for c, t in table.arrays.items()},
+            "dtypes": {c: str(t[0].dtype) for c, t in table.arrays.items()},
         }
     )
 
@@ -3226,7 +3262,7 @@ def run_sharded(torch, counters: dict, data: dict, want: dict, engine) -> dict:
             sharded = wall_p50_of(lambda: mesh_mod.execute_sharded_result(table, sql), warm=1)
             per_segment = wall_p50(engine, sql, warm=1)
             moves = host_transfers(torch, lambda: mesh_mod.execute_sharded_result(table, sql))
-            if moves != {"dtoh_copies": 1, "device_scalar_reads": 0}:
+            if moves != {"dtoh_copies": 1, "device_scalar_reads": 0, "cross_card_copies": 0}:
                 raise AssertionError(f"sharded {name}: {moves}, expected one device->host copy and no scalar read")
             busy = program_device_ms(torch, table, sql)
             per_query[name] = {
@@ -3299,7 +3335,7 @@ def run_sharded(torch, counters: dict, data: dict, want: dict, engine) -> dict:
               "max_memory_allocated": torch.cuda.max_memory_allocated(), "card": card_line()})
     finally:
         mesh_mod._run_on_proto = real_rerun
-    return {k: path_launches[k] + fallback_launches[k] for k in counters}
+    return {k: path_launches[k] + fallback_launches[k] for k in counters}, table
 
 
 def run_sharded_scale(torch, counters: dict) -> dict:
@@ -3375,6 +3411,250 @@ def run_sharded_scale(torch, counters: dict) -> dict:
         }
     )
     return path_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the mesh of slots (bench.py's sharded path over D slots)
+# ---------------------------------------------------------------------------
+
+#: the mesh's slots: four programs a query, all on the one card
+MESH_SLOTS = 4
+
+
+def slot_program_ms(torch, table, sql, iters: int = 5) -> list:
+    """Each slot's program alone (its flat program over its S/D segments,
+    no merge, no copy): device ms between CUDA events after an L2 flush and
+    a spin, as program_device_ms times the whole mesh's."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+    from pinot_tpu_torch.parallel import mesh as mesh_mod
+    from pinot_tpu_torch.query.kernels import stage_operands
+
+    _, plan, _ = mesh_mod._prepare(table, sql)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = []
+    KERNELS.configure(enabled=False)
+    try:
+        for d, dev in enumerate(table.mesh.devices):
+            kernel = mesh_mod._sharded_kernel(plan.spec, table.padded, (dev,))
+            cols = [{c: table.arrays[c][d] for c in plan.columns}]
+            ops = [stage_operands(list(plan.operands), dev)]
+            nd = [table.n_docs[d]]
+            kernel(cols, ops, nd)
+            total = 0.0
+            for _ in range(iters):
+                flush.zero_()
+                torch.cuda._sleep(20_000_000)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                kernel(cols, ops, nd)
+                end.record()
+                end.synchronize()
+                total += start.elapsed_time(end)
+            out.append(total / iters)
+    finally:
+        KERNELS.configure(enabled=True)
+    return out
+
+
+def run_mesh(torch, counters: dict, data: dict, want: dict, one_slot) -> dict:
+    """Phase 11: the same 16M rows over make_mesh(("cuda:0",) * 4): D = 4
+    slots, one segment each (S = 4, P = 4,000,768), the phase-9 configs
+    through execute_sharded_result, each equal to the oracle and to the
+    one-slot table's rows, with its launches (counts from 0 just before the
+    path, read just after; D times the one-slot count) and every kernel call
+    held against its plain version on the same operands, its device->host
+    and cross-card copies, its wall p50 beside the one-slot table's in this
+    call, the mesh program's device time and each slot's. Returns the
+    path's launches by kernel."""
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.parallel import build_sharded_table, make_mesh
+    from pinot_tpu_torch.parallel import mesh as mesh_mod
+    from pinot_tpu_torch.segment.segment import padded_len
+
+    mesh = make_mesh(("cuda:0",) * MESH_SLOTS)
+    t0 = time.perf_counter()
+    table = build_sharded_table(ssb_schema(), data, mesh)
+    torch.cuda.synchronize()
+    emit(
+        {
+            "phase": "mesh_setup",
+            "slots": [str(d) for d in mesh.devices],
+            "segments": table.n_segments,
+            "padded": table.padded,
+            "build_s": time.perf_counter() - t0,
+            "staged_bytes": table_bytes(table),
+        }
+    )
+    if (table.n_segments, table.padded) != (MESH_SLOTS, padded_len(N_ROWS // MESH_SLOTS)):
+        raise AssertionError(f"mesh: S {table.n_segments}, P {table.padded}")
+    # the one-slot answers, before the counted window
+    one_rows = {name: mesh_mod.execute_sharded_result(one_slot, CONFIGS[name]).rows for name in SHARDED_CONFIGS}
+    for fn in counters.values():
+        fn.launches = 0
+    launches, held = {}, {}
+    for name in SHARDED_CONFIGS:
+        before = [fn.launches for fn in counters.values()]
+        got = []
+        calls = spy_calls(lambda: got.append(mesh_mod.execute_sharded_result(table, CONFIGS[name])))
+        launches[name] = {k: fn.launches - b for (k, fn), b in zip(counters.items(), before)}
+        expect = tuple(MESH_SLOTS * v for v in LAUNCHES_PER_SEGMENT[name])
+        check_launches(f"mesh {name}", counters, launches[name], calls, expect)
+        rows_match(f"mesh {name}", got[0].rows, want[name])
+        rows_match(f"mesh {name} against one slot", got[0].rows, one_rows[name])
+        # each slot's kernel calls against their plain versions on the same
+        # card operands (the plain versions launch no kernel)
+        held[name] = hold_all(torch, calls, gb, ext, gs)
+        del calls, got
+    path_launches = {k: sum(v[k] for v in launches.values()) for k in counters}
+    if path_launches != {k: fn.launches for k, fn in counters.items()}:
+        raise AssertionError(f"mesh: launches outside the configs' runs: {path_launches}")
+    emit({"phase": "mesh_path", "results_match_oracle": True, "launches_per_config": launches,
+          "launches": path_launches, "kernels_vs_plain": held})
+
+    per_query = {}
+    for name in SHARDED_CONFIGS:
+        sql = CONFIGS[name]
+        sparse = name == "9_groupby_sparse"
+        mesh_w = wall_p50_of(lambda: mesh_mod.execute_sharded_result(table, sql), warm=1)
+        one_w = wall_p50_of(lambda: mesh_mod.execute_sharded_result(one_slot, sql), warm=1)
+        moves = host_transfers(torch, lambda: mesh_mod.execute_sharded_result(table, sql))
+        want_moves = {"dtoh_copies": MESH_SLOTS if sparse else 1, "device_scalar_reads": 0, "cross_card_copies": 0}
+        if moves != want_moves:
+            raise AssertionError(f"mesh {name}: {moves}, expected {want_moves}")
+        busy = program_device_ms(torch, table, sql)
+        per_query[name] = {
+            "mesh_p50_ms": mesh_w["p50_ms"],
+            "mesh_runs_ms": mesh_w["runs_ms"],
+            "one_slot_p50_ms": one_w["p50_ms"],
+            "one_slot_runs_ms": one_w["runs_ms"],
+            "launches": launches[name],
+            **moves,
+            "mesh_program_device_ms": busy,
+            "one_slot_program_device_ms": program_device_ms(torch, one_slot, sql),
+            "slot_program_device_ms": slot_program_ms(torch, table, sql),
+            "device_idle_share": 1.0 - busy / mesh_w["p50_ms"],
+            "exchange": exchange_event_ms(table, sql),
+        }
+    emit({"phase": "mesh", "slots": MESH_SLOTS, "queries": per_query, "card": card_line()})
+    return path_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the hash exchange across slots
+# ---------------------------------------------------------------------------
+
+#: config 6's fact side: lo_custkey's range on the left, every key once on
+#: the right
+SHUFFLE_LEFT, SHUFFLE_RIGHT = 4_000_000, N_CUSTOMERS
+
+
+def join_bound_ms(n_left: int, n_right: int, pairs: int) -> float:
+    """The least time of the join on the card's memory: each side's int64
+    keys and int32 row ids read once, the pairs' two int32 ids written once."""
+    return hbm_ms((n_left + n_right) * 12 + pairs * 8)
+
+
+def run_shuffle(torch) -> dict:
+    """Phase 12: mesh_equi_join over four slots on the card: 4,000,000 left
+    keys drawn from [1, 90,000] and the 90,000 right keys once each, the
+    pairs equal to the numpy join's as sets; the declines (a duplicate right
+    key, the sentinel key); a forced overflow (every left key equal) that the
+    retry at the safe capacity completes; hash_exchange delivering every row
+    once, to the slot of its key's hash; exchange_group_partials equal to a
+    plain sum. The `exchange.join` event ms beside its bound."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+    from pinot_tpu_torch.parallel import make_mesh, shuffle
+    from pinot_tpu_torch.query.sketches import hash_any
+
+    mesh = make_mesh(("cuda:0",) * MESH_SLOTS)
+    rng = np.random.default_rng(12)
+    lk = rng.integers(1, N_CUSTOMERS + 1, SHUFFLE_LEFT).astype(np.int64)
+    rk = rng.permutation(np.arange(1, SHUFFLE_RIGHT + 1, dtype=np.int64))
+    row_of = np.empty(SHUFFLE_RIGHT + 1, dtype=np.int64)
+    row_of[rk] = np.arange(SHUFFLE_RIGHT)
+
+    shuffle.mesh_equi_join(lk, rk, mesh)  # warm
+    KERNELS.reset_stats()
+    t0 = time.perf_counter()
+    out = shuffle.mesh_equi_join(lk, rk, mesh)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    rows = [v for (k, _), v in KERNELS.stats_snapshot().items() if k == "exchange.join"]
+    if out is None:
+        raise AssertionError("shuffle: mesh_equi_join declined the FK->PK join")
+    li, ri = out
+    order = np.argsort(li, kind="stable")
+    if not (np.array_equal(li[order], np.arange(SHUFFLE_LEFT)) and np.array_equal(ri[order], row_of[lk])):
+        raise AssertionError("shuffle: the pairs differ from the numpy join's")
+    wall = wall_p50_of(lambda: shuffle.mesh_equi_join(lk, rk, mesh), warm=0, runs=5)
+
+    dup = rk.copy()
+    dup[1] = dup[0]
+    sentinel = rk.copy()
+    sentinel[0] = np.iinfo(np.int64).max
+    declines = {
+        "duplicate_right_key": shuffle.mesh_equi_join(lk, dup, mesh) is None,
+        "sentinel_right_key": shuffle.mesh_equi_join(lk, sentinel, mesh) is None,
+    }
+    if not all(declines.values()):
+        raise AssertionError(f"shuffle: declines {declines}")
+
+    capacities = []
+    real = shuffle._join_kernel
+    shuffle._join_kernel = lambda dev, cap, dt: capacities.append(cap) or real(dev, cap, dt)
+    try:
+        skew = np.full(SHUFFLE_LEFT, 7, dtype=np.int64)
+        got = shuffle.mesh_equi_join(skew, rk, mesh)
+    finally:
+        shuffle._join_kernel = real
+    if got is None or len(got[0]) != SHUFFLE_LEFT or not np.all(rk[got[1]] == 7) or len(capacities) != 2:
+        raise AssertionError(f"shuffle: the overflow retry ({capacities}) did not complete the join")
+
+    n_local = SHUFFLE_LEFT // MESH_SLOTS
+    keys = [torch.from_numpy(lk[d * n_local : (d + 1) * n_local]).to(dev) for d, dev in enumerate(mesh.devices)]
+    ids = [torch.arange(d * n_local, (d + 1) * n_local, device=dev) for d, dev in enumerate(mesh.devices)]
+    cols, valid, dropped = shuffle.hash_exchange(
+        [(k, i) for k, i in zip(keys, ids)], keys, [torch.ones_like(k, dtype=torch.bool) for k in keys],
+        mesh.devices, n_local,
+    )
+    dest = (hash_any(lk) % np.uint32(MESH_SLOTS)).astype(np.int64)
+    got_ids = [c[1][v].cpu().numpy() for c, v in zip(cols, valid)]
+    if int(dropped) or not np.array_equal(np.sort(np.concatenate(got_ids)), np.arange(SHUFFLE_LEFT)):
+        raise AssertionError("shuffle: hash_exchange lost or repeated rows")
+    if any(not np.all(dest[g] == d) for d, g in enumerate(got_ids)):
+        raise AssertionError("shuffle: a row reached another slot than its key's hash")
+
+    parts = np.random.default_rng(9).integers(-1000, 1000, (MESH_SLOTS, 1 << 16)).astype(np.int64)
+    merged = shuffle.exchange_group_partials([torch.from_numpy(p).to(d) for p, d in zip(parts, mesh.devices)], mesh.devices)
+    if any(not np.array_equal(m.cpu().numpy(), parts.sum(axis=0)) for m in merged):
+        raise AssertionError("shuffle: exchange_group_partials differs from the sum")
+
+    emit(
+        {
+            "phase": "shuffle",
+            "slots": MESH_SLOTS,
+            "left_rows": SHUFFLE_LEFT,
+            "right_rows": SHUFFLE_RIGHT,
+            "pairs": int(len(li)),
+            "pairs_match_numpy": True,
+            "declines": declines,
+            "overflow_capacities": capacities,
+            "hash_exchange_rows": int(sum(len(g) for g in got_ids)),
+            "first_ms": first_ms,
+            "p50_ms": wall["p50_ms"],
+            "runs_ms": wall["runs_ms"],
+            "exchange_join": {
+                "calls": sum(v["calls"] for v in rows),
+                "event_ms": sum(v["deviceMs"] for v in rows),
+                "registry_bytes": sum(v["bytesMoved"] for v in rows),
+            },
+            "bound_ms": join_bound_ms(SHUFFLE_LEFT, SHUFFLE_RIGHT, len(li)),
+            "card": card_line(),
+        }
+    )
+    return {"p50_ms": wall["p50_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3532,6 +3812,240 @@ def run_store(torch, engine, segments, tp_segments, data) -> None:
     emit({"phase": "store", "results_match": True, **out, "card": card_line()})
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multistage engine (bench.py's config 6)
+# ---------------------------------------------------------------------------
+
+#: bench.py's config 6: JOIN_ROWS fact rows of its generator under seed 6
+JOIN_ROWS, JOIN_SEED = 4_000_000, 6
+JOIN_NATIONS = [f"NATION_{i:02d}" for i in range(25)]
+JOIN_REGIONS = [f"REGION_{i % 5}" for i in range(25)]
+CONFIG6_SQL = (
+    "SELECT d.region, SUM(l.lo_revenue) FROM lineorder l "
+    "JOIN nation_dim d ON l.c_nation = d.nation "
+    "GROUP BY d.region ORDER BY SUM(l.lo_revenue) DESC"
+)
+#: over the same fact rows: the device join and sort (a lookup join on an
+#: integer key, 4M rows ordered), the device window (its sort and running
+#: sum over 4M rows), and a leaf Scan filter as the `mask` program
+MULTISTAGE_QUERIES = {
+    "device_join_sort": (
+        "SELECT q.qty, q.band, l.lo_revenue FROM lineorder l JOIN qty_dim q ON l.lo_quantity = q.qty "
+        "ORDER BY l.lo_revenue DESC, q.qty LIMIT 40"
+    ),
+    "device_window": (
+        "SELECT l.d_year, l.lo_revenue, SUM(l.lo_quantity) OVER (PARTITION BY l.d_year ORDER BY l.lo_revenue DESC) "
+        "FROM lineorder l ORDER BY l.lo_revenue DESC, l.d_year LIMIT 20"
+    ),
+    "leaf_mask": (
+        "SELECT d.region, l.lo_revenue FROM lineorder l JOIN nation_dim d ON l.c_nation = d.nation "
+        "WHERE l.lo_quantity = 1 AND l.lo_revenue > 590000"
+    ),
+}
+#: the device operators each query must engage (DEVICE_OP_STATS)
+MULTISTAGE_OPS = {"device_join_sort": ("join", "sort"), "device_window": ("sort", "window"), "leaf_mask": ()}
+
+
+def join_fact_data(n: int, seed: int = JOIN_SEED) -> dict:
+    """bench.py's `_make_ssb_data` draws, in its column order."""
+    rng = np.random.default_rng(seed)
+    return {
+        "d_year": rng.integers(1992, 1999, n).astype(np.int32),
+        "c_nation": np.array(JOIN_NATIONS, dtype=object)[rng.integers(0, 25, n)],
+        "p_category": np.array(CATEGORIES, dtype=object)[rng.integers(0, 25, n)],
+        "lo_revenue": rng.integers(100, 600_000, n).astype(np.int64),
+        "lo_supplycost": rng.integers(50, 100_000, n).astype(np.int64),
+        "lo_quantity": rng.integers(1, 51, n).astype(np.int32),
+    }
+
+
+def multistage_catalog(data: dict) -> dict:
+    """config 6's tables: the fact segment, the 25-row nation_dim, and the
+    50-row qty_dim of the device-join query."""
+    from pinot_tpu_torch.common import DataType, Schema
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    fact = SegmentBuilder(ssb_schema(keys=False)).build(data, "join_fact")
+    nation_dim = SegmentBuilder(
+        Schema.build("nation_dim", dimensions=[("nation", DataType.STRING), ("region", DataType.STRING)], metrics=[])
+    ).build({"nation": np.array(JOIN_NATIONS, dtype=object), "region": np.array(JOIN_REGIONS, dtype=object)}, "join_dim")
+    qty = np.arange(1, 51, dtype=np.int32)
+    qty_dim = SegmentBuilder(
+        Schema.build("qty_dim", dimensions=[("qty", DataType.INT), ("band", DataType.STRING)], metrics=[])
+    ).build({"qty": qty, "band": np.array([f"B{q // 10}" for q in qty], dtype=object)}, "qty_dim")
+    return {"lineorder": [fact], "nation_dim": [nation_dim], "qty_dim": [qty_dim]}
+
+
+def multistage_oracle(data: dict) -> dict:
+    """Each query's rows from the raw arrays (numpy, stable sorts where the
+    engine's sorts are stable)."""
+    rev, qty, year = data["lo_revenue"], data["lo_quantity"], data["d_year"]
+    nation = np.searchsorted(np.array(JOIN_NATIONS), data["c_nation"].astype(str))
+    region = np.array([i % 5 for i in range(25)])[nation]
+    sums = np.bincount(region, weights=rev, minlength=5)
+    out = {"config6": [[f"REGION_{r}", float(sums[r])] for r in np.argsort(-sums, kind="stable")]}
+    top = np.lexsort((qty, -rev))[:40]
+    out["device_join_sort"] = [[int(qty[i]), f"B{qty[i] // 10}", int(rev[i])] for i in top]
+    order = np.lexsort((-rev, year))  # the window's partition and order, ties by scan order
+    rs = np.empty(len(rev), dtype=np.int64)
+    ys = year[order]
+    starts = np.r_[0, np.flatnonzero(ys[1:] != ys[:-1]) + 1, len(ys)]
+    for a, b in zip(starts[:-1], starts[1:]):
+        rs[order[a:b]] = np.cumsum(qty[order[a:b]].astype(np.int64))
+    top = np.lexsort((year, -rev))[:20]
+    out["device_window"] = [[int(year[i]), int(rev[i]), int(rs[i])] for i in top]
+    m = (qty == 1) & (rev > 590000)
+    out["leaf_mask"] = sorted([f"REGION_{r}", int(v)] for r, v in zip(region[m], rev[m]))
+    return out
+
+
+def host_costs(data: dict) -> dict:
+    """The host cost per row of the numpy paths the economic gates weigh
+    the device against (the reference's constants: mergesort 150 ns a row a
+    key, groupby-cumsum 80 ns a row, hash join 70 ns an input row), at this
+    phase's 4M rows, beside the device op on the same inputs."""
+    from pinot_tpu_torch.common.sorting import sort_nulls_largest
+    from pinot_tpu_torch.multistage import runtime as rt
+
+    n = len(data["lo_revenue"])
+    rev, qty = data["lo_revenue"], data["lo_quantity"]
+    gk = np.sort(data["d_year"]).astype(np.int64)
+    keys = qty.astype(np.float64)
+    dim = np.arange(1, 51, dtype=np.float64)
+
+    def best(fn, runs=3):
+        ms = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return min(ms)
+
+    sort_host = best(lambda: sort_nulls_largest([rev, qty], [False, True]))
+    sort_dev = best(lambda: rt._device_sort_perm([rev, qty], [True, False], "cuda"))
+    win_host = best(lambda: rt._cum_in_groups("sum", gk, qty))
+    win_dev = best(lambda: rt._device_window_cum("sum", gk, qty, n, "cuda"))
+    join_host = best(lambda: rt.merge_inner([keys], [dim]))
+    join_dev = best(lambda: rt._device_equi_join(keys, dim, force=True, device="cuda"))
+    return {
+        "rows": n,
+        "sort": {"host_ms": sort_host, "host_ns_per_row_key": sort_host * 1e6 / (2 * n), "device_ms": sort_dev,
+                 "constant_ns": 150},
+        "window": {"host_ms": win_host, "host_ns_per_row": win_host * 1e6 / n, "device_ms": win_dev, "constant_ns": 80},
+        "join": {"host_ms": join_host, "host_ns_per_input_row": join_host * 1e6 / (n + 50), "device_ms": join_dev,
+                 "constant_ns": 70},
+    }
+
+
+def run_multistage(torch, counters: dict) -> dict:
+    """Phase 13: bench.py's config 6 at its own shape (4M fact rows of its
+    generator, seed 6; the 25-row nation_dim; its SQL) through
+    MultistageEngine(..., device="cuda"): the ordered rows equal the oracle,
+    and the leaf's partial aggregate launches the exact group-by kernel
+    (counts from 0 just before, read just after), each of its kernel calls
+    held against its plain version on the same operands. Then, over the same fact
+    rows, a query each whose DEVICE_OP_STATS show the device join and sort,
+    and the device window, and one whose leaf Scan filter runs the `mask`
+    program, each against its oracle. Reports wall p50s, link_profile(),
+    the stage operators' host split (trace=true) and the host cost per row
+    of the numpy paths beside the economic gates' constants. Returns the
+    phase's launches by kernel."""
+    from pinot_tpu_torch.common.devlink import link_profile
+    from pinot_tpu_torch.multistage import MultistageEngine
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.multistage import runtime as rt
+    from pinot_tpu_torch.query import kernels as qk
+
+    t0 = time.perf_counter()
+    data = join_fact_data(JOIN_ROWS)
+    want = multistage_oracle(data)
+    catalog = multistage_catalog(data)
+    catalog["lineorder"][0].to_device_cached("cuda")  # staged once, from the main thread
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    engine = MultistageEngine(catalog, device="cuda")
+
+    for fn in counters.values():
+        fn.launches = 0
+    got = []
+    calls = spy_calls(lambda: got.append(engine.execute(CONFIG6_SQL)))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rows_match("config6", got[0].rows, want["config6"])
+    if launches["grouped_sum_count"] < 1:
+        raise AssertionError(f"config 6: the leaf launched no exact group-by kernel: {launches}")
+    check_launches("config 6", counters, launches, calls, tuple(launches.values()))
+    # the leaf's kernel calls against their plain versions on the same card
+    # operands (the plain versions launch no kernel)
+    held = {"config6": hold_all(torch, calls, gb, ext, gs)}
+    del calls, got
+    wall = wall_p50_of(lambda: engine.execute(CONFIG6_SQL), warm=1, runs=5)
+    traced = engine.execute("SET trace = true; " + CONFIG6_SQL)
+    config6 = {
+        "rows": JOIN_ROWS,
+        "setup_s": setup_s,
+        "launches": launches,
+        "kernels_vs_plain": held["config6"],
+        "p50_ms": wall["p50_ms"],
+        "runs_ms": wall["runs_ms"],
+        "stage_stats": traced.stage_stats,
+    }
+
+    queries = {}
+    for name, sql in MULTISTAGE_QUERIES.items():
+        kinds = []
+        real = qk.build_fn
+
+        def spy(spec, real=real):
+            kinds.append(spec[0])
+            return real(spec)
+
+        for fn in counters.values():
+            fn.launches = 0
+        before = dict(rt.DEVICE_OP_STATS)
+        qk.build_fn = spy
+        out = []
+        try:
+            calls = spy_calls(lambda: out.append(engine.execute(sql).rows))
+        finally:
+            qk.build_fn = real
+        got = out[0]
+        engaged = {k: rt.DEVICE_OP_STATS.get(k, 0) - before.get(k, 0) for k in ("sort", "join", "window", "mesh_join")}
+        for op in MULTISTAGE_OPS[name]:
+            if engaged[op] < 1:
+                raise AssertionError(f"multistage {name}: the device {op} did not engage: {engaged}")
+        if name == "leaf_mask":
+            if "mask" not in kinds:
+                raise AssertionError(f"multistage {name}: no mask program ran ({kinds})")
+            got = sorted(got)
+        rows_match(f"multistage {name}", got, want[name])
+        run_launches = {k: fn.launches for k, fn in counters.items()}
+        check_launches(f"multistage {name}", counters, run_launches, calls, tuple(run_launches.values()))
+        held[name] = hold_all(torch, calls, gb, ext, gs)
+        del calls
+        for k, v in run_launches.items():
+            launches[k] += v
+        w = wall_p50_of(lambda: engine.execute(sql), warm=0, runs=3)
+        queries[name] = {"engaged": engaged, "programs": sorted(set(kinds)), "p50_ms": w["p50_ms"],
+                         "runs_ms": w["runs_ms"], "rows": len(got), "launches": run_launches,
+                         "kernels_vs_plain": held[name]}
+    emit(
+        {
+            "phase": "multistage",
+            "results_match_oracle": True,
+            "config6": config6,
+            "queries": queries,
+            "link_profile": {"rtt_s": link_profile("cuda")[0], "bytes_per_s": link_profile("cuda")[1]},
+            "gates": {"DEVICE_SORT_MIN": rt.DEVICE_SORT_MIN, "DEVICE_JOIN_MIN": rt.DEVICE_JOIN_MIN},
+            "host_costs": host_costs(data),
+            "launches": launches,
+            "card": card_line(),
+        }
+    )
+    return launches
+
+
 def breakdown(torch, engine, sql: str) -> dict:
     """One warm execute split at the engine's own seams (host clock, each
     seam synchronised), then one execute under torch.profiler for the
@@ -3636,16 +4150,21 @@ def main() -> int:
         "grouped_sum_count_2l": gb.grouped_multi_sum_2l,
     }
     main = run_main_path(torch, counters)
-    data, engine = main.pop("data"), main.pop("engine")
-    sharded_launches = run_sharded(torch, counters, data, main.pop("want"), engine)
+    data, engine, want = main.pop("data"), main.pop("engine"), main.pop("want")
+    sharded_launches, one_slot = run_sharded(torch, counters, data, want, engine)
+    mesh_launches = run_mesh(torch, counters, data, want, one_slot)
+    del one_slot
     run_store(torch, engine, main.pop("segments"), main.pop("tp_segments"), data)
     del data, engine
     scale_launches = run_sharded_scale(torch, counters)
+    run_shuffle(torch)
+    multistage_launches = run_multistage(torch, counters)
     # each path's counts, read just after it: the main path's, the sharded
-    # path's (its proto reruns included) and the scale path's launches. The
-    # sum entry of grouped_sum_f32 is on none: the kernel's launches are its
-    # presence entry's
-    launches = {k: main["launches"][k] + sharded_launches[k] + scale_launches[k] for k in main["launches"]}
+    # path's (its proto reruns included), the mesh's, the scale path's and
+    # the multistage engine's launches. The sum entry of grouped_sum_f32 is
+    # on none: the kernel's launches are its presence entry's
+    paths = (main["launches"], sharded_launches, mesh_launches, scale_launches, multistage_launches)
+    launches = {k: sum(p[k] for p in paths) for k in main["launches"]}
     launches["grouped_sum_f32"] = launches["presence"]
 
     print(card_line(), flush=True)

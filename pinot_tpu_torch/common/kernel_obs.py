@@ -326,23 +326,33 @@ class KernelRegistry:
             self._record(p.name, p.start.elapsed_time(p.end), {**p.shape, "masked": int(m)}, gauges=False)
         self._set_hbm_gauges()
 
-    def timed_sync(self, name: str, fn: Callable[[], torch.Tensor], device, **shape) -> np.ndarray:
-        """Run `fn`, which enqueues a device program on `device` and returns
-        its packed float64 output vector, and copy that vector to the host:
-        the one device->host copy its caller consumes (the sharded executor's).
-        The registry records the program and the copy under `name` and
+    def timed_sync(self, name: str, fn: Callable[[], "torch.Tensor | list[torch.Tensor]"], device, **shape):
+        """Run `fn`, which enqueues device programs and returns their packed
+        float64 output vector (or a list of them, one a mesh slot), and copy
+        each to the host: the device->host copies its caller consumes (the
+        sharded executor's). Returns the host vector (or the list). The
+        registry records the programs and the copies under `name` and
         resolves the kernel launches made inside `fn`, collected apart from
         any segment's. On a card the launches' mask counts ride at the end of
-        the same copy, a CUDA event pair spans the program and the copy into
-        pinned memory, and the wait for the copy is the wait for the end
-        event: no fence and no second copy. On the CPU the host wall of both
-        is recorded. A disabled registry runs and copies."""
+        the first copy, a CUDA event pair on `device` spans the programs and
+        the copies into pinned memory, and the wait for the copies is the
+        wait for the end event: no fence and no extra copy. On the CPU the
+        host wall of both is recorded. A disabled registry runs and copies."""
+
+        def as_list(out):
+            return out if isinstance(out, list) else [out]
+
+        def shaped(out, vecs):
+            return vecs if isinstance(out, list) else vecs[0]
+
         if not self._enabled:
-            return fn().cpu().numpy()
+            out = fn()
+            return shaped(out, [o.cpu().numpy() for o in as_list(out)])
         device = torch.device(device)
         if device.type != "cuda":
             t0 = time.perf_counter()
-            host = fn().cpu().numpy()
+            out = fn()
+            host = shaped(out, [o.cpu().numpy() for o in as_list(out)])
             self.record(name, (time.perf_counter() - t0) * 1e3, **shape)
             return host
         stream = torch.cuda.current_stream(device)
@@ -351,19 +361,28 @@ class KernelRegistry:
         with self.collect() as launches:
             start.record(stream)
             out = fn()
+            outs = list(as_list(out))
             k = len(launches)
             if k:
-                out = torch.cat([out, torch.stack([p.masked for p in launches]).to(out.dtype)])
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
+                first = outs[0]
+                counts = torch.stack([p.masked.to(first.device) for p in launches]).to(first.dtype)
+                outs[0] = torch.cat([first, counts])
+        hosts = []
+        for o in outs:
+            h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+            h.copy_(o, non_blocking=True)
+            hosts.append(h)
         end.record(stream)
+        for o in outs:
+            if o.device != device and o.device.type == "cuda":
+                torch.cuda.current_stream(o.device).synchronize()
         end.synchronize()
-        vec = host.numpy()
+        vecs = [h.numpy() for h in hosts]
         if k:
-            self.resolve(launches, masked=vec[-k:].tolist())
-            vec = vec[:-k]
+            self.resolve(launches, masked=vecs[0][-k:].tolist())
+            vecs[0] = vecs[0][:-k]
         self.record(name, start.elapsed_time(end), **shape)
-        return vec
+        return shaped(out, vecs)
 
     def _drain_orphans(self) -> None:
         with self._lock:

@@ -1,5 +1,6 @@
-"""The sharded table and executor on one device: a whole table stacked as
-(n_segments, padded_docs) tensors, and one program a query over all of it.
+"""The sharded table and executor over a mesh of device slots: a whole table
+stacked as (n_segments, padded_docs) tensors, split over the slots, and one
+program a slot a query.
 
 Reference parity: the JAX package's `parallel/mesh.py`, which replaces both of
 Pinot's data-parallel tiers at once: the intra-server combine
@@ -10,23 +11,29 @@ pinot-core/.../transport/QueryRouter.java:89). Unlike the per-segment engine
 group ids and LUT indices agree across segments and partials combine by plain
 reductions, the analog of Pinot's partition-aware replica groups.
 
-This is the one-device mesh (ROADMAP A7a). `_sharded_kernel` flattens the
-stacked segments into ONE doc vector with a validity mask (aggregates are
-order-independent), runs `build_masked_fn`'s program over it once (the
-exact group-by, extreme and presence kernels launch once over the flat
-vector), and packs every output into ONE float64 vector: a query makes one
-device->host copy, timed with its program by `KERNELS.timed_sync` under
-"exchange.sharded". The query plans once, on the proto segment (the whole
-table's dictionaries and stats). `_combine_tree` keeps the reference's merge
-rules for a program across ranks; on one rank the program's partials are
-already the table's and it does not run, and a process group (A7b) raises.
+The mesh is single-controller, as the reference's is: a tuple of
+`torch.device` slots in one process (the reference's `make_mesh` spans one
+process's devices and `shard_map` runs every shard from it). A device may
+hold several slots: the reference's tests run 8 virtual CPU devices, the port
+runs `("cpu",) * 8`, and one card can hold `("cuda:0",) * 4`. Slot d holds
+segments [d * S/D, (d + 1) * S/D) staged on its device. `_sharded_kernel`
+flattens a slot's stacked segments into ONE doc vector with a validity mask
+(aggregates are order-independent) and runs `build_masked_fn`'s program over
+it once a slot (the exact group-by, extreme and presence kernels launch once a
+slot); `_combine_tree` then merges the slots' partials on the first slot's
+device by each aggregate's rule, and every output goes into ONE float64
+vector: a dense query makes one device->host copy, timed with its programs by
+`KERNELS.timed_sync` under "exchange.sharded". A sparse group-by's slot
+tables are each slot's own, so each slot packs and copies its table, and the
+reduce merges them, as the reference's per-shard out_specs do. The query
+plans once, on the proto segment (the whole table's dictionaries and stats).
 
 A query shape the flat layout cannot carry (a GROUP BY over two MV keys,
 whose per-doc tables index the proto's doc space, or any shape the planner
 sends to the host) raises ProtoFallback or DeviceFallback, and
 `execute_sharded_result` reruns it through the per-segment engine over the
-proto, which holds the whole table (staged on the device as one segment);
-so does a sparse group-by whose present groups overflow its U slots.
+proto, which holds the whole table (staged on the first slot's device as one
+segment); so does a sparse group-by whose present groups overflow its U slots.
 """
 
 from __future__ import annotations
@@ -48,36 +55,55 @@ from pinot_tpu_torch.segment.segment import ImmutableSegment, padded_len
 
 @dataclass(frozen=True)
 class Mesh:
-    """The devices a sharded table spans: one, here."""
+    """The device slots a sharded table spans, in one process; a device may
+    hold several slots."""
 
-    device: torch.device
+    devices: tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """The first slot's device: the merge, the packed copy and the proto
+        rerun run there."""
+        return self.devices[0]
 
 
-def make_mesh(device="cuda") -> Mesh:
-    """A one-device mesh on `device` ("cuda" unless the caller asks for
-    another; a list of one device is that device). With no card the default
-    raises; more than one device is ROADMAP A7b."""
-    devices = list(device) if isinstance(device, (list, tuple)) else [device]
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"make_mesh: {len(devices)} devices; a mesh across devices is not ported to pinot_tpu_torch yet (ROADMAP A7b)"
-        )
-    dev = torch.device(devices[0])
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_mesh(device='cuda'): no CUDA device is available; pass device='cpu' to run on the CPU")
-    return Mesh(dev)
+def make_mesh(devices=None) -> Mesh:
+    """A mesh over `devices`: every visible CUDA device by default (the
+    reference's `jax.devices()`), raising when there is no card; a list,
+    which may repeat a device, gives the slots; one device is a one-slot
+    mesh."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh(): no CUDA device is available; pass the slots' devices, e.g. ('cpu',) * 4, to run on the CPU"
+            )
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    elif isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("make_mesh: no devices")
+    if any(d.type == "cuda" for d in devs) and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device is available; pass device 'cpu' to run on the CPU")
+    return Mesh(devs)
 
 
 @dataclass
 class ShardedTable:
-    """A logical table stacked as (n_segments, padded_docs) tensors on the
-    mesh's device. `proto` is a host-side segment of the whole table carrying
-    the table-level dictionaries and stats the planner lowers against."""
+    """A logical table stacked as (n_segments, padded_docs) tensors, slot d
+    holding segments [d * S/D, (d + 1) * S/D) on its device. `proto` is a
+    host-side segment of the whole table carrying the table-level
+    dictionaries and stats the planner lowers against."""
 
     proto: ImmutableSegment
     mesh: Mesh
-    arrays: dict[str, torch.Tensor]  # col -> (S, P); an MV column's flats (S, F_pad)
-    n_docs: torch.Tensor  # (S,) int32
+    #: col -> each slot's (S/D, P) stack; an MV column's flats (S/D, F_pad)
+    arrays: dict[str, tuple[torch.Tensor, ...]]
+    n_docs: tuple[torch.Tensor, ...]  # each slot's (S/D,) int32
     n_segments: int
     padded: int
     total_docs: int
@@ -90,14 +116,19 @@ def build_sharded_table(
     rows_per_segment: int | None = None,
     table_config=None,
 ) -> ShardedTable:
-    """Split columnar data into equal segments (one by default: one a
-    device), build ONE table-level dictionary set, stack the forward arrays
-    and stage them on the mesh's device."""
+    """Split columnar data into equal segments (one a slot by default; their
+    count rounded up to a multiple of the slots), build ONE table-level
+    dictionary set, stack the forward arrays and stage each slot's share on
+    its device."""
     n = len(next(iter(data.values())))
+    n_dev = mesh.size
     if rows_per_segment is None:
-        rows_per_segment = n
+        rows_per_segment = -(-n // n_dev)
     n_seg = max(1, -(-n // max(rows_per_segment, 1)))
+    if n_seg % n_dev:
+        n_seg += n_dev - n_seg % n_dev
     rows_per_segment = -(-n // n_seg)
+    per_slot = n_seg // n_dev
 
     proto = SegmentBuilder(schema, table_config).build(data, "proto")
     pad = padded_len(rows_per_segment)
@@ -106,10 +137,12 @@ def build_sharded_table(
         # invalid in every segment
         pad = padded_len(rows_per_segment + 1)
 
-    def stage(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(mesh.device)
+    def stage(a: np.ndarray) -> tuple[torch.Tensor, ...]:
+        return tuple(
+            torch.from_numpy(a[d * per_slot : (d + 1) * per_slot]).to(dev) for d, dev in enumerate(mesh.devices)
+        )
 
-    arrays: dict[str, torch.Tensor] = {}
+    arrays: dict[str, tuple[torch.Tensor, ...]] = {}
     for col, ci in proto.columns.items():
         if ci.is_mv:
             # each segment's flat id slice and its LOCAL owning-doc ids, both
@@ -169,41 +202,48 @@ def _tree_map(fn, x):
     return tuple(_tree_map(fn, y) for y in x) if isinstance(x, tuple) else fn(x)
 
 
-def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
-    """x reduced by `op` ("sum" / "min" / "max") across the ranks of
-    `group`: x itself on one rank (group None)."""
-    if group is None:
-        return x
-    raise NotImplementedError(f"all-reduce ({op}) across ranks is not ported to pinot_tpu_torch yet (ROADMAP A7b)")
+def _tree_zip(fn, xs: list):
+    """fn over the lists of corresponding leaves of equal-shaped trees."""
+    if isinstance(xs[0], tuple):
+        return tuple(_tree_zip(fn, [x[i] for x in xs]) for i in range(len(xs[0])))
+    return fn(xs)
 
 
-def _combine_tree(spec: tuple, matched, counts, parts, group=None):
-    """Merge the flat program's partials across the ranks of `group` by each
+def _combine_tree(spec: tuple, matched: list, counts: list | None, parts: list, dest: torch.device):
+    """Merge the slots' partials (one list entry a slot) on `dest` by each
     aggregate's rule: sums for counts, sums, averages and histograms; min /
-    max for extremes and HLL registers; OR for presence vectors."""
+    max for extremes and HLL registers, gathered then reduced, as the
+    reference's all_gather + local reduce; OR for presence vectors; a
+    null-handling SUM skips the slots that saw no non-null row."""
 
-    def red_sum(x):
-        return _all_reduce(x, "sum", group)
+    def gather(xs):
+        return torch.stack([x.to(dest) for x in xs])
 
-    def red_min(x):
-        return _all_reduce(x, "min", group)
+    def red_sum(xs):
+        out = xs[0].to(dest)
+        for x in xs[1:]:
+            out = out + x.to(dest)
+        return out
 
-    def red_max(x):
-        return _all_reduce(x, "max", group)
+    def red_min(xs):
+        return gather(xs).amin(0)
 
-    def red_or(x):
-        return _all_reduce(x.to(torch.int32), "max", group).to(torch.bool)
+    def red_max(xs):
+        return gather(xs).amax(0)
 
-    def red_nansum(x):
-        # a null-handling SUM partial is NaN where a rank saw no non-null row:
-        # skipped in the merge, kept NaN where every rank's is (NULL at the
-        # reduce)
-        seen = red_sum((~torch.isnan(x)).to(torch.int32))
-        s = red_sum(torch.where(torch.isnan(x), 0.0, x))
+    def red_or(xs):
+        return gather([x.to(torch.int32) for x in xs]).amax(0).to(torch.bool)
+
+    def red_nansum(xs):
+        # NaN = no non-null row on that slot: skipped, and kept NaN where
+        # every slot's is (NULL at the reduce)
+        seen = red_sum([(~torch.isnan(x)).to(torch.int32) for x in xs])
+        s = red_sum([torch.where(torch.isnan(x), 0.0, x) for x in xs])
         return torch.where(seen == 0, float("nan"), s)
 
     out_parts = []
-    for a, p in zip(spec[3], parts):
+    for i, a in enumerate(spec[3]):
+        p = [slot[i] for slot in parts]
         kind = a[0]
         nan_empty = False
         while kind in ("masked", "masked_nan_empty"):  # combine by the inner kind
@@ -213,13 +253,13 @@ def _combine_tree(spec: tuple, matched, counts, parts, group=None):
         if kind == "sum" and nan_empty:
             out_parts.append(red_nansum(p))
         elif kind in ("count", "sum", "avg", "mv_count", "mv_sum", "mv_avg", "hist"):
-            out_parts.append(_tree_map(red_sum, p))
+            out_parts.append(_tree_zip(red_sum, p))
         elif kind in ("min", "mv_min"):
             out_parts.append(red_min(p))
         elif kind in ("max", "mv_max", "hll"):
             out_parts.append(red_max(p))
         elif kind == "minmaxrange":
-            out_parts.append((red_min(p[0]), red_max(p[1])))
+            out_parts.append((red_min([x[0] for x in p]), red_max([x[1] for x in p])))
         elif kind in ("distinct_ids", "mv_distinct_ids"):
             out_parts.append(red_or(p))
         else:
@@ -228,9 +268,9 @@ def _combine_tree(spec: tuple, matched, counts, parts, group=None):
 
 
 def _flatten_local(cols: dict, n_docs: torch.Tensor, doc_pad: int):
-    """The stacked (S, P) columns (and MV (S, F_pad) flats) as one doc
-    vector, with the validity mask of each segment's docs; each MV owning-doc
-    id shifts by its segment's offset into the flat doc space."""
+    """A slot's stacked (S/D, P) columns (and MV (S/D, F_pad) flats) as one
+    doc vector, with the validity mask of each segment's docs; each MV
+    owning-doc id shifts by its segment's offset into the flat doc space."""
     s_local = next(iter(cols.values())).shape[0]
     flat = {}
     for k, v in cols.items():
@@ -243,31 +283,53 @@ def _flatten_local(cols: dict, n_docs: torch.Tensor, doc_pad: int):
     return flat, valid.reshape(-1)
 
 
-def _sharded_kernel(spec: tuple, doc_pad: int, group=None):
-    """run(cols, ops, n_docs) -> (the packed float64 vector on the device,
-    rebuild): the flat program, the merge across the ranks of `group` (none
-    on one rank, whose partials are already the table's), and every output
-    leaf in ONE vector (int64 leaves as hi / lo halves, see kernels.pack), so
-    the query makes one device->host copy. rebuild(host vector) restores the
-    output tree: (matched, parts), (matched, counts, parts), or for a sparse
-    group-by the shard's (matched, counts, parts, uniq, n_unique), each leaf
-    with a leading shard axis of 1 (its slots are the shard's own)."""
+def _stack_trees(trees: list):
+    """Equal-shaped host trees as one, each leaf gaining a leading slot axis."""
+    if isinstance(trees[0], tuple):
+        return tuple(_stack_trees([t[i] for t in trees]) for i in range(len(trees[0])))
+    return np.stack(trees)
+
+
+def _sharded_kernel(spec: tuple, doc_pad: int, devices: tuple):
+    """run(slot_cols, slot_ops, n_docs) -> (the packed float64 vectors on the
+    device, rebuild): the flat program once a slot over its segments, then
+    for a dense query the merge across the slots (none on one slot, whose
+    partials are already the table's) and every output leaf in ONE vector
+    (int64 leaves as hi / lo halves, see kernels.pack): a list of one. A
+    sparse group-by gives one vector a slot. rebuild(host vectors) restores
+    the output tree: (matched, parts), (matched, counts, parts), or for a
+    sparse group-by the slots' (matched, counts, parts, uniq, n_unique),
+    each leaf with a leading slot axis (its slots are the slot's own)."""
     base = build_masked_fn(spec)
     gspec = spec[2]
     grouped = gspec is not None
     sparse = grouped and gspec[0] == "groups_sparse"
 
-    def run(cols, ops, n_docs):
-        flat, valid = _flatten_local(cols, n_docs, doc_pad)
-        out = base(flat, ops, valid)
+    def run(slot_cols, slot_ops, n_docs):
+        outs = []
+        for cols, ops, nd in zip(slot_cols, slot_ops, n_docs):
+            flat, valid = _flatten_local(cols, nd, doc_pad)
+            outs.append(base(flat, ops, valid))
         if sparse:
-            out = _tree_map(lambda x: x[None, ...], out)
-        elif group is not None:
-            m, c, p = _combine_tree(spec, out[0], out[1] if grouped else None, out[-1], group)
+            vecs = []
+            for out in outs:
+                leaves, defs = _flatten(out)
+                vecs.append(pack(leaves))
+            meta = leaf_meta(leaves)
+            return vecs, lambda vs: _stack_trees([_unflatten(defs, iter(unpack(v, meta))) for v in vs])
+        out = outs[0]
+        if len(outs) > 1:
+            m, c, p = _combine_tree(
+                spec,
+                [o[0] for o in outs],
+                [o[1] for o in outs] if grouped else None,
+                [o[-1] for o in outs],
+                devices[0],
+            )
             out = (m, c, p) if grouped else (m, p)
         leaves, defs = _flatten(out)
         meta = leaf_meta(leaves)
-        return pack(leaves), lambda v: _unflatten(defs, iter(unpack(v, meta)))
+        return [pack(leaves)], lambda vs: _unflatten(defs, iter(unpack(vs[0], meta)))
 
     return run
 
@@ -294,7 +356,8 @@ def _collect_mv_nv_indices(node, out: set) -> None:
 
 def _prepare(table: ShardedTable, sql: str):
     """(ctx, plan, program): the query planned once on the proto, its
-    operands staged; program() runs `_sharded_kernel` over the table."""
+    operands staged once a device; program() runs `_sharded_kernel` over the
+    table's slots."""
     ctx = QueryContext.from_sql(sql)
     if ctx.query_type not in (QueryType.AGGREGATION, QueryType.GROUP_BY):
         raise ValueError("sharded execution covers aggregation / group-by queries")
@@ -311,9 +374,10 @@ def _prepare(table: ShardedTable, sql: str):
     gspec = plan.spec[2]
     if gspec is not None and gspec[0] == "groups_mv2":
         raise ProtoFallback("two-MV-key cartesian GROUP BY runs on the proto segment")
-    cols = {c: table.arrays[c] for c in plan.columns}
-    if not cols:
-        cols = {"__shape__": next(iter(table.arrays.values()))}
+    slot_cols = [
+        {c: table.arrays[c][d] for c in plan.columns} or {"__shape__": next(iter(table.arrays.values()))[d]}
+        for d in range(table.mesh.size)
+    ]
     operands = list(plan.operands)
     nv_idx: set = set()
     _collect_mv_nv_indices(plan.spec, nv_idx)
@@ -321,18 +385,23 @@ def _prepare(table: ShardedTable, sql: str):
         # flat positions pass the proto's table-level flat count once a shard
         # holds more than one segment; the padding docids exclude the padding
         operands[i] = np.int32(np.iinfo(np.int32).max)
-    ops = stage_operands(operands, table.mesh.device)
-    kernel = _sharded_kernel(plan.spec, table.padded)
-    return ctx, plan, lambda: kernel(cols, ops, table.n_docs)
+    by_device: dict[torch.device, tuple] = {}
+    for dev in table.mesh.devices:
+        if dev not in by_device:
+            by_device[dev] = stage_operands(operands, dev)
+    slot_ops = [by_device[dev] for dev in table.mesh.devices]
+    kernel = _sharded_kernel(plan.spec, table.padded, table.mesh.devices)
+    return ctx, plan, lambda: kernel(slot_cols, slot_ops, table.n_docs)
 
 
 def execute_sharded(table: ShardedTable, sql: str):
     """Run an aggregation / group-by query over the sharded table: (ctx,
-    plan, the packed output vector on the device, rebuild), the partials
-    already merged across every segment."""
+    plan, the packed output vectors on the device, rebuild), the partials
+    merged across every segment and slot (a sparse group-by: a vector a
+    slot)."""
     ctx, plan, program = _prepare(table, sql)
-    vec, rebuild = program()
-    return ctx, plan, vec, rebuild
+    vecs, rebuild = program()
+    return ctx, plan, vecs, rebuild
 
 
 class ProtoFallback(Exception):
@@ -365,16 +434,16 @@ def execute_sharded_result(table: ShardedTable, sql: str):
     rebuild = []
 
     def run():
-        vec, fn = program()
+        vecs, fn = program()
         rebuild.append(fn)
-        return vec
+        return vecs
 
-    # the one device->host copy, timed with the program (and the launches
-    # it made resolved) by the registry
-    vec = KERNELS.timed_sync(
+    # the device->host copies (one; a sparse group-by one a slot), timed
+    # with the programs (and the launches they made resolved) by the registry
+    vecs = KERNELS.timed_sync(
         "exchange.sharded", run, table.mesh.device, rows=table.padded, cols=max(len(plan.columns), 1)
     )
-    host = rebuild[0](vec)
+    host = rebuild[0](vecs)
     gspec = plan.spec[2]
     if ctx.query_type == QueryType.AGGREGATION:
         matched, parts = host

@@ -71,8 +71,7 @@ own set of launches: one exact group-by launch (and one extreme call) for all
 the grouped *MV aggregations of one MV column, one presences call for all the
 DISTINCTCOUNTMVs of one column.
 
-Spec tags outside this module's set raise NotImplementedError naming the tag:
-the multistage `mask` program (ROADMAP A8).
+Spec tags outside this module's set raise NotImplementedError naming the tag.
 """
 
 from __future__ import annotations
@@ -754,8 +753,9 @@ def top_k_stable(key: torch.Tensor, k: int) -> torch.Tensor:
 def build_fn(spec: tuple):
     """Build the program for a plan spec: run(cols, ops, n_docs, n_padded)
     with cols a dict of device tensors and ops a tuple of staged operands.
-    Kinds: "agg" (aggregation, group-by, DISTINCT), "select" (the first k
-    matching docs' projections) and "select_ob" (the top k by one key)."""
+    Kinds: "agg" (aggregation, group-by, DISTINCT), "mask" (the filter's doc
+    mask alone), "select" (the first k matching docs' projections) and
+    "select_ob" (the top k by one key)."""
     kind = spec[0]
 
     def valid_docs(cols, n_docs, n_padded):
@@ -773,6 +773,16 @@ def build_fn(spec: tuple):
             return _agg_eval(fspec, gspec, aggs, cols, ops, valid_docs(cols, n_docs, n_padded))
 
         return run
+
+    if kind == "mask":
+        # filter-only program: the multistage leaf Scan's filter
+        # (plan.plan_filter_mask); the caller trims the padding tail
+        _, fspec = spec
+
+        def run_mask(cols, ops, n_docs, n_padded):
+            return doc_mask(fspec, cols, ops, n_docs, n_padded)
+
+        return run_mask
 
     if kind == "select":
         _, fspec, proj, k = spec

@@ -1027,6 +1027,28 @@ def _like_to_regex(pattern: str) -> str:
     return "".join(out)
 
 
+def plan_filter_mask(seg: ImmutableSegment, filt, valid_mask=None, kleene: bool = False) -> SegmentPlan:
+    """Lower ONLY a filter into a `mask` program: the multistage leaf Scan's
+    filter (LeafStageTransferableBlockOperator.java:87 parity: the v2 leaf
+    runs the single-stage engine's filter program, not host numpy). `kleene`
+    lowers nullable-column predicates to the three-valued tree, as WHERE
+    under enableNullHandling. Raises DeviceFallback for host-only
+    predicates."""
+    from types import SimpleNamespace
+
+    shim = SimpleNamespace(
+        table=seg.schema.name,
+        hints={},
+        group_by=[],
+        options={"enablenullhandling": "true"} if kleene else {},
+    )
+    lo = _Lowering(seg, shim)
+    fspec = lo.where_spec(filt) if kleene else lo.filter_spec(filt)
+    if valid_mask is not None:
+        fspec = ("and", (lo.docmask_spec(np.asarray(valid_mask, dtype=bool)), fspec))
+    return SegmentPlan(spec=("mask", fspec), operands=tuple(lo.operands), columns=tuple(lo.columns))
+
+
 def plan_segment(seg: ImmutableSegment, ctx: QueryContext, valid_mask=None) -> SegmentPlan:
     """Lower a query against one segment. Raises DeviceFallback where the
     segment runs on the host executor, as in the reference. `valid_mask` is

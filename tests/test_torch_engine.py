@@ -393,8 +393,10 @@ def test_submits_resolve_in_any_order(engines):
 
 
 def test_import_leaves_no_jax_pandas_or_reference():
-    """A fresh interpreter imports the port and runs a CPU query; afterwards
-    no module of jax, pandas or the JAX package is loaded."""
+    """A fresh interpreter imports the port and runs CPU queries (the
+    per-segment engine, the store, the sharded table, the multistage engine
+    over two slots); afterwards no module of jax, pandas or the JAX package
+    is loaded."""
     code = (
         "import sys, numpy as np\n"
         "from pinot_tpu_torch.common import DataType, Schema\n"
@@ -412,6 +414,10 @@ def test_import_leaves_no_jax_pandas_or_reference():
         "t = pinot_tpu_torch.parallel.build_sharded_table(s, {'g': np.array(['a', 'b', 'a'], dtype=object),"
         " 'v': np.array([1, 2, 3], dtype=np.int32)}, pinot_tpu_torch.parallel.make_mesh('cpu'))\n"
         "assert execute_sharded_result(t, 'SELECT g, SUM(v) FROM t GROUP BY g ORDER BY g').rows == res.rows\n"
+        "from pinot_tpu_torch.multistage import MultistageEngine\n"
+        "m = MultistageEngine({'t': [seg]}, device='cpu', mesh=pinot_tpu_torch.parallel.make_mesh(('cpu',) * 2))\n"
+        "rows = m.execute('SELECT a.g, COUNT(*) FROM t a JOIN t b ON a.g = b.g GROUP BY a.g ORDER BY a.g').rows\n"
+        "assert rows == [['a', 4], ['b', 1]], rows\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'pinot_tpu'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"

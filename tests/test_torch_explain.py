@@ -1,6 +1,6 @@
 """EXPLAIN PLAN FOR and EXPLAIN ANALYZE through the port and the JAX package:
-the single-stage cases of tests/test_explain.py and more (the multistage
-cases wait for the multistage port, ROADMAP A8). The operator rows must be
+the single-stage cases of tests/test_explain.py and more (its multistage
+cases are in tests/test_torch_multistage_nulls.py). The operator rows must be
 equal letter for letter; under EXPLAIN ANALYZE the measured `timeMs` and
 `wallMs` are masked, every other figure (rows, docsScanned, segmentsPruned,
 entries) must be equal."""

@@ -60,13 +60,17 @@ def test_record_unregistered_is_silent_noop():
 
 
 def test_kernel_names_are_the_references():
-    """The port's four kernels and the sharded program carry the JAX
-    package's names, so a roofline row can be found across both packages."""
+    """The port's four kernels, the sharded program and the join exchange
+    carry the JAX package's names, so a roofline row can be found across
+    both packages."""
     import pinot_tpu.ops.groupby_pallas  # noqa: F401  (registers the reference's kernels)
     import pinot_tpu.parallel.mesh  # noqa: F401  (and its sharded program)
+    import pinot_tpu.parallel.shuffle  # noqa: F401  (and its join exchange)
     import pinot_tpu_torch.parallel.mesh  # noqa: F401
+    import pinot_tpu_torch.parallel.shuffle  # noqa: F401
 
     assert KERNELS.kernel_names() == [
+        "exchange.join",
         "exchange.sharded",
         "ops.grouped_extreme",
         "ops.grouped_planes",

@@ -171,13 +171,37 @@ def test_ids_value_matches_reference(segs, aggs):
         # a group tag the program does not know (the MV tags are held
         # against the reference in test_torch_mv.py)
         ("agg", ("const", True), ("groups_hashed", ("region",), 256, 0), (("count",),)),
-        ("mask", ("const", True)),
+        # a program kind neither package has (the multistage `mask` is
+        # ported: test_mask_program_matches_reference)
+        ("scan", ("const", True)),
     ],
 )
 def test_unsupported_tags_raise(segs, spec):
     _, port, _ = segs
     with pytest.raises(NotImplementedError, match="not ported"):
         _run_port(port, spec, ("quantity", "region"), (np.ones(1, dtype=np.int32),))
+
+
+@pytest.mark.parametrize(
+    "where",
+    ["region = 'ASIA'", "year >= 1995 AND quantity < 0", "NOT (day BETWEEN 3 AND 20) OR revenue > 500000", "ts > 0"],
+)
+def test_mask_program_matches_reference(segs, where):
+    """The multistage leaf's filter-only program: plan_filter_mask's plan
+    equal to the reference's, its doc mask equal over every padded doc."""
+    from pinot_tpu.query import plan as jplan
+    from pinot_tpu.query.sql import parse_sql as jparse
+    from pinot_tpu_torch.query.plan import plan_filter_mask
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    ref, port, _ = segs
+    sql = f"SELECT COUNT(*) FROM t WHERE {where}"
+    want = jplan.plan_filter_mask(ref, jparse(sql).where)
+    got = plan_filter_mask(port, parse_sql(sql).where)
+    assert got.spec == want.spec and got.spec[0] == "mask" and got.columns == want.columns
+    _assert_leaves(
+        _run_port(port, got.spec, got.columns, got.operands), _run_jax(ref, want.spec, want.columns, want.operands), True
+    )
 
 
 @pytest.mark.parametrize(

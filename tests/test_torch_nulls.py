@@ -1,7 +1,7 @@
 """enableNullHandling, CASE and FILTER (WHERE) through the port and the JAX
 package: the single-stage cases of tests/test_null_handling.py and
 tests/test_case_filter.py (their multistage `test_v2_*` / `test_multistage_*`
-cases wait for the multistage port, ROADMAP A8). The port runs on
+cases are in tests/test_torch_multistage_nulls.py). The port runs on
 device="cpu", over its own segments built from the same arrays ("built") and
 over the reference's carried across with segment_from_numpy ("carried"),
 each by its own executor choice, and again with every segment forced onto
