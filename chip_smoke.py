@@ -161,6 +161,25 @@
    program kinds), each against its oracle; walls, link_profile(), the
    operators' host split and the numpy paths' host cost per row beside the
    economic gates' constants.
+14. The cluster in process: the 16M rows in 16 segments of 1M uploaded
+   through Controller.upload_segment (deep store, then each replica's
+   server loads its own copy) to 4 Servers on the card with replication 2;
+   configs 1-9 and bench.py config 6's multistage join through
+   Broker(controller) with its defaults, each equal to the oracle, with its
+   launches (LAUNCHES_PER_SEGMENT x 16: one replica answers each segment)
+   and every kernel call held against its plain version; walls through the
+   default broker (result-cache hits), an uncached broker (split into
+   route, scatter and reduce) and one QueryEngine over the 16 segments.
+15. The cluster over HTTP: the same servers behind ServerHTTPService, a
+   second controller registering them as RemoteServerClients, its broker
+   behind BrokerHTTPService queried by query_broker_http; configs 1-9 with
+   the same checks, the DataTable bytes received, the HTTP wall beside the
+   in-process one, and config 13's plain SELECTION streamed with early stop.
+16. bench.py `qps`: its fixture (2 servers, 4 segments, replication 2, its
+   two queries) at 16M rows, 128 HTTP clients x 10 queries, once with the
+   default result cache and once with it off: throughput, client and
+   broker-histogram p50 / p99, error rate 0, wire-pool hits > 0, admission
+   decisions and B1 launches (with the cache off, 4 a GROUP BY answer).
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -172,6 +191,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -2879,7 +2899,7 @@ def run_main_path(torch, counters: dict) -> dict:
     emit({"phase": "kernel_registry_cost", **registry_cost(tp_eng), "card": card_line()})
     emit({"phase": "kernel_obs", "kernels": kernel_obs_phase(torch, tp_eng, up_eng), "card": card_line()})
     return {"launches": main_launches, "new_steps": new_steps, "engine": engine, "segments": segments,
-            "tp_segments": tp_segments, "data": data, "want": want}
+            "tp_segments": tp_segments, "data": data, "want": want, "nation": nation}
 
 
 # ---------------------------------------------------------------------------
@@ -4104,6 +4124,570 @@ def breakdown(torch, engine, sql: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: the cluster (controller, servers, broker) on the card
+# ---------------------------------------------------------------------------
+
+#: the cluster phases' table: the main path's 16M lineorder rows in 16
+#: segments of 1M, uploaded to 4 servers with replication 2 (8 replicas a
+#: server, 32 in all)
+CLUSTER_SEGMENTS, CLUSTER_SERVERS, CLUSTER_REPLICATION = 16, 4, 2
+CLUSTER_CONFIGS = tuple(f"{i}_{n}" for i, n in (
+    (1, "count_filter"), (2, "filtered_agg"), (3, "q1_groupby"), (4, "q4_groupby_orderby"), (5, "groupby_minmax"),
+    (6, "groupby_distinct"), (7, "distinct"), (8, "groupby_wide"), (9, "groupby_sparse"),
+))
+#: bench.py `qps`'s fixture (`_build_qps_cluster`: rng seed 8, 4 segments, 2
+#: servers, replication 2, its two queries) at 16M rows instead of 120,000,
+#: driven as `qps_main` drives it: 128 HTTP clients x 10 queries
+QPS_ROWS, QPS_SEGMENTS, QPS_SERVERS, QPS_CLIENTS, QPS_PER_CLIENT = 16_000_000, 4, 2, 128, 10
+QPS_REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE"]
+QPS_QUERIES = [
+    "SELECT COUNT(*) FROM lineorder WHERE year > 1994",
+    "SELECT region, SUM(revenue) FROM lineorder GROUP BY region ORDER BY SUM(revenue) DESC LIMIT 4",
+]
+
+
+def build_segments(builder, data: dict, n: int, prefix: str) -> list:
+    """`n` equal segments of `data`, built on 4 threads (each build is the
+    builder's own; the slices do not overlap)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    per = len(next(iter(data.values()))) // n
+
+    def one(i):
+        return builder.build({c: v[i * per : (i + 1) * per] for c, v in data.items()}, f"{prefix}_{i}")
+
+    with ThreadPoolExecutor(4) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def cluster_of(schema, segments: list, deep: str, n_servers: int, replication: int, extra_tables=()):
+    """A Controller on an in-memory PropertyStore and a deep store under
+    `deep`, `n_servers` Servers on DEVICE, the table of `segments` uploaded
+    with `replication` (each replica loads its own copy from the deep
+    store), and `extra_tables` as (schema, [segments]) with replication 1."""
+    from pinot_tpu_torch.cluster import Controller, PropertyStore, Server
+    from pinot_tpu_torch.common import TableConfig
+
+    controller = Controller(PropertyStore(), deep)
+    servers = {f"server_{i}": Server(f"server_{i}", device=DEVICE) for i in range(n_servers)}
+    for sid, s in servers.items():
+        controller.register_server(sid, s)
+    for sch, segs, rep in ((schema, segments, replication), *((s, g, 1) for s, g in extra_tables)):
+        controller.add_schema(sch)
+        controller.add_table(TableConfig(sch.name, replication=rep))
+        for seg in segs:
+            controller.upload_segment(sch.name, seg)
+    return controller, servers
+
+
+def deep_store_bytes(deep: str) -> int:
+    from pathlib import Path
+
+    return sum(p.stat().st_size for p in Path(deep).rglob("*") if p.is_file())
+
+
+def server_staged_bytes(servers: dict) -> int:
+    """Bytes staged on the device by every segment copy the servers host."""
+    return sum(
+        seg_staged_bytes(seg) for s in servers.values() for segs in s._tables.values() for seg in segs.values()
+    )
+
+
+def cluster_config6_oracle(data: dict, nation) -> list:
+    """bench.py config 6's SQL over the cluster's lineorder and nation_dim:
+    SUM(lo_revenue) by region (nation % 5), by sum descending."""
+    sums = np.bincount(np.asarray(nation) % 5, weights=data["lo_revenue"], minlength=5)
+    return [[f"REGION_{r}", float(sums[r])] for r in np.argsort(-sums, kind="stable")]
+
+
+def nation_dim_segment():
+    from pinot_tpu_torch.common import DataType, Schema
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    schema = Schema.build("nation_dim", dimensions=[("nation", DataType.STRING), ("region", DataType.STRING)], metrics=[])
+    seg = SegmentBuilder(schema).build(
+        {"nation": np.array(JOIN_NATIONS, dtype=object), "region": np.array(JOIN_REGIONS, dtype=object)}, "nation_dim_0"
+    )
+    return schema, seg
+
+
+def timed_split(broker):
+    """Wrap a broker's routing and scatter seams with host-clock timers; the
+    reduce is the broker's own `brokerReduce` phase timer. Returns a reader
+    of {route_ms, scatter_ms, reduce_ms} summed since the last read."""
+    from pinot_tpu_torch.common.metrics import broker_metrics
+
+    acc = {"route_ms": 0.0, "scatter_ms": 0.0}
+
+    def wrap(key, real):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                acc[key] += (time.perf_counter() - t0) * 1e3
+
+        return call
+
+    broker._route_leg = wrap("route_ms", broker._route_leg)
+    broker._scatter_plan = wrap("scatter_ms", broker._scatter_plan)
+    reduce_timer = broker_metrics().timer("broker.phase.brokerReduceMs")
+    state = {"reduce": reduce_timer.total_ms}
+
+    def read(runs: int) -> dict:
+        out = {k: v / runs for k, v in acc.items()}
+        out["reduce_ms"] = (reduce_timer.total_ms - state["reduce"]) / runs
+        acc.update(route_ms=0.0, scatter_ms=0.0)
+        state["reduce"] = reduce_timer.total_ms
+        return out
+
+    return read
+
+
+def counted_run(counters: dict, fn) -> tuple:
+    """fn() once with every spied wrapper call recorded: (result, launches
+    made during it by kernel, calls)."""
+    before = [f.launches for f in counters.values()]
+    got = []
+    calls = spy_calls(lambda: got.append(fn()))
+    launches = {k: f.launches - b for (k, f), b in zip(counters.items(), before)}
+    return got[0], launches, calls
+
+
+def run_cluster(torch, counters: dict, data: dict, want: dict, nation) -> dict:
+    """Phase 14: the cluster in process. The main path's 16M rows in 16
+    segments of 1M go through Controller.upload_segment (deep store, then
+    each replica's server loads its copy) to 4 Servers on the card with
+    replication 2; configs 1-9's SQL and bench.py config 6's multistage join
+    (the broker's in-process multistage route over the same lineorder and a
+    25-row nation_dim) run through Broker(controller) with its defaults.
+    Each config's rows equal the oracle; its launches, counted from 0 just
+    before its one run and read just after, are LAUNCHES_PER_SEGMENT x 16
+    (each segment answered by exactly one replica); every kernel call is
+    held against its plain version on the same card operands. Walls: p50 of
+    5 after one warm-up through the default broker (result-cache hits),
+    through a broker with CacheConfig(enabled=False), and through one
+    QueryEngine over the same 16 segments; the uncached broker's split into
+    route, scatter and reduce. Returns the path's launches and the cluster
+    for the HTTP phase."""
+    import tempfile
+
+    from pinot_tpu_torch.cluster import Broker
+    from pinot_tpu_torch.common.config import CacheConfig
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.query import QueryEngine
+
+    t0 = time.perf_counter()
+    segments = build_segments(ssb_builder(), data, CLUSTER_SEGMENTS, "lineorder")
+    t_build = time.perf_counter() - t0
+    deep = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    t0 = time.perf_counter()
+    nd_schema, nd_segment = nation_dim_segment()
+    controller, servers = cluster_of(
+        ssb_schema(), segments, deep, CLUSTER_SERVERS, CLUSTER_REPLICATION, extra_tables=[(nd_schema, [nd_segment])]
+    )
+    t_upload = time.perf_counter() - t0
+    ideal = controller.ideal_state("lineorder")
+    hosted = {sid: len(s.segments_of("lineorder")) for sid, s in servers.items()}
+    if len(ideal) != CLUSTER_SEGMENTS or any(len(r) != CLUSTER_REPLICATION for r in ideal.values()):
+        raise AssertionError(f"cluster: ideal state {ideal}")
+    if set(hosted.values()) != {CLUSTER_SEGMENTS * CLUSTER_REPLICATION // CLUSTER_SERVERS}:
+        raise AssertionError(f"cluster: replicas a server {hosted}")
+    broker = Broker(controller)
+    uncached = Broker(controller, cache_config=CacheConfig(enabled=False))
+    engine = QueryEngine(segments, device=DEVICE)
+    want6 = cluster_config6_oracle(data, nation)
+
+    for fn in counters.values():
+        fn.launches = 0
+    launches, held = {}, {}
+    for name in CLUSTER_CONFIGS:
+        res, launches[name], calls = counted_run(counters, lambda: broker.execute(CONFIGS[name]))
+        expect = tuple(CLUSTER_SEGMENTS * v for v in LAUNCHES_PER_SEGMENT[name])
+        check_launches(f"cluster {name}", counters, launches[name], calls, expect)
+        rows_match(f"cluster {name}", res.rows, want[name])
+        held[name] = hold_all(torch, calls, gb, ext, gs)
+        del calls
+    res, launches["config6_multistage"], calls = counted_run(counters, lambda: broker.execute(CONFIG6_SQL))
+    rows_match("cluster config6_multistage", res.rows, want6)
+    # the join's leaf: one exact group-by a lineorder segment, nothing else
+    check_launches("cluster config6_multistage", counters, launches["config6_multistage"], calls,
+                   (CLUSTER_SEGMENTS, 0, 0, 0))
+    held["config6_multistage"] = hold_all(torch, calls, gb, ext, gs)
+    del calls
+    path_launches = {k: sum(v[k] for v in launches.values()) for k in counters}
+    if path_launches != {k: fn.launches for k, fn in counters.items()}:
+        raise AssertionError(f"cluster: launches outside the configs' runs: {path_launches}")
+    torch.cuda.synchronize()
+    emit(
+        {
+            "phase": "cluster_path",
+            "results_match_oracle": True,
+            "segments": CLUSTER_SEGMENTS,
+            "servers": CLUSTER_SERVERS,
+            "replication": CLUSTER_REPLICATION,
+            "replicas_a_server": hosted,
+            "build_s": t_build,
+            "upload_s": t_upload,
+            "deep_store_bytes": deep_store_bytes(deep),
+            "staged_bytes_by_servers": server_staged_bytes(servers),
+            "launches_per_config": launches,
+            "launches": path_launches,
+            "kernels_vs_plain": held,
+        }
+    )
+
+    split = timed_split(uncached)
+    per_query = {}
+    for name in (*CLUSTER_CONFIGS, "config6_multistage"):
+        sql = CONFIG6_SQL if name == "config6_multistage" else CONFIGS[name]
+        hits0 = broker.cache_snapshot()["result"]["hits"]
+        cached = wall_p50_of(lambda: broker.execute(sql), warm=1, runs=5)
+        hits = broker.cache_snapshot()["result"]["hits"] - hits0
+        uncached.execute(sql)  # the warm-up, outside the split
+        split(1)
+        plain = wall_p50_of(lambda: uncached.execute(sql), warm=0, runs=5)
+        parts = split(5)
+        eng = None if name == "config6_multistage" else wall_p50(engine, sql, warm=1)
+        per_query[name] = {
+            "broker_p50_ms": cached["p50_ms"],
+            "broker_runs_ms": cached["runs_ms"],
+            "result_cache_hits": hits,
+            "uncached_p50_ms": plain["p50_ms"],
+            "uncached_runs_ms": plain["runs_ms"],
+            "uncached_split_ms": parts,
+            "engine_p50_ms": None if eng is None else eng["p50_ms"],
+            "engine_runs_ms": None if eng is None else eng["runs_ms"],
+            "launches": launches[name],
+        }
+    emit(
+        {
+            "phase": "cluster",
+            "queries": per_query,
+            "cache": broker.cache_snapshot()["result"],
+            "admission": broker.admission_snapshot()["counters"],
+            "staged_bytes_by_servers": server_staged_bytes(servers),
+            "staged_bytes_by_engine": sum(seg_staged_bytes(s) for s in segments),
+            "card": card_line(),
+        }
+    )
+    uncached.shutdown()
+    return path_launches, {
+        "controller": controller, "servers": servers, "broker": broker, "deep": deep, "engine": engine,
+        "segments": segments, "want6": want6,
+    }
+
+
+def run_cluster_http(torch, counters: dict, cl: dict, want: dict, data: dict, nation) -> dict:
+    """Phase 15: the same 4 servers, each behind a ServerHTTPService; a
+    second Controller on the same store registers them as
+    RemoteServerClients; its Broker sits behind a BrokerHTTPService and is
+    queried by query_broker_http. Configs 1-9: rows equal to the oracle,
+    launches LAUNCHES_PER_SEGMENT x 16 (counted from 0 just before each
+    query, read just after), every kernel call held against its plain
+    version; the DataTable bytes the broker received, the wall p50 beside
+    the in-process broker's (both uncached). Then config 13's plain
+    SELECTION through the streamed path (/query/stream frames, early stop).
+    Returns the path's launches."""
+    from pinot_tpu_torch.cluster import Broker, Controller
+    from pinot_tpu_torch.cluster.http import BrokerHTTPService, RemoteServerClient, ServerHTTPService, query_broker_http
+    from pinot_tpu_torch.common import datatable
+    from pinot_tpu_torch.common.config import CacheConfig
+    from pinot_tpu_torch.common.wire import get_pool
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+
+    svcs = {sid: ServerHTTPService(s) for sid, s in cl["servers"].items()}
+    remote = Controller(cl["controller"].store, cl["deep"])
+    for sid, svc in svcs.items():
+        remote.register_server(sid, RemoteServerClient(f"http://127.0.0.1:{svc.port}"))
+    broker = Broker(remote, cache_config=CacheConfig(enabled=False))
+    in_process = Broker(cl["controller"], cache_config=CacheConfig(enabled=False))
+    bsvc = BrokerHTTPService(broker)
+    url = f"http://127.0.0.1:{bsvc.port}"
+    received = [0]
+    real_decode = datatable.decode
+
+    def counting_decode(payload):
+        received[0] += len(payload)
+        return real_decode(payload)
+
+    datatable.decode = counting_decode
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        launches, held, per_query = {}, {}, {}
+        for name in CLUSTER_CONFIGS:
+            received[0] = 0
+            resp, launches[name], calls = counted_run(counters, lambda: query_broker_http(url, CONFIGS[name]))
+            nbytes = received[0]
+            if resp.get("exceptions"):
+                raise AssertionError(f"cluster_http {name}: {resp['exceptions']}")
+            expect = tuple(CLUSTER_SEGMENTS * v for v in LAUNCHES_PER_SEGMENT[name])
+            check_launches(f"cluster_http {name}", counters, launches[name], calls, expect)
+            rows_match(f"cluster_http {name}", resp["resultTable"]["rows"], want[name])
+            held[name] = hold_all(torch, calls, gb, ext, gs)
+            del calls
+            per_query[name] = {"datatable_bytes_received": nbytes, "launches": launches[name]}
+        path_launches = {k: sum(v[k] for v in launches.values()) for k in counters}
+        if path_launches != {k: fn.launches for k, fn in counters.items()}:
+            raise AssertionError(f"cluster_http: launches outside the configs' runs: {path_launches}")
+        for name in CLUSTER_CONFIGS:
+            w = wall_p50_of(lambda: query_broker_http(url, CONFIGS[name]), warm=1, runs=5)
+            local = wall_p50_of(lambda: in_process.execute(CONFIGS[name]), warm=1, runs=5)
+            per_query[name].update(
+                http_p50_ms=w["p50_ms"], http_runs_ms=w["runs_ms"],
+                in_process_p50_ms=local["p50_ms"], in_process_runs_ms=local["runs_ms"],
+            )
+
+        # the streamed path: a plain SELECTION's frames stop at the LIMIT
+        sel = CONFIGS["13_selection"]
+        year, qty = data["d_year"], data["lo_quantity"]
+        match = np.flatnonzero(np.asarray(nation) == 7)
+        allowed = set(zip(year[match].tolist(), data["p_category"][match].tolist(), qty[match].tolist()))
+        received[0] = 0
+        streamed = broker.execute(sel)
+        stream_bytes = received[0]
+        resp = query_broker_http(url, sel)
+        for rows in (streamed.rows, resp["resultTable"]["rows"]):
+            if len(rows) != 10 or any(tuple(r) not in allowed for r in rows):
+                raise AssertionError(f"cluster_http 13_selection: rows {rows} are not 10 matching rows")
+        if not 1 <= streamed.num_stream_frames < CLUSTER_SEGMENTS:
+            raise AssertionError(f"cluster_http 13_selection: {streamed.num_stream_frames} frames, no early stop")
+        if streamed.num_docs_scanned >= streamed.total_docs:
+            raise AssertionError("cluster_http 13_selection: the stream scanned every doc")
+        emit(
+            {
+                "phase": "cluster_http",
+                "results_match_oracle": True,
+                "queries": per_query,
+                "launches": path_launches,
+                "kernels_vs_plain": held,
+                "stream": {
+                    "config": "13_selection",
+                    "frames": streamed.num_stream_frames,
+                    "docs_scanned": streamed.num_docs_scanned,
+                    "total_docs": streamed.total_docs,
+                    "datatable_bytes_received": stream_bytes,
+                    "rows": len(streamed.rows),
+                },
+                "wire_pool": get_pool().stats(),
+                "card": card_line(),
+            }
+        )
+    finally:
+        datatable.decode = real_decode
+        bsvc.stop()
+        for svc in svcs.values():
+            svc.stop()
+        broker.shutdown()
+        in_process.shutdown()
+    return path_launches
+
+
+def qps_data(n_rows: int = QPS_ROWS, seed: int = 8) -> list:
+    """`_build_qps_cluster`'s draws, segment by segment (region, year,
+    revenue), at n_rows / 4 rows a segment."""
+    rng = np.random.default_rng(seed)
+    per = n_rows // QPS_SEGMENTS
+    out = []
+    for _ in range(QPS_SEGMENTS):
+        out.append(
+            {
+                "region": np.array(QPS_REGIONS, dtype=object)[rng.integers(0, 4, per)],
+                "year": rng.integers(1992, 1999, per).astype(np.int32),
+                "revenue": rng.integers(100, 600_000, per).astype(np.int64),
+            }
+        )
+    return out
+
+
+def qps_oracle(parts: list) -> list:
+    count = sum(int((p["year"] > 1994).sum()) for p in parts)
+    sums = np.zeros(4)
+    for p in parts:
+        codes = np.searchsorted(np.array(QPS_REGIONS), p["region"].astype(str))
+        sums += np.bincount(codes, weights=p["revenue"], minlength=4)
+    order = np.argsort(-sums, kind="stable")
+    return [[[count]], [[QPS_REGIONS[i], float(sums[i])] for i in order]]
+
+
+def qps_pass(url: str, broker, counters: dict) -> dict:
+    """`qps_main`'s drive: QPS_CLIENTS HTTP clients x QPS_PER_CLIENT queries
+    (alternating bench.py's two) released together; the broker histogram
+    reset just before. Throughput, client and broker-histogram p50 / p99,
+    error rate, the wire pool's hits in the pass, the admission decisions
+    and the B1 launches."""
+    import threading
+
+    from pinot_tpu_torch.cluster.http import query_broker_http
+    from pinot_tpu_torch.common.metrics import broker_metrics, reset_registries
+    from pinot_tpu_torch.common.wire import get_pool
+
+    reset_registries()
+    for fn in counters.values():
+        fn.launches = 0
+    adm0 = dict(broker.admission_snapshot()["counters"])
+    pool0 = get_pool().stats()
+    lat_ms, errors = [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(QPS_CLIENTS + 1)
+
+    def client(idx: int) -> None:
+        mine, bad = [], 0
+        barrier.wait(timeout=60)
+        for j in range(QPS_PER_CLIENT):
+            q = QPS_QUERIES[(idx + j) % len(QPS_QUERIES)]
+            t0 = time.perf_counter()
+            try:
+                if query_broker_http(url, q).get("exceptions"):
+                    bad += 1
+            except Exception:  # noqa: BLE001 - counted as an error, as qps_main counts it
+                bad += 1
+            mine.append((time.perf_counter() - t0) * 1e3)
+        with lock:
+            lat_ms.extend(mine)
+            errors.append(bad)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(QPS_CLIENTS)]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=60)
+    t_run = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall_s = time.perf_counter() - t_run
+    pool = get_pool().stats()
+    total = QPS_CLIENTS * QPS_PER_CLIENT
+    timer = broker_metrics().timer("broker.queryTotalMs")
+    client_p99 = float(np.percentile(lat_ms, 99))
+    adm = broker.admission_snapshot()["counters"]
+    return {
+        "clients": QPS_CLIENTS,
+        "queries": total,
+        "answered": len(lat_ms),
+        "wall_s": wall_s,
+        "throughput_qps": total / wall_s,
+        "client_p50_ms": float(np.percentile(lat_ms, 50)),
+        "client_p99_ms": client_p99,
+        "broker_p50_ms": timer.quantile_ms(0.5),
+        "broker_p99_ms": timer.quantile_ms(0.99),
+        "broker_count": timer.count,
+        "p99_ratio_broker_over_client": timer.quantile_ms(0.99) / client_p99 if client_p99 else None,
+        "error_rate": sum(errors) / total,
+        "wire_pool_hits": pool["hits"] - pool0["hits"],
+        "wire_pool": pool,
+        "admission": {k: v - adm0.get(k, 0) if isinstance(v, (int, float)) else v for k, v in adm.items()},
+        "b1_launches": counters["grouped_sum_count"].launches,
+        "launches": {k: fn.launches for k, fn in counters.items()},
+    }
+
+
+def run_cluster_qps(torch, counters: dict) -> dict:
+    """Phase 16: bench.py's `qps` fixture at its shapes (the
+    `_build_qps_cluster` schema region / year / revenue, rng seed 8, 4
+    segments, 2 Servers on the card, replication 2, its two queries) with
+    16M rows instead of 120,000 (4M a segment), the broker behind a
+    BrokerHTTPService, driven by 128 HTTP clients x 10 queries as
+    `qps_main` drives it: one pass with the default CacheConfig (bench.py's
+    setting), one with CacheConfig(enabled=False) so the servers' engines
+    do the work. The first answer of each query equals its oracle, and in
+    each pass the first answers launch one B1 a segment in all, every call
+    of which is held against its plain version (max_abs_err 0); error
+    rate 0 and wire-pool hits > 0 in both passes; with the cache off every
+    GROUP BY answer launches B1 once a segment. Returns the phase's
+    launches."""
+    import shutil
+    import tempfile
+
+    from pinot_tpu_torch.cluster import Broker
+    from pinot_tpu_torch.cluster.http import BrokerHTTPService, query_broker_http
+    from pinot_tpu_torch.common import DataType, Schema
+    from pinot_tpu_torch.common.config import CacheConfig
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    t0 = time.perf_counter()
+    parts = qps_data()
+    want = qps_oracle(parts)
+    schema = Schema.build(
+        "lineorder", dimensions=[("region", DataType.STRING), ("year", DataType.INT)], metrics=[("revenue", DataType.LONG)]
+    )
+    builder = SegmentBuilder(schema)
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(4) as pool:
+        segments = list(pool.map(lambda i: builder.build(parts[i], f"lineorder_{i}"), range(QPS_SEGMENTS)))
+    del parts
+    t_build = time.perf_counter() - t0
+    deep = tempfile.mkdtemp(prefix="chip_smoke_qps_")
+    controller, servers = cluster_of(schema, segments, deep, QPS_SERVERS, 2)
+    del segments
+    setup_s = time.perf_counter() - t0
+    passes, launches = {}, {k: 0 for k in counters}
+    try:
+        for label, cache in (("default_cache", CacheConfig()), ("cache_off", CacheConfig(enabled=False))):
+            broker = Broker(controller, cache_config=cache)
+            bsvc = BrokerHTTPService(broker)
+            url = f"http://127.0.0.1:{bsvc.port}"
+            try:
+                first_launches, spied, held = {k: 0 for k in counters}, {}, []
+                for q, rows in zip(QPS_QUERIES, want):
+                    first, got, calls = counted_run(counters, lambda: query_broker_http(url, q))
+                    rows_match(f"cluster_qps {label} {q[:40]}", first["resultTable"]["rows"], rows)
+                    held += hold_all(torch, calls, gb, ext, gs)
+                    first_launches = {k: first_launches[k] + got[k] for k in counters}
+                    spied = {n: spied.get(n, 0) + len(c) for n, c in calls.items()}
+                    del calls
+                # the GROUP BY answers with one B1 a segment, the COUNT(*) with none
+                check_launches(f"cluster_qps {label} first answers", counters, first_launches, spied,
+                               (QPS_SEGMENTS, 0, 0, 0))
+                if any(h["max_abs_err"] != 0 for h in held):
+                    raise AssertionError(f"cluster_qps {label}: a kernel differs from its plain version: {held}")
+                out = qps_pass(url, broker, counters)
+            finally:
+                bsvc.stop()
+                broker.shutdown()
+            out["first_answers_launches"] = first_launches
+            out["kernels_vs_plain"] = held
+            if out["error_rate"] != 0 or out["answered"] != out["queries"]:
+                raise AssertionError(f"cluster_qps {label}: error rate {out['error_rate']}, {out['answered']} answered")
+            if out["wire_pool_hits"] <= 0:
+                raise AssertionError(f"cluster_qps {label}: the wire pool reused no connection: {out['wire_pool']}")
+            group_bys = QPS_CLIENTS * QPS_PER_CLIENT // 2
+            if label == "cache_off" and out["b1_launches"] != QPS_SEGMENTS * group_bys:
+                raise AssertionError(f"cluster_qps cache_off: {out['b1_launches']} B1 launches, "
+                                     f"expected {QPS_SEGMENTS * group_bys}")
+            for k in launches:
+                launches[k] += out["launches"][k] + first_launches[k]
+            passes[label] = out
+        emit(
+            {
+                "phase": "cluster_qps",
+                "rows": QPS_ROWS,
+                "segments": QPS_SEGMENTS,
+                "servers": QPS_SERVERS,
+                "build_s": t_build,
+                "setup_s": setup_s,
+                "deep_store_bytes": deep_store_bytes(deep),
+                "staged_bytes_by_servers": server_staged_bytes(servers),
+                "first_answers_match_oracle": True,
+                "passes": passes,
+                "launches": launches,
+                "card": card_line(),
+            }
+        )
+    finally:
+        shutil.rmtree(deep, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4150,20 +4734,28 @@ def main() -> int:
         "grouped_sum_count_2l": gb.grouped_multi_sum_2l,
     }
     main = run_main_path(torch, counters)
-    data, engine, want = main.pop("data"), main.pop("engine"), main.pop("want")
+    data, engine, want, nation = main.pop("data"), main.pop("engine"), main.pop("want"), main.pop("nation")
     sharded_launches, one_slot = run_sharded(torch, counters, data, want, engine)
     mesh_launches = run_mesh(torch, counters, data, want, one_slot)
     del one_slot
     run_store(torch, engine, main.pop("segments"), main.pop("tp_segments"), data)
-    del data, engine
+    del engine
+    cluster_launches, cluster = run_cluster(torch, counters, data, want, nation)
+    http_launches = run_cluster_http(torch, counters, cluster, want, data, nation)
+    cluster["broker"].shutdown()
+    shutil.rmtree(cluster["deep"], ignore_errors=True)
+    del cluster, data, want, nation
+    torch.cuda.empty_cache()
+    qps_launches = run_cluster_qps(torch, counters)
     scale_launches = run_sharded_scale(torch, counters)
     run_shuffle(torch)
     multistage_launches = run_multistage(torch, counters)
     # each path's counts, read just after it: the main path's, the sharded
-    # path's (its proto reruns included), the mesh's, the scale path's and
-    # the multistage engine's launches. The sum entry of grouped_sum_f32 is
+    # path's (its proto reruns included), the mesh's, the scale path's, the
+    # multistage engine's and the three cluster phases' launches. The sum entry of grouped_sum_f32 is
     # on none: the kernel's launches are its presence entry's
-    paths = (main["launches"], sharded_launches, mesh_launches, scale_launches, multistage_launches)
+    paths = (main["launches"], sharded_launches, mesh_launches, scale_launches, multistage_launches,
+             cluster_launches, http_launches, qps_launches)
     launches = {k: sum(p[k] for p in paths) for k in main["launches"]}
     launches["grouped_sum_f32"] = launches["presence"]
 

@@ -235,6 +235,33 @@ class ResourceAccountant:
         """Context manager: register + bind the query to this thread."""
         return ResourceAccountant._Scope(self, query_id, table, tenant)
 
+    class _BindScope:
+        def __init__(self, acct, query_id):
+            self._acct = acct
+            self._qid = query_id
+
+        def __enter__(self):
+            self._prev = self._acct.thread_bindings().get(threading.get_ident())
+            self._acct.bind_thread(self._qid)
+            return self
+
+        def __exit__(self, *exc):
+            if self._prev is not None:
+                self._acct.bind_thread(self._prev)
+            else:
+                self._acct.unbind_thread()
+            return False
+
+    def bind_scope(self, query_id: str) -> "_BindScope":
+        """Context manager: profiler thread attribution only — binds the
+        query id to this thread without registering a tracker. The broker
+        wraps its whole request path in this so parse/plan/reduce samples
+        attribute to the query, while tracker registration (and the rollup
+        fold on exit) stays exclusively server-side — otherwise an
+        in-process broker+server pair sharing default_accountant would
+        double-count every query in /debug/workload."""
+        return ResourceAccountant._BindScope(self, query_id)
+
     # -- sampling (called by worker threads) --------------------------------
 
     def sample(self, query_id: str | None = None, cpu_ns: int = 0, allocated_bytes: int = 0, segments: int = 0, device_ms: float = 0.0, hbm_bytes: int = 0) -> None:

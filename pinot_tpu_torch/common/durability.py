@@ -22,6 +22,7 @@ surfaces as a real OSError(ENOSPC) with the tmp file cleaned up.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 from pathlib import Path
@@ -90,3 +91,7 @@ def atomic_write_bytes(path: Path | str, data: bytes, fsync: bool = True) -> Non
 
 def atomic_write_text(path: Path | str, text: str, fsync: bool = True) -> None:
     atomic_write_bytes(path, text.encode("utf-8"), fsync=fsync)
+
+
+def atomic_write_json(path: Path | str, doc, fsync: bool = True, **dumps_kw) -> None:
+    atomic_write_bytes(path, json.dumps(doc, **dumps_kw).encode("utf-8"), fsync=fsync)

@@ -43,6 +43,16 @@ class QueryErrorCode(enum.IntEnum):
     DATA_TABLE_SERIALIZATION = 550
 
 
+#: Error codes that map to a non-200 HTTP status at response boundaries.
+#: Everything else stays the BrokerResponse convention: HTTP 200 with the
+#: code inside `exceptions[]`. Shed/quota responses use real statuses so
+#: load balancers and clients can back off without parsing the body.
+_HTTP_STATUS_BY_CODE = {
+    int(QueryErrorCode.SERVER_OUT_OF_CAPACITY): 503,
+    int(QueryErrorCode.QUOTA_EXCEEDED): 429,
+    int(QueryErrorCode.CONTROLLER_UNAVAILABLE): 503,
+}
+
 
 class SegmentCorruptedError(ValueError):
     """A segment failed CRC / structural verification. Subclasses ValueError
@@ -55,3 +65,54 @@ class SegmentCorruptedError(ValueError):
     def __init__(self, message: str, path: str | None = None):
         super().__init__(message)
         self.path = path
+
+
+class ControllerUnavailableError(ConnectionError):
+    """Every configured controller candidate is down or refusing leadership
+    (connection failures and 503s with no followable leaderUrl across the
+    bounded retry budget). Subclasses ConnectionError so legacy callers that
+    guard discovery with `except ConnectionError`/`except OSError` keep
+    working; carries `error_code` so response boundaries surface a typed
+    503 with Retry-After instead of an untyped stack."""
+
+    error_code = QueryErrorCode.CONTROLLER_UNAVAILABLE
+
+    def __init__(self, message: str, candidates: list[str] | None = None, retry_after_s: float = 1.0):
+        super().__init__(message)
+        self.candidates = list(candidates or [])
+        self.retry_after_s = retry_after_s
+
+
+class SegmentUploadError(OSError):
+    """A segment upload failed before any cluster metadata referenced it
+    (ENOSPC, crash, or the written bytes failing verification). The errno
+    of the underlying OSError is preserved — `e.errno == errno.ENOSPC`
+    is the disk-full contract — and the controller guarantees the deep
+    store holds no partial segment dir when this is raised. Carries
+    `error_code` so the controller HTTP boundary returns a typed failure
+    instead of an anonymous 500."""
+
+    error_code = QueryErrorCode.SEGMENT_UPLOAD
+
+
+def code_of(exc: BaseException, default: int = QueryErrorCode.QUERY_EXECUTION) -> int:
+    """Error code carried by an exception (its `error_code` attribute), or
+    `default`. The one sanctioned way to map an arbitrary exception to a
+    wire code at response boundaries."""
+    return int(getattr(exc, "error_code", default))
+
+
+def http_status_of(exc: BaseException) -> int | None:
+    """HTTP status override for admission-tier rejections (503 shed /
+    429 quota), or None for errors that ride in a 200 BrokerResponse."""
+    return _HTTP_STATUS_BY_CODE.get(code_of(exc, default=0))
+
+
+def retry_after_of(exc: BaseException, default: float = 1.0) -> float:
+    """`Retry-After` seconds carried by an admission rejection (its
+    `retry_after_s` attribute), floored at 1 s for header sanity."""
+    v = getattr(exc, "retry_after_s", None)
+    try:
+        return max(1.0, float(v)) if v is not None else float(default)
+    except (TypeError, ValueError):
+        return float(default)

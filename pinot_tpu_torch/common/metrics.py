@@ -2,12 +2,13 @@
 
 Reference parity: PinotMetricsRegistry SPI (pinot-spi/.../metrics/) with the
 yammer/dropwizard plugins collapsed into one thread-safe in-process registry,
-and the typed ServerMeter names of pinot-common/.../metrics/. This is the
-JAX package's `common/metrics.py` cut to what the single-stage engine and
-`kernel_obs` use: the metric kinds, the labelled registry and its JSON
-snapshot, ServerMeter / ScanMeter and the per-role registries. The
-Prometheus text form, the federated histogram merge and the broker,
-controller and minion enums come with the server and broker processes.
+and the typed metric names of pinot-common/.../metrics/. This is the JAX
+package's `common/metrics.py` cut to what the engine, `kernel_obs` and the
+cluster's server, broker and controller use: the metric kinds, the labelled
+registry and its JSON snapshot, the Prometheus text form, ServerMeter /
+ScanMeter / ServerTimer, the broker and controller enums and the per-role
+registries. The federated histogram merge and the ingest and minion enums
+come with the roles that emit them.
 """
 
 from __future__ import annotations
@@ -320,6 +321,82 @@ class MetricsRegistry:
         return out
 
 
+# -- Prometheus exposition ----------------------------------------------------
+
+
+def _prom_name(key: str) -> str:
+    # exposition names must match [a-zA-Z_:][a-zA-Z0-9_:]*
+    return "pinot_" + re.sub(r"[^a-zA-Z0-9_:]", "_", key)
+
+
+def _prom_num(v) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    return repr(float(v)) if isinstance(v, float) else str(v)
+
+
+def _prom_labels(labels: dict, **extra) -> str:
+    """`{k="v",...}` suffix with spec escaping; "" when no labels. `extra`
+    pairs (the histogram `le`) render after the sorted user labels."""
+    pairs = [
+        (_label_key(k), _escape_label_value(str(v))) for k, v in sorted(labels.items())
+    ] + [(k, _escape_label_value(str(v))) for k, v in extra.items()]
+    if not pairs:
+        return ""
+    return "{" + ",".join(f'{k}="{v}"' for k, v in pairs) + "}"
+
+
+def prometheus_text(registry: "MetricsRegistry") -> str:
+    """Render one registry in the Prometheus text exposition format 0.0.4
+    (the PinotMetricsRegistry -> JMX -> jmx_exporter chain collapsed to one
+    renderer). Meters become `_total` counters, gauges map directly; timers
+    and histograms are full histogram families — cumulative
+    `_bucket{le="..."}` series always terminated by a `+Inf` bucket equal to
+    `_count`, plus `_sum` and `_p50`/`_p95`/`_p99` quantile gauges. Labelled
+    series render `{label="value"}` pairs (escaped per the spec) and share
+    one `# TYPE` line per family. Durations stay in milliseconds — the
+    metric names already carry the Ms suffix."""
+    with registry._lock:
+        items = sorted(registry._metrics.items())
+        labelled = dict(registry._labels)
+    lines: list[str] = []
+    typed: set[str] = set()
+
+    def _type(name: str, kind: str) -> None:
+        if name not in typed:
+            typed.add(name)
+            lines.append(f"# TYPE {name} {kind}")
+
+    def _hist_family(name: str, lbl: str, labels: dict, m, hist: Histogram) -> None:
+        _type(name, "histogram")
+        for bound, cum in hist.bucket_counts():
+            lines.append(f"{name}_bucket{_prom_labels(labels, le=_prom_num(bound))} {cum}")
+        lines.append(f"{name}_sum{lbl} {_prom_num(m.total_ms)}")
+        lines.append(f"{name}_count{lbl} {m.count}")
+        for q, suffix in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99")):
+            _type(f"{name}_{suffix}", "gauge")
+            lines.append(f"{name}_{suffix}{lbl} {_prom_num(m.quantile_ms(q))}")
+
+    for key, m in items:
+        base, labels = labelled.get(key, (key, {}))
+        name = _prom_name(base)
+        lbl = _prom_labels(labels)
+        if isinstance(m, Meter):
+            _type(f"{name}_total", "counter")
+            lines.append(f"{name}_total{lbl} {m.count}")
+        elif isinstance(m, Gauge):
+            _type(name, "gauge")
+            lines.append(f"{name}{lbl} {_prom_num(m.value)}")
+        elif isinstance(m, Timer):
+            _hist_family(name, lbl, labels, m, m.hist)
+        elif isinstance(m, Histogram):
+            _hist_family(name, lbl, labels, m, m)
+    return "\n".join(lines) + "\n"
+
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4"
+
+
 # -- typed metric names (subset of pinot-common/.../metrics enums) -----------
 
 
@@ -347,6 +424,50 @@ class ScanMeter(Enum):
     FULL_SCAN_FALLBACK = "server.scan.fullScanFallback"
 
 
+class ServerTimer(Enum):
+    QUERY_EXECUTION = "server.queryExecutionMs"
+    SEGMENT_LOAD = "server.segmentLoadMs"
+    DEVICE_EXECUTION = "server.deviceExecutionMs"
+
+
+class BrokerMeter(Enum):
+    QUERIES = "broker.queries"
+    NO_SERVING_HOST = "broker.noServingHostForSegment"
+    REQUEST_FAILURES = "broker.requestFailures"
+    QUERIES_TIMED_OUT = "broker.queriesTimedOut"
+    QUERIES_CANCELLED = "broker.queriesCancelled"
+    PARTIAL_RESPONSES = "broker.partialResponses"
+    DOCS_SCANNED = "broker.docsScanned"
+    # admission tier (one series per table label)
+    ADMISSION_ADMITTED = "broker.admission.admitted"
+    ADMISSION_SHED = "broker.admission.shed"
+    ADMISSION_QUOTA_REJECTED = "broker.admission.quotaRejected"
+    ADMISSION_DEGRADED = "broker.admission.degraded"
+    ADMISSION_PROBED = "broker.admission.probed"
+    # hedged scatter (tail-at-scale): extra replica requests issued after the
+    # EWMA hedge delay, split by which leg answered first
+    HEDGE_ISSUED = "broker.hedge.issued"
+    HEDGE_WON = "broker.hedge.won"
+    HEDGE_WASTED = "broker.hedge.wasted"
+
+
+class BrokerGauge(Enum):
+    ONLINE_SERVERS = "broker.onlineServers"
+    ADMISSION_QUEUE_DEPTH = "broker.admission.queueDepth"
+    ADMISSION_IN_FLIGHT = "broker.admission.inFlight"
+
+
+class BrokerTimer(Enum):
+    QUERY_TOTAL = "broker.queryTotalMs"
+    REDUCE = "broker.reduceMs"
+    SCATTER_GATHER = "broker.scatterGatherMs"
+
+
+class ControllerMeter(Enum):
+    SEGMENT_UPLOADS = "controller.segmentUploads"
+    TABLE_ADDS = "controller.tableAdds"
+
+
 # global per-role registries (the reference holds one registry per started
 # service; in-process multi-role tests share by role name)
 _registries: dict[str, MetricsRegistry] = {}
@@ -369,3 +490,5 @@ def reset_registries() -> None:
 
 
 server_metrics = lambda: get_registry("server")  # noqa: E731
+broker_metrics = lambda: get_registry("broker")  # noqa: E731
+controller_metrics = lambda: get_registry("controller")  # noqa: E731

@@ -119,8 +119,11 @@ def _describe_spec(spec: tuple, next_id: int, parent: int) -> list[list]:
 
 
 class QueryEngine:
-    def __init__(self, segments: list[ImmutableSegment], device: str | torch.device = "cuda"):
+    def __init__(self, segments: list[ImmutableSegment], device: str | torch.device = "cuda", fast32: bool = False):
+        """fast32=True stages DOUBLE columns as float32 (lossy) for speed; the
+        staged copy is the segment's own, apart from its lossless one."""
         self.device = torch.device(device)
+        self.fast32 = fast32
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("QueryEngine(device='cuda'): no CUDA device is available; pass device='cpu' to run on the CPU")
         self.segments = list(segments)
@@ -504,7 +507,7 @@ class QueryEngine:
             plan = plan_segment(seg, ctx, valid_mask=vmask)
         except DeviceFallback:
             return ("ready",) + host_exec.execute_segment(seg, ctx, extra_mask=vmask) + ("host",)
-        return ("dev", plan, dispatch_plan_packed(plan, seg.to_device_cached(self.device)), vmask)
+        return ("dev", plan, dispatch_plan_packed(plan, seg.to_device_cached(self.device, fast32=self.fast32)), vmask)
 
     def _finish_segment(self, seg: ImmutableSegment, ctx: QueryContext, disp):
         """Sync half: convert a dispatch to (partial, matched, mode)."""

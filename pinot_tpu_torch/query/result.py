@@ -4,9 +4,8 @@ Reference parity: BrokerResponseNative / ResultTable (pinot-common/.../response/
 broker/ResultTable.java) — column names + data types + row-major values, plus
 execution stats (numDocsScanned, totalDocs, timeUsedMs), the pruning funnel,
 the scan-path counts and the trace. Field names match the JAX package's
-`query/result.py`; its cache, stream, multistage and cluster fields
-(partial results, exceptions, servers queried) come with the layers that set
-them.
+`query/result.py`, its cache, stream, multistage and cluster fields
+(partial results, exceptions, servers queried) included.
 """
 
 from __future__ import annotations
@@ -39,10 +38,26 @@ class ResultTable:
     num_entries_scanned_post_filter: int = 0
     # per-query scan attribution summary (query/scan_stats.py wire form)
     scan_profile: dict | None = None
+    # streamed selection path: how many wire frames carried the rows
+    num_stream_frames: int = 0
     time_used_ms: float = 0.0
     # the request's span tree, when the query ran under a trace
     trace: dict | None = None
     trace_id: str = ""
+    # multistage per-operator runtime stats merged by the root stage
+    # (MultiStageQueryStats -> BrokerResponse `stageStats` parity); None
+    # when collection was off or the query ran on the v1 engine
+    stage_stats: list | None = None
+    # degraded-response surface (BrokerResponse partialResult/exceptions
+    # parity): set by the broker when allowPartialResults let it answer
+    # despite server failures; exceptions entries are {"errorCode","message"}
+    partial_result: bool = False
+    exceptions: list = field(default_factory=list)
+    num_servers_queried: int = 0
+    num_servers_responded: int = 0
+    # broker result-cache verdict for THIS request (BrokerResponse metadata):
+    # true = the response was served from cluster/result_cache.py
+    cache_hit: bool = False
 
     def __post_init__(self):
         self.rows = [[_plain(v) for v in row] for row in self.rows]
@@ -65,6 +80,7 @@ class ResultTable:
             "numEntriesScannedInFilter": self.num_entries_scanned_in_filter,
             "numEntriesScannedPostFilter": self.num_entries_scanned_post_filter,
             "timeUsedMs": self.time_used_ms,
+            "cacheHit": self.cache_hit,
         }
         if self.scan_profile is not None:
             d["scanProfile"] = self.scan_profile
@@ -72,6 +88,16 @@ class ResultTable:
             d["traceInfo"] = self.trace
         if self.trace_id:
             d["traceId"] = self.trace_id
+        if self.stage_stats is not None:
+            d["stageStats"] = self.stage_stats
+        # emitted only on the degraded path so pre-existing exact-dict
+        # consumers of healthy responses see an unchanged shape
+        if self.partial_result or self.exceptions:
+            d["partialResult"] = self.partial_result
+            d["exceptions"] = list(self.exceptions)
+        if self.num_servers_queried:
+            d["numServersQueried"] = self.num_servers_queried
+            d["numServersResponded"] = self.num_servers_responded
         return d
 
     def __repr__(self) -> str:  # human-friendly table

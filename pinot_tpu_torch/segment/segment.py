@@ -195,26 +195,28 @@ class ImmutableSegment:
                 total += vals.nbytes
         return total
 
-    def to_device_cached(self, device: str | torch.device = "cuda") -> "DeviceSegment":
-        """Memoized staging: one staged copy per segment and device, shared by
-        every engine that queries the segment, and by every thread: a second
-        thread asking while the first stages waits for its copy."""
-        key = str(torch.device(device))
+    def to_device_cached(self, device: str | torch.device = "cuda", fast32: bool = False) -> "DeviceSegment":
+        """Memoized staging: one staged copy per segment, device and `fast32`,
+        shared by every engine that queries the segment, and by every thread:
+        a second thread asking while the first stages waits for its copy. A
+        lossy float32 copy and a lossless one are kept apart."""
+        key = f"{torch.device(device)}/f32" if fast32 else str(torch.device(device))
         ds = self._device_cache.get(key)
         if ds is None:
             with _STAGE_LOCK:
                 ds = self._device_cache.get(key)
                 if ds is None:
-                    ds = self.to_device(device)
+                    ds = self.to_device(device, fast32=fast32)
                     self._device_cache[key] = ds
         return ds
 
-    def to_device(self, device: str | torch.device = "cuda") -> "DeviceSegment":
+    def to_device(self, device: str | torch.device = "cuda", fast32: bool = False) -> "DeviceSegment":
         """Stage every column to `device` as torch tensors.
 
         Dtype policy (the reference's): int64 raw columns are losslessly
         narrowed to int32 when their min/max fit; float64 stays float64 (query
-        semantics, Pinot DOUBLE, depend on it). The tail pads with zeros.
+        semantics, Pinot DOUBLE, depend on it) unless `fast32` opts into lossy
+        float32 storage for speed. The tail pads with zeros.
 
         An MV column stages its flat values and, as `"{col}!docs"`, each
         value's owning doc (int32), both padded to padded_len(n_values). The
@@ -238,8 +240,14 @@ class ImmutableSegment:
                 # dict ids are already int32; this is the raw-column path
                 if np.iinfo(np.int32).min <= ci.stats.min_value and ci.stats.max_value <= np.iinfo(np.int32).max:
                     fwd = fwd.astype(np.int32)
+            elif fwd.dtype == np.float64 and fast32 and not ci.is_mv:
+                fwd = fwd.astype(np.float32)
             arrays[name] = torch.tensor(fwd, device=device)
-        return DeviceSegment(name=self.name, host=self, n_docs=self.n_docs, padded=pad, arrays=arrays)
+        ds = DeviceSegment(name=self.name, host=self, n_docs=self.n_docs, padded=pad, arrays=arrays)
+        from pinot_tpu_torch.common.leakcheck import staging_tracker
+
+        staging_tracker.track(ds)
+        return ds
 
 
 @dataclass

@@ -395,7 +395,7 @@ def test_submits_resolve_in_any_order(engines):
 def test_import_leaves_no_jax_pandas_or_reference():
     """A fresh interpreter imports the port and runs CPU queries (the
     per-segment engine, the store, the sharded table, the multistage engine
-    over two slots); afterwards no module of jax, pandas or the JAX package
+    over two slots, a cluster over HTTP); afterwards no module of jax, pandas or the JAX package
     is loaded."""
     code = (
         "import sys, numpy as np\n"
@@ -418,6 +418,17 @@ def test_import_leaves_no_jax_pandas_or_reference():
         "m = MultistageEngine({'t': [seg]}, device='cpu', mesh=pinot_tpu_torch.parallel.make_mesh(('cpu',) * 2))\n"
         "rows = m.execute('SELECT a.g, COUNT(*) FROM t a JOIN t b ON a.g = b.g GROUP BY a.g ORDER BY a.g').rows\n"
         "assert rows == [['a', 4], ['b', 1]], rows\n"
+        "from pinot_tpu_torch.cluster import Broker, Controller, PropertyStore, Server\n"
+        "from pinot_tpu_torch.cluster.http import BrokerHTTPService, RemoteServerClient, ServerHTTPService, query_broker_http\n"
+        "from pinot_tpu_torch.common import TableConfig\n"
+        "c = Controller(PropertyStore(), tempfile.mkdtemp())\n"
+        "srv = Server('s0', device='cpu'); svc = ServerHTTPService(srv)\n"
+        "c.register_server('s0', RemoteServerClient(f'http://127.0.0.1:{svc.port}'))\n"
+        "c.add_schema(s); c.add_table(TableConfig('t')); c.upload_segment('t', seg)\n"
+        "b = Broker(c); bsvc = BrokerHTTPService(b)\n"
+        "got = query_broker_http(f'http://127.0.0.1:{bsvc.port}', 'SELECT g, SUM(v) FROM t GROUP BY g ORDER BY g')\n"
+        "bsvc.stop(); svc.stop(); b.shutdown()\n"
+        "assert got['resultTable']['rows'] == res.rows, got\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'pinot_tpu'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
