@@ -173,13 +173,40 @@
 15. The cluster over HTTP: the same servers behind ServerHTTPService, a
    second controller registering them as RemoteServerClients, its broker
    behind BrokerHTTPService queried by query_broker_http; configs 1-9 with
-   the same checks, the DataTable bytes received, the HTTP wall beside the
-   in-process one, and config 13's plain SELECTION streamed with early stop.
+   the same checks (and the kernel registry's calls, what a server process
+   serves at /debug/roofline, equal to the launch counters), the DataTable
+   bytes received, the HTTP wall beside the in-process one, and config 13's
+   plain SELECTION streamed with early stop.
 16. bench.py `qps`: its fixture (2 servers, 4 segments, replication 2, its
    two queries) at 16M rows, 128 HTTP clients x 10 queries, once with the
    default result cache and once with it off: throughput, client and
    broker-histogram p50 / p99, error rate 0, wire-pool hits > 0, admission
    decisions and B1 launches (with the cache off, 4 a GROUP BY answer).
+17. Distributed multistage stages: bench.py's config 6 at phase 13's size
+   (4M rows, seed 6) in 4 segments on 4 Servers on the card, each behind
+   its ServerHTTPService and registered as a RemoteServerClient, so the
+   broker dispatches the stages to the servers and runs the root on its own
+   device (the card), every stage-to-stage block crossing a socket through
+   /mailbox; config 6, phase 13's lookup join + ORDER BY and a join whose
+   80K-row ORDER BY runs in the root stage, each equal to the oracle, their
+   launches (counts from 0 just before, read just after) equal to the
+   in-process route's on the same segments (config 6: one B1 a segment in
+   the servers' leaf workers), every leaf kernel call held against its plain
+   version (max_abs_err 0), and the multistage device operators each route
+   ran (sort, join, window) the same on both, all on the card; each route's
+   wall p50, envelopes and bytes.
+18. The cluster as OS processes (run after phase 15, on its deep store): a
+   controller, 4 servers on the card and a broker, each a
+   `python -m pinot_tpu_torch.tools.admin Start...` process spawned with
+   subprocess.Popen; the 16 segments uploaded through the REST tarball path
+   with replication 2, nation_dim as a dimension table; configs 1-9 and
+   config 6's join (distributed stages in the server processes) through
+   client.connect, each equal to the oracle with its launches summed from
+   the servers' /debug/roofline calls (16x a segment's, config 6's leaf 16
+   B1); a lookUp group-by (host executor, no launch), a Basic-auth broker's
+   403 and 200, a /debug/pprof capture of the broker process; start-up
+   seconds, upload seconds, walls beside phase 15's, each server's device
+   memory. Every child is killed at the end of the phase.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -189,6 +216,7 @@ JSON object with one entry per kernel.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import shutil
@@ -3879,21 +3907,30 @@ def join_fact_data(n: int, seed: int = JOIN_SEED) -> dict:
     }
 
 
-def multistage_catalog(data: dict) -> dict:
-    """config 6's tables: the fact segment, the 25-row nation_dim, and the
-    50-row qty_dim of the device-join query."""
+def multistage_dims() -> list:
+    """config 6's dimension tables as (schema, segment): the 25-row
+    nation_dim and the 50-row qty_dim of the device-join query."""
     from pinot_tpu_torch.common import DataType, Schema
     from pinot_tpu_torch.segment import SegmentBuilder
 
-    fact = SegmentBuilder(ssb_schema(keys=False)).build(data, "join_fact")
-    nation_dim = SegmentBuilder(
-        Schema.build("nation_dim", dimensions=[("nation", DataType.STRING), ("region", DataType.STRING)], metrics=[])
-    ).build({"nation": np.array(JOIN_NATIONS, dtype=object), "region": np.array(JOIN_REGIONS, dtype=object)}, "join_dim")
+    nd_schema = Schema.build("nation_dim", dimensions=[("nation", DataType.STRING), ("region", DataType.STRING)], metrics=[])
+    nation_dim = SegmentBuilder(nd_schema).build(
+        {"nation": np.array(JOIN_NATIONS, dtype=object), "region": np.array(JOIN_REGIONS, dtype=object)}, "join_dim"
+    )
     qty = np.arange(1, 51, dtype=np.int32)
-    qty_dim = SegmentBuilder(
-        Schema.build("qty_dim", dimensions=[("qty", DataType.INT), ("band", DataType.STRING)], metrics=[])
-    ).build({"qty": qty, "band": np.array([f"B{q // 10}" for q in qty], dtype=object)}, "qty_dim")
-    return {"lineorder": [fact], "nation_dim": [nation_dim], "qty_dim": [qty_dim]}
+    qd_schema = Schema.build("qty_dim", dimensions=[("qty", DataType.INT), ("band", DataType.STRING)], metrics=[])
+    qty_dim = SegmentBuilder(qd_schema).build(
+        {"qty": qty, "band": np.array([f"B{q // 10}" for q in qty], dtype=object)}, "qty_dim"
+    )
+    return [(nd_schema, nation_dim), (qd_schema, qty_dim)]
+
+
+def multistage_catalog(data: dict) -> dict:
+    """config 6's tables: the fact segment and multistage_dims()."""
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    fact = SegmentBuilder(ssb_schema(keys=False)).build(data, "join_fact")
+    return {"lineorder": [fact], **{sch.name: [seg] for sch, seg in multistage_dims()}}
 
 
 def multistage_oracle(data: dict) -> dict:
@@ -3916,6 +3953,7 @@ def multistage_oracle(data: dict) -> dict:
     out["device_window"] = [[int(year[i]), int(rev[i]), int(rs[i])] for i in top]
     m = (qty == 1) & (rev > 590000)
     out["leaf_mask"] = sorted([f"REGION_{r}", int(v)] for r, v in zip(region[m], rev[m]))
+    out["root_sort"] = [[int(v), "B0"] for v in np.sort(rev[qty == 1])[::-1]]
     return out
 
 
@@ -4245,6 +4283,33 @@ def timed_split(broker):
     return read
 
 
+#: the kernel registry's names (common/kernel_obs.py) for the launch counters
+KERNEL_OF_REGISTRY = {
+    "ops.grouped_planes": "grouped_sum_count",
+    "ops.grouped_extreme": "grouped_extreme",
+    "ops.grouped_sum": "presence",
+    "ops.grouped_planes2": "grouped_sum_count_2l",
+}
+
+
+def calls_by_kernel(roofline: dict) -> dict:
+    """Launches by counter name from a `KERNELS.roofline()` document (the
+    body of a server's GET /debug/roofline), summed over shape buckets; the
+    registry's other entries (the sharded path's `exchange.*` programs) are
+    not kernel launches."""
+    out = {k: 0 for k in KERNEL_OF_REGISTRY.values()}
+    for row in roofline["kernels"]:
+        if row["kernel"] in KERNEL_OF_REGISTRY:
+            out[KERNEL_OF_REGISTRY[row["kernel"]]] += row["calls"]
+    return out
+
+
+def registry_calls() -> dict:
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+
+    return calls_by_kernel(KERNELS.roofline(top=0))
+
+
 def counted_run(counters: dict, fn) -> tuple:
     """fn() once with every spied wrapper call recorded: (result, launches
     made during it by kernel, calls)."""
@@ -4423,12 +4488,18 @@ def run_cluster_http(torch, counters: dict, cl: dict, want: dict, data: dict, na
         launches, held, per_query = {}, {}, {}
         for name in CLUSTER_CONFIGS:
             received[0] = 0
+            reg0 = registry_calls()
             resp, launches[name], calls = counted_run(counters, lambda: query_broker_http(url, CONFIGS[name]))
+            reg = {k: v - reg0[k] for k, v in registry_calls().items()}
             nbytes = received[0]
             if resp.get("exceptions"):
                 raise AssertionError(f"cluster_http {name}: {resp['exceptions']}")
             expect = tuple(CLUSTER_SEGMENTS * v for v in LAUNCHES_PER_SEGMENT[name])
             check_launches(f"cluster_http {name}", counters, launches[name], calls, expect)
+            # the kernel registry's calls (what a server process's
+            # /debug/roofline serves) count the same launches as the counters
+            if reg != launches[name]:
+                raise AssertionError(f"cluster_http {name}: registry calls {reg}, counters {launches[name]}")
             rows_match(f"cluster_http {name}", resp["resultTable"]["rows"], want[name])
             held[name] = hold_all(torch, calls, gb, ext, gs)
             del calls
@@ -4466,6 +4537,7 @@ def run_cluster_http(torch, counters: dict, cl: dict, want: dict, data: dict, na
                 "results_match_oracle": True,
                 "queries": per_query,
                 "launches": path_launches,
+                "registry_calls_equal_counters": True,
                 "kernels_vs_plain": held,
                 "stream": {
                     "config": "13_selection",
@@ -4486,7 +4558,7 @@ def run_cluster_http(torch, counters: dict, cl: dict, want: dict, data: dict, na
             svc.stop()
         broker.shutdown()
         in_process.shutdown()
-    return path_launches
+    return path_launches, {name: q["http_p50_ms"] for name, q in per_query.items()}
 
 
 def qps_data(n_rows: int = QPS_ROWS, seed: int = 8) -> list:
@@ -4688,6 +4760,467 @@ def run_cluster_qps(torch, counters: dict) -> dict:
     return launches
 
 
+#: phase 17: bench.py's config 6 at the multistage phase's size (JOIN_ROWS
+#: rows, seed 6) in MSD_SEGMENTS segments over MSD_SERVERS servers on the
+#: card, replication 1, and the multistage phase's lookup join + ORDER BY
+MSD_SEGMENTS, MSD_SERVERS = 4, 4
+MSD_QUERIES = {
+    "config6": CONFIG6_SQL,
+    "device_join_sort": MULTISTAGE_QUERIES["device_join_sort"],
+    # ~80K joined rows (1 in 50 has quantity 1) reach the root stage
+    # unsorted: its ORDER BY is above DEVICE_SORT_MIN, a device sort there
+    "root_sort": (
+        "SELECT l.lo_revenue, q.band FROM lineorder l JOIN qty_dim q ON l.lo_quantity = q.qty "
+        "WHERE l.lo_quantity = 1 ORDER BY l.lo_revenue DESC"
+    ),
+}
+#: the multistage runtime's device operators, by their DEVICE_OP_STATS keys
+DEVICE_OPS = {"_device_sort_perm": "sort", "_device_window_cum": "window", "_device_equi_join": "join"}
+
+
+@contextlib.contextmanager
+def device_ops_spied():
+    """Yields a dict "op@device type" -> calls, filled while the block runs
+    by every call of the multistage runtime's device operators that ran
+    (returned a result), from any thread: the root stage's, the servers'
+    workers' and the in-process engine's."""
+    import inspect
+    import threading
+
+    import torch
+
+    from pinot_tpu_torch.multistage import runtime as rt
+
+    seen: dict = {}
+    lock = threading.Lock()
+    real = {name: getattr(rt, name) for name in DEVICE_OPS}
+
+    def spy(name):
+        fn, sig = real[name], inspect.signature(real[name])
+
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            if out is not None:
+                bound = sig.bind(*a, **k)
+                bound.apply_defaults()
+                key = f"{DEVICE_OPS[name]}@{torch.device(bound.arguments['device']).type}"
+                with lock:
+                    seen[key] = seen.get(key, 0) + 1
+            return out
+
+        return wrapped
+
+    for name in DEVICE_OPS:
+        setattr(rt, name, spy(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(rt, name, fn)
+
+
+def run_multistage_distributed(torch, counters: dict) -> dict:
+    """Phase 17: the multistage engine as distributed stages. Four Servers on
+    the card, each behind its own ServerHTTPService, registered with a
+    second controller as RemoteServerClients (the reference test's
+    topology): the broker dispatches each stage to the servers and runs the
+    root stage on its own device, the card, and every stage-to-stage block
+    crosses a socket through /mailbox. bench.py's config 6, the multistage
+    phase's lookup join + ORDER BY and a join whose ORDER BY sorts 80K rows
+    in the root stage, over the same 4M rows in 4 segments: rows equal the
+    oracle; the launches, counted from 0 just before the distributed runs
+    and read just after each, equal the in-process multistage route's on the
+    same segments (config 6: one B1 a segment at the leaf, in the servers'
+    stage workers), and every kernel call of the leaf is held against its
+    plain version, max_abs_err 0. The multistage device operators (sort,
+    join, window) that ran are the same on both routes and all ran on the
+    card; root_sort's root sort among them. Reports each route's wall p50,
+    device operators, and the mailbox envelopes and bytes a query. Returns
+    the path's launches."""
+    import tempfile
+
+    from pinot_tpu_torch.cluster import Broker, Controller
+    from pinot_tpu_torch.cluster.http import RemoteServerClient, ServerHTTPService
+    from pinot_tpu_torch.common.config import CacheConfig
+    from pinot_tpu_torch.multistage import transport
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    t0 = time.perf_counter()
+    data = join_fact_data(JOIN_ROWS)
+    want = multistage_oracle(data)
+    segments = build_segments(SegmentBuilder(ssb_schema(keys=False)), data, MSD_SEGMENTS, "lineorder")
+    del data
+    deep = tempfile.mkdtemp(prefix="chip_smoke_msd_")
+    controller, servers = cluster_of(
+        ssb_schema(keys=False), segments, deep, MSD_SERVERS, 1, extra_tables=[(sch, [seg]) for sch, seg in multistage_dims()]
+    )
+    del segments
+    hosted = {sid: s.segments_of("lineorder") for sid, s in servers.items()}
+    if sorted(len(v) for v in hosted.values()) != [1] * MSD_SERVERS:
+        raise AssertionError(f"multistage_distributed: lineorder segments a server {hosted}")
+    svcs = {sid: ServerHTTPService(s) for sid, s in servers.items()}
+    remote = Controller(controller.store, deep)
+    for sid, svc in svcs.items():
+        remote.register_server(sid, RemoteServerClient(f"http://127.0.0.1:{svc.port}"))
+    in_process = Broker(controller, cache_config=CacheConfig(enabled=False))
+    distributed = Broker(remote, cache_config=CacheConfig(enabled=False), device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    envelopes = {"count": 0, "bytes": 0}
+    real_encode = transport.encode_envelope_segments
+
+    def counting_encode(*a, **k):
+        segs = real_encode(*a, **k)
+        envelopes["count"] += 1
+        envelopes["bytes"] += sum(len(x) for x in segs)
+        return segs
+
+    try:
+        # the in-process route first: what the distributed runs must launch
+        expect, ops = {}, {"in_process": {}, "distributed": {}}
+        for name, sql in MSD_QUERIES.items():
+            with device_ops_spied() as ops["in_process"][name]:
+                res, expect[name], calls = counted_run(counters, lambda: in_process.execute(sql))
+            rows_match(f"multistage_distributed in-process {name}", res.rows, want[name])
+            del calls
+        if expect["config6"]["grouped_sum_count"] != MSD_SEGMENTS:
+            raise AssertionError(f"multistage_distributed: config 6's in-process leaf launched {expect['config6']}")
+        for fn in counters.values():
+            fn.launches = 0
+        launches, held, per_query = {}, {}, {}
+        transport.encode_envelope_segments = counting_encode
+        try:
+            for name, sql in MSD_QUERIES.items():
+                envelopes.update(count=0, bytes=0)
+                with device_ops_spied() as ops["distributed"][name]:
+                    res, launches[name], calls = counted_run(counters, lambda: distributed.execute(sql))
+                rows_match(f"multistage_distributed {name}", res.rows, want[name])
+                check_launches(f"multistage_distributed {name}", counters, launches[name], calls,
+                               tuple(expect[name].values()))
+                held[name] = hold_all(torch, calls, gb, ext, gs)
+                if any(h["max_abs_err"] != 0 for h in held[name]):
+                    raise AssertionError(f"multistage_distributed {name}: a kernel differs from its plain version")
+                del calls
+                per_query[name] = {"launches": launches[name], "envelopes": envelopes["count"],
+                                   "envelope_bytes": envelopes["bytes"]}
+        finally:
+            transport.encode_envelope_segments = real_encode
+        path_launches = {k: sum(v[k] for v in launches.values()) for k in counters}
+        if path_launches != {k: fn.launches for k, fn in counters.items()}:
+            raise AssertionError(f"multistage_distributed: launches outside the queries' runs: {path_launches}")
+        if distributed._dispatcher is None:
+            raise AssertionError("multistage_distributed: the distributed dispatcher did not run")
+        on = f"@{torch.device(DEVICE).type}"
+        for name in MSD_QUERIES:
+            a, b = ops["in_process"][name], ops["distributed"][name]
+            if set(a) != set(b) or any(not k.endswith(on) for k in (*a, *b)):
+                raise AssertionError(f"multistage_distributed {name}: device operators in process {a}, distributed {b}")
+        if f"sort{on}" not in ops["distributed"]["root_sort"]:
+            raise AssertionError(f"multistage_distributed root_sort: no device sort {ops['distributed']['root_sort']}")
+        for name, sql in MSD_QUERIES.items():
+            d = wall_p50_of(lambda: distributed.execute(sql), warm=1, runs=5)
+            p = wall_p50_of(lambda: in_process.execute(sql), warm=1, runs=5)
+            per_query[name].update(distributed_p50_ms=d["p50_ms"], distributed_runs_ms=d["runs_ms"],
+                                   in_process_p50_ms=p["p50_ms"], in_process_runs_ms=p["runs_ms"])
+        torch.cuda.synchronize()
+        emit(
+            {
+                "phase": "multistage_distributed",
+                "results_match_oracle": True,
+                "rows": JOIN_ROWS,
+                "segments": MSD_SEGMENTS,
+                "servers": MSD_SERVERS,
+                "setup_s": setup_s,
+                "queries": per_query,
+                "launches_equal_in_process": True,
+                "device_ops": ops,
+                "launches": path_launches,
+                "kernels_vs_plain": held,
+                "card": card_line(),
+            }
+        )
+    finally:
+        for svc in svcs.values():
+            svc.stop()
+        distributed.shutdown()
+        in_process.shutdown()
+        shutil.rmtree(deep, ignore_errors=True)
+    return path_launches
+
+
+#: phase 18: the roles as OS processes, each started as
+#: `python -m pinot_tpu_torch.tools.admin Start...` (spawned, never forked)
+PROC_SERVERS, PROC_START_TIMEOUT_S = 4, 300
+LOOKUP_SQL = (
+    "SELECT LOOKUP('nation_dim', 'region', 'nation', c_nation), SUM(lo_revenue) FROM lineorder "
+    "GROUP BY LOOKUP('nation_dim', 'region', 'nation', c_nation) ORDER BY SUM(lo_revenue) DESC"
+)
+
+
+class Role:
+    """One admin role in a process of its own: its output is drained on a
+    thread, and `wait()` returns the URL of its `listening on` line."""
+
+    def __init__(self, name: str, args: list):
+        import os
+        import threading
+
+        self.name, self.url, self.start_s, self.lines = name, None, None, []
+        self._t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pinot_tpu_torch.tools.admin", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+            text=True,
+        )
+        self._ready = threading.Event()
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self) -> None:
+        import re
+
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            m = re.search(r"listening on (http://\S+)", line)
+            if m and self.url is None:
+                self.start_s = time.perf_counter() - self._t0
+                self.url = m.group(1)
+                self._ready.set()
+        self._ready.set()
+
+    def wait(self) -> str:
+        self._ready.wait(PROC_START_TIMEOUT_S)
+        if self.url is None:
+            raise AssertionError(f"{self.name} did not start in {PROC_START_TIMEOUT_S}s: {''.join(self.lines[-30:])}")
+        return self.url
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def http_json(url: str, timeout: float = 120.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def processes_calls(urls: list) -> dict:
+    """Launches by kernel, summed over the server processes' registries
+    (GET /debug/roofline)."""
+    out = {k: 0 for k in KERNEL_OF_REGISTRY.values()}
+    for url in urls:
+        for k, v in calls_by_kernel(http_json(f"{url}/debug/roofline?top=0")).items():
+            out[k] += v
+    return out
+
+
+def card_memory_used() -> str:
+    """The card's used memory as nvidia-smi reads it (every process's)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"unavailable: {e}"
+
+
+def auth_post(url: str, sql: str, user=None, password=None) -> tuple:
+    import base64
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"{url}/query/sql", data=json.dumps({"sql": sql}).encode(), method="POST")
+    if user is not None:
+        req.add_header("Authorization", "Basic " + base64.b64encode(f"{user}:{password}".encode()).decode())
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def run_processes(torch, deep_in: str, want: dict, want6: list, http_p50: dict) -> dict:
+    """Phase 18: the cluster as OS processes. A controller, four servers on
+    the card and a broker (result cache off), each started with
+    subprocess.Popen([sys.executable, "-m", "pinot_tpu_torch.tools.admin",
+    "Start..."]) and never forked from this CUDA process; the cluster
+    phase's 16 lineorder segment dirs uploaded through
+    RemoteControllerClient.upload_segment_dir (the REST tarball path) with
+    replication 2, and nation_dim as a dimension table (primary key
+    nation). Configs 1-9 and config 6's join (distributed stages in the
+    server processes, blocks crossing processes through /mailbox) through
+    client.connect: rows equal the oracle, and the launches, summed from the
+    server processes' /debug/roofline calls just before and just after each
+    query, are the cluster phase's: 16x a segment's, config 6's leaf 16 B1.
+    Then a lookUp group-by against nation_dim (the host executor in the
+    servers, no launch; its rows are config 6's), one query refused and one
+    admitted by a BasicAuthAccessControl broker over a RemoteControllerClient,
+    and a /debug/pprof capture of the broker process during a query.
+    Reports the start-up seconds of each process, the upload, each query's
+    wall p50 beside cluster_http's, and each server's device memory. Every
+    child is killed at the end. Returns the path's launches."""
+    import shutil as _shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from pinot_tpu_torch.client import connect
+    from pinot_tpu_torch.cluster import Broker
+    from pinot_tpu_torch.cluster.access import BasicAuthAccessControl, Principal
+    from pinot_tpu_torch.cluster.http import BrokerHTTPService, RemoteControllerClient
+    from pinot_tpu_torch.common import DataType, Schema, TableConfig
+    from pinot_tpu_torch.common.config import CacheConfig
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_procs_")
+    roles, auth_broker, auth_svc = [], None, None
+    card_before = card_memory_used()
+    try:
+        t0 = time.perf_counter()
+        ctl = Role("controller", ["StartController", "--store-dir", f"{root}/store", "--deep-store", f"{root}/deep"])
+        roles.append(ctl)
+        c_url = ctl.wait()
+        servers = [
+            Role(f"server_{i}", ["StartServer", "--controller-url", c_url, "--server-id", f"server_{i}", "--device", DEVICE])
+            for i in range(PROC_SERVERS)
+        ]
+        roles += servers
+        brk = Role("broker", ["StartBroker", "--controller-url", c_url, "--cache-json", '{"enabled": false}', "--device", DEVICE])
+        roles.append(brk)
+        s_urls = [s.wait() for s in servers]
+        b_url = brk.wait()
+        cluster_up_s = time.perf_counter() - t0
+
+        rc = RemoteControllerClient(c_url, timeout=600)
+        rc.add_schema(ssb_schema())
+        rc.add_table(TableConfig("lineorder", replication=CLUSTER_REPLICATION))
+        nd = Schema.build(
+            "nation_dim", dimensions=[("nation", DataType.STRING), ("region", DataType.STRING)], metrics=[],
+            primary_key_columns=["nation"],
+        )
+        rc.add_schema(nd)
+        rc.add_table(TableConfig("nation_dim", extra={"isDimTable": True}))
+        t0 = time.perf_counter()
+        seg_dirs = sorted((Path(deep_in) / "lineorder").iterdir(), key=lambda p: int(p.name.rsplit("_", 1)[1]))
+        if len(seg_dirs) != CLUSTER_SEGMENTS:
+            raise AssertionError(f"processes: {len(seg_dirs)} segment dirs in the cluster phase's deep store")
+        for d in seg_dirs:
+            out = rc.upload_segment_dir("lineorder", d)
+            if len(out["servers"]) != CLUSTER_REPLICATION:
+                raise AssertionError(f"processes: {d.name} assigned to {out['servers']}")
+        rc.upload_segment(
+            "nation_dim",
+            SegmentBuilder(nd).build(
+                {"nation": np.array(JOIN_NATIONS, dtype=object), "region": np.array(JOIN_REGIONS, dtype=object)},
+                "nation_dim_0",
+            ),
+        )
+        upload_s = time.perf_counter() - t0
+        ideal = rc.ideal_state("lineorder")
+        if len(ideal) != CLUSTER_SEGMENTS or any(len(r) != CLUSTER_REPLICATION for r in ideal.values()):
+            raise AssertionError(f"processes: ideal state {ideal}")
+        hosted = {u: len(http_json(f"{u}/segments/lineorder")) for u in s_urls}
+        if set(hosted.values()) != {CLUSTER_SEGMENTS * CLUSTER_REPLICATION // PROC_SERVERS}:
+            raise AssertionError(f"processes: replicas a server {hosted}")
+
+        conn = connect(b_url)
+        queries = {**{name: CONFIGS[name] for name in CLUSTER_CONFIGS}, "config6_multistage": CONFIG6_SQL}
+        launches, per_query = {}, {}
+        first_s = {}
+        for name, sql in queries.items():
+            before = processes_calls(s_urls)
+            t1 = time.perf_counter()
+            rows = conn.execute(sql).rows
+            first_s[name] = time.perf_counter() - t1
+            launches[name] = {k: v - before[k] for k, v in processes_calls(s_urls).items()}
+            rows_match(f"processes {name}", rows, want6 if name == "config6_multistage" else want[name])
+            per_seg = (1, 0, 0, 0) if name == "config6_multistage" else LAUNCHES_PER_SEGMENT[name]
+            expect = dict(zip(KERNEL_OF_REGISTRY.values(), (CLUSTER_SEGMENTS * v for v in per_seg)))
+            if launches[name] != expect:
+                raise AssertionError(f"processes {name}: launches {launches[name]}, expected {expect}")
+        path_launches = {k: sum(v[k] for v in launches.values()) for k in KERNEL_OF_REGISTRY.values()}
+        for name, sql in queries.items():
+            w = wall_p50_of(lambda: conn.execute(sql), warm=1, runs=5)
+            per_query[name] = {"p50_ms": w["p50_ms"], "runs_ms": w["runs_ms"], "first_s": first_s[name],
+                               "cluster_http_p50_ms": http_p50.get(name), "launches": launches[name]}
+
+        # lookUp: nation_dim's PK map in each server process, the host executor
+        before = processes_calls(s_urls)
+        t1 = time.perf_counter()
+        rows = conn.execute(LOOKUP_SQL).rows
+        lookup_s = time.perf_counter() - t1
+        rows_match("processes lookUp", rows, want6)
+        lookup_launches = {k: v - before[k] for k, v in processes_calls(s_urls).items()}
+        if any(lookup_launches.values()):
+            raise AssertionError(f"processes lookUp: launched {lookup_launches}")
+
+        # access control: a Basic-auth broker over the controller's REST client
+        ac = BasicAuthAccessControl(principals=[Principal("reader", "r", tables=("lineorder",), permissions=("READ",))])
+        auth_broker = Broker(RemoteControllerClient(c_url), access_control=ac, cache_config=CacheConfig(enabled=False))
+        auth_svc = BrokerHTTPService(auth_broker)
+        a_url = f"http://127.0.0.1:{auth_svc.port}"
+        sql1 = CONFIGS["1_count_filter"]
+        refused, refused_doc = auth_post(a_url, sql1)
+        wrong, _ = auth_post(a_url, sql1, "reader", "wrong")
+        admitted, doc = auth_post(a_url, sql1, "reader", "r")
+        if refused != 403 or wrong != 403 or admitted != 200:
+            raise AssertionError(f"processes access: statuses {refused} / {wrong} / {admitted}: {refused_doc}")
+        rows_match("processes access", doc["resultTable"]["rows"], want["1_count_filter"])
+
+        # /debug/pprof of the broker process while a query runs
+        busy = threading.Thread(target=lambda: conn.execute(CONFIGS["4_q4_groupby_orderby"]))
+        busy.start()
+        import urllib.request
+
+        with urllib.request.urlopen(f"{b_url}/debug/pprof?seconds=1", timeout=60) as r:
+            folded = r.read().decode()
+        busy.join(timeout=120)
+        stacks = [ln for ln in folded.splitlines() if ln.strip()]
+        if not stacks or not all(ln.rsplit(" ", 1)[1].isdigit() and ";" in ln for ln in stacks):
+            raise AssertionError(f"processes pprof: no folded stacks: {folded[:500]!r}")
+
+        memory = {}
+        for s, u in zip(servers, s_urls):
+            hbm = http_json(f"{u}/debug/roofline?top=0")["hbm"]
+            memory[s.name] = {"pid": s.proc.pid, "live_bytes": hbm["liveBytes"], "peak_bytes": hbm["peakBytes"],
+                              "source": hbm["source"]}
+        emit(
+            {
+                "phase": "processes",
+                "results_match_oracle": True,
+                "segments": CLUSTER_SEGMENTS,
+                "servers": PROC_SERVERS,
+                "replication": CLUSTER_REPLICATION,
+                "start_s": {r.name: r.start_s for r in roles},
+                "cluster_up_s": cluster_up_s,
+                "upload_s": upload_s,
+                "queries": per_query,
+                "launches": path_launches,
+                "lookup": {"s": lookup_s, "launches": lookup_launches},
+                "access": {"anonymous": refused, "wrong_password": wrong, "reader": admitted},
+                "pprof": {"stacks": len(stacks), "samples": sum(int(ln.rsplit(" ", 1)[1]) for ln in stacks)},
+                "device_memory": memory,
+                "card_memory_used": {"before": card_before, "with_the_processes": card_memory_used()},
+                "card": card_line(),
+            }
+        )
+    finally:
+        if auth_svc is not None:
+            auth_svc.stop()
+        if auth_broker is not None:
+            auth_broker.shutdown()
+        for r in roles:
+            r.kill()
+        _shutil.rmtree(root, ignore_errors=True)
+    return path_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4714,7 +5247,7 @@ def main() -> int:
             "python": sys.version.split()[0],
         }
     )
-    report = build.build(["grouped_sum_count", "grouped_sum_count_2l", "grouped_extreme", "grouped_sum_f32"])
+    report = build.build(list(build.KERNEL_SOURCES))
     emit({"phase": "build", "nvcc": build.nvcc_path(), "flags": list(build.NVCC_FLAGS), "report": report})
 
     ssb = {**ssb_shapes(torch), **mv_shapes(torch)}
@@ -4741,21 +5274,30 @@ def main() -> int:
     run_store(torch, engine, main.pop("segments"), main.pop("tp_segments"), data)
     del engine
     cluster_launches, cluster = run_cluster(torch, counters, data, want, nation)
-    http_launches = run_cluster_http(torch, counters, cluster, want, data, nation)
+    http_launches, http_p50 = run_cluster_http(torch, counters, cluster, want, data, nation)
     cluster["broker"].shutdown()
-    shutil.rmtree(cluster["deep"], ignore_errors=True)
-    del cluster, data, want, nation
+    deep, want6 = cluster["deep"], cluster["want6"]
+    del cluster, data, nation
+    # the roles' five CUDA contexts share the card with this process: free
+    # the in-process cluster's staged segments first
+    gc.collect()
     torch.cuda.empty_cache()
+    process_launches = run_processes(torch, deep, want, want6, http_p50)
+    shutil.rmtree(deep, ignore_errors=True)
+    del want
     qps_launches = run_cluster_qps(torch, counters)
     scale_launches = run_sharded_scale(torch, counters)
     run_shuffle(torch)
     multistage_launches = run_multistage(torch, counters)
+    distributed_launches = run_multistage_distributed(torch, counters)
     # each path's counts, read just after it: the main path's, the sharded
     # path's (its proto reruns included), the mesh's, the scale path's, the
-    # multistage engine's and the three cluster phases' launches. The sum entry of grouped_sum_f32 is
-    # on none: the kernel's launches are its presence entry's
+    # multistage engine's, the three cluster phases', the distributed
+    # stages' and the server processes' (from their registries) launches.
+    # The sum entry of grouped_sum_f32 is on none: the kernel's launches are
+    # its presence entry's
     paths = (main["launches"], sharded_launches, mesh_launches, scale_launches, multistage_launches,
-             cluster_launches, http_launches, qps_launches)
+             cluster_launches, http_launches, qps_launches, distributed_launches, process_launches)
     launches = {k: sum(p[k] for p in paths) for k in main["launches"]}
     launches["grouped_sum_f32"] = launches["presence"]
 

@@ -8,11 +8,11 @@ scatter fans out over a thread pool to server handles (in-process objects or
 HTTP clients over DCN), partials are the host-format DataTable analog, and
 the reduce is the shared reduce module.
 
-The broker never picks a device: the servers hold the segments and run the
-kernels, and the in-process multistage route runs its engine on the device
-of the servers it takes the segments from. Access control and the
-distributed multistage dispatcher are ROADMAP A9b, as is the continuous
-profiler.
+The servers hold the segments and run the kernels. The in-process
+multistage route runs its engine on the device of the servers it takes the
+segments from; over remote servers the stages run in the server processes
+(multistage/distributed.py) and the broker's root stage on the broker's own
+`device`.
 """
 
 from __future__ import annotations
@@ -99,6 +99,7 @@ class Broker:
         resilience=None,
         scheduler_config=None,
         cache_config=None,
+        device="cuda",
     ):
         """selector: instance selector (Balanced default; ReplicaGroup /
         Adaptive from cluster.routing). failure_detector: optional
@@ -116,7 +117,10 @@ class Broker:
         (SchedulerConfig(enabled=False) restores inline execution).
         cache_config: common.config.CacheConfig — the query-cache plane
         (result + parse + plan tiers, cluster/result_cache.py); default ON,
-        CacheConfig(enabled=False) restores uncached execution."""
+        CacheConfig(enabled=False) restores uncached execution. device: where
+        the distributed multistage route runs its root stage ("cuda" unless
+        the caller passes "cpu"); that route raises when it is "cuda" and
+        there is no card."""
         import collections
 
         from pinot_tpu_torch.cluster.admission import AdmissionController
@@ -128,9 +132,8 @@ class Broker:
             SchedulerConfig,
         )
 
-        if access_control is not None:
-            raise NotImplementedError("Broker(access_control=...): the AccessControl SPI is ROADMAP A9b")
         self.controller = controller
+        self.device = device
         self.scheduler_config = (
             scheduler_config if scheduler_config is not None else SchedulerConfig()
         )
@@ -176,7 +179,9 @@ class Broker:
 
         scan_stats.configure(self.obs_config.scan_obs_enabled)
         if self.obs_config.profiler_enabled:
-            raise NotImplementedError("ObservabilityConfig(profiler_enabled=True): the sampling profiler is ROADMAP A9b")
+            from pinot_tpu_torch.common.profiler import maybe_start_profiler
+
+            maybe_start_profiler(self.obs_config)
         #: structured slow-query ring buffer (newest last); entries also go
         #: to the pinot_tpu_torch.slowquery logger as one JSON line each
         self.slow_queries = collections.deque(maxlen=self.obs_config.slow_query_log_max_entries)
@@ -194,6 +199,8 @@ class Broker:
         self._running: dict[str, dict] = {}
         self._running_lock = threading.Lock()
         self._pool = ThreadPoolExecutor(max_workers=max_scatter_threads)
+        self._dispatcher = None
+        self._dispatcher_lock = threading.Lock()
         # hedged-scatter state (tail-at-scale): per-(server,table) latency
         # EWMA drives the hedge delay; cumulative primary/issued counts
         # enforce the fan-out budget
@@ -377,6 +384,10 @@ class Broker:
                 found = bool(cancel(qid)) or found
             except Exception:  # pinotlint: disable=deadline-swallow — best-effort cancel fan-out; an unreachable server is already failing the query
                 pass
+        disp = self._dispatcher
+        if disp is not None and qid in disp.registry.live_queries():
+            disp.registry.close(qid)
+            found = True
         return found
 
     def execute(self, sql: str, identity: str | None = None) -> ResultTable:
@@ -430,6 +441,11 @@ class Broker:
                         "startMs": time.time() * 1e3,
                     }
                 table = getattr(stmt, "from_table", None) or ""
+                if self.access_control is not None:
+                    from pinot_tpu_torch.cluster.access import READ
+
+                    for t in _collect_tables(stmt) or ([table] if table else []):
+                        self.access_control.check(identity, t, READ)
                 if self.quota is not None and table:
                     self.quota.acquire(table)
                 # admission decision BEFORE any work is enqueued: shed
@@ -903,9 +919,13 @@ class Broker:
         return all(c["ok"] for c in components.values()), components
 
     def shutdown(self) -> None:
-        """Stop the admission scheduler's runner threads (idempotent)."""
+        """Stop the admission scheduler's runner threads and the distributed
+        dispatcher's mailbox listener (idempotent)."""
         if self.admission is not None:
             self.admission.stop()
+        disp, self._dispatcher = self._dispatcher, None
+        if disp is not None:
+            disp.stop()
 
     def admission_snapshot(self) -> dict:
         """Live admission-plane state for GET /debug/admission."""
@@ -1432,45 +1452,97 @@ class Broker:
         return partials, scanned, n_candidates, pruned, scan
 
     def _execute_multistage(self, stmt, sql: str, deadline=None, qid=None) -> ResultTable:
-        """Run the v2 engine over one replica of each segment.
+        """Dispatch the v2 engine over one replica of each segment.
 
         Reference parity: QueryDispatcher.submitAndReduce
-        (pinot-query-runtime/.../QueryDispatcher.java:128). With in-process
-        servers the local engine runs over their segment objects, on their
-        device. When every participating server is remote (HTTP), the
-        reference dispatches the stages to the server processes
-        (multistage/distributed.py): that route is ROADMAP A9b."""
+        (pinot-query-runtime/.../QueryDispatcher.java:128). Two modes:
+        - all participating servers remote (HTTP): TRUE distributed dispatch —
+          stages run on the server processes, blocks shuffle over the
+          /mailbox transport, broker runs the root stage
+          (multistage/distributed.py).
+        - in-process servers (tests / all-in-one): local engine over acquired
+          segment objects, on the device of the servers it takes them from."""
         from pinot_tpu_torch.common.trace import InvocationScope
 
         import zlib
 
         servers = self.controller.servers()
         schemas: dict[str, list[str]] = {}
+        # table -> server -> [(segment name, deep-store location)]
+        seg_assign: dict[str, dict[str, list]] = {}
         seg_info: dict[str, list] = {}  # table -> [(name, online sids, location)]
+        table_servers: dict[str, list[str]] = {}
         participating: set[str] = set()
+        total_docs = 0
+        table_docs: dict[str, int] = {}  # cost-model row counts per table
+        # table -> column -> the segments' dictionary cardinalities; a column
+        # any counted segment lacks one for drops out (Catalog.from_segments)
+        table_cards: dict[str, dict[str, list]] = {}
         for table in _collect_tables(stmt):
             if self.controller.get_table(table) is None:
                 raise KeyError(f"no such table: {table}")
             schema = self.controller.get_schema(table)
             if schema is not None:
                 schemas[table] = list(schema.columns)
+            ideal = self.controller.ideal_state(table)
+            assign: dict[str, list] = {}
             info: list = []
-            for seg_name, replicas in sorted(self.controller.ideal_state(table).items()):
+            for seg_name, replicas in sorted(ideal.items()):
                 online = sorted(
                     sid for sid, st in replicas.items() if st == "ONLINE" and sid in servers
                 )
                 if not online:
                     continue
                 meta = self.controller.segment_metadata(table, seg_name)
-                info.append((seg_name, online, (meta or {}).get("location")))
-                # the reference's replica spread (crc32, stable across
-                # processes): which servers the dispatch would reach
-                participating.add(online[zlib.crc32(seg_name.encode()) % len(online)])
+                location = (meta or {}).get("location")
+                info.append((seg_name, online, location))
+                # replica spread must be stable across processes/restarts:
+                # crc32, not hash() (PYTHONHASHSEED-salted)
+                sid = online[zlib.crc32(seg_name.encode()) % len(online)]
+                assign.setdefault(sid, []).append([seg_name, location])
+                n_docs = int((meta or {}).get("numDocs") or 0)
+                total_docs += n_docs
+                table_docs[table] = table_docs.get(table, 0) + n_docs
+                cards = table_cards.setdefault(table, {})
+                for col, st in ((meta or {}).get("stats") or {}).items():
+                    cards.setdefault(col, []).append(int(st.get("cardinality") or 0))
+            seg_assign[table] = assign
             seg_info[table] = info
-        if participating and all(getattr(servers[sid], "base_url", None) for sid in participating):
-            raise NotImplementedError(
-                "distributed multistage dispatch over remote servers (DistributedDispatcher) is ROADMAP A9b"
-            )
+            table_servers[table] = sorted(assign)
+            participating |= set(assign)
+
+        distributed = bool(participating) and all(
+            getattr(servers[sid], "base_url", None) for sid in participating
+        )
+        if distributed:
+            dispatcher = self._multistage_dispatcher()
+            server_urls = {sid: servers[sid].base_url for sid in participating}
+            with InvocationScope("multistage:dispatch", tables=list(seg_assign)) as scope:
+                result = dispatcher.execute(
+                    sql,
+                    stmt,
+                    schemas,
+                    table_servers,
+                    seg_assign,
+                    server_submit=lambda sid, doc: servers[sid].multistage_submit(
+                        {**doc, "target": sid}
+                    ),
+                    server_urls=server_urls,
+                    total_docs=total_docs,
+                    row_counts=table_docs,
+                    ndv={
+                        t: {
+                            c: sum(v)
+                            for c, v in cols.items()
+                            if len(v) == len(seg_info[t]) and all(x > 0 for x in v)
+                        }
+                        for t, cols in table_cards.items()
+                    },
+                    qid=qid,
+                    deadline=deadline,
+                )
+                scope.set_attr("numRows", len(result.rows))
+            return result
 
         from pinot_tpu_torch.multistage import MultistageEngine
 
@@ -1510,6 +1582,17 @@ class Broker:
             result = engine.execute(sql, stmt=stmt, deadline=deadline)
             scope.set_attr("numRows", len(result.rows))
         return result
+
+    def _multistage_dispatcher(self):
+        # double-checked: a lost construction race would leak the loser's
+        # mailbox listener socket + thread for the process lifetime
+        if self._dispatcher is None:
+            with self._dispatcher_lock:
+                if self._dispatcher is None:
+                    from pinot_tpu_torch.multistage.distributed import DistributedDispatcher
+
+                    self._dispatcher = DistributedDispatcher(device=self.device)
+        return self._dispatcher
 
     @staticmethod
     def _expand_star(stmt, schema) -> None:

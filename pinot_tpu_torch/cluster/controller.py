@@ -212,8 +212,6 @@ class Controller:
         return Schema.from_json(doc["json"]) if doc else None
 
     def add_table(self, config: TableConfig) -> None:
-        if (config.extra or {}).get("isDimTable"):
-            raise NotImplementedError("dimension tables (isDimTable) and lookUp are ROADMAP A9b")
         fence = self.lease_fence()
         self.store.set(f"/tables/{config.table_name}/config", {"json": config.to_json()}, fence=fence)
         if self.store.get(f"/tables/{config.table_name}/idealstate") is None:
@@ -271,7 +269,13 @@ class Controller:
         for s in segs:
             self.delete_segment(name, s)
         if cfg is not None and (cfg.extra or {}).get("isDimTable"):
-            raise NotImplementedError("dimension tables (isDimTable) are ROADMAP A9b")
+            from pinot_tpu_torch.cluster.dimension import unregister_dim_table
+
+            unregister_dim_table(name)
+            for handle in self.servers().values():
+                unload = getattr(handle, "unload_dim_table", None)
+                if unload is not None:
+                    unload(name)
         for p in list(self.store.list(f"/tables/{name}/")):
             self.store.delete(p, fence=self.lease_fence())
         return len(segs)
@@ -379,7 +383,17 @@ class Controller:
         config = config or self.get_table(table)
         if config is None or not (config.extra or {}).get("isDimTable"):
             return
-        raise NotImplementedError("dimension tables (isDimTable) and lookUp are ROADMAP A9b")
+        from pinot_tpu_torch.cluster.dimension import load_dim_table
+
+        schema = self.get_schema(table)
+        locations = [m["location"] for _, m in sorted(self.all_segment_metadata(table).items()) if m.get("location")]
+        load_dim_table(table, schema, locations)
+        # servers in processes of their own keep their own registry: hand
+        # each the same locations (in-process servers share this one)
+        for handle in self.servers().values():
+            load = getattr(handle, "load_dim_table", None)
+            if load is not None:
+                load(table, schema, locations)
 
     @staticmethod
     def _compute_partitions(segment: ImmutableSegment, config: TableConfig) -> dict:

@@ -12,10 +12,13 @@ proxy) share the keep-alive connection pool in common/wire.py, and
 handlers speak HTTP/1.1 so one TCP connection carries many requests.
 Intra-pod device collectives (parallel/mesh.py) stay out of this tier.
 
-The port serves the broker and the server roles. The controller's REST
-service and its client, the multistage mailbox endpoint and the profiler are
-ROADMAP A9b; the time-series endpoint is A10. Each answers 501 (or raises
-NotImplementedError) naming its item.
+Every role of the port is served here: the broker, the server (with the
+multistage /mailbox and /multistage/submit endpoints the distributed stages
+ride), and the controller's REST service with its client
+(RemoteControllerClient), which a broker in its own process routes through.
+What belongs to ROADMAP A10 (the time-series endpoint, rebalance, minion
+tasks, the cluster metrics aggregator and its alerts, the controller UI)
+answers 501 naming its item.
 """
 
 from __future__ import annotations
@@ -301,8 +304,34 @@ def _send_not_implemented(handler, what: str) -> None:
 
 
 def _serve_pprof(handler) -> None:
-    """GET /debug/pprof: the sampling profiler (common/profiler.py)."""
-    _send_not_implemented(handler, "/debug/pprof: the sampling profiler is ROADMAP A9b")
+    """GET /debug/pprof[?seconds=N][&format=json]: sampling-profiler output
+    (common/profiler.py). Default is flamegraph.pl collapsed-stack text of
+    the continuous ring; `?seconds=N` takes a fresh bounded capture window
+    inline (the pprof-style on-demand profile); `format=json` returns the
+    structured stacks with per-query attribution counts."""
+    from pinot_tpu_torch.common.profiler import SamplingProfiler, get_profiler
+
+    query = handler.path.partition("?")[2]
+    params = dict(p.split("=", 1) for p in query.split("&") if "=" in p)
+    prof = get_profiler()
+    if "seconds" in params:
+        try:
+            seconds = float(params["seconds"])
+        except ValueError:
+            handler.send_error(400, "seconds must be a number")
+            return
+        doc = prof.capture(seconds)
+    else:
+        doc = prof.profile()
+    if params.get("format") == "json":
+        _send_json(handler, doc)
+        return
+    payload = SamplingProfiler.collapsed_text(doc).encode()
+    handler.send_response(200)
+    handler.send_header("Content-Type", "text/plain; charset=utf-8")
+    handler.send_header("Content-Length", str(len(payload)))
+    handler.end_headers()
+    handler.wfile.write(payload)
 
 
 def _serve_workload(handler) -> None:
@@ -545,7 +574,29 @@ class ServerHTTPService:
                 if self.path == "/mailbox":
                     # cross-process multistage shuffle delivery
                     # (PinotMailbox.open stream analog, mailbox.proto:24-25)
-                    _send_not_implemented(self, "/mailbox: the multistage mailbox transport is ROADMAP A9b")
+                    from pinot_tpu_torch.multistage.transport import handle_mailbox_post
+
+                    handle_mailbox_post(svc.server.mailbox_registry, self)
+                    return
+                if self.path in ("/dimtables/load", "/dimtables/unload"):
+                    # the controller's dimension-table refresh for a server
+                    # in a process of its own: rebuild this process's PK map
+                    # from the table's deep-store segment dirs
+                    from pinot_tpu_torch.cluster import dimension
+                    from pinot_tpu_torch.common.types import Schema
+
+                    n = int(self.headers.get("Content-Length", 0))
+                    try:
+                        body = json.loads(self.rfile.read(n) or b"{}")
+                        if self.path == "/dimtables/load":
+                            schema = Schema.from_json(body["schema"]) if body.get("schema") else None
+                            size = dimension.load_dim_table(body["table"], schema, body["locations"]).size
+                        else:
+                            dimension.unregister_dim_table(body["table"])
+                            size = 0
+                        _send_json(self, {"status": "ok", "rows": size})
+                    except Exception as e:
+                        _send_json(self, {"error": f"{type(e).__name__}: {e}", "errorCode": code_of(e)}, status=500)
                     return
                 if self.path == "/multistage/submit":
                     # distributed stage dispatch (PinotQueryWorker.Submit analog)
@@ -1100,21 +1151,522 @@ class RemoteServerClient:
             return None
 
     def multistage_submit(self, doc: dict) -> None:
-        raise NotImplementedError("RemoteServerClient.multistage_submit: distributed multistage stages are ROADMAP A9b")
+        self._post_json("/multistage/submit", doc)
+
+    def load_dim_table(self, table: str, schema, locations: list) -> None:
+        """Have the server process (re)load dimension table `table` from
+        its segments' deep-store dirs (cluster/dimension.py)."""
+        self._post_json(
+            "/dimtables/load",
+            {"table": table, "schema": schema.to_json() if schema is not None else None, "locations": list(locations)},
+        )
+
+    def unload_dim_table(self, table: str) -> None:
+        self._post_json("/dimtables/unload", {"table": table})
 
 
 class ControllerHTTPService:
-    """Controller REST surface (pinot-controller/.../api/resources/ parity)."""
+    """Controller REST surface (pinot-controller/.../api/resources/ parity,
+    the subset that matters for clients/CLI):
+
+      GET  /health | /health/ready | /tables | /tables/{t} | /tables/{t}/schema
+           /tables/{t}/idealstate | /tables/{t}/segments | /brokers | /instances
+           /tasks?state=... | /debug/cluster | /debug/alerts
+      POST /schemas            {schema json}
+      POST /tables             {table config json}
+      POST /instances          {"type": "server"|"broker", "id", "host", "port"}
+      POST /segments/{table}   raw ptseg segment-dir tarball (upload path)
+      POST /tasks/schedule     {"taskType": optional}
+
+    The port's controller always leads (its HA is ROADMAP A10), so the
+    standby gate and the fencing answer only where a controller reports it
+    does not; they keep the reference's 503 + `leaderUrl` contract. The
+    task endpoints, rebalance, /debug/cluster, /debug/alerts and the UI
+    belong to A10 and answer 501 naming it.
+    """
 
     def __init__(self, controller: Controller, port: int = 0, task_manager=None):
-        raise NotImplementedError("ControllerHTTPService: the controller's HTTP service is ROADMAP A9b")
+        if task_manager is not None:
+            raise NotImplementedError("ControllerHTTPService(task_manager=...): minion tasks are ROADMAP A10")
+        svc = self
+        self.controller = controller
+        self.task_manager = None
+
+        class Handler(_InstrumentedHandler):
+            def log_message(self, *a):
+                pass
+
+            def _json(self, doc, code=200):
+                payload = json.dumps(doc).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
+            def _reject_standby(self, c) -> bool:
+                """Standby gate for mutating endpoints: 503 + leaderUrl hint
+                (the lead-controller REST redirect contract — clients follow
+                the hint instead of mutating through a non-lead)."""
+                if c.is_leader:
+                    return False
+                self._json(
+                    {
+                        "error": f"not leader: controller {c.controller_id!r} is standby",
+                        "errorCode": int(QueryErrorCode.CONTROLLER_UNAVAILABLE),
+                        "leaderUrl": c.leader_url(),
+                    },
+                    503,
+                )
+                return True
+
+            def _fenced(self, c, e) -> None:
+                """A mutation slipped past the standby gate on a stale
+                ex-leader (lease lost mid-request) and the store rejected it:
+                same 503 + leaderUrl contract as the gate."""
+                self._json(
+                    {
+                        "error": f"{type(e).__name__}: {e}",
+                        "errorCode": int(QueryErrorCode.CONTROLLER_UNAVAILABLE),
+                        "leaderUrl": c.leader_url(),
+                    },
+                    503,
+                )
+
+            def do_GET(self):
+                c = svc.controller
+                try:
+                    parts = [p for p in self.path.split("?")[0].split("/") if p]
+                    if self.path in ("/", "/index.html"):
+                        _send_not_implemented(self, "the controller UI is ROADMAP A10")
+                    elif self.path.partition("?")[0] == "/metrics":
+                        from pinot_tpu_torch.common.metrics import controller_metrics
+
+                        _serve_metrics(self, controller_metrics())
+                    elif self.path == "/health":
+                        self._json({"status": "OK"})
+                    elif self.path == "/health/ready":
+                        _serve_ready(self, c.readiness)
+                    elif self.path == "/leader":
+                        # lease observability for failover probes and the
+                        # chaos bench: role, epoch, takeover/fence counters
+                        self._json(c.ha_status())
+                    elif self.path == "/debug/faults":
+                        from pinot_tpu_torch.common.faults import FAULTS
+
+                        self._json({"enabled": FAULTS.enabled, "counts": FAULTS.counts()})
+                    elif self.path == "/debug/frontend":
+                        self._json(
+                            frontend_snapshot(
+                                "controller",
+                                tracker=getattr(self.server, "_conn_tracker", None),
+                            )
+                        )
+                    elif self.path.partition("?")[0] in ("/debug/cluster", "/debug/alerts"):
+                        # the ClusterMetricsAggregator's federated view and
+                        # its SLO alerts (cluster/periodic.py)
+                        _send_not_implemented(
+                            self, f"{self.path.partition('?')[0]}: the cluster metrics aggregator is ROADMAP A10"
+                        )
+                    elif self.path == "/tables":
+                        self._json({"tables": c.tables()})
+                    elif len(parts) == 2 and parts[0] == "tables":
+                        tc = c.get_table(parts[1])
+                        if tc is None:
+                            self._json({"error": "not found"}, 404)
+                        else:
+                            self._json(json.loads(tc.to_json()))
+                    elif len(parts) == 3 and parts[0] == "tables" and parts[2] == "schema":
+                        sch = c.get_schema(parts[1])
+                        self._json(json.loads(sch.to_json()) if sch else {"error": "not found"}, 200 if sch else 404)
+                    elif len(parts) == 3 and parts[0] == "tables" and parts[2] == "idealstate":
+                        self._json(c.ideal_state(parts[1]))
+                    elif len(parts) == 3 and parts[0] == "tables" and parts[2] == "segments":
+                        self._json(c.all_segment_metadata(parts[1]))
+                    elif self.path.partition("?")[0] == "/routingversions":
+                        # batched version-vector read for broker cache keys:
+                        # one RTT regardless of how many tables a query touches
+                        from urllib.parse import parse_qs
+
+                        qs = parse_qs(self.path.partition("?")[2])
+                        names = [t for t in (qs.get("tables", [""])[0]).split(",") if t]
+                        self._json(c.routing_versions(names))
+                    elif len(parts) == 3 and parts[0] == "tables" and parts[2] == "consumingSegmentsInfo":
+                        info = {}
+                        for sid, srv in c.servers().items():
+                            fn = getattr(srv, "consumption_status", None)
+                            st = fn(parts[1]) if fn is not None else []
+                            if st:
+                                info[sid] = st
+                        self._json(info)
+                    elif self.path == "/brokers":
+                        self._json(c.brokers())
+                    elif self.path == "/instances":
+                        self._json({p.split("/")[-1]: c.store.get(p) for p in c.store.list("/instances/")})
+                    elif parts and parts[0] == "tasks":
+                        _send_not_implemented(self, "/tasks: minion tasks are ROADMAP A10")
+                    else:
+                        self._json({"error": "not found"}, 404)
+                except Exception as e:
+                    self._json({"error": f"{type(e).__name__}: {e}", "errorCode": code_of(e)}, 500)
+
+            def do_DELETE(self):
+                from pinot_tpu_torch.cluster.metadata import FencedWriteError
+
+                c = svc.controller
+                parts = self.path.strip("/").split("/")
+                # the query-cancel proxy stays available on standbys (it only
+                # fans out to brokers); metadata deletes are lead-only
+                if len(parts) == 2 and parts[0] in ("tables", "schemas") and self._reject_standby(c):
+                    return
+                try:
+                    if len(parts) == 2 and parts[0] == "tables":
+                        removed = c.delete_table(parts[1])
+                        self._json({"status": "ok", "segmentsRemoved": removed})
+                    elif len(parts) == 2 and parts[0] == "schemas":
+                        c.delete_schema(parts[1])
+                        self._json({"status": "ok"})
+                    elif len(parts) == 2 and parts[0] == "query":
+                        # cancel proxy (PinotRunningQueryResource parity): the
+                        # client knows only the controller; try every broker
+                        qid = parts[1]
+                        cancelled_on = []
+                        for bid, base_url in sorted(c.brokers().items()):
+                            bhost, bport = _host_port(base_url.rstrip("/"))
+                            try:
+                                with get_pool().request(
+                                    bhost, bport, "DELETE", f"/query/{qid}", timeout_s=5.0
+                                ) as resp:
+                                    body = resp.read()
+                                    if resp.status < 400 and json.loads(body).get("cancelled"):
+                                        cancelled_on.append(bid)
+                            except (ValueError, OSError):
+                                continue
+                        self._json(
+                            {"queryId": qid, "cancelled": bool(cancelled_on), "brokers": cancelled_on},
+                            200 if cancelled_on else 404,
+                        )
+                    else:
+                        self._json({"error": "not found"}, 404)
+                except FencedWriteError as e:
+                    self._fenced(c, e)
+                except ValueError as e:
+                    self._json({"error": str(e)}, 409)
+                except Exception as e:
+                    self._json({"error": f"{type(e).__name__}: {e}", "errorCode": code_of(e)}, 500)
+
+            def do_POST(self):  # noqa: C901
+                from pinot_tpu_torch.cluster.metadata import FencedWriteError
+                from pinot_tpu_torch.common.config import TableConfig
+                from pinot_tpu_torch.common.types import Schema
+
+                c = svc.controller
+                n = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(n)
+                if self.path == "/debug/faults":
+                    # runtime chaos arming, deliberately NOT lead-gated: the
+                    # split-brain test arms lease.renew on the current lead,
+                    # then must disarm it AFTER it has become a fenced standby
+                    from pinot_tpu_torch.common.faults import FAULT_POINTS, FAULTS
+
+                    try:
+                        body = json.loads(raw or b"{}")
+                        points = body.get("points") or {}
+                        unknown = sorted(set(points) - FAULT_POINTS)
+                        if unknown:
+                            raise ValueError(f"unknown fault points: {unknown}")
+                        FAULTS.configure(points, seed=int(body.get("seed", 0)))
+                        self._json({"armed": sorted(points)})
+                    except Exception as e:
+                        self._json({"error": f"{type(e).__name__}: {e}", "errorCode": code_of(e)}, 400)
+                    return
+                if self._reject_standby(c):
+                    return
+                try:
+                    parts = [p for p in self.path.split("/") if p]
+                    ac = getattr(c, "access_control", None)
+                    if ac is not None:
+                        # every mutating controller endpoint needs WRITE
+                        # (controller api/access AccessControl parity); the
+                        # table resource is the path's table component when
+                        # present
+                        from pinot_tpu_torch.cluster.access import WRITE
+
+                        ident = ac.authenticate(dict(self.headers))
+                        table_res = parts[1] if len(parts) >= 2 and parts[0] in ("segments", "tables") else None
+                        ac.check(ident, table_res, WRITE)
+                    if self.path == "/schemas":
+                        c.add_schema(Schema.from_json(raw.decode()))
+                        self._json({"status": "ok"})
+                    elif self.path == "/tables":
+                        c.add_table(TableConfig.from_json(raw.decode()))
+                        self._json({"status": "ok"})
+                    elif self.path == "/instances":
+                        body = json.loads(raw)
+                        if body.get("type") == "broker":
+                            c.register_broker(body["id"], body["host"], int(body["port"]))
+                        else:
+                            c.register_server(body["id"], host=body["host"], port=int(body["port"]))
+                        self._json({"status": "ok"})
+                    elif len(parts) == 3 and parts[0] == "segments" and parts[2] == "reload":
+                        body = json.loads(raw or b"{}")
+                        names = c.reload_segments(parts[1], body.get("segment"))
+                        self._json({"status": "ok", "reloaded": names})
+                    elif len(parts) == 2 and parts[0] == "segments":
+                        # segment upload: tarball of the segment directory
+                        import io as _io
+                        import tarfile
+                        import tempfile
+
+                        from pinot_tpu_torch.segment.loader import load_segment
+
+                        with tempfile.TemporaryDirectory() as tmp:
+                            with tarfile.open(fileobj=_io.BytesIO(raw), mode="r:gz") as tf:
+                                tf.extractall(tmp, filter="data")
+                            entries = list(Path(tmp).iterdir())
+                            seg_root = entries[0] if len(entries) == 1 and entries[0].is_dir() else Path(tmp)
+                            seg = load_segment(seg_root)
+                            assigned = c.upload_segment(parts[1], seg)
+                        self._json({"status": "ok", "segment": seg.name, "servers": assigned})
+                    elif self.path == "/tasks/schedule":
+                        _send_not_implemented(self, "/tasks/schedule: minion tasks are ROADMAP A10")
+                    elif len(parts) == 3 and parts[0] == "tables" and parts[2] in (
+                        "pauseConsumption",
+                        "resumeConsumption",
+                    ):
+                        pause = parts[2] == "pauseConsumption"
+                        hit = []
+                        for sid, srv in c.servers().items():
+                            fn = getattr(srv, "pause_consumption" if pause else "resume_consumption", None)
+                            if fn is not None and fn(parts[1]):
+                                hit.append(sid)
+                        self._json({"status": "ok", "servers": hit, "paused": pause})
+                    elif len(parts) == 3 and parts[0] == "tables" and parts[2] == "rebalance":
+                        _send_not_implemented(self, f"/tables/{parts[1]}/rebalance: rebalance is ROADMAP A10")
+                    else:
+                        self._json({"error": "not found"}, 404)
+                except PermissionError as e:
+                    self._json({"error": str(e)}, 403)
+                except FencedWriteError as e:
+                    self._fenced(c, e)
+                except Exception as e:
+                    self._json({"error": f"{type(e).__name__}: {e}", "errorCode": code_of(e)}, 500)
+
+        self.httpd, self.port, self._thread = _serve(
+            Handler, port, role=_frontend_role(controller, "controller")
+        )
+
+    def stop(self):
+        self.httpd.shutdown()
 
 
 class RemoteControllerClient:
-    """HTTP client of a ControllerHTTPService."""
+    """Client-side controller handle over REST (used by CLI/clients and by
+    broker processes running apart from the controller). Control-plane
+    calls share the same keep-alive pool as the data plane.
+
+    HA failover: accepts one URL, a comma-separated list, or a list of
+    URLs. Requests walk the candidates with bounded retry + backoff on
+    ConnectionError/503; a standby's 503 `leaderUrl` hint is followed and
+    promoted to the front (so subsequent calls go straight to the lead).
+    When every candidate is down or refusing leadership, a typed
+    `ControllerUnavailableError` surfaces instead of a raw ConnectionError."""
 
     def __init__(self, base_url, timeout: float = 30.0, max_attempts: int = 3, backoff_s: float = 0.1):
-        raise NotImplementedError("RemoteControllerClient: the controller's HTTP service is ROADMAP A9b")
+        if isinstance(base_url, (list, tuple)):
+            raw_urls = [str(u) for u in base_url]
+        else:
+            raw_urls = str(base_url).split(",")
+        self.urls = [u.strip().rstrip("/") for u in raw_urls if u.strip()]
+        if not self.urls:
+            raise ValueError("RemoteControllerClient needs at least one controller URL")
+        self.timeout = timeout
+        self.max_attempts = max_attempts
+        self.backoff_s = backoff_s
+
+    @property
+    def base_url(self) -> str:
+        """Current preferred candidate (the known/most-recent lead)."""
+        return self.urls[0]
+
+    def _promote(self, url: str) -> None:
+        u = url.rstrip("/")
+        cur = self.urls
+        if cur and cur[0] == u:
+            return
+        # single reference assignment: racing request threads see either
+        # order, both of which contain every candidate
+        self.urls = [u] + [x for x in cur if x != u]
+
+    def _request(self, method: str, path: str, body: bytes | None = None,
+                 content_type: str = "application/json") -> dict:
+        from pinot_tpu_torch.common.errors import ControllerUnavailableError
+
+        headers = {"Content-Type": content_type} if body is not None else None
+        last_err: Exception | None = None
+        for attempt in range(self.max_attempts):
+            for url in list(self.urls):
+                host, port = _host_port(url)
+                try:
+                    with get_pool().request(
+                        host, port, method, path, body=body, headers=headers, timeout_s=self.timeout
+                    ) as resp:
+                        payload = resp.read()
+                        status = resp.status
+                except OSError as e:
+                    last_err = e  # dead candidate: try the next one
+                    continue
+                if status == 503:
+                    # a standby (or a just-fenced ex-lead): follow its
+                    # leaderUrl hint when offered, else walk the candidates
+                    try:
+                        hint = json.loads(payload).get("leaderUrl")
+                    except (ValueError, AttributeError):
+                        hint = None
+                    if hint:
+                        self._promote(hint)
+                    last_err = RuntimeError(
+                        f"controller {url} not leading ({status}): "
+                        f"{bytes(payload).decode(errors='replace')}"
+                    )
+                    continue
+                if status >= 400:
+                    raise RuntimeError(
+                        f"controller error ({status}): {bytes(payload).decode(errors='replace')}"
+                    )
+                self._promote(url)
+                return json.loads(payload)
+            if attempt + 1 < self.max_attempts:
+                time.sleep(self.backoff_s * (attempt + 1))
+        raise ControllerUnavailableError(
+            f"no controller reachable and leading after {self.max_attempts} attempts "
+            f"across {self.urls}: {last_err}",
+            candidates=list(self.urls),
+        )
+
+    def _get(self, path: str) -> dict:
+        return self._request("GET", path)
+
+    def _post(self, path: str, data: bytes, content_type: str = "application/json") -> dict:
+        return self._request("POST", path, body=data, content_type=content_type)
+
+    def health(self) -> bool:
+        try:
+            return self._get("/health").get("status") == "OK"
+        except OSError:
+            return False
+
+    def tables(self) -> list[str]:
+        return self._get("/tables")["tables"]
+
+    def brokers(self) -> dict[str, str]:
+        return self._get("/brokers")
+
+    def ideal_state(self, table: str) -> dict:
+        return self._get(f"/tables/{table}/idealstate")
+
+    def all_segment_metadata(self, table: str) -> dict:
+        return self._get(f"/tables/{table}/segments")
+
+    def segment_metadata(self, table: str, segment: str) -> dict | None:
+        return self.all_segment_metadata(table).get(segment)
+
+    def routing_versions(self, tables: list[str]) -> dict[str, int]:
+        if not tables:
+            return {}
+        return {t: int(v) for t, v in self._get(f"/routingversions?tables={','.join(tables)}").items()}
+
+    def routing_version(self, table: str) -> int:
+        return self.routing_versions([table]).get(table, 0)
+
+    def get_table(self, name: str):
+        from pinot_tpu_torch.common.config import TableConfig
+
+        try:
+            return TableConfig.from_json(json.dumps(self._get(f"/tables/{name}")))
+        except RuntimeError:
+            return None
+
+    def get_schema(self, name: str):
+        from pinot_tpu_torch.common.types import Schema
+
+        try:
+            return Schema.from_json(json.dumps(self._get(f"/tables/{name}/schema")))
+        except RuntimeError:
+            return None
+
+    def servers(self) -> dict[str, object]:
+        """Server handles from the instance registry (a Broker running in its
+        own process builds its routing table from these)."""
+        out = {}
+        for sid, doc in self._get("/instances").items():
+            if doc and doc.get("port"):
+                out[sid] = RemoteServerClient(f"http://{doc['host']}:{doc['port']}")
+        return out
+
+    def add_schema(self, schema) -> None:
+        self._post("/schemas", schema.to_json().encode())
+
+    def add_table(self, config) -> None:
+        self._post("/tables", config.to_json().encode())
+
+    def _delete(self, path: str) -> dict:
+        return self._request("DELETE", path)
+
+    def leader(self) -> dict:
+        """GET /leader: the answering controller's lease view (role, epoch,
+        takeover/fence counters, leaderUrl)."""
+        return self._get("/leader")
+
+    def delete_table(self, name: str) -> dict:
+        return self._delete(f"/tables/{name}")
+
+    def delete_schema(self, name: str) -> dict:
+        return self._delete(f"/schemas/{name}")
+
+    def register_instance(self, kind: str, instance_id: str, host: str, port: int) -> None:
+        self._post(
+            "/instances",
+            json.dumps({"type": kind, "id": instance_id, "host": host, "port": port}).encode(),
+        )
+
+    def upload_segment_dir(self, table: str, seg_dir: str | Path) -> dict:
+        """Tar up a written segment directory and push it (the tar.gz segment
+        upload REST path)."""
+        import io as _io
+        import tarfile
+
+        buf = _io.BytesIO()
+        seg_dir = Path(seg_dir)
+        with tarfile.open(fileobj=buf, mode="w:gz") as tf:
+            tf.add(seg_dir, arcname=seg_dir.name)
+        return self._post(f"/segments/{table}", buf.getvalue(), "application/gzip")
+
+    def upload_segment(self, table: str, seg) -> dict:
+        """Push a built in-memory segment: write to a temp dir, tar, upload.
+        Mirrors the in-process Controller.upload_segment surface so batch
+        runners/connectors work against either handle."""
+        import tempfile
+
+        from pinot_tpu_torch.segment.builder import write_segment
+
+        with tempfile.TemporaryDirectory() as tmp:
+            seg_dir = write_segment(seg, Path(tmp))
+            return self.upload_segment_dir(table, seg_dir)
+
+    def schedule_tasks(self, task_type: str | None = None) -> list[str]:
+        body = json.dumps({"taskType": task_type} if task_type else {}).encode()
+        return self._post("/tasks/schedule", body)["scheduled"]
+
+    def rebalance_table(
+        self,
+        table: str,
+        dry_run: bool = False,
+        drain_grace_sec: float = 0.0,
+        bootstrap: bool = False,
+    ) -> dict:
+        body = {"dryRun": dry_run, "drainGraceSec": drain_grace_sec, "bootstrap": bootstrap}
+        return self._post(f"/tables/{table}/rebalance", json.dumps(body).encode())
 
 
 def query_broker_http(base_url: str, sql: str) -> dict:

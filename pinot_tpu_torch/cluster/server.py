@@ -10,8 +10,10 @@ The server is the one role that touches the device: each table's segments
 are answered by a `QueryEngine` on `device` ("cuda" unless the caller asks
 for the CPU), so a group-by launches its kernels once a hosted segment.
 Group, DISTINCT and selection partials leave as `Frame`s, the DataTable's
-frame type. Realtime consumption is ROADMAP A10; distributed multistage
-stages (`multistage_submit`, the mailbox registry) are A9b.
+frame type. A distributed multistage submission (`multistage_submit`) runs
+this server's stage workers on the same device, its leaf stages through the
+single-stage engine, its blocks crossing to other processes through the
+mailbox registry. Realtime consumption is ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -118,12 +120,16 @@ class Server:
             return sorted(self._running)
 
     def cancel_query(self, qid: str) -> bool:
-        """Set the cancel flag on an in-flight query. Returns whether the
-        query was found here."""
+        """Set the cancel flag on an in-flight query (v1 partials or
+        multistage workers) and tombstone-close its mailboxes. Returns
+        whether the query was found here."""
         with self._lock:
             deadline = self._running.get(qid)
+            reg = getattr(self, "_mailbox_registry", None)
         if deadline is not None:
             deadline.cancel()
+        if reg is not None and qid in reg.live_queries():
+            reg.close(qid)
         return deadline is not None
 
     # -- realtime ------------------------------------------------------------
@@ -370,7 +376,7 @@ class Server:
             sched = self._scheduler
         components = {
             "segmentsLoaded": {"ok": pending == 0, "pendingTransitions": pending},
-            "mailboxRegistry": {"ok": True, "configured": False},
+            "mailboxRegistry": {"ok": self.mailbox_registry is not None},
             "scheduler": {
                 "ok": sched is None or bool(getattr(sched, "_running", True)),
                 "configured": sched is not None,
@@ -390,12 +396,79 @@ class Server:
     def mailbox_registry(self):
         """Per-server mailbox registry for cross-process stage shuffle
         (ReceivingMailbox registry parity)."""
-        raise NotImplementedError("Server.mailbox_registry: the distributed multistage mailbox transport is ROADMAP A9b")
+        with self._lock:
+            reg = getattr(self, "_mailbox_registry", None)
+            if reg is None:
+                from pinot_tpu_torch.multistage.transport import MailboxRegistry
+
+                reg = self._mailbox_registry = MailboxRegistry()
+            return reg
 
     def multistage_submit(self, body: dict) -> None:
         """Accept a distributed stage-plan submission (QueryServer.submit
-        parity, worker.proto:24-32)."""
-        raise NotImplementedError("Server.multistage_submit: distributed multistage stages are ROADMAP A9b")
+        parity, worker.proto:24-32): rebuild the plan and run this server's
+        assigned (stage, worker) OpChains on background threads. With a
+        scheduler configured, the plan rebuild + worker launch is admitted
+        through it, so a flood of stage submissions is bounded by the same
+        queue that bounds the v1 scatter path (overflow rejects with
+        SchedulerRejectedError instead of spawning unbounded workers)."""
+        if self._scheduler is not None:
+            tables = sorted(body.get("segments") or {})
+            group = tables[0] if tables else "_stages"
+            self._scheduler.submit(self._multistage_submit_inner, body, table=group).result()
+            return
+        self._multistage_submit_inner(body)
+
+    def _multistage_submit_inner(self, body: dict) -> None:
+        from pinot_tpu_torch.multistage.distributed import run_assigned_stages
+
+        placement = {(int(s), int(w)): owner for s, w, owner in body["placement"]}
+        segments: dict[str, list] = {}
+        for table, entries in (body.get("segments") or {}).items():
+            objs = []
+            for entry in entries:
+                name, location = entry if isinstance(entry, (list, tuple)) else (entry, None)
+                got = self.get_segment_object(table, name)
+                if got is None and location:
+                    # stale local state (concurrent remove/reload): scan the
+                    # deep-store copy rather than silently shrinking results
+                    from pinot_tpu_torch.segment.loader import load_segment
+
+                    got = load_segment(location)
+                if got is None:
+                    raise RuntimeError(
+                        f"assigned segment {table}/{name} not hosted here and no "
+                        "deep-store copy available"
+                    )
+                objs.append(got)
+            segments[table] = objs
+        from pinot_tpu_torch.query.context import Deadline
+
+        qid = body["query_id"]
+        deadline_ts = body.get("deadline_ts")
+        deadline = Deadline(float(deadline_ts) if deadline_ts is not None else None)
+        # register BEFORE starting workers: a cancel racing the submit must
+        # find the entry (on_done unregisters once the last worker finishes)
+        self._register_query(qid, deadline)
+        run_assigned_stages(
+            qid=qid,
+            my_id=body.get("target", self.server_id),
+            sql=body["sql"],
+            schemas=body["schemas"],
+            n_workers=int(body.get("n_workers", 4)),
+            parallelism={int(k): int(v) for k, v in body["parallelism"].items()},
+            placement=placement,
+            addresses=body["addresses"],
+            segments=segments,
+            registry=self.mailbox_registry,
+            receive_timeout=float(body.get("receive_timeout", 60.0)),
+            row_counts={k: int(v) for k, v in (body.get("row_counts") or {}).items()},
+            ndv={t: {c: int(v) for c, v in cols.items()} for t, cols in (body.get("ndv") or {}).items()},
+            deadline=deadline,
+            on_done=lambda: self._unregister_query(qid),
+            trace_ctx=body.get("trace_ctx"),
+            device=self.device,
+        )
 
     def _engine(self, table: str) -> QueryEngine:
         with self._lock:

@@ -20,8 +20,9 @@ own timeline. Server subtrees ride back on the data-path response, and
 `RequestTrace.assemble()` flattens them into the one document served at the
 broker's `GET /debug/traces/{requestId}`. `trace_event()` adds an event to
 the active span (fault-injector hits, deadline checks) and is a no-op with
-no trace. The v2 stage-plan envelope and its end-of-stream stats relay come
-with the distributed multistage dispatcher (ROADMAP A9b).
+no trace. The distributed multistage dispatcher carries the context in the
+v2 stage-plan envelope, and each server's stage workers send their subtrees
+back on the trailing end-of-stream stats relay (multistage/distributed.py).
 """
 
 from __future__ import annotations

@@ -1,0 +1,374 @@
+"""Distributed multistage dispatch: stages run on real server processes,
+stage-to-stage blocks shuffle over the HTTP mailbox transport.
+
+Reference parity: QueryDispatcher.submit
+(pinot-query-runtime/.../service/dispatch/QueryDispatcher.java:99,182) sends
+each worker its StagePlan over gRPC (worker.proto:24-32); workers run OpChains
+and shuffle via PinotMailbox streams. Here the broker ships {sql, schemas,
+parallelism, placement, segment assignment} to each participating server's
+/multistage/submit endpoint; every process REBUILDS the stage plan from the
+same inputs (build_stage_plan is deterministic), so only the placement —
+not the operator tree — crosses the wire. The broker itself runs stage 0
+(the root/reduce stage) against its own mailbox listener.
+
+Leaf placement follows data locality like the reference: each server hosting
+segments of a scanned table becomes one leaf worker and scans exactly its
+assigned replica set (RunCtx.scan_local_all).
+
+This is the JAX package's `multistage/distributed.py` without pandas. A
+server's workers run on that server's device (its leaf stages through the
+single-stage engine there, so the group-by kernels launch in the server
+process); the broker's root stage runs on the broker's device, through the
+same size and cost gates as every other stage, as the reference's root runs
+on its broker's default device. The root's block becomes rows with
+`runtime.to_rows`, the numpy form of the reference's
+`astype(object).where(notna, None)`.
+
+The port's broker ships NDV bounds (`ndv`) in the submit body and the
+reference's servers ignore them, so a port broker dispatching stages to the
+reference's servers would plan differently from them: distributed stages
+need the broker and the servers of one package."""
+
+from __future__ import annotations
+
+import threading
+import uuid
+
+from pinot_tpu_torch.multistage import logical as L, runtime as R
+from pinot_tpu_torch.multistage.transport import DistributedMailbox, MailboxRegistry
+
+BROKER_ID = "__broker__"
+
+
+def _scan_tables(node: L.Node, out: set[str]) -> None:
+    if isinstance(node, L.Scan):
+        out.add(node.table)
+    for attr in ("input", "left", "right"):
+        child = getattr(node, attr, None)
+        if isinstance(child, L.Node):
+            _scan_tables(child, out)
+
+
+def build_plan(
+    sql_stmt,
+    schemas: dict[str, list[str]],
+    n_workers: int,
+    row_counts: dict[str, int] | None = None,
+    ndv: dict[str, dict[str, int]] | None = None,
+) -> L.StagePlan:
+    """Deterministic plan construction shared by broker and servers: the
+    broker ships its row-count snapshot in the submit body so every process
+    makes the SAME cost-based exchange decisions.
+
+    ndv: per-table, per-column NDV bounds (the sum of the segments' dictionary
+    cardinalities, as `Catalog.from_segments` reckons them). The reference
+    ships none, so its distributed plan never fires the cardinality-gated
+    rules; the port's broker ships them from the controller's segment
+    metadata, so a distributed plan is the in-process engine's plan over the
+    same segments (config 6's aggregate moves below the join, into the leaf)."""
+    return L.build_stage_plan(sql_stmt, L.Catalog(dict(schemas), row_counts=row_counts, ndv=ndv), n_workers)
+
+
+def apply_parallelism(plan: L.StagePlan, parallelism: dict[int, int]) -> None:
+    for sid, par in parallelism.items():
+        plan.stages[int(sid)].parallelism = int(par)
+
+
+def plan_placement(
+    plan: L.StagePlan,
+    table_servers: dict[str, list[str]],
+    all_servers: list[str],
+    n_workers: int,
+) -> tuple[dict[int, int], dict[tuple[int, int], str]]:
+    """Decide per-stage parallelism and (stage, worker) -> participant.
+
+    Leaf stages: one worker per server hosting the scanned table(s).
+    Intermediate stages: n_workers round-robined over all participants.
+    Stage 0 (root): the broker."""
+    parallelism: dict[int, int] = {}
+    placement: dict[tuple[int, int], str] = {(0, 0): BROKER_ID}
+    parallelism[0] = 1
+    for sid in sorted(plan.stages):
+        if sid == 0:
+            continue
+        stage = plan.stages[sid]
+        tables: set[str] = set()
+        _scan_tables(stage.root, tables)
+        if tables:
+            hosts = sorted({s for t in tables for s in table_servers.get(t, [])})
+            if not hosts:
+                hosts = all_servers[:1]
+            parallelism[sid] = len(hosts)
+            for w, sid_host in enumerate(hosts):
+                placement[(sid, w)] = sid_host
+        else:
+            par = max(1, min(n_workers, len(all_servers) * 2))
+            parallelism[sid] = par
+            for w in range(par):
+                placement[(sid, w)] = all_servers[w % len(all_servers)]
+    # singleton-fed stages collapse to one worker (engine.execute parity)
+    for s in plan.stages.values():
+        for inp in s.inputs:
+            if plan.stages[inp].dist == L.SINGLETON and parallelism[s.id] > 1:
+                old_par = parallelism[s.id]
+                parallelism[s.id] = 1
+                for w in range(1, old_par):
+                    placement.pop((s.id, w), None)
+    return parallelism, placement
+
+
+def run_assigned_stages(
+    *,
+    qid: str,
+    my_id: str,
+    sql: str,
+    schemas: dict[str, list[str]],
+    n_workers: int,
+    parallelism: dict[int, int],
+    placement: dict[tuple[int, int], str],
+    addresses: dict[str, str],
+    segments: dict[str, list],
+    registry: MailboxRegistry,
+    receive_timeout: float = 60.0,
+    block: bool = False,
+    row_counts: dict[str, int] | None = None,
+    ndv: dict[str, dict[str, int]] | None = None,
+    deadline_ts: float | None = None,
+    deadline=None,
+    on_done=None,
+    trace_ctx: dict | None = None,
+    device="cuda",
+):
+    """Server-side half of a distributed query: rebuild the plan, then run
+    every (stage, worker) assigned to `my_id` on daemon threads.
+
+    deadline_ts: absolute wall-clock query deadline shipped by the broker;
+    workers check it at operator block boundaries and the mailbox receive
+    loop derives its timeout from it. Returns the query's Deadline so the
+    caller can register it for cancellation; `on_done` fires after the last
+    local worker finishes and the mailbox is reaped.
+
+    trace_ctx: serialized TraceContext from the broker's stage-plan envelope.
+    When present, each local worker records its span subtree into a fresh
+    RequestTrace and ships it back on the trailing-EOS stats relay.
+
+    device: where this server's workers run their leaf programs and device
+    operators; an equi-join's hash exchange spans that one device."""
+    from pinot_tpu_torch.common.trace import RequestTrace, TraceContext
+    from pinot_tpu_torch.query.context import Deadline
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    stmt = parse_sql(sql)
+    plan = build_plan(stmt, schemas, n_workers, row_counts, ndv)
+    apply_parallelism(plan, parallelism)
+    tctx = TraceContext.from_dict(trace_ctx) if trace_ctx else None
+    if tctx is not None:
+        # trace subtrees ride the EOS stats relay: force collection on so
+        # every RunCtx gets a StageStatsCollector to relay through
+        plan.options["__collect_stats__"] = True
+    if deadline is None:
+        deadline = Deadline(deadline_ts)
+    else:
+        deadline_ts = deadline.deadline_ts
+    mailbox: DistributedMailbox = registry.get(qid)
+    mailbox.configure(qid, my_id, placement, addresses)
+    if deadline_ts is not None:
+        rem = deadline.remaining()
+        receive_timeout = max(0.1, min(receive_timeout, rem if rem is not None else receive_timeout))
+    mailbox.receive_timeout = receive_timeout
+    mailbox.deadline = deadline
+    parent_of: dict[int, int] = {}
+    for s in plan.stages.values():
+        for inp in s.inputs:
+            parent_of[inp] = s.id
+    n_senders = {sid: plan.stages[sid].parallelism for sid in plan.stages}
+    mine = [(sid, w) for (sid, w), owner in placement.items() if owner == my_id and sid != 0]
+
+    from pinot_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device)
+    threads = []
+    done = threading.Semaphore(0)
+
+    def run(sid: int, w: int):
+        try:
+            stage = plan.stages[sid]
+            has_scan = bool(stage.is_leaf)
+            if tctx is None:
+                tr = None
+            else:
+                # one RequestTrace per (stage, worker): each ships its own
+                # subtree on its trailing EOS, so nothing is double-counted
+                tr = RequestTrace(qid, context=tctx, service=f"server:{my_id}")
+            from pinot_tpu_torch.common.trace import run_traced
+
+            run_traced(
+                tr,
+                R.run_stage_worker,
+                stage, w, mailbox, plan.stages, segments, n_senders, parent_of,
+                scan_local_all=has_scan, options=plan.options, device=device, mesh=mesh, trace_out=tr,
+            )
+        finally:
+            done.release()
+
+    for sid, w in mine:
+        t = threading.Thread(target=run, args=(sid, w), daemon=True, name=f"ms-{qid[:8]}-s{sid}w{w}")
+        t.start()
+        threads.append(t)
+    if block:
+        for _ in mine:
+            done.acquire()
+        registry.close(qid)
+        if on_done is not None:
+            on_done()
+    else:
+        # reap the registry entry once all local workers finish
+        def reaper():
+            for _ in mine:
+                done.acquire()
+            registry.close(qid)
+            if on_done is not None:
+                on_done()
+
+        threading.Thread(target=reaper, daemon=True).start()
+    return deadline
+
+
+class DistributedDispatcher:
+    """Broker-side coordinator. Owns the broker's mailbox listener and runs
+    the root stage locally, on `device`; everything else executes on the
+    servers."""
+
+    def __init__(self, registry: MailboxRegistry | None = None, device="cuda"):
+        import torch
+
+        from pinot_tpu_torch.multistage.transport import MailboxHTTPService
+        from pinot_tpu_torch.parallel.mesh import make_mesh
+
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DistributedDispatcher(device='cuda'): no CUDA device is available; pass device='cpu'")
+        self.device = str(torch.device(device))
+        self.mesh = make_mesh(device)
+        self.registry = registry or MailboxRegistry()
+        self._svc = MailboxHTTPService(self.registry)
+        self.url = self._svc.url
+
+    def stop(self):
+        self._svc.stop()
+
+    def execute(
+        self,
+        sql: str,
+        stmt,
+        schemas: dict[str, list[str]],
+        table_servers: dict[str, list[str]],
+        segment_assignment: dict[str, dict[str, list[str]]],  # table -> server -> seg names
+        server_submit,  # fn(server_id, doc) -> None (HTTP POST /multistage/submit)
+        server_urls: dict[str, str],
+        n_workers: int = 4,
+        receive_timeout: float = 60.0,
+        total_docs: int = 0,
+        row_counts: dict[str, int] | None = None,
+        ndv: dict[str, dict[str, int]] | None = None,
+        qid: str | None = None,
+        deadline=None,
+    ):
+        """Returns the root stage's rows as a ResultTable.
+
+        qid: broker-assigned query id (so DELETE /query/{id} can find and
+        close this query's mailboxes); a fresh uuid when absent. deadline:
+        query.context.Deadline — its absolute timestamp ships in every
+        stage-plan envelope and bounds the root receive."""
+        import time as _time
+
+        from pinot_tpu_torch.query.result import ResultTable
+
+        t0 = _time.perf_counter()
+        qid = qid or uuid.uuid4().hex
+        plan = build_plan(stmt, schemas, n_workers, row_counts, ndv)
+        from pinot_tpu_torch.common.trace import active_trace
+
+        broker_trace = active_trace()
+        tctx = broker_trace.context if broker_trace is not None else None
+        if tctx is not None and tctx.sampled:
+            # trace subtrees piggyback the EOS stats relay — force stats
+            # collection so every intermediate stage relays them through
+            plan.options["__collect_stats__"] = True
+        else:
+            tctx = None
+        all_servers = sorted(server_urls)
+        parallelism, placement = plan_placement(plan, table_servers, all_servers, n_workers)
+        apply_parallelism(plan, parallelism)
+        addresses = {BROKER_ID: self.url, **server_urls}
+        deadline_ts = getattr(deadline, "deadline_ts", None)
+        if deadline_ts is not None:
+            rem = deadline.remaining()
+            receive_timeout = max(0.1, min(receive_timeout, rem))
+        doc_common = {
+            "query_id": qid,
+            "sql": sql,
+            "schemas": schemas,
+            "n_workers": n_workers,
+            "parallelism": {str(k): v for k, v in parallelism.items()},
+            "placement": [[sid, w, owner] for (sid, w), owner in placement.items()],
+            "addresses": addresses,
+            "receive_timeout": receive_timeout,
+            "row_counts": dict(row_counts or {}),
+            "ndv": dict(ndv or {}),
+            "deadline_ts": deadline_ts,
+        }
+        if tctx is not None:
+            # trace context rides the stage-plan envelope (the v2 analog of
+            # the v1 traceparent header)
+            doc_common["trace_ctx"] = tctx.to_dict()
+        participants = sorted({owner for owner in placement.values() if owner != BROKER_ID})
+        try:
+            for sid_server in participants:
+                doc = dict(doc_common)
+                doc["segments"] = {
+                    t: assign.get(sid_server, []) for t, assign in segment_assignment.items()
+                }
+                server_submit(sid_server, doc)
+
+            # root stage (0) runs here, fed by remote senders
+            mailbox: DistributedMailbox = self.registry.get(qid)
+            mailbox.configure(qid, BROKER_ID, placement, addresses)
+            mailbox.receive_timeout = receive_timeout
+            if deadline is not None:
+                mailbox.deadline = deadline
+            parent_of: dict[int, int] = {}
+            for s in plan.stages.values():
+                for inp in s.inputs:
+                    parent_of[inp] = s.id
+            n_senders = {sid: plan.stages[sid].parallelism for sid in plan.stages}
+            root = plan.stages[0]
+            from pinot_tpu_torch.multistage.stats import (
+                StageStatsCollector,
+                merge_stage_stats,
+                split_stats_payload,
+                stats_enabled,
+            )
+
+            ctx = R.RunCtx(
+                root, 0, mailbox, plan.stages, {}, n_senders, options=plan.options,
+                stats=StageStatsCollector(root, 0) if stats_enabled(plan.options) else None,
+                device=self.device, mesh=self.mesh,
+            )
+            blk = R.exec_node(root.root, ctx)
+        finally:
+            self.registry.close(qid)
+        result = ResultTable(
+            columns=list(plan.visible_names),
+            rows=R.to_rows(blk),
+            total_docs=total_docs,
+            time_used_ms=(_time.perf_counter() - t0) * 1e3,
+        )
+        if ctx.stats is not None:
+            # remote workers' records arrived on their trailing EOS envelopes;
+            # trace subtrees share the channel and attach to the broker trace
+            stats_recs, subtrees = split_stats_payload(ctx.stats.payload())
+            if broker_trace is not None:
+                for sub in subtrees:
+                    broker_trace.add_remote(sub)
+            result.stage_stats = merge_stage_stats(stats_recs)
+        return result

@@ -1764,9 +1764,15 @@ def run_stage_worker(
     options: dict | None = None,
     device="cuda",
     mesh=None,
+    trace_out=None,
 ) -> None:
     """Run ONE (stage, worker) OpChain to completion: execute the stage
-    subtree and ship its output (or an error marker) to every parent worker."""
+    subtree and ship its output (or an error marker) to every parent worker.
+    Shared by the in-process engine and the distributed server runtime.
+
+    trace_out: this worker's common.trace.RequestTrace (distributed remote
+    workers only). Its span subtree is appended to the trailing-EOS stats
+    payload as a TRACE_RECORD_KEY record for the broker to reassemble."""
     from pinot_tpu_torch.common.trace import InvocationScope
 
     opts = dict(options or {})
@@ -1789,6 +1795,18 @@ def run_stage_worker(
         with InvocationScope(f"stage{stage.id}:w{w}"):
             blk = exec_node(stage.root, ctx)
         stats = ctx.stats.payload() if ctx.stats is not None else None
+        if trace_out is not None and stats is not None:
+            from pinot_tpu_torch.multistage.stats import TRACE_RECORD_KEY
+
+            base_stats = stats
+
+            def stats_with_subtree():
+                # resolved at (re)send time, not here: mailbox fault/retry
+                # events recorded DURING the EOS send must make the snapshot
+                trace_out.root.duration_ms = trace_out.now_ms()
+                return base_stats + [{TRACE_RECORD_KEY: trace_out.subtree()}]
+
+            stats = stats_with_subtree
         _send_output(blk, stage, parent, parent_par, mailbox, w, stats=stats)
     except BaseException as e:  # propagate to receivers, error code intact
         from pinot_tpu_torch.common.errors import QueryErrorCode

@@ -36,6 +36,9 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
+#: every CUDA source of the package, one library each
+KERNEL_SOURCES = ("grouped_sum_count", "grouped_sum_count_2l", "grouped_extreme", "grouped_sum_f32")
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -194,7 +194,23 @@ def _eval_function(seg: ImmutableSegment, expr: ast.FunctionCall) -> np.ndarray:
                 out[i] = doc.get(key)
         return out
     if name == "lookup":
-        raise NotImplementedError("lookUp (dimension tables) is not ported to pinot_tpu_torch yet (ROADMAP A9)")
+        # lookUp('dimTable','destColumn','pk1',expr1[,'pk2',expr2...])
+        # (LookupTransformFunction parity; host-side PK-map probes)
+        from pinot_tpu_torch.cluster.dimension import get_dim_table
+
+        if len(expr.args) < 4 or len(expr.args) % 2 != 0:
+            raise PlanError("lookup requires (dimTable, destColumn, pkCol, pkExpr, ...)")
+        lits = expr.args[:2]
+        if not all(isinstance(a, ast.Literal) for a in lits):
+            raise PlanError("lookup dimTable/destColumn must be string literals")
+        dim = get_dim_table(str(lits[0].value))
+        dest = str(lits[1].value)
+        pk_cols = [str(a.value) for a in expr.args[2::2] if isinstance(a, ast.Literal)]
+        key_arrays = [eval_value(seg, a) for a in expr.args[3::2]]
+        if pk_cols != dim.pk_columns:
+            raise PlanError(f"lookup join keys {pk_cols} must match dim table PK {dim.pk_columns}")
+        keys = list(zip(*[a.tolist() for a in key_arrays]))
+        return dim.lookup_column(dest, keys)
     if name == "cast":
         v = eval_value(seg, expr.args[0])
         target = str(expr.args[1].value).upper()

@@ -72,7 +72,7 @@ def clusters(tmp_path_factory):
     h_ctrl = Controller(p_ctrl.store, root / "port" / "deepstore")
     for sid, svc in svcs.items():
         h_ctrl.register_server(sid, RemoteServerClient(f"http://127.0.0.1:{svc.port}"))
-    h_broker = Broker(h_ctrl)
+    h_broker = Broker(h_ctrl, device="cpu")
     bsvc = BrokerHTTPService(h_broker)
     try:
         yield {
@@ -152,11 +152,14 @@ def test_http_rows_equal(clusters, sql):
 
 @pytest.mark.parametrize("sql", MULTISTAGE)
 def test_http_multistage_names_its_item(clusters, sql):
-    """Over remote servers the reference dispatches the stages to the
-    server processes; that dispatcher is ROADMAP A9b, so the port's HTTP
-    broker answers with the NotImplementedError naming it."""
+    """Over remote servers the broker dispatches the stages to the servers
+    (multistage/distributed.py), blocks crossing their sockets through
+    /mailbox: the rows equal the reference's in-process cluster's."""
+    want = clusters["ref"][1].execute(sql)
     resp = query_broker_http(clusters["http"][3], sql)
-    assert "A9b" in str(resp["exceptions"])
+    assert not resp.get("exceptions"), resp
+    assert resp["resultTable"]["rows"] == want.rows
+    assert clusters["http"][1]._dispatcher is not None
 
 
 def test_remote_partials_equal_local(clusters):
@@ -355,23 +358,29 @@ def test_time_boundary_sql_rewrites():
 
 
 def test_cuts_name_their_roadmap_item(clusters, tmp_path):
+    """The cuts left name ROADMAP A10; what A9b cut is ported: access
+    control, the controller's REST service and client, and the stage
+    submit (whose body a bare dict fails to carry)."""
     ctrl, _, servers = clusters["port"]
     with pytest.raises(NotImplementedError, match="A10"):
         ctrl.enable_ha()
-    with pytest.raises(NotImplementedError, match="A9b"):
-        servers["server_0"].multistage_submit({})
     with pytest.raises(NotImplementedError, match="A10"):
         servers["server_0"].attach_realtime("lineorder", object())
-    with pytest.raises(NotImplementedError, match="A9b"):
-        Broker(ctrl, access_control=object())
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ctrl.add_table(TableConfig("dim", extra={"isDimTable": True}))
+    with pytest.raises(KeyError, match="placement"):
+        servers["server_0"].multistage_submit({})
+    from pinot_tpu_torch.cluster.access import AllowAllAccessControl
     from pinot_tpu_torch.cluster.http import ControllerHTTPService, RemoteControllerClient
 
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ControllerHTTPService(ctrl)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        RemoteControllerClient("http://127.0.0.1:1")
+    b = Broker(ctrl, access_control=AllowAllAccessControl())
+    assert b.execute("SELECT COUNT(*) FROM lineorder").rows == clusters["ref"][1].execute("SELECT COUNT(*) FROM lineorder").rows
+    b.shutdown()
+    with pytest.raises(NotImplementedError, match="A10"):
+        ControllerHTTPService(ctrl, task_manager=object())
+    svc = ControllerHTTPService(ctrl)
+    try:
+        assert RemoteControllerClient(f"http://127.0.0.1:{svc.port}").tables() == ctrl.tables()
+    finally:
+        svc.stop()
 
 
 def test_server_without_a_card_raises_at_its_first_engine(tmp_path):

@@ -10,6 +10,12 @@
   metadata, routing versions and `__v` read the same, and it assigns and
   serves the same segments.
 
+- A reference RemoteControllerClient drives the port's
+  ControllerHTTPService, and the port's client the reference's service:
+  schema, table, the tarball segment upload, the ideal state.
+- Mailbox envelopes: the reference's decode_envelope reads the port's
+  bytes, and the port's reads the reference's.
+
 In each case the rows must equal those of the reference's own in-process
 cluster on the same data.
 """
@@ -193,3 +199,78 @@ def test_store_cas_and_versions_interoperate(tmp_path):
     assert r_store.get_versioned("/a") == ({"x": 2}, 2)
     p_store.set("/tables/t/segments/seg__1", {"y": 1})
     assert r_store.list("/tables/t/segments/") == ["/tables/t/segments/seg__1"]
+
+
+@pytest.mark.parametrize("direction", ["reference_client_port_service", "port_client_reference_service"])
+def test_controller_rest_interoperates(tmp_path, oracle, direction):
+    """Schema, table config, a tarball upload of a segment dir the other
+    package wrote, and the ideal state, across the two packages' controller
+    REST client and service; the uploaded segments then answer with the
+    reference's rows."""
+    from pinot_tpu.segment.builder import write_segment as r_write
+    from pinot_tpu_torch.segment.builder import write_segment as p_write
+
+    port_side = direction == "reference_client_port_service"
+    cl, http = (pc, phttp) if port_side else (rc, rhttp)
+    controller = cl.Controller(cl.PropertyStore(), tmp_path / "ds")
+    servers = {f"s{i}": pc.Server(f"s{i}", device="cpu") if port_side else rc.Server(f"s{i}") for i in range(2)}
+    for sid, srv in servers.items():
+        controller.register_server(sid, srv)
+    svc = http.ControllerHTTPService(controller)
+    broker = None
+    try:
+        url = f"http://127.0.0.1:{svc.port}"
+        client = (rhttp if port_side else phttp).RemoteControllerClient(url)
+        schema, cfg = (_ref_schema(), RTableConfig("lineorder", replication=2)) if port_side else (
+            _port_schema(), TableConfig("lineorder", replication=2))
+        client.add_schema(schema)
+        client.add_table(cfg)
+        assert client.tables() == ["lineorder"]
+        assert client.get_schema("lineorder").to_json() == schema.to_json()
+        assert client.get_table("lineorder").to_json() == cfg.to_json()
+        builder, write = (RSegmentBuilder(_ref_schema()), r_write) if port_side else (SegmentBuilder(_port_schema()), p_write)
+        for i in range(N_SEGS):
+            seg_dir = write(builder.build(_data(300 + i), f"lineorder_{i}"), tmp_path / "built")
+            out = client.upload_segment_dir("lineorder", seg_dir)
+            assert out["segment"] == f"lineorder_{i}" and len(out["servers"]) == 2
+        ideal = client.ideal_state("lineorder")
+        assert ideal == controller.ideal_state("lineorder")
+        assert sorted(ideal) == [f"lineorder_{i}" for i in range(N_SEGS)]
+        assert client.all_segment_metadata("lineorder")["lineorder_0"]["numDocs"] == 2000
+        client.register_instance("broker", "b0", "127.0.0.1", 1234)
+        assert client.brokers() == {"b0": "http://127.0.0.1:1234"}
+        broker = cl.Broker(controller)
+        for sql in QUERIES:
+            assert broker.execute(sql).rows == oracle[sql], sql
+    finally:
+        svc.stop()
+        if broker is not None:
+            broker.shutdown()
+
+
+def test_envelopes_cross_packages():
+    """Each package's decode_envelope reads the other's bytes: a block (the
+    reference's DataFrame with positional labels, the port's Block), an EOS
+    with stats, and an error marker with its code."""
+    import pandas as pd
+
+    from pinot_tpu.multistage import runtime as RR
+    from pinot_tpu.multistage import transport as rt
+    from pinot_tpu_torch.multistage import runtime as PR
+    from pinot_tpu_torch.multistage import transport as pt
+
+    cols = [np.arange(4, dtype=np.int64), np.array(["x", "y", "x", "z"], dtype=object), np.array([0.5, np.nan, 1.0, 2.0])]
+    blk, df = PR.Block(cols), pd.DataFrame({i: c for i, c in enumerate(cols)})
+
+    _, got = rt.decode_envelope(pt.encode_envelope("q", 1, 0, 2, blk))
+    pd.testing.assert_frame_equal(got, df)
+    _, got = pt.decode_envelope(rt.encode_envelope("q", 1, 0, 2, df))
+    assert isinstance(got, PR.Block) and got.width == 3
+    for a, b in zip(got.cols, cols):
+        assert a.dtype == b.dtype and pd.Series(a).equals(pd.Series(b))
+    stats = [{"stage": 2, "rows": 4}]
+    for enc, dec in ((pt.encode_envelope, rt.decode_envelope), (rt.encode_envelope, pt.decode_envelope)):
+        assert dec(enc("q", 0, 0, 1, ("__eos__", stats)))[1] == ("__eos__", stats)
+        assert dec(enc("q", 0, 0, 1, ("__err__", "boom", 250)))[1] == ("__err__", "boom", 250)
+    assert rt.decode_envelope(pt.encode_envelope("q", 0, 0, 1, PR._EOS))[1] is RR._EOS
+    assert pt.decode_envelope(rt.encode_envelope("q", 0, 0, 1, RR._EOS))[1] is PR._EOS
