@@ -207,6 +207,24 @@
    403 and 200, a /debug/pprof capture of the broker process; start-up
    seconds, upload seconds, walls beside phase 15's, each server's device
    memory. Every child is killed at the end of the phase.
+19. Realtime ingestion (`realtime`, after the cluster phases freed their
+   segments): one Controller, Servers on the card and an uncached Broker in
+   process. lineorder_rt: 1.1M rows (seed 0) and an arrival ts produced into
+   an InMemoryStream of 4 partitions (lo_custkey % 4), consumed at 100,000
+   rows a segment (8 committed + 4 consuming); configs 1-7, each equal to
+   the oracle with its launches (12x a segment's) and every kernel call
+   held against its plain version; ingest rows/s, each commit's seal +
+   build, upload and load seconds, walls. A live step: a producer at 50,000
+   rows/s for 10 s while configs 1 and 4 loop, each answer between the
+   oracles at the watermarks read around it; freshness p50 / p99, each
+   consuming generation's snapshot ms and staged bytes, the allocator's
+   bytes (replaced generations freed without a collector pass). The same
+   rows as a FULL upsert table keyed by lo_custkey (1% late rows lose):
+   COUNT 90,000, SUM by c_nation (B1 under the validity docmask), the latest
+   revenue a key (B2); a restarted manager resumes at the committed offsets
+   with the same validity and rows. Two replicas sharing a
+   SegmentCompletionManager (exactly one committer a segment), and a dedup
+   table.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -222,6 +240,7 @@ import math
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1880,9 +1899,10 @@ def rows_match(name: str, got: list, want: list) -> None:
                 raise AssertionError(f"{name} row {r} col {c}: got {a!r}, oracle {b!r}")
 
 
-def ssb_schema(name: str = "lineorder", keys: bool = True):
+def ssb_schema(name: str = "lineorder", keys: bool = True, ts: bool = False, primary_key=()):
     """The lineorder schema: bench.py's six columns, and with `keys` the
-    customer and supplier keys."""
+    customer and supplier keys; with `ts` a LONG time column `ts` (the
+    realtime tables' arrival index) and the given primary-key columns."""
     from pinot_tpu_torch.common import DataType, Schema
 
     dims = [("d_year", DataType.INT), ("c_nation", DataType.STRING), ("p_category", DataType.STRING)]
@@ -1892,6 +1912,8 @@ def ssb_schema(name: str = "lineorder", keys: bool = True):
         name,
         dimensions=dims,
         metrics=[("lo_revenue", DataType.LONG), ("lo_supplycost", DataType.LONG), ("lo_quantity", DataType.INT)],
+        date_times=[("ts", DataType.LONG)] if ts else (),
+        primary_key_columns=list(primary_key),
     )
 
 
@@ -5221,6 +5243,709 @@ def run_processes(torch, deep_in: str, want: dict, want6: list, http_p50: dict) 
     return path_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: realtime ingestion (streams, consuming segments, commits, upsert)
+# ---------------------------------------------------------------------------
+
+#: the realtime phase's tables: rows, stream partitions, rows a segment.
+#: Cut from 2.4M rows at 250,000 a segment (the phase took 216 s there on an
+#: H100 80GB HBM3 at 700 W) to keep the script in its time: 1.1M is the
+#: least size past 1M at which all 90,000 customer keys occur (1M: 89,996)
+RT_ROWS, RT_PARTITIONS, RT_FLUSH = 1_100_000, 4, 100_000
+RT_CONFIGS = ("1_count_filter", "2_filtered_agg", "3_q1_groupby", "4_q4_groupby_orderby", "5_groupby_minmax",
+              "6_groupby_distinct", "7_distinct")
+#: the live step: rows a second the producer adds, for about this long
+RT_LIVE_RATE, RT_LIVE_S = 50_000, 10.0
+#: share of the upsert table's rows that arrive with a ts older than their
+#: key's latest (they must lose)
+RT_LATE, RT_LATE_SEED = 0.01, 40
+RT_REP_ROWS, RT_REP_FLUSH = 300_000, 100_000
+RT_DEDUP_ROWS, RT_DEDUP_REPEAT = 200_000, 0.10
+UPSERT_RT_CONFIGS = {
+    "up_count": "SELECT COUNT(*) FROM lineorder_up",
+    "up_by_nation": "SELECT c_nation, SUM(lo_revenue) FROM lineorder_up GROUP BY c_nation ORDER BY c_nation LIMIT 25",
+    # each partition holds a quarter of the keys (partition = lo_custkey % 4):
+    # ng ~22k a segment, past the flat kernel's shared counters
+    "up_latest_revenue": (
+        "SELECT lo_custkey, SUM(lo_revenue) FROM lineorder_up GROUP BY lo_custkey "
+        "ORDER BY SUM(lo_revenue) DESC, lo_custkey LIMIT 100"
+    ),
+}
+UPSERT_RT_LAUNCHES = {"up_count": (0, 0, 0, 0), "up_by_nation": (1, 0, 0, 0), "up_latest_revenue": (0, 0, 0, 1)}
+
+
+def rt_sql(sql: str, table: str) -> str:
+    """A lineorder config's SQL over another table."""
+    return sql.replace("FROM lineorder ", f"FROM {table} ")
+
+
+def rt_messages(data: dict, ts: np.ndarray) -> list:
+    """One row dict a message: `data`'s columns and `ts`, in row order."""
+    cols = list(data)
+    lists = [data[c].tolist() for c in cols] + [ts.tolist()]
+    keys = cols + ["ts"]
+    return [dict(zip(keys, r)) for r in zip(*lists)]
+
+
+def rt_produce(stream, rows: list, parts: np.ndarray) -> None:
+    for p, row in zip(parts.tolist(), rows):
+        stream.produce(p, row)
+
+
+def rt_cluster(name: str, deep: str, config_kw: dict, pk=(), servers=("rt",)):
+    """A Controller, Servers on DEVICE and a REALTIME lineorder-shaped table
+    `name` with a LONG ts time column."""
+    from pinot_tpu_torch.cluster import Controller, PropertyStore, Server
+    from pinot_tpu_torch.common import TableConfig, TableType
+
+    controller = Controller(PropertyStore(), deep)
+    srv = [Server(sid, device=DEVICE) for sid in servers]
+    for s in srv:
+        controller.register_server(s.server_id, s)
+    schema = ssb_schema(name, ts=True, primary_key=pk)
+    controller.add_schema(schema)
+    config = TableConfig(name, table_type=TableType.REALTIME, time_column="ts", replication=len(srv), **config_kw)
+    controller.add_table(config)
+    return controller, srv, schema, config
+
+
+def committed_of(controller, table: str) -> dict:
+    return {n: m for n, m in controller.all_segment_metadata(table).items() if "endOffset" in m}
+
+
+def wait_for(pred, timeout: float, what: str) -> float:
+    """Seconds until pred() holds; raises after `timeout`."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"realtime: timed out waiting for {what}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+class CommitTimes:
+    """Per committed segment: seal + build, upload (deep-store write and
+    metadata) and the load on the server, from wrappers around
+    MutableSegment.seal, Controller.upload_segment and Server.add_segment."""
+
+    def __init__(self, controller, servers):
+        from pinot_tpu_torch.realtime.mutable import MutableSegment
+
+        self.by_segment: dict[str, dict] = {}
+        self._cls, self._seal = MutableSegment, MutableSegment.seal
+        times = self.by_segment
+
+        def seal(ms, *a, **k):
+            t0 = time.perf_counter()
+            out = self._seal(ms, *a, **k)
+            times.setdefault(out.name, {})["seal_build_s"] = time.perf_counter() - t0
+            return out
+
+        MutableSegment.seal = seal
+        for s in servers:
+            real_add = s.add_segment
+
+            def add(table, name, seg_dir, _real=real_add):
+                t0 = time.perf_counter()
+                _real(table, name, seg_dir)
+                times.setdefault(name, {}).setdefault("load_s", []).append(time.perf_counter() - t0)
+
+            s.add_segment = add
+        real_upload = controller.upload_segment
+
+        def upload(table, segment):
+            t0 = time.perf_counter()
+            out = real_upload(table, segment)
+            e = times.setdefault(segment.name, {})
+            e["upload_s"] = time.perf_counter() - t0 - sum(e.get("load_s", []))
+            return out
+
+        controller.upload_segment = upload
+
+    def close(self) -> None:
+        self._cls.seal = self._seal
+
+
+class Generations:
+    """Every consuming snapshot built (its partition's name, docs and build
+    ms) and every staging of one (bytes, ms), from wrappers around
+    MutableSegment.snapshot and ImmutableSegment.to_device."""
+
+    def __init__(self):
+        from pinot_tpu_torch.realtime.mutable import MutableSegment
+        from pinot_tpu_torch.segment.segment import ImmutableSegment
+
+        self.built: list[dict] = []
+        self.staged: list[dict] = []
+        self._ids: dict[int, dict] = {}
+        self._snap, self._stage = MutableSegment.snapshot, ImmutableSegment.to_device
+        gens = self
+
+        def snapshot(ms):
+            before = ms._snapshot
+            t0 = time.perf_counter()
+            snap = gens._snap(ms)
+            if snap is not before:
+                entry = {"segment": snap.name, "docs": snap.n_docs, "build_ms": (time.perf_counter() - t0) * 1e3}
+                gens.built.append(entry)
+                gens._ids[id(snap)] = entry
+            return snap
+
+        def to_device(seg, *a, **k):
+            t0 = time.perf_counter()
+            ds = gens._stage(seg, *a, **k)
+            entry = gens._ids.get(id(seg))
+            if entry is not None and entry["segment"] == seg.name:
+                entry["staged_bytes"] = sum(t.numel() * t.element_size() for t in ds.arrays.values())
+                entry["stage_ms"] = (time.perf_counter() - t0) * 1e3
+            return ds
+
+        MutableSegment.snapshot, ImmutableSegment.to_device = snapshot, to_device
+
+    def close(self) -> None:
+        from pinot_tpu_torch.realtime.mutable import MutableSegment
+        from pinot_tpu_torch.segment.segment import ImmutableSegment
+
+        MutableSegment.snapshot, ImmutableSegment.to_device = self._snap, self._stage
+
+    def summary(self, since: int = 0) -> dict:
+        got = self.built[since:]
+        ms = [g["build_ms"] for g in got]
+        staged = [g["staged_bytes"] for g in got if "staged_bytes" in g]
+        return {
+            "generations": len(got),
+            "staged_generations": len(staged),
+            "build_ms_p50": float(np.median(ms)) if ms else None,
+            "build_ms_max": max(ms) if ms else None,
+            "staged_bytes_p50": float(np.median(staged)) if staged else None,
+            "staged_bytes_max": max(staged) if staged else None,
+            "each": got,
+        }
+
+
+def hist_quantiles(hist, before: list, qs=(0.5, 0.99)) -> dict:
+    """Quantiles (bucket upper bounds, ms) of the samples a histogram took
+    since its bucket counts were `before`."""
+    from pinot_tpu_torch.common.metrics import _HIST_BOUNDS
+
+    d = [a - b for a, b in zip(hist.counts, before)]
+    total = sum(d)
+    out = {"samples": total}
+    for q in qs:
+        target, seen = max(1, math.ceil(q * total)), 0
+        for i, c in enumerate(d):
+            seen += c
+            if seen >= target:
+                out[f"p{round(q * 100)}_ms"] = _HIST_BOUNDS[i] if i < len(_HIST_BOUNDS) else hist.max_ms
+                break
+    return out
+
+
+def rt_watermark(mgr) -> list:
+    """Rows each partition has made visible to queries: its committed and
+    pending rows (the current segment's start offset) and its consuming
+    segment's docs, read under the consumer's lock."""
+    out = []
+    for c in mgr.consumers:
+        with c._lock:
+            out.append(c._segment_start_offset + c._mutable.n_docs)
+    return out
+
+
+def rt_count_at(cum: list, w: list) -> int:
+    return int(sum(c[x] for c, x in zip(cum, w)))
+
+
+def q4_bounds(parts_idx: list, key, val, w0: list, w1: list):
+    """Per (year, nation, category) group of config 4: the least and the
+    most its SUM can be at any watermark between w0 and w1 (each
+    partition's rows in between either counted or not, as a prefix)."""
+    base = np.zeros(7 * 625)
+    lo, hi = np.zeros(7 * 625), np.zeros(7 * 625)
+    for idx, a, b in zip(parts_idx, w0, w1):
+        head, win = idx[:a], idx[a:b]
+        base += np.bincount(key[head], weights=val[head], minlength=7 * 625)
+        lo += np.bincount(key[win], weights=np.minimum(val[win], 0), minlength=7 * 625)
+        hi += np.bincount(key[win], weights=np.maximum(val[win], 0), minlength=7 * 625)
+    return base + lo, base + hi
+
+
+def run_realtime(torch, counters: dict) -> dict:
+    """Phase 19: realtime ingestion on the card. One Controller, Servers on
+    the card and an uncached Broker, all in process.
+    1. lineorder_rt: RT_ROWS rows of make_ssb_data (seed 0) and an arrival
+       ts, produced into an InMemoryStream of RT_PARTITIONS partitions
+       (partition = lo_custkey % 4), consumed by a RealtimeTableManager at
+       RT_FLUSH rows a segment: 2 committed segments and a consuming one a
+       partition. Ingest rows/s; each commit's seal + build, upload and load
+       seconds; configs 1-7 through the broker, each equal to the oracle,
+       its launches (counted from 0 just before, read just after) equal to
+       LAUNCHES_PER_SEGMENT x the 12 segments routed, every kernel call held
+       against its plain version; their wall p50.
+    2. Live consumption: a producer thread adds RT_LIVE_RATE rows a second
+       (make_ssb_data seed 1) for RT_LIVE_S s while configs 1 and 4 run in a
+       loop. COUNT never goes down; each answer lies between the oracles at
+       the watermarks read just before and just after it (config 4's sums
+       inside their groups' bounds), and equals the oracle once the
+       producer stops. Freshness p50 / p99 (producer stamp -> indexed), each
+       consuming generation's snapshot build ms and staged bytes, the
+       allocator's live and peak bytes after the first and the last loop;
+       old generations must be freed (one live staged copy a segment, and
+       live bytes within what the hosted and consuming segments stage).
+    3. lineorder_up: the same rows as a FULL upsert table keyed by
+       lo_custkey (comparison column ts); a seeded RT_LATE of the rows carry
+       a ts older than their key's latest and lose. COUNT(*) (the distinct
+       keys: 90,000), SUM(lo_revenue) by c_nation (B1 under the validity
+       docmask) and the latest revenue a key (B2), against the oracle "the
+       row with the largest ts a key, later arrival on ties", launches and
+       kernel calls as in 1. Then a new manager over the same controller and
+       server: it resumes at the committed end offsets, replays the
+       committed segments' keys, and answers the same rows; its masks equal
+       the first manager's upsert snapshot files restored.
+    4. lineorder_rep: 1 partition, RT_REP_ROWS rows at RT_REP_FLUSH, two
+       servers on the card sharing one SegmentCompletionManager: each
+       segment has exactly one committer, the other replica KEEPs or
+       downloads; each replica's segments answer config 4 equal to the
+       oracle, and the broker does over the empty consuming segment and
+       again over a one-row one.
+    5. A dedup table (host-side logic): RT_DEDUP_ROWS rows, RT_DEDUP_REPEAT
+       of them repeating an earlier key; COUNT(*) equals the distinct keys.
+    Returns the phase's launches."""
+    import tempfile
+
+    from pinot_tpu_torch.cluster import Broker
+    from pinot_tpu_torch.common import UpsertConfig
+    from pinot_tpu_torch.common.config import CacheConfig, DedupConfig
+    from pinot_tpu_torch.common.leakcheck import staging_tracker
+    from pinot_tpu_torch.common.metrics import ServerHistogram, server_metrics
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.query import QueryEngine
+    from pinot_tpu_torch.realtime import InMemoryStream, RealtimeTableManager
+    from pinot_tpu_torch.realtime.completion import SegmentCompletionManager
+    from pinot_tpu_torch.upsert import PartitionUpsertMetadataManager
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    deep = tempfile.mkdtemp(prefix="chip_smoke_realtime_")
+    gens = Generations()
+    out, launches, held = {}, {}, {}
+    for fn in counters.values():
+        fn.launches = 0
+
+    def counted(label, sql, expect):
+        res, launches[label], calls = counted_run(counters, lambda: broker.execute(sql))
+        check_launches(f"realtime {label}", counters, launches[label], calls, expect)
+        held[label] = hold_all(torch, calls, gb, ext, gs)
+        return res
+
+    def match(label, got, want, approx_as=None):
+        try:
+            rows_match(approx_as or label, got, want)
+        except AssertionError as e:
+            raise AssertionError(f"realtime {label}: {e}") from None
+
+    # -- 1. the append-only table ---------------------------------------------
+    t0 = time.perf_counter()
+    data, nation, category = make_ssb_data(RT_ROWS, seed=0)
+    parts = (data["lo_custkey"] % RT_PARTITIONS).astype(np.int64)
+    stream = InMemoryStream(RT_PARTITIONS)
+    rt_produce(stream, rt_messages(data, np.arange(RT_ROWS)), parts)
+    produce_s = time.perf_counter() - t0
+    controller, (server,), schema, config = rt_cluster("lineorder_rt", f"{deep}/rt", {})
+    commits = CommitTimes(controller, [server])
+    mgr = RealtimeTableManager(controller, server, schema, config, stream, max_rows_per_segment=RT_FLUSH)
+    per_part = np.bincount(parts, minlength=RT_PARTITIONS)
+    n_committed = int(sum(c // RT_FLUSH for c in per_part))
+    t0 = time.perf_counter()
+    mgr.start()
+    wait_for(lambda: mgr.wait_until_caught_up(per_part.tolist(), timeout=0.5), 600, "lineorder_rt caught up")
+    wait_for(lambda: len(committed_of(controller, "lineorder_rt")) == n_committed, 120, "lineorder_rt commits")
+    ingest_s = time.perf_counter() - t0
+    n_segments = n_committed + RT_PARTITIONS
+    if len(controller.ideal_state("lineorder_rt")) != n_segments:
+        raise AssertionError(f"realtime: ideal state {sorted(controller.ideal_state('lineorder_rt'))}")
+    want, _ = oracle(data, nation, category)
+    broker = Broker(controller, cache_config=CacheConfig(enabled=False))
+    for name in RT_CONFIGS:
+        sql = rt_sql(CONFIGS[name], "lineorder_rt")
+        res = counted(name, sql, tuple(n_segments * v for v in LAUNCHES_PER_SEGMENT[name]))
+        match(name, res.rows, want[name])
+    walls = {name: wall_p50_of(lambda: broker.execute(rt_sql(CONFIGS[name], "lineorder_rt")), warm=1, runs=5)
+             for name in RT_CONFIGS}
+    torch.cuda.synchronize()
+    out["append_only"] = {
+        "rows": RT_ROWS,
+        "partitions": RT_PARTITIONS,
+        "rows_a_segment": RT_FLUSH,
+        "segments_committed": n_committed,
+        "segments_routed": n_segments,
+        "produce_s": produce_s,
+        "ingest_s": ingest_s,
+        "ingest_rows_per_s": RT_ROWS / ingest_s,
+        "commits": dict(sorted(commits.by_segment.items())),
+        "snapshots": gens.summary(),
+        "wall_p50_ms": {k: v["p50_ms"] for k, v in walls.items()},
+        "walls_ms": {k: v["runs_ms"] for k, v in walls.items()},
+        "results_match_oracle": True,
+    }
+
+    # -- 2. live consumption -------------------------------------------------------
+    live_n = int(RT_LIVE_RATE * RT_LIVE_S)
+    live, live_nation, live_category = make_ssb_data(live_n, seed=1)
+    live_parts = (live["lo_custkey"] % RT_PARTITIONS).astype(np.int64)
+    live_rows = rt_messages(live, np.arange(RT_ROWS, RT_ROWS + live_n))
+    allc = {c: np.concatenate([data[c], live[c]]) for c in ("d_year", "lo_quantity", "lo_revenue", "lo_supplycost")}
+    all_nation = np.concatenate([nation, live_nation])
+    all_category = np.concatenate([category, live_category])
+    all_parts = np.concatenate([parts, live_parts])
+    parts_idx = [np.flatnonzero(all_parts == p) for p in range(RT_PARTITIONS)]
+    cum1 = [np.r_[0, np.cumsum(all_nation[idx] == 7)] for idx in parts_idx]
+    m4 = (allc["lo_quantity"] > 5) & (allc["d_year"] >= 1993) & (allc["d_year"] <= 1997)
+    key4 = (allc["d_year"].astype(np.int64) - 1992) * 625 + all_nation * 25 + all_category
+    val4 = np.where(m4, allc["lo_revenue"] - allc["lo_supplycost"], 0).astype(np.float64)
+    fresh = server_metrics().histogram(ServerHistogram.FRESHNESS, table="lineorder_rt")
+    fresh_before = list(fresh.counts)
+    gen0 = len(gens.built)
+    stop = threading.Event()
+
+    def producer():
+        step = max(1, RT_LIVE_RATE // 50)  # a batch every 20 ms
+        t_start = time.perf_counter()
+        for i in range(0, live_n, step):
+            if stop.is_set():
+                return
+            delay = t_start + i / RT_LIVE_RATE - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            rt_produce(stream, live_rows[i : i + step], live_parts[i : i + step])
+
+    q1, q4 = rt_sql(CONFIGS["1_count_filter"], "lineorder_rt"), rt_sql(CONFIGS["4_q4_groupby_orderby"], "lineorder_rt")
+    prod = threading.Thread(target=producer, daemon=True)
+    loops, last_count, memory = [], -1, {}
+    t_live = time.perf_counter()
+    prod.start()
+    try:
+        while prod.is_alive() or not loops:
+            w0 = rt_watermark(mgr)
+            t0 = time.perf_counter()
+            r1 = broker.execute(q1)
+            t1 = time.perf_counter()
+            w1 = rt_watermark(mgr)
+            count = int(r1.rows[0][0])
+            lo_c, hi_c = rt_count_at(cum1, w0), rt_count_at(cum1, w1)
+            if not lo_c <= count <= hi_c or count < last_count:
+                raise AssertionError(f"realtime live: COUNT {count} outside [{lo_c}, {hi_c}] or below {last_count}")
+            last_count = count
+            w2 = rt_watermark(mgr)
+            t2 = time.perf_counter()
+            r4 = broker.execute(q4)
+            t3 = time.perf_counter()
+            w3 = rt_watermark(mgr)
+            lo4, hi4 = q4_bounds(parts_idx, key4, val4, w2, w3)
+            sums = [row[3] for row in r4.rows]
+            if len(r4.rows) != 10 or sums != sorted(sums, reverse=True):
+                raise AssertionError(f"realtime live: config 4 rows {r4.rows}")
+            for y, nat, cat, v in r4.rows:
+                g = (y - 1992) * 625 + NATIONS.index(nat) * 25 + CATEGORIES.index(cat)
+                if not lo4[g] <= v <= hi4[g]:
+                    raise AssertionError(f"realtime live: config 4 group {y, nat, cat} sum {v} outside "
+                                         f"[{lo4[g]}, {hi4[g]}]")
+            loops.append({"watermark": sum(w1), "q1_ms": (t1 - t0) * 1e3, "q4_ms": (t3 - t2) * 1e3})
+            if len(loops) == 1:
+                torch.cuda.synchronize()
+                memory["after_first_loop"] = {"live": torch.cuda.memory_allocated() - base_bytes,
+                                              "peak": torch.cuda.max_memory_allocated()}
+    finally:
+        stop.set()
+        prod.join()
+    live_s = time.perf_counter() - t_live
+    torch.cuda.synchronize()
+
+    def staged_now() -> int:
+        """Bytes the hosted segments and each partition's current (and
+        pending sealed) snapshots stage: what may be live on the card."""
+        segs = [server.get_segment_object("lineorder_rt", n) for n in server.segments_of("lineorder_rt")]
+        for c in mgr.consumers:
+            with c._lock:
+                segs += [c._mutable._snapshot, *c._pending_sealed.values()]
+        return sum(seg_staged_bytes(s) for s in segs if s is not None)
+
+    # without a collector pass: a replaced generation's staging must already
+    # be gone, however many generations the loop made
+    memory["after_last_loop"] = {"live": torch.cuda.memory_allocated() - base_bytes,
+                                 "peak": torch.cuda.max_memory_allocated(), "staged_by_segments": staged_now()}
+    if memory["after_last_loop"]["live"] > memory["after_last_loop"]["staged_by_segments"] + (64 << 20):
+        raise AssertionError(f"realtime live: old generations hold card memory: {memory}")
+    # quiesce: the producer stopped; every row consumed and each full segment
+    # committed; then the answers equal the oracle exactly
+    per_part_all = np.bincount(all_parts, minlength=RT_PARTITIONS)
+    catchup_s = wait_for(lambda: mgr.wait_until_caught_up(per_part_all.tolist(), timeout=0.5), 600, "live rows")
+    n_committed = int(sum(c // RT_FLUSH for c in per_part_all))
+    wait_for(lambda: len(committed_of(controller, "lineorder_rt")) == n_committed, 120, "live commits")
+    final = {c: np.concatenate([data[c], live[c]]) for c in data}
+    want_all, _ = oracle(final, all_nation, all_category)
+    for name, sql in (("1_count_filter", q1), ("4_q4_groupby_orderby", q4)):
+        match(f"live {name}", broker.execute(sql).rows, want_all[name], approx_as=name)
+    gc.collect()
+    torch.cuda.synchronize()
+    live_copies = {n: c for n, c in staging_tracker.live().items() if n.startswith("lineorder_rt__")}
+    expect_bytes = staged_now()
+    live_bytes = torch.cuda.memory_allocated() - base_bytes
+    memory["quiesced"] = {"live": live_bytes, "staged_by_segments": expect_bytes}
+    if max(live_copies.values()) != 1:
+        raise AssertionError(f"realtime live: old generations still staged {live_copies}")
+    if live_bytes > expect_bytes + (64 << 20):
+        raise AssertionError(f"realtime live: {live_bytes} B live on the card, segments stage {expect_bytes} B")
+    out["live"] = {
+        "rows_a_second": RT_LIVE_RATE,
+        "rows": live_n,
+        "seconds": live_s,
+        "loops": len(loops),
+        "loop_q1_ms_p50": float(np.median([x["q1_ms"] for x in loops])),
+        "loop_q4_ms_p50": float(np.median([x["q4_ms"] for x in loops])),
+        "catchup_after_producer_s": catchup_s,
+        "segments_committed": n_committed,
+        "freshness": hist_quantiles(fresh, fresh_before),
+        "snapshots": gens.summary(gen0),
+        "allocator_bytes": memory,
+        "staged_copies_a_segment": max(live_copies.values()),
+        "answers_between_watermark_oracles": True,
+    }
+    mgr.stop()
+    broker.shutdown()
+    commits.close()
+    out["append_only"]["commits_live"] = {k: v for k, v in commits.by_segment.items()
+                                          if k not in out["append_only"]["commits"]}
+    del mgr, broker, server, controller, stream, live_rows, allc, final
+    gc.collect()
+
+    # -- 3. the upsert table -------------------------------------------------------
+    cust = data["lo_custkey"]
+    order = np.lexsort((np.arange(RT_ROWS), cust))
+    same = np.r_[False, cust[order][1:] == cust[order][:-1]]
+    prev = np.full(RT_ROWS, -1, dtype=np.int64)
+    prev[order[same]] = order[np.flatnonzero(same) - 1]
+    rng = np.random.default_rng(RT_LATE_SEED)
+    late = np.flatnonzero((rng.random(RT_ROWS) < RT_LATE) & (prev >= 0))
+    ts = np.arange(RT_ROWS, dtype=np.int64)
+    for i in late.tolist():  # arrival order: a late row's predecessor is final
+        ts[i] = ts[prev[i]] - 1
+    win = np.lexsort((np.arange(RT_ROWS), ts, cust))
+    lastk = np.r_[cust[win][1:] != cust[win][:-1], True]
+    live_mask = np.zeros(RT_ROWS, dtype=bool)
+    live_mask[win[lastk]] = True
+    rev = data["lo_revenue"]
+    sums = np.bincount(nation[live_mask], weights=rev[live_mask], minlength=25)
+    cnt = np.bincount(nation[live_mask], minlength=25)
+    keys = cust[live_mask]
+    top = np.lexsort((keys, -rev[live_mask]))[:100]
+    want_up = {
+        "up_count": [[int(live_mask.sum())]],
+        "up_by_nation": [[NATIONS[i], float(sums[i])] for i in range(25) if cnt[i]],
+        "up_latest_revenue": [[int(keys[i]), float(rev[live_mask][i])] for i in top],
+    }
+    t0 = time.perf_counter()
+    stream = InMemoryStream(RT_PARTITIONS)
+    rt_produce(stream, rt_messages(data, ts), parts)
+    up_produce_s = time.perf_counter() - t0
+    controller, (server,), schema, config = rt_cluster(
+        "lineorder_up", f"{deep}/up", {"upsert": UpsertConfig(mode="FULL", comparison_column="ts")}, pk=("lo_custkey",)
+    )
+    commits = CommitTimes(controller, [server])
+    mgr = RealtimeTableManager(controller, server, schema, config, stream, max_rows_per_segment=RT_FLUSH)
+    n_committed = int(sum(c // RT_FLUSH for c in per_part))
+    t0 = time.perf_counter()
+    mgr.start()
+    wait_for(lambda: mgr.wait_until_caught_up(per_part.tolist(), timeout=0.5), 900, "lineorder_up caught up")
+    wait_for(lambda: len(committed_of(controller, "lineorder_up")) == n_committed, 120, "lineorder_up commits")
+    up_ingest_s = time.perf_counter() - t0
+    broker = Broker(controller, cache_config=CacheConfig(enabled=False))
+
+    def upsert_queries(tag):
+        rows, walls = {}, {}
+        for name, sql in UPSERT_RT_CONFIGS.items():
+            res = counted(f"{tag}{name}", sql, tuple(n_segments * v for v in UPSERT_RT_LAUNCHES[name]))
+            match(f"{tag}{name}", res.rows, want_up[name])
+            rows[name] = res.rows
+            walls[name] = wall_p50_of(lambda: broker.execute(sql), warm=0, runs=3)["p50_ms"]
+        return rows, walls
+
+    up_rows, up_walls = upsert_queries("")
+    masks = {p: {s: vd.mask(vd.n).copy() for s, vd in u._valid.items()} for p, u in mgr.upsert_managers.items()}
+    mgr.stop()
+    snap_files, t0 = {}, time.perf_counter()
+    for p, u in mgr.upsert_managers.items():
+        snap_files[p] = f"{deep}/up_snapshot_{p}.json"
+        u.snapshot(snap_files[p])
+    snapshot_s = time.perf_counter() - t0
+    committed_ends = {}
+    for n, m in committed_of(controller, "lineorder_up").items():
+        committed_ends[m["partition"]] = max(committed_ends.get(m["partition"], 0), m["endOffset"])
+    t0 = time.perf_counter()
+    mgr2 = RealtimeTableManager(controller, server, schema, config, stream, max_rows_per_segment=RT_FLUSH)
+    bootstrap_s = time.perf_counter() - t0
+    resumed = [c.current_offset for c in mgr2.consumers]
+    if resumed != [committed_ends[p] for p in range(RT_PARTITIONS)]:
+        raise AssertionError(f"realtime upsert restart: resumed at {resumed}, committed ends {committed_ends}")
+    t0 = time.perf_counter()
+    mgr2.start()
+    wait_for(lambda: mgr2.wait_until_caught_up(per_part.tolist(), timeout=0.5), 900, "lineorder_up after restart")
+    reconsume_s = time.perf_counter() - t0
+    masks2 = {p: {s: vd.mask(vd.n).copy() for s, vd in u._valid.items()} for p, u in mgr2.upsert_managers.items()}
+    for p, f in snap_files.items():
+        restored = PartitionUpsertMetadataManager(["lo_custkey"], comparison_column="ts")
+        restored.restore(f)
+        got = {s: vd.mask(vd.n) for s, vd in restored._valid.items()}
+        for m in (masks[p], masks2[p]):
+            if sorted(got) != sorted(m) or any(not np.array_equal(got[s], m[s]) for s in got):
+                raise AssertionError(f"realtime upsert restart: partition {p}'s validity differs from its snapshot")
+    up_rows2, up_walls2 = upsert_queries("restart_")
+    if up_rows2 != up_rows:
+        raise AssertionError("realtime upsert restart: rows differ")
+    mgr2.stop()
+    broker.shutdown()
+    commits.close()
+    out["upsert"] = {
+        "rows": RT_ROWS,
+        "late_rows": int(len(late)),
+        "live_rows": int(live_mask.sum()),
+        "produce_s": up_produce_s,
+        "ingest_s": up_ingest_s,
+        "ingest_rows_per_s": RT_ROWS / up_ingest_s,
+        "commits": dict(sorted(commits.by_segment.items())),
+        "query_wall_p50_ms": up_walls,
+        "restart": {"snapshot_s": snapshot_s, "bootstrap_s": bootstrap_s, "reconsume_s": reconsume_s,
+                    "resumed_offsets": resumed, "query_wall_p50_ms": up_walls2},
+        "count": up_rows["up_count"][0][0],
+        "results_match_oracle": True,
+    }
+    del mgr, mgr2, broker, server, controller, stream, masks, masks2
+    gc.collect()
+
+    # -- 4. replicas and the completion protocol -------------------------------------
+    rep = {c: v[:RT_REP_ROWS] for c, v in data.items()}
+    rep_nation, rep_category = nation[:RT_REP_ROWS], category[:RT_REP_ROWS]
+    stream = InMemoryStream(1)
+    rt_produce(stream, rt_messages(rep, np.arange(RT_REP_ROWS)), np.zeros(RT_REP_ROWS, dtype=np.int64))
+    controller, servers, schema, config = rt_cluster("lineorder_rep", f"{deep}/rep", {}, servers=("rep_0", "rep_1"))
+    completion = SegmentCompletionManager(commit_timeout_s=60.0)
+    mgrs = [RealtimeTableManager(controller, s, schema, config, stream, max_rows_per_segment=RT_REP_FLUSH,
+                                 completion=completion) for s in servers]
+    n_rep = RT_REP_ROWS // RT_REP_FLUSH
+    names = [f"lineorder_rep__0__{i}" for i in range(n_rep)]
+    t0 = time.perf_counter()
+    for m in mgrs:
+        m.start()
+    wait_for(lambda: all(completion.phase(n) == "COMMITTED" for n in names), 300, "lineorder_rep commits")
+    wait_for(lambda: all(set(names) <= set(s.segments_of("lineorder_rep")) for s in servers), 120, "both replicas")
+
+    def decided(n):
+        who = {}
+        for s, m in zip(servers, mgrs):
+            log = [e for e in list(m.consumers[0].commit_log) if e[0] == n]
+            won = any(e[1] == "COMMIT_END" and e[2] for e in log)
+            kept = any(e[1] == "KEPT" for e in log)
+            got = any(e[1] == "DOWNLOADED" for e in log)
+            who[s.server_id] = "commit" if won else "keep" if kept else "download" if got else "none"
+        return who
+
+    wait_for(lambda: all("none" not in decided(n).values() for n in names), 120, "every replica's decision")
+    rep_s = time.perf_counter() - t0
+    decisions = {n: decided(n) for n in names}
+    for n, who in decisions.items():
+        if list(who.values()).count("commit") != 1:
+            raise AssertionError(f"realtime replicas: segment {n}: {who}")
+    rep_want, _ = oracle(rep, rep_nation, rep_category)
+    q4 = rt_sql(CONFIGS["4_q4_groupby_orderby"], "lineorder_rep")
+    for s in servers:
+        segs = [s.get_segment_object("lineorder_rep", n) for n in names]
+        res, launches[f"replica_{s.server_id}"], calls = counted_run(
+            counters, lambda: QueryEngine(segs, device=DEVICE).execute(q4)
+        )
+        check_launches(f"realtime replica {s.server_id}", counters, launches[f"replica_{s.server_id}"], calls,
+                       (n_rep, 0, 0, 0))
+        held[f"replica_{s.server_id}"] = hold_all(torch, calls, gb, ext, gs)
+        match(f"replica {s.server_id}", res.rows, rep_want["4_q4_groupby_orderby"], approx_as="4_q4_groupby_orderby")
+    broker = Broker(controller, cache_config=CacheConfig(enabled=False))
+    # the consuming segment right after the last rollover: 0 docs (pruned),
+    # then 1 (padded to the doc pad, one more B1 launch)
+    res = counted("replica_broker_empty_consuming", q4, (n_rep, 0, 0, 0))
+    match("replica broker", res.rows, rep_want["4_q4_groupby_orderby"], approx_as="4_q4_groupby_orderby")
+    one = {c: v[RT_REP_ROWS : RT_REP_ROWS + 1] for c, v in data.items()}
+    rt_produce(stream, rt_messages(one, np.arange(RT_REP_ROWS, RT_REP_ROWS + 1)), np.zeros(1, dtype=np.int64))
+    wait_for(lambda: all(m.consumers[0].current_offset == RT_REP_ROWS + 1 for m in mgrs), 60, "the one-row segment")
+    want1, _ = oracle({c: v[: RT_REP_ROWS + 1] for c, v in data.items()}, nation[: RT_REP_ROWS + 1],
+                      category[: RT_REP_ROWS + 1])
+    res = counted("replica_broker_one_doc_consuming", q4, (n_rep + 1, 0, 0, 0))
+    match("replica broker one-doc", res.rows, want1["4_q4_groupby_orderby"], approx_as="4_q4_groupby_orderby")
+    for m in mgrs:
+        m.stop()
+    broker.shutdown()
+    out["replicas"] = {
+        "rows": RT_REP_ROWS,
+        "segments": n_rep,
+        "seconds": rep_s,
+        "decisions": decisions,
+        "kept": sum(v == "keep" for d in decisions.values() for v in d.values()),
+        "downloaded": sum(v == "download" for d in decisions.values() for v in d.values()),
+        "results_match_oracle": True,
+    }
+    del mgrs, broker, servers, controller, stream
+    gc.collect()
+
+    # -- 5. dedup ------------------------------------------------------------------
+    rng = np.random.default_rng(41)
+    keys = np.arange(RT_DEDUP_ROWS, dtype=np.int64)
+    repeats = np.sort(rng.choice(np.arange(1, RT_DEDUP_ROWS), int(RT_DEDUP_ROWS * RT_DEDUP_REPEAT), replace=False))
+    for i in repeats.tolist():  # an earlier row's key
+        keys[i] = keys[int(rng.integers(0, i))]
+    dd, dd_nation, _ = make_ssb_data(RT_DEDUP_ROWS, seed=2)
+    dd["lo_custkey"] = keys.astype(np.int32)
+    stream = InMemoryStream(RT_PARTITIONS)
+    rt_produce(stream, rt_messages(dd, np.arange(RT_DEDUP_ROWS)), keys % RT_PARTITIONS)
+    controller, (server,), schema, config = rt_cluster("lineorder_dd", f"{deep}/dd", {"dedup": DedupConfig()},
+                                                       pk=("lo_custkey",))
+    mgr = RealtimeTableManager(controller, server, schema, config, stream, max_rows_per_segment=RT_FLUSH)
+    t0 = time.perf_counter()
+    mgr.start()
+    dd_parts = np.bincount(keys % RT_PARTITIONS, minlength=RT_PARTITIONS)
+    wait_for(lambda: mgr.wait_until_caught_up(dd_parts.tolist(), timeout=0.5), 300, "lineorder_dd caught up")
+    dd_s = time.perf_counter() - t0
+    _, first = np.unique(keys, return_index=True)
+    want_dd = [[len(first), float(dd["lo_revenue"][first].sum())]]
+    broker = Broker(controller, cache_config=CacheConfig(enabled=False))
+    res = counted("dedup", "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder_dd", (0, 0, 0, 0))
+    match("dedup", res.rows, want_dd)
+    mgr.stop()
+    broker.shutdown()
+    out["dedup"] = {"rows": RT_DEDUP_ROWS, "distinct_keys": len(first), "ingest_s": dd_s,
+                    "ingest_rows_per_s": RT_DEDUP_ROWS / dd_s, "results_match_oracle": True}
+    del mgr, broker, server, controller, stream
+    gens.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(deep, ignore_errors=True)
+
+    path_launches = {k: sum(v[k] for v in launches.values()) for k in counters}
+    emit(
+        {
+            "phase": "realtime",
+            **out,
+            "launches_per_query": launches,
+            "launches": path_launches,
+            "kernels_vs_plain": held,
+            "seconds": time.perf_counter() - t_phase,
+            "card": card_line(),
+        }
+    )
+    return path_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5290,14 +6015,16 @@ def main() -> int:
     run_shuffle(torch)
     multistage_launches = run_multistage(torch, counters)
     distributed_launches = run_multistage_distributed(torch, counters)
+    realtime_launches = run_realtime(torch, counters)
     # each path's counts, read just after it: the main path's, the sharded
     # path's (its proto reruns included), the mesh's, the scale path's, the
     # multistage engine's, the three cluster phases', the distributed
-    # stages' and the server processes' (from their registries) launches.
-    # The sum entry of grouped_sum_f32 is on none: the kernel's launches are
-    # its presence entry's
+    # stages', the server processes' (from their registries) and the
+    # realtime tables' launches. The sum entry of grouped_sum_f32 is on
+    # none: the kernel's launches are its presence entry's
     paths = (main["launches"], sharded_launches, mesh_launches, scale_launches, multistage_launches,
-             cluster_launches, http_launches, qps_launches, distributed_launches, process_launches)
+             cluster_launches, http_launches, qps_launches, distributed_launches, process_launches,
+             realtime_launches)
     launches = {k: sum(p[k] for p in paths) for k in main["launches"]}
     launches["grouped_sum_f32"] = launches["presence"]
 

@@ -80,7 +80,7 @@ class Controller:
         worker (lead-controller partitioning + Helix message queue analog;
         PinotHelixResourceManager.java:192). Safe on multiple controllers
         sharing one store: only the lease holder acts."""
-        raise NotImplementedError("Controller.enable_ha: lead-controller election, leases and the transition queue are ROADMAP A10")
+        raise NotImplementedError("Controller.enable_ha: lead-controller election, leases and the transition queue are ROADMAP A10c")
 
     def stop_ha(self, release_lease: bool = True) -> None:
         """Stop participating (simulates controller death when
@@ -357,9 +357,7 @@ class Controller:
         if partitions:
             seg_meta["partitions"] = partitions
         self.store.set(f"/tables/{table}/segments/{segment.name}", seg_meta, fence=self.lease_fence())
-        ideal = self.store.get(f"/tables/{table}/idealstate") or {}
-        ideal[segment.name] = {s: "ONLINE" for s in assigned}
-        self.store.set(f"/tables/{table}/idealstate", ideal, fence=self.lease_fence())
+        self._update_ideal(table, lambda ideal: ideal.update({segment.name: {s: "ONLINE" for s in assigned}}))
         self.bump_routing_version(table)
         # state transition: servers load the segment from the deep store.
         # With HA enabled, a failing server falls back to the durable retry
@@ -452,9 +450,9 @@ class Controller:
         # order matters: drop the ideal-state intent FIRST so the reconciler
         # and the delivery worker's obsolete-message guard both stop wanting
         # the segment, THEN cancel queued messages, then unload
-        ideal = self.store.get(f"/tables/{table}/idealstate") or {}
-        replicas = ideal.pop(segment_name, {})
-        self.store.set(f"/tables/{table}/idealstate", ideal, fence=self.lease_fence())
+        removed: dict[str, dict] = {}
+        self._update_ideal(table, lambda ideal: removed.update(replicas=ideal.pop(segment_name, {})))
+        replicas = removed["replicas"]
         self.bump_routing_version(table)
         if self._transitions is not None:
             self._transitions.cancel(table, segment_name)
@@ -530,18 +528,34 @@ class Controller:
     def set_segment_state(self, table: str, segment: str, server_id: str, state: str | None) -> None:
         """Set/remove one (segment, server) ideal-state entry; state=None
         removes the segment entry entirely when its replica map empties."""
-        ideal = self.store.get(f"/tables/{table}/idealstate") or {}
-        entry = ideal.get(segment, {})
-        if state is None:
-            entry.pop(server_id, None)
-        else:
-            entry[server_id] = state
-        if entry:
-            ideal[segment] = entry
-        else:
-            ideal.pop(segment, None)
-        self.store.set(f"/tables/{table}/idealstate", ideal, fence=self.lease_fence())
+
+        def apply(ideal: dict) -> None:
+            entry = ideal.get(segment, {})
+            if state is None:
+                entry.pop(server_id, None)
+            else:
+                entry[server_id] = state
+            if entry:
+                ideal[segment] = entry
+            else:
+                ideal.pop(segment, None)
+
+        self._update_ideal(table, apply)
         self.bump_routing_version(table)
+
+    def _update_ideal(self, table: str, change) -> None:
+        """change(ideal) edits the table's ideal state in place, under the
+        store's atomic read-modify-write: the consumer threads of a
+        realtime table's partitions commit segments and open the next ones
+        at once, and a plain get-then-set would drop one thread's entry (a
+        consuming segment no query routes to)."""
+
+        def edit(cur):  # the store hands out a copy
+            ideal = cur or {}
+            change(ideal)
+            return ideal
+
+        self.store.update(f"/tables/{table}/idealstate", edit, fence=self.lease_fence())
 
     # -- views ---------------------------------------------------------------
 

@@ -16,9 +16,9 @@ Every role of the port is served here: the broker, the server (with the
 multistage /mailbox and /multistage/submit endpoints the distributed stages
 ride), and the controller's REST service with its client
 (RemoteControllerClient), which a broker in its own process routes through.
-What belongs to ROADMAP A10 (the time-series endpoint, rebalance, minion
-tasks, the cluster metrics aggregator and its alerts, the controller UI)
-answers 501 naming its item.
+What the port has not taken yet answers 501 naming its ROADMAP item: minion
+tasks (A10b); rebalance, the cluster metrics aggregator and its alerts, and
+the controller UI (A10c); the time-series endpoint (A10d).
 """
 
 from __future__ import annotations
@@ -405,7 +405,7 @@ class BrokerHTTPService:
                     if ac is not None:
                         identity = ac.authenticate(dict(self.headers))
                     if self.path == "/timeseries/api/v1/query_range":
-                        _send_not_implemented(self, "/timeseries: the time-series engine is ROADMAP A10")
+                        _send_not_implemented(self, "/timeseries: the time-series engine is ROADMAP A10d")
                         return
                     res = svc.broker.execute(body["sql"], identity=identity)
                     _tl_mark("execute")
@@ -1178,16 +1178,16 @@ class ControllerHTTPService:
       POST /segments/{table}   raw ptseg segment-dir tarball (upload path)
       POST /tasks/schedule     {"taskType": optional}
 
-    The port's controller always leads (its HA is ROADMAP A10), so the
+    The port's controller always leads (its HA is ROADMAP A10c), so the
     standby gate and the fencing answer only where a controller reports it
     does not; they keep the reference's 503 + `leaderUrl` contract. The
-    task endpoints, rebalance, /debug/cluster, /debug/alerts and the UI
-    belong to A10 and answer 501 naming it.
+    task endpoints (A10b), rebalance, /debug/cluster, /debug/alerts and the
+    UI (A10c) answer 501 naming their item.
     """
 
     def __init__(self, controller: Controller, port: int = 0, task_manager=None):
         if task_manager is not None:
-            raise NotImplementedError("ControllerHTTPService(task_manager=...): minion tasks are ROADMAP A10")
+            raise NotImplementedError("ControllerHTTPService(task_manager=...): minion tasks are ROADMAP A10b")
         svc = self
         self.controller = controller
         self.task_manager = None
@@ -1238,7 +1238,7 @@ class ControllerHTTPService:
                 try:
                     parts = [p for p in self.path.split("?")[0].split("/") if p]
                     if self.path in ("/", "/index.html"):
-                        _send_not_implemented(self, "the controller UI is ROADMAP A10")
+                        _send_not_implemented(self, "the controller UI is ROADMAP A10c")
                     elif self.path.partition("?")[0] == "/metrics":
                         from pinot_tpu_torch.common.metrics import controller_metrics
 
@@ -1266,7 +1266,7 @@ class ControllerHTTPService:
                         # the ClusterMetricsAggregator's federated view and
                         # its SLO alerts (cluster/periodic.py)
                         _send_not_implemented(
-                            self, f"{self.path.partition('?')[0]}: the cluster metrics aggregator is ROADMAP A10"
+                            self, f"{self.path.partition('?')[0]}: the cluster metrics aggregator is ROADMAP A10c"
                         )
                     elif self.path == "/tables":
                         self._json({"tables": c.tables()})
@@ -1304,7 +1304,7 @@ class ControllerHTTPService:
                     elif self.path == "/instances":
                         self._json({p.split("/")[-1]: c.store.get(p) for p in c.store.list("/instances/")})
                     elif parts and parts[0] == "tasks":
-                        _send_not_implemented(self, "/tasks: minion tasks are ROADMAP A10")
+                        _send_not_implemented(self, "/tasks: minion tasks are ROADMAP A10b")
                     else:
                         self._json({"error": "not found"}, 404)
                 except Exception as e:
@@ -1429,7 +1429,7 @@ class ControllerHTTPService:
                             assigned = c.upload_segment(parts[1], seg)
                         self._json({"status": "ok", "segment": seg.name, "servers": assigned})
                     elif self.path == "/tasks/schedule":
-                        _send_not_implemented(self, "/tasks/schedule: minion tasks are ROADMAP A10")
+                        _send_not_implemented(self, "/tasks/schedule: minion tasks are ROADMAP A10b")
                     elif len(parts) == 3 and parts[0] == "tables" and parts[2] in (
                         "pauseConsumption",
                         "resumeConsumption",
@@ -1442,7 +1442,7 @@ class ControllerHTTPService:
                                 hit.append(sid)
                         self._json({"status": "ok", "servers": hit, "paused": pause})
                     elif len(parts) == 3 and parts[0] == "tables" and parts[2] == "rebalance":
-                        _send_not_implemented(self, f"/tables/{parts[1]}/rebalance: rebalance is ROADMAP A10")
+                        _send_not_implemented(self, f"/tables/{parts[1]}/rebalance: rebalance is ROADMAP A10c")
                     else:
                         self._json({"error": "not found"}, 404)
                 except PermissionError as e:

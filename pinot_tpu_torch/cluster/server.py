@@ -13,7 +13,9 @@ Group, DISTINCT and selection partials leave as `Frame`s, the DataTable's
 frame type. A distributed multistage submission (`multistage_submit`) runs
 this server's stage workers on the same device, its leaf stages through the
 single-stage engine, its blocks crossing to other processes through the
-mailbox registry. Realtime consumption is ROADMAP A10.
+mailbox registry. A realtime table's consuming segments are served from its
+`RealtimeTableManager`'s snapshots through the same engine, each committed
+segment's upsert validity attached before it becomes queryable.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ class Server:
         self.device = device
         self._tables: dict[str, dict[str, ImmutableSegment]] = {}
         self._engines: dict[str, QueryEngine] = {}
+        self._realtime: dict[str, object] = {}  # table -> RealtimeTableManager
         self._lock = threading.RLock()
         # query id -> Deadline of an in-flight query (cancellation fan-out
         # target; QueryThreadContext registry parity)
@@ -137,7 +140,26 @@ class Server:
     def attach_realtime(self, table: str, manager) -> None:
         """Attach a RealtimeTableManager whose consuming segments this server
         serves (RealtimeTableDataManager role)."""
-        raise NotImplementedError("Server.attach_realtime: realtime consumption is ROADMAP A10")
+        with self._lock:
+            self._realtime[table] = manager
+
+    def pause_consumption(self, table: str) -> bool:
+        rt = self._realtime.get(table)
+        if rt is None:
+            return False
+        rt.pause()
+        return True
+
+    def resume_consumption(self, table: str) -> bool:
+        rt = self._realtime.get(table)
+        if rt is None:
+            return False
+        rt.resume()
+        return True
+
+    def consumption_status(self, table: str) -> list[dict]:
+        rt = self._realtime.get(table)
+        return rt.consumption_status() if rt is not None else []
 
     # -- state transitions (Helix OFFLINE->ONLINE analog) --------------------
 
@@ -159,6 +181,12 @@ class Server:
         else:
             seg = load_segment(seg_dir)
         with self._lock:
+            rt = self._realtime.get(table)
+            if rt is not None and hasattr(rt, "on_segment_loaded"):
+                # upsert tables: validity mask must be attached BEFORE the
+                # segment becomes queryable, or a concurrent query would see
+                # superseded rows (validDocIds attach-then-online ordering)
+                rt.on_segment_loaded(seg)
             self._tables.setdefault(table, {})[segment_name] = seg
             # engines are rebuilt lazily; drop the cached one
             self._engines.pop(table, None)
@@ -502,11 +530,28 @@ class Server:
         if len(segs) != len(segment_names):
             # a silently-dropped unhosted segment would mean missing rows
             # reported as success (the partial-response guard _scatter_leg
-            # applies client-side); the stream fails loudly instead
-            missing = set(segment_names) - {s.name for s in segs}
-            raise RuntimeError(
-                f"server {self.server_id} does not host segments {sorted(missing)} of table {table!r}"
-            )
+            # applies client-side); the stream fails loudly instead.
+            # Exception: names of the ACTIVE consuming generation — during
+            # segment rollover the routed CONSUMING name can be transiently
+            # unresolvable (the committed replacement serves the data). A
+            # missing COMMITTED segment of a realtime table still errors.
+            hosted = {s.name for s in segs}
+            missing = set(segment_names) - hosted
+            with self._lock:
+                rt = self._realtime.get(table)
+                active = set()
+                if rt is not None:
+                    for c in rt.consumers:
+                        # previous/current/next sequence of each partition are
+                        # the rollover window (seal -> commit -> reopen)
+                        for seq in (c.sequence - 1, c.sequence, c.sequence + 1):
+                            active.add(f"{c.table}__{c.partition}__{seq}")
+            truly_missing = missing - active
+            if truly_missing:
+                raise RuntimeError(
+                    f"server {self.server_id} does not host segments "
+                    f"{sorted(truly_missing)} of table {table!r}"
+                )
         from pinot_tpu_torch.common.faults import FAULTS, InjectedFault
         from pinot_tpu_torch.common.metrics import ServerMeter, server_metrics
         from pinot_tpu_torch.common.trace import trace_event
@@ -566,7 +611,27 @@ class Server:
     def _resolve_segments(self, table: str, segment_names: list[str]):
         with self._lock:
             hosted = self._tables.get(table, {})
-            return [hosted[name] for name in segment_names if name in hosted]
+            rt = self._realtime.get(table)
+            segs = []
+            for name in segment_names:
+                if name in hosted:
+                    segs.append(hosted[name])
+                elif rt is not None:
+                    for c in rt.consumers:
+                        # the name check and the snapshot under the consumer's
+                        # lock: a rollover between them would hand out the
+                        # next segment's rows under this name
+                        with c._lock:
+                            if c._seg_name() == name:
+                                segs.append(c._mutable.snapshot())
+                                break
+                        pend = getattr(c, "pending_sealed", lambda _n: None)(name)
+                        if pend is not None:
+                            # sealed, commit in flight (pauseless): the local
+                            # build serves until the committed copy lands
+                            segs.append(pend)
+                            break
+            return segs
 
     def execute_partials(
         self, table: str, sql: str, segment_names: list[str], hints: dict | None = None, workload: str = "PRIMARY"

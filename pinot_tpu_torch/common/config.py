@@ -477,10 +477,66 @@ class IndexingConfig:
 
 
 @dataclass
+class UpsertConfig:
+    """Parity with UpsertConfig (pinot-spi/.../config/table/UpsertConfig.java):
+    mode FULL/PARTIAL, comparison column (defaults to the time column),
+    per-column partial strategies, optional delete-record column."""
+
+    mode: str = "FULL"  # FULL | PARTIAL
+    comparison_column: str | None = None
+    partial_strategies: dict = field(default_factory=dict)  # col -> strategy
+    default_partial_strategy: str = "OVERWRITE"
+    delete_record_column: str | None = None
+
+    def to_dict(self) -> dict:
+        return {
+            "mode": self.mode,
+            "comparisonColumn": self.comparison_column,
+            "partialUpsertStrategies": self.partial_strategies,
+            "defaultPartialUpsertStrategy": self.default_partial_strategy,
+            "deleteRecordColumn": self.delete_record_column,
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "UpsertConfig":
+        return UpsertConfig(
+            mode=d.get("mode", "FULL"),
+            comparison_column=d.get("comparisonColumn"),
+            partial_strategies=d.get("partialUpsertStrategies", {}),
+            default_partial_strategy=d.get("defaultPartialUpsertStrategy", "OVERWRITE"),
+            delete_record_column=d.get("deleteRecordColumn"),
+        )
+
+
+@dataclass
+class DedupConfig:
+    """Parity with DedupConfig (pinot-spi/.../config/table/DedupConfig.java):
+    PK-based ingestion dedup with optional metadata TTL."""
+
+    enabled: bool = True
+    metadata_ttl: float = 0.0  # 0 = keep forever; else drop PKs older than ttl
+    dedup_time_column: str | None = None  # time source for TTL (default: time column)
+
+    def to_dict(self) -> dict:
+        return {
+            "enabled": self.enabled,
+            "metadataTTL": self.metadata_ttl,
+            "dedupTimeColumn": self.dedup_time_column,
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "DedupConfig":
+        return DedupConfig(
+            enabled=d.get("enabled", True),
+            metadata_ttl=d.get("metadataTTL", 0.0),
+            dedup_time_column=d.get("dedupTimeColumn"),
+        )
+
+
+@dataclass
 class TableConfig:
     """The reference's TableConfig. `indexing` stays the second positional
-    argument, as the port's builder callers pass it; upsert and dedup
-    configurations come with the realtime tables (ROADMAP A10)."""
+    argument, as the port's builder callers pass it."""
 
     table_name: str
     indexing: IndexingConfig = field(default_factory=IndexingConfig)
@@ -489,8 +545,8 @@ class TableConfig:
     table_type: TableType = TableType.OFFLINE
     replication: int = 1
     time_column: str | None = None
-    upsert: None = None
-    dedup: None = None
+    upsert: UpsertConfig | None = None
+    dedup: DedupConfig | None = None
 
     @property
     def table_name_with_type(self) -> str:
@@ -504,8 +560,8 @@ class TableConfig:
                 "indexing": self.indexing.to_dict(),
                 "replication": self.replication,
                 "timeColumn": self.time_column,
-                "upsertConfig": None,
-                "dedupConfig": None,
+                "upsertConfig": self.upsert.to_dict() if self.upsert else None,
+                "dedupConfig": self.dedup.to_dict() if self.dedup else None,
                 "extra": self.extra,
             }
         )
@@ -513,14 +569,13 @@ class TableConfig:
     @staticmethod
     def from_json(s: str) -> "TableConfig":
         d = json.loads(s)
-        for key in ("upsertConfig", "dedupConfig"):
-            if d.get(key):
-                raise NotImplementedError(f"TableConfig {key}: upsert and dedup tables are ROADMAP A10")
         return TableConfig(
             table_name=d["tableName"],
             table_type=TableType(d.get("tableType", "OFFLINE")),
             indexing=IndexingConfig.from_dict(d.get("indexing", {})),
             replication=d.get("replication", 1),
             time_column=d.get("timeColumn"),
+            upsert=UpsertConfig.from_dict(d["upsertConfig"]) if d.get("upsertConfig") else None,
+            dedup=DedupConfig.from_dict(d["dedupConfig"]) if d.get("dedupConfig") else None,
             extra=d.get("extra", {}),
         )

@@ -424,6 +424,24 @@ class ScanMeter(Enum):
     FULL_SCAN_FALLBACK = "server.scan.fullScanFallback"
 
 
+class ServerHistogram(Enum):
+    #: event-to-queryable latency: stream-producer stamp -> row visible in
+    #: the consuming segment (freshness SLO input, one series per table)
+    FRESHNESS = "server.freshnessMs"
+
+
+class IngestGauge(Enum):
+    #: per-(table, partition) consumer lag in events: upstream head minus
+    #: the committed read offset (the "how far behind" the freshness SLO
+    #: can't distinguish from slow commits on its own)
+    LAG_EVENTS = "server.ingest.lagEvents"
+
+
+class IngestTimer(Enum):
+    #: seal -> durable commit latency per rollover (one series per table)
+    COMMIT_LATENCY = "server.ingest.commitLatencyMs"
+
+
 class ServerTimer(Enum):
     QUERY_EXECUTION = "server.queryExecutionMs"
     SEGMENT_LOAD = "server.segmentLoadMs"

@@ -1,0 +1,803 @@
+"""Realtime consumption manager: consume loop, segment lifecycle, commit.
+
+Reference parity: RealtimeSegmentDataManager (pinot-core/.../data/manager/
+realtime/RealtimeSegmentDataManager.java:123) — consume loop at :717/:440,
+state machine INITIAL_CONSUMING -> CATCHING_UP -> CONSUMING_TO_ONLINE at
+:130-167 — plus PinotLLCRealtimeSegmentManager's next-consuming-segment
+creation and the deep-store commit. Checkpoint/resume parity (SURVEY §5.4):
+committed segments record their [start,end) stream offsets in segment
+metadata; a restarted manager resumes from the last committed end offset.
+
+Segment naming follows the LLC convention table__partition__sequence.
+
+This is the JAX package's `realtime/manager.py`. Two changes: the
+single-replica rollover keeps its sealed segment queryable by name
+(`pending_sealed`) until the committed copy is hosted, as the completion
+protocol's path does, so a query routed to the consuming name during the
+upload still finds its rows; and the stats history is appended with the
+store's atomic update, since partitions commit from their own threads.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+from pinot_tpu_torch.common.config import TableConfig
+from pinot_tpu_torch.common.types import Schema
+from pinot_tpu_torch.realtime.mutable import MutableSegment
+from pinot_tpu_torch.realtime.stream import StreamFactory
+from pinot_tpu_torch.segment.segment import ImmutableSegment
+
+
+class PartitionConsumer:
+    """One partition's consume loop + segment rollover (dedicated thread,
+    like PartitionConsumer.run at RealtimeSegmentDataManager.java:717)."""
+
+    def __init__(
+        self,
+        table: str,
+        partition: int,
+        schema: Schema,
+        config: TableConfig,
+        consumer,
+        commit_fn,
+        on_open=None,  # fn(segment_name) when a consuming segment opens
+        start_offset: int = 0,
+        start_sequence: int = 0,
+        max_rows_per_segment: int = 100_000,
+        poll_interval_s: float = 0.01,
+        batch_size: int = 1000,
+        upsert=None,  # PartitionUpsertMetadataManager
+        dedup=None,  # PartitionDedupMetadataManager
+        completion=None,  # SegmentCompletionManager (multi-replica protocol)
+        server_id: str = "server_0",
+        download_fn=None,  # fn(segment_name, download_from) -> bool
+        pauseless: bool = True,
+    ):
+        self.table = table
+        self.completion = completion
+        self.server_id = server_id
+        self.download_fn = download_fn or (lambda name, src: False)
+        self.pauseless = pauseless
+        #: commit phase trace for tests/observability
+        self.commit_log: list[tuple] = []
+        #: sealed-but-not-yet-committed segments, still queryable by name
+        #: (pauseless: the async build/upload must not open a visibility gap)
+        self._pending_sealed: dict[str, ImmutableSegment] = {}
+        self.upsert = upsert
+        self.dedup = dedup
+        self.upsert_partial = bool(
+            upsert is not None and config.upsert is not None and config.upsert.mode.upper() == "PARTIAL"
+        )
+        self.partition = partition
+        self.schema = schema
+        self.config = config
+        self.consumer = consumer
+        self.commit_fn = commit_fn  # fn(ImmutableSegment, start_off, end_off)
+        self.on_open = on_open or (lambda name: None)
+        self.offset = start_offset
+        self.sequence = start_sequence
+        self.max_rows = max_rows_per_segment
+        self.poll_interval_s = poll_interval_s
+        self.batch_size = batch_size
+        self.state = "INITIAL_CONSUMING"
+        self._segment_start_offset = start_offset
+        self._mutable = self._new_mutable()
+        self._stop = threading.Event()
+        self._resume = threading.Event()
+        self._resume.set()  # not paused
+        self._thread: threading.Thread | None = None
+        self._lock = threading.RLock()
+        self.on_open(self._seg_name())
+
+    def _seg_name(self) -> str:
+        return f"{self.table}__{self.partition}__{self.sequence}"
+
+    def _new_mutable(self) -> MutableSegment:
+        seg = MutableSegment(self._seg_name(), self.schema, self.config)
+        if self.upsert is not None:
+            seg.valid_provider = self.upsert.valid_provider(seg.name)
+            self.upsert.register_reader(seg.name, seg.get_row)
+        return seg
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout)
+
+    def pause(self) -> None:
+        """Stop fetching without losing the consuming segment (the
+        pauseConsumption REST / PauselessSegmentCompletionFSM hold state)."""
+        self._resume.clear()
+
+    def resume(self) -> None:
+        self._resume.set()
+
+    @property
+    def paused(self) -> bool:
+        return not self._resume.is_set()
+
+    def _run(self) -> None:
+        self.state = "CONSUMING"  # pinotlint: disable=race-discipline — state is written only by the consumer thread (_rollover runs on it); readers see a GIL-atomic str for status reporting
+        while not self._stop.is_set():
+            if not self._resume.is_set():
+                self.state = "PAUSED"
+                while not self._stop.is_set() and not self._resume.wait(timeout=0.1):
+                    pass
+                if self._stop.is_set():
+                    break
+                self.state = "CONSUMING"
+            consumed = self._consume_batch()
+            if self._mutable.n_docs >= self.max_rows:
+                self._rollover()
+            if not consumed:
+                time.sleep(self.poll_interval_s)
+        self.state = "STOPPED"
+
+    def _consume_batch(self, ignore_budget: bool = False) -> int:
+        # never overfill the consuming segment past its row budget: the
+        # rollover boundary must respect max_rows (segment size end-criteria).
+        # ignore_budget: a CATCHUP directive must reach the winning offset
+        # even though the local segment is already full (all replicas commit
+        # the SAME row range; the budget would otherwise livelock the loop).
+        from pinot_tpu_torch.common.faults import FAULTS, InjectedFault
+
+        try:
+            FAULTS.maybe_fail("stream.lag")
+        except InjectedFault:
+            # transient fetch failure (broker hiccup): nothing consumed this
+            # round; the poll loop retries — lag, not data loss
+            return 0
+        budget = self.batch_size if ignore_budget else max(0, self.max_rows - self._mutable.n_docs)
+        msgs, next_off = self.consumer.fetch_messages(self.offset, min(self.batch_size, budget))
+        for m in msgs:
+            row = m.value
+            if self.dedup is not None and not self.dedup.check_and_add(row):
+                continue  # duplicate PK: dropped at ingestion
+            if self.upsert is not None:
+                if self.upsert_partial:
+                    prev = self.upsert.previous_row(row)
+                    if prev is not None:
+                        from pinot_tpu_torch.upsert import merge_partial
+
+                        cfg = self.config.upsert
+                        row = merge_partial(
+                            prev,
+                            dict(row),
+                            self.upsert.pk_columns,
+                            self.upsert.comparison_column,
+                            cfg.partial_strategies,
+                            cfg.default_partial_strategy,
+                        )
+                doc_id = self._mutable.n_docs
+                self._mutable.index(row)
+                self.upsert.add_row(self._mutable.name, doc_id, dict(row))
+            else:
+                self._mutable.index(row)
+        with self._lock:
+            self.offset = next_off
+        self._record_lag()
+        if msgs:
+            # event-to-queryable freshness: rows indexed above are visible to
+            # queries via the consuming snapshot the moment this batch lands,
+            # so producer-stamp -> now IS the freshness sample (per table; the
+            # aggregator folds the series into the cluster freshness SLO)
+            from pinot_tpu_torch.common.metrics import ServerHistogram, server_metrics
+
+            now_ms = time.time() * 1e3
+            fh = server_metrics().histogram(ServerHistogram.FRESHNESS, table=self.table)
+            for m in msgs:
+                if m.timestamp_ms:
+                    fh.update_ms(max(0.0, now_ms - m.timestamp_ms))
+        return len(msgs)
+
+    def _record_lag(self) -> None:
+        """Per-partition consumer lag in events (upstream head minus our
+        committed read offset): `server.ingest.lagEvents{table=,partition=}`.
+        The stream protocol only mandates fetch_messages, so the upstream
+        head comes from `consumer.latest_offset(partition)` or the backing
+        `consumer.stream` when available — no lag series otherwise."""
+        latest_fn = getattr(self.consumer, "latest_offset", None)
+        if latest_fn is None:
+            stream = getattr(self.consumer, "stream", None)
+            latest_fn = getattr(stream, "latest_offset", None)
+        if latest_fn is None:
+            return
+        try:
+            head = int(latest_fn(self.partition))
+        except Exception:  # pinotlint: disable=deadline-swallow — optional observability probe; a flaky upstream head lookup must never stall the consume loop
+            return
+        from pinot_tpu_torch.common.metrics import IngestGauge, server_metrics
+
+        server_metrics().gauge(
+            IngestGauge.LAG_EVENTS, table=self.table, partition=str(self.partition)
+        ).set(max(0, head - self.offset))
+
+    def _timed_commit(self, commit_fn, sealed, start: int, end: int) -> None:
+        """Commit with cadence observability: `server.ingest.commitLatencyMs`
+        times the seal->durable path (deep-store write + metadata), the
+        ingest-side cost the freshness SLO pays on every rollover."""
+        t0 = time.perf_counter()
+        try:
+            commit_fn(sealed, start, end)
+        finally:
+            from pinot_tpu_torch.common.metrics import IngestTimer, server_metrics
+
+            server_metrics().timer(
+                IngestTimer.COMMIT_LATENCY, table=self.table
+            ).update_ms((time.perf_counter() - t0) * 1e3)
+
+    def _rollover(self) -> None:
+        """End criteria reached: seal, commit, open the next consuming
+        segment. Without a completion manager this is the single-replica
+        synchronous variant; with one, the multi-replica completion
+        protocol runs (SegmentCompletionManager FSM parity)."""
+        if self.completion is not None:
+            self._rollover_protocol()
+            return
+        self.state = "CONSUMING_TO_ONLINE"
+        seg_name = self._seg_name()
+        with self._lock:
+            sealed = self._mutable.seal()
+            start, end = self._segment_start_offset, self.offset
+            self.sequence += 1
+            self._segment_start_offset = end
+            self._mutable = self._new_mutable()
+            # queryable by name until the committed copy is hosted, as on
+            # the protocol path: a query routed to the consuming name while
+            # the upload runs still finds its rows
+            self._pending_sealed[seg_name] = sealed
+        try:
+            self._timed_commit(self.commit_fn, sealed, start, end)
+        finally:
+            with self._lock:
+                self._pending_sealed.pop(seg_name, None)
+        self.on_open(self._seg_name())
+        self.state = "CONSUMING"
+
+    # -- multi-replica completion protocol ---------------------------------
+
+    def _rollover_protocol(self) -> None:
+        """segmentConsumed loop against the controller FSM: this replica
+        either wins the commit (build + upload + commitEnd), catches up to
+        the winning offset, or discards and downloads the committed copy
+        (SegmentCompletionManager directives)."""
+        from pinot_tpu_torch.realtime import completion as C
+
+        seg_name = self._seg_name()
+        self.state = "HOLDING"
+        while not self._stop.is_set():
+            directive, target = self.completion.segment_consumed(
+                seg_name, self.server_id, self.offset
+            )
+            self.commit_log.append((seg_name, directive, target))
+            if directive == C.COMMIT:
+                self._protocol_commit(seg_name, target)
+                return
+            if directive == C.CATCHUP:
+                self._consume_to(target)
+                continue
+            if directive == C.KEEP:
+                self._keep_local(seg_name, target)
+                return
+            if directive == C.DISCARD_AND_DOWNLOAD:
+                self._discard_and_download(seg_name, target)
+                return
+            time.sleep(0.02)  # HOLD
+        self.state = "STOPPED"
+
+    def _consume_to(self, target: int) -> None:
+        """Consume up to (at least) the target offset so every replica
+        commits the SAME row range (past the row budget if needed)."""
+        while self.offset < target and not self._stop.is_set():
+            if self._consume_batch(ignore_budget=True) == 0:
+                time.sleep(self.poll_interval_s)
+
+    def _protocol_commit(self, seg_name: str, target: int) -> None:
+        self.state = "COMMITTING"
+        self._consume_to(target)
+        with self._lock:
+            sealed = self._mutable.seal()
+            start, end = self._segment_start_offset, self.offset
+            self.sequence += 1
+            self._segment_start_offset = end
+            self._mutable = self._new_mutable()
+            self._pending_sealed[seg_name] = sealed
+
+        def do_commit() -> None:
+            ok = False
+            download_from = None
+            # heartbeat ticker: a LIVE slow commit renews its claim (capped
+            # by the FSM's absolute max commit time); claim loss is checked
+            # before irreversible side effects (narrow TOCTOU remains — the
+            # reference accepts the same race and rejects the late
+            # commitEnd, which commit_end does here too)
+            done = threading.Event()
+
+            def ticker():
+                while not done.wait(self.completion.commit_timeout_s / 3.0):
+                    if not self.completion.commit_heartbeat(seg_name, self.server_id):
+                        return
+
+            hb = threading.Thread(target=ticker, daemon=True)
+            hb.start()
+            try:
+                if not self.completion.commit_heartbeat(seg_name, self.server_id):
+                    accepted = False
+                else:
+                    try:
+                        self._timed_commit(self.commit_fn, sealed, start, end)
+                        ok = True
+                    except Exception:
+                        # deep store unavailable: keep the built copy local,
+                        # offer it for PEER download (peerSegmentDownloadScheme)
+                        try:
+                            if self.peer_commit_fn is not None:
+                                self._timed_commit(self.peer_commit_fn, sealed, start, end)
+                                ok = True
+                                download_from = self.server_id
+                        except Exception:
+                            ok = False
+                    accepted = self.completion.commit_end(seg_name, self.server_id, end, ok, download_from)
+            finally:
+                done.set()
+            self.commit_log.append((seg_name, "COMMIT_END", ok and accepted))
+            recovered = True
+            if not (ok and accepted):
+                # another replica won (or will): fetch the winning copy so
+                # this server still serves the committed row range
+                recovered = self._recover_lost_commit(seg_name)
+            if ok or recovered:
+                with self._lock:
+                    self._pending_sealed.pop(seg_name, None)
+            # on failed recovery the local sealed build STAYS queryable from
+            # _pending_sealed — it may be the cluster's only copy
+
+        if self.pauseless:
+            # pauseless completion: the next consuming segment opens and the
+            # consume loop continues while the build/upload runs on its own
+            # thread (PauselessSegmentCompletionFSM: metadata first,
+            # artifacts async); the sealed copy stays queryable from
+            # _pending_sealed meanwhile. A commit outliving the FSM's commit
+            # timeout loses its claim (commit_end -> accepted=False) and
+            # another replica is promoted — timeout IS the liveness signal.
+            self.on_open(self._seg_name())
+            self.state = "CONSUMING"
+            threading.Thread(target=do_commit, daemon=True).start()
+        else:
+            do_commit()
+            self.on_open(self._seg_name())
+            self.state = "CONSUMING"
+
+    def _recover_lost_commit(self, seg_name: str, timeout: float = 30.0) -> bool:
+        """This replica's commit lost (failure or revoked claim): wait for
+        the winner to COMMIT, then download its copy. Returns True when the
+        committed copy landed locally."""
+        deadline = time.time() + timeout
+        while time.time() < deadline and not self._stop.is_set():
+            if self.completion.phase(seg_name) == "COMMITTED":
+                src = self.completion.download_source(seg_name)
+                got = self.download_fn(seg_name, src)
+                self.commit_log.append((seg_name, "RECOVERED" if got else "RECOVER_MISS", src))
+                return bool(got)
+            time.sleep(0.05)
+        self.commit_log.append((seg_name, "RECOVER_TIMEOUT", None))
+        return False
+
+    #: optional fn(ImmutableSegment) registering THIS replica's own build of
+    #: an already-committed segment (KEEP directive: identical row range, no
+    #: download needed)
+    keep_fn = None
+
+    def _keep_local(self, seg_name: str, committed_end: int) -> None:
+        """KEEP: local rows cover exactly the committed range — seal and
+        serve this replica's own build instead of downloading."""
+        with self._lock:
+            sealed = self._mutable.seal()
+            self.sequence += 1
+            self._segment_start_offset = committed_end
+            self.offset = committed_end
+            self._mutable = self._new_mutable()
+        if self.keep_fn is not None:
+            self.keep_fn(sealed)
+            self.commit_log.append((seg_name, "KEPT", None))
+        else:
+            # no local registration hook: fall back to a download
+            src = self.completion.download_source(seg_name)
+            got = self.download_fn(seg_name, src)
+            self.commit_log.append((seg_name, "DOWNLOADED" if got else "DOWNLOAD_MISS", src))
+        self.on_open(self._seg_name())
+        self.state = "CONSUMING"
+
+    def pending_sealed(self, name: str) -> "ImmutableSegment | None":
+        with self._lock:
+            return self._pending_sealed.get(name)
+
+    #: optional fn(segment, start, end) registering a locally-built segment
+    #: for peer download when the deep store is unavailable
+    peer_commit_fn = None
+
+    def _discard_and_download(self, seg_name: str, committed_end: int) -> None:
+        """Another replica committed this segment: drop the locally consumed
+        rows, fetch the committed copy (deep store, else peer), and resume
+        consuming from the committed end offset."""
+        src = self.completion.download_source(seg_name)
+        with self._lock:
+            old = self._mutable
+            old_offset = self.offset
+            self.sequence += 1
+            self._segment_start_offset = committed_end
+            self.offset = committed_end
+            self._mutable = self._new_mutable()
+            if old_offset > committed_end:
+                # this replica consumed PAST the committed end: those rows
+                # already passed dedup/upsert, so re-fetching would drop
+                # them — carry them from the discarded mutable into the new
+                # consuming segment instead (never skipped, never re-deduped)
+                n_committed = self._committed_doc_count(seg_name)
+                if n_committed is not None:
+                    for i in range(n_committed, old.n_docs):
+                        row = old.get_row(i)
+                        doc_id = self._mutable.n_docs
+                        self._mutable.index(row)
+                        if self.upsert is not None:
+                            self.upsert.add_row(self._mutable.name, doc_id, dict(row))
+                    self.offset = old_offset
+                    self._segment_start_offset = committed_end
+        got = self.download_fn(seg_name, src)
+        self.commit_log.append((seg_name, "DOWNLOADED" if got else "DOWNLOAD_MISS", src))
+        self.on_open(self._seg_name())
+        self.state = "CONSUMING"
+
+    #: fn(segment_name) -> committed doc count (from controller metadata);
+    #: wired by the table manager, used by the offset-divergence carry-over
+    committed_docs_fn = None
+
+    def _committed_doc_count(self, seg_name: str) -> int | None:
+        if self.committed_docs_fn is None:
+            return None
+        try:
+            return self.committed_docs_fn(seg_name)
+        except Exception:
+            return None
+
+    # -- query view ----------------------------------------------------------
+
+    def consuming_snapshot(self) -> ImmutableSegment | None:
+        with self._lock:
+            if self._mutable.n_docs == 0:
+                return None
+            return self._mutable.snapshot()
+
+    @property
+    def current_offset(self) -> int:
+        with self._lock:
+            return self.offset
+
+
+class RealtimeTableManager:
+    """Per-table realtime orchestration (RealtimeTableDataManager +
+    PinotLLCRealtimeSegmentManager roles): one PartitionConsumer per stream
+    partition, committed segments pushed to the controller, consuming
+    snapshots exposed for hybrid queries."""
+
+    def __init__(
+        self,
+        controller,
+        server,
+        schema: Schema,
+        config: TableConfig,
+        stream: StreamFactory,
+        max_rows_per_segment: int = 100_000,
+        completion=None,  # shared SegmentCompletionManager for multi-replica
+        pauseless: bool = True,
+    ):
+        self.controller = controller
+        self.server = server
+        self.completion = completion
+        self.pauseless = pauseless
+        self.schema = schema
+        self.config = config
+        self.table = config.table_name
+        if config.upsert is not None and config.dedup is not None and config.dedup.enabled:
+            # Pinot rejects this combination at table-config validation:
+            # dedup would drop every PK-repeated row before upsert sees it
+            raise ValueError("a table cannot enable both upsert and dedup")
+        self.stream = stream
+        self.max_rows = max_rows_per_segment
+        self.consumers: list[PartitionConsumer] = []
+        self.upsert_managers: dict[int, object] = {}
+        self.dedup_managers: dict[int, object] = {}
+        server.attach_realtime(self.table, self)
+        for p in range(stream.partition_count()):
+            upsert = dedup = None
+            if config.upsert is not None:
+                from pinot_tpu_torch.upsert import PartitionUpsertMetadataManager
+
+                upsert = PartitionUpsertMetadataManager(
+                    schema.primary_key_columns,
+                    comparison_column=config.upsert.comparison_column or config.time_column,
+                    delete_column=config.upsert.delete_record_column,
+                )
+                self.upsert_managers[p] = upsert
+            if config.dedup is not None and config.dedup.enabled:
+                from pinot_tpu_torch.upsert import PartitionDedupMetadataManager
+
+                dedup = PartitionDedupMetadataManager(
+                    schema.primary_key_columns,
+                    metadata_ttl=config.dedup.metadata_ttl,
+                    time_column=config.dedup.dedup_time_column or config.time_column,
+                )
+                self.dedup_managers[p] = dedup
+            start_offset, start_seq = self._recover(p)
+            self._bootstrap_upsert(p, upsert)
+            pc = PartitionConsumer(
+                self.table,
+                p,
+                schema,
+                config,
+                stream.create_consumer(p),
+                self._make_commit(p),
+                on_open=self._make_on_open(),
+                start_offset=start_offset,
+                start_sequence=start_seq,
+                max_rows_per_segment=max_rows_per_segment,
+                upsert=upsert,
+                dedup=dedup,
+                completion=completion,
+                server_id=server.server_id,
+                download_fn=self._make_download(p),
+                pauseless=pauseless,
+            )
+            pc.peer_commit_fn = self._make_peer_commit(p)
+            pc.keep_fn = self._make_keep()
+            pc.committed_docs_fn = lambda name: (
+                (self.controller.segment_metadata(self.table, name) or {}).get("numDocs")
+            )
+            self.consumers.append(pc)
+
+    def _make_on_open(self):
+        def on_open(segment_name: str) -> None:
+            # CONSUMING ideal-state entry routed to the owning server
+            self.controller.set_segment_state(
+                self.table, segment_name, self.server.server_id, "CONSUMING"
+            )
+
+        return on_open
+
+    def _recover(self, partition: int) -> tuple[int, int]:
+        """Resume from the last committed segment's end offset (checkpoint
+        parity: stream offsets live in segment metadata)."""
+        best_end, best_seq = 0, 0
+        for name, meta in self.controller.all_segment_metadata(self.table).items():
+            parts = name.rsplit("__", 2)
+            if len(parts) != 3 or parts[0] != self.table or int(parts[1]) != partition:
+                continue
+            if "endOffset" in meta:
+                if meta["endOffset"] >= best_end:
+                    best_end = meta["endOffset"]
+                    best_seq = int(parts[2]) + 1
+        return best_end, best_seq
+
+    def _bootstrap_upsert(self, partition: int, upsert) -> None:
+        """On restart, replay committed segments of this partition into the
+        upsert metadata (addSegment replay in docId order; SURVEY §5.4)."""
+        if upsert is None:
+            return
+        metas = []
+        for name, meta in self.controller.all_segment_metadata(self.table).items():
+            parts = name.rsplit("__", 2)
+            if len(parts) == 3 and parts[0] == self.table and int(parts[1]) == partition:
+                metas.append((int(parts[2]), name))
+        for _, name in sorted(metas):
+            seg = self.server.get_segment_object(self.table, name)
+            if seg is not None:
+                upsert.add_segment(seg)
+                self._attach_upsert(seg, upsert)
+
+    def _partition_of(self, segment_name: str) -> int | None:
+        parts = segment_name.rsplit("__", 2)
+        if len(parts) == 3 and parts[0] == self.table:
+            try:
+                return int(parts[1])
+            except ValueError:
+                return None
+        return None
+
+    def on_segment_loaded(self, seg: ImmutableSegment) -> None:
+        """Server hook, called under the server lock BEFORE the loaded segment
+        becomes queryable: attach the live validity mask (and, for PARTIAL
+        mode, a lazy row reader) under the segment's unchanged LLC name."""
+        p = self._partition_of(seg.name)
+        if p is None:
+            return
+        upsert = self.upsert_managers.get(p)
+        if upsert is None:
+            return
+        self._attach_upsert(seg, upsert)
+
+    def _attach_upsert(self, seg: ImmutableSegment, upsert) -> None:
+        seg.extras["valid_docs"] = upsert.valid_provider(seg.name)
+        if self.config.upsert is not None and self.config.upsert.mode.upper() == "PARTIAL":
+            # lazy per-doc reader: only PARTIAL merges ever read previous rows
+            import numpy as np
+
+            def reader(doc_id: int, _s=seg) -> dict:
+                idx = np.asarray([doc_id])
+                return {c: ci.materialize(idx)[0] for c, ci in _s.columns.items()}
+
+            upsert.register_reader(seg.name, reader)
+
+    def _make_commit(self, partition: int):
+        def commit(segment: ImmutableSegment, start_off: int, end_off: int) -> None:
+            # upload triggers Server.add_segment, whose on_segment_loaded hook
+            # attaches the validity mask before the copy becomes queryable
+            self.controller.upload_segment(self.table, segment)
+            meta = self.controller.segment_metadata(self.table, segment.name) or {}
+            meta["startOffset"] = start_off
+            meta["endOffset"] = end_off
+            meta["partition"] = partition
+            self.controller.store.set(f"/tables/{self.table}/segments/{segment.name}", meta)
+            self.controller.bump_routing_version(self.table)
+            self._record_stats_history(segment)
+
+        return commit
+
+    def _make_peer_commit(self, partition: int):
+        """Deep store unavailable: register the built segment on THIS server
+        and write metadata pointing peers at it (peerSegmentDownloadScheme —
+        reference SegmentCompletionUtils peer download URI)."""
+
+        def peer_commit(segment: ImmutableSegment, start_off: int, end_off: int) -> None:
+            self.on_segment_loaded(segment)  # attach upsert validity first
+            self.server.add_segment_object(self.table, segment)
+            meta = {
+                "numDocs": segment.n_docs,
+                "startOffset": start_off,
+                "endOffset": end_off,
+                "partition": partition,
+                "servers": [self.server.server_id],
+                "peerDownload": self.server.server_id,
+            }
+            self.controller.store.set(f"/tables/{self.table}/segments/{segment.name}", meta)
+            self.controller.bump_routing_version(self.table)
+            self._record_stats_history(segment)
+
+        return peer_commit
+
+    def _make_keep(self):
+        """Register this replica's own build of a committed segment (KEEP):
+        same rows, same name — the controller push may land a copy too, but
+        name-keyed registration makes that idempotent."""
+
+        def keep(segment: ImmutableSegment) -> None:
+            self.on_segment_loaded(segment)
+            self.server.add_segment_object(self.table, segment)
+
+        return keep
+
+    def _make_download(self, partition: int):
+        """Fetch a committed segment this replica did NOT build: local copy
+        (the controller may have pushed one) -> deep store -> peer server."""
+
+        def download(segment_name: str, download_from: str | None) -> bool:
+            if self.server.get_segment_object(self.table, segment_name) is not None:
+                return True  # controller push already delivered it
+            meta = self.controller.segment_metadata(self.table, segment_name) or {}
+            loc = meta.get("location")
+            if loc:
+                try:
+                    self.server.add_segment(self.table, segment_name, loc)
+                    return True
+                except Exception:
+                    pass
+            src = download_from or meta.get("peerDownload")
+            if src:
+                peer = self.controller.servers().get(src)
+                if peer is not None:
+                    seg = peer.get_segment_object(self.table, segment_name)
+                    if seg is not None:
+                        self.on_segment_loaded(seg)  # attach upsert validity
+                        self.server.add_segment_object(self.table, seg)
+                        return True
+            return False
+
+        return download
+
+    # -- stats history (RealtimeSegmentStatsHistory parity: per-column stats
+    # persisted across seals, used to provision the next consuming segment) --
+
+    _STATS_HISTORY_DEPTH = 20
+
+    def _record_stats_history(self, segment: ImmutableSegment) -> None:
+        entry = {
+            "segment": segment.name,
+            "numDocs": segment.n_docs,
+            "columns": {c: {"cardinality": ci.cardinality} for c, ci in segment.columns.items()},
+        }
+        # atomic read-modify-write: partitions commit from their own threads
+        self.controller.store.update(
+            f"/tables/{self.table}/statsHistory",
+            lambda cur: {"entries": ((cur or {"entries": []})["entries"] + [entry])[-self._STATS_HISTORY_DEPTH :]},
+        )
+
+    def stats_history(self) -> list[dict]:
+        doc = self.controller.store.get(f"/tables/{self.table}/statsHistory") or {"entries": []}
+        return doc["entries"]
+
+    def estimated_cardinality(self, column: str) -> int | None:
+        """Average committed cardinality — the provisioning estimate the
+        reference feeds into mutable-segment sizing."""
+        vals = [
+            e["columns"][column]["cardinality"]
+            for e in self.stats_history()
+            if column in e.get("columns", {})
+        ]
+        return int(sum(vals) / len(vals)) if vals else None
+
+    def start(self) -> None:
+        for c in self.consumers:
+            c.start()
+
+    def stop(self) -> None:
+        for c in self.consumers:
+            c.stop()
+
+    def pause(self) -> None:
+        """Pause ingestion on every partition (pauseConsumption REST parity);
+        consuming segments stay queryable."""
+        for c in self.consumers:
+            c.pause()
+        self.controller.store.set(f"/tables/{self.table}/pauseStatus", {"paused": True})
+
+    def resume(self) -> None:
+        for c in self.consumers:
+            c.resume()
+        self.controller.store.set(f"/tables/{self.table}/pauseStatus", {"paused": False})
+
+    @property
+    def paused(self) -> bool:
+        return all(c.paused for c in self.consumers) if self.consumers else False
+
+    def consumption_status(self) -> list[dict]:
+        """Per-partition ingestion status incl. lag (ingestion-delay tracking
+        + /consumingSegmentsInfo REST parity)."""
+        out = []
+        for c in self.consumers:
+            latest = None
+            lag = None
+            latest_fn = getattr(self.stream, "latest_offset", None)
+            if latest_fn is not None:
+                latest = latest_fn(c.partition)
+                lag = max(0, latest - c.current_offset)
+            out.append(
+                {
+                    "partition": c.partition,
+                    "state": c.state,
+                    "currentOffset": c.current_offset,
+                    "latestOffset": latest,
+                    "offsetLag": lag,
+                    "consumingSegment": c._seg_name(),
+                    "consumingDocs": c._mutable.n_docs,
+                }
+            )
+        return out
+
+    def consuming_snapshots(self) -> list[ImmutableSegment]:
+        return [s for c in self.consumers if (s := c.consuming_snapshot()) is not None]
+
+    def wait_until_caught_up(self, target_offsets: list[int], timeout: float = 30.0) -> bool:
+        """Test helper: block until every partition consumed past its target."""
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if all(c.current_offset >= t for c, t in zip(self.consumers, target_offsets)):
+                return True
+            time.sleep(0.02)
+        return False

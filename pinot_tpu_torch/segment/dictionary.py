@@ -74,6 +74,11 @@ class Dictionary:
     def cardinality(self) -> int:
         return len(self.values)
 
+    def get(self, dict_id: int) -> Any:
+        v = self.values[dict_id]
+        # unwrap numpy scalars for host-side result tables
+        return v.item() if isinstance(v, np.generic) else v
+
     def get_many(self, dict_ids: np.ndarray) -> np.ndarray:
         return self.values[dict_ids]
 
@@ -96,6 +101,14 @@ class Dictionary:
         if i < len(self.values) and self.values[i] == v:
             return i
         return -1
+
+    def insertion_index_of(self, value: Any) -> int:
+        """Sorted insertion point (>=0 found; -(pos+1) like Java binarySearch)."""
+        v = self._coerce(value)
+        i = int(np.searchsorted(self.values, v))
+        if i < len(self.values) and self.values[i] == v:
+            return i
+        return -(i + 1)
 
     def id_range_for(self, lower: Any, upper: Any, lower_inclusive: bool, upper_inclusive: bool) -> tuple[int, int]:
         """Dict-id closed interval [lo, hi] covering the value range; empty if

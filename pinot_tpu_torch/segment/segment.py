@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -243,7 +244,11 @@ class ImmutableSegment:
             elif fwd.dtype == np.float64 and fast32 and not ci.is_mv:
                 fwd = fwd.astype(np.float32)
             arrays[name] = torch.tensor(fwd, device=device)
-        ds = DeviceSegment(name=self.name, host=self, n_docs=self.n_docs, padded=pad, arrays=arrays)
+        # a weak back-reference: this segment's _device_cache holds the staged
+        # copy, so a strong one would make a cycle, and the device memory of a
+        # dropped segment (a consuming snapshot a newer one replaced) would
+        # wait for the cyclic collector instead of going with the segment
+        ds = DeviceSegment(name=self.name, host=weakref.proxy(self), n_docs=self.n_docs, padded=pad, arrays=arrays)
         from pinot_tpu_torch.common.leakcheck import staging_tracker
 
         staging_tracker.track(ds)
@@ -255,7 +260,7 @@ class DeviceSegment:
     """A segment staged in device memory: dense columnar tensors."""
 
     name: str
-    host: ImmutableSegment
+    host: ImmutableSegment  # a weakref.proxy: the host owns its staged copies
     n_docs: int
     padded: int
     # column -> tensor of shape (padded,); an MV column's flat values and

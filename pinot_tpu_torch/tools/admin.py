@@ -11,11 +11,11 @@ This is the JAX package's `tools/admin.py`. A server holds its segments on
 `--device` and a broker runs its distributed root stage there ("cuda" unless
 the caller passes "cpu"); with no card and no `--device cpu`, StartServer
 and StartBroker exit non-zero instead of serving on the CPU.
-Commands that reach ROADMAP A10 modules (batch ingestion, minion tasks,
-rebalance, the periodic tasks, controller HA) exit non-zero naming it:
-QuickStart, ImportData, CreateSegment, LaunchDistributedDataIngestionJob,
-ScheduleTasks, RebalanceTable, and StartController's --ha, --cold-start and
---with-periodics.
+Commands that reach modules the port has not taken yet exit non-zero naming
+their ROADMAP item: batch ingestion and minion tasks (A10b: QuickStart,
+ImportData, CreateSegment, LaunchDistributedDataIngestionJob, ScheduleTasks)
+and the control plane (A10c: RebalanceTable, and StartController's --ha,
+--cold-start and --with-periodics).
 
 Usage:
     python -m pinot_tpu_torch.tools.admin StartController --store-dir S --deep-store D [--port P]
@@ -49,16 +49,16 @@ def _block(services):
                 stop()
 
 
-def _a10(what: str):
-    raise SystemExit(f"{what} is ROADMAP A10, not yet in pinot_tpu_torch")
+def _stop(item: str, what: str):
+    raise SystemExit(f"{what} is ROADMAP {item}, not yet in pinot_tpu_torch")
 
 
-def _a10_command(what: str):
-    """fn of a command whose modules are ROADMAP A10: exits non-zero naming
-    it, whatever its arguments."""
+def _stop_command(item: str, what: str):
+    """fn of a command whose modules are ROADMAP `item`: exits non-zero
+    naming it, whatever its arguments."""
 
     def fn(args):
-        _a10(f"{args.command}: {what}")
+        _stop(item, f"{args.command}: {what}")
 
     return fn
 
@@ -73,7 +73,7 @@ def cmd_start_controller(args) -> dict:
         ("with_periodics", "--with-periodics: the periodic tasks"),
     ):
         if getattr(args, flag, False):
-            _a10(what)
+            _stop("A10c", what)
     store = PropertyStore(args.store_dir)
     controller = Controller(store, args.deep_store, controller_id=getattr(args, "controller_id", "controller_0"))
     svc = ControllerHTTPService(controller, port=args.port)
@@ -531,16 +531,18 @@ def build_parser() -> argparse.ArgumentParser:
     js.add_argument("--sample-rows", type=int, default=200)
     js.set_defaults(fn=cmd_json_to_schema, blocking=False)
 
-    for name, what in (
-        ("QuickStart", "the all-in-one demo cluster runs a minion"),
-        ("ImportData", "batch ingestion (io/batch)"),
-        ("CreateSegment", "batch ingestion (io/batch)"),
-        ("LaunchDistributedDataIngestionJob", "batch ingestion (io/batch)"),
-        ("ScheduleTasks", "minion tasks"),
-        ("RebalanceTable", "rebalance"),
+    for name, item, what in (
+        ("QuickStart", "A10b", "the all-in-one demo cluster runs a minion"),
+        ("ImportData", "A10b", "batch ingestion (io/batch)"),
+        ("CreateSegment", "A10b", "batch ingestion (io/batch)"),
+        ("LaunchDistributedDataIngestionJob", "A10b", "batch ingestion (io/batch)"),
+        ("ScheduleTasks", "A10b", "minion tasks"),
+        ("RebalanceTable", "A10c", "rebalance"),
     ):
-        # any arguments: main() lets them through to the exit naming A10
-        sub.add_parser(name, help=f"ROADMAP A10: {what}").set_defaults(fn=_a10_command(what), blocking=False, a10=True)
+        # any arguments: main() lets them through to the exit naming the item
+        sub.add_parser(name, help=f"ROADMAP {item}: {what}").set_defaults(
+            fn=_stop_command(item, what), blocking=False, stopped=True
+        )
 
     return p
 
@@ -548,7 +550,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
-    if extra and not getattr(args, "a10", False):
+    if extra and not getattr(args, "stopped", False):
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     handles = args.fn(args)
     if args.blocking:

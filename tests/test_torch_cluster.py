@@ -358,14 +358,28 @@ def test_time_boundary_sql_rewrites():
 
 
 def test_cuts_name_their_roadmap_item(clusters, tmp_path):
-    """The cuts left name ROADMAP A10; what A9b cut is ported: access
-    control, the controller's REST service and client, and the stage
-    submit (whose body a bare dict fails to carry)."""
+    """The cuts left name their ROADMAP item (A10b, A10c); what A9b and
+    A10a cut is ported: access control, the controller's REST service and
+    client, the stage submit (whose body a bare dict fails to carry), and
+    a realtime table's manager attached to a server."""
     ctrl, _, servers = clusters["port"]
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         ctrl.enable_ha()
-    with pytest.raises(NotImplementedError, match="A10"):
-        servers["server_0"].attach_realtime("lineorder", object())
+
+    class _Manager:
+        consumers = []
+        paused = False
+
+        def pause(self):
+            self.paused = True
+
+        def consumption_status(self):
+            return [{"paused": self.paused}]
+
+    servers["server_0"].attach_realtime("rt_probe", _Manager())
+    assert servers["server_0"].pause_consumption("rt_probe")
+    assert servers["server_0"].consumption_status("rt_probe") == [{"paused": True}]
+    assert not servers["server_0"].pause_consumption("lineorder")
     with pytest.raises(KeyError, match="placement"):
         servers["server_0"].multistage_submit({})
     from pinot_tpu_torch.cluster.access import AllowAllAccessControl
@@ -374,7 +388,7 @@ def test_cuts_name_their_roadmap_item(clusters, tmp_path):
     b = Broker(ctrl, access_control=AllowAllAccessControl())
     assert b.execute("SELECT COUNT(*) FROM lineorder").rows == clusters["ref"][1].execute("SELECT COUNT(*) FROM lineorder").rows
     b.shutdown()
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
         ControllerHTTPService(ctrl, task_manager=object())
     svc = ControllerHTTPService(ctrl)
     try:

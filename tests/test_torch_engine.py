@@ -8,6 +8,7 @@ only float64 sums over DOUBLE columns may differ, within rtol 1e-12, since
 they sum in another order."""
 
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -396,7 +397,8 @@ def test_import_leaves_no_jax_pandas_or_reference():
     """A fresh interpreter imports the port and runs CPU queries (the
     per-segment engine, the store, the sharded table, the multistage engine
     over two slots, a cluster over HTTP with its controller's REST service,
-    distributed multistage stages over /mailbox, the client, the admin CLI);
+    distributed multistage stages over /mailbox, the client, the admin CLI,
+    a realtime upsert table consumed from a stream);
     afterwards no module of jax, pandas or the JAX package is loaded."""
     code = (
         "import sys, numpy as np\n"
@@ -438,6 +440,20 @@ def test_import_leaves_no_jax_pandas_or_reference():
         "assert rows == [['a', 4], ['b', 1]] and b._dispatcher is not None, rows\n"
         "assert RemoteControllerClient(f'http://127.0.0.1:{csvc.port}').tables() == ['t']\n"
         "csvc.stop(); bsvc.stop(); svc.stop(); b.shutdown()\n"
+        "import pinot_tpu_torch.realtime.kafka, pinot_tpu_torch.realtime.pulsar, pinot_tpu_torch.realtime.kinesis\n"
+        "import pinot_tpu_torch.realtime.plugins, pinot_tpu_torch.upsert\n"
+        "from pinot_tpu_torch.common import TableType, UpsertConfig\n"
+        "from pinot_tpu_torch.realtime import InMemoryStream, RealtimeTableManager\n"
+        "us = Schema.build('u', dimensions=[('g', DataType.STRING)], metrics=[('v', DataType.INT)],"
+        " date_times=[('ts', DataType.LONG)], primary_key_columns=['g'])\n"
+        "uc = TableConfig('u', table_type=TableType.REALTIME, time_column='ts', upsert=UpsertConfig())\n"
+        "c2 = Controller(PropertyStore(), tempfile.mkdtemp()); s2 = Server('s1', device='cpu')\n"
+        "c2.register_server('s1', s2); c2.add_schema(us); c2.add_table(uc); st = InMemoryStream(1)\n"
+        "[st.produce(0, {'g': 'ab'[i % 2], 'v': i, 'ts': i}) for i in range(9)]\n"
+        "mgr = RealtimeTableManager(c2, s2, us, uc, st, max_rows_per_segment=4); mgr.start()\n"
+        "assert mgr.wait_until_caught_up([9])\n"
+        "rows = Broker(c2, device='cpu').execute('SELECT g, SUM(v) FROM u GROUP BY g ORDER BY g').rows; mgr.stop()\n"
+        "assert rows == [['a', 8.0], ['b', 7.0]], rows\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'pinot_tpu'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -488,6 +504,17 @@ def test_scan_covers_the_tools_and_the_client():
     assert {"pinot_tpu_torch/client.py", "pinot_tpu_torch/tools/admin.py"} <= scanned
 
 
+def test_scan_covers_the_realtime_and_upsert_modules():
+    """The source scan above reaches every module of the realtime slice:
+    the stream plugins, the consuming segment, the completion protocol and
+    the upsert / dedup managers."""
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "pinot_tpu_torch").rglob("*.py")}
+    want = {f"pinot_tpu_torch/realtime/{m}.py" for m in
+            ("__init__", "stream", "mutable", "completion", "manager", "plugins", "kafka", "pulsar", "kinesis")}
+    want |= {f"pinot_tpu_torch/upsert/{m}.py" for m in ("__init__", "metadata", "partial")}
+    assert want <= scanned
+
+
 def test_no_stop_names_a9b():
     """Every A9b stop of the port is ported: no string in the package names
     that ROADMAP item any more."""
@@ -498,3 +525,17 @@ def test_no_stop_names_a9b():
         if "A9b" in line
     ]
     assert hits == []
+
+
+def test_no_stop_names_a10a():
+    """Every A10a stop of the port is ported (realtime ingestion, upsert and
+    dedup): no string in the package names that ROADMAP item, and each
+    remaining stop names its own part (A10b, A10c or A10d)."""
+    hits, bare = [], []
+    for p in sorted((REPO / "pinot_tpu_torch").rglob("*.py")):
+        for i, line in enumerate(p.read_text().splitlines(), 1):
+            if "A10a" in line:
+                hits.append(f"{p.relative_to(REPO)}:{i}")
+            if re.search(r"A10(?![a-d])", line):
+                bare.append(f"{p.relative_to(REPO)}:{i}")
+    assert hits == [] and bare == []
