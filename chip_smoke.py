@@ -124,12 +124,13 @@
    proto's staged bytes; each rerun's launches are counted from 0 just
    before it and read just after (FALLBACK_LAUNCHES), and every kernel call
    it made is held against its plain version on the same operands.
-   `sharded_scale_path` is bench.py's scale block: 60M rows (seed 7,
-   bench.py's six columns), S = 4, Q4 and Q2 against the oracle, with their
-   launches counted from 0 just before and read just after (Q4's one flat
-   launch over n = S x P docs, Q2's none), and each kernel call held against
-   its plain version and timed there; `sharded_scale` gives its build
-   seconds, staged bytes, p50 and rows per second.
+   `sharded_scale_path` is bench.py's scale block at 32M rows where bench.py
+   has 60M (seed 7, bench.py's six columns), S = 4, Q4 and Q2 against the
+   oracle, with their launches counted from 0 just before and read just
+   after (Q4's one flat launch over n = S x P docs, Q2's none), and each
+   kernel call held against its plain version and timed there;
+   `sharded_scale` gives its build seconds, staged bytes, p50 and rows per
+   second.
 10. The segment store, loader and indexes: the 4 lineorder segments written
    (default codec, lz4) and loaded back, configs 3-4 from the loaded segments
    equal to the in-memory engine's rows; configs 28-30's 16 segments with a
@@ -225,6 +226,22 @@
    with the same validity and rows. Two replicas sharing a
    SegmentCompletionManager (exactly one committer a segment), and a dedup
    table.
+20. The control plane (`control_plane`, last): bench.py `cluster`'s
+   topology as `tools.admin` processes (two HA controllers on one store
+   dir, each with the metrics aggregator and the integrity scrubber;
+   servers on the card with local data dirs; two uncached brokers) over
+   its table (5 segments of 200,000 rows, seed 12, replication 2). Under
+   load from 8 clients: a bootstrap rebalance onto a third server; a split
+   brain (the lease.renew fault freezes the lead, the standby takes over at
+   a higher epoch, the frozen ex-leader's write is fenced with 503 / 270);
+   the lead SIGKILLed mid-rebalance; a bit flipped in a local and a
+   deep-store copy (both repaired, one quarantined); the lead's
+   /debug/cluster (roofline against 3,350 GB/s) and /debug/alerts; a broker
+   SIGKILLed under client Connections; every process SIGKILLed and the
+   cluster restarted cold. No query dropped or untyped; quiesced answers
+   equal the oracle with 5 B1 a GROUP BY and none a COUNT, from the server
+   processes' registries. Then a seeded compatibility suite in process on
+   the card, its kernel calls held against their plain versions.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -2973,8 +2990,10 @@ SHARDED_CONFIGS = (
 )
 #: bench.py's rows_per_segment on one device: n // max(4, devices)
 SHARDED_SEGMENTS = 4
-#: bench.py's scale block: 60M rows of its generator under seed 7
-SCALE_ROWS, SCALE_SEED = 60_000_000, 7
+#: bench.py's scale block under seed 7, at 32M rows (twice the main path's)
+#: where bench.py has 60M: its 60M-row build took 121.7 s of a 1,103 s run on
+#: an H100 80GB HBM3 at 700 W, and the script must stay in its time
+SCALE_ROWS, SCALE_SEED = 32_000_000, 7
 SCALE_CONFIGS = ("4_q4_groupby_orderby", "2_filtered_agg")
 #: the proto fallback's MV table (config 26's GROUP BY over two MV keys)
 MV_FALLBACK_ROWS = 1_000_000
@@ -3409,7 +3428,7 @@ def run_sharded(torch, counters: dict, data: dict, want: dict, engine) -> dict:
 
 
 def run_sharded_scale(torch, counters: dict) -> dict:
-    """bench.py's scale block: 60M rows of its generator (seed 7) as a
+    """bench.py's scale block: SCALE_ROWS rows of its generator (seed 7) as a
     sharded table of SHARDED_SEGMENTS segments; Q4 and Q2 against the
     oracle, with their launches (counts from 0 just before the path, read
     just after), each kernel call of the path held against its plain version
@@ -5946,6 +5965,689 @@ def run_realtime(torch, counters: dict) -> dict:
     return path_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the control plane (controller HA, periodic tasks, rebalance)
+# ---------------------------------------------------------------------------
+
+#: bench.py `cluster`'s table (its schema, its 5 segments and seed 12,
+#: replication 2) at 200,000 rows a segment where bench.py has 96,000 rows
+#: in all; its load of 12 clients for 5 s a leg cut to 8 clients for 2 s
+CP_TABLE, CP_SEGMENTS, CP_SEG_ROWS, CP_SEED = "lineorder_ha", 5, 200_000, 12
+CP_CLIENTS, CP_PHASE_S = 8, 2.0
+CP_REGIONS = ("AFRICA", "AMERICA", "ASIA", "EUROPE")
+CP_QUERIES = (
+    f"SELECT COUNT(*) FROM {CP_TABLE} WHERE year > 1994",
+    f"SELECT region, SUM(revenue) FROM {CP_TABLE} GROUP BY region ORDER BY region",
+)
+#: B1 launches a quiesced answer: none for the COUNT, one a segment for the
+#: GROUP BY (each segment answered by exactly one replica)
+CP_B1 = (0, CP_SEGMENTS)
+#: bench.py's controller flags: HA (`_cluster_ha_phases`) and the periodic
+#: tasks (`cluster` mode), both on each of the two controllers
+CP_CONTROLLER_ARGS = ["--ha", "--lease-ttl", "1.0", "--renew-every", "0.2",
+                      "--with-periodics", "--metrics-interval", "2", "--scrub-interval", "1"]
+#: the in-process compatibility suite: rows a batch, batches
+CP_COMPAT_ROWS, CP_COMPAT_BATCHES = 20_000, 3
+
+
+def cp_data() -> list:
+    """bench.py `cluster`'s segments at CP_SEG_ROWS: region, year, revenue."""
+    rng = np.random.default_rng(CP_SEED)
+    return [
+        {
+            "region": np.array(CP_REGIONS, dtype=object)[rng.integers(0, 4, CP_SEG_ROWS)],
+            "year": rng.integers(1992, 1999, CP_SEG_ROWS).astype(np.int32),
+            "revenue": rng.integers(100, 600_000, CP_SEG_ROWS).astype(np.int64),
+        }
+        for _ in range(CP_SEGMENTS)
+    ]
+
+
+def cp_oracle(parts: list) -> list:
+    """numpy rows of CP_QUERIES over the parts."""
+    region = np.concatenate([p["region"] for p in parts])
+    year = np.concatenate([p["year"] for p in parts])
+    revenue = np.concatenate([p["revenue"] for p in parts])
+    return [
+        [[int((year > 1994).sum())]],
+        [[r, float(revenue[region == r].sum())] for r in sorted(set(region.tolist()))],
+    ]
+
+
+def cp_classify(stats: dict, lock, res=None, exc=None) -> None:
+    """bench.py's outcome classes: ok, typed (timeout 250 / 503, or a typed
+    admission rejection), dropped (no ONLINE replica), untyped."""
+    from pinot_tpu_torch.common.errors import QueryErrorCode
+
+    kind, detail = "ok", None
+    if exc is not None:
+        name = type(exc).__name__
+        if name in ("SchedulerRejectedError", "QuotaExceededError"):
+            kind = "typed_shed"
+        elif "no ONLINE replica" in str(exc):
+            kind, detail = "dropped", str(exc)[:300]
+        else:
+            kind, detail = "untyped", f"{name}: {exc}"[:300]
+    else:
+        excs = res.get("exceptions") or []
+        codes = {e.get("errorCode") for e in excs}
+        msgs = " | ".join(str(e.get("message", "")) for e in excs)
+        if not excs:
+            kind = "ok"
+        elif "no ONLINE replica" in msgs:
+            kind, detail = "dropped", msgs[:300]
+        elif codes <= {int(QueryErrorCode.EXECUTION_TIMEOUT), 503}:
+            kind = "typed_timeout"
+        else:
+            kind, detail = "untyped", f"codes={sorted(codes, key=str)}: {msgs}"[:300]
+    with lock:
+        stats[kind] += 1
+        if detail and len(stats["samples"]) < 8:
+            stats["samples"].append(detail)
+
+
+def cp_drive(urls: list, n_clients: int, duration_s: float, conn: bool = False) -> dict:
+    """bench.py's closed-loop load: `n_clients` threads issue CP_QUERIES
+    round-robin for `duration_s`, over the brokers' HTTP endpoints in turn
+    (`_cluster_drive`) or, with `conn`, each through a client Connection
+    over all of them, which fails over to the next broker itself
+    (`_cluster_drive_conn`). Outcome counts and client latency p50 / p99."""
+    from pinot_tpu_torch.client import Connection, PinotClientError
+    from pinot_tpu_torch.cluster.http import query_broker_http
+
+    stats = {"ok": 0, "typed_timeout": 0, "typed_shed": 0, "dropped": 0, "untyped": 0, "samples": []}
+    lat_ms: list = []
+    lock = threading.Lock()
+    stop_at = time.perf_counter() + duration_s
+    barrier = threading.Barrier(n_clients + 1)
+
+    def client(idx: int) -> None:
+        mine, j = [], 0
+        c = Connection(broker_urls=list(urls)) if conn else None
+        barrier.wait(timeout=60)
+        while time.perf_counter() < stop_at:
+            q = CP_QUERIES[(idx + j) % len(CP_QUERIES)]
+            url = urls[(idx + j) % len(urls)]
+            j += 1
+            t0 = time.perf_counter()
+            try:
+                if conn:
+                    rs = c.execute(q)
+                    cp_classify(stats, lock, res={"exceptions": rs.exceptions})
+                else:
+                    cp_classify(stats, lock, res=query_broker_http(url, q))
+            except PinotClientError as e:
+                cp_classify(stats, lock, exc=e)
+            except Exception as e:  # noqa: BLE001 - every failure is an outcome the leg reports
+                cp_classify(stats, lock, exc=e)
+            mine.append((time.perf_counter() - t0) * 1e3)
+        with lock:
+            lat_ms.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(n_clients)]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=60)
+    t_run = time.perf_counter()
+    for t in threads:
+        t.join(timeout=duration_s + 120)
+    wall_s = time.perf_counter() - t_run
+    outcomes = {k: stats[k] for k in ("ok", "typed_timeout", "typed_shed", "dropped", "untyped")}
+    return {
+        "queries": sum(outcomes.values()),
+        "wall_s": wall_s,
+        "outcomes": outcomes,
+        "error_samples": stats["samples"],
+        "p50_ms": float(np.percentile(lat_ms, 50)) if lat_ms else None,
+        "p99_ms": float(np.percentile(lat_ms, 99)) if lat_ms else None,
+    }
+
+
+class CpLoad:
+    """cp_drive on a thread of its own: `join()` returns its report, and
+    raises if the leg dropped or left untyped any query, or served none."""
+
+    def __init__(self, label: str, urls: list, n_clients: int, duration_s: float, conn: bool = False):
+        self.label, self.out = label, {}
+        self._t = threading.Thread(
+            target=lambda: self.out.update(cp_drive(urls, n_clients, duration_s, conn)), daemon=True
+        )
+        self._t.start()
+        self._timeout = duration_s + 180
+
+    def join(self) -> dict:
+        self._t.join(timeout=self._timeout)
+        o = self.out.get("outcomes")
+        if self._t.is_alive() or o is None:
+            raise AssertionError(f"control_plane {self.label}: the load did not finish")
+        if o["dropped"] or o["untyped"] or not o["ok"]:
+            raise AssertionError(f"control_plane {self.label}: {self.out}")
+        return self.out
+
+
+def cp_leader(url: str, want: bool = True, timeout_s: float = 20.0) -> dict:
+    """GET {url}/leader until its isLeader is `want`."""
+    deadline = time.perf_counter() + timeout_s
+    status: dict = {}
+    while time.perf_counter() < deadline:
+        try:
+            status = http_json(f"{url}/leader", timeout=10)
+            if bool(status.get("isLeader")) == want:
+                return status
+        except OSError:
+            pass
+        time.sleep(0.05)
+    raise AssertionError(f"control_plane: the controller at {url} never reached isLeader={want}: {status}")
+
+
+def cp_lead_of(urls: list, timeout_s: float = 30.0) -> int:
+    """Index of the controller in `urls` that holds the lease."""
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        for i, u in enumerate(urls):
+            try:
+                if http_json(f"{u}/leader", timeout=10).get("isLeader"):
+                    return i
+            except OSError:
+                pass
+        time.sleep(0.05)
+    raise AssertionError(f"control_plane: no controller of {urls} took the lease")
+
+
+def cp_wait_count(b_url: str, expect: int, timeout_s: float) -> float:
+    """Seconds until the cluster serves again: COUNT(*) answers `expect`,
+    and then both queries answer with no exception 4 times in a row (the
+    broker alternates the replicas, and a replica the reconciler has not
+    loaded yet fails its part)."""
+    from pinot_tpu_torch.cluster.http import query_broker_http
+
+    t0 = time.perf_counter()
+    last, clean = None, 0
+    while time.perf_counter() - t0 < timeout_s:
+        try:
+            if last != expect:
+                res = query_broker_http(b_url, f"SELECT COUNT(*) FROM {CP_TABLE}")
+                if not res.get("exceptions"):
+                    last = res["resultTable"]["rows"][0][0]
+            else:
+                res = query_broker_http(b_url, CP_QUERIES[clean % 2])
+                clean = 0 if res.get("exceptions") else clean + 1
+                if clean == 4:
+                    return time.perf_counter() - t0
+        except (OSError, RuntimeError) as e:
+            last, clean = f"{type(e).__name__}: {e}"[:200], 0
+        if clean == 0:
+            time.sleep(0.1)
+    raise AssertionError(f"control_plane: the cluster never served {expect} rows cleanly (last {last})")
+
+
+def cp_log(msg: str, t0: float) -> None:
+    """A progress line on standard error, seconds since the phase began."""
+    print(f"control_plane {time.perf_counter() - t0:8.2f} s: {msg}", file=sys.stderr, flush=True)
+
+
+def cp_quiesced(label: str, b_url: str, s_urls: list, want: list, walls: dict) -> dict:
+    """Both queries with no load: rows equal the oracle, and the B1 launches
+    summed from the server processes' registries just before and just after
+    are CP_B1 (no other kernel launches)."""
+    from pinot_tpu_torch.cluster.http import query_broker_http
+
+    out = {}
+    for i, (sql, rows_want, b1) in enumerate(zip(CP_QUERIES, want, CP_B1)):
+        before = processes_calls(s_urls)
+        t0 = time.perf_counter()
+        res = query_broker_http(b_url, sql)
+        walls.setdefault(i, []).append((time.perf_counter() - t0) * 1e3)
+        launches = {k: v - before[k] for k, v in processes_calls(s_urls).items()}
+        if res.get("exceptions"):
+            raise AssertionError(f"control_plane {label} q{i}: {res['exceptions']}")
+        rows_match(f"control_plane {label} q{i}", res["resultTable"]["rows"], rows_want)
+        expect = {k: (b1 if k == "grouped_sum_count" else 0) for k in launches}
+        if launches != expect:
+            raise AssertionError(f"control_plane {label} q{i}: launches {launches}, expected {expect}")
+        out[f"q{i}"] = launches["grouped_sum_count"]
+    return out
+
+
+def cp_flip_bit(path: str) -> None:
+    """bench.py's corruption: one bit in the middle of a file."""
+    import os
+
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0x20]))
+
+
+def cp_post(url: str, doc) -> tuple:
+    """POST a JSON body (or raw bytes); (status, decoded body)."""
+    import urllib.error
+    import urllib.request
+
+    data = doc if isinstance(doc, bytes) else json.dumps(doc).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def cp_compat_suite() -> tuple:
+    """A seeded compatibility suite over bench.py's schema (create, ingest
+    3 batches, query with expected rows, delete a segment, reload,
+    rebalance, query again) and the B1 launches its GROUP BYs make."""
+    rng = np.random.default_rng(CP_SEED + 1)
+    batches = []
+    for _ in range(CP_COMPAT_BATCHES):
+        region = np.array(CP_REGIONS)[rng.integers(0, 4, CP_COMPAT_ROWS)]
+        year = rng.integers(1992, 1999, CP_COMPAT_ROWS)
+        revenue = rng.integers(100, 600_000, CP_COMPAT_ROWS)
+        batches.append([{"region": str(r), "year": int(y), "revenue": int(v)} for r, y, v in zip(region, year, revenue)])
+
+    def grouped(rows):
+        return [[r, float(sum(x["revenue"] for x in rows if x["region"] == r))] for r in CP_REGIONS]
+
+    every = [x for b in batches for x in b]
+    kept = [x for b in batches[1:] for x in b]
+    sql = "SELECT region, SUM(revenue) FROM compat GROUP BY region ORDER BY region"
+    suite = {"operations": [
+        {"op": "createTable", "schema": {
+            "schemaName": "compat",
+            "fields": [{"name": "region", "dataType": "STRING", "fieldType": "DIMENSION"},
+                       {"name": "year", "dataType": "INT", "fieldType": "DIMENSION"},
+                       {"name": "revenue", "dataType": "LONG", "fieldType": "METRIC"}],
+            "primaryKeyColumns": []},
+         "config": {"tableName": "compat", "replication": 1}},
+        *({"op": "ingestRows", "table": "compat", "rows": b} for b in batches),
+        {"op": "query", "sql": "SELECT COUNT(*) FROM compat WHERE year > 1994",
+         "expectedRows": [[sum(x["year"] > 1994 for x in every)]]},
+        {"op": "query", "sql": sql, "expectedRows": grouped(every)},
+        {"op": "deleteSegment", "table": "compat", "segment": "compat_compat_0"},
+        {"op": "reloadSegments", "table": "compat"},
+        {"op": "rebalance", "table": "compat"},
+        {"op": "query", "sql": sql, "expectedRows": grouped(kept)},
+    ]}
+    return suite, CP_COMPAT_BATCHES + (CP_COMPAT_BATCHES - 1)
+
+
+def run_compat(torch, counters: dict) -> dict:
+    """The compatibility verifier's seeded suite in this process, its
+    cluster's server and broker on the card: every op passes, the GROUP BYs
+    launch B1 once a segment, and every kernel call is held against its
+    plain version."""
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.tools.compat_verifier import CompatVerifier
+
+    suite, b1 = cp_compat_suite()
+    v = CompatVerifier(device=DEVICE)
+    try:
+        t0 = time.perf_counter()
+        results, launches, calls = counted_run(counters, lambda: v.run_suite(suite))
+        seconds = time.perf_counter() - t0
+    finally:
+        v.close()
+    if [r["status"] for r in results] != ["PASSED"] * len(suite["operations"]):
+        raise AssertionError(f"control_plane compat: {results}")
+    check_launches("control_plane compat", counters, launches, calls, (b1, 0, 0, 0))
+    held = hold_all(torch, calls, gb, ext, gs)
+    if any(h["max_abs_err"] != 0 for h in held):
+        raise AssertionError(f"control_plane compat: a kernel disagrees with its plain version: {held}")
+    return {"operations": len(results), "seconds": seconds, "launches": launches,
+            "max_abs_err": max(h["max_abs_err"] for h in held), "held": len(held)}
+
+
+def run_control_plane(torch, counters: dict) -> dict:
+    """Phase 20: the control plane, bench.py `cluster`'s phases 2 and 7 and
+    its HA legs (`_cluster_ha_phases`) on bench.py's topology: two HA
+    controllers on one store dir (each with the periodic tasks: the metrics
+    aggregator and the integrity scrubber run on whoever leads), servers on
+    the card with local data dirs, two uncached brokers, every role a
+    `tools.admin` process started with Role. The table: CP_SEGMENTS
+    segments of CP_SEG_ROWS, replication 2, uploaded over REST. Legs under
+    load (CP_CLIENTS clients for about CP_PHASE_S s each): a bootstrap
+    rebalance onto a third server; a split brain (the lead's lease renewal
+    frozen by the lease.renew fault: the standby takes over at a higher
+    epoch, the frozen ex-leader's write is fenced with 503 / 270, and it
+    steps down after the thaw); the lead SIGKILLed about 1 s into a
+    rebalance onto a fourth server (the survivor leads at a higher epoch
+    and COUNT(*) comes back); a bit flipped in one replica's local copy and
+    in another segment's deep-store copy (both scrubbers repair, nothing is
+    unrepairable, a .quarantined file is left); the lead's /debug/cluster
+    and /debug/alerts; a broker SIGKILLed under client load; every process
+    SIGKILLed and the cluster restarted cold. No leg may drop a query or
+    leave one untyped. Quiesced answers before the legs and after the
+    rebalance, the kill, the corruption and the restart equal the oracle,
+    with their B1 launches exact (cp_quiesced). Then the compatibility
+    suite in this process (run_compat). Returns the phase's launches: every
+    B1 the server processes launched (their registries, read before each is
+    killed) and the suite's."""
+    import os
+    import shutil as _shutil
+    import tempfile
+
+    from pinot_tpu_torch.cluster.http import RemoteControllerClient, query_broker_http
+    from pinot_tpu_torch.common import DataType, Schema, TableConfig
+    from pinot_tpu_torch.segment import SegmentBuilder, write_segment
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cp_")
+    store, deep = os.path.join(root, "store"), os.path.join(root, "deep")
+    roles: dict = {}
+    walls: dict = {}
+    legs: dict = {}
+    served = {k: 0 for k in KERNEL_OF_REGISTRY.values()}
+
+    def controller(name: str, cold: bool = False) -> Role:
+        args = ["StartController", "--store-dir", store, "--deep-store", deep, "--controller-id", name,
+                *CP_CONTROLLER_ARGS, *(["--cold-start"] if cold else [])]
+        roles[name] = Role(name, args)
+        return roles[name]
+
+    def server(sid: str, controllers: str) -> Role:
+        roles[sid] = Role(sid, ["StartServer", "--controller-url", controllers, "--server-id", sid,
+                                "--device", DEVICE, "--data-dir", os.path.join(root, "data", sid)])
+        return roles[sid]
+
+    def broker(bid: str, controllers: str) -> Role:
+        roles[bid] = Role(bid, ["StartBroker", "--controller-url", controllers, "--broker-id", bid,
+                                "--cache-json", '{"enabled": false}', "--device", DEVICE,
+                                "--scatter-threads", "16"])
+        return roles[bid]
+
+    def server_urls() -> list:
+        return [r.url for n, r in sorted(roles.items())
+                if n.startswith("ha_s") and r.url is not None and r.proc.poll() is None]
+
+    try:
+        # -- wave 1: both controllers; whichever takes the lease first leads
+        t0 = time.perf_counter()
+        ctl = [controller("ha_c1"), controller("ha_c2")]
+        c_urls = [c.wait() for c in ctl]
+        lead_i = cp_lead_of(c_urls)
+        lead0 = http_json(f"{c_urls[lead_i]}/leader")
+        controllers = ",".join(c_urls)
+        wave1_s = time.perf_counter() - t0
+        cp_log(f"controllers up, {['ha_c1', 'ha_c2'][lead_i]} leads", t_phase)
+
+        # -- wave 2: servers and brokers; the segments build meanwhile
+        t0 = time.perf_counter()
+        for sid in ("ha_s0", "ha_s1"):
+            server(sid, controllers)
+        for bid in ("ha_b0", "ha_b1"):
+            broker(bid, controllers)
+        parts = cp_data()
+        want = cp_oracle(parts)
+        total_rows = CP_SEGMENTS * CP_SEG_ROWS
+        schema = Schema.build(CP_TABLE, dimensions=[("region", DataType.STRING), ("year", DataType.INT)],
+                              metrics=[("revenue", DataType.LONG)])
+        builder = SegmentBuilder(schema)
+        seg_dirs = [write_segment(builder.build(p, f"{CP_TABLE}_{i}"), os.path.join(root, "built"))
+                    for i, p in enumerate(parts)]
+        del parts
+        for n in ("ha_s0", "ha_s1", "ha_b0", "ha_b1"):
+            roles[n].wait()
+        wave2_s = time.perf_counter() - t0
+        cp_log("servers and brokers up", t_phase)
+        b_urls = [roles["ha_b0"].url, roles["ha_b1"].url]
+
+        t0 = time.perf_counter()
+        rc = RemoteControllerClient(controllers, timeout=600)
+        rc.add_schema(schema)
+        rc.add_table(TableConfig(CP_TABLE, replication=2))
+        for d in seg_dirs:
+            rc.upload_segment_dir(CP_TABLE, d)
+        upload_s = time.perf_counter() - t0
+        cp_log("uploaded", t_phase)
+        ideal = rc.ideal_state(CP_TABLE)
+        if len(ideal) != CP_SEGMENTS or any(len(r) != 2 for r in ideal.values()):
+            raise AssertionError(f"control_plane: ideal state {ideal}")
+
+        # ha_s2 starts while the first answers warm the servers up
+        server("ha_s2", controllers)
+        for _ in range(2):
+            for url in b_urls:
+                for q in CP_QUERIES:
+                    query_broker_http(url, q)
+        checks = {"before": cp_quiesced("before", b_urls[0], server_urls(), want, walls)}
+        roles["ha_s2"].wait()
+        cp_log("quiesced check before the legs; ha_s2 up", t_phase)
+
+        # -- leg 1: a bootstrap rebalance onto ha_s2 under live load
+        load = CpLoad("rebalance", b_urls, max(4, CP_CLIENTS // 2), CP_PHASE_S + 2.0)
+        time.sleep(0.5)
+        lead_i = cp_lead_of(c_urls)  # the lease may have moved under the upload's load
+        t0 = time.perf_counter()
+        reb = RemoteControllerClient(c_urls[lead_i]).rebalance_table(CP_TABLE, drain_grace_sec=0.15, bootstrap=True)
+        reb_s = time.perf_counter() - t0
+        server("ha_s3", controllers)  # leg 3's new server starts while the legs run
+        legs["rebalance"] = {"status": reb["status"], "adds": len(reb["adds"]), "drops": len(reb["drops"]),
+                             "seconds": reb_s, "driven": load.join()}
+        if reb["status"] != "DONE" or not reb["adds"]:
+            raise AssertionError(f"control_plane rebalance: {reb}")
+        cp_log(f"leg 1: rebalance {reb['status']}, {len(reb['adds'])} adds", t_phase)
+        checks["rebalance"] = cp_quiesced("rebalance", b_urls[0], server_urls(), want, walls)
+
+        # -- leg 2: split brain
+        lead_i = cp_lead_of(c_urls)
+        lead_url, std_url = c_urls[lead_i], c_urls[1 - lead_i]
+        before_freeze = http_json(f"{lead_url}/leader")
+        load = CpLoad("split_brain", b_urls, max(4, CP_CLIENTS // 2), CP_PHASE_S + 2.0)
+        status, _ = cp_post(f"{lead_url}/debug/faults",
+                            {"points": {"lease.renew": {"mode": "error", "prob": 1.0}}, "seed": CP_SEED})
+        if status != 200:
+            raise AssertionError(f"control_plane split_brain: arming lease.renew answered {status}")
+        t0 = time.perf_counter()
+        takeover = cp_leader(std_url)
+        takeover_s = time.perf_counter() - t0
+        ghost = Schema.build("ghost", dimensions=[("g", DataType.STRING)], metrics=[])
+        fenced_code, fenced_body = cp_post(f"{lead_url}/schemas", ghost.to_json().encode())
+        ex_leader = http_json(f"{lead_url}/leader")
+        cp_post(f"{lead_url}/debug/faults", {"points": {}})  # thaw
+        t0 = time.perf_counter()
+        demoted = cp_leader(lead_url, want=False)
+        stepdown_s = time.perf_counter() - t0
+        legs["split_brain"] = {
+            "frozen": ["ha_c1", "ha_c2"][lead_i], "epoch_at_start": lead0["leaseEpoch"],
+            "epoch_before": before_freeze["leaseEpoch"], "epoch_after": takeover["leaseEpoch"], "takeover_s": takeover_s,
+            "fenced": [fenced_code, fenced_body.get("errorCode")], "fencedWrites": ex_leader.get("fencedWrites"),
+            "stepdown_s": stepdown_s, "ex_leader_after_thaw": demoted["isLeader"], "driven": load.join(),
+        }
+        if fenced_code != 503 or fenced_body.get("errorCode") != 270:
+            raise AssertionError(f"control_plane split_brain: the frozen ex-leader's write got {fenced_code} {fenced_body}")
+        if not ex_leader.get("fencedWrites", 0) >= 1 or takeover["leaseEpoch"] <= before_freeze["leaseEpoch"]:
+            raise AssertionError(f"control_plane split_brain: {legs['split_brain']}")
+
+        cp_log("leg 2: split brain", t_phase)
+        # -- leg 3: SIGKILL the lead (now the ex-standby) mid-rebalance onto ha_s3
+        roles["ha_s3"].wait()
+        killed = "ha_c1" if std_url == c_urls[0] else "ha_c2"
+        load = CpLoad("controller_kill", b_urls, CP_CLIENTS, CP_PHASE_S + 4.0)
+        time.sleep(0.5)
+        reb_out: list = []
+
+        def fire():
+            try:
+                RemoteControllerClient(std_url, max_attempts=1).rebalance_table(
+                    CP_TABLE, drain_grace_sec=0.8, bootstrap=True)
+                reb_out.append("completed before the kill")
+            except Exception as e:  # noqa: BLE001 - the lead dies mid-call: the expected outcome
+                reb_out.append(f"{type(e).__name__}: {e}"[:300])
+
+        t_reb = threading.Thread(target=fire, daemon=True)
+        t_reb.start()
+        time.sleep(1.0)
+        roles[killed].kill()
+        t_kill = time.perf_counter()
+        survivor = cp_leader(lead_url)
+        failover_s = time.perf_counter() - t_kill
+        t_reb.join(timeout=60)
+        driven = load.join()
+        recovery_s = cp_wait_count(b_urls[0], total_rows, 60.0)
+        legs["controller_kill"] = {
+            "victim": killed, "rebalance_call": reb_out[0] if reb_out else None, "survivor_epoch": survivor["leaseEpoch"],
+            "takeovers": survivor["takeovers"], "takeover_s": failover_s, "recovery_to_full_count_s": recovery_s,
+            "driven": driven,
+        }
+        if not survivor["isLeader"] or survivor["takeovers"] < 1 or survivor["leaseEpoch"] <= takeover["leaseEpoch"]:
+            raise AssertionError(f"control_plane controller_kill: {legs['controller_kill']}")
+        c_live = lead_url
+        cp_log("leg 3: controller kill, recovered", t_phase)
+        checks["controller_kill"] = cp_quiesced("controller_kill", b_urls[0], server_urls(), want, walls)
+
+        # -- leg 4: a bit flipped in a local copy and in a deep-store copy
+        ideal = rc.ideal_state(CP_TABLE)
+        live = sorted(n for n in roles if n.startswith("ha_s"))
+        hosts = {sid: sorted(s for s, reps in ideal.items() if sid in reps) for sid in live}
+        corrupt_sid = next(sid for sid in live if hosts[sid])
+        corrupt_seg = hosts[corrupt_sid][0]
+        deep_seg = next(s for s in sorted(ideal) if s != corrupt_seg)
+        local_file = os.path.join(root, "data", corrupt_sid, CP_TABLE, corrupt_seg, "segment.ptseg")
+        deep_file = os.path.join(deep, CP_TABLE, deep_seg, "segment.ptseg")
+        load = CpLoad("corruption", b_urls, CP_CLIENTS, CP_PHASE_S + 2.0)
+        time.sleep(0.3)
+        cp_flip_bit(local_file)
+        cp_flip_bit(deep_file)
+        t0 = time.perf_counter()
+        heal: dict = {}
+        while time.perf_counter() - t0 < 30.0:
+            smetrics = http_json(f"{roles[corrupt_sid].url}/metrics?format=json")
+            cmetrics = http_json(f"{c_live}/metrics?format=json")
+            heal = {
+                "serverRepaired": smetrics.get("storage.scrub.repaired", {}).get("count", 0),
+                "deepRepaired": cmetrics.get("storage.scrub.repaired", {}).get("count", 0),
+                "deepVerified": cmetrics.get("storage.scrub.verified", {}).get("count", 0),
+                "unrepairable": cmetrics.get("storage.scrub.unrepairable", {}).get("count", 0)
+                + smetrics.get("storage.scrub.unrepairable", {}).get("count", 0),
+                "quarantined": http_json(f"{roles[corrupt_sid].url}/debug/storage")["quarantined"],
+            }
+            if heal["serverRepaired"] >= 1 and heal["deepRepaired"] >= 1:
+                break
+            time.sleep(0.2)
+        heal_s = time.perf_counter() - t0
+        legs["corruption"] = {"local": f"{corrupt_sid}:{corrupt_seg}", "deep_store": deep_seg, "heal": heal,
+                              "heal_s": heal_s, "driven": load.join()}
+        deep_quarantined = os.path.exists(deep_file + ".quarantined")
+        if (heal["serverRepaired"] < 1 or heal["deepRepaired"] < 1 or heal["unrepairable"] != 0
+                or not heal["quarantined"] or not deep_quarantined):
+            raise AssertionError(f"control_plane corruption: {legs['corruption']}, deep quarantined {deep_quarantined}")
+        cp_log("leg 4: corruption healed", t_phase)
+        checks["corruption"] = cp_quiesced("corruption", b_urls[0], server_urls(), want, walls)
+
+        # -- leg 5: the lead's /debug/cluster and /debug/alerts
+        t0 = time.perf_counter()
+        nodes_want = set(live) | {"ha_b0", "ha_b1"}
+        while True:
+            doc = http_json(f"{c_live}/debug/cluster")
+            nodes = doc.get("nodes", {})
+            if set(nodes) >= nodes_want and all(nodes[n]["healthy"] and not nodes[n]["stale"] for n in nodes_want):
+                break
+            if time.perf_counter() - t0 > 20.0:
+                raise AssertionError(f"control_plane debug_cluster: nodes {nodes}")
+            time.sleep(0.2)
+        alerts = http_json(f"{c_live}/debug/alerts")
+        roof = doc["cluster"]["roofline"]
+        rebalance_doc = doc.get("rebalance", {}).get(CP_TABLE, {})
+        legs["debug_cluster"] = {
+            "nodes": {n: {"role": v["role"], "healthy": v["healthy"], "stale": v["stale"]} for n, v in nodes.items()},
+            "rebalance": rebalance_doc, "controllerHa": doc.get("controllerHa"),
+            "hbmPeakGBps": roof["hbmPeakGBps"],
+            "roofline": [{k: r[k] for k in ("kernel", "shape", "calls", "deviceMs", "achievedGBps", "pctOfPeak")}
+                         for r in roof["kernels"]],
+            "alerts": alerts.get("alerts"), "slo_firing": (alerts.get("slo") or {}).get("firing"),
+            "seconds": time.perf_counter() - t0,
+        }
+        if roof["hbmPeakGBps"] != 3350.0 or any(r["pctOfPeak"] > 100 for r in roof["kernels"]):
+            raise AssertionError(f"control_plane debug_cluster roofline: {roof}")
+        if rebalance_doc.get("status") != "DONE" or any(a.get("slo") == "scrubUnrepairable" for a in alerts.get("alerts") or []):
+            raise AssertionError(f"control_plane debug_cluster: {legs['debug_cluster']}")
+
+        cp_log("leg 5: /debug/cluster", t_phase)
+        # -- leg 6: SIGKILL a broker under load through client Connections
+        load = CpLoad("broker_kill", b_urls, CP_CLIENTS, CP_PHASE_S + 2.0, conn=True)
+        time.sleep(max(0.5, CP_PHASE_S / 3))
+        roles["ha_b1"].kill()
+        legs["broker_kill"] = {"victim": "ha_b1", "driven": load.join()}
+
+        cp_log("leg 6: broker kill", t_phase)
+        # -- leg 7: SIGKILL every process, then a cold restart
+        got_before = query_broker_http(b_urls[0], CP_QUERIES[1])["resultTable"]["rows"]
+        epoch_before = http_json(f"{c_live}/leader")["leaseEpoch"]
+        for k, v in processes_calls(server_urls()).items():
+            served[k] += v
+        start_first = {n: r.start_s for n, r in roles.items()}
+        for r in roles.values():
+            if r.proc.poll() is None:
+                r.kill()
+        t_restart = time.perf_counter()
+        ctl = [controller("ha_c1", cold=True), controller("ha_c2")]
+        c_urls = [c.wait() for c in ctl]
+        controllers = ",".join(c_urls)
+        wave3a_s = time.perf_counter() - t_restart
+        cp_log("leg 7: every process killed; controllers up again", t_phase)
+        for sid in live:
+            server(sid, controllers)
+        for bid in ("ha_b0", "ha_b1"):
+            broker(bid, controllers)
+        for n in live + ["ha_b0", "ha_b1"]:
+            roles[n].wait()
+        wave3b_s = time.perf_counter() - t_restart - wave3a_s
+        cp_log("leg 7: servers and brokers up again", t_phase)
+        lead_i = cp_lead_of(c_urls)
+        new_lead = http_json(f"{c_urls[lead_i]}/leader")
+        b_urls = [roles["ha_b0"].url, roles["ha_b1"].url]
+        restart_recovery_s = cp_wait_count(b_urls[0], total_rows, 120.0)
+        cp_log("leg 7: cluster serves again", t_phase)
+        got_after = query_broker_http(b_urls[0], CP_QUERIES[1])["resultTable"]["rows"]
+        legs["cold_restart"] = {
+            "wave_controllers_s": wave3a_s, "wave_servers_brokers_s": wave3b_s,
+            "recovery_to_full_count_s": restart_recovery_s, "to_full_count_s": time.perf_counter() - t_restart,
+            "rows_identical": got_after == got_before, "epoch_before": epoch_before,
+            "epoch_after": new_lead["leaseEpoch"], "lead": ["ha_c1", "ha_c2"][lead_i],
+        }
+        if got_after != got_before or new_lead["leaseEpoch"] <= epoch_before:
+            raise AssertionError(f"control_plane cold_restart: {legs['cold_restart']}: {got_after} != {got_before}")
+        checks["cold_restart"] = cp_quiesced("cold_restart", b_urls[0], server_urls(), want, walls)
+        for k, v in processes_calls(server_urls()).items():
+            served[k] += v
+        start_s = {"first": start_first, "restart": {n: r.start_s for n, r in roles.items()}}
+    finally:
+        for r in roles.values():
+            if r.proc.poll() is None:
+                r.kill()
+        _shutil.rmtree(root, ignore_errors=True)
+
+    processes_s = time.perf_counter() - t_phase
+    for fn in counters.values():
+        fn.launches = 0
+    compat = run_compat(torch, counters)
+    cp_log("compatibility suite", t_phase)
+    launches = {k: served[k] + compat["launches"][k] for k in served}
+    emit(
+        {
+            "phase": "control_plane",
+            "results_match_oracle": True,
+            "table": {"segments": CP_SEGMENTS, "rows_a_segment": CP_SEG_ROWS, "replication": 2, "seed": CP_SEED},
+            "load": {"clients": CP_CLIENTS, "phase_s": CP_PHASE_S},
+            "start_s": start_s,
+            "waves_s": {"controllers": wave1_s, "servers_brokers": wave2_s},
+            "upload_s": upload_s,
+            "legs": legs,
+            "quiesced_b1": checks,
+            "quiesced_p50_ms": {CP_QUERIES[i]: float(np.percentile(w, 50)) for i, w in walls.items()},
+            "compat": compat,
+            "launches": launches,
+            "processes_s": processes_s,
+            "seconds": time.perf_counter() - t_phase,
+            "card": card_line(),
+        }
+    )
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -6016,15 +6718,17 @@ def main() -> int:
     multistage_launches = run_multistage(torch, counters)
     distributed_launches = run_multistage_distributed(torch, counters)
     realtime_launches = run_realtime(torch, counters)
+    control_plane_launches = run_control_plane(torch, counters)
     # each path's counts, read just after it: the main path's, the sharded
     # path's (its proto reruns included), the mesh's, the scale path's, the
     # multistage engine's, the three cluster phases', the distributed
-    # stages', the server processes' (from their registries) and the
-    # realtime tables' launches. The sum entry of grouped_sum_f32 is on
+    # stages', the server processes' (from their registries), the
+    # realtime tables' and the control plane's (its server processes' and
+    # its compatibility suite's) launches. The sum entry of grouped_sum_f32 is on
     # none: the kernel's launches are its presence entry's
     paths = (main["launches"], sharded_launches, mesh_launches, scale_launches, multistage_launches,
              cluster_launches, http_launches, qps_launches, distributed_launches, process_launches,
-             realtime_launches)
+             realtime_launches, control_plane_launches)
     launches = {k: sum(p[k] for p in paths) for k in main["launches"]}
     launches["grouped_sum_f32"] = launches["presence"]
 

@@ -80,7 +80,14 @@ class Controller:
         worker (lead-controller partitioning + Helix message queue analog;
         PinotHelixResourceManager.java:192). Safe on multiple controllers
         sharing one store: only the lease holder acts."""
-        raise NotImplementedError("Controller.enable_ha: lead-controller election, leases and the transition queue are ROADMAP A10c")
+        from pinot_tpu_torch.cluster.ha import LeaderElection, TransitionManager
+
+        if self._election is not None:
+            self.stop_ha()  # re-enable replaces, never leaks threads
+        self._election = LeaderElection(self.store, self.controller_id, lease_ttl, renew_every)
+        self._transitions = TransitionManager(self, self._election)
+        self._election.start()
+        self._transitions.start()
 
     def stop_ha(self, release_lease: bool = True) -> None:
         """Stop participating (simulates controller death when

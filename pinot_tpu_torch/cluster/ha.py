@@ -1,0 +1,389 @@
+"""Controller high availability: lead-controller lease + async state
+transitions with retry + ideal/external-view reconciliation.
+
+Reference parity:
+- Lead-controller partitioning (pinot-controller/.../LeadControllerManager
+  and the lead-controller resource): exactly one controller acts on the
+  cluster at a time; standbys take over when the lead stops renewing its
+  lease. Here: a TTL lease document in the property store, acquired and
+  renewed via the store's atomic update (ZK ephemeral-node analog).
+- Fencing tokens: each lease CLAIM increments an epoch (ZK czxid / Helix
+  leader-generation analog). Every store mutation the lead path makes
+  carries the epoch as `fence=`; the store rejects it once a newer lease
+  exists, so a paused/frozen ex-leader cannot corrupt ideal state after a
+  standby takes over. The `lease.renew` fault point deterministically
+  freezes renewal to reproduce exactly that split-brain shape.
+- Helix async state transitions: segment ADD/DELETE messages to servers are
+  queued durably in the store and delivered by a worker with exponential
+  backoff, so a transiently-failing server converges instead of permanently
+  missing a segment (Helix message queue + retry analog).
+- External view: per-table `/tables/{t}/externalview` records what servers
+  ACTUALLY hold (vs the ideal state's intent); the reconciler re-enqueues
+  transitions for any ideal-vs-external drift
+  (SegmentStatusChecker / RealtimeSegmentValidationManager analog).
+
+Scope note: with a file-backed PropertyStore the lease `update` is atomic
+ACROSS PROCESSES (flock + versioned writes, see metadata.py), so two real
+controller processes sharing one store dir elect exactly one lead.
+
+This is the JAX package's `cluster/ha.py`, unchanged but for its imports.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+
+from ..common.faults import FAULTS, InjectedFault
+from ..common.metrics import controller_metrics
+from ..common.trace import trace_event
+from .metadata import LEASE_PATH, FencedWriteError
+
+__all__ = ["LEASE_PATH", "LeaderElection", "TransitionManager"]
+
+_msg_seq = itertools.count()
+
+
+class LeaderElection:
+    """TTL-lease leader election over PropertyStore.update, with fencing
+    epochs. `epoch` is the generation of this controller's most recent
+    successful claim (0 = never led); pass it as `fence=` on lead-path
+    store mutations so a stale ex-leader's writes are rejected."""
+
+    def __init__(
+        self,
+        store,
+        controller_id: str,
+        ttl: float = 2.0,
+        renew_every: float = 0.4,
+        on_gain=None,
+        on_lose=None,
+    ):
+        self.store = store
+        self.controller_id = controller_id
+        self.ttl = ttl
+        self.renew_every = renew_every
+        self.on_gain = on_gain
+        self.on_lose = on_lose
+        self.takeovers = 0
+        self._leader = False
+        self._epoch = 0
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> None:
+        self._tick()  # try to become leader immediately
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self, release: bool = True) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        if release and self._leader:
+            # graceful handoff: drop the lease so a standby takes over NOW.
+            # The epoch is preserved — the successor's claim must still
+            # increment past ours so our in-flight writes stay fenced.
+            self.store.update(
+                LEASE_PATH,
+                lambda doc: {"owner": "", "expires": 0.0, "epoch": int(doc.get("epoch", 0))}
+                if doc and doc.get("owner") == self.controller_id
+                else None,
+            )
+        self._set_leader(False)
+
+    @property
+    def is_leader(self) -> bool:
+        return self._leader
+
+    @property
+    def epoch(self) -> int:
+        """Fencing token: lease generation of our most recent claim."""
+        return self._epoch
+
+    def _set_leader(self, leader: bool) -> None:
+        was = self._leader
+        self._leader = leader  # pinotlint: disable=race-discipline — single-writer boolean: only the renew thread (and pre-start start()/post-join stop()) assigns it; readers take a monotonic snapshot and stop() joins the writer before its own clear
+        m = controller_metrics()
+        m.gauge("controller.ha.isLeader").set(1.0 if leader else 0.0)
+        m.gauge("controller.ha.leaseEpoch").set(float(self._epoch))
+        if leader and not was:
+            self.takeovers += 1
+            m.meter("controller.ha.takeovers").mark()
+            trace_event("ha.lease_gained", controller=self.controller_id, epoch=self._epoch)
+            if self.on_gain is not None:
+                try:
+                    self.on_gain()
+                except Exception:  # pinotlint: disable=deadline-swallow — lease-transition hook: a failing callback must not kill the renew thread
+                    pass
+        elif was and not leader:
+            trace_event("ha.lease_lost", controller=self.controller_id, epoch=self._epoch)
+            if self.on_lose is not None:
+                try:
+                    self.on_lose()
+                except Exception:  # pinotlint: disable=deadline-swallow — lease-transition hook: a failing callback must not kill the renew thread
+                    pass
+
+    def _tick(self) -> None:
+        cid = self.controller_id
+        try:
+            FAULTS.maybe_fail("lease.renew")
+        except InjectedFault:
+            # renewal frozen: self._leader stays (stale) True while the lease
+            # expires under us — the split-brain shape the fencing epoch
+            # exists to defuse. Every lead-path write we attempt after a
+            # standby claims is rejected with FencedWriteError.
+            trace_event("fault.injected", point="lease.renew", controller=cid)
+            return
+
+        def claim(doc):
+            # `now` is read INSIDE the closure: the store may block on the
+            # cross-process lock, and claiming with a pre-lock timestamp
+            # could grant a lease that is already (or not yet) expired.
+            now = time.time()
+            cur_epoch = int((doc or {}).get("epoch", 0))
+            expired = doc is None or doc.get("expires", 0) < now
+            if not expired and doc.get("owner") == cid and cur_epoch == self._epoch and self._leader:
+                # plain renewal of the lease THIS incarnation claimed: same
+                # generation (owner match alone is not enough — see below)
+                return {"owner": cid, "expires": now + self.ttl, "epoch": cur_epoch}
+            if expired or doc.get("owner") == cid:
+                # bump the generation: takeover of an expired lease, re-claim
+                # of our own expired lease (paused past TTL, old epoch is
+                # suspect), or adoption of a LIVE lease left by a previous
+                # incarnation with our identity (process restarted inside the
+                # TTL — the ZK-session analog: a new session, not a renewal).
+                # In every case the predecessor's in-flight writes must fence.
+                return {"owner": cid, "expires": now + self.ttl, "epoch": cur_epoch + 1}
+            return None
+
+        got = self.store.update(LEASE_PATH, claim)
+        if got is not None and got.get("owner") == cid:
+            self._epoch = int(got.get("epoch", 0))  # pinotlint: disable=race-discipline — single-writer int: only the renew thread (and pre-start start()) assigns it; readers snapshot a monotonically-increasing fence, and a one-tick-stale epoch only makes fencing MORE conservative
+            self._set_leader(True)
+        else:
+            self._set_leader(False)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.renew_every):
+            try:
+                self._tick()
+            except InjectedFault:
+                # store.cas chaos: skip this renewal; lease TTL expiry and
+                # the next tick handle recovery
+                continue
+
+
+class TransitionManager:
+    """Durable segment state-transition queue + delivery worker +
+    ideal/external reconciler. Runs (delivers) only while this controller
+    holds the lease; the queue itself lives in the shared store, so a new
+    lead resumes exactly where the old one stopped. Every queue mutation
+    carries the lease epoch as a fencing token."""
+
+    BACKOFF_BASE = 0.2
+    BACKOFF_MAX = 5.0
+
+    def __init__(self, controller, election: LeaderElection | None, poll_every: float = 0.1):
+        self.controller = controller
+        self.store = controller.store
+        self.election = election
+        self.poll_every = poll_every
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def _fence(self) -> int | None:
+        """Lease epoch to stamp on store mutations; None when HA is off."""
+        return self.election.epoch if self.election is not None else None
+
+    # -- enqueue ---------------------------------------------------------------
+
+    def enqueue(self, table: str, segment: str, server_id: str, action: str, seg_dir: str = "") -> None:
+        msg_id = f"{int(time.time() * 1000):013d}-{next(_msg_seq):06d}"
+        self.store.set(
+            f"/transitions/{msg_id}",
+            {
+                "table": table,
+                "segment": segment,
+                "server": server_id,
+                "action": action,  # "add" | "remove"
+                "dir": seg_dir,
+                "attempts": 0,
+                "notBefore": 0.0,
+            },
+            fence=self._fence(),
+        )
+
+    # -- lifecycle -------------------------------------------------------------
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def _run(self) -> None:
+        last_reconcile = 0.0
+        while not self._stop.wait(self.poll_every):
+            if self.election is not None and not self.election.is_leader:
+                continue
+            try:
+                self.drain_once()
+                if time.time() - last_reconcile > 1.0:
+                    self.reconcile()
+                    last_reconcile = time.time()
+            except (FencedWriteError, InjectedFault):
+                # fenced as a stale ex-leader (a standby took the lease) or
+                # chaos-injected store failure: drop this cycle — the new
+                # lead owns the queue, and our next is_leader check gates us
+                continue
+
+    def cancel(self, table: str, segment: str) -> int:
+        """Drop queued transitions for a segment (called on delete) and clear
+        its external-view entry. Returns how many messages were cancelled."""
+        n = 0
+        for path in self.store.list("/transitions/"):
+            msg = self.store.get(path)
+            if msg is not None and msg["table"] == table and msg["segment"] == segment:
+                self.store.delete(path, fence=self._fence())
+                n += 1
+        self.store.update(
+            f"/tables/{table}/externalview",
+            lambda doc: ({k: v for k, v in (doc or {}).items() if k != segment}),
+            fence=self._fence(),
+        )
+        return n
+
+    def await_online(self, table: str, segments: list[str], timeout: float) -> bool:
+        """Block until every (segment, replica) the ideal state wants is
+        ONLINE in the external view, or timeout."""
+        deadline = time.time() + timeout
+        while True:
+            ideal = self.store.get(f"/tables/{table}/idealstate") or {}
+            ev = self.store.get(f"/tables/{table}/externalview") or {}
+            ok = all(
+                ev.get(seg, {}).get(sid) == "ONLINE"
+                for seg in segments
+                for sid, want in ideal.get(seg, {}).items()
+                if want == "ONLINE"
+            )
+            if ok:
+                return True
+            if time.time() >= deadline:
+                return False
+            time.sleep(0.05)
+
+    # -- delivery --------------------------------------------------------------
+
+    #: attempts before a message parks as a dead letter (reconcile re-enqueues
+    #: if the drift persists, so a recovered server still converges)
+    MAX_ATTEMPTS = 12
+
+    def drain_once(self) -> int:
+        """Attempt every due queued transition once. Returns deliveries."""
+        delivered = 0
+        now = time.time()
+        for path in self.store.list("/transitions/"):
+            msg, ver = self.store.get_versioned(path)
+            if msg is None or msg.get("notBefore", 0) > now:
+                continue
+            if self._deliver(msg):
+                self.store.delete(path, fence=self._fence())
+                delivered += 1
+            else:
+                attempts = msg["attempts"] + 1
+                if attempts >= self.MAX_ATTEMPTS:
+                    # dead-letter: stop hammering a permanently-failing
+                    # delivery; the drift stays visible via ideal-vs-external
+                    self.store.delete(path, fence=self._fence())
+                    self.store.set(f"/deadletters/{path.split('/')[-1]}", msg, fence=self._fence())
+                    continue
+                backoff = min(self.BACKOFF_BASE * (2 ** attempts), self.BACKOFF_MAX)
+                msg["attempts"] = attempts
+                msg["notBefore"] = time.time() + backoff
+                # CAS on the version we read: a concurrent leader's delete
+                # (delivery or cancel) or redelivery bump must not be
+                # clobbered or resurrected by this retry write-back — a
+                # plain existence-checked update loses that race
+                self.store.cas(path, ver, msg, fence=self._fence())
+        return delivered
+
+    def _deliver(self, msg: dict) -> bool:
+        if msg["action"] == "add":
+            # obsolete-message guard: the ideal state may have dropped this
+            # (segment, server) since the message was queued (delete_segment
+            # racing an in-flight retry) — delivering would resurrect a
+            # deleted segment. Treated as success with nothing to do.
+            ideal = self.store.get(f"/tables/{msg['table']}/idealstate") or {}
+            if ideal.get(msg["segment"], {}).get(msg["server"]) != "ONLINE":
+                return True
+        handles = self.controller.servers()
+        srv = handles.get(msg["server"])
+        if srv is None:
+            return False
+        try:
+            if msg["action"] == "add":
+                srv.add_segment(msg["table"], msg["segment"], msg["dir"])
+            else:
+                srv.remove_segment(msg["table"], msg["segment"])
+        except Exception:  # pinotlint: disable=deadline-swallow — helix transition apply; False requeues the message
+            return False
+        self.record_external_view(
+            msg["table"], msg["segment"], msg["server"], "ONLINE" if msg["action"] == "add" else None
+        )
+        return True
+
+    def record_external_view(self, table: str, segment: str, server_id: str, state: str | None) -> None:
+        def upd(doc):
+            doc = doc or {}
+            entry = doc.setdefault(segment, {})
+            if state is None:
+                entry.pop(server_id, None)
+                if not entry:
+                    doc.pop(segment, None)
+            else:
+                entry[server_id] = state
+            return doc
+
+        self.store.update(f"/tables/{table}/externalview", upd, fence=self._fence())
+
+    # -- reconciliation --------------------------------------------------------
+
+    #: drift younger than this is presumed an in-flight upload, not loss —
+    #: prevents racing upload_segment between its idealstate write and its
+    #: synchronous add_segment/record_external_view
+    RECONCILE_GRACE_S = 5.0
+
+    def reconcile(self) -> int:
+        """Re-enqueue transitions for ideal-vs-external drift (a segment the
+        ideal state places on a server that never confirmed it). Returns how
+        many were enqueued. Segment metadata is only read once drift is
+        detected (the converged steady state costs two store reads/table)."""
+        enqueued = 0
+        now = time.time()
+        pending = {
+            (m["table"], m["segment"], m["server"])
+            for m in (self.store.get(p) for p in self.store.list("/transitions/"))
+            if m is not None
+        }
+        for table in self.controller.tables():
+            ideal = self.store.get(f"/tables/{table}/idealstate") or {}
+            ev = self.store.get(f"/tables/{table}/externalview") or {}
+            for segment, replicas in ideal.items():
+                for sid, want in replicas.items():
+                    if want != "ONLINE":
+                        continue  # CONSUMING segments converge via ingestion
+                    if ev.get(segment, {}).get(sid) == "ONLINE":
+                        continue
+                    if (table, segment, sid) in pending:
+                        continue
+                    meta = self.store.get(f"/tables/{table}/segments/{segment}") or {}
+                    if now - meta.get("uploadedAt", 0.0) < self.RECONCILE_GRACE_S:
+                        continue
+                    self.enqueue(table, segment, sid, "add", meta.get("location", ""))
+                    enqueued += 1
+        return enqueued

@@ -17,8 +17,7 @@ multistage /mailbox and /multistage/submit endpoints the distributed stages
 ride), and the controller's REST service with its client
 (RemoteControllerClient), which a broker in its own process routes through.
 What the port has not taken yet answers 501 naming its ROADMAP item: minion
-tasks (A10b); rebalance, the cluster metrics aggregator and its alerts, and
-the controller UI (A10c); the time-series endpoint (A10d).
+tasks (A10b) and the time-series endpoint (A10d).
 """
 
 from __future__ import annotations
@@ -30,11 +29,10 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
+from typing import TYPE_CHECKING
 from urllib.parse import urlsplit
 
-from pinot_tpu_torch.cluster.broker import Broker
 from pinot_tpu_torch.cluster.controller import Controller
-from pinot_tpu_torch.cluster.server import Server
 from pinot_tpu_torch.common import datatable
 from pinot_tpu_torch.common.errors import QueryErrorCode, code_of, http_status_of, retry_after_of
 from pinot_tpu_torch.common.frontend_obs import (
@@ -47,6 +45,10 @@ from pinot_tpu_torch.common.frontend_obs import (
     frontend_snapshot,
 )
 from pinot_tpu_torch.common.wire import FRAME_END, FRAME_ERR, get_pool, read_exact
+
+if TYPE_CHECKING:  # the server and the broker load torch; a controller process imports neither
+    from pinot_tpu_torch.cluster.broker import Broker
+    from pinot_tpu_torch.cluster.server import Server
 
 
 def _host_port(base_url: str) -> tuple[str, int]:
@@ -1178,11 +1180,10 @@ class ControllerHTTPService:
       POST /segments/{table}   raw ptseg segment-dir tarball (upload path)
       POST /tasks/schedule     {"taskType": optional}
 
-    The port's controller always leads (its HA is ROADMAP A10c), so the
-    standby gate and the fencing answer only where a controller reports it
-    does not; they keep the reference's 503 + `leaderUrl` contract. The
-    task endpoints (A10b), rebalance, /debug/cluster, /debug/alerts and the
-    UI (A10c) answer 501 naming their item.
+    A standby (a controller with HA enabled that does not hold the lease)
+    answers mutating endpoints with 503 + `leaderUrl`, and a fenced write
+    with 503 + errorCode 270. The task endpoints (minion tasks, ROADMAP
+    A10b) answer 501 naming their item.
     """
 
     def __init__(self, controller: Controller, port: int = 0, task_manager=None):
@@ -1238,7 +1239,17 @@ class ControllerHTTPService:
                 try:
                     parts = [p for p in self.path.split("?")[0].split("/") if p]
                     if self.path in ("/", "/index.html"):
-                        _send_not_implemented(self, "the controller UI is ROADMAP A10c")
+                        # single-page controller UI (React SPA analog,
+                        # cluster/ui.py): tables drill-down, instances,
+                        # metrics, query console
+                        from pinot_tpu_torch.cluster.ui import UI_HTML
+
+                        html = UI_HTML.encode()
+                        self.send_response(200)
+                        self.send_header("Content-Type", "text/html")
+                        self.send_header("Content-Length", str(len(html)))
+                        self.end_headers()
+                        self.wfile.write(html)
                     elif self.path.partition("?")[0] == "/metrics":
                         from pinot_tpu_torch.common.metrics import controller_metrics
 
@@ -1262,12 +1273,25 @@ class ControllerHTTPService:
                                 tracker=getattr(self.server, "_conn_tracker", None),
                             )
                         )
-                    elif self.path.partition("?")[0] in ("/debug/cluster", "/debug/alerts"):
-                        # the ClusterMetricsAggregator's federated view and
-                        # its SLO alerts (cluster/periodic.py)
-                        _send_not_implemented(
-                            self, f"{self.path.partition('?')[0]}: the cluster metrics aggregator is ROADMAP A10c"
-                        )
+                    elif self.path.partition("?")[0] == "/debug/cluster":
+                        # federated cluster view assembled by the
+                        # ClusterMetricsAggregator periodic task
+                        agg = c.cluster_aggregator
+                        if agg is None:
+                            self._json({"error": "no ClusterMetricsAggregator registered"}, 404)
+                        else:
+                            self._json(agg.debug_cluster())
+                    elif self.path.partition("?")[0] == "/debug/alerts":
+                        agg = c.cluster_aggregator
+                        if agg is None:
+                            self._json({"error": "no ClusterMetricsAggregator registered"}, 404)
+                        else:
+                            self._json(
+                                {
+                                    "alerts": agg.evaluator.alerts(),
+                                    "slo": agg.evaluator.status(),
+                                }
+                            )
                     elif self.path == "/tables":
                         self._json({"tables": c.tables()})
                     elif len(parts) == 2 and parts[0] == "tables":
@@ -1442,7 +1466,24 @@ class ControllerHTTPService:
                                 hit.append(sid)
                         self._json({"status": "ok", "servers": hit, "paused": pause})
                     elif len(parts) == 3 and parts[0] == "tables" and parts[2] == "rebalance":
-                        _send_not_implemented(self, f"/tables/{parts[1]}/rebalance: rebalance is ROADMAP A10c")
+                        from pinot_tpu_torch.cluster.rebalance import rebalance_table
+
+                        body = json.loads(raw or b"{}")
+                        r = rebalance_table(
+                            c,
+                            parts[1],
+                            dry_run=bool(body.get("dryRun")),
+                            drain_grace_sec=float(body.get("drainGraceSec") or 0.0),
+                            bootstrap=bool(body.get("bootstrap")),
+                        )
+                        self._json(
+                            {
+                                "status": r.status,
+                                "adds": r.adds,
+                                "drops": r.drops,
+                                "target": r.target,
+                            }
+                        )
                     else:
                         self._json({"error": "not found"}, 404)
                 except PermissionError as e:

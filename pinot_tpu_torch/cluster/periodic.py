@@ -1,0 +1,1101 @@
+"""Controller periodic tasks: status checking, retention, rebalance checking,
+missing-consuming-segment detection.
+
+Reference parity: ControllerPeriodicTask (pinot-controller/.../helix/core/
+periodictask/ControllerPeriodicTask.java) subclasses SegmentStatusChecker,
+RetentionManager, RebalanceChecker, MissingConsumingSegmentFinder
+(controller/helix/core/realtime/) — each runs per-table on a fixed interval
+under the lead controller. Here a PeriodicTaskScheduler drives registered
+tasks on daemon timers; run_once() is the deterministic test entry.
+
+This is the JAX package's `cluster/periodic.py`. The aggregator's roofline
+divides by the port's `KERNELS.hbm_peak_gbps` (an H100's 3,350 GB/s), and
+its rows carry the port's kernel registry names.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import defaultdict
+
+from pinot_tpu_torch.common.metrics import (
+    controller_metrics,
+    merge_cumulative_buckets,
+    quantile_from_buckets,
+)
+from pinot_tpu_torch.cluster.controller import Controller
+from pinot_tpu_torch.cluster.rebalance import rebalance_progress as _rebalance_progress
+
+
+class ControllerPeriodicTask:
+    name = "periodic"
+    interval_sec = 300.0
+
+    def __init__(self, controller: Controller):
+        self.controller = controller
+
+    def run_once(self) -> dict:
+        """Process all tables; returns a result summary (test/observability)."""
+        out = {}
+        for table in self.controller.tables():
+            try:
+                out[table] = self.process_table(table)
+            except Exception as e:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — maintenance sweep, off the query path; one bad table must not stop it
+                out[table] = {"error": f"{type(e).__name__}: {e}"}
+        return out
+
+    def process_table(self, table: str) -> dict:
+        raise NotImplementedError
+
+
+class SegmentStatusChecker(ControllerPeriodicTask):
+    """Per-table segment/replica health -> controller gauges
+    (SegmentStatusChecker parity: segmentCount, replica counts, percent
+    online)."""
+
+    name = "SegmentStatusChecker"
+    interval_sec = 300.0
+
+    def process_table(self, table: str) -> dict:
+        ideal = self.controller.ideal_state(table)
+        config = self.controller.get_table(table)
+        expected = max(1, config.replication if config else 1)
+        n_segs = len(ideal)
+        min_replicas = expected
+        online_total = 0
+        for replicas in ideal.values():
+            online = sum(1 for st in replicas.values() if st in ("ONLINE", "CONSUMING"))
+            online_total += online
+            min_replicas = min(min_replicas, online)
+        pct = 100 if not n_segs else int(100 * min_replicas / expected)
+        m = controller_metrics()
+        m.gauge(f"controller.{table}.segmentCount").set(n_segs)
+        m.gauge(f"controller.{table}.percentOfReplicas").set(pct)
+        m.gauge(f"controller.{table}.minReplicas").set(min_replicas if n_segs else expected)
+        return {"segments": n_segs, "minReplicas": min_replicas if n_segs else expected, "percent": pct}
+
+
+class RetentionManager(ControllerPeriodicTask):
+    """Drop segments past the table's retention window
+    (RetentionManager parity). Retention config lives in
+    TableConfig.extra["retention"] = {"value": N, "timeColumn": optional}
+    where N is in the time column's native units; a segment is purged when
+    its max(time) < now_fn() - N."""
+
+    name = "RetentionManager"
+    interval_sec = 21600.0
+
+    def __init__(self, controller, now_fn=None):
+        super().__init__(controller)
+        self.now_fn = now_fn or (lambda: time.time() * 1000.0)
+
+    def process_table(self, table: str) -> dict:
+        config = self.controller.get_table(table)
+        ret = (config.extra or {}).get("retention") if config else None
+        if not ret:
+            return {"purged": []}
+        tcol = ret.get("timeColumn") or config.time_column
+        if not tcol:
+            return {"purged": []}
+        cutoff = self.now_fn() - float(ret["value"])
+        purged = []
+        for name, meta in sorted(self.controller.all_segment_metadata(table).items()):
+            s = (meta.get("stats") or {}).get(tcol)
+            if s and isinstance(s.get("max"), (int, float)) and s["max"] < cutoff:
+                self.controller.delete_segment(table, name)
+                purged.append(name)
+        return {"purged": purged}
+
+
+class RebalanceChecker(ControllerPeriodicTask):
+    """Detect (and optionally repair) under-replicated tables
+    (RebalanceChecker parity; auto_fix mirrors its retry of failed
+    rebalances)."""
+
+    name = "RebalanceChecker"
+    interval_sec = 1800.0
+
+    def __init__(self, controller, auto_fix: bool = False):
+        super().__init__(controller)
+        self.auto_fix = auto_fix
+
+    def process_table(self, table: str) -> dict:
+        from pinot_tpu_torch.cluster.rebalance import rebalance_table
+
+        r = rebalance_table(self.controller, table, dry_run=True)
+        needs = r.status != "NO_OP"
+        if needs and self.auto_fix:
+            applied = rebalance_table(self.controller, table)
+            return {"needsRebalance": True, "fixed": True, "adds": applied.adds, "drops": applied.drops}
+        return {"needsRebalance": needs, "adds": r.adds, "drops": r.drops}
+
+
+class MissingConsumingSegmentFinder(ControllerPeriodicTask):
+    """Realtime tables must keep one CONSUMING segment per stream partition
+    (MissingConsumingSegmentFinder parity). Expected partition count comes
+    from TableConfig.extra["streamPartitions"]."""
+
+    name = "MissingConsumingSegmentFinder"
+    interval_sec = 300.0
+
+    def process_table(self, table: str) -> dict:
+        config = self.controller.get_table(table)
+        if config is None or config.table_type.value != "REALTIME":
+            return {"missingPartitions": []}
+        expected = int((config.extra or {}).get("streamPartitions", 0))
+        if not expected:
+            return {"missingPartitions": []}
+        consuming = set()
+        for seg, replicas in self.controller.ideal_state(table).items():
+            if any(st == "CONSUMING" for st in replicas.values()):
+                # segment names carry the partition: <table>__<partition>__<seq>
+                parts = seg.split("__")
+                if len(parts) >= 2 and parts[1].isdigit():
+                    consuming.add(int(parts[1]))
+        missing = sorted(set(range(expected)) - consuming)
+        controller_metrics().gauge(f"controller.{table}.missingConsumingPartitions").set(len(missing))
+        return {"missingPartitions": missing}
+
+
+class IntegrityScrubber(ControllerPeriodicTask):
+    """Background storage-integrity scrubber (SegmentStatusChecker's missing
+    sibling in the reference: validate-on-load exists there, but nothing
+    re-verifies cold bytes — here the controller owns that sweep).
+
+    Two sweeps per run, both under one IO budget:
+      1. **Server sweep** — every registered server handle exposing
+         `scrub()` verifies its local copies (quarantine + re-download +
+         hot-swap happen server-side; see Server.scrub).
+      2. **Deep-store sweep** — CRC-verify deep-store segment files against
+         the `fileCrc` recorded in ZK segment metadata. A corrupt deep-store
+         copy is quarantined and RE-REPLICATED from the first healthy server
+         replica (`fetch_segment_file` -> verify -> atomic write -> refresh
+         `fileCrc`), restoring durability without operator action.
+
+    The deep-store cursor persists across runs, so a small per-run budget
+    still covers the whole store incrementally (the IO throttle contract).
+    Meters: `storage.scrub.{verified,corrupted,repaired,unrepairable}` on
+    the controller registry; unrepairable corruption additionally feeds the
+    SLO plane's `scrubUnrepairable` objective via the aggregator."""
+
+    name = "IntegrityScrubber"
+    interval_sec = 30.0
+
+    def __init__(self, controller, io_budget_bytes: int | None = 64 * 1024 * 1024):
+        super().__init__(controller)
+        self.io_budget_bytes = io_budget_bytes
+        self._cursor = 0
+        self.last_run: dict = {}
+
+    def run_once(self) -> dict:
+        servers = {}
+        for sid, h in sorted(self.controller.servers().items()):
+            scrub = getattr(h, "scrub", None)
+            if scrub is None:
+                continue
+            try:
+                servers[sid] = scrub(io_budget_bytes=self.io_budget_bytes)
+            except Exception as e:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — maintenance sweep, off the query path; a down server must not stop the scrub
+                servers[sid] = {"error": f"{type(e).__name__}: {e}"}
+        out = self._deep_store_sweep()
+        out["servers"] = servers
+        self.last_run = out
+        return out
+
+    def _deep_store_sweep(self) -> dict:
+        from pathlib import Path
+
+        from pinot_tpu_torch.common.errors import SegmentCorruptedError
+        from pinot_tpu_torch.segment.store import SEGMENT_FILE, verify_segment_file
+
+        items = []
+        for table in self.controller.tables():
+            try:
+                for name, meta in sorted(self.controller.all_segment_metadata(table).items()):
+                    loc = (meta or {}).get("location")
+                    if loc and (Path(loc) / SEGMENT_FILE).exists():
+                        items.append((table, name, meta, Path(loc) / SEGMENT_FILE))
+            except Exception:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — maintenance sweep, off the query path; one bad table must not stop it
+                pass
+        m = controller_metrics()
+        out = {"verified": 0, "corrupted": 0, "repaired": 0, "unrepairable": 0,
+               "bytesScanned": 0, "deepStoreSegments": len(items)}
+        if not items:
+            return out
+        start = self._cursor % len(items)
+        for table, name, meta, f in items[start:] + items[:start]:
+            if self.io_budget_bytes is not None and out["bytesScanned"] >= self.io_budget_bytes:
+                break
+            self._cursor += 1
+            try:
+                out["bytesScanned"] += f.stat().st_size
+            except OSError:
+                pass
+            try:
+                verify_segment_file(f, expected_crc=meta.get("fileCrc"))
+                out["verified"] += 1
+                m.meter("storage.scrub.verified").mark()
+            except SegmentCorruptedError:
+                out["corrupted"] += 1
+                m.meter("storage.scrub.corrupted").mark()
+                if self._repair_deep_store(table, name, meta, f):
+                    out["repaired"] += 1
+                    m.meter("storage.scrub.repaired").mark()
+                else:
+                    out["unrepairable"] += 1
+                    m.meter("storage.scrub.unrepairable").mark()
+        return out
+
+    def _repair_deep_store(self, table: str, name: str, meta: dict, f) -> bool:
+        """Re-replicate a corrupt deep-store copy from a healthy server
+        replica. The bad file is quarantined (kept for the runbook), the
+        fetched bytes are verified BEFORE landing, and the refreshed
+        `fileCrc` goes back into ZK metadata (a re-serialized in-memory
+        copy legitimately hashes differently)."""
+        import logging
+        import os
+
+        from pinot_tpu_torch.common.durability import atomic_write_bytes
+        from pinot_tpu_torch.segment.store import verify_segment_bytes
+
+        handles = self.controller.servers()
+        for sid in meta.get("servers") or sorted(handles):
+            fetch = getattr(handles.get(sid), "fetch_segment_file", None)
+            if fetch is None:
+                continue
+            try:
+                data = fetch(table, name)
+                if not data:
+                    continue
+                crc = verify_segment_bytes(data, f"replica {sid} copy of {table}/{name}")
+            except Exception:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — a bad/unreachable replica just means trying the next one; unrepairable is metered by the caller
+                continue
+            if f.exists():
+                os.replace(f, f.with_name(f.name + ".quarantined"))
+            atomic_write_bytes(f, data)
+            meta = dict(meta)
+            meta["fileCrc"] = crc
+            # fenced: a scrubber sweep outliving this controller's lease
+            # must not overwrite metadata the new lead has since rewritten
+            self.controller.store.set(
+                f"/tables/{table}/segments/{name}", meta, fence=self.controller.lease_fence()
+            )
+            self.controller.bump_routing_version(table)
+            logging.getLogger("pinot_tpu_torch.storage").warning(
+                "re-replicated corrupt deep-store copy of %s/%s from %s", table, name, sid
+            )
+            return True
+        return False
+
+    def process_table(self, table: str) -> dict:  # pragma: no cover - run_once overridden
+        raise NotImplementedError
+
+
+class ClusterMetricsAggregator(ControllerPeriodicTask):
+    """Federated metrics scrape: pull every registered broker's and server's
+    `/metrics?format=json` snapshot (plus `/debug/workload` rollups and the
+    broker slow-query ring for exemplars) and fold them into cluster rollup
+    series in the controller registry — the ValidationMetrics pattern of the
+    reference generalized from segment counts to the full metric surface.
+
+    Correctness properties:
+      * **Never raises.** An unreachable or malformed node marks its series
+        stale (`lastScrapeMs` frozen at the last success) and the sweep
+        continues; previously folded counts are retained, not dropped.
+      * **Counter-reset detection.** A node restart resets its registries;
+        any tracked counter going backwards flags the whole scrape as a
+        restart and the fresh values count as the delta, so cluster
+        accumulations are monotone and never go negative.
+      * **Histogram merge.** Latency buckets accumulate per node per bound
+        and cross-node merge goes through `merge_cumulative_buckets`, so the
+        merged `+Inf` always equals the summed `_count`s even when nodes
+        expose different (sparse) bound sets.
+      * **No I/O under locks.** All scrapes complete before `_lock` is
+        taken; the fold under the lock is pure arithmetic (the
+        blocking-under-lock contract pinotlint enforces).
+
+    `fetch` and `now_fn` are injectable so failure-path tests are fully
+    deterministic (no sockets, no sleeps)."""
+
+    name = "ClusterMetricsAggregator"
+    interval_sec = 10.0
+
+    #: meters folded into the cluster.errors{code=...} rollup, keyed by the
+    #: registered QueryErrorCode each broker meter maps to
+    ERROR_METERS = {
+        "broker.requestFailures": 200,
+        "broker.queriesTimedOut": 250,
+        "broker.queriesCancelled": 503,
+    }
+
+    def __init__(self, controller, fetch=None, now_fn=None, objectives=None,
+                 evaluator=None, scrape_timeout: float = 2.0, local_brokers=None):
+        super().__init__(controller)
+        self.fetch = fetch or self._http_fetch
+        self.now_fn = now_fn or time.time
+        self.scrape_timeout = scrape_timeout
+        #: broker_id -> in-process Broker for alert cross-linking without a
+        #: network hop (HTTP brokers get POST /debug/alerts/attach instead)
+        self.local_brokers = dict(local_brokers or {})
+        if evaluator is None:
+            from pinot_tpu_torch.common.slo import SloEvaluator
+
+            evaluator = SloEvaluator(objectives, now_fn=self.now_fn,
+                                     registry=controller_metrics())
+        self.evaluator = evaluator
+        self.status_checker = SegmentStatusChecker(controller)
+        self._lock = threading.Lock()
+        self._nodes: dict[str, dict] = {}
+        self._series_labels: dict[str, dict] = {}
+        self._table_rates: dict[str, dict] = {}
+        self._last_sample: dict = {}
+        # the controller exposes the hub surfaces (/debug/cluster,
+        # /debug/alerts) through whichever aggregator registered last
+        controller.cluster_aggregator = self
+
+    # -- scrape (no locks held anywhere in this section) ----------------------
+
+    def _http_fetch(self, url: str) -> str:
+        import urllib.request
+
+        with urllib.request.urlopen(url, timeout=self.scrape_timeout) as resp:
+            return resp.read().decode()
+
+    def _endpoints(self) -> dict[str, dict]:
+        """node id -> {"role", "url"} for every registered broker and every
+        server instance that advertises an HTTP port (in-process handles
+        have no scrape surface of their own — their metrics land in shared
+        per-role registries some HTTP node already exposes)."""
+        eps = {}
+        for bid, url in self.controller.brokers().items():
+            eps[bid] = {"role": "broker", "url": url}
+        for path in self.controller.store.list("/instances/"):
+            sid = path.split("/")[-1]
+            doc = self.controller.store.get(path) or {}
+            if doc.get("port"):
+                eps[sid] = {"role": "server", "url": f"http://{doc['host']}:{doc['port']}"}
+        return eps
+
+    def _scrape_node(self, node_id: str, ep: dict) -> dict:
+        base = ep["url"].rstrip("/")
+        try:
+            snap = json.loads(self.fetch(f"{base}/metrics?format=json"))
+            if not isinstance(snap, dict):
+                raise ValueError(f"metrics snapshot from {node_id} is not a JSON object")
+            try:
+                workload = (json.loads(self.fetch(f"{base}/debug/workload")) or {}).get("rollups") or []
+            except Exception:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — optional surface; a node without /debug/workload still contributes metrics
+                workload = []
+            slow = []
+            if ep["role"] == "broker":
+                try:
+                    slow = json.loads(self.fetch(f"{base}/debug/slowQueries")) or []
+                except Exception:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — exemplars are best-effort garnish on the scrape
+                    slow = []
+            roofline = []
+            segments = []
+            if ep["role"] == "server":
+                try:
+                    roofline = (json.loads(self.fetch(f"{base}/debug/roofline")) or {}).get("kernels") or []
+                except Exception:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — optional surface; a node without /debug/roofline still contributes metrics
+                    roofline = []
+                try:
+                    segments = (json.loads(self.fetch(f"{base}/debug/segments")) or {}).get("segments") or []
+                except Exception:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — optional surface; a node without /debug/segments still contributes metrics
+                    segments = []
+            frontend = None
+            try:
+                # request-lifecycle/transport plane (latest-snapshot
+                # semantics like roofline: the endpoint reports live gauges
+                # and process-lifetime phase histograms)
+                frontend = json.loads(self.fetch(f"{base}/debug/frontend")) or None
+            except Exception:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — optional surface; a node without /debug/frontend still contributes metrics
+                frontend = None
+            return {"ok": True, "snapshot": snap, "workload": workload, "slow": slow,
+                    "roofline": roofline, "segments": segments, "frontend": frontend,
+                    "error": None}
+        except Exception as e:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — the federated scrape must never raise: a down/malformed node marks its series stale and the sweep continues
+            return {"ok": False, "snapshot": None, "workload": [], "slow": [],
+                    "roofline": [], "segments": [], "frontend": None,
+                    "error": f"{type(e).__name__}: {e}"}
+
+    # -- fold -----------------------------------------------------------------
+
+    @staticmethod
+    def _new_node_state(ep: dict) -> dict:
+        return {
+            "role": ep["role"], "url": ep["url"],
+            "ok": None, "lastScrapeMs": None, "lastError": None, "restarts": 0,
+            "timeline": [],  # [{"tsMs", "ok"}] transitions only, bounded
+            "rawCounters": {}, "rawBuckets": {}, "rawTimer": {}, "rawWorkload": {},
+            "accCounters": defaultdict(int), "accBuckets": {}, "accTimer": {},
+            "accWorkload": {},
+            # latest per-(kernel, shape) roofline rows from /debug/roofline —
+            # the endpoint reports process-lifetime totals, so the newest
+            # snapshot IS the accumulation (no delta fold)
+            "roofline": [],
+            # latest per-segment heat rows from /debug/segments (same
+            # latest-snapshot semantics: the registry decays in place)
+            "segments": [],
+            # latest /debug/frontend document (same latest-snapshot
+            # semantics: connection gauges are live state, not counters)
+            "frontend": None,
+            # latest gauge values from the metrics snapshot (ingest lag,
+            # connection-plane open/active/idle): point-in-time, no fold
+            "rawGauges": {},
+        }
+
+    @staticmethod
+    def _per_bucket(raw_buckets) -> dict:
+        """JSON `[[le, cum], ...]` -> exact per-bucket {bound: count} (sparse
+        cumulative output omits only zero-count buckets, so this is lossless)."""
+        out = {}
+        prev = 0
+        for le, cum in sorted(((float(le), int(c)) for le, c in raw_buckets), key=lambda p: p[0]):
+            if cum > prev:
+                out[le] = cum - prev
+                prev = cum
+        return out
+
+    def _fold_node(self, st: dict, res: dict, now_ms: float) -> None:
+        """Fold one successful scrape into the node's monotone accumulations
+        (caller holds self._lock; pure arithmetic only)."""
+        counters, buckets, timers, gauges = {}, {}, {}, {}
+        for key, entry in res["snapshot"].items():
+            t = entry.get("type")
+            if t == "meter":
+                counters[key] = int(entry.get("count") or 0)
+            elif t == "gauge":
+                gauges[key] = entry.get("value")
+            elif t in ("timer", "histogram"):
+                buckets[key] = self._per_bucket(entry.get("buckets") or [])
+                timers[key] = {
+                    "count": int(entry.get("count") or 0),
+                    "totalMs": float(entry.get("totalMs") or 0.0),
+                    "maxMs": float(entry.get("maxMs") or 0.0),
+                }
+            if entry.get("labels"):
+                self._series_labels[key] = dict(entry["labels"])
+        workload = {}
+        for r in res["workload"]:
+            wkey = (r.get("tenant") or "", r.get("table") or "")
+            workload[wkey] = {
+                k: int(r.get(k) or 0)
+                for k in ("queries", "cpuTimeNs", "allocatedBytes", "segmentsExecuted", "queriesKilled")
+            }
+            workload[wkey]["deviceMs"] = float(r.get("deviceMs") or 0.0)
+            workload[wkey]["peakHbmBytes"] = int(r.get("peakHbmBytes") or 0)
+
+        restarted = (
+            any(v < st["rawCounters"].get(k, 0) for k, v in counters.items())
+            or any(t["count"] < st["rawTimer"].get(k, {}).get("count", 0) for k, t in timers.items())
+            or any(
+                w["queries"] < st["rawWorkload"].get(k, {}).get("queries", 0)
+                for k, w in workload.items()
+            )
+        )
+        if restarted:
+            st["restarts"] += 1
+
+        for k, v in counters.items():
+            prev = 0 if restarted else st["rawCounters"].get(k, 0)
+            st["accCounters"][k] += max(0, v - prev)
+        for k, per in buckets.items():
+            acc = st["accBuckets"].setdefault(k, defaultdict(int))
+            prev_per = {} if restarted else st["rawBuckets"].get(k, {})
+            for le, c in per.items():
+                acc[le] += max(0, c - prev_per.get(le, 0))
+        for k, t in timers.items():
+            acc = st["accTimer"].setdefault(k, {"count": 0, "totalMs": 0.0, "maxMs": 0.0})
+            prev = {"count": 0, "totalMs": 0.0} if restarted else st["rawTimer"].get(k, {"count": 0, "totalMs": 0.0})
+            acc["count"] += max(0, t["count"] - prev.get("count", 0))
+            acc["totalMs"] += max(0.0, t["totalMs"] - prev.get("totalMs", 0.0))
+            acc["maxMs"] = max(acc["maxMs"], t["maxMs"])
+        for k, w in workload.items():
+            acc = st["accWorkload"].setdefault(k, defaultdict(int))
+            prev = {} if restarted else st["rawWorkload"].get(k, {})
+            for f, v in w.items():
+                if f == "peakHbmBytes":
+                    # high-watermark, not a counter: fold with max
+                    acc[f] = max(acc[f], v)
+                else:
+                    acc[f] += max(0, v - prev.get(f, 0))
+        st["roofline"] = res.get("roofline") or st["roofline"]
+        st["segments"] = res.get("segments") or st["segments"]
+        st["frontend"] = res.get("frontend") or st["frontend"]
+
+        st["rawCounters"], st["rawBuckets"] = counters, buckets
+        st["rawTimer"], st["rawWorkload"] = timers, workload
+        st["rawGauges"] = gauges
+        st["lastScrapeMs"] = now_ms
+
+    @staticmethod
+    def _cumulative(per_bucket: dict) -> "list[tuple[float, int]]":
+        out = []
+        cum = 0
+        for le in sorted(per_bucket):
+            cum += per_bucket[le]
+            out.append((le, cum))
+        return out
+
+    def _fold_locked(self, endpoints: dict, results: dict, now_ms: float) -> dict:
+        for nid, ep in endpoints.items():
+            st = self._nodes.get(nid)
+            if st is None:
+                st = self._nodes[nid] = self._new_node_state(ep)
+            st["url"] = ep["url"]
+            res = results[nid]
+            if st["ok"] is None or st["ok"] != res["ok"]:
+                st["timeline"].append({"tsMs": now_ms, "ok": res["ok"]})
+                del st["timeline"][:-64]
+            st["ok"] = res["ok"]
+            if res["ok"]:
+                st["lastError"] = None
+                self._fold_node(st, res, now_ms)
+            else:
+                st["lastError"] = res["error"]
+
+        # -- cluster rollup sample for the SLO plane --------------------------
+        def nodes(role):
+            return [s for s in self._nodes.values() if s["role"] == role]
+
+        queries = sum(s["accCounters"].get("broker.queries", 0) for s in nodes("broker"))
+        errors_by_code = defaultdict(int)
+        for s in nodes("broker"):
+            for meter, code in self.ERROR_METERS.items():
+                errors_by_code[code] += s["accCounters"].get(meter, 0)
+        latency = merge_cumulative_buckets(
+            [self._cumulative(s["accBuckets"].get("broker.queryTotalMs", {})) for s in nodes("broker")]
+        )
+        server_latency = merge_cumulative_buckets(
+            [self._cumulative(s["accBuckets"].get("server.queryExecutionMs", {})) for s in nodes("server")]
+        )
+
+        # per-table series from the labelled broker families
+        tables: dict[str, dict] = {}
+        for s in nodes("broker"):
+            for key, acc in s["accBuckets"].items():
+                if key.startswith("broker.tableLatencyMs{"):
+                    t = self._series_labels.get(key, {}).get("table")
+                    if t:
+                        tb = tables.setdefault(t, {"queries": 0, "errors": 0, "bucketLists": []})
+                        tb["bucketLists"].append(self._cumulative(acc))
+            for key, v in s["accCounters"].items():
+                if key.startswith("broker.tableQueries{"):
+                    t = self._series_labels.get(key, {}).get("table")
+                    if t:
+                        tables.setdefault(t, {"queries": 0, "errors": 0, "bucketLists": []})["queries"] += v
+                elif key.startswith("broker.tableErrors{"):
+                    t = self._series_labels.get(key, {}).get("table")
+                    if t:
+                        tables.setdefault(t, {"queries": 0, "errors": 0, "bucketLists": []})["errors"] += v
+        table_samples = {
+            t: {
+                "queries": tb["queries"],
+                "errors": tb["errors"],
+                "latencyBuckets": merge_cumulative_buckets(tb["bucketLists"]),
+            }
+            for t, tb in tables.items()
+        }
+
+        # event-to-queryable freshness: per-table server.freshnessMs series
+        # merged per table and cluster-wide (the freshness SLO input)
+        fresh_tables: dict[str, list] = {}
+        for s in nodes("server"):
+            for key, acc in s["accBuckets"].items():
+                if key.startswith("server.freshnessMs{"):
+                    t = self._series_labels.get(key, {}).get("table")
+                    if t:
+                        fresh_tables.setdefault(t, []).append(self._cumulative(acc))
+        freshness = merge_cumulative_buckets(
+            [bl for lists in fresh_tables.values() for bl in lists]
+        )
+        for t, lists in fresh_tables.items():
+            entry = table_samples.setdefault(
+                t, {"queries": 0, "errors": 0, "latencyBuckets": []}
+            )
+            entry["freshnessBuckets"] = merge_cumulative_buckets(lists)
+
+        # ingest plane (ROADMAP item 4 starter): per-(table, partition)
+        # consumer lag from the server.ingest.lagEvents gauges (latest
+        # point-in-time values) plus merged per-table commit-latency buckets
+        ingest_lag: dict[str, dict[str, int]] = {}
+        commit_lists: dict[str, list] = {}
+        commit_totals: dict[str, dict] = {}
+        for s in nodes("server"):
+            for key, v in s["rawGauges"].items():
+                if key.startswith("server.ingest.lagEvents{"):
+                    lbl = self._series_labels.get(key, {})
+                    t, p = lbl.get("table"), lbl.get("partition")
+                    if t and p is not None:
+                        ingest_lag.setdefault(t, {})[p] = int(v or 0)
+            for key, acc in s["accBuckets"].items():
+                if key.startswith("server.ingest.commitLatencyMs{"):
+                    t = self._series_labels.get(key, {}).get("table")
+                    if t:
+                        commit_lists.setdefault(t, []).append(self._cumulative(acc))
+            for key, tm in s["accTimer"].items():
+                if key.startswith("server.ingest.commitLatencyMs{"):
+                    t = self._series_labels.get(key, {}).get("table")
+                    if t:
+                        tot = commit_totals.setdefault(t, {"count": 0, "totalMs": 0.0})
+                        tot["count"] += tm.get("count", 0)
+                        tot["totalMs"] += tm.get("totalMs", 0.0)
+        ingest_sample = {}
+        for t in sorted(set(ingest_lag) | set(commit_lists)):
+            merged = merge_cumulative_buckets(commit_lists.get(t, []))
+            tot = commit_totals.get(t, {"count": 0, "totalMs": 0.0})
+            ingest_sample[t] = {
+                "lagEventsByPartition": dict(sorted(ingest_lag.get(t, {}).items())),
+                "lagEvents": sum(ingest_lag.get(t, {}).values()),
+                "commits": tot["count"],
+                "commitLatency": {
+                    "p50Ms": quantile_from_buckets(merged, 0.5),
+                    "p99Ms": quantile_from_buckets(merged, 0.99),
+                    "totalMs": round(tot["totalMs"], 3),
+                },
+            }
+
+        # hedged-scatter rollup across brokers (labelled per-table meters)
+        hedge = {"issued": 0, "won": 0, "wasted": 0}
+        for s in nodes("broker"):
+            for key, v in s["accCounters"].items():
+                for kind in hedge:
+                    if key == f"broker.hedge.{kind}" or key.startswith(f"broker.hedge.{kind}{{"):
+                        hedge[kind] += v
+
+        # query-cache rollup across brokers: the labelled broker.cache.*
+        # meter family folded per tier, with a derived hit-rate series
+        cache_tiers: dict[str, dict] = {}
+        for s in nodes("broker"):
+            for key, v in s["accCounters"].items():
+                if key.startswith("broker.cache."):
+                    event = key[len("broker.cache.") :].partition("{")[0]
+                    tier = self._series_labels.get(key, {}).get("cache")
+                    if tier:
+                        cache_tiers.setdefault(tier, defaultdict(int))[event] += v
+        cache_sample = {}
+        for tier, ev in sorted(cache_tiers.items()):
+            total = ev.get("hits", 0) + ev.get("misses", 0)
+            cache_sample[tier] = {
+                **{k: int(x) for k, x in sorted(ev.items())},
+                "hitRate": round(ev.get("hits", 0) / total, 4) if total else 0.0,
+            }
+
+        # merged per-(tenant, table) workload + per-table scrape-window QPS
+        workload: dict = {}
+        for s in self._nodes.values():
+            for (tenant, table), acc in s["accWorkload"].items():
+                agg = workload.setdefault((tenant, table), defaultdict(int))
+                for f, v in acc.items():
+                    if f == "peakHbmBytes":
+                        agg[f] = max(agg[f], v)
+                    else:
+                        agg[f] += v
+        prev = self._last_sample
+        elapsed_s = max(1e-3, (now_ms - prev["tsMs"]) / 1000.0) if prev else None
+        rates = {}
+        for t, tb in table_samples.items():
+            prev_q = ((prev.get("tables") or {}).get(t) or {}).get("queries", 0) if prev else 0
+            rates[t] = {
+                "qps": (tb["queries"] - prev_q) / elapsed_s if elapsed_s else 0.0,
+                "queries": tb["queries"],
+                "p99Ms": quantile_from_buckets(tb["latencyBuckets"], 0.99),
+            }
+        for (tenant, table), agg in workload.items():
+            rates.setdefault(table, {"qps": 0.0, "queries": agg.get("queries", 0), "p99Ms": 0.0})
+            rates[table]["cpuTimeNs"] = rates[table].get("cpuTimeNs", 0) + agg.get("cpuTimeNs", 0)
+            rates[table]["tenant"] = tenant
+        self._table_rates = rates
+
+        exemplars = [e for nid in sorted(results) for e in results[nid]["slow"]]
+        sample = {
+            "tsMs": now_ms,
+            "queries": queries,
+            "errors": sum(errors_by_code.values()),
+            "errorsByCode": dict(errors_by_code),
+            "latencyBuckets": latency,
+            "serverLatencyBuckets": server_latency,
+            "latencyTotalMs": sum(
+                s["accTimer"].get("broker.queryTotalMs", {}).get("totalMs", 0.0) for s in nodes("broker")
+            ),
+            "latencyMaxMs": max(
+                [s["accTimer"].get("broker.queryTotalMs", {}).get("maxMs", 0.0) for s in nodes("broker")],
+                default=0.0,
+            ),
+            "serverLatencyTotalMs": sum(
+                s["accTimer"].get("server.queryExecutionMs", {}).get("totalMs", 0.0) for s in nodes("server")
+            ),
+            "serverLatencyMaxMs": max(
+                [s["accTimer"].get("server.queryExecutionMs", {}).get("maxMs", 0.0) for s in nodes("server")],
+                default=0.0,
+            ),
+            "tables": table_samples,
+            "freshnessBuckets": freshness,
+            "ingest": ingest_sample,
+            "hedge": hedge,
+            "cache": cache_sample,
+            "workload": {f"{tenant}/{table}": dict(agg) for (tenant, table), agg in sorted(workload.items())},
+            "exemplars": exemplars,
+        }
+        self._last_sample = sample
+        return sample
+
+    # -- publish + cross-link -------------------------------------------------
+
+    def _publish(self, sample: dict) -> None:
+        m = controller_metrics()
+        m.gauge("cluster.queries").set(sample["queries"])
+        for code, n in sorted(sample["errorsByCode"].items()):
+            m.gauge("cluster.errors", code=str(code)).set(n)
+        m.histogram("cluster.latencyMs").load_cumulative(
+            sample["latencyBuckets"], total_ms=sample["latencyTotalMs"], max_ms=sample["latencyMaxMs"]
+        )
+        m.histogram("cluster.serverLatencyMs").load_cumulative(
+            sample["serverLatencyBuckets"],
+            total_ms=sample["serverLatencyTotalMs"],
+            max_ms=sample["serverLatencyMaxMs"],
+        )
+        if sample.get("freshnessBuckets"):
+            m.histogram("cluster.freshnessMs").load_cumulative(sample["freshnessBuckets"])
+        for kind, n in sorted((sample.get("hedge") or {}).items()):
+            m.gauge("cluster.hedge", kind=kind).set(n)
+        for tier, ev in sorted((sample.get("cache") or {}).items()):
+            m.gauge("cluster.cache.hitRate", cache=tier).set(ev.get("hitRate", 0.0))
+        with self._lock:
+            total = len(self._nodes)
+            healthy = sum(1 for s in self._nodes.values() if s["ok"])
+            rates = dict(self._table_rates)
+        m.gauge("cluster.nodes").set(total)
+        m.gauge("cluster.nodesStale").set(total - healthy)
+        for table, r in rates.items():
+            labels = {"table": table}
+            if r.get("tenant"):
+                labels["tenant"] = r["tenant"]
+            m.gauge("cluster.table.queries", **labels).set(r.get("queries", 0))
+            m.gauge("cluster.table.cpuTimeNs", **labels).set(r.get("cpuTimeNs", 0))
+
+    def _crosslink(self, transitions: list, endpoints: dict) -> None:
+        """Push alert transitions to every broker so they can stamp
+        `alertId` into matching slow-query exemplars and emit span events on
+        still-in-flight traces (satellite: the three observability planes
+        link both directions). In-process brokers are called directly;
+        remote ones get POST /debug/alerts/attach — best-effort, a down
+        broker must not fail the sweep."""
+        import urllib.request
+
+        for alert in transitions:
+            for bid, broker in self.local_brokers.items():
+                try:
+                    broker.attach_alert(alert)
+                except Exception:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — cross-linking is best-effort decoration of an already-recorded alert
+                    pass
+            for bid, ep in endpoints.items():
+                if ep["role"] != "broker" or bid in self.local_brokers:
+                    continue
+                try:
+                    req = urllib.request.Request(
+                        f"{ep['url'].rstrip('/')}/debug/alerts/attach",
+                        data=json.dumps(alert).encode(),
+                        headers={"Content-Type": "application/json"},
+                        method="POST",
+                    )
+                    with urllib.request.urlopen(req, timeout=self.scrape_timeout) as resp:
+                        resp.read()
+                except Exception:  # noqa: BLE001  # pinotlint: disable=deadline-swallow — cross-linking is best-effort decoration of an already-recorded alert
+                    pass
+
+    # -- periodic entry + read surfaces ---------------------------------------
+
+    def run_once(self) -> dict:
+        endpoints = self._endpoints()
+        results = {nid: self._scrape_node(nid, ep) for nid, ep in sorted(endpoints.items())}
+        now_ms = self.now_fn() * 1000.0
+        with self._lock:
+            sample = self._fold_locked(endpoints, results, now_ms)
+        self._publish(sample)
+        transitions = self.evaluator.observe(
+            {
+                "queries": sample["queries"],
+                "errors": sample["errors"],
+                "latencyBuckets": sample["latencyBuckets"],
+                "freshnessBuckets": sample["freshnessBuckets"],
+                "tables": sample["tables"],
+                "exemplars": sample["exemplars"],
+                # integrity-scrubber feed: unrepairable corruption fires the
+                # scrubUnrepairable objective (the scrubber runs in this
+                # process, so the controller registry is the source of truth)
+                "scrubUnrepairable": int(
+                    controller_metrics().meter("storage.scrub.unrepairable").count
+                ),
+            }
+        )
+        if transitions:
+            self._crosslink(transitions, endpoints)
+        return {
+            "scraped": {nid: res["ok"] for nid, res in results.items()},
+            "queries": sample["queries"],
+            "errors": sample["errors"],
+            "transitions": [{"id": t["id"], "slo": t["slo"], "state": t["state"]} for t in transitions],
+        }
+
+    def debug_cluster(self) -> dict:
+        """The structured `GET /debug/cluster` document: per-node liveness
+        (scrape timeline), merged cluster series, segment health, and top
+        tables by QPS / CPU."""
+        segment_health = self.status_checker.run_once()
+        now_ms = self.now_fn() * 1000.0
+        with self._lock:
+            nodes = {}
+            for nid, s in self._nodes.items():
+                stale = (not s["ok"]) or s["lastScrapeMs"] is None
+                nodes[nid] = {
+                    "role": s["role"],
+                    "url": s["url"],
+                    "healthy": bool(s["ok"]),
+                    "stale": stale,
+                    "lastScrapeMs": s["lastScrapeMs"],
+                    "staleForMs": (now_ms - s["lastScrapeMs"]) if stale and s["lastScrapeMs"] else None,
+                    "lastError": s["lastError"],
+                    "restarts": s["restarts"],
+                    "timeline": list(s["timeline"]),
+                }
+            sample = self._last_sample
+            rates = dict(self._table_rates)
+            # merge per-node /debug/frontend documents by role: connection
+            # and status counters sum, phase histograms merge by bucket (so
+            # cluster-level phase p99s are exact, not averages of averages),
+            # scheduling lag stays per-node (a starved node must not hide
+            # behind a healthy fleet median)
+            fe_roles: dict[str, dict] = {}
+            for nid, s in self._nodes.items():
+                fe = s.get("frontend")
+                if not fe:
+                    continue
+                agg = fe_roles.setdefault(
+                    fe.get("role") or s["role"],
+                    {
+                        "nodes": 0,
+                        "connections": defaultdict(int),
+                        "status": defaultdict(int),
+                        "phaseLists": {},
+                        "phaseTotals": {},
+                        "schedLagByNode": {},
+                    },
+                )
+                agg["nodes"] += 1
+                for k, v in (fe.get("connections") or {}).items():
+                    agg["connections"][k] += int(v or 0)
+                for code, cnt in (fe.get("status") or {}).items():
+                    agg["status"][code] += int(cnt or 0)
+                for name, ph in (fe.get("phases") or {}).items():
+                    agg["phaseLists"].setdefault(name, []).append(
+                        [(float(le), int(c)) for le, c in (ph.get("buckets") or [])]
+                    )
+                    tot = agg["phaseTotals"].setdefault(name, {"count": 0, "totalMs": 0.0})
+                    tot["count"] += int(ph.get("count") or 0)
+                    tot["totalMs"] += float(ph.get("totalMs") or 0.0)
+                agg["schedLagByNode"][nid] = fe.get("schedLag")
+            # merge per-server roofline rows by (kernel, shape-bucket):
+            # calls/ms/bytes/flops sum across servers; achieved bandwidth and
+            # the gap are recomputed from the merged totals
+            roof: dict[tuple[str, str], dict] = {}
+            for s in self._nodes.values():
+                for r in s.get("roofline") or []:
+                    key = (r.get("kernel") or "", r.get("shape") or "")
+                    agg = roof.setdefault(
+                        key, {"calls": 0, "deviceMs": 0.0, "bytesMoved": 0, "flops": 0}
+                    )
+                    agg["calls"] += int(r.get("calls") or 0)
+                    agg["deviceMs"] += float(r.get("deviceMs") or 0.0)
+                    agg["bytesMoved"] += int(r.get("bytesMoved") or 0)
+                    agg["flops"] += int(r.get("flops") or 0)
+            # merge per-server segment-heat rows by (table, segment): load
+            # counters sum across replicas (total cluster demand for that
+            # segment); bytesTouched is a per-copy size estimate, fold with
+            # max; recency takes the freshest replica
+            seg_heat: dict[tuple[str, str], dict] = {}
+            for s in self._nodes.values():
+                for r in s.get("segments") or []:
+                    key = (r.get("table") or "", r.get("segment") or "")
+                    agg = seg_heat.setdefault(
+                        key,
+                        {"queries": 0, "docsScanned": 0, "bytesTouched": 0,
+                         "deviceMs": 0.0, "heat": 0.0, "lastAccessMs": 0.0},
+                    )
+                    agg["queries"] += int(r.get("queries") or 0)
+                    agg["docsScanned"] += int(r.get("docsScanned") or 0)
+                    agg["bytesTouched"] = max(agg["bytesTouched"], int(r.get("bytesTouched") or 0))
+                    agg["deviceMs"] += float(r.get("deviceMs") or 0.0)
+                    agg["heat"] += float(r.get("heat") or 0.0)
+                    agg["lastAccessMs"] = max(agg["lastAccessMs"], float(r.get("lastAccessMs") or 0.0))
+        from pinot_tpu_torch.common.kernel_obs import KERNELS
+
+        peak_gbps = KERNELS.hbm_peak_gbps
+        roofline_rows = []
+        for (kernel, shape), agg in sorted(roof.items()):
+            dev_s = agg["deviceMs"] / 1e3
+            achieved = (agg["bytesMoved"] / dev_s / 1e9) if dev_s > 0 else 0.0
+            pct = (100.0 * achieved / peak_gbps) if peak_gbps > 0 else 0.0
+            roofline_rows.append(
+                {
+                    "kernel": kernel,
+                    "shape": shape,
+                    "calls": agg["calls"],
+                    "deviceMs": round(agg["deviceMs"], 3),
+                    "bytesMoved": agg["bytesMoved"],
+                    "flops": agg["flops"],
+                    "achievedGBps": round(achieved, 3),
+                    "arithmeticIntensity": (
+                        round(agg["flops"] / agg["bytesMoved"], 4) if agg["bytesMoved"] else 0.0
+                    ),
+                    "pctOfPeak": round(pct, 3),
+                    "rooflineGap": round(peak_gbps / achieved, 1) if achieved > 0 else None,
+                    "lostMs": round(agg["deviceMs"] * max(1.0 - pct / 100.0, 0.0), 3),
+                }
+            )
+        roofline_offenders = sorted(
+            (r for r in roofline_rows if r["rooflineGap"] is not None),
+            key=lambda r: -r["lostMs"],
+        )[:10]
+        heat_rows = [
+            dict(agg, table=t, segment=seg, heat=round(agg["heat"], 6))
+            for (t, seg), agg in seg_heat.items()
+        ]
+        heat_rows.sort(key=lambda r: (r["heat"], r["lastAccessMs"]), reverse=True)
+        heats = [r["heat"] for r in heat_rows]
+        mean_heat = (sum(heats) / len(heats)) if heats else 0.0
+        segments_doc = {
+            "count": len(heat_rows),
+            "topHot": heat_rows[:10],
+            # coldest first: the eviction candidate order a cold tier would
+            # drain in (ROADMAP tiered-storage signal)
+            "topCold": list(reversed(heat_rows[-10:])),
+            # hottest-vs-mean ratio: >> 1 means a few segments carry the
+            # scan load (replication/placement skew worth rebalancing)
+            "heatSkew": round(heats[0] / mean_heat, 3) if heats and mean_heat > 0 else None,
+        }
+        frontend_doc = {}
+        for role, agg in sorted(fe_roles.items()):
+            phases = {}
+            for name, lists in sorted(agg["phaseLists"].items()):
+                merged = merge_cumulative_buckets(lists)
+                tot = agg["phaseTotals"][name]
+                phases[name] = {
+                    "count": tot["count"],
+                    "totalMs": round(tot["totalMs"], 3),
+                    "meanMs": round(tot["totalMs"] / tot["count"], 3) if tot["count"] else 0.0,
+                    "p50Ms": quantile_from_buckets(merged, 0.5),
+                    "p99Ms": quantile_from_buckets(merged, 0.99),
+                }
+            frontend_doc[role] = {
+                "nodes": agg["nodes"],
+                "connections": dict(agg["connections"]),
+                "status": dict(sorted(agg["status"].items())),
+                "phases": phases,
+                "schedLagByNode": agg["schedLagByNode"],
+            }
+        by_qps = sorted(rates.items(), key=lambda kv: -kv[1].get("qps", 0.0))[:10]
+        by_cpu = sorted(rates.items(), key=lambda kv: -kv[1].get("cpuTimeNs", 0))[:10]
+        doc = {
+            "generatedAtMs": now_ms,
+            "nodes": nodes,
+            "cluster": {
+                "queries": sample.get("queries", 0),
+                "errorsByCode": sample.get("errorsByCode", {}),
+                "latency": {
+                    "count": (sample.get("latencyBuckets") or [(0, 0)])[-1][1],
+                    "p50Ms": quantile_from_buckets(sample.get("latencyBuckets") or [], 0.5),
+                    "p99Ms": quantile_from_buckets(sample.get("latencyBuckets") or [], 0.99),
+                },
+                "serverLatency": {
+                    "count": (sample.get("serverLatencyBuckets") or [(0, 0)])[-1][1],
+                    "p50Ms": quantile_from_buckets(sample.get("serverLatencyBuckets") or [], 0.5),
+                    "p99Ms": quantile_from_buckets(sample.get("serverLatencyBuckets") or [], 0.99),
+                },
+                "freshness": {
+                    "count": (sample.get("freshnessBuckets") or [(0, 0)])[-1][1],
+                    "p50Ms": quantile_from_buckets(sample.get("freshnessBuckets") or [], 0.5),
+                    "p99Ms": quantile_from_buckets(sample.get("freshnessBuckets") or [], 0.99),
+                },
+                "ingest": dict(sample.get("ingest") or {}),
+                "frontend": frontend_doc,
+                "hedge": dict(sample.get("hedge") or {"issued": 0, "won": 0, "wasted": 0}),
+                "cache": dict(sample.get("cache") or {}),
+                "workload": sample.get("workload", {}),
+                "roofline": {
+                    "hbmPeakGBps": peak_gbps,
+                    "kernels": roofline_rows,
+                    "offenders": roofline_offenders,
+                },
+                "segments": segments_doc,
+            },
+            "rebalance": _rebalance_progress(),
+            "controllerHa": self.controller.ha_status()
+            if hasattr(self.controller, "ha_status")
+            else {"enabled": False},
+            "topTables": {
+                "byQps": [dict(v, table=t) for t, v in by_qps],
+                "byCpu": [dict(v, table=t) for t, v in by_cpu],
+            },
+            "segmentHealth": segment_health,
+            "slo": self.evaluator.status(),
+        }
+        return doc
+
+
+class PeriodicTaskScheduler:
+    """Daemon-timer driver for registered tasks (the lead-controller's
+    periodic task executor). When bound to a controller, tasks are
+    LEAD-ONLY: a standby's scheduler idles (threads alive, run_once
+    skipped) and resumes the moment its controller wins the lease —
+    aggregator/scrubber sweeps from two controllers would double-scrape
+    and, worse, race repairs."""
+
+    def __init__(self, controller=None):
+        self._tasks: list[ControllerPeriodicTask] = []
+        self._threads: list[threading.Thread] = []
+        self._running = False
+        self._controller = controller
+        # the controller's /health/ready reports on whichever scheduler
+        # bound itself here (readiness component "periodicScheduler")
+        if controller is not None:
+            controller.periodic_scheduler = self
+
+    def register(self, task: ControllerPeriodicTask) -> None:
+        self._tasks.append(task)
+
+    @property
+    def tasks(self) -> list[ControllerPeriodicTask]:
+        return list(self._tasks)
+
+    def run_all_once(self) -> dict:
+        return {t.name: t.run_once() for t in self._tasks}
+
+    def _should_run(self) -> bool:
+        """Lead-only gate: run when unbound (tests, single controller) or
+        when the bound controller currently holds the lease."""
+        c = self._controller
+        return c is None or bool(getattr(c, "is_leader", True))
+
+    def start(self) -> None:
+        self._running = True
+        for task in self._tasks:
+            def loop(t=task):
+                while self._running:
+                    if self._should_run():
+                        t.run_once()
+                    deadline = time.monotonic() + t.interval_sec
+                    while self._running and time.monotonic() < deadline:
+                        time.sleep(min(0.2, t.interval_sec))
+            th = threading.Thread(target=loop, name=f"periodic-{task.name}", daemon=True)
+            th.start()
+            self._threads.append(th)
+
+    def stop(self) -> None:
+        self._running = False
+        for th in self._threads:
+            th.join(timeout=5)
+        self._threads.clear()

@@ -1,0 +1,253 @@
+"""Table rebalancing: converge segment placement to target replication with
+minimal movement.
+
+Reference parity: TableRebalancer (pinot-controller/.../helix/core/rebalance/
+TableRebalancer.java) — recompute the target assignment for the current
+server set, then move segments incrementally, keeping existing replicas
+wherever possible (minimal-movement property) and never dropping below the
+current replica count mid-move (downtime=false semantics: add the new
+replica before removing the old). Progress is observable via the returned
+move list (ZkBasedTableRebalanceObserver analog).
+
+This is the JAX package's `cluster/rebalance.py`, unchanged but for its
+imports.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+
+from pinot_tpu_torch.cluster.controller import Controller
+from pinot_tpu_torch.common.faults import FAULTS, InjectedFault
+from pinot_tpu_torch.common.trace import trace_event
+
+
+@dataclass
+class RebalanceResult:
+    status: str  # NO_OP | DONE
+    adds: list[tuple[str, str]] = field(default_factory=list)  # (segment, server)
+    drops: list[tuple[str, str]] = field(default_factory=list)
+    target: dict[str, list[str]] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# In-progress observability (ZkBasedTableRebalanceObserver analog): one doc
+# per table, readable by /debug/cluster while a rebalance runs under load.
+_progress_lock = threading.Lock()
+_progress: dict[str, dict] = {}
+
+
+def _progress_set(table: str, doc: dict) -> None:
+    with _progress_lock:
+        _progress[table] = doc
+
+
+def _progress_update(table: str, **fields) -> None:
+    with _progress_lock:
+        doc = _progress.get(table)
+        if doc is not None:
+            doc.update(fields)
+
+
+def rebalance_progress(table: str | None = None) -> dict:
+    """Snapshot of rebalance progress docs: table -> {status, totalMoves,
+    doneMoves, currentSegment, startedTs, finishedTs}. With `table`, that
+    table's doc (or {})."""
+    with _progress_lock:
+        if table is not None:
+            return dict(_progress.get(table, {}))
+        return {t: dict(d) for t, d in _progress.items()}
+
+
+def compute_target_assignment(
+    segments: list[str],
+    servers: list[str],
+    replication: int,
+    current: dict[str, dict[str, str]],
+    candidates: dict[str, list[str]] | None = None,
+    bootstrap: bool = False,
+) -> dict[str, list[str]]:
+    """Balanced target keeping current replicas when still valid.
+    `candidates` optionally restricts each segment to its eligible server
+    pool (tenant / tier tags); segments without an entry use `servers`.
+
+    Default mode is pure minimal movement: every existing in-pool replica is
+    retained, so a scale-out that leaves replication satisfied moves nothing.
+    `bootstrap=True` (RebalanceConfig.bootstrap parity) instead converges to
+    a load-balanced placement: existing replicas are retained only while
+    their server stays under the balanced per-server ceiling, and the rest
+    move to the least-loaded eligible servers — the scale-out/scale-in shape
+    where new capacity actually takes over load."""
+    servers = sorted(servers)
+    load = {s: 0 for s in servers}
+
+    def pool(seg: str) -> list[str]:
+        c = (candidates or {}).get(seg)
+        if not c:
+            return servers
+        live = sorted(s for s in c if s in load)
+        if not live:
+            # never silently place across the tenant/tier boundary
+            raise RuntimeError(
+                f"segment {seg!r}: none of its candidate servers {sorted(c)} are live"
+            )
+        return live
+
+    ceiling = float("inf")
+    if bootstrap:
+        slots = sum(
+            max(1, min(replication, len(pool(seg)))) for seg in segments
+        )
+        ceiling = max(1, -(-slots // len(servers))) if servers else 1  # ceil
+
+    target: dict[str, list[str]] = {}
+    # first pass: retain existing replicas still in the segment's pool
+    # (minimal movement; under bootstrap, only while the hosting server
+    # stays within the balanced ceiling)
+    for seg in sorted(segments):
+        p = set(pool(seg))
+        r = max(1, min(replication, len(p)))
+        keep = [
+            s for s in sorted(current.get(seg, {})) if s in p and load[s] < ceiling
+        ][:r]
+        target[seg] = keep
+        for s in keep:
+            load[s] += 1
+    # second pass: top up to replication on least-loaded eligible servers
+    for seg in sorted(segments):
+        p = pool(seg)
+        r = max(1, min(replication, len(p)))
+        have = set(target[seg])
+        while len(target[seg]) < r:
+            pick = min((s for s in p if s not in have), key=lambda s: (load[s], s))
+            target[seg].append(pick)
+            have.add(pick)
+            load[pick] += 1
+    return target
+
+
+def rebalance_table(
+    controller: Controller,
+    table: str,
+    dry_run: bool = False,
+    drain_grace_sec: float = 0.0,
+    bootstrap: bool = False,
+) -> RebalanceResult:
+    """Compute and (unless dry_run) apply moves with no-downtime drain
+    ordering, segment by segment: ADD the new replica (load + ONLINE) before
+    touching the old one, then de-route the old replica (ideal-state entry
+    removed, so brokers stop picking it) and only afterwards physically
+    remove it from the server — in-flight queries routed a moment earlier
+    still find the segment. `drain_grace_sec` optionally widens that window
+    for live-traffic rebalances. Routing therefore never observes a segment
+    with zero ONLINE replicas at any point during the move."""
+    config = controller.get_table(table)
+    if config is None:
+        raise KeyError(f"no such table: {table}")
+    ideal = controller.ideal_state(table)
+    servers = sorted(controller.servers())
+    # per-segment eligibility: tier tag when a tier matches, else the
+    # table's server-tenant pool (TierBasedSegmentDirectoryLoader parity).
+    # The tenant pool is segment-invariant — computed once; only the tier
+    # lookup runs per segment.
+    from pinot_tpu_torch.cluster.tenancy import candidate_servers, tagged_servers, tier_of_segment
+
+    tenant_pool = candidate_servers(controller, config)
+    tier_pools: dict[str, list[str]] = {}
+    candidates = {}
+    for seg in ideal:
+        tier = tier_of_segment(config, controller.segment_metadata(table, seg) or {})
+        if tier is not None:
+            tag = tier["serverTag"]
+            if tag not in tier_pools:
+                tier_pools[tag] = tagged_servers(controller, tag)
+            candidates[seg] = tier_pools[tag] or tenant_pool
+        else:
+            candidates[seg] = tenant_pool
+    target = compute_target_assignment(
+        list(ideal), servers, config.replication, ideal, candidates, bootstrap=bootstrap
+    )
+
+    adds: list[tuple[str, str]] = []
+    drops: list[tuple[str, str]] = []
+    for seg, replicas in ideal.items():
+        want = set(target[seg])
+        have = set(replicas)
+        adds.extend((seg, s) for s in sorted(want - have))
+        drops.extend((seg, s) for s in sorted(have - want))
+    if not adds and not drops:
+        return RebalanceResult("NO_OP", target=target)
+    if dry_run:
+        return RebalanceResult("DONE", adds, drops, target)
+
+    handles = controller.servers()
+    # group by segment so each segment's ADD completes before its REMOVE
+    adds_by_seg: dict[str, list[str]] = {}
+    drops_by_seg: dict[str, list[str]] = {}
+    for seg, sid in adds:
+        adds_by_seg.setdefault(seg, []).append(sid)
+    for seg, sid in drops:
+        drops_by_seg.setdefault(seg, []).append(sid)
+    moved_segments = sorted(set(adds_by_seg) | set(drops_by_seg))
+    _progress_set(
+        table,
+        {
+            "status": "IN_PROGRESS",
+            "totalMoves": len(moved_segments),
+            "doneMoves": 0,
+            "currentSegment": None,
+            "startedTs": time.time(),
+            "finishedTs": None,
+        },
+    )
+    try:
+        for done, seg in enumerate(moved_segments):
+            _progress_update(table, currentSegment=seg, doneMoves=done)
+            try:
+                FAULTS.maybe_fail("rebalance.move")  # pinotlint: disable=deadline-coverage — control-plane op: rebalance runs on the controller with no query deadline to observe
+            except InjectedFault:
+                trace_event("fault.injected", point="rebalance.move", table=table, segment=seg)
+                raise
+            # ADD-new → ONLINE: the segment gains replicas before losing any
+            for sid in adds_by_seg.get(seg, []):
+                meta = controller.segment_metadata(table, seg) or {}
+                loc = meta.get("location")
+                if loc:
+                    handles[sid].add_segment(table, seg, loc)
+                controller.set_segment_state(table, seg, sid, "ONLINE")
+            # de-route old replicas first, then physically remove (drain):
+            # brokers routing off the updated ideal state stop picking the
+            # old replica, while queries already scattered there still find
+            # the segment until remove_segment runs
+            for sid in drops_by_seg.get(seg, []):
+                controller.set_segment_state(table, seg, sid, None)
+            if drops_by_seg.get(seg) and drain_grace_sec > 0:
+                time.sleep(drain_grace_sec)
+            for sid in drops_by_seg.get(seg, []):
+                srv = handles.get(sid)
+                if srv is not None:
+                    srv.remove_segment(table, seg)
+            # refresh the stored replica list as each move lands, so a
+            # crash mid-rebalance leaves metadata consistent with progress
+            meta = controller.segment_metadata(table, seg)
+            if meta is not None:
+                meta["servers"] = sorted(target[seg])
+                # fenced: a rebalance surviving on a stale ex-leader (lease
+                # lost mid-move) must not clobber the new lead's placement
+                controller.store.set(
+                    f"/tables/{table}/segments/{seg}", meta, fence=controller.lease_fence()
+                )
+                controller.bump_routing_version(table)
+        _progress_update(
+            table,
+            status="DONE",
+            doneMoves=len(moved_segments),
+            currentSegment=None,
+            finishedTs=time.time(),
+        )
+    except BaseException:
+        _progress_update(table, status="FAILED", finishedTs=time.time())
+        raise
+    return RebalanceResult("DONE", adds, drops, target)

@@ -44,6 +44,7 @@ label cardinality stays bounded whatever the workload.
 from __future__ import annotations
 
 import contextvars
+import sys
 import threading
 import time
 from contextlib import contextmanager
@@ -51,7 +52,6 @@ from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
-import torch
 
 from pinot_tpu_torch.common.accounting import default_accountant
 from pinot_tpu_torch.common.metrics import server_metrics
@@ -154,8 +154,9 @@ _hbm_cache: list = [0.0, None]
 def device_hbm_stats() -> dict | None:
     """Live / peak allocated bytes of the caching allocator, summed over the
     cards (read at most every _HBM_TTL_S), or None where no card has been
-    used in this process."""
-    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+    used in this process (one that never imported torch: a controller)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_available() or not torch.cuda.is_initialized():
         return None
     now = time.monotonic()
     if _hbm_cache[1] is None or now - _hbm_cache[0] > _HBM_TTL_S:
@@ -281,6 +282,8 @@ class KernelRegistry:
             out = fn()
             self.record(name, (time.perf_counter() - t0) * 1e3, masked=int(mask.sum()), **shape)
             return out
+        import torch
+
         stream = torch.cuda.current_stream(mask.device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -321,6 +324,8 @@ class KernelRegistry:
             for p in pending:
                 p.end.synchronize()
         if masked is None:
+            import torch
+
             masked = torch.stack([p.masked for p in pending]).cpu().tolist()
         for p, m in zip(pending, masked):
             self._record(p.name, p.start.elapsed_time(p.end), {**p.shape, "masked": int(m)}, gauges=False)
@@ -348,6 +353,8 @@ class KernelRegistry:
         if not self._enabled:
             out = fn()
             return shaped(out, [o.cpu().numpy() for o in as_list(out)])
+        import torch
+
         device = torch.device(device)
         if device.type != "cuda":
             t0 = time.perf_counter()

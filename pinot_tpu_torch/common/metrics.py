@@ -7,12 +7,14 @@ package's `common/metrics.py` cut to what the engine, `kernel_obs` and the
 cluster's server, broker and controller use: the metric kinds, the labelled
 registry and its JSON snapshot, the Prometheus text form, ServerMeter /
 ScanMeter / ServerTimer, the broker and controller enums and the per-role
-registries. The federated histogram merge and the ingest and minion enums
-come with the roles that emit them.
+registries, and the federated histogram merge the controller's metrics
+aggregator and SLO evaluator read. The minion meters come with the minion
+(ROADMAP A10b).
 """
 
 from __future__ import annotations
 
+import bisect
 import math
 import re
 import threading
@@ -139,6 +141,25 @@ class Histogram:
                     out.append((_HIST_BOUNDS[i] if i < len(_HIST_BOUNDS) else float("inf"), cum))
         return out
 
+    def load_cumulative(self, pairs, total_ms: float = 0.0, max_ms=None) -> None:
+        """Replace this histogram's contents with externally merged cumulative
+        `(le, cum)` pairs (a scraped/federated series), re-bucketed onto the
+        shared `_HIST_BOUNDS` via `rebucket_counts` — conservative, so the
+        total count is preserved exactly and quantiles only round up."""
+        per = rebucket_counts(pairs, _HIST_BOUNDS)
+        n = sum(per)
+        hi = 0.0
+        for i in range(len(per) - 1, -1, -1):
+            if per[i]:
+                hi = _HIST_BOUNDS[i] if i < len(_HIST_BOUNDS) else _HIST_BOUNDS[-1] * _HIST_RATIO
+                break
+        with self._lock:
+            self.counts = per
+            self.count = n
+            self.total_ms = float(total_ms)
+            self.min_ms = 0.0 if n else float("inf")
+            self.max_ms = float(max_ms) if max_ms is not None else hi
+
     class _Ctx:
         __slots__ = ("_hist", "_t0")
 
@@ -205,10 +226,94 @@ class Timer:
         return Timer._Ctx(self)
 
 
+# -- histogram merge (federated scrape) ---------------------------------------
+#
+# Nodes may expose histograms with *different* bucket boundaries (different
+# build revisions, sparse `bucket_counts()` output, foreign exporters). A
+# correct merge must never drop counts: every source bucket's population is
+# re-assigned to the smallest target bound >= its own upper bound — latency is
+# only ever over-estimated, and the merged `+Inf` count equals the sum of the
+# per-source `_count`s (the exposition invariant, preserved end-to-end).
+
+
+def _bucket_deltas(pairs) -> "list[tuple[float, int]]":
+    """Cumulative `(le, cum)` pairs -> per-bucket `(le, delta)` counts.
+    Non-monotone cumulative values (a decreasing scrape artifact) clamp to
+    zero deltas rather than going negative."""
+    out = []
+    prev = 0
+    for le, cum in sorted(pairs, key=lambda p: p[0]):
+        d = int(cum) - prev
+        if d > 0:
+            out.append((float(le), d))
+            prev = int(cum)
+    return out
+
+
+def merge_cumulative_buckets(series) -> "list[tuple[float, int]]":
+    """Merge cumulative `(le, cum)` bucket lists from many nodes into one
+    cumulative list over the union of all finite bounds, ending in `(+inf,
+    total)`. Because the union contains every source bound, each finite
+    bucket maps exactly; source `+Inf` populations stay in `+Inf`. The
+    result satisfies `merged +Inf == Σ source _count` by construction."""
+    inf = float("inf")
+    bounds = sorted({float(le) for s in series for le, _ in s if float(le) != inf})
+    at = {b: 0 for b in bounds}
+    overflow = 0
+    for s in series:
+        for le, d in _bucket_deltas(s):
+            if le == inf:
+                overflow += d
+            else:
+                at[le] += d
+    out = []
+    cum = 0
+    for b in bounds:
+        cum += at[b]
+        out.append((b, cum))
+    out.append((inf, cum + overflow))
+    return out
+
+
+def rebucket_counts(pairs, bounds) -> "list[int]":
+    """Re-bucket cumulative `(le, cum)` pairs onto a fixed ascending bound
+    list, returning per-bucket counts with one trailing overflow slot.
+    Conservative: each source bucket lands at the smallest target bound >=
+    its own (never a smaller one), and anything past the last bound —
+    including the source `+Inf` bucket — lands in the overflow slot, so the
+    total count is preserved exactly."""
+    counts = [0] * (len(bounds) + 1)
+    for le, d in _bucket_deltas(pairs):
+        i = bisect.bisect_left(bounds, le) if le != float("inf") else len(bounds)
+        counts[min(i, len(bounds))] += d
+    return counts
+
+
 def buckets_to_json(pairs) -> list:
     """`(le, cum)` pairs -> JSON-safe `[[le, cum], ...]` with the infinite
     bound spelled `"+Inf"` (strict JSON has no float Infinity)."""
     return [["+Inf" if float(le) == float("inf") else float(le), int(cum)] for le, cum in pairs]
+
+
+def buckets_from_json(raw) -> "list[tuple[float, int]]":
+    """Inverse of `buckets_to_json`; `float("+Inf")` parses to inf."""
+    return [(float(le), int(cum)) for le, cum in raw]
+
+
+def quantile_from_buckets(pairs, q: float) -> float:
+    """Quantile read off cumulative `(le, cum)` pairs (bucket upper bound —
+    the same over-estimate a Histogram reports). Empty -> 0.0; populations
+    in `+Inf` report the largest finite bound (best available estimate)."""
+    pairs = sorted(pairs, key=lambda p: p[0])
+    total = pairs[-1][1] if pairs else 0
+    if not total:
+        return 0.0
+    target = max(1, math.ceil(q * total))
+    finite = [le for le, _ in pairs if le != float("inf")]
+    for le, cum in pairs:
+        if cum >= target:
+            return le if le != float("inf") else (finite[-1] if finite else 0.0)
+    return finite[-1] if finite else 0.0
 
 
 def _escape_label_value(v: str) -> str:

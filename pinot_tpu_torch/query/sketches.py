@@ -26,7 +26,6 @@ from __future__ import annotations
 import zlib
 
 import numpy as np
-import torch
 
 HLL_LOG2M = 12  # Pinot default log2m
 HLL_M = 1 << HLL_LOG2M
@@ -159,6 +158,8 @@ def hash_device(v: torch.Tensor) -> torch.Tensor:
     """Per-doc uint32 hash (int64 tensor) of numeric values, `hash_any`'s
     numeric schemes: floats by the two words of their float64 bits (low word
     first), integers by the two words of their int64 value."""
+    import torch  # the segment store imports this module in processes without torch
+
     if v.dtype.is_floating_point:
         words = v.to(torch.float64).contiguous().view(torch.int32).reshape(-1, 2).to(torch.int64) & _M32
         lo, hi = words[:, 0], words[:, 1]
@@ -173,6 +174,8 @@ def hll_ranks(hashes: torch.Tensor, mask: torch.Tensor, log2m: int = HLL_LOG2M):
     32 - log2m low bits + 1, capped at 32 - log2m + 1. The leading zeros come
     from the exact bit length (frexp's exponent) where the reference takes
     floor(log2(float64)); both are exact for 32-bit words."""
+    import torch
+
     idx = hashes >> (32 - log2m)
     w = (hashes << log2m) & _M32
     bit_len = torch.frexp(w.to(torch.float64)).exponent.to(torch.int64)
@@ -183,6 +186,8 @@ def hll_ranks(hashes: torch.Tensor, mask: torch.Tensor, log2m: int = HLL_LOG2M):
 
 def hll_update(hashes: torch.Tensor, mask: torch.Tensor, log2m: int = HLL_LOG2M) -> torch.Tensor:
     """Per-doc HLL register update: the (m,) int32 register vector."""
+    import torch
+
     idx, rank = hll_ranks(hashes, mask, log2m)
     out = torch.zeros(1 << log2m, dtype=torch.int32, device=hashes.device)
     return out.scatter_reduce_(0, idx, rank, "amax", include_self=True)
@@ -194,6 +199,8 @@ def hll_update_grouped(
     """Per-group HLL registers: an (ng, m) int32 matrix by one scatter-max at
     flat index gid * m + idx. Docs whose gid lies outside [0, ng) are dropped,
     as JAX's scatter drops them."""
+    import torch
+
     idx, rank = hll_ranks(hashes, mask, log2m)
     ok = (gid >= 0) & (gid < ng)
     m = 1 << log2m

@@ -23,7 +23,6 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
-import torch
 
 from pinot_tpu_torch.common.types import DataType, Schema
 from pinot_tpu_torch.segment.dictionary import Dictionary
@@ -201,6 +200,8 @@ class ImmutableSegment:
         shared by every engine that queries the segment, and by every thread:
         a second thread asking while the first stages waits for its copy. A
         lossy float32 copy and a lossless one are kept apart."""
+        import torch
+
         key = f"{torch.device(device)}/f32" if fast32 else str(torch.device(device))
         ds = self._device_cache.get(key)
         if ds is None:
@@ -224,6 +225,8 @@ class ImmutableSegment:
         padding docids are `pad`, one past the padded doc range: the programs
         mask those positions by the plan's n_values operand.
         """
+        import torch
+
         device = torch.device(device)
         pad = padded_len(self.n_docs)
         arrays: dict[str, torch.Tensor] = {}

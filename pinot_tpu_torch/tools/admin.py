@@ -11,19 +11,22 @@ This is the JAX package's `tools/admin.py`. A server holds its segments on
 `--device` and a broker runs its distributed root stage there ("cuda" unless
 the caller passes "cpu"); with no card and no `--device cpu`, StartServer
 and StartBroker exit non-zero instead of serving on the CPU.
-Commands that reach modules the port has not taken yet exit non-zero naming
-their ROADMAP item: batch ingestion and minion tasks (A10b: QuickStart,
-ImportData, CreateSegment, LaunchDistributedDataIngestionJob, ScheduleTasks)
-and the control plane (A10c: RebalanceTable, and StartController's --ha,
---cold-start and --with-periodics).
+StartController runs the control plane as the reference does: --ha joins
+the lead-controller election, --cold-start clears stale external views, and
+--with-periodics runs the metrics aggregator and the integrity scrubber on
+whoever leads. Commands that reach modules the port has not taken yet exit
+non-zero naming their ROADMAP item: batch ingestion and minion tasks (A10b:
+QuickStart, ImportData, CreateSegment, LaunchDistributedDataIngestionJob,
+ScheduleTasks).
 
 Usage:
-    python -m pinot_tpu_torch.tools.admin StartController --store-dir S --deep-store D [--port P]
+    python -m pinot_tpu_torch.tools.admin StartController --store-dir S --deep-store D [--port P] [--ha] [--with-periodics]
     python -m pinot_tpu_torch.tools.admin StartServer --controller-url U [--server-id s1] [--device cpu]
     python -m pinot_tpu_torch.tools.admin StartBroker --controller-url U [--port P] [--device cpu]
     python -m pinot_tpu_torch.tools.admin AddTable --controller-url U --schema-file F --config-file F
     python -m pinot_tpu_torch.tools.admin UploadSegment --controller-url U --table T --segment-dir D
     python -m pinot_tpu_torch.tools.admin PostQuery --broker-url U --query SQL
+    python -m pinot_tpu_torch.tools.admin RebalanceTable --controller-url U --table T [--bootstrap]
 """
 
 from __future__ import annotations
@@ -49,16 +52,12 @@ def _block(services):
                 stop()
 
 
-def _stop(item: str, what: str):
-    raise SystemExit(f"{what} is ROADMAP {item}, not yet in pinot_tpu_torch")
-
-
 def _stop_command(item: str, what: str):
     """fn of a command whose modules are ROADMAP `item`: exits non-zero
     naming it, whatever its arguments."""
 
     def fn(args):
-        _stop(item, f"{args.command}: {what}")
+        raise SystemExit(f"{args.command}: {what} is ROADMAP {item}, not yet in pinot_tpu_torch")
 
     return fn
 
@@ -67,18 +66,47 @@ def cmd_start_controller(args) -> dict:
     from pinot_tpu_torch.cluster import Controller, PropertyStore
     from pinot_tpu_torch.cluster.http import ControllerHTTPService
 
-    for flag, what in (
-        ("ha", "--ha: lead-controller election"),
-        ("cold_start", "--cold-start: external-view reset for the reconciler"),
-        ("with_periodics", "--with-periodics: the periodic tasks"),
-    ):
-        if getattr(args, flag, False):
-            _stop("A10c", what)
     store = PropertyStore(args.store_dir)
     controller = Controller(store, args.deep_store, controller_id=getattr(args, "controller_id", "controller_0"))
     svc = ControllerHTTPService(controller, port=args.port)
+    handles = {"controller": controller, "service": svc}
+    if getattr(args, "cold_start", False):
+        # DR runbook step: after a full-cluster restart the stored external
+        # views describe dead server sessions; clear them so the reconciler
+        # re-converges every replica from the deep store
+        cleared = controller.reset_external_views()
+        print(f"cold-start: cleared {cleared} external views", flush=True)
+    if getattr(args, "ha", False):
+        # HA: publish this controller's endpoint (leaderUrl hints), then join
+        # the lease election. A standby's mutating endpoints 503 with the
+        # lead's URL until it wins a takeover; the transition queue, scrubber
+        # and aggregator only act on whoever holds the lease.
+        controller.register_controller_endpoint("127.0.0.1", svc.port)
+        controller.enable_ha(
+            lease_ttl=getattr(args, "lease_ttl", 2.0),
+            renew_every=getattr(args, "renew_every", 0.4),
+        )
+    if getattr(args, "with_periodics", False):
+        # federated metrics hub: scrape every registered broker/server and
+        # serve /debug/cluster + /debug/alerts from this process
+        from pinot_tpu_torch.cluster.periodic import (
+            ClusterMetricsAggregator,
+            IntegrityScrubber,
+            PeriodicTaskScheduler,
+        )
+
+        objectives = json.loads(args.slo_json) if getattr(args, "slo_json", "") else None
+        agg = ClusterMetricsAggregator(controller, objectives=objectives)
+        agg.interval_sec = args.metrics_interval
+        scrubber = IntegrityScrubber(controller)
+        scrubber.interval_sec = args.scrub_interval
+        sched = PeriodicTaskScheduler(controller=controller)
+        sched.register(agg)
+        sched.register(scrubber)
+        sched.start()
+        handles["periodic_scheduler"] = sched
     print(f"controller listening on http://127.0.0.1:{svc.port}", flush=True)
-    return {"controller": controller, "service": svc}
+    return handles
 
 
 def cmd_start_server(args) -> dict:
@@ -201,6 +229,19 @@ def cmd_post_query(args) -> dict:
     rs = conn.execute(args.query)
     out = {"columns": rs.columns, "rows": rs.rows, **rs.execution_stats}
     print(json.dumps(out, default=str), flush=True)
+    return out
+
+
+def cmd_rebalance_table(args) -> dict:
+    from pinot_tpu_torch.cluster.http import RemoteControllerClient
+
+    out = RemoteControllerClient(args.controller_url).rebalance_table(
+        args.table,
+        dry_run=args.dry_run,
+        drain_grace_sec=args.drain_grace_sec,
+        bootstrap=args.bootstrap,
+    )
+    print(json.dumps(out), flush=True)
     return out
 
 
@@ -399,6 +440,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="join lead-controller election over the shared store; standbys "
         "503 mutating endpoints with a leaderUrl hint until they take over",
     )
+    c.add_argument("--lease-ttl", type=float, default=2.0, help="lead lease TTL seconds (with --ha)")
+    c.add_argument("--renew-every", type=float, default=0.4, help="lease renew period seconds (with --ha)")
     c.add_argument(
         "--cold-start",
         action="store_true",
@@ -409,6 +452,18 @@ def build_parser() -> argparse.ArgumentParser:
         "--with-periodics",
         action="store_true",
         help="run the ClusterMetricsAggregator scrape loop (serves /debug/cluster)",
+    )
+    c.add_argument("--metrics-interval", type=float, default=10.0)
+    c.add_argument(
+        "--scrub-interval",
+        type=float,
+        default=30.0,
+        help="IntegrityScrubber period in seconds (with --with-periodics)",
+    )
+    c.add_argument(
+        "--slo-json",
+        default="",
+        help='SLO objectives as camelCase JSON, e.g. \'{"freshnessP99Ms": 2000}\'',
     )
     c.set_defaults(fn=cmd_start_controller, blocking=True)
 
@@ -479,6 +534,24 @@ def build_parser() -> argparse.ArgumentParser:
     pq.add_argument("--query", required=True)
     pq.set_defaults(fn=cmd_post_query, blocking=False)
 
+    rb = sub.add_parser("RebalanceTable")
+    rb.add_argument("--controller-url", required=True)
+    rb.add_argument("--table", required=True)
+    rb.add_argument("--dry-run", action="store_true")
+    rb.add_argument(
+        "--drain-grace-sec",
+        type=float,
+        default=0.0,
+        help="pause after de-routing each replaced replica before removing it",
+    )
+    rb.add_argument(
+        "--bootstrap",
+        action="store_true",
+        help="converge to a load-balanced placement (moves replicas off "
+        "over-the-ceiling servers) instead of pure minimal movement",
+    )
+    rb.set_defaults(fn=cmd_rebalance_table, blocking=False)
+
     asch = sub.add_parser("AddSchema")
     asch.add_argument("--controller-url", required=True)
     asch.add_argument("--schema-file", required=True)
@@ -537,7 +610,6 @@ def build_parser() -> argparse.ArgumentParser:
         ("CreateSegment", "A10b", "batch ingestion (io/batch)"),
         ("LaunchDistributedDataIngestionJob", "A10b", "batch ingestion (io/batch)"),
         ("ScheduleTasks", "A10b", "minion tasks"),
-        ("RebalanceTable", "A10c", "rebalance"),
     ):
         # any arguments: main() lets them through to the exit naming the item
         sub.add_parser(name, help=f"ROADMAP {item}: {what}").set_defaults(

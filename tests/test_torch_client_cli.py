@@ -210,16 +210,30 @@ def test_remote_broker_executes_via_remote_server(stack):
 
 
 def test_a10_endpoints_answer_501(stack):
+    """The minion task endpoints (A10b) answer 501 naming A10; the control
+    plane's (A10c) answer as the reference's: the UI, /debug/cluster and
+    /debug/alerts (404 until an aggregator registers) and a rebalance."""
     import urllib.error
     import urllib.request
 
-    for method, path in (("GET", "/"), ("GET", "/tasks"), ("GET", "/debug/cluster"), ("GET", "/debug/alerts"),
-                         ("POST", "/tasks/schedule"), ("POST", "/tables/hits/rebalance")):
+    from pinot_tpu.cluster.ui import UI_HTML
+
+    for method, path in (("GET", "/tasks"), ("POST", "/tasks/schedule")):
         req = urllib.request.Request(stack["c_url"] + path, data=b"{}" if method == "POST" else None, method=method)
         with pytest.raises(urllib.error.HTTPError) as ei:
             urllib.request.urlopen(req, timeout=10)
         assert ei.value.code == 501, path
         assert "A10" in json.loads(ei.value.read())["error"], path
+    with urllib.request.urlopen(stack["c_url"] + "/", timeout=10) as r:
+        assert r.status == 200 and r.read() == UI_HTML.encode()
+    for path in ("/debug/cluster", "/debug/alerts"):
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(stack["c_url"] + path, timeout=10)
+        assert ei.value.code == 404, path
+        assert json.loads(ei.value.read()) == {"error": "no ClusterMetricsAggregator registered"}
+    req = urllib.request.Request(stack["c_url"] + "/tables/hits/rebalance", data=b"{}", method="POST")
+    with urllib.request.urlopen(req, timeout=10) as r:
+        assert json.loads(r.read()) == {"status": "NO_OP", "adds": [], "drops": [], "target": {"hits_0": ["server_0"]}}
 
 
 # -- client -----------------------------------------------------------------
@@ -296,12 +310,40 @@ def test_cli_schedule_tasks(stack):
     ["QuickStart", "ImportData", "CreateSegment", "LaunchDistributedDataIngestionJob", "ScheduleTasks",
      "RebalanceTable", "StartController --ha", "StartController --cold-start", "StartController --with-periodics"],
 )
-def test_a10_commands_exit_naming_a10(command, tmp_path):
+def test_a10_commands_exit_naming_a10(command, tmp_path, request, capsys):
+    """The batch-ingestion and minion commands (A10b) exit non-zero naming
+    A10; the control plane's (A10c) run: RebalanceTable against the stack's
+    controller, and StartController's --ha, --cold-start and
+    --with-periodics start the controller with its election, its cleared
+    external views or its periodic scheduler."""
+    from pinot_tpu_torch.tools.admin import build_parser
+
     argv = command.split()
     if argv[0] == "StartController":
         argv += ["--store-dir", str(tmp_path / "s"), "--deep-store", str(tmp_path / "d")]
-    else:
-        argv += ["--controller-url", "http://127.0.0.1:1", "--table", "t"]
+        args = build_parser().parse_args(argv)
+        h = args.fn(args)
+        try:
+            c = h["controller"]
+            assert c.is_leader and c.ha_status()["enabled"] == ("--ha" in argv)
+            assert ("periodic_scheduler" in h) == ("--with-periodics" in argv)
+            if "--cold-start" in argv:
+                assert "cold-start: cleared 0 external views" in capsys.readouterr().out
+            if "--with-periodics" in argv:
+                assert [t.name for t in h["periodic_scheduler"].tasks] == ["ClusterMetricsAggregator", "IntegrityScrubber"]
+        finally:
+            if "periodic_scheduler" in h:
+                h["periodic_scheduler"].stop()
+            h["controller"].stop_ha()
+            h["service"].stop()
+        return
+    if argv[0] == "RebalanceTable":
+        argv += ["--controller-url", request.getfixturevalue("stack")["c_url"], "--table", "hits", "--dry-run"]
+        capsys.readouterr()
+        assert main(argv) == 0
+        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["status"] == "NO_OP"
+        return
+    argv += ["--controller-url", "http://127.0.0.1:1", "--table", "t"]
     with pytest.raises(SystemExit) as ei:
         main(argv)
     assert ei.value.code not in (0, None)

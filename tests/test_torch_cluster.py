@@ -358,13 +358,22 @@ def test_time_boundary_sql_rewrites():
 
 
 def test_cuts_name_their_roadmap_item(clusters, tmp_path):
-    """The cuts left name their ROADMAP item (A10b, A10c); what A9b and
-    A10a cut is ported: access control, the controller's REST service and
-    client, the stage submit (whose body a bare dict fails to carry), and
-    a realtime table's manager attached to a server."""
+    """The cuts left name their ROADMAP item (A10b); what A9b, A10a and
+    A10c cut is ported: access control, the controller's REST service and
+    client, the stage submit (whose body a bare dict fails to carry), a
+    realtime table's manager attached to a server, and the lead-controller
+    election (`enable_ha` elects this controller, which still answers)."""
     ctrl, _, servers = clusters["port"]
-    with pytest.raises(NotImplementedError, match="A10c"):
-        ctrl.enable_ha()
+    standby = Controller(ctrl.store, tmp_path / "standby_deep", controller_id="standby")
+    ctrl.enable_ha(lease_ttl=30.0, renew_every=0.2)
+    try:
+        standby.enable_ha(lease_ttl=30.0, renew_every=0.2)
+        assert ctrl.is_leader and not standby.is_leader
+        assert ctrl.ha_status()["leaseEpoch"] >= 1 and ctrl.ha_status()["enabled"]
+        assert Broker(ctrl).execute("SELECT COUNT(*) FROM lineorder").rows == [[18000]]
+    finally:
+        standby.stop_ha()
+        ctrl.stop_ha()
 
     class _Manager:
         consumers = []
