@@ -27,8 +27,8 @@
    top-k), each at its main-path shape, held exactly against the same step
    on the CPU and timed beside its bytes bound and a one-call PyTorch
    alternative.
-4. Main path: generates the SSB-flavoured lineorder (16M rows, seed 0, the
-   generator of bench.py, then lo_custkey and lo_suppkey), builds 4 segments
+4. Main path: generates the SSB-flavoured lineorder (8M rows, seed 0, the
+   generator of bench.py, then lo_custkey and lo_suppkey), builds 2 segments
    of 4M rows with the package's SegmentBuilder, stages them on the card and
    runs configs 1-9 and 11-13 (BASELINE 1-4, grouped MIN/MAX, grouped and
    scalar DISTINCTCOUNT, a 90k-group GROUP BY, a sparse customer x supplier
@@ -43,20 +43,20 @@
 5. Host executor: configs 14-16 run queries the package answers on its host
    executor (numpy), where the reference does: 14, GROUP BY the raw metric
    lo_quantity; 15, PERCENTILE / MODE / STDDEV_POP, which have no device
-   lowering; 16, a GROUP BY with DISTINCTCOUNT(lo_custkey) over the four
+   lowering; 16, a GROUP BY with DISTINCTCOUNT(lo_custkey) over the two
    4M-row segments plus a fifth, realtime-sized one of 10,000 rows: the
    large segments' presence matrix passes the device budget and they go to
    the host, the small one runs on the card (one grouped_sum_count and one
    presence launch), and one reduce merges both kinds of partial. Each is
    held against a numpy oracle; the engine's count of segments by executor
-   is asserted (4 host for 14 and 15; 4 host and 1 device for 16).
-6. Spec tags and null handling: configs 17-20 run over the same 16M rows
+   is asserted (2 host for 14 and 15; 2 host and 1 device for 16).
+6. Spec tags and null handling: configs 17-20 run over the same 8M rows
    through the same engine: 17, FILTER (WHERE) (four distinct masks a
    segment: four grouped_sum_count launches, one grouped_extreme launch);
    18, CASE, IN over a raw column, a column compare and SQRT; 19,
    PERCENTILEEST grouped (histograms of ng 256 x 4096 cells: the two-level
    kernel) and scalar (4096 cells: the flat one); 20, FUNNELCOUNT (one
-   presence launch a step). Config 21 builds the same rows into 4 more
+   presence launch a step). Config 21 builds the same rows into 2 more
    segments with null vectors (lo_supplycost null on a seeded 3% of the rows
    and on every row of 1998) and runs a Kleene WHERE with null-handling
    SUM / COUNT / MIN / AVG by year (1998's SUM, MIN and AVG are NULL) and an
@@ -66,8 +66,8 @@
    4M docs, each held exactly against the same step on the CPU; the
    two-level kernel is held against its plain version at the histogram
    shapes (k = 0, ng 2^20 and 2^22) before the main path relies on them.
-7. Multi-value columns: configs 22-27 run over `mvt`, 16M rows (seed 22)
-   in 16 segments of 1M rows that enter the package through
+7. Multi-value columns: configs 22-27 run over `mvt`, 8M rows (seed 22)
+   in 8 segments of 1M rows that enter the package through
    segment_from_numpy: SV year, region, revenue; MV tags (0-4 values a doc,
    Zipf s = 1 over 1,000 strings) and nums (0-4 values a doc over [0,
    100)). 22, MV any-match: a tag search, an exclusion (NOT IN), and
@@ -85,14 +85,14 @@
    value-space gather and groups_mv2's pair expansion over one segment; B1
    and B2 are held against their plain versions at configs 25's and 26's
    value-space shapes (and B1 at 2^23 pairs) in the kernel phase.
-8. The rest of the single-stage engine: configs 28-31 over the same 16M
-   lineorder rows stably sorted by d_year, in 16 segments of 1M rows (time
+8. The rest of the single-stage engine: configs 28-31 over the same 8M
+   lineorder rows stably sorted by d_year, in 16 segments of 500,000 rows (time
    partitioned: d_year sorted in every segment). 28a-c, queries the
    min/max pruner decides (one year: 13 segments pruned; two years; a year
    with no data, with and without enableNullHandling); 29, GAPFILL over a
    yearly series (`<>`: nothing pruned); 30a-b, the same segments as an
    upsert table keyed by lo_custkey (the last row of each key valid,
-   90,000 of 16M), run again after 1% of the valid flags move to earlier
+   90,000 of 8M), run again after 1% of the valid flags move to earlier
    docs in place; 31, EXPLAIN PLAN FOR and EXPLAIN ANALYZE of 28a, then 8
    queries through FCFSScheduler and PriorityScheduler (2 runners, 4 client
    threads) beside the same 8 run serially. Rows against numpy oracles, the
@@ -104,12 +104,12 @@
    the registry's CUDA-event ms a call beside the kernel's device-alone time
    at the same operands.
 
-9. The sharded table and executor (bench.py's timed path): the same 16M
+9. The sharded table and executor (bench.py's timed path): the same 8M
    rows as one sharded table (build_sharded_table, rows_per_segment = n / 4
    as bench.py on one device: S = 4 stacked segments), bench.py's Q4,
    config 1's COUNT, Q2 and config 3's Q1 and configs 5-9 through
    execute_sharded_result, each against the oracle, with its launches a query
-   (each kernel once over the flat 16M-doc vector: LAUNCHES_PER_SEGMENT's
+   (each kernel once over the flat 8M-doc vector: LAUNCHES_PER_SEGMENT's
    one-segment tuple; counts from 0 just before the path, read just after)
    and exactly one device->host copy and no read of a device scalar (counted
    op by op under a TorchDispatchMode). Per query: the wall
@@ -124,14 +124,14 @@
    proto's staged bytes; each rerun's launches are counted from 0 just
    before it and read just after (FALLBACK_LAUNCHES), and every kernel call
    it made is held against its plain version on the same operands.
-   `sharded_scale_path` is bench.py's scale block at 32M rows where bench.py
+   `sharded_scale_path` is bench.py's scale block at 16M rows where bench.py
    has 60M (seed 7, bench.py's six columns), S = 4, Q4 and Q2 against the
    oracle, with their launches counted from 0 just before and read just
    after (Q4's one flat launch over n = S x P docs, Q2's none), and each
    kernel call held against its plain version and timed there;
    `sharded_scale` gives its build seconds, staged bytes, p50 and rows per
    second.
-10. The segment store, loader and indexes: the 4 lineorder segments written
+10. The segment store, loader and indexes: the 2 lineorder segments written
    (default codec, lz4) and loaded back, configs 3-4 from the loaded segments
    equal to the in-memory engine's rows; configs 28-30's 16 segments with a
    bloom filter on lo_custkey and an inverted index on c_nation (the index
@@ -139,8 +139,8 @@
    oracle, its bloom-pruned count beside the min/max-pruned count; a
    200,000-row text / JSON table answering TEXT_MATCH and JSON_MATCH through
    the program's docmask operand on the card, against the numpy oracle.
-11. The mesh of slots: the same 16M rows over make_mesh(("cuda:0",) * 4),
-   D = 4 slots on the card, one segment each (S = 4, P = 4,000,768); phase
+11. The mesh of slots: the same 8M rows over make_mesh(("cuda:0",) * 4),
+   D = 4 slots on the card, one segment each (S = 4, P = 2,000,896); phase
    9's configs through execute_sharded_result, each equal to the oracle and
    to the one-slot table's rows, with its launches (4x the one-slot count;
    counts from 0 just before the path, read just after), one device->host
@@ -162,7 +162,7 @@
    program kinds), each against its oracle; walls, link_profile(), the
    operators' host split and the numpy paths' host cost per row beside the
    economic gates' constants.
-14. The cluster in process: the 16M rows in 16 segments of 1M uploaded
+14. The cluster in process: the 8M rows in 16 segments of 500,000 uploaded
    through Controller.upload_segment (deep store, then each replica's
    server loads its own copy) to 4 Servers on the card with replication 2;
    configs 1-9 and bench.py config 6's multistage join through
@@ -179,7 +179,7 @@
    bytes received, the HTTP wall beside the in-process one, and config 13's
    plain SELECTION streamed with early stop.
 16. bench.py `qps`: its fixture (2 servers, 4 segments, replication 2, its
-   two queries) at 16M rows, 128 HTTP clients x 10 queries, once with the
+   two queries) at 8M rows, 128 HTTP clients x 5 queries, once with the
    default result cache and once with it off: throughput, client and
    broker-histogram p50 / p99, error rate 0, wire-pool hits > 0, admission
    decisions and B1 launches (with the cache off, 4 a GROUP BY answer).
@@ -210,10 +210,10 @@
    memory. Every child is killed at the end of the phase.
 19. Realtime ingestion (`realtime`, after the cluster phases freed their
    segments): one Controller, Servers on the card and an uncached Broker in
-   process. lineorder_rt: 1.1M rows (seed 0) and an arrival ts produced into
+   process. lineorder_rt: 700,000 rows (seed 0) and an arrival ts produced into
    an InMemoryStream of 4 partitions (lo_custkey % 4), consumed at 100,000
-   rows a segment (8 committed + 4 consuming); configs 1-7, each equal to
-   the oracle with its launches (12x a segment's) and every kernel call
+   rows a segment (4 committed + 4 consuming); configs 1-7, each equal to
+   the oracle with its launches (8x a segment's) and every kernel call
    held against its plain version; ingest rows/s, each commit's seal +
    build, upload and load seconds, walls. A live step: a producer at 50,000
    rows/s for 10 s while configs 1 and 4 loop, each answer between the
@@ -221,7 +221,7 @@
    consuming generation's snapshot ms and staged bytes, the allocator's
    bytes (replaced generations freed without a collector pass). The same
    rows as a FULL upsert table keyed by lo_custkey (1% late rows lose):
-   COUNT 90,000, SUM by c_nation (B1 under the validity docmask), the latest
+   COUNT 89,966 (its distinct keys), SUM by c_nation (B1 under the validity docmask), the latest
    revenue a key (B2); a restarted manager resumes at the committed offsets
    with the same validity and rows. Two replicas sharing a
    SegmentCompletionManager (exactly one committer a segment), and a dedup
@@ -242,6 +242,25 @@
    equal the oracle with 5 B1 a GROUP BY and none a COUNT, from the server
    processes' registries. Then a seeded compatibility suite in process on
    the card, its kernel calls held against their plain versions.
+21. Batch ingestion and a minion rollup (`batch_minion`, last): 2M rows of
+   bench.py's lineorder (seed 17, its six columns) written as 8 files of
+   250,000 rows (6 CSV, 2 JSON-lines) in two directories; one Controller
+   behind a ControllerHTTPService with a PinotTaskManager, two Servers on
+   the card and an uncached Broker in process. `admin ImportData` loads the
+   first directory (the standalone runner, then REST tarball pushes),
+   `admin LaunchDistributedDataIngestionJob` the second (2 worker processes
+   that tar-push over REST; none may load torch). Configs 1-4 over the 8
+   segments and a GROUP BY d_year, c_nation with SUM, MIN and MAX, each
+   equal to the oracle with its launches (from the counters and the kernel
+   registry) and every kernel call held against its plain version. Then a
+   MergeRollupTask (ROLLUP: SUM lo_revenue, MIN lo_supplycost, MAX
+   lo_quantity) scheduled with `admin ScheduleTasks` and run by a minion
+   thread: one segment of 4,375 rows equal to the oracle's rollup in sorted
+   order, the GROUP BY equal to its answer before the merge with one B1 and
+   one B3, COUNT(*) 4,375. Last, `admin QuickStart` with its defaults: its
+   sample query against numpy over its segments. Write and read rates a
+   format, build and push seconds a segment, each job's seconds, the
+   merge's seconds, wall p50s, the phase's seconds against its 60 s budget.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -262,8 +281,10 @@ import time
 
 import numpy as np
 
-N_ROWS = 16_000_000
-N_SEGMENTS = 4
+N_ROWS = 8_000_000
+N_SEGMENTS = 2
+#: timed runs behind each wall p50 (after its warm-ups)
+WALL_RUNS = 3
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 L2_FLUSH_BYTES = 128 << 20  # > the 50 MB L2
@@ -398,7 +419,7 @@ HOST_MODES = {
     "15_host_aggregations": {"host": N_SEGMENTS},
     "16_mixed_executors": {"host": N_SEGMENTS, "device": 1},
 }
-#: the single-value spec tags (configs 17-20, over the same 16M rows)
+#: the single-value spec tags (configs 17-20, over the same 8M rows)
 TAG_CONFIGS = {
     # "year-over-year revenue by nation": FILTER (WHERE), four distinct masks
     "17_filter_where": (
@@ -429,7 +450,7 @@ TAG_CONFIGS = {
         "FROM lineorder WHERE c_nation = 'NATION_11'"
     ),
 }
-#: config 21, "cost completeness": the same rows in 4 more segments with
+#: config 21, "cost completeness": the same rows in 2 more segments with
 #: null vectors, lo_supplycost null on a seeded 3% of the rows and on every
 #: row of 1998, queried under enableNullHandling
 NULL_CONFIGS = {
@@ -458,8 +479,8 @@ LAUNCHES_PER_SEGMENT.update(
 #: year (1992-1998), region (5 values), revenue ([0, 10^6)); MV tags (0-4
 #: values a doc, Zipf s = 1 over N_TAGS strings tag0000..tag0999) and nums
 #: (0-4 values a doc, uniform over [0, 100))
-MV_ROWS = 16_000_000
-MV_SEGMENTS = 16
+MV_ROWS = 8_000_000
+MV_SEGMENTS = 8
 N_TAGS = 1000
 MV_REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 MV_CONFIGS = {
@@ -524,7 +545,13 @@ N_CUSTOMERS = 90_000
 N_SUPPLIERS = 6_000
 
 
+#: the script's start: every phase line carries its seconds since then
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1826,8 +1853,10 @@ def mv_engine(data: dict):
     n = len(data["year"])
     per = n // MV_SEGMENTS
     offsets = {c: mv_offsets(data, c) for c in ("tags", "nums")}
-    segments = [mv_segment(data, offsets, f"mvt_{i}", i * per, (i + 1) * per if i < MV_SEGMENTS - 1 else n)
-                for i in range(MV_SEGMENTS)]
+    segments = in_threads(
+        lambda i: mv_segment(data, offsets, f"mvt_{i}", i * per, (i + 1) * per if i < MV_SEGMENTS - 1 else n),
+        range(MV_SEGMENTS),
+    )
     return QueryEngine(segments, device="cuda"), segments, time.perf_counter() - t0
 
 
@@ -1943,6 +1972,16 @@ def ssb_builder(name: str = "lineorder", null_handling: bool = False):
     return SegmentBuilder(ssb_schema(name), TableConfig(name, IndexingConfig(null_handling=null_handling)))
 
 
+def in_threads(fn, items) -> list:
+    """fn(item) for each item on 4 threads, the results in order: the
+    segment builds' numpy sorts release the GIL, and each build's inputs are
+    its own."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(4) as pool:
+        return list(pool.map(fn, items))
+
+
 def ssb_engine(data: dict):
     """N_SEGMENTS segments of `data` and a QueryEngine over them on the card,
     from the pinot_tpu_torch first on the path, and the seconds the build
@@ -1950,12 +1989,7 @@ def ssb_engine(data: dict):
     from pinot_tpu_torch.query import QueryEngine
 
     t0 = time.perf_counter()
-    per = N_ROWS // N_SEGMENTS
-    builder = ssb_builder()
-    segments = [
-        builder.build({c: v[i * per : (i + 1) * per] for c, v in data.items()}, f"lineorder_{i}")
-        for i in range(N_SEGMENTS)
-    ]
+    segments = build_segments(ssb_builder(), data, N_SEGMENTS, "lineorder")
     return QueryEngine(segments, device="cuda"), segments, time.perf_counter() - t0
 
 
@@ -1969,23 +2003,25 @@ def null_engine_of(data: dict):
     per = N_ROWS // N_SEGMENTS
     null = null_mask(data["d_year"])
     builder = ssb_builder("lineorder_n", null_handling=True)
-    segments = []
-    for i in range(N_SEGMENTS):
+
+    def one(i):
         part = {c: v[i * per : (i + 1) * per] for c, v in data.items()}
         cost = part["lo_supplycost"].astype(object)
         cost[null[i * per : (i + 1) * per]] = None
         part["lo_supplycost"] = cost
-        segments.append(builder.build(part, f"lineorder_n_{i}"))
+        return builder.build(part, f"lineorder_n_{i}")
+
+    segments = in_threads(one, range(N_SEGMENTS))
     return QueryEngine(segments, device="cuda"), segments, time.perf_counter() - t0
 
 
-def wall_p50(engine, sql: str, warm: int = 2, runs: int = 5) -> dict:
+def wall_p50(engine, sql: str, warm: int = 2, runs: int = WALL_RUNS) -> dict:
     """Host-clock ms of `runs` executes of `sql` after `warm` warm-ups, each
     ending in the device->host copies, and their median."""
     return wall_p50_of(lambda: engine.execute(sql), warm, runs)
 
 
-def wall_p50_of(fn, warm: int = 2, runs: int = 5) -> dict:
+def wall_p50_of(fn, warm: int = 2, runs: int = WALL_RUNS) -> dict:
     for _ in range(warm):
         fn()
     ms = []
@@ -2399,10 +2435,13 @@ def tp_engine_of(data: dict):
     t0 = time.perf_counter()
     order = tp_order(data["d_year"])
     builder = ssb_builder()
-    segments = []
-    for i, (lo, hi) in enumerate(tp_bounds(len(order))):
+
+    def one(i_bounds):
+        i, (lo, hi) = i_bounds
         rows = order[lo:hi]
-        segments.append(builder.build({c: v[rows] for c, v in data.items()}, f"lineorder_tp_{i}"))
+        return builder.build({c: v[rows] for c, v in data.items()}, f"lineorder_tp_{i}")
+
+    segments = in_threads(one, enumerate(tp_bounds(len(order))))
     return QueryEngine(segments, device=DEVICE), segments, time.perf_counter() - t0
 
 
@@ -2974,7 +3013,7 @@ def run_main_path(torch, counters: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 #: bench.py's configs (Q4, 1, Q2, Q1) and configs 5-9 through
-#: execute_sharded_result over the same 16M rows: each kernel launches over
+#: execute_sharded_result over the same 8M rows: each kernel launches over
 #: the flat vector of every segment, so a query's launches are those of ONE
 #: segment in LAUNCHES_PER_SEGMENT
 SHARDED_CONFIGS = (
@@ -2990,10 +3029,11 @@ SHARDED_CONFIGS = (
 )
 #: bench.py's rows_per_segment on one device: n // max(4, devices)
 SHARDED_SEGMENTS = 4
-#: bench.py's scale block under seed 7, at 32M rows (twice the main path's)
+#: bench.py's scale block under seed 7, at 16M rows (twice the main path's)
 #: where bench.py has 60M: its 60M-row build took 121.7 s of a 1,103 s run on
-#: an H100 80GB HBM3 at 700 W, and the script must stay in its time
-SCALE_ROWS, SCALE_SEED = 32_000_000, 7
+#: an H100 80GB HBM3 at 700 W, its 32M-row build 62.8 s of a 1,018 s one,
+#: and the script must stay well inside its time
+SCALE_ROWS, SCALE_SEED = 16_000_000, 7
 SCALE_CONFIGS = ("4_q4_groupby_orderby", "2_filtered_agg")
 #: the proto fallback's MV table (config 26's GROUP BY over two MV keys)
 MV_FALLBACK_ROWS = 1_000_000
@@ -3282,7 +3322,7 @@ def mv_fallback_table(mesh):
 
 
 def run_sharded(torch, counters: dict, data: dict, want: dict, engine) -> dict:
-    """Phase 9: the 16M lineorder rows as one sharded table, bench.py's
+    """Phase 9: the 8M lineorder rows as one sharded table, bench.py's
     configs and configs 5-9 through execute_sharded_result, each against the
     oracle, with its launches (counts from 0 just before, read just after)
     and one device->host copy a query; then the walls beside the per-segment
@@ -3478,7 +3518,7 @@ def run_sharded_scale(torch, counters: dict) -> dict:
     queries = {}
     for name in SCALE_CONFIGS:
         sql = CONFIGS[name]
-        w = wall_p50_of(lambda: execute_sharded_result(table, sql), warm=1, runs=5)
+        w = wall_p50_of(lambda: execute_sharded_result(table, sql), warm=1, runs=WALL_RUNS)
         busy = program_device_ms(torch, table, sql)
         queries[name] = {**w, "rows_per_s": SCALE_ROWS / (w["p50_ms"] / 1e3),
                          "program_device_ms": busy, "device_idle_share": 1.0 - busy / w["p50_ms"],
@@ -3547,8 +3587,8 @@ def slot_program_ms(torch, table, sql, iters: int = 5) -> list:
 
 
 def run_mesh(torch, counters: dict, data: dict, want: dict, one_slot) -> dict:
-    """Phase 11: the same 16M rows over make_mesh(("cuda:0",) * 4): D = 4
-    slots, one segment each (S = 4, P = 4,000,768), the phase-9 configs
+    """Phase 11: the same 8M rows over make_mesh(("cuda:0",) * 4): D = 4
+    slots, one segment each (S = 4, P = 2,000,896), the phase-9 configs
     through execute_sharded_result, each equal to the oracle and to the
     one-slot table's rows, with its launches (counts from 0 just before the
     path, read just after; D times the one-slot count) and every kernel call
@@ -3677,7 +3717,7 @@ def run_shuffle(torch) -> dict:
     order = np.argsort(li, kind="stable")
     if not (np.array_equal(li[order], np.arange(SHUFFLE_LEFT)) and np.array_equal(ri[order], row_of[lk])):
         raise AssertionError("shuffle: the pairs differ from the numpy join's")
-    wall = wall_p50_of(lambda: shuffle.mesh_equi_join(lk, rk, mesh), warm=0, runs=5)
+    wall = wall_p50_of(lambda: shuffle.mesh_equi_join(lk, rk, mesh), warm=0, runs=WALL_RUNS)
 
     dup = rk.copy()
     dup[1] = dup[0]
@@ -3791,7 +3831,7 @@ def docs_table(seed: int = 31):
 
 
 def run_store(torch, engine, segments, tp_segments, data) -> None:
-    """Phase 10: the 4 lineorder segments written with the default codec and
+    """Phase 10: the 2 lineorder segments written with the default codec and
     loaded back (configs 3-4 from the loaded segments equal to the in-memory
     engine's rows); configs 28-30's segments with a bloom filter and an
     inverted index (a lo_custkey point lookup against the oracle, its bloom-
@@ -4079,7 +4119,7 @@ def run_multistage(torch, counters: dict) -> dict:
     # operands (the plain versions launch no kernel)
     held = {"config6": hold_all(torch, calls, gb, ext, gs)}
     del calls, got
-    wall = wall_p50_of(lambda: engine.execute(CONFIG6_SQL), warm=1, runs=5)
+    wall = wall_p50_of(lambda: engine.execute(CONFIG6_SQL), warm=1, runs=WALL_RUNS)
     traced = engine.execute("SET trace = true; " + CONFIG6_SQL)
     config6 = {
         "rows": JOIN_ROWS,
@@ -4146,13 +4186,13 @@ def run_multistage(torch, counters: dict) -> dict:
 
 
 def breakdown(torch, engine, sql: str) -> dict:
-    """One warm execute split at the engine's own seams (host clock, each
-    seam synchronised), then one execute under torch.profiler for the
-    device's busy time and its largest kernels."""
+    """One execute split at the engine's own seams (host clock, each seam
+    synchronised; the walls ran the query warm just before), then one
+    execute under torch.profiler for the device's busy time and its largest
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.execute(sql)
     torch.cuda.synchronize()
     t = [time.perf_counter()]
     ctx = engine.make_context(sql)
@@ -4207,8 +4247,8 @@ def breakdown(torch, engine, sql: str) -> dict:
 # phases 14-16: the cluster (controller, servers, broker) on the card
 # ---------------------------------------------------------------------------
 
-#: the cluster phases' table: the main path's 16M lineorder rows in 16
-#: segments of 1M, uploaded to 4 servers with replication 2 (8 replicas a
+#: the cluster phases' table: the main path's 8M lineorder rows in 16
+#: segments of 500,000, uploaded to 4 servers with replication 2 (8 replicas a
 #: server, 32 in all)
 CLUSTER_SEGMENTS, CLUSTER_SERVERS, CLUSTER_REPLICATION = 16, 4, 2
 CLUSTER_CONFIGS = tuple(f"{i}_{n}" for i, n in (
@@ -4216,9 +4256,10 @@ CLUSTER_CONFIGS = tuple(f"{i}_{n}" for i, n in (
     (6, "groupby_distinct"), (7, "distinct"), (8, "groupby_wide"), (9, "groupby_sparse"),
 ))
 #: bench.py `qps`'s fixture (`_build_qps_cluster`: rng seed 8, 4 segments, 2
-#: servers, replication 2, its two queries) at 16M rows instead of 120,000,
-#: driven as `qps_main` drives it: 128 HTTP clients x 10 queries
-QPS_ROWS, QPS_SEGMENTS, QPS_SERVERS, QPS_CLIENTS, QPS_PER_CLIENT = 16_000_000, 4, 2, 128, 10
+#: servers, replication 2, its two queries) at 8M rows instead of 120,000,
+#: driven as `qps_main` drives it with 128 HTTP clients, 5 queries each
+#: where it has 10 (to keep the script well inside its time)
+QPS_ROWS, QPS_SEGMENTS, QPS_SERVERS, QPS_CLIENTS, QPS_PER_CLIENT = 8_000_000, 4, 2, 128, 5
 QPS_REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE"]
 QPS_QUERIES = [
     "SELECT COUNT(*) FROM lineorder WHERE year > 1994",
@@ -4229,15 +4270,10 @@ QPS_QUERIES = [
 def build_segments(builder, data: dict, n: int, prefix: str) -> list:
     """`n` equal segments of `data`, built on 4 threads (each build is the
     builder's own; the slices do not overlap)."""
-    from concurrent.futures import ThreadPoolExecutor
-
     per = len(next(iter(data.values()))) // n
-
-    def one(i):
-        return builder.build({c: v[i * per : (i + 1) * per] for c, v in data.items()}, f"{prefix}_{i}")
-
-    with ThreadPoolExecutor(4) as pool:
-        return list(pool.map(one, range(n)))
+    return in_threads(
+        lambda i: builder.build({c: v[i * per : (i + 1) * per] for c, v in data.items()}, f"{prefix}_{i}"), range(n)
+    )
 
 
 def cluster_of(schema, segments: list, deep: str, n_servers: int, replication: int, extra_tables=()):
@@ -4362,8 +4398,8 @@ def counted_run(counters: dict, fn) -> tuple:
 
 
 def run_cluster(torch, counters: dict, data: dict, want: dict, nation) -> dict:
-    """Phase 14: the cluster in process. The main path's 16M rows in 16
-    segments of 1M go through Controller.upload_segment (deep store, then
+    """Phase 14: the cluster in process. The main path's 8M rows in 16
+    segments of 500,000 go through Controller.upload_segment (deep store, then
     each replica's server loads its copy) to 4 Servers on the card with
     replication 2; configs 1-9's SQL and bench.py config 6's multistage join
     (the broker's in-process multistage route over the same lineorder and a
@@ -4451,11 +4487,11 @@ def run_cluster(torch, counters: dict, data: dict, want: dict, nation) -> dict:
     for name in (*CLUSTER_CONFIGS, "config6_multistage"):
         sql = CONFIG6_SQL if name == "config6_multistage" else CONFIGS[name]
         hits0 = broker.cache_snapshot()["result"]["hits"]
-        cached = wall_p50_of(lambda: broker.execute(sql), warm=1, runs=5)
+        cached = wall_p50_of(lambda: broker.execute(sql), warm=1, runs=WALL_RUNS)
         hits = broker.cache_snapshot()["result"]["hits"] - hits0
         uncached.execute(sql)  # the warm-up, outside the split
         split(1)
-        plain = wall_p50_of(lambda: uncached.execute(sql), warm=0, runs=5)
+        plain = wall_p50_of(lambda: uncached.execute(sql), warm=0, runs=WALL_RUNS)
         parts = split(5)
         eng = None if name == "config6_multistage" else wall_p50(engine, sql, warm=1)
         per_query[name] = {
@@ -4549,8 +4585,8 @@ def run_cluster_http(torch, counters: dict, cl: dict, want: dict, data: dict, na
         if path_launches != {k: fn.launches for k, fn in counters.items()}:
             raise AssertionError(f"cluster_http: launches outside the configs' runs: {path_launches}")
         for name in CLUSTER_CONFIGS:
-            w = wall_p50_of(lambda: query_broker_http(url, CONFIGS[name]), warm=1, runs=5)
-            local = wall_p50_of(lambda: in_process.execute(CONFIGS[name]), warm=1, runs=5)
+            w = wall_p50_of(lambda: query_broker_http(url, CONFIGS[name]), warm=1, runs=WALL_RUNS)
+            local = wall_p50_of(lambda: in_process.execute(CONFIGS[name]), warm=1, runs=WALL_RUNS)
             per_query[name].update(
                 http_p50_ms=w["p50_ms"], http_runs_ms=w["runs_ms"],
                 in_process_p50_ms=local["p50_ms"], in_process_runs_ms=local["runs_ms"],
@@ -4704,8 +4740,8 @@ def run_cluster_qps(torch, counters: dict) -> dict:
     """Phase 16: bench.py's `qps` fixture at its shapes (the
     `_build_qps_cluster` schema region / year / revenue, rng seed 8, 4
     segments, 2 Servers on the card, replication 2, its two queries) with
-    16M rows instead of 120,000 (4M a segment), the broker behind a
-    BrokerHTTPService, driven by 128 HTTP clients x 10 queries as
+    8M rows instead of 120,000 (2M a segment), the broker behind a
+    BrokerHTTPService, driven by 128 HTTP clients x 5 queries as
     `qps_main` drives it: one pass with the default CacheConfig (bench.py's
     setting), one with CacheConfig(enabled=False) so the servers' engines
     do the work. The first answer of each query equals its oracle, and in
@@ -4733,10 +4769,7 @@ def run_cluster_qps(torch, counters: dict) -> dict:
         "lineorder", dimensions=[("region", DataType.STRING), ("year", DataType.INT)], metrics=[("revenue", DataType.LONG)]
     )
     builder = SegmentBuilder(schema)
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(4) as pool:
-        segments = list(pool.map(lambda i: builder.build(parts[i], f"lineorder_{i}"), range(QPS_SEGMENTS)))
+    segments = in_threads(lambda i: builder.build(parts[i], f"lineorder_{i}"), range(QPS_SEGMENTS))
     del parts
     t_build = time.perf_counter() - t0
     deep = tempfile.mkdtemp(prefix="chip_smoke_qps_")
@@ -4961,8 +4994,8 @@ def run_multistage_distributed(torch, counters: dict) -> dict:
         if f"sort{on}" not in ops["distributed"]["root_sort"]:
             raise AssertionError(f"multistage_distributed root_sort: no device sort {ops['distributed']['root_sort']}")
         for name, sql in MSD_QUERIES.items():
-            d = wall_p50_of(lambda: distributed.execute(sql), warm=1, runs=5)
-            p = wall_p50_of(lambda: in_process.execute(sql), warm=1, runs=5)
+            d = wall_p50_of(lambda: distributed.execute(sql), warm=1, runs=WALL_RUNS)
+            p = wall_p50_of(lambda: in_process.execute(sql), warm=1, runs=WALL_RUNS)
             per_query[name].update(distributed_p50_ms=d["p50_ms"], distributed_runs_ms=d["runs_ms"],
                                    in_process_p50_ms=p["p50_ms"], in_process_runs_ms=p["runs_ms"])
         torch.cuda.synchronize()
@@ -5187,7 +5220,7 @@ def run_processes(torch, deep_in: str, want: dict, want6: list, http_p50: dict) 
                 raise AssertionError(f"processes {name}: launches {launches[name]}, expected {expect}")
         path_launches = {k: sum(v[k] for v in launches.values()) for k in KERNEL_OF_REGISTRY.values()}
         for name, sql in queries.items():
-            w = wall_p50_of(lambda: conn.execute(sql), warm=1, runs=5)
+            w = wall_p50_of(lambda: conn.execute(sql), warm=1, runs=WALL_RUNS)
             per_query[name] = {"p50_ms": w["p50_ms"], "runs_ms": w["runs_ms"], "first_s": first_s[name],
                                "cluster_http_p50_ms": http_p50.get(name), "launches": launches[name]}
 
@@ -5268,9 +5301,13 @@ def run_processes(torch, deep_in: str, want: dict, want6: list, http_p50: dict) 
 
 #: the realtime phase's tables: rows, stream partitions, rows a segment.
 #: Cut from 2.4M rows at 250,000 a segment (the phase took 216 s there on an
-#: H100 80GB HBM3 at 700 W) to keep the script in its time: 1.1M is the
-#: least size past 1M at which all 90,000 customer keys occur (1M: 89,996)
-RT_ROWS, RT_PARTITIONS, RT_FLUSH = 1_100_000, 4, 100_000
+#: H100 80GB HBM3 at 700 W), then from 1.1M (all 90,000 customer keys; the
+#: phase 125-150 s of a 1,018 s and an 812 s script) to keep the script well
+#: inside its time: 700,000 rows hold 89,966 keys, one committed segment and
+#: a consuming one a partition; each consuming segment keeps the ~75,000 rows
+#: (~21,700 keys: past the flat kernel's shared counters, so
+#: up_latest_revenue's group-by stays on the two-level kernel) it had at 1.1M
+RT_ROWS, RT_PARTITIONS, RT_FLUSH = 700_000, 4, 100_000
 RT_CONFIGS = ("1_count_filter", "2_filtered_agg", "3_q1_groupby", "4_q4_groupby_orderby", "5_groupby_minmax",
               "6_groupby_distinct", "7_distinct")
 #: the live step: rows a second the producer adds, for about this long
@@ -5495,11 +5532,11 @@ def run_realtime(torch, counters: dict) -> dict:
     1. lineorder_rt: RT_ROWS rows of make_ssb_data (seed 0) and an arrival
        ts, produced into an InMemoryStream of RT_PARTITIONS partitions
        (partition = lo_custkey % 4), consumed by a RealtimeTableManager at
-       RT_FLUSH rows a segment: 2 committed segments and a consuming one a
+       RT_FLUSH rows a segment: 1 committed segment and a consuming one a
        partition. Ingest rows/s; each commit's seal + build, upload and load
        seconds; configs 1-7 through the broker, each equal to the oracle,
        its launches (counted from 0 just before, read just after) equal to
-       LAUNCHES_PER_SEGMENT x the 12 segments routed, every kernel call held
+       LAUNCHES_PER_SEGMENT x the 8 segments routed, every kernel call held
        against its plain version; their wall p50.
     2. Live consumption: a producer thread adds RT_LIVE_RATE rows a second
        (make_ssb_data seed 1) for RT_LIVE_S s while configs 1 and 4 run in a
@@ -5514,7 +5551,7 @@ def run_realtime(torch, counters: dict) -> dict:
     3. lineorder_up: the same rows as a FULL upsert table keyed by
        lo_custkey (comparison column ts); a seeded RT_LATE of the rows carry
        a ts older than their key's latest and lose. COUNT(*) (the distinct
-       keys: 90,000), SUM(lo_revenue) by c_nation (B1 under the validity
+       keys: 89,966), SUM(lo_revenue) by c_nation (B1 under the validity
        docmask) and the latest revenue a key (B2), against the oracle "the
        row with the largest ts a key, later arrival on ties", launches and
        kernel calls as in 1. Then a new manager over the same controller and
@@ -5594,7 +5631,7 @@ def run_realtime(torch, counters: dict) -> dict:
         sql = rt_sql(CONFIGS[name], "lineorder_rt")
         res = counted(name, sql, tuple(n_segments * v for v in LAUNCHES_PER_SEGMENT[name]))
         match(name, res.rows, want[name])
-    walls = {name: wall_p50_of(lambda: broker.execute(rt_sql(CONFIGS[name], "lineorder_rt")), warm=1, runs=5)
+    walls = {name: wall_p50_of(lambda: broker.execute(rt_sql(CONFIGS[name], "lineorder_rt")), warm=1, runs=WALL_RUNS)
              for name in RT_CONFIGS}
     torch.cuda.synchronize()
     out["append_only"] = {
@@ -6648,8 +6685,295 @@ def run_control_plane(torch, counters: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: batch ingestion and a minion rollup
+# ---------------------------------------------------------------------------
+
+#: bench.py's lineorder (make_ssb_data, its own seed) without the key
+#: columns, in BM_FILES input files of BM_ROWS // BM_FILES rows: one segment
+#: a file, as Pinot's batch jobs build them; users' segments hold 0.5-5M
+#: rows, cut to 250,000 by the Python readers' rate and the phase's budget
+BM_TABLE, BM_ROWS, BM_FILES, BM_SEED, BM_BUDGET_S = "lineorder_batch", 2_000_000, 8, 17, 60.0
+BM_COLUMNS = ("d_year", "c_nation", "p_category", "lo_revenue", "lo_supplycost", "lo_quantity")
+#: the files of each directory, by index: the standalone runner's 4 CSV, the
+#: distributed runner's 2 CSV and 2 JSON-lines
+BM_DIRS = {"standalone": ("csv", "csv", "csv", "csv"), "distributed": ("csv", "csv", "jsonl", "jsonl")}
+BM_CONFIGS = ("1_count_filter", "2_filtered_agg", "3_q1_groupby", "4_q4_groupby_orderby")
+BM_MERGE = {"minNumSegments": 2, "mergeType": "ROLLUP",
+            "aggregates": {"lo_revenue": "SUM", "lo_supplycost": "MIN", "lo_quantity": "MAX"}}
+BM_ROLLUP_SQL = (f"SELECT d_year, c_nation, SUM(lo_revenue), MIN(lo_supplycost), MAX(lo_quantity) FROM {BM_TABLE} "
+                 "GROUP BY d_year, c_nation ORDER BY d_year, c_nation LIMIT 200")
+
+
+def bm_write(data: dict, root: str) -> tuple[dict, dict]:
+    """The input files under root/{standalone,distributed}: ({dir: path},
+    {format: {"s", "rows"}})."""
+    import os
+
+    per = BM_ROWS // BM_FILES
+    dirs, written, i = {}, {"csv": {"s": 0.0, "rows": 0}, "jsonl": {"s": 0.0, "rows": 0}}, 0
+    for name, formats in BM_DIRS.items():
+        dirs[name] = f"{root}/{name}"
+        os.makedirs(dirs[name])
+        for fmt in formats:
+            t0 = time.perf_counter()
+            rows = zip(*(data[c][i * per : (i + 1) * per].tolist() for c in BM_COLUMNS))
+            if fmt == "csv":
+                text = ",".join(BM_COLUMNS) + "\n" + "\n".join(",".join(map(str, r)) for r in rows) + "\n"
+            else:
+                text = "\n".join(json.dumps(dict(zip(BM_COLUMNS, r))) for r in rows) + "\n"
+            with open(f"{dirs[name]}/part_{i}.{fmt}", "w") as f:
+                f.write(text)
+            written[fmt]["s"] += time.perf_counter() - t0
+            written[fmt]["rows"] += per
+            i += 1
+    return dirs, written
+
+
+def bm_rollup_oracle(data: dict) -> tuple[dict, list]:
+    """The merged segment's columns (one row a (d_year, c_nation,
+    p_category), in sorted order of the tuples: the strings sort as
+    strings) and BM_ROLLUP_SQL's rows, from the raw arrays."""
+    year, rev, cost, qty = data["d_year"], data["lo_revenue"], data["lo_supplycost"], data["lo_quantity"]
+    nation = np.searchsorted(np.array(sorted(NATIONS)), data["c_nation"].astype(str))
+    cats = np.array(sorted(CATEGORIES))
+    cat = np.searchsorted(cats, data["p_category"].astype(str))
+    key = (year.astype(np.int64) - 1992) * 625 + nation * 25 + cat
+    order = np.argsort(key, kind="stable")
+    k = key[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    g = k[starts]
+    cols = {
+        "d_year": (1992 + g // 625).astype(np.int32),
+        "c_nation": np.array(sorted(NATIONS))[g // 25 % 25],
+        "p_category": cats[g % 25],
+        "lo_revenue": np.add.reduceat(rev[order], starts),
+        "lo_supplycost": np.minimum.reduceat(cost[order], starts),
+        "lo_quantity": np.maximum.reduceat(qty[order], starts),
+    }
+    yn = key // 25
+    order = np.argsort(yn, kind="stable")
+    k = yn[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    rows = [[1992 + int(y // 25), sorted(NATIONS)[int(y % 25)], float(s), float(c), float(q)]
+            for y, s, c, q in zip(k[starts], np.add.reduceat(rev[order], starts),
+                                  np.minimum.reduceat(cost[order], starts), np.maximum.reduceat(qty[order], starts))]
+    return cols, rows
+
+
+def bm_wait_task(url: str, task_type: str, timeout: float, tm) -> dict:
+    """Poll GET /tasks until the task of `task_type` reads COMPLETED; raises
+    if it FAILED or the time runs out."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        tasks = [t for t in http_json(f"{url}/tasks") if t["type"] == task_type]
+        if tasks and tasks[-1]["state"] == "COMPLETED":
+            return tasks[-1]
+        if tasks and tasks[-1]["state"] == "FAILED":
+            errors = [t.error for t in tm.tasks() if t.task_id == tasks[-1]["taskId"]]
+            raise AssertionError(f"batch_minion: {task_type} failed: {errors}")
+        time.sleep(0.05)
+    raise AssertionError(f"batch_minion: {task_type} not COMPLETED after {timeout} s")
+
+
+def run_batch_minion(torch, counters: dict) -> dict:
+    """Phase 21: batch ingestion and a minion rollup on the card. BM_ROWS
+    rows of make_ssb_data (seed BM_SEED, the six columns of
+    ssb_schema(keys=False)) written as BM_FILES files (6 CSV, 2 JSON-lines)
+    in two directories; one Controller behind a ControllerHTTPService with a
+    PinotTaskManager, two Servers on the card and an uncached Broker.
+    1. `admin ImportData` (the standalone runner, then the REST tarball
+       push) loads the first directory, `admin
+       LaunchDistributedDataIngestionJob` the second with 2 worker processes
+       that tar-push over REST (none may load torch).
+    2. Configs 1-4 over the 8 segments through the broker, each equal to the
+       oracle, with its launches (8x a segment's, from the counters and the
+       kernel registry) and every kernel call held against its plain
+       version; BM_ROLLUP_SQL likewise (one B1 and one B3 a segment).
+    3. The table's mergeRollup set to BM_MERGE, a minion from
+       make_minion_with_builtins on a thread, `admin ScheduleTasks`, GET
+       /tasks polled until the MergeRollupTask reads COMPLETED. The table
+       then holds one segment of 7 x 25 x 25 = 4,375 rows whose columns
+       equal the oracle's rollup in sorted order; BM_ROLLUP_SQL answers as
+       before the merge with one B1 and one B3; COUNT(*) reads 4,375.
+    4. `admin QuickStart` (its defaults, --dir in a temporary directory):
+       its sample query equals numpy over its segments' columns.
+    Returns the phase's launches (its counted queries')."""
+    import os
+    import tempfile
+
+    from pinot_tpu_torch.cluster import Broker, Controller, PropertyStore, Server
+    from pinot_tpu_torch.cluster.http import ControllerHTTPService
+    from pinot_tpu_torch.common import TableConfig
+    from pinot_tpu_torch.common.config import CacheConfig
+    from pinot_tpu_torch.minion import PinotTaskManager
+    from pinot_tpu_torch.minion.tasks import make_minion_with_builtins
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.tools import admin
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_batch_")
+    launches, held, walls = {}, {}, {}
+
+    def counted(label, sql, expect):
+        before = registry_calls()
+        res, launches[label], calls = counted_run(counters, lambda: broker.execute(sql))
+        check_launches(f"batch_minion {label}", counters, launches[label], calls, expect)
+        registry = {k: v - before[k] for k, v in registry_calls().items()}
+        if registry != launches[label]:
+            raise AssertionError(f"batch_minion {label}: registry {registry} != counters {launches[label]}")
+        held[label] = hold_all(torch, calls, gb, ext, gs)
+        if any(h["max_abs_err"] != 0 for h in held[label]):
+            raise AssertionError(f"batch_minion {label}: a kernel disagrees with its plain version: {held[label]}")
+        return res
+
+    def match(label, got, want):
+        try:
+            rows_match(label, got, want)
+        except AssertionError as e:
+            raise AssertionError(f"batch_minion {label}: {e}") from None
+
+    data, nation, category = make_ssb_data(BM_ROWS, seed=BM_SEED)
+    want, _ = oracle(data, nation, category)
+    want_cols, want_rollup = bm_rollup_oracle(data)
+    dirs, written = bm_write(data, root)
+
+    controller = Controller(PropertyStore(), f"{root}/deep")
+    servers = [Server(f"bm_s{i}", device=DEVICE) for i in range(2)]
+    for s in servers:
+        controller.register_server(s.server_id, s)
+    controller.add_schema(ssb_schema(BM_TABLE, keys=False))
+    controller.add_table(TableConfig(BM_TABLE))
+    tm = PinotTaskManager(controller)
+    svc = ControllerHTTPService(controller, task_manager=tm)
+    url = f"http://127.0.0.1:{svc.port}"
+    broker = Broker(controller, cache_config=CacheConfig(enabled=False), device=DEVICE)
+    minion = None
+    try:
+        # -- 1. the two runners ----------------------------------------------
+        jobs = {}
+        for name, argv in (
+            ("standalone", ["ImportData", "--segment-prefix", "bm_a"]),
+            ("distributed", ["LaunchDistributedDataIngestionJob", "--segment-prefix", "bm_b", "--workers", "2"]),
+        ):
+            # the command's function, as admin.main runs it, for its per-file report
+            args = admin.build_parser().parse_args(
+                [*argv, "--controller-url", url, "--table", BM_TABLE, "--input-dir", dirs[name]])
+            t0 = time.perf_counter()
+            files = args.fn(args)["files"]
+            job_s = time.perf_counter() - t0
+            if [f["rows"] for f in files] != [BM_ROWS // BM_FILES] * 4:
+                raise AssertionError(f"batch_minion {name}: files {files}")
+            jobs[name] = {"job_s": job_s, "files": files}
+        workers = jobs["distributed"]["files"]
+        if any(f["torch"] for f in workers) or os.getpid() in {f["pid"] for f in workers}:
+            raise AssertionError(f"batch_minion: a worker loaded torch or ran in this process: {workers}")
+        segments = sorted(controller.ideal_state(BM_TABLE))
+        if segments != [f"bm_{d}_{i}" for d in "ab" for i in range(4)]:
+            raise AssertionError(f"batch_minion: segments {segments}")
+        files = [f for j in jobs.values() for f in j["files"]]
+        read = {fmt: sum(f["rows"] for f in files if f["file"].endswith(fmt)) /
+                sum(f["read_s"] for f in files if f["file"].endswith(fmt)) for fmt in ("csv", "jsonl")}
+
+        # -- 2. the queries over the batch-built segments --------------------
+        for name in BM_CONFIGS:
+            sql = rt_sql(CONFIGS[name], BM_TABLE)
+            res = counted(name, sql, tuple(len(segments) * v for v in LAUNCHES_PER_SEGMENT[name]))
+            match(name, res.rows, want[name])
+            walls[name] = wall_p50_of(lambda: broker.execute(sql), warm=1, runs=WALL_RUNS)
+        pre = counted("rollup_before_merge", BM_ROLLUP_SQL, (len(segments), len(segments), 0, 0))
+        match("rollup_before_merge", pre.rows, want_rollup)
+
+        # -- 3. the minion's merge and rollup --------------------------------
+        tc = controller.get_table(BM_TABLE)
+        tc.extra = {**(tc.extra or {}), "mergeRollup": BM_MERGE}
+        controller.add_table(tc)
+        minion = make_minion_with_builtins("bm_minion", tm, controller)
+        minion.start(poll_interval=0.05)
+        t0 = time.perf_counter()
+        if admin.main(["ScheduleTasks", "--controller-url", url]) != 0:
+            raise AssertionError("batch_minion: ScheduleTasks failed")
+        task = bm_wait_task(url, "MergeRollupTask", 300.0, tm)
+        merge_s = time.perf_counter() - t0
+        [merged] = sorted(controller.ideal_state(BM_TABLE))
+        seg = next(s.get_segment_object(BM_TABLE, merged) for s in servers if s.get_segment_object(BM_TABLE, merged))
+        # a loaded segment's strings are objects; the numbers keep their dtype
+        got = {c: seg.columns[c].materialize() for c in BM_COLUMNS}
+        got.update({c: got[c].astype(str) for c in ("c_nation", "p_category")})
+        wrong = [c for c in BM_COLUMNS if got[c].dtype != want_cols[c].dtype or not np.array_equal(got[c], want_cols[c])]
+        if seg.n_docs != 7 * 25 * 25 or wrong:
+            raise AssertionError(f"batch_minion: merged segment {merged} ({seg.n_docs} rows) differs from the oracle "
+                                 f"in {[(c, got[c][:4], want_cols[c][:4]) for c in wrong]}")
+        post = counted("rollup_after_merge", BM_ROLLUP_SQL, (1, 1, 0, 0))
+        match("rollup_after_merge", post.rows, pre.rows)
+        count = counted("count_after_merge", f"SELECT COUNT(*) FROM {BM_TABLE}", (0, 0, 0, 0))
+        match("count_after_merge", count.rows, [[7 * 25 * 25]])
+        walls["rollup_after_merge"] = wall_p50_of(lambda: broker.execute(BM_ROLLUP_SQL), warm=1, runs=WALL_RUNS)
+    finally:
+        if minion is not None:
+            minion.stop()
+        svc.stop()
+        broker.shutdown()
+
+    # -- 4. QuickStart ------------------------------------------------------
+    t0 = time.perf_counter()
+    argv = ["QuickStart", "--dir", f"{root}/quickstart", "--exit"] + ([] if DEVICE == "cuda" else ["--device", DEVICE])
+    args = admin.build_parser().parse_args(argv)
+    h = args.fn(args)
+    try:
+        league, runs = [], []
+        for s in h["servers"].values():
+            for name in s.segments_of("baseballStats"):
+                qs_seg = s.get_segment_object("baseballStats", name)
+                league.append(qs_seg.columns["league"].materialize())
+                runs.append(qs_seg.columns["runs"].materialize())
+        league, runs = np.concatenate(league), np.concatenate(runs)
+        qs_want = sorted(([str(x), float(runs[league == x].sum())] for x in np.unique(league)), key=lambda r: -r[1])
+        match("quickstart_sample", h["sample"].rows, qs_want)
+    finally:
+        for svc_ in h["services"]:
+            svc_.stop()
+        h["minion"].stop()
+        h["broker"].shutdown()
+    quickstart_s = time.perf_counter() - t0
+
+    del controller, servers, broker, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    path_launches = {k: sum(v[k] for v in launches.values()) for k in counters}
+    seconds = time.perf_counter() - t_phase
+    emit(
+        {
+            "phase": "batch_minion",
+            "results_match_oracle": True,
+            "table": {"rows": BM_ROWS, "files": BM_FILES, "rows_a_file": BM_ROWS // BM_FILES, "seed": BM_SEED},
+            "write_s": {fmt: w["s"] for fmt, w in written.items()},
+            "write_rows_per_s": {fmt: w["rows"] / w["s"] for fmt, w in written.items()},
+            "read_rows_per_s": read,
+            "build_s_a_segment": {n: [f["build_s"] for f in j["files"]] for n, j in jobs.items()},
+            "push_s_a_segment": {n: [f["push_s"] for f in j["files"]] for n, j in jobs.items()},
+            "job_s": {n: j["job_s"] for n, j in jobs.items()},
+            "workers": sorted({(f["pid"], f["torch"]) for f in workers}),
+            "merge": {"s": merge_s, "task": task["taskId"], "segment": merged, "rows_in": BM_ROWS,
+                      "rows_out": 7 * 25 * 25},
+            "walls_p50_ms": {k: w["p50_ms"] for k, w in walls.items()},
+            "quickstart_s": quickstart_s,
+            "launches_per_query": launches,
+            "launches": path_launches,
+            "kernels_vs_plain": {k: len(v) for k, v in held.items()},
+            "seconds": seconds,
+            "budget_s": BM_BUDGET_S,
+            "within_budget": seconds <= BM_BUDGET_S,
+            "card": card_line(),
+        }
+    )
+    return path_launches
+
+
 def main() -> int:
-    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -6719,16 +7043,18 @@ def main() -> int:
     distributed_launches = run_multistage_distributed(torch, counters)
     realtime_launches = run_realtime(torch, counters)
     control_plane_launches = run_control_plane(torch, counters)
+    batch_minion_launches = run_batch_minion(torch, counters)
     # each path's counts, read just after it: the main path's, the sharded
     # path's (its proto reruns included), the mesh's, the scale path's, the
     # multistage engine's, the three cluster phases', the distributed
     # stages', the server processes' (from their registries), the
-    # realtime tables' and the control plane's (its server processes' and
-    # its compatibility suite's) launches. The sum entry of grouped_sum_f32 is on
-    # none: the kernel's launches are its presence entry's
+    # realtime tables', the control plane's (its server processes' and
+    # its compatibility suite's) and the batch-built table's launches. The
+    # sum entry of grouped_sum_f32 is on none: the kernel's launches are its
+    # presence entry's
     paths = (main["launches"], sharded_launches, mesh_launches, scale_launches, multistage_launches,
              cluster_launches, http_launches, qps_launches, distributed_launches, process_launches,
-             realtime_launches, control_plane_launches)
+             realtime_launches, control_plane_launches, batch_minion_launches)
     launches = {k: sum(p[k] for p in paths) for k in main["launches"]}
     launches["grouped_sum_f32"] = launches["presence"]
 
@@ -6759,7 +7085,7 @@ def main() -> int:
                 "library_ms": t["library_ms"],
             }
         )
-    emit({"phase": "run", "seconds": time.perf_counter() - t_start, "card": card_line()})
+    emit({"phase": "run", "seconds": time.perf_counter() - T_START, "card": card_line()})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

@@ -22,4 +22,8 @@ Layer map (mirrors pinot_tpu's):
               device)
   native/   - the segment files' codecs (C++ built with g++ at first use)
   ops/      - hand-written CUDA kernels, their plain versions, their build
+  io/       - PinotFS (local, memory, S3 / GCS, ADLS Gen2, WebHDFS), the
+              record readers, the batch segment-generation runners
+  minion/   - the task framework, segment processing (merge / rollup /
+              dedup in numpy) and the built-in tasks
 """

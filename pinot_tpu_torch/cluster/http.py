@@ -16,8 +16,8 @@ Every role of the port is served here: the broker, the server (with the
 multistage /mailbox and /multistage/submit endpoints the distributed stages
 ride), and the controller's REST service with its client
 (RemoteControllerClient), which a broker in its own process routes through.
-What the port has not taken yet answers 501 naming its ROADMAP item: minion
-tasks (A10b) and the time-series endpoint (A10d).
+What the port has not taken yet answers 501 naming its ROADMAP item: the
+time-series endpoint (A10d).
 """
 
 from __future__ import annotations
@@ -1182,16 +1182,15 @@ class ControllerHTTPService:
 
     A standby (a controller with HA enabled that does not hold the lease)
     answers mutating endpoints with 503 + `leaderUrl`, and a fenced write
-    with 503 + errorCode 270. The task endpoints (minion tasks, ROADMAP
-    A10b) answer 501 naming their item.
+    with 503 + errorCode 270. The task endpoints serve the `task_manager`
+    (a minion.PinotTaskManager) and answer 404 without one; GET /tasks lists
+    every task, whatever `state` asks, as the reference's does.
     """
 
     def __init__(self, controller: Controller, port: int = 0, task_manager=None):
-        if task_manager is not None:
-            raise NotImplementedError("ControllerHTTPService(task_manager=...): minion tasks are ROADMAP A10b")
         svc = self
         self.controller = controller
-        self.task_manager = None
+        self.task_manager = task_manager
 
         class Handler(_InstrumentedHandler):
             def log_message(self, *a):
@@ -1327,8 +1326,13 @@ class ControllerHTTPService:
                         self._json(c.brokers())
                     elif self.path == "/instances":
                         self._json({p.split("/")[-1]: c.store.get(p) for p in c.store.list("/instances/")})
-                    elif parts and parts[0] == "tasks":
-                        _send_not_implemented(self, "/tasks: minion tasks are ROADMAP A10b")
+                    elif parts and parts[0] == "tasks" and svc.task_manager is not None:
+                        self._json(
+                            [
+                                {"taskId": t.task_id, "type": t.task_type, "state": t.state.value}
+                                for t in svc.task_manager.tasks()
+                            ]
+                        )
                     else:
                         self._json({"error": "not found"}, 404)
                 except Exception as e:
@@ -1452,8 +1456,10 @@ class ControllerHTTPService:
                             seg = load_segment(seg_root)
                             assigned = c.upload_segment(parts[1], seg)
                         self._json({"status": "ok", "segment": seg.name, "servers": assigned})
-                    elif self.path == "/tasks/schedule":
-                        _send_not_implemented(self, "/tasks/schedule: minion tasks are ROADMAP A10b")
+                    elif self.path == "/tasks/schedule" and svc.task_manager is not None:
+                        body = json.loads(raw or b"{}")
+                        tasks = svc.task_manager.schedule_tasks(body.get("taskType"))
+                        self._json({"scheduled": [t.task_id for t in tasks]})
                     elif len(parts) == 3 and parts[0] == "tables" and parts[2] in (
                         "pauseConsumption",
                         "resumeConsumption",

@@ -6,10 +6,9 @@ and the typed metric names of pinot-common/.../metrics/. This is the JAX
 package's `common/metrics.py` cut to what the engine, `kernel_obs` and the
 cluster's server, broker and controller use: the metric kinds, the labelled
 registry and its JSON snapshot, the Prometheus text form, ServerMeter /
-ScanMeter / ServerTimer, the broker and controller enums and the per-role
-registries, and the federated histogram merge the controller's metrics
-aggregator and SLO evaluator read. The minion meters come with the minion
-(ROADMAP A10b).
+ScanMeter / ServerTimer, the broker, controller and minion enums and the
+per-role registries, and the federated histogram merge the controller's
+metrics aggregator and SLO evaluator read.
 """
 
 from __future__ import annotations
@@ -591,6 +590,11 @@ class ControllerMeter(Enum):
     TABLE_ADDS = "controller.tableAdds"
 
 
+class MinionMeter(Enum):
+    TASKS_EXECUTED = "minion.tasksExecuted"
+    TASKS_FAILED = "minion.tasksFailed"
+
+
 # global per-role registries (the reference holds one registry per started
 # service; in-process multi-role tests share by role name)
 _registries: dict[str, MetricsRegistry] = {}
@@ -615,3 +619,4 @@ def reset_registries() -> None:
 server_metrics = lambda: get_registry("server")  # noqa: E731
 broker_metrics = lambda: get_registry("broker")  # noqa: E731
 controller_metrics = lambda: get_registry("controller")  # noqa: E731
+minion_metrics = lambda: get_registry("minion")  # noqa: E731

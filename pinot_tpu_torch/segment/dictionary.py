@@ -38,8 +38,11 @@ class Dictionary:
             # the strings as code-point arrays in C, where an object array
             # would compare Python objects one call at a time. The order is
             # numpy's string order, the same the reference's factorize + sort
-            # produces, so ids and values match it exactly.
+            # produces, so ids and values match it exactly. The values are as
+            # wide as the longest one, as the reference's are, whatever the
+            # width of a fixed-width input.
             values, ids = np.unique(np.asarray(column).astype(str), return_inverse=True)
+            values = values.astype(f"<U{max(1, int(np.char.str_len(values).max(initial=0)))}")
         else:
             values, ids = np.unique(np.asarray(column, dtype=data_type.np_dtype), return_inverse=True)
         return Dictionary(data_type, values), ids.reshape(-1).astype(np.int32)

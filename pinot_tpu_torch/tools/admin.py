@@ -9,15 +9,16 @@ serves until it is stopped.
 
 This is the JAX package's `tools/admin.py`. A server holds its segments on
 `--device` and a broker runs its distributed root stage there ("cuda" unless
-the caller passes "cpu"); with no card and no `--device cpu`, StartServer
-and StartBroker exit non-zero instead of serving on the CPU.
+the caller passes "cpu"); with no card and no `--device cpu`, StartServer,
+StartBroker and QuickStart exit non-zero instead of serving on the CPU.
 StartController runs the control plane as the reference does: --ha joins
 the lead-controller election, --cold-start clears stale external views, and
 --with-periodics runs the metrics aggregator and the integrity scrubber on
-whoever leads. Commands that reach modules the port has not taken yet exit
-non-zero naming their ROADMAP item: batch ingestion and minion tasks (A10b:
-QuickStart, ImportData, CreateSegment, LaunchDistributedDataIngestionJob,
-ScheduleTasks).
+whoever leads. ImportData, CreateSegment and
+LaunchDistributedDataIngestionJob run the batch runners of `io/batch.py`
+(the last in worker processes that load no torch); ScheduleTasks asks the
+controller's task manager to generate minion tasks; QuickStart runs the
+all-in-one demo cluster with a minion.
 
 Usage:
     python -m pinot_tpu_torch.tools.admin StartController --store-dir S --deep-store D [--port P] [--ha] [--with-periodics]
@@ -27,6 +28,10 @@ Usage:
     python -m pinot_tpu_torch.tools.admin UploadSegment --controller-url U --table T --segment-dir D
     python -m pinot_tpu_torch.tools.admin PostQuery --broker-url U --query SQL
     python -m pinot_tpu_torch.tools.admin RebalanceTable --controller-url U --table T [--bootstrap]
+    python -m pinot_tpu_torch.tools.admin ImportData --controller-url U --table T --input-dir D [--pattern '*.csv']
+    python -m pinot_tpu_torch.tools.admin LaunchDistributedDataIngestionJob --controller-url U --table T --input-dir D [--workers 2]
+    python -m pinot_tpu_torch.tools.admin ScheduleTasks --controller-url U [--task-type MergeRollupTask]
+    python -m pinot_tpu_torch.tools.admin QuickStart [--device cpu] [--exit]
 """
 
 from __future__ import annotations
@@ -50,16 +55,6 @@ def _block(services):
             stop = getattr(s, "stop", None)
             if stop:
                 stop()
-
-
-def _stop_command(item: str, what: str):
-    """fn of a command whose modules are ROADMAP `item`: exits non-zero
-    naming it, whatever its arguments."""
-
-    def fn(args):
-        raise SystemExit(f"{args.command}: {what} is ROADMAP {item}, not yet in pinot_tpu_torch")
-
-    return fn
 
 
 def cmd_start_controller(args) -> dict:
@@ -109,24 +104,31 @@ def cmd_start_controller(args) -> dict:
     return handles
 
 
-def cmd_start_server(args) -> dict:
+def _card_or_exit(command: str, device: str) -> None:
+    """A role that serves on `device`: with "cuda", the card must be there
+    (else exit non-zero) and the kernels load before any traffic (a build
+    cached by digest in pinot_tpu_torch/_build/ loads at once, a missing one
+    compiles)."""
     import torch
 
+    if torch.device(device).type != "cuda":
+        return
+    if not torch.cuda.is_available():
+        raise SystemExit(
+            f"{command} --device {device}: no CUDA device is available; pass --device cpu to serve on the CPU"
+        )
+    from pinot_tpu_torch.ops import build
+
+    for name in build.KERNEL_SOURCES:
+        build.load(name)
+
+
+def cmd_start_server(args) -> dict:
     from pinot_tpu_torch.cluster import Server
     from pinot_tpu_torch.cluster.http import RemoteControllerClient, ServerHTTPService
     from pinot_tpu_torch.common.config import SchedulerConfig
 
-    if torch.device(args.device).type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit(
-                f"StartServer --device {args.device}: no CUDA device is available; pass --device cpu to serve on the CPU"
-            )
-        # load the kernels before taking traffic: a build cached by digest
-        # in pinot_tpu_torch/_build/ loads at once, a missing one compiles
-        from pinot_tpu_torch.ops import build
-
-        for name in build.KERNEL_SOURCES:
-            build.load(name)
+    _card_or_exit("StartServer", args.device)
 
     scheduler = (
         SchedulerConfig(kind=args.scheduler, num_runners=args.runners)
@@ -218,6 +220,39 @@ def cmd_add_table(args) -> dict:
     return {"table": config.table_name}
 
 
+def cmd_import_data(args) -> dict:
+    """Build segments locally from input files and push them
+    (LaunchDataIngestionJob standalone parity)."""
+    import tempfile
+
+    from pinot_tpu_torch.cluster.http import RemoteControllerClient
+    from pinot_tpu_torch.common.types import Schema
+    from pinot_tpu_torch.io.batch import SegmentGenerationJobSpec, run_segment_generation_job
+
+    rc = RemoteControllerClient(args.controller_url)
+    schema_doc = rc._get(f"/tables/{args.table}/schema")
+    schema = Schema.from_json(json.dumps(schema_doc))
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = SegmentGenerationJobSpec(
+            table_name=args.table,
+            schema=schema,
+            input_dir_uri=args.input_dir,
+            include_file_name_pattern=args.pattern,
+            input_format=args.format,
+            output_dir_uri=tmp,
+            segment_name_prefix=args.segment_prefix or args.table,
+        )
+        files: list[dict] = []
+        seg_dirs = run_segment_generation_job(spec, report=files)
+        pushed = []
+        for d, f in zip(seg_dirs, files):
+            t0 = time.perf_counter()
+            pushed.append(rc.upload_segment_dir(args.table, d)["segment"])
+            f["push_s"] = time.perf_counter() - t0
+    print(f"pushed {len(pushed)} segment(s): {pushed}", flush=True)
+    return {"pushed": pushed, "files": files}
+
+
 def cmd_post_query(args) -> dict:
     from pinot_tpu_torch.client import connect
 
@@ -230,6 +265,14 @@ def cmd_post_query(args) -> dict:
     out = {"columns": rs.columns, "rows": rs.rows, **rs.execution_stats}
     print(json.dumps(out, default=str), flush=True)
     return out
+
+
+def cmd_schedule_tasks(args) -> dict:
+    from pinot_tpu_torch.cluster.http import RemoteControllerClient
+
+    scheduled = RemoteControllerClient(args.controller_url).schedule_tasks(args.task_type)
+    print(json.dumps({"scheduled": scheduled}), flush=True)
+    return {"scheduled": scheduled}
 
 
 def cmd_rebalance_table(args) -> dict:
@@ -279,6 +322,57 @@ def cmd_upload_segment(args) -> dict:
     out = rc.upload_segment_dir(args.table, args.segment_dir)
     print(json.dumps(out), flush=True)
     return out
+
+
+def cmd_create_segment(args) -> dict:
+    """Build segments from input files into an output dir WITHOUT pushing
+    (CreateSegmentCommand parity)."""
+    from pinot_tpu_torch.common.types import Schema
+    from pinot_tpu_torch.io.batch import SegmentGenerationJobSpec, run_segment_generation_job
+
+    schema = Schema.from_json(Path(args.schema_file).read_text())
+    spec = SegmentGenerationJobSpec(
+        table_name=args.table,
+        schema=schema,
+        input_dir_uri=args.input_dir,
+        include_file_name_pattern=args.pattern,
+        input_format=args.format,
+        output_dir_uri=args.output_dir,
+        segment_name_prefix=args.segment_prefix or args.table,
+    )
+    dirs = run_segment_generation_job(spec)
+    print(json.dumps({"segments": dirs}), flush=True)
+    return {"segments": dirs}
+
+
+def cmd_launch_distributed_job(args) -> dict:
+    """Distributed ingestion job over worker processes
+    (LaunchSparkDataIngestionJobCommand analog on the local-process tier)."""
+    from pinot_tpu_torch.cluster.http import RemoteControllerClient
+    from pinot_tpu_torch.io.batch import (
+        SegmentGenerationJobSpec,
+        run_distributed_segment_generation_job,
+    )
+
+    rc = RemoteControllerClient(args.controller_url)
+    schema = rc.get_schema(args.table)
+    if schema is None:
+        raise SystemExit(f"no schema for table {args.table!r} on {args.controller_url}")
+    spec = SegmentGenerationJobSpec(
+        table_name=args.table,
+        schema=schema,
+        input_dir_uri=args.input_dir,
+        job_type="SegmentCreationAndTarPush",
+        include_file_name_pattern=args.pattern,
+        input_format=args.format,
+        segment_name_prefix=args.segment_prefix or args.table,
+    )
+    files: list[dict] = []
+    names = run_distributed_segment_generation_job(
+        spec, n_workers=args.workers, controller_url=args.controller_url, report=files
+    )
+    print(json.dumps({"pushed": names}), flush=True)
+    return {"pushed": names, "files": files}
 
 
 def cmd_generate_data(args) -> dict:
@@ -425,9 +519,98 @@ def cmd_json_to_schema(args) -> dict:
     return doc
 
 
+def cmd_quickstart(args) -> dict:
+    """All-in-one in-process cluster with a sample table
+    (QuickStartCommand parity: baseballStats-flavored demo data), its
+    servers and broker on `--device`, a minion on a thread."""
+    import tempfile
+
+    import numpy as np
+
+    from pinot_tpu_torch.cluster import Broker, Controller, PropertyStore, Server
+    from pinot_tpu_torch.cluster.http import BrokerHTTPService, ControllerHTTPService, ServerHTTPService
+    from pinot_tpu_torch.common import DataType, Schema, TableConfig
+    from pinot_tpu_torch.minion import PinotTaskManager
+    from pinot_tpu_torch.minion.tasks import make_minion_with_builtins
+    from pinot_tpu_torch.segment import SegmentBuilder
+
+    _card_or_exit("QuickStart", args.device)
+    workdir = Path(args.dir) if args.dir else Path(tempfile.mkdtemp(prefix="pinot-tpu-quickstart-"))
+    controller = Controller(PropertyStore(workdir / "store"), workdir / "deepstore")
+    tm = PinotTaskManager(controller)
+    minion = make_minion_with_builtins("minion_0", tm, controller)
+    servers = {}
+    for i in range(args.servers):
+        sid = f"server_{i}"
+        servers[sid] = Server(sid, device=args.device)
+        controller.register_server(sid, servers[sid])
+
+    schema = Schema.build(
+        "baseballStats",
+        dimensions=[("playerName", DataType.STRING), ("teamID", DataType.STRING), ("league", DataType.STRING)],
+        metrics=[("runs", DataType.LONG), ("homeRuns", DataType.LONG)],
+        date_times=[("yearID", DataType.INT)],
+    )
+    controller.add_schema(schema)
+    controller.add_table(TableConfig("baseballStats", time_column="yearID"))
+
+    rng = np.random.default_rng(7)
+    n = args.rows
+    builder = SegmentBuilder(schema)
+    teams = np.array(["BOS", "NYA", "CHA", "SFN", "LAN", "SLN"], dtype=object)
+    for i in range(2):
+        data = {
+            "playerName": np.array([f"player {j:04d}" for j in rng.integers(0, max(n // 4, 1), n)], dtype=object),
+            "teamID": teams[rng.integers(0, len(teams), n)],
+            "league": np.array(["NL", "AL"], dtype=object)[rng.integers(0, 2, n)],
+            "runs": rng.integers(0, 130, n).astype(np.int64),
+            "homeRuns": rng.integers(0, 45, n).astype(np.int64),
+            "yearID": rng.integers(1990, 2024, n).astype(np.int32),
+        }
+        controller.upload_segment("baseballStats", builder.build(data, f"baseballStats_{i}"))
+
+    broker = Broker(controller, device=args.device)
+    c_svc = ControllerHTTPService(controller, port=args.controller_port, task_manager=tm)
+    b_svc = BrokerHTTPService(broker, port=args.broker_port)
+    s_svcs = [ServerHTTPService(s, port=0) for s in servers.values()]
+    controller.register_broker("broker_0", "127.0.0.1", b_svc.port)
+    minion.start(poll_interval=0.5)
+
+    sample = "SELECT league, SUM(runs) FROM baseballStats GROUP BY league ORDER BY SUM(runs) DESC LIMIT 10"
+    res = broker.execute(sample)
+    print(f"controller: http://127.0.0.1:{c_svc.port}")
+    print(f"broker:     http://127.0.0.1:{b_svc.port}  (POST /query/sql)")
+    print(f"sample query: {sample}")
+    print(res, flush=True)
+    handles = {
+        "controller": controller,
+        "broker": broker,
+        "servers": servers,
+        "minion": minion,
+        "services": [c_svc, b_svc, *s_svcs],
+        "workdir": workdir,
+        "sample": res,
+    }
+    return handles
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pinot-tpu-torch-admin", description=__doc__.split("\n")[0])
     sub = p.add_subparsers(dest="command", required=True)
+
+    q = sub.add_parser("QuickStart", help="all-in-one demo cluster")
+    q.add_argument("--rows", type=int, default=1000)
+    q.add_argument("--servers", type=int, default=2)
+    q.add_argument("--dir", default=None)
+    q.add_argument("--controller-port", type=int, default=0)
+    q.add_argument("--broker-port", type=int, default=0)
+    q.add_argument(
+        "--device",
+        default="cuda",
+        help="where the servers stage and run their segments (default cuda; cpu to run without a card)",
+    )
+    q.add_argument("--exit", action="store_true", help="exit after sample query (tests)")
+    q.set_defaults(fn=cmd_quickstart, blocking=True)
 
     c = sub.add_parser("StartController")
     c.add_argument("--store-dir", required=True)
@@ -528,11 +711,25 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--config-file", required=True)
     a.set_defaults(fn=cmd_add_table, blocking=False)
 
+    i = sub.add_parser("ImportData")
+    i.add_argument("--controller-url", required=True)
+    i.add_argument("--table", required=True)
+    i.add_argument("--input-dir", required=True)
+    i.add_argument("--pattern", default="*")
+    i.add_argument("--format", default=None)
+    i.add_argument("--segment-prefix", default=None)
+    i.set_defaults(fn=cmd_import_data, blocking=False)
+
     pq = sub.add_parser("PostQuery")
     pq.add_argument("--broker-url", default=None)
     pq.add_argument("--controller-url", default=None)
     pq.add_argument("--query", required=True)
     pq.set_defaults(fn=cmd_post_query, blocking=False)
+
+    st = sub.add_parser("ScheduleTasks")
+    st.add_argument("--controller-url", required=True)
+    st.add_argument("--task-type", default=None)
+    st.set_defaults(fn=cmd_schedule_tasks, blocking=False)
 
     rb = sub.add_parser("RebalanceTable")
     rb.add_argument("--controller-url", required=True)
@@ -573,6 +770,26 @@ def build_parser() -> argparse.ArgumentParser:
     us.add_argument("--segment-dir", required=True)
     us.set_defaults(fn=cmd_upload_segment, blocking=False)
 
+    cs = sub.add_parser("CreateSegment")
+    cs.add_argument("--table", required=True)
+    cs.add_argument("--schema-file", required=True)
+    cs.add_argument("--input-dir", required=True)
+    cs.add_argument("--output-dir", required=True)
+    cs.add_argument("--pattern", default="*")
+    cs.add_argument("--format", default=None)
+    cs.add_argument("--segment-prefix", default=None)
+    cs.set_defaults(fn=cmd_create_segment, blocking=False)
+
+    dj = sub.add_parser("LaunchDistributedDataIngestionJob")
+    dj.add_argument("--controller-url", required=True)
+    dj.add_argument("--table", required=True)
+    dj.add_argument("--input-dir", required=True)
+    dj.add_argument("--pattern", default="*")
+    dj.add_argument("--format", default=None)
+    dj.add_argument("--segment-prefix", default=None)
+    dj.add_argument("--workers", type=int, default=2)
+    dj.set_defaults(fn=cmd_launch_distributed_job, blocking=False)
+
     gd = sub.add_parser("GenerateData")
     gd.add_argument("--schema-file", required=True)
     gd.add_argument("--output-dir", required=True)
@@ -604,29 +821,20 @@ def build_parser() -> argparse.ArgumentParser:
     js.add_argument("--sample-rows", type=int, default=200)
     js.set_defaults(fn=cmd_json_to_schema, blocking=False)
 
-    for name, item, what in (
-        ("QuickStart", "A10b", "the all-in-one demo cluster runs a minion"),
-        ("ImportData", "A10b", "batch ingestion (io/batch)"),
-        ("CreateSegment", "A10b", "batch ingestion (io/batch)"),
-        ("LaunchDistributedDataIngestionJob", "A10b", "batch ingestion (io/batch)"),
-        ("ScheduleTasks", "A10b", "minion tasks"),
-    ):
-        # any arguments: main() lets them through to the exit naming the item
-        sub.add_parser(name, help=f"ROADMAP {item}: {what}").set_defaults(
-            fn=_stop_command(item, what), blocking=False, stopped=True
-        )
-
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if extra and not getattr(args, "stopped", False):
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     handles = args.fn(args)
-    if args.blocking:
-        _block([handles["service"]])
+    if args.blocking and not getattr(args, "exit", False):
+        _block(handles.get("services") or [handles["service"]])
+    elif getattr(args, "exit", False):
+        for s in handles.get("services", []):
+            s.stop()
+        m = handles.get("minion")
+        if m:
+            m.stop()
     return 0
 
 

@@ -1,9 +1,10 @@
 """The port's Python client, admin CLI and controller REST against the JAX
 package's.
 
-Mirrors tests/test_client_cli.py (its QuickStart, ImportData, CreateSegment
-and ScheduleTasks legs reach ROADMAP A10 modules; here those commands must
-exit non-zero naming A10). Two stacks:
+Mirrors tests/test_client_cli.py, its QuickStart, ImportData, CreateSegment,
+LaunchDistributedDataIngestionJob and ScheduleTasks legs too: each runs
+through both packages' admin CLIs, against each package's own cluster. Two
+stacks:
 
 - `stack`: controller, server and broker in this process, each behind its
   HTTP service, the broker built over a RemoteControllerClient;
@@ -20,6 +21,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -39,6 +41,16 @@ from pinot_tpu_torch.common import DataType, Schema, TableConfig
 from pinot_tpu_torch.segment import SegmentBuilder
 from pinot_tpu_torch.segment.builder import write_segment
 from pinot_tpu_torch.tools.admin import main
+
+import pinot_tpu.cluster.http as r_http
+import pinot_tpu.common as r_common
+import pinot_tpu.minion as r_minion
+import pinot_tpu.minion.tasks as r_tasks
+import pinot_tpu.tools.admin as r_admin
+import pinot_tpu_torch.cluster.http as p_http
+import pinot_tpu_torch.minion as p_minion
+import pinot_tpu_torch.minion.tasks as p_tasks
+import pinot_tpu_torch.tools.admin as p_admin
 
 REPO = Path(__file__).resolve().parents[1]
 START_TIMEOUT_S = 60.0
@@ -209,21 +221,48 @@ def test_remote_broker_executes_via_remote_server(stack):
     assert rs.rows == [["a", 4.0], ["b", 2.0]]
 
 
-def test_a10_endpoints_answer_501(stack):
-    """The minion task endpoints (A10b) answer 501 naming A10; the control
-    plane's (A10c) answer as the reference's: the UI, /debug/cluster and
-    /debug/alerts (404 until an aggregator registers) and a rebalance."""
+def test_a10_endpoints_answer_501(stack, tmp_path):
+    """The minion task endpoints answer as the reference's: 404 on a
+    controller with no task manager (the stack's), and, with one, GET /tasks
+    lists every task and POST /tasks/schedule returns the scheduled ids.
+    The control plane's answer as the reference's too: the UI,
+    /debug/cluster and /debug/alerts (404 until an aggregator registers) and
+    a rebalance."""
     import urllib.error
     import urllib.request
 
+    from pinot_tpu.cluster.http import ControllerHTTPService as RControllerHTTPService
     from pinot_tpu.cluster.ui import UI_HTML
+    from pinot_tpu.minion import PinotTaskManager as RPinotTaskManager, TaskConfig as RTaskConfig
+    from pinot_tpu_torch.minion import PinotTaskManager, TaskConfig
 
     for method, path in (("GET", "/tasks"), ("POST", "/tasks/schedule")):
         req = urllib.request.Request(stack["c_url"] + path, data=b"{}" if method == "POST" else None, method=method)
         with pytest.raises(urllib.error.HTTPError) as ei:
             urllib.request.urlopen(req, timeout=10)
-        assert ei.value.code == 501, path
-        assert "A10" in json.loads(ei.value.read())["error"], path
+        assert ei.value.code == 404, path
+        assert json.loads(ei.value.read()) == {"error": "not found"}, path
+    out = {}
+    for name, ctrl, svc_cls, tm_cls, task_cls in (
+        ("ref", rc.Controller(rc.PropertyStore(), tmp_path / "ref"), RControllerHTTPService, RPinotTaskManager, RTaskConfig),
+        ("port", Controller(PropertyStore(), tmp_path / "port"), ControllerHTTPService, PinotTaskManager, TaskConfig),
+    ):
+        tm = tm_cls(ctrl)
+        svc = svc_cls(ctrl, task_manager=tm)
+        url = f"http://127.0.0.1:{svc.port}"
+        try:
+            tm.submit(task_cls("OkTask", "t"))
+            req = urllib.request.Request(url + "/tasks/schedule", data=b"{}", method="POST")
+            with urllib.request.urlopen(req, timeout=10) as r:
+                scheduled = json.loads(r.read())
+            with urllib.request.urlopen(url + "/tasks?state=COMPLETED", timeout=10) as r:
+                listed = json.loads(r.read())
+            out[name] = (scheduled, listed, svc.task_manager is tm)
+        finally:
+            svc.stop()
+    assert out["port"] == out["ref"]
+    # ?state= is not a filter in the reference either (ROADMAP Queue C)
+    assert out["port"] == ({"scheduled": []}, [{"taskId": "Task_OkTask_0", "type": "OkTask", "state": "WAITING"}], True)
     with urllib.request.urlopen(stack["c_url"] + "/", timeout=10) as r:
         assert r.status == 200 and r.read() == UI_HTML.encode()
     for path in ("/debug/cluster", "/debug/alerts"):
@@ -300,9 +339,132 @@ def test_cli_add_table_upload_query(stack, tmp_path):
 
 
 def test_cli_schedule_tasks(stack):
-    # the port's controller has no task manager (minion tasks are A10)
-    with pytest.raises(RuntimeError, match="A10"):
+    # controller service in this stack has no task manager -> 404 path, as
+    # in the reference's test
+    with pytest.raises(RuntimeError, match="404"):
         RemoteControllerClient(stack["c_url"]).schedule_tasks()
+
+
+REF_CLI = SimpleNamespace(name="ref", cluster=rc, common=r_common, minion=r_minion, tasks=r_tasks,
+                          admin=r_admin, http=r_http, server=lambda sid: rc.Server(sid),
+                          broker=lambda c: rc.Broker(c), device=[])
+PORT_CLI = SimpleNamespace(
+    name="port", cluster=__import__("pinot_tpu_torch.cluster", fromlist=["Controller"]),
+    common=__import__("pinot_tpu_torch.common", fromlist=["Schema"]), minion=p_minion, tasks=p_tasks,
+    admin=p_admin, http=p_http, server=lambda sid: Server(sid, device="cpu"),
+    broker=lambda c: Broker(c, device="cpu"), device=["--device", "cpu"])
+
+
+def _cli_cluster(pkg, root, extra=None):
+    """An in-process controller behind its REST service (with a task manager
+    and a minion's generators), one server, a `clicks` table."""
+    controller = pkg.cluster.Controller(pkg.cluster.PropertyStore(), root / "deep")
+    controller.register_server("server_0", pkg.server("server_0"))
+    dt = pkg.common.DataType
+    controller.add_schema(pkg.common.Schema.build("clicks", dimensions=[("k", dt.STRING)], metrics=[("v", dt.LONG)]))
+    tc = pkg.common.TableConfig("clicks")
+    tc.extra = extra or {}
+    controller.add_table(tc)
+    tm = pkg.minion.PinotTaskManager(controller)
+    minion = pkg.tasks.make_minion_with_builtins("minion_0", tm, controller)
+    svc = pkg.http.ControllerHTTPService(controller, task_manager=tm)
+    return controller, svc, f"http://127.0.0.1:{svc.port}", minion
+
+
+def _clicks_csv(d: Path, n_files: int) -> Path:
+    d.mkdir(parents=True, exist_ok=True)
+    for i in range(n_files):
+        (d / f"data{i}.csv").write_text("k,v\n" + "".join(f"{'xy'[j % 2]},{j + 10 * i}\n" for j in range(5)))
+    return d
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _cli_quickstart(pkg, root, capsys):
+    args = pkg.admin.build_parser().parse_args(["QuickStart", "--rows", "200", "--servers", "1", "--exit",
+                                                "--dir", str(root), *pkg.device])
+    h = args.fn(args)
+    try:
+        c_url = f"http://127.0.0.1:{h['services'][0].port}"
+        rows = h["broker"].execute("SELECT league, COUNT(*), SUM(runs) FROM baseballStats GROUP BY league ORDER BY league").rows
+        rcl = pkg.http.RemoteControllerClient(c_url)
+        return rows, rcl.tables(), rcl.schedule_tasks(), "sample query" in capsys.readouterr().out
+    finally:
+        for svc in h["services"]:
+            svc.stop()
+        h["minion"].stop()
+
+
+def _cli_import_data(pkg, root, capsys):
+    controller, svc, url, _ = _cli_cluster(pkg, root)
+    try:
+        assert pkg.admin.main(["ImportData", "--controller-url", url, "--table", "clicks", "--input-dir",
+                               str(_clicks_csv(root / "in", 2)), "--pattern", "*.csv"]) == 0
+        printed = capsys.readouterr().out.strip().splitlines()[-1]
+        return printed, pkg.broker(controller).execute("SELECT k, SUM(v) FROM clicks GROUP BY k ORDER BY k").rows
+    finally:
+        svc.stop()
+
+
+def _cli_create_segment(pkg, root, capsys):
+    dt = pkg.common.DataType
+    (root / "schema.json").parent.mkdir(parents=True, exist_ok=True)
+    (root / "schema.json").write_text(
+        pkg.common.Schema.build("clicks", dimensions=[("k", dt.STRING)], metrics=[("v", dt.LONG)]).to_json())
+    assert pkg.admin.main(["CreateSegment", "--table", "clicks", "--schema-file", str(root / "schema.json"),
+                           "--input-dir", str(_clicks_csv(root / "in", 2)), "--output-dir", str(root / "out"),
+                           "--segment-prefix", "made"]) == 0
+    dirs = _last_json(capsys)["segments"]
+    load = __import__(f"{pkg.cluster.__name__.split('.')[0]}.segment", fromlist=["load_segment"]).load_segment
+    return [(Path(d).name, {c: ci.materialize().tolist() for c, ci in load(d).columns.items()}) for d in dirs]
+
+
+def _cli_distributed(pkg, root, capsys):
+    controller, svc, url, _ = _cli_cluster(pkg, root)
+    try:
+        assert pkg.admin.main(["LaunchDistributedDataIngestionJob", "--controller-url", url, "--table", "clicks",
+                               "--input-dir", str(_clicks_csv(root / "in", 3)), "--workers", "2",
+                               "--segment-prefix", "dist"]) == 0
+        return sorted(_last_json(capsys)["pushed"]), pkg.broker(controller).execute(
+            "SELECT k, COUNT(*), SUM(v) FROM clicks GROUP BY k ORDER BY k").rows
+    finally:
+        svc.stop()
+
+
+def _cli_schedule(pkg, root, capsys):
+    controller, svc, url, minion = _cli_cluster(pkg, root, {"mergeRollup": {"minNumSegments": 2}})
+    try:
+        seg = __import__(f"{pkg.cluster.__name__.split('.')[0]}.segment", fromlist=["SegmentBuilder"])
+        schema = controller.get_schema("clicks")
+        for i in range(2):
+            controller.upload_segment("clicks", seg.SegmentBuilder(schema).build(
+                {"k": np.array(["x", "y"], dtype=object), "v": np.array([i, 5], dtype=np.int64)}, f"clicks_{i}"))
+        assert pkg.admin.main(["ScheduleTasks", "--controller-url", url]) == 0
+        scheduled = _last_json(capsys)
+        minion.run_pending()
+        return scheduled, sorted(controller.ideal_state("clicks")), pkg.broker(controller).execute(
+            "SELECT k, SUM(v) FROM clicks GROUP BY k ORDER BY k").rows
+    finally:
+        svc.stop()
+
+
+A10B_COMMANDS = {
+    "QuickStart": _cli_quickstart,
+    "ImportData": _cli_import_data,
+    "CreateSegment": _cli_create_segment,
+    "LaunchDistributedDataIngestionJob": _cli_distributed,
+    "ScheduleTasks": _cli_schedule,
+}
+A10B_EXPECTED = {
+    "QuickStart": ([["AL", 202, 13329.0], ["NL", 198, 13774.0]], ["baseballStats"], [], True),
+    "ImportData": ("pushed 2 segment(s): ['clicks_0', 'clicks_1']", [["x", 42.0], ["y", 28.0]]),
+    "CreateSegment": [("made_0", {"k": ["x", "y", "x", "y", "x"], "v": [0, 1, 2, 3, 4]}),
+                      ("made_1", {"k": ["x", "y", "x", "y", "x"], "v": [10, 11, 12, 13, 14]})],
+    "LaunchDistributedDataIngestionJob": (["dist_0", "dist_1", "dist_2"], [["x", 9, 108.0], ["y", 6, 72.0]]),
+    "ScheduleTasks": ({"scheduled": ["Task_MergeRollupTask_0"]}, ["clicks_merged_0_0"], [["x", 1.0], ["y", 10.0]]),
+}
 
 
 @pytest.mark.parametrize(
@@ -311,9 +473,10 @@ def test_cli_schedule_tasks(stack):
      "RebalanceTable", "StartController --ha", "StartController --cold-start", "StartController --with-periodics"],
 )
 def test_a10_commands_exit_naming_a10(command, tmp_path, request, capsys):
-    """The batch-ingestion and minion commands (A10b) exit non-zero naming
-    A10; the control plane's (A10c) run: RebalanceTable against the stack's
-    controller, and StartController's --ha, --cold-start and
+    """Every A10 command runs. The batch-ingestion and minion ones (A10b)
+    run through both packages' CLIs, each against its own in-process
+    cluster, and answer alike (A10B_COMMANDS); RebalanceTable runs against
+    the stack's controller; StartController's --ha, --cold-start and
     --with-periodics start the controller with its election, its cleared
     external views or its periodic scheduler."""
     from pinot_tpu_torch.tools.admin import build_parser
@@ -343,11 +506,12 @@ def test_a10_commands_exit_naming_a10(command, tmp_path, request, capsys):
         assert main(argv) == 0
         assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["status"] == "NO_OP"
         return
-    argv += ["--controller-url", "http://127.0.0.1:1", "--table", "t"]
-    with pytest.raises(SystemExit) as ei:
-        main(argv)
-    assert ei.value.code not in (0, None)
-    assert "A10" in str(ei.value.code)
+    out = {}
+    for pkg in (REF_CLI, PORT_CLI):
+        capsys.readouterr()
+        out[pkg.name] = A10B_COMMANDS[argv[0]](pkg, tmp_path / pkg.name, capsys)
+    assert out["port"] == out["ref"]
+    assert out["port"] == A10B_EXPECTED[argv[0]]
 
 
 def test_cli_long_tail_commands(stack, tmp_path, capsys):

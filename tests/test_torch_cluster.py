@@ -10,6 +10,7 @@ must equal the reference's.
 """
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -358,11 +359,13 @@ def test_time_boundary_sql_rewrites():
 
 
 def test_cuts_name_their_roadmap_item(clusters, tmp_path):
-    """The cuts left name their ROADMAP item (A10b); what A9b, A10a and
-    A10c cut is ported: access control, the controller's REST service and
-    client, the stage submit (whose body a bare dict fails to carry), a
-    realtime table's manager attached to a server, and the lead-controller
-    election (`enable_ha` elects this controller, which still answers)."""
+    """The cut left names its ROADMAP item (A10d: the broker's /timeseries
+    answers 501); what A9b, A10a, A10b and A10c cut is ported: access
+    control, the controller's REST service and client, the stage submit
+    (whose body a bare dict fails to carry), a realtime table's manager
+    attached to a server, the lead-controller election (`enable_ha` elects
+    this controller, which still answers) and the minion task endpoints
+    (`ControllerHTTPService(task_manager=)`)."""
     ctrl, _, servers = clusters["port"]
     standby = Controller(ctrl.store, tmp_path / "standby_deep", controller_id="standby")
     ctrl.enable_ha(lease_ttl=30.0, renew_every=0.2)
@@ -397,13 +400,27 @@ def test_cuts_name_their_roadmap_item(clusters, tmp_path):
     b = Broker(ctrl, access_control=AllowAllAccessControl())
     assert b.execute("SELECT COUNT(*) FROM lineorder").rows == clusters["ref"][1].execute("SELECT COUNT(*) FROM lineorder").rows
     b.shutdown()
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ControllerHTTPService(ctrl, task_manager=object())
-    svc = ControllerHTTPService(ctrl)
+    import urllib.error
+    import urllib.request
+
+    from pinot_tpu_torch.cluster.http import BrokerHTTPService
+    from pinot_tpu_torch.minion import PinotTaskManager
+
+    tm = PinotTaskManager(ctrl)
+    svc = ControllerHTTPService(ctrl, task_manager=tm)
+    bsvc = BrokerHTTPService(Broker(ctrl, device="cpu"))
     try:
-        assert RemoteControllerClient(f"http://127.0.0.1:{svc.port}").tables() == ctrl.tables()
+        rcl = RemoteControllerClient(f"http://127.0.0.1:{svc.port}")
+        assert rcl.tables() == ctrl.tables() and svc.task_manager is tm
+        assert rcl.schedule_tasks() == [] and rcl._get("/tasks") == []
+        req = urllib.request.Request(f"http://127.0.0.1:{bsvc.port}/timeseries/api/v1/query_range",
+                                     data=b"{}", method="POST")
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(req, timeout=10)
+        assert ei.value.code == 501 and "A10d" in json.loads(ei.value.read())["error"]
     finally:
         svc.stop()
+        bsvc.stop()
 
 
 def test_server_without_a_card_raises_at_its_first_engine(tmp_path):

@@ -663,3 +663,47 @@ def test_controller_process_runs_without_torch(tmp_path):
     assert p.returncode == 0, p.stderr[-3000:]
     assert json.loads(p.stdout.strip().splitlines()[-1]) == {
         "leader": True, "reb": "NO_OP", "ideal": {"t_0": {"s0": "ONLINE"}}, "peak": H100_GBPS, "ha": 1, "torch": False}
+
+
+_NO_TORCH_INGEST = """
+import json, sys
+sys.modules["torch"] = None  # any import of torch now fails
+import numpy as np
+from pinot_tpu_torch.common import DataType, Schema
+from pinot_tpu_torch.io import batch
+from pinot_tpu_torch.minion import SegmentProcessorConfig, process_segments
+from pinot_tpu_torch.segment import load_segment
+
+root = sys.argv[1]
+s = Schema.build("t", dimensions=[("k", DataType.STRING)], metrics=[("v", DataType.LONG)])
+for i in range(3):
+    open(f"{root}/in{i}.csv", "w").write("k,v\\n" + "".join(f"{'ab'[j % 2]},{j + i}\\n" for j in range(6)))
+spec = batch.SegmentGenerationJobSpec("t", s, root, include_file_name_pattern="in*.csv", output_dir_uri=root + "/out")
+files = []
+dirs = batch.run_distributed_segment_generation_job(spec, n_workers=2, report=files)
+segs = [load_segment(d) for d in dirs]
+[rolled] = process_segments(segs, SegmentProcessorConfig(schema=s, merge_type="ROLLUP"))
+[deduped] = process_segments(segs, SegmentProcessorConfig(schema=s, merge_type="DEDUP"))
+print(json.dumps({"workers": sorted({(f["pid"], f["torch"]) for f in files}),
+                  "rolled": rolled.columns["v"].materialize().tolist(), "deduped": deduped.n_docs,
+                  "torch": "torch" in sys.modules and sys.modules["torch"] is not None}))
+"""
+
+
+def test_ingestion_workers_and_minion_processing_run_without_torch(tmp_path):
+    """A distributed ingestion job's worker processes load no torch (each
+    records whether torch was loaded where it built its segment), and the
+    minion's processing (ROLLUP, DEDUP) runs in a process where importing
+    torch fails."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    p = subprocess.run([sys.executable, "-c", _NO_TORCH_INGEST, str(tmp_path)], cwd=repo,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr[-3000:]
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    assert len(out["workers"]) == 2 and not any(torch for _, torch in out["workers"])
+    assert out["rolled"] == [sum(range(0, 6, 2)) * 3 + 9, sum(range(1, 6, 2)) * 3 + 9] and out["deduped"] == 2
+    assert out["torch"] is False

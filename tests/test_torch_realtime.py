@@ -396,6 +396,9 @@ def test_pause_resume_via_controller_rest(tmp_path):
             paused = rc._post("/tables/events/pauseConsumption", b"{}")
             assert paused["servers"] == ["server_rt"]
             assert _wait(lambda: mgr.paused, 2.0)
+            # `paused` is set at once; each consumer writes its PAUSED state
+            # on its next loop turn, which consumingSegmentsInfo reports
+            assert _wait(lambda: all(c.state == "PAUSED" for c in mgr.consumers), 2.0)
             info = rc._get("/tables/events/consumingSegmentsInfo")
             assert info["server_rt"][0]["currentOffset"] == 10
             rc._post("/tables/events/resumeConsumption", b"{}")
