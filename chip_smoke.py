@@ -242,7 +242,7 @@
    equal the oracle with 5 B1 a GROUP BY and none a COUNT, from the server
    processes' registries. Then a seeded compatibility suite in process on
    the card, its kernel calls held against their plain versions.
-21. Batch ingestion and a minion rollup (`batch_minion`, last): 2M rows of
+21. Batch ingestion and a minion rollup (`batch_minion`): 2M rows of
    bench.py's lineorder (seed 17, its six columns) written as 8 files of
    250,000 rows (6 CSV, 2 JSON-lines) in two directories; one Controller
    behind a ControllerHTTPService with a PinotTaskManager, two Servers on
@@ -261,6 +261,26 @@
    sample query against numpy over its segments. Write and read rates a
    format, build and push seconds a segment, each job's seconds, the
    merge's seconds, wall p50s, the phase's seconds against its 60 s budget.
+22. The time-series engine, the DataFrame connector and the native host
+   library (`timeseries_connector`, last): a metrics table of 1,000 hosts
+   (dc = host % 4) reporting a counter every 10 s for 6 h (2,160,000 rows,
+   seed 18) written with connectors.write_table through a
+   RemoteControllerClient into 4 segments of 90 minutes on two Servers on
+   the card (each behind ServerHTTPService), then read back through the
+   deep store (read_table: every row equal to the data; with a pushed-down
+   `where` 3 of the 4 segments pruned and the rows equal to the numpy
+   mask's) and through the servers over HTTP (read_table_via_servers: the
+   same rows as a multiset). A GROUP BY dc with SUM, COUNT, MIN and MAX
+   through a Basic-auth broker equals the oracle with one B1 and one B3 a
+   segment, every kernel call held against its plain version. Six
+   time-series queries (m3ql and PromQL) through POST
+   /timeseries/api/v1/query_range, each body equal to the in-process
+   TimeSeriesEngine over the same servers, three equal to a numpy oracle,
+   every leaf segment on the servers' host executor with no kernel launch;
+   a principal without the table gets 403. Every function of the native
+   host library bit-equal to its numpy fallback over the table's arrays;
+   the kernel wrappers' plan caches' meters (engine.kernelCache.*) against
+   the lookups the phase made.
 
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
@@ -6973,6 +6993,541 @@ def run_batch_minion(torch, counters: dict) -> dict:
     return path_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the time-series engine, the DataFrame connector, the native host
+# library and the kernel-cache observer
+# ---------------------------------------------------------------------------
+
+#: a dashboard's metrics table: TS_HOSTS hosts (dc = host % 4) reporting a
+#: counter every TS_STEP_S seconds for TS_HOURS hours, in time order; a day
+#: (8.64M rows) is cut to 6 h (2.16M) for the phase's budget. Segments of
+#: TS_SEG_ROWS rows hold 90 minutes each
+TS_TABLE, TS_HOSTS, TS_STEP_S, TS_HOURS, TS_SEED, TS_BUDGET_S = "metrics", 1000, 10, 6, 18, 60.0
+TS_START = 1_750_003_200  # epoch seconds, on a whole hour
+TS_POINTS = TS_HOURS * 3600 // TS_STEP_S
+TS_SEG_POINTS = 540
+#: the phase's GROUP BY over the connector-written segments: B1 (SUM, COUNT)
+#: and B3 (MIN, MAX) once a segment, as config 5 plans; counters' order
+TS_GROUPBY_SQL = f"SELECT dc, SUM(value), COUNT(*), MIN(value), MAX(value) FROM {TS_TABLE} GROUP BY dc"
+TS_GROUPBY_LAUNCHES_PER_SEGMENT = (1, 1, 0, 0)
+TS_USERS = {"reader": ("ops", "o"), "denied": ("guest", "g")}
+#: the kernel wrappers' launch-plan caches with their observers:
+#: (module, cached function, observer)
+TS_OBSERVED = (("groupby", "_plan", "_PLAN_CACHE"), ("groupby", "_scratch_bytes", "_SCRATCH_CACHE"),
+               ("extreme", "_plan", "_PLAN_CACHE"), ("extreme", "_spec", "_SPEC_CACHE"),
+               ("grouped_sum_f32", "_plan", "_PLAN_CACHE"), ("grouped_sum_f32", "_spec", "_SPEC_CACHE"))
+
+
+def ts_queries() -> dict:
+    """The six time-series requests (shapes of the reference's own test
+    corpus): name -> (language, query, start, end, step)."""
+    end = TS_START + TS_HOURS * 3600
+    m = f"fetch table={TS_TABLE} value=value time=ts"
+    return {
+        "1_sum_by_dc": ("m3ql", f"{m} agg=sum groupBy=dc", TS_START, end, 60),
+        "2_regroup_rate": ("m3ql", f"{m} agg=sum groupBy=host,dc | groupBy dc | rate", TS_START, end, 300),
+        "3_topk_last_hour": ("m3ql", f"{m} agg=max groupBy=host filter=\"dc = 'dc1'\" | topk 5", end - 3600, end, 60),
+        "4_integral": ("m3ql", f"{m} agg=sum | sum | transformNull 0 | integral", TS_START, end, 300),
+        "5_promql_sum_by_dc": ("promql", f"sum by (dc) ({TS_TABLE}:value)", TS_START, end, 60),
+        "6_promql_delta": ("promql", f'clamp_min(delta(sum({TS_TABLE}:value{{dc="dc1"}})), 0)', TS_START, end, 300),
+    }
+
+
+def ts_data(hosts: int = TS_HOSTS, seed: int = TS_SEED) -> dict:
+    """The metrics table in time order: row t * hosts + h is host h's point
+    at TS_START + t * TS_STEP_S; each host's value is a running sum of
+    integer increments 0-1,000 (under 2^31 over 6 h)."""
+    rng = np.random.default_rng(seed)
+    h = np.tile(np.arange(hosts), TS_POINTS)
+    names = np.array([f"h{i:04d}" for i in range(hosts)], dtype=object)
+    return {
+        "host": names[h],
+        "dc": np.array([f"dc{i}" for i in range(4)], dtype=object)[h % 4],
+        "value": np.cumsum(rng.integers(0, 1001, (TS_POINTS, hosts)), axis=0).reshape(-1).astype(np.int64),
+        "ts": TS_START + np.repeat(np.arange(TS_POINTS, dtype=np.int64) * TS_STEP_S, hosts),
+        "_host_id": h,
+    }
+
+
+def ts_schema():
+    from pinot_tpu_torch.common import DataType, Schema
+
+    return Schema.build(TS_TABLE, dimensions=[("host", DataType.STRING), ("dc", DataType.STRING)],
+                        metrics=[("value", DataType.LONG)], date_times=[("ts", DataType.LONG)])
+
+
+def ts_bucket_sums(data: dict, mask, start: int, end: int, step: int, by=None):
+    """{tag: float64 sums a bucket, NaN where no row} over rows of `mask`
+    in [start, end): the leaf's SUM, exact (every sum is under 2^53)."""
+    n = -(-(end - start) // step)
+    keep = mask & (data["ts"] >= start) & (data["ts"] < end)
+    b = (data["ts"][keep] - start) // step
+    tags = np.zeros(int(keep.sum()), dtype=np.int64) if by is None else by[keep]
+    out = {}
+    vals = data["value"][keep]
+    for t in np.unique(tags):
+        sel = tags == t
+        sums = np.zeros(n, dtype=np.int64)
+        np.add.at(sums, b[sel], vals[sel])
+        out[int(t)] = np.where(np.bincount(b[sel], minlength=n) > 0, sums.astype(np.float64), np.nan)
+    return out
+
+
+def ts_body(start: int, end: int, step: int, tag_names: list, series: dict) -> dict:
+    """The JSON body TimeSeriesBlock.to_dict gives for these series."""
+    n = max(1, -(-(end - start) // step))
+    return {
+        "timeBuckets": (start + step * np.arange(n, dtype=np.float64)).tolist(),
+        "tagNames": tag_names,
+        "series": [{"tags": dict(zip(tag_names, k)), "values": [None if np.isnan(v) else float(v) for v in vals]}
+                   for k, vals in sorted(series.items())],
+    }
+
+
+def ts_oracle(data: dict, queries: dict) -> dict:
+    """Bodies of queries 1, 5 and 6 from the raw arrays."""
+    out = {}
+    dc = data["_host_id"] % 4
+    everything = np.ones(len(dc), dtype=bool)
+    for name in ("1_sum_by_dc", "5_promql_sum_by_dc"):
+        _, _, start, end, step = queries[name]
+        sums = ts_bucket_sums(data, everything, start, end, step, by=dc)
+        out[name] = ts_body(start, end, step, ["dc"], {(f"dc{k}",): v for k, v in sums.items()})
+    _, _, start, end, step = queries["6_promql_delta"]
+    [v] = ts_bucket_sums(data, dc == 1, start, end, step).values()
+    # delta is rate (diff / step) scaled back by the step, then clamp_min 0
+    v = np.maximum(np.concatenate(([np.nan], np.diff(v) / float(step))) * float(step), 0.0)
+    out["6_promql_delta"] = ts_body(start, end, step, [], {(): v})
+    return out
+
+
+def ts_post(url: str, body: dict, user=None) -> tuple:
+    """POST /timeseries/api/v1/query_range with Basic auth: (status, raw
+    body)."""
+    import base64
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"{url}/timeseries/api/v1/query_range", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    if user is not None:
+        req.add_header("Authorization", "Basic " + base64.b64encode(":".join(user).encode()).decode())
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+class LookupCounter:
+    """Stands in for a cached function's module name while the phase runs:
+    counts its lookups, the distinct argument tuples and those whose lookup
+    missed (a lock makes each lookup's miss its own)."""
+
+    def __init__(self, fn):
+        self.fn, self.lookups, self.keys, self.missed = fn, 0, set(), set()
+        self.lock = threading.Lock()
+
+    def __call__(self, *args):
+        with self.lock:
+            before = self.fn.cache_info().misses
+            out = self.fn(*args)
+            self.lookups += 1
+            self.keys.add(args)
+            if self.fn.cache_info().misses > before:
+                self.missed.add(args)
+        return out
+
+
+def cache_meters(label: str) -> dict:
+    from pinot_tpu_torch.common.metrics import server_metrics
+
+    reg = server_metrics()
+    out = {k: reg.meter(f"engine.kernelCache.{k}", cache=label).count for k in ("hits", "misses", "evictions")}
+    out["size"] = reg.gauge("engine.kernelCache.size", cache=label).value
+    return out
+
+
+def ts_native(data: dict) -> dict:
+    """Each function of the native host library on this table's arrays,
+    its result held bit for bit against the module's numpy fallback (taken
+    by setting `_STATE` to no library); ms of each."""
+    from pinot_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError("timeseries_connector: the native library did not build (g++)")
+    n = len(data["ts"])
+    a = data["_host_id"] % 4 == 1
+    b = data["ts"] >= TS_START + (TS_POINTS * 3 // 4) * TS_STEP_S
+    hid = data["_host_id"].astype(np.int64)
+    names = [f"h{i:04d}".encode() for i in range(int(hid.max()) + 1)]
+    blob = b"".join(names)
+    offsets = np.concatenate([[0], np.cumsum([len(s) for s in names])]).astype(np.int64)
+    bucket = ((data["ts"] - TS_START) // 60).astype(np.uint64)
+    v = data["value"].astype(np.float64)
+    ngh = len(names)
+
+    def hll():
+        # dc1's registers merged into the last 90 minutes', then the estimate
+        regs, acc = np.zeros(1 << 12, dtype=np.uint8), np.zeros(1 << 12, dtype=np.uint8)
+        native.hll_update(state["h64"], a, 12, regs)
+        native.hll_update(state["h64"], b, 12, acc)
+        native.hll_merge(regs, acc)
+        return regs, acc, native.hll_estimate(acc, 12)
+
+    state = {}
+    steps = {
+        "bm_from_bool": lambda: (native.bm_from_bool(a), native.bm_from_bool(b)),
+        "bm_and_or_andnot_not": lambda: (native.bm_and(state["ab"][0], state["ab"][1]),
+                                         native.bm_or(state["ab"][0], state["ab"][1]),
+                                         native.bm_andnot(state["ab"][0], state["ab"][1]), native.bm_not(state["ab"][0])),
+        "bm_cardinality": lambda: native.bm_cardinality(state["ab"][0]),
+        "bm_extract": lambda: native.bm_extract(state["ab"][0]),
+        "bm_from_indices": lambda: native.bm_from_indices(np.flatnonzero(b).astype(np.int32), n),
+        "bm_to_bool": lambda: native.bm_to_bool(state["ab"][1], n),
+        "hash64": lambda: native.hash64(hid),
+        "hash_bytes": lambda: native.hash_bytes(blob, offsets),
+        "hash_group_ids": lambda: native.hash_group_ids(native.hash64((state["hb"][hid] ^ bucket).view(np.int64))),
+        "hll_update_merge_estimate": hll,
+        "masked_stats": lambda: native.masked_stats(v, a),
+        "group_sum": lambda: native.group_sum(v, hid, a, ngh),
+        "group_count": lambda: native.group_count(hid, a, ngh),
+        "group_min": lambda: native.group_min(v, hid, a, ngh),
+        "group_max": lambda: native.group_max(v, hid, a, ngh),
+    }
+    out = {}
+    lib_state = native._STATE
+    for name, fn in steps.items():
+        t0 = time.perf_counter()
+        got = fn()
+        lib_ms = (time.perf_counter() - t0) * 1e3
+        native._STATE = [None, True]
+        try:
+            t0 = time.perf_counter()
+            want = fn()
+            fallback_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            native._STATE = lib_state
+        if not ts_same(got, want):
+            raise AssertionError(f"timeseries_connector: native {name} differs from its numpy fallback")
+        if name == "bm_from_bool":
+            state["ab"] = got
+        elif name == "hash64":
+            state["h64"] = got
+        elif name == "hash_bytes":
+            state["hb"] = got
+        out[name] = {"ms": lib_ms, "fallback_ms": fallback_ms}
+    gid, ng = steps["hash_group_ids"]()
+    if ng != ngh * -(-TS_POINTS * TS_STEP_S // 60) or native.bm_cardinality(state["ab"][0]) != int(a.sum()):
+        raise AssertionError(f"timeseries_connector: hash_group_ids found {ng} groups")
+    return out
+
+
+def ts_same(a, b) -> bool:
+    """Bit-equal results: arrays by dtype and bytes, floats by bits."""
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(ts_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, float):
+        return isinstance(b, float) and np.float64(a).tobytes() == np.float64(b).tobytes()
+    return type(a) is type(b) and a == b
+
+
+def run_timeseries_connector(torch, counters: dict) -> dict:
+    """Phase 22: the time-series engine, the DataFrame connector, the native
+    host library and the kernel-cache observer on the card. The metrics
+    table (ts_data: TS_HOSTS hosts x 6 h at 10 s, seed 18) written by
+    connectors.write_table through a RemoteControllerClient into an
+    in-process Controller behind ControllerHTTPService, with two Servers on
+    the card behind ServerHTTPService and a Basic-auth Broker behind
+    BrokerHTTPService (one principal reads `metrics`, one may not).
+    1. The connector: write_table makes 4 segments of 90 minutes;
+       read_table (the deep store) returns every row equal to the generated
+       arrays; with `where` (dc1, the last 90 minutes) it filters 1 of the 4
+       segments (3 pruned) and equals the numpy mask's rows;
+       read_table_via_servers (HTTP, on the card) the same rows as a
+       multiset.
+    2. TS_GROUPBY_SQL through the broker: rows equal to the oracle, one B1
+       and one B3 a segment (counters and registry), every kernel call held
+       against its plain version.
+    3. The six ts_queries through POST /timeseries/api/v1/query_range: each
+       body equal to the in-process TimeSeriesEngine(Broker) over the same
+       servers, 1, 5 and 6 equal to the numpy oracle; every leaf segment on
+       the servers' host executor and no kernel launch; the denied
+       principal's query 1 answers 403.
+    4. The native host library: available, every function bit-equal to its
+       fallback on the table's arrays.
+    5. The kernel-cache observer: over the phase, each observed cache's
+       misses are its distinct shapes newly planned, its hits + misses its
+       lookups, its size at most 256.
+    Returns the phase's launches."""
+    import tempfile
+
+    from pinot_tpu_torch import connectors
+    from pinot_tpu_torch.cluster import Broker, Controller, PropertyStore, Server
+    from pinot_tpu_torch.cluster.access import BasicAuthAccessControl, Principal
+    from pinot_tpu_torch.cluster.http import (BrokerHTTPService, ControllerHTTPService, RemoteControllerClient,
+                                              ServerHTTPService)
+    from pinot_tpu_torch.common import TableConfig
+    from pinot_tpu_torch.common.config import CacheConfig
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.query import host_exec
+    from pinot_tpu_torch.timeseries import RangeTimeSeriesRequest, TimeSeriesEngine
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ts_")
+    hosts = TS_HOSTS
+    seg_rows = hosts * TS_SEG_POINTS
+    n_segments = TS_POINTS // TS_SEG_POINTS
+    data = ts_data(hosts)
+    columns = {c: data[c] for c in ("host", "dc", "value", "ts")}
+    n_rows = len(data["ts"])
+    queries = ts_queries()
+
+    # the kernel-cache observer: fold what earlier phases left, then count
+    # every lookup of the phase
+    mods = {"groupby": gb, "extreme": ext, "grouped_sum_f32": gs}
+    observed = {}
+    for mod, fn_name, obs_name in TS_OBSERVED:
+        m, obs = mods[mod], getattr(mods[mod], obs_name)
+        obs.observe()
+        real = getattr(m, fn_name)
+        observed[obs._label] = {"module": m, "name": fn_name, "real": real, "obs": obs, "before": cache_meters(obs._label),
+                                "info": real.cache_info(), "counter": LookupCounter(real)}
+        setattr(m, fn_name, observed[obs._label]["counter"])
+
+    controller = Controller(PropertyStore(), f"{root}/deep")
+    servers, svcs = [], []
+    for i in range(2):
+        s = Server(f"ts_s{i}", device=DEVICE)
+        svc = ServerHTTPService(s)
+        controller.register_server(s.server_id, s, host="127.0.0.1", port=svc.port)
+        servers.append(s)
+        svcs.append(svc)
+    controller.add_schema(ts_schema())
+    controller.add_table(TableConfig(TS_TABLE))
+    csvc = ControllerHTTPService(controller)
+    rc = RemoteControllerClient(f"http://127.0.0.1:{csvc.port}")
+    ac = BasicAuthAccessControl(principals=[Principal(*TS_USERS["reader"], tables=(TS_TABLE,), permissions=("READ",)),
+                                            Principal(*TS_USERS["denied"], tables=("other",), permissions=("READ",))])
+    broker = Broker(controller, access_control=ac, cache_config=CacheConfig(enabled=False), device=DEVICE)
+    plain_broker = Broker(controller, cache_config=CacheConfig(enabled=False), device=DEVICE)
+    bsvc = BrokerHTTPService(broker)
+    url = f"http://127.0.0.1:{bsvc.port}"
+    launches, held = {}, {}
+    try:
+        # -- 1. the connector ------------------------------------------------
+        uploads = []
+        real_upload = rc.upload_segment
+
+        def timed_upload(table, seg):
+            t0 = time.perf_counter()
+            out = real_upload(table, seg)
+            uploads.append(time.perf_counter() - t0)
+            return out
+
+        rc.upload_segment = timed_upload
+        t0 = time.perf_counter()
+        names = connectors.write_table(rc, TS_TABLE, columns, rows_per_segment=seg_rows)
+        write_s = time.perf_counter() - t0
+        if names != [f"{TS_TABLE}_df_{i}" for i in range(n_segments)] or sorted(controller.ideal_state(TS_TABLE)) != names:
+            raise AssertionError(f"timeseries_connector: write_table pushed {names}")
+        t0 = time.perf_counter()
+        got = connectors.read_table(rc, TS_TABLE)
+        read_s = time.perf_counter() - t0
+        bad = [c for c in columns if list(got) != list(columns) or got[c].dtype.kind != columns[c].dtype.kind
+               or not np.array_equal(got[c], columns[c])]
+        if bad:
+            raise AssertionError(f"timeseries_connector: read_table differs from the data in {bad}")
+        del got
+        cut = TS_START + (TS_POINTS * 3 // 4) * TS_STEP_S
+        where = f"dc = 'dc1' AND ts >= {cut}"
+        want_mask = (data["_host_id"] % 4 == 1) & (data["ts"] >= cut)
+        scanned = []
+        real_mask = host_exec.filter_mask
+
+        def counted_mask(seg, f):
+            scanned.append(seg.name)
+            return real_mask(seg, f)
+
+        host_exec.filter_mask = counted_mask
+        try:
+            t0 = time.perf_counter()
+            got = connectors.read_table(rc, TS_TABLE, where=where)
+            pushdown_s = time.perf_counter() - t0
+        finally:
+            host_exec.filter_mask = real_mask
+        # filter_mask recurses into the AND's children: count segments
+        scanned = sorted(set(scanned))
+        if scanned != [names[-1]] or any(not np.array_equal(got[c], columns[c][want_mask]) for c in columns):
+            raise AssertionError(f"timeseries_connector: pushdown scanned {scanned}, rows {len(got['ts'])}")
+        modes0 = [dict(s._engine(TS_TABLE).segment_modes) for s in servers]
+        t0 = time.perf_counter()
+        got = connectors.read_table_via_servers(rc, TS_TABLE, columns=["host", "ts", "value"], where=where)
+        servers_s = time.perf_counter() - t0
+        # the streamed path counts the segments it executes (a pruned one
+        # yields nothing): each server's engine modes other than "pruned"
+        server_run = sum(v - m.get(k, 0) for s, m in zip(servers, modes0)
+                         for k, v in s._engine(TS_TABLE).segment_modes.items() if k != "pruned")
+        key = np.array(got["host"].tolist(), dtype=object).astype(str), np.array(got["ts"].tolist(), dtype=np.int64)
+        order = np.lexsort((key[1], key[0]))
+        w_order = np.lexsort((columns["ts"][want_mask], columns["host"][want_mask].astype(str)))
+        if (len(order) != int(want_mask.sum())
+                or not np.array_equal(key[0][order], columns["host"][want_mask].astype(str)[w_order])
+                or not np.array_equal(key[1][order], columns["ts"][want_mask][w_order])
+                or not np.array_equal(np.array(got["value"].tolist(), dtype=np.int64)[order],
+                                      columns["value"][want_mask][w_order])
+                or server_run != 1):
+            raise AssertionError(f"timeseries_connector: read_table_via_servers rows differ from the mask's "
+                                 f"({len(order)} rows, {server_run} segments run)")
+        del got, key
+        connector = {
+            "write_s": write_s, "write_rows_per_s": n_rows / write_s, "upload_s_a_segment": uploads,
+            "read_s": read_s, "read_rows_per_s": n_rows / read_s,
+            "pushdown": {"where": where, "s": pushdown_s, "rows": int(want_mask.sum()),
+                         "rows_per_s": int(want_mask.sum()) / pushdown_s,
+                         "segments_scanned": len(scanned), "segments_pruned": n_segments - len(scanned)},
+            "via_servers": {"s": servers_s, "rows_per_s": int(want_mask.sum()) / servers_s,
+                            "segments_run_on_servers": server_run, "segments_pruned_on_servers": n_segments - server_run},
+        }
+
+        # -- 2. the kernels over the written segments ------------------------
+        for fn in counters.values():
+            fn.launches = 0
+        before = registry_calls()
+        (status, resp), launches["groupby_dc"], calls = counted_run(
+            counters, lambda: auth_post(url, TS_GROUPBY_SQL, *TS_USERS["reader"]))
+        check_launches("timeseries_connector groupby_dc", counters, launches["groupby_dc"], calls,
+                       tuple(n_segments * v for v in TS_GROUPBY_LAUNCHES_PER_SEGMENT))
+        registry = {k: v - before[k] for k, v in registry_calls().items()}
+        if registry != launches["groupby_dc"]:
+            raise AssertionError(f"timeseries_connector: registry {registry} != counters {launches['groupby_dc']}")
+        held["groupby_dc"] = hold_all(torch, calls, gb, ext, gs)
+        del calls
+        if any(h["max_abs_err"] != 0 for h in held["groupby_dc"]):
+            raise AssertionError(f"timeseries_connector: a kernel disagrees with its plain version: {held}")
+        dc = data["_host_id"] % 4
+        want_rows = [[f"dc{k}", float(columns["value"][dc == k].sum()), int((dc == k).sum()),
+                      float(columns["value"][dc == k].min()), float(columns["value"][dc == k].max())] for k in range(4)]
+        if status != 200 or resp.get("exceptions"):
+            raise AssertionError(f"timeseries_connector groupby_dc: {status} {resp}")
+        rows_match("timeseries_connector groupby_dc", sorted(resp["resultTable"]["rows"]), want_rows)
+        groupby_wall = wall_p50_of(lambda: auth_post(url, TS_GROUPBY_SQL, *TS_USERS["reader"]), warm=0)
+
+        # -- 3. the time-series endpoint -------------------------------------
+        oracle_bodies = ts_oracle(data, queries)
+        leaves = []
+
+        class LeafSpy:
+            def execute(self, sql):
+                res = plain_broker.execute(sql)
+                leaves.append({"sql": sql, "rows": len(res.rows), "segments_queried": res.num_segments_queried,
+                               "segments_pruned": res.num_segments_pruned})
+                return res
+
+        per_query = {}
+        for name, (lang, q, start, end, step) in queries.items():
+            body = {"query": q, "start": start, "end": end, "step": step, "language": lang}
+            modes0 = [dict(s._engine(TS_TABLE).segment_modes) for s in servers]
+            counts0 = {k: fn.launches for k, fn in counters.items()}
+            leaves.clear()
+            want = TimeSeriesEngine(LeafSpy()).execute_dict(RangeTimeSeriesRequest(q, start, end, step, lang))
+            statuses, walls_ms, raw = [], [], None
+            for _ in range(WALL_RUNS):
+                t0 = time.perf_counter()
+                st, raw = ts_post(url, body, TS_USERS["reader"])
+                walls_ms.append((time.perf_counter() - t0) * 1e3)
+                statuses.append(st)
+            got = json.loads(raw)
+            d_modes = {}
+            for s, m in zip(servers, modes0):
+                for k, v in s._engine(TS_TABLE).segment_modes.items():
+                    d_modes[k] = d_modes.get(k, 0) + v - m.get(k, 0)
+            d_launch = {k: fn.launches - counts0[k] for k, fn in counters.items()}
+            [leaf] = leaves
+            runs = WALL_RUNS + 1
+            if statuses != [200] * WALL_RUNS or got != want:
+                raise AssertionError(f"timeseries_connector {name}: {statuses}, body differs from the in-process engine")
+            if name in oracle_bodies and got != oracle_bodies[name]:
+                raise AssertionError(f"timeseries_connector {name}: body differs from the numpy oracle")
+            if (any(d_launch.values()) or d_modes.get("device", 0) != 0
+                    or d_modes.get("host", 0) != runs * leaf["segments_queried"] or leaf["segments_queried"] < 1):
+                raise AssertionError(f"timeseries_connector {name}: leaf launches {d_launch}, servers' executors "
+                                     f"{d_modes} for {runs} runs of {leaf}")
+            n_series, n_buckets = len(got["series"]), len(got["timeBuckets"])
+            if n_series * n_buckets > 1_000_000 or not n_series:
+                raise AssertionError(f"timeseries_connector {name}: {n_series} series x {n_buckets} buckets")
+            per_query[name] = {"language": lang, "step": step, "series": n_series, "buckets": n_buckets,
+                               "leaf_rows": leaf["rows"], "leaf_segments": leaf["segments_queried"],
+                               "segments_pruned": leaf["segments_pruned"], "servers_executors": d_modes,
+                               "launches": d_launch, "p50_ms": float(np.median(walls_ms)), "runs_ms": walls_ms,
+                               "matches_oracle": name in oracle_bodies}
+        if per_query["3_topk_last_hour"]["leaf_segments"] != 1:
+            raise AssertionError(f"timeseries_connector: the last hour read {per_query['3_topk_last_hour']}")
+        _, q1, start, end, step = queries["1_sum_by_dc"]
+        denied_status, denied_raw = ts_post(url, {"query": q1, "start": start, "end": end, "step": step},
+                                            TS_USERS["denied"])
+        if denied_status != 403 or "denied" not in json.loads(denied_raw)["exceptions"][0]["message"]:
+            raise AssertionError(f"timeseries_connector: the denied principal got {denied_status} {denied_raw[:200]}")
+    finally:
+        for label, o in observed.items():
+            setattr(o["module"], o["name"], o["real"])
+        for svc in (bsvc, csvc, *svcs):
+            svc.stop()
+        broker.shutdown()
+        plain_broker.shutdown()
+
+    # -- 4. the native host library -------------------------------------------
+    native_ms = ts_native(data)
+
+    # -- 5. the kernel-cache observer -----------------------------------------
+    cache = {}
+    for label, o in observed.items():
+        o["obs"].observe()
+        after, info, counter = cache_meters(label), o["real"].cache_info(), o["counter"]
+        d = {k: after[k] - o["before"][k] for k in ("hits", "misses", "evictions")}
+        cache[label] = {"lookups": counter.lookups, "distinct_shapes": len(counter.keys),
+                        "new_shapes": len(counter.missed), **d, "size": after["size"], "maxsize": info.maxsize}
+        if (d["misses"] != len(counter.missed) or d["misses"] != info.misses - o["info"].misses
+                or d["hits"] + d["misses"] != counter.lookups or after["size"] != info.currsize
+                or info.currsize > 256):
+            raise AssertionError(f"timeseries_connector: cache observer {label}: {cache[label]}, {info}")
+    if not cache["grouped_sum_count._plan"]["lookups"] or not cache["grouped_extreme._spec"]["lookups"]:
+        raise AssertionError(f"timeseries_connector: the GROUP BY made no plan lookup: {cache}")
+
+    del controller, servers, broker, plain_broker, data, columns
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    path_launches = {k: sum(v[k] for v in launches.values()) for k in counters}
+    seconds = time.perf_counter() - t_phase
+    emit(
+        {
+            "phase": "timeseries_connector",
+            "results_match_oracle": True,
+            "table": {"rows": n_rows, "hosts": hosts, "step_s": TS_STEP_S, "hours": TS_HOURS, "seed": TS_SEED,
+                      "segments": n_segments, "rows_a_segment": seg_rows},
+            "connector": connector,
+            "groupby": {"sql": TS_GROUPBY_SQL, "launches": launches["groupby_dc"], "kernels_vs_plain": held["groupby_dc"],
+                        "p50_ms": groupby_wall["p50_ms"], "runs_ms": groupby_wall["runs_ms"]},
+            "timeseries": per_query,
+            "denied": {"status": denied_status},
+            "native": native_ms,
+            "kernel_cache": cache,
+            "launches": path_launches,
+            "seconds": seconds,
+            "budget_s": TS_BUDGET_S,
+            "within_budget": seconds <= TS_BUDGET_S,
+            "card": card_line(),
+        }
+    )
+    return path_launches
+
+
 def main() -> int:
     import torch
 
@@ -7044,17 +7599,19 @@ def main() -> int:
     realtime_launches = run_realtime(torch, counters)
     control_plane_launches = run_control_plane(torch, counters)
     batch_minion_launches = run_batch_minion(torch, counters)
+    timeseries_launches = run_timeseries_connector(torch, counters)
     # each path's counts, read just after it: the main path's, the sharded
     # path's (its proto reruns included), the mesh's, the scale path's, the
     # multistage engine's, the three cluster phases', the distributed
     # stages', the server processes' (from their registries), the
     # realtime tables', the control plane's (its server processes' and
-    # its compatibility suite's) and the batch-built table's launches. The
+    # its compatibility suite's), the batch-built table's and the
+    # connector-written metrics table's launches. The
     # sum entry of grouped_sum_f32 is on none: the kernel's launches are its
     # presence entry's
     paths = (main["launches"], sharded_launches, mesh_launches, scale_launches, multistage_launches,
              cluster_launches, http_launches, qps_launches, distributed_launches, process_launches,
-             realtime_launches, control_plane_launches, batch_minion_launches)
+             realtime_launches, control_plane_launches, batch_minion_launches, timeseries_launches)
     launches = {k: sum(p[k] for p in paths) for k in main["launches"]}
     launches["grouped_sum_f32"] = launches["presence"]
 

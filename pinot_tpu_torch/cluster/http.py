@@ -12,12 +12,11 @@ proxy) share the keep-alive connection pool in common/wire.py, and
 handlers speak HTTP/1.1 so one TCP connection carries many requests.
 Intra-pod device collectives (parallel/mesh.py) stay out of this tier.
 
-Every role of the port is served here: the broker, the server (with the
+Every role of the port is served here: the broker (with the time-series
+endpoint POST /timeseries/api/v1/query_range), the server (with the
 multistage /mailbox and /multistage/submit endpoints the distributed stages
 ride), and the controller's REST service with its client
 (RemoteControllerClient), which a broker in its own process routes through.
-What the port has not taken yet answers 501 naming its ROADMAP item: the
-time-series endpoint (A10d).
 """
 
 from __future__ import annotations
@@ -299,12 +298,6 @@ def _send_json(handler, doc, status: int = 200) -> None:
     handler.wfile.write(payload)
 
 
-def _send_not_implemented(handler, what: str) -> None:
-    """501 for an endpoint whose subsystem the port has not taken yet; the
-    body names the ROADMAP item, as the NotImplementedError of a call would."""
-    _send_json(handler, {"error": f"NotImplementedError: {what}", "errorCode": 501}, status=501)
-
-
 def _serve_pprof(handler) -> None:
     """GET /debug/pprof[?seconds=N][&format=json]: sampling-profiler output
     (common/profiler.py). Default is flamegraph.pl collapsed-stack text of
@@ -407,7 +400,32 @@ class BrokerHTTPService:
                     if ac is not None:
                         identity = ac.authenticate(dict(self.headers))
                     if self.path == "/timeseries/api/v1/query_range":
-                        _send_not_implemented(self, "/timeseries: the time-series engine is ROADMAP A10d")
+                        # TimeSeriesRequestHandler parity: language-selected
+                        # planner over the broker's SQL surface. The shim
+                        # forwards the authenticated identity so table-level
+                        # access control evaluates the real principal, not
+                        # anonymous.
+                        from pinot_tpu_torch.timeseries import RangeTimeSeriesRequest, TimeSeriesEngine
+
+                        req = RangeTimeSeriesRequest(
+                            query=body["query"],
+                            start=float(body["start"]),
+                            end=float(body["end"]),
+                            step=float(body.get("step", 60)),
+                            language=body.get("language", "m3ql"),
+                        )
+
+                        class _IdentityExecutor:
+                            def execute(self, sql):
+                                return svc.broker.execute(sql, identity=identity)
+
+                        out = TimeSeriesEngine(_IdentityExecutor()).execute_dict(req)
+                        payload = json.dumps(out).encode()
+                        self.send_response(200)
+                        self.send_header("Content-Type", "application/json")
+                        self.send_header("Content-Length", str(len(payload)))
+                        self.end_headers()
+                        self.wfile.write(payload)
                         return
                     res = svc.broker.execute(body["sql"], identity=identity)
                     _tl_mark("execute")

@@ -515,3 +515,47 @@ class KernelRegistry:
 
 #: process-wide registry every kernel wrapper registers into at import time
 KERNELS = KernelRegistry()
+
+
+# -- lru_cache observability ------------------------------------------------
+
+
+class CacheObserver:
+    """Publishes an `functools.lru_cache`'s hit/miss/size/evict counters as
+    `engine.kernelCache.*{cache=...}` metric families. lru_cache keeps
+    monotonic totals; we emit deltas so the meters compose with every other
+    meter on /metrics. Evictions are inferred: every miss inserts, so
+    `misses - currsize` (once the cache has filled) counts entries pushed
+    out.
+
+    The JAX package observes its per-spec jit caches; the port's stand-ins
+    are the kernel wrappers' per-shape launch-plan caches (`ops/groupby.py`,
+    `ops/extreme.py`, `ops/grouped_sum_f32.py`), each labelled
+    `<kernel>.<function>` and observed after each lookup."""
+
+    def __init__(self, cached_fn, cache: str):
+        self._fn = cached_fn
+        self._label = cache
+        self._lock = threading.Lock()
+        self._hits = 0
+        self._misses = 0
+        self._evictions = 0
+
+    def observe(self) -> None:
+        """Fold the cache's counters into metrics (call after each lookup)."""
+        info = self._fn.cache_info()
+        reg = server_metrics()
+        with self._lock:
+            d_hits = info.hits - self._hits
+            d_misses = info.misses - self._misses
+            evictions = max(info.misses - info.currsize, 0)
+            d_evict = evictions - self._evictions
+            self._hits, self._misses = info.hits, info.misses
+            self._evictions = evictions
+        if d_hits > 0:
+            reg.meter("engine.kernelCache.hits", cache=self._label).mark(d_hits)
+        if d_misses > 0:
+            reg.meter("engine.kernelCache.misses", cache=self._label).mark(d_misses)
+        if d_evict > 0:
+            reg.meter("engine.kernelCache.evictions", cache=self._label).mark(d_evict)
+        reg.gauge("engine.kernelCache.size", cache=self._label).set(info.currsize)

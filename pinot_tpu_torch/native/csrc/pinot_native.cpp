@@ -1,12 +1,21 @@
-// pinot_tpu_torch segment-file codecs: the host code of the segment store.
+// pinot_tpu_torch native host library: the host code of the segment store
+// and the host runtime.
 //
-// The codec half of the JAX package's pinot_tpu/native/csrc/pinot_native.cpp,
-// copied function for function so a segment file written by either package
-// decodes in the other, bit for bit:
+// The JAX package's pinot_tpu/native/csrc/pinot_native.cpp, copied function
+// for function, so a segment file written by either package decodes in the
+// other and every function gives the other package's bits:
 //   - fixed-bit forward-index pack/unpack   (FixedBitSVForwardIndexReaderV2)
 //   - chunk codec (LZ4 block format)        (ChunkCompressionType LZ4)
-//   - crc32 integrity                       (segment files)
+//   - dense bitmap algebra                  (RoaringBitmap BitmapCollection.java:31)
+//   - HLL register updates                  (DistinctCountHLL aggregation)
+//   - masked / grouped aggregation loops    (DefaultGroupByExecutor.java:191)
+//   - hashing + crc32 integrity             (DataTable serde, segment files)
 //   - zstd / zlib / snappy, dlopen'd when the host has them
+//
+// The device path is torch and the CUDA kernels of ops/csrc/; this library
+// serves the HOST: segment file IO (pack/compress on build, unpack on load
+// before the copy to the card), host-side execution, wire serde and
+// ingestion.
 //
 // All entry points are extern "C", operate on caller-owned buffers, and are
 // bound from Python via ctypes (pinot_tpu_torch/native/__init__.py). No
@@ -14,6 +23,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <cmath>
 
 #if defined(_MSC_VER)
 #define PT_EXPORT extern "C" __declspec(dllexport)
@@ -218,6 +228,224 @@ PT_EXPORT int64_t pt_lz4_decompress(const uint8_t* src, int64_t n, uint8_t* dst,
 }
 
 // ---------------------------------------------------------------------------
+// dense bitmap algebra (uint64 words, bit i of word w = doc w*64+i)
+// ---------------------------------------------------------------------------
+
+PT_EXPORT void pt_bm_and(const uint64_t* a, const uint64_t* b, uint64_t* out,
+                         int64_t nwords) {
+  for (int64_t i = 0; i < nwords; i++) out[i] = a[i] & b[i];
+}
+
+PT_EXPORT void pt_bm_or(const uint64_t* a, const uint64_t* b, uint64_t* out,
+                        int64_t nwords) {
+  for (int64_t i = 0; i < nwords; i++) out[i] = a[i] | b[i];
+}
+
+PT_EXPORT void pt_bm_andnot(const uint64_t* a, const uint64_t* b, uint64_t* out,
+                            int64_t nwords) {
+  for (int64_t i = 0; i < nwords; i++) out[i] = a[i] & ~b[i];
+}
+
+PT_EXPORT void pt_bm_not(const uint64_t* a, uint64_t* out, int64_t nwords) {
+  for (int64_t i = 0; i < nwords; i++) out[i] = ~a[i];
+}
+
+PT_EXPORT int64_t pt_bm_cardinality(const uint64_t* a, int64_t nwords) {
+  int64_t c = 0;
+  for (int64_t i = 0; i < nwords; i++) c += __builtin_popcountll(a[i]);
+  return c;
+}
+
+// bitmap -> sorted doc ids; returns count written (<= cap)
+PT_EXPORT int64_t pt_bm_extract(const uint64_t* a, int64_t nwords,
+                                int32_t* out, int64_t cap) {
+  int64_t k = 0;
+  for (int64_t w = 0; w < nwords; w++) {
+    uint64_t bits = a[w];
+    while (bits) {
+      if (k >= cap) return k;
+      int b = __builtin_ctzll(bits);
+      out[k++] = (int32_t)(w * 64 + b);
+      bits &= bits - 1;
+    }
+  }
+  return k;
+}
+
+PT_EXPORT void pt_bm_from_indices(const int32_t* idx, int64_t n,
+                                  uint64_t* out, int64_t nwords) {
+  std::memset(out, 0, (size_t)nwords * 8);
+  for (int64_t i = 0; i < n; i++) {
+    int64_t d = idx[i];
+    out[d >> 6] |= 1ull << (d & 63);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// hashing: splitmix64 (PK/dedup/join keys, HLL input)
+// ---------------------------------------------------------------------------
+
+static inline uint64_t splitmix64(uint64_t x) {
+  x += 0x9E3779B97F4A7C15ull;
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+  return x ^ (x >> 31);
+}
+
+PT_EXPORT void pt_hash64(const uint64_t* in, int64_t n, uint64_t* out) {
+  for (int64_t i = 0; i < n; i++) out[i] = splitmix64(in[i]);
+}
+
+// FNV-1a over variable-length byte slices (string keys); offsets[n+1]
+PT_EXPORT void pt_hash_bytes(const uint8_t* data, const int64_t* offsets,
+                             int64_t n, uint64_t* out) {
+  for (int64_t i = 0; i < n; i++) {
+    uint64_t h = 1469598103934665603ull;
+    for (int64_t j = offsets[i]; j < offsets[i + 1]; j++) {
+      h ^= data[j];
+      h *= 1099511628211ull;
+    }
+    out[i] = splitmix64(h);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// HyperLogLog registers (2^p registers, rho of remaining bits)
+// ---------------------------------------------------------------------------
+
+PT_EXPORT void pt_hll_update(const uint64_t* hashes, const uint8_t* mask,
+                             int64_t n, int32_t p, uint8_t* regs) {
+  const uint64_t idx_mask = (1ull << p) - 1;
+  for (int64_t i = 0; i < n; i++) {
+    if (mask && !mask[i]) continue;
+    uint64_t h = hashes[i];
+    uint64_t idx = h & idx_mask;
+    uint64_t rest = h >> p;
+    uint8_t rho = (uint8_t)(rest ? (__builtin_ctzll(rest) + 1) : (64 - p + 1));
+    if (rho > regs[idx]) regs[idx] = rho;
+  }
+}
+
+PT_EXPORT void pt_hll_merge(const uint8_t* src, uint8_t* acc, int64_t nregs) {
+  for (int64_t i = 0; i < nregs; i++)
+    if (src[i] > acc[i]) acc[i] = src[i];
+}
+
+PT_EXPORT double pt_hll_estimate(const uint8_t* regs, int32_t p) {
+  const int64_t m = 1ll << p;
+  double sum = 0.0;
+  int64_t zeros = 0;
+  for (int64_t i = 0; i < m; i++) {
+    sum += std::ldexp(1.0, -(int)regs[i]);
+    if (regs[i] == 0) zeros++;
+  }
+  double alpha = (m == 16)   ? 0.673
+                 : (m == 32) ? 0.697
+                 : (m == 64) ? 0.709
+                             : 0.7213 / (1.0 + 1.079 / (double)m);
+  double e = alpha * m * m / sum;
+  if (e <= 2.5 * m && zeros > 0)
+    e = m * std::log((double)m / (double)zeros);  // linear counting
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// masked & grouped aggregation inner loops (host execution tier)
+// ---------------------------------------------------------------------------
+
+// out4 = {sum, min, max, count}
+PT_EXPORT void pt_masked_stats_f64(const double* v, const uint8_t* m,
+                                   int64_t n, double* out4) {
+  double sum = 0.0, mn = INFINITY, mx = -INFINITY;
+  int64_t cnt = 0;
+  for (int64_t i = 0; i < n; i++) {
+    if (m && !m[i]) continue;
+    double x = v[i];
+    sum += x;
+    if (x < mn) mn = x;
+    if (x > mx) mx = x;
+    cnt++;
+  }
+  out4[0] = sum;
+  out4[1] = mn;
+  out4[2] = mx;
+  out4[3] = (double)cnt;
+}
+
+PT_EXPORT void pt_group_sum_f64(const double* v, const int32_t* gid,
+                                const uint8_t* m, int64_t n, double* acc) {
+  for (int64_t i = 0; i < n; i++)
+    if (!m || m[i]) acc[gid[i]] += v[i];
+}
+
+PT_EXPORT void pt_group_count(const int32_t* gid, const uint8_t* m, int64_t n,
+                              int64_t* acc) {
+  for (int64_t i = 0; i < n; i++)
+    if (!m || m[i]) acc[gid[i]]++;
+}
+
+PT_EXPORT void pt_group_min_f64(const double* v, const int32_t* gid,
+                                const uint8_t* m, int64_t n, double* acc) {
+  for (int64_t i = 0; i < n; i++)
+    if ((!m || m[i]) && v[i] < acc[gid[i]]) acc[gid[i]] = v[i];
+}
+
+PT_EXPORT void pt_group_max_f64(const double* v, const int32_t* gid,
+                                const uint8_t* m, int64_t n, double* acc) {
+  for (int64_t i = 0; i < n; i++)
+    if ((!m || m[i]) && v[i] > acc[gid[i]]) acc[gid[i]] = v[i];
+}
+
+// dense group id from dict ids: gid = sum_k ids_k * stride_k
+// (DictionaryBasedGroupKeyGenerator.java:119-130 cardinality-product scheme)
+PT_EXPORT void pt_group_key(const int32_t* const* id_cols,
+                            const int64_t* strides, int32_t ncols, int64_t n,
+                            int32_t* gid) {
+  std::memset(gid, 0, (size_t)n * 4);
+  for (int32_t c = 0; c < ncols; c++) {
+    const int32_t* ids = id_cols[c];
+    int64_t s = strides[c];
+    for (int64_t i = 0; i < n; i++) gid[i] += (int32_t)(ids[i] * s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// open-addressing hash table group-id assignment for high-cardinality keys
+// (NoDictionary*GroupKeyGenerator equivalent). keys: uint64 hashed keys.
+// table_cap MUST be a power of two and > n. Returns number of distinct groups.
+// slots: int64[table_cap] scratch, gid out: int32[n].
+// ---------------------------------------------------------------------------
+
+PT_EXPORT int64_t pt_hash_group_ids(const uint64_t* keys, int64_t n,
+                                    uint64_t* slot_keys, int32_t* slot_gids,
+                                    int64_t table_cap, int32_t* gid) {
+  const uint64_t mask = (uint64_t)table_cap - 1;
+  const uint64_t EMPTY = 0xFFFFFFFFFFFFFFFFull;
+  for (int64_t i = 0; i < table_cap; i++) slot_keys[i] = EMPTY;
+  int32_t next = 0;
+  for (int64_t i = 0; i < n; i++) {
+    uint64_t k = keys[i];
+    if (k == EMPTY) k = 0;  // reserve sentinel
+    uint64_t s = splitmix64(k) & mask;
+    while (true) {
+      if (slot_keys[s] == EMPTY) {
+        slot_keys[s] = k;
+        slot_gids[s] = next;
+        gid[i] = next;
+        next++;
+        break;
+      }
+      if (slot_keys[s] == k) {
+        gid[i] = slot_gids[s];
+        break;
+      }
+      s = (s + 1) & mask;
+    }
+  }
+  return next;
+}
+
+// ---------------------------------------------------------------------------
 // crc32 (reflected, poly 0xEDB88320) for segment-file / wire integrity
 // ---------------------------------------------------------------------------
 
@@ -238,6 +466,21 @@ PT_EXPORT uint32_t pt_crc32(const uint8_t* p, int64_t n, uint32_t seed) {
   uint32_t c = seed ^ 0xFFFFFFFFu;
   for (int64_t i = 0; i < n; i++) c = crc_table[(c ^ p[i]) & 0xFF] ^ (c >> 8);
   return c ^ 0xFFFFFFFFu;
+}
+
+// ---------------------------------------------------------------------------
+// var-length string blob: encode offsets during dictionary/file IO
+// (takes utf-8 blob + int32 lengths, writes int64 offsets prefix-sum)
+// ---------------------------------------------------------------------------
+
+PT_EXPORT void pt_prefix_sum_i64(const int32_t* lens, int64_t n,
+                                 int64_t* offsets) {
+  int64_t acc = 0;
+  for (int64_t i = 0; i < n; i++) {
+    offsets[i] = acc;
+    acc += lens[i];
+  }
+  offsets[n] = acc;
 }
 
 PT_EXPORT int32_t pt_abi_version() { return 1; }

@@ -43,7 +43,7 @@ import functools
 
 import torch
 
-from pinot_tpu_torch.common.kernel_obs import KERNELS, count_launch, streaming_cost
+from pinot_tpu_torch.common.kernel_obs import KERNELS, CacheObserver, count_launch, streaming_cost
 
 _SOURCE = "grouped_extreme"
 #: distinct outputs per kernel launch; wider calls split
@@ -139,6 +139,11 @@ def _plan(index: int, widths: tuple[int, ...], ng: int, n: int) -> tuple[int, in
     return blocks.value, smem.value, finish.value, scratch.value
 
 
+#: engine.kernelCache.*{cache="grouped_extreme._plan"}: observed where _spec
+#: plans a new shape, which also folds uses_shared_keys' lookups
+_PLAN_CACHE = CacheObserver(_plan, cache="grouped_extreme._plan")
+
+
 def uses_shared_keys(dtypes, ng: int, device: torch.device) -> bool:
     """Whether one launch keeps the keys of outputs over `dtypes` values (one
     dtype per output) in shared memory on the CUDA `device` (False: the
@@ -157,6 +162,7 @@ def _spec(index: int, dtypes: tuple[torch.dtype, ...], outputs: tuple[tuple[int,
     where = {c: i for i, c in enumerate(used)}
     m = len(outputs)
     plan = _plan(index, tuple(_DTYPES[dtypes[c]][1] for c, _ in outputs), ng, n)
+    _PLAN_CACHE.observe()
     return (
         used,
         (ctypes.c_int * len(used))(*[_DTYPES[dtypes[c]][0] for c in used]),
@@ -165,6 +171,9 @@ def _spec(index: int, dtypes: tuple[torch.dtype, ...], outputs: tuple[tuple[int,
         plan,
         [_DTYPES[dtypes[c]][2] == torch.float32 for c, _ in outputs],
     )
+
+
+_SPEC_CACHE = CacheObserver(_spec, cache="grouped_extreme._spec")
 
 
 def _shape(columns, outputs, gid, ng, counts) -> dict:
@@ -184,6 +193,7 @@ def _launch(lib, columns, outputs, gid, mask, ng, counts) -> list[torch.Tensor]:
     used, dtypes, out_col, out_min, (blocks, smem, finish, nbytes), narrow = _spec(
         gid.device.index, tuple(v.dtype for v in columns), tuple(outputs), ng, n
     )
+    _SPEC_CACHE.observe()
     m, row = len(outputs), ng * 8
     # one buffer: a float64 row per result (a float32 result in the first
     # half of its row), then the kernel's scratch

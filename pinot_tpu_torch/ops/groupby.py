@@ -37,7 +37,7 @@ import functools
 
 import torch
 
-from pinot_tpu_torch.common.kernel_obs import KERNELS, count_launch, streaming_cost
+from pinot_tpu_torch.common.kernel_obs import KERNELS, CacheObserver, count_launch, streaming_cost
 
 #: columns per launch; wider calls split into several launches
 MAX_COLS = 8
@@ -118,9 +118,15 @@ def _plan(index: int, k: int, ng: int, n: int) -> tuple[int, int]:
     return blocks.value, smem.value
 
 
+#: engine.kernelCache.*{cache="grouped_sum_count._plan"}: observed at each
+#: launch, which also folds the dispatcher's uses_shared_counters lookups
+_PLAN_CACHE = CacheObserver(_plan, cache="grouped_sum_count._plan")
+
+
 def _launch(lib, cols: list[torch.Tensor], gid: torch.Tensor, mask: torch.Tensor, ng: int, out: torch.Tensor) -> None:
     n = gid.numel()
     blocks, smem = _plan(gid.device.index, len(cols), ng, n)
+    _PLAN_CACHE.observe()
     ptrs = (ctypes.c_void_p * max(len(cols), 1))(*[v.data_ptr() for v in cols])
     stream = torch.cuda.current_stream(gid.device).cuda_stream
     err = KERNELS.launch(
@@ -247,6 +253,9 @@ def _scratch_bytes(index: int, k: int, n: int, ng: int, bits: int) -> int:
     return need.value
 
 
+_SCRATCH_CACHE = CacheObserver(_scratch_bytes, cache="grouped_sum_count_2l._scratch_bytes")
+
+
 def sparse_max(k: int, n: int, ng: int, bits: int, device: torch.device) -> int:
     """The most masked in-range docs a hi bucket of the two-level kernel may
     hold on the CUDA `device` and still be sparse, its docs added straight
@@ -262,6 +271,7 @@ def sparse_max(k: int, n: int, ng: int, bits: int, device: torch.device) -> int:
 def _launch_2l(lib, cols, gid: torch.Tensor, mask: torch.Tensor, ng: int, bits: int, out: torch.Tensor) -> None:
     n = gid.numel()
     need = _scratch_bytes(gid.device.index, len(cols), n, ng, bits)
+    _SCRATCH_CACHE.observe()
     # freed when this returns: the caching allocator hands it out again only
     # to work queued after the kernel on the same stream
     scratch = torch.empty(need, dtype=torch.uint8, device=gid.device)

@@ -37,7 +37,7 @@ import functools
 
 import torch
 
-from pinot_tpu_torch.common.kernel_obs import KERNELS, count_launch, streaming_cost
+from pinot_tpu_torch.common.kernel_obs import KERNELS, CacheObserver, count_launch, streaming_cost
 
 _SOURCE = "grouped_sum_f32"
 #: id columns per presence launch; wider calls split
@@ -224,6 +224,11 @@ def _plan(index: int, grouped: bool, words: int, n: int) -> tuple[int, int]:
     return blocks.value, smem.value
 
 
+#: engine.kernelCache.*{cache="grouped_sum_f32._plan"}: observed where _spec
+#: plans a new shape, which also folds uses_shared_flags' lookups
+_PLAN_CACHE = CacheObserver(_plan, cache="grouped_sum_f32._plan")
+
+
 def uses_shared_flags(pads, ng: int, device: torch.device, grouped: bool = True) -> bool:
     """Whether one launch keeps the flags of id columns of `pads` over ng
     groups as bits in shared memory on the CUDA `device` (False: byte flags
@@ -235,7 +240,12 @@ def uses_shared_flags(pads, ng: int, device: torch.device, grouped: bool = True)
 def _spec(index: int, grouped: bool, pads: tuple[int, ...], ng: int, n: int):
     """The plan and the ctypes pads array of one launch, built once per
     shape."""
-    return _plan(index, grouped, presence_words(pads, ng), n), (ctypes.c_int * len(pads))(*pads)
+    plan = _plan(index, grouped, presence_words(pads, ng), n)
+    _PLAN_CACHE.observe()
+    return plan, (ctypes.c_int * len(pads))(*pads)
+
+
+_SPEC_CACHE = CacheObserver(_spec, cache="grouped_sum_f32._spec")
 
 
 def _launch(lib, columns, pads, mask, gid, ng: int) -> list[torch.Tensor]:
@@ -243,6 +253,7 @@ def _launch(lib, columns, pads, mask, gid, ng: int) -> list[torch.Tensor]:
     view a column and, on the shared path, the kernel's bit table."""
     n = mask.numel()
     (blocks, smem), c_pads = _spec(mask.device.index, gid is not None, tuple(pads), ng, n)
+    _SPEC_CACHE.observe()
     sizes = [ng * pad for pad in pads]
     starts = [sum(sizes[:j]) for j in range(len(sizes))]
     table = -(-sum(sizes) // 4) * 4  # the table's byte offset, 4-byte aligned

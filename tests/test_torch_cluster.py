@@ -359,13 +359,14 @@ def test_time_boundary_sql_rewrites():
 
 
 def test_cuts_name_their_roadmap_item(clusters, tmp_path):
-    """The cut left names its ROADMAP item (A10d: the broker's /timeseries
-    answers 501); what A9b, A10a, A10b and A10c cut is ported: access
-    control, the controller's REST service and client, the stage submit
-    (whose body a bare dict fails to carry), a realtime table's manager
-    attached to a server, the lead-controller election (`enable_ha` elects
-    this controller, which still answers) and the minion task endpoints
-    (`ControllerHTTPService(task_manager=)`)."""
+    """What A9b and A10 cut is ported: access control, the controller's REST
+    service and client, the stage submit (whose body a bare dict fails to
+    carry), a realtime table's manager attached to a server, the
+    lead-controller election (`enable_ha` elects this controller, which
+    still answers), the minion task endpoints
+    (`ControllerHTTPService(task_manager=)`) and the broker's
+    /timeseries/api/v1/query_range, which answers 200 with the reference's
+    body."""
     ctrl, _, servers = clusters["port"]
     standby = Controller(ctrl.store, tmp_path / "standby_deep", controller_id="standby")
     ctrl.enable_ha(lease_ttl=30.0, renew_every=0.2)
@@ -400,7 +401,6 @@ def test_cuts_name_their_roadmap_item(clusters, tmp_path):
     b = Broker(ctrl, access_control=AllowAllAccessControl())
     assert b.execute("SELECT COUNT(*) FROM lineorder").rows == clusters["ref"][1].execute("SELECT COUNT(*) FROM lineorder").rows
     b.shutdown()
-    import urllib.error
     import urllib.request
 
     from pinot_tpu_torch.cluster.http import BrokerHTTPService
@@ -409,18 +409,26 @@ def test_cuts_name_their_roadmap_item(clusters, tmp_path):
     tm = PinotTaskManager(ctrl)
     svc = ControllerHTTPService(ctrl, task_manager=tm)
     bsvc = BrokerHTTPService(Broker(ctrl, device="cpu"))
+    r_bsvc = importlib.import_module("pinot_tpu.cluster.http").BrokerHTTPService(clusters["ref"][1])
     try:
         rcl = RemoteControllerClient(f"http://127.0.0.1:{svc.port}")
         assert rcl.tables() == ctrl.tables() and svc.task_manager is tm
         assert rcl.schedule_tasks() == [] and rcl._get("/tasks") == []
-        req = urllib.request.Request(f"http://127.0.0.1:{bsvc.port}/timeseries/api/v1/query_range",
-                                     data=b"{}", method="POST")
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(req, timeout=10)
-        assert ei.value.code == 501 and "A10d" in json.loads(ei.value.read())["error"]
+        body = json.dumps({"query": "fetch table=lineorder value=revenue time=year agg=max groupBy=region | topk 3",
+                           "start": 1992, "end": 1999, "step": 2}).encode()
+        answers = []
+        for port in (bsvc.port, r_bsvc.port):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/timeseries/api/v1/query_range", data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                answers.append((r.status, r.read()))
+        assert answers[0] == answers[1] and answers[0][0] == 200
+        out = json.loads(answers[0][1])
+        assert out["timeBuckets"] == [1992.0, 1994.0, 1996.0, 1998.0] and len(out["series"]) == 3
     finally:
         svc.stop()
         bsvc.stop()
+        r_bsvc.stop()
 
 
 def test_server_without_a_card_raises_at_its_first_engine(tmp_path):

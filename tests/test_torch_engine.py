@@ -398,8 +398,9 @@ def test_import_leaves_no_jax_pandas_or_reference():
     per-segment engine, the store, the sharded table, the multistage engine
     over two slots, a cluster over HTTP with its controller's REST service,
     distributed multistage stages over /mailbox, the client, the admin CLI,
-    a realtime upsert table consumed from a stream, a batch job and a
-    minion rollup);
+    a realtime upsert table consumed from a stream, a batch job, a minion
+    rollup, time-series queries in both languages, the DataFrame connector's
+    round trip and the native host library's functions);
     afterwards no module of jax, pandas or the JAX package is loaded."""
     code = (
         "import sys, numpy as np\n"
@@ -465,6 +466,21 @@ def test_import_leaves_no_jax_pandas_or_reference():
         "assert m.columns['v'].materialize().tolist() == [4, 2], m\n"
         "tm = PinotTaskManager(c); make_minion_with_builtins('m0', tm, c)\n"
         "assert tm.schedule_tasks() == []\n"
+        "from pinot_tpu_torch.timeseries import RangeTimeSeriesRequest, TimeSeriesEngine\n"
+        "ts = TimeSeriesEngine(QueryEngine([seg], device='cpu'))\n"
+        "assert ts.execute(RangeTimeSeriesRequest('fetch table=t value=v time=v | sum', 0, 4, 2)).series[()].tolist()"
+        " == [1.0, 5.0]\n"
+        "assert ts.execute_dict(RangeTimeSeriesRequest('sum(t:v{__time__=\"v\"})', 0, 4, 2, 'promql'))['series']\n"
+        "from pinot_tpu_torch.connectors import read_table, read_table_via_servers, write_table\n"
+        "c3 = Controller(PropertyStore(), tempfile.mkdtemp()); c3.register_server('s3', Server('s3', device='cpu'))\n"
+        "c3.add_schema(s); c3.add_table(TableConfig('t'))\n"
+        "assert write_table(c3, 't', {'g': np.array(['c', 'd'], dtype=object), 'v': np.array([7, 8], dtype=np.int32)},"
+        " rows_per_segment=1) == ['t_df_0', 't_df_1']\n"
+        "assert read_table(c3, 't', where='v > 7')['g'].tolist() == ['d']\n"
+        "assert sorted(read_table_via_servers(c3, 't')['v'].tolist()) == [7, 8]\n"
+        "from pinot_tpu_torch import native\n"
+        "assert native.hash_group_ids(native.hash64(np.array([3, 1, 3])))[1] == 2\n"
+        "assert native.bm_cardinality(native.bm_from_bool(np.array([True, False, True]))) == 2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'pinot_tpu'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -539,19 +555,18 @@ def test_no_stop_names_a9b():
 
 
 def test_no_stop_names_a10a():
-    """Every A10a, A10b and A10c stop of the port is ported (realtime
-    ingestion, upsert and dedup; batch ingestion and the minion; the control
-    plane: HA, the periodic tasks, rebalance, the SLO evaluator and the UI):
-    no string in the package names those ROADMAP items, and each remaining
-    stop names its own part (A10d)."""
-    hits, bare = [], []
-    for p in sorted((REPO / "pinot_tpu_torch").rglob("*.py")):
-        for i, line in enumerate(p.read_text().splitlines(), 1):
-            if re.search(r"A10[abc]", line):
-                hits.append(f"{p.relative_to(REPO)}:{i}")
-            if re.search(r"A10(?![abcd])", line):
-                bare.append(f"{p.relative_to(REPO)}:{i}")
-    assert hits == [] and bare == []
+    """Every A10 stop of the port is ported (realtime ingestion, upsert and
+    dedup; batch ingestion and the minion; the control plane; the
+    time-series engine and its broker endpoint, the DataFrame connector and
+    the rest of the native host library): no line of the package names any
+    A10 item."""
+    hits = [
+        f"{p.relative_to(REPO)}:{i}"
+        for p in sorted((REPO / "pinot_tpu_torch").rglob("*.py"))
+        for i, line in enumerate(p.read_text().splitlines(), 1)
+        if re.search(r"A10", line)
+    ]
+    assert hits == []
 
 
 def test_scan_covers_the_io_and_minion_modules():
@@ -570,4 +585,15 @@ def test_scan_covers_the_control_plane_modules():
     scanned = {str(p.relative_to(REPO)) for p in (REPO / "pinot_tpu_torch").rglob("*.py")}
     want = {f"pinot_tpu_torch/cluster/{m}.py" for m in ("ha", "rebalance", "periodic", "ui")}
     want |= {"pinot_tpu_torch/common/slo.py", "pinot_tpu_torch/tools/compat_verifier.py"}
+    assert want <= scanned
+
+
+def test_scan_covers_the_timeseries_connector_and_native_modules():
+    """The source scan above reaches every module of the time-series engine
+    (its two languages included), the DataFrame connector and the native
+    host library."""
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "pinot_tpu_torch").rglob("*.py")}
+    want = {f"pinot_tpu_torch/timeseries/{m}.py" for m in ("__init__", "plan", "language", "promql", "engine")}
+    want |= {f"pinot_tpu_torch/connectors/{m}.py" for m in ("__init__", "dataframe")}
+    want |= {"pinot_tpu_torch/native/__init__.py"}
     assert want <= scanned

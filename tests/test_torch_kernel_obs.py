@@ -296,3 +296,61 @@ def test_two_level_wrapper_records_as_planes2():
     snap = KERNELS.stats_snapshot()
     assert snap[("ops.grouped_planes2", "2^2")]["calls"] == 1
     assert snap[("ops.grouped_planes2", "2^2")]["bytesMoved"] == 4 + 3 * 8 + 2 * 16 * 8
+
+
+def test_cache_observer_hit_miss_evict_counters():
+    """The reference's CacheObserver case, run on both packages' observers
+    over the same lookups: equal meter counts and size gauge at each step."""
+    from functools import lru_cache
+
+    from pinot_tpu.common.metrics import reset_registries as j_reset_registries
+    from pinot_tpu.common.metrics import server_metrics as j_server_metrics
+
+    reset_registries()
+    j_reset_registries()
+
+    def make():
+        @lru_cache(maxsize=2)
+        def f(x):
+            return x * 2
+
+        return f
+
+    fp, fj = make(), make()
+    obs, jobs = kernel_obs.CacheObserver(fp, cache="unit"), jkernel_obs.CacheObserver(fj, cache="unit")
+    reg, jreg = server_metrics(), j_server_metrics()
+
+    def counts(r):
+        return tuple(r.meter(f"engine.kernelCache.{k}", cache="unit").count for k in ("hits", "misses", "evictions")) \
+            + (r.gauge("engine.kernelCache.size", cache="unit").value,)
+
+    for step in ((1, 1, 2), (3, 4), ()):
+        for x in step:
+            fp(x), fj(x)
+        obs.observe()
+        jobs.observe()
+        assert counts(reg) == counts(jreg)
+    # f(1), f(1), f(2) then f(3), f(4) through the size-2 cache; observe()
+    # folds deltas, so the last call adds nothing
+    assert counts(reg) == (1, 4, 2, 2)
+
+
+def test_plan_caches_are_observed():
+    """Each kernel wrapper's per-shape launch-plan cache has its observer,
+    labelled by kernel and function; observing one writes its size gauge."""
+    reset_registries()
+    observed = {
+        groupby._PLAN_CACHE: groupby._plan,
+        groupby._SCRATCH_CACHE: groupby._scratch_bytes,
+        extreme._PLAN_CACHE: extreme._plan,
+        extreme._SPEC_CACHE: extreme._spec,
+        grouped_sum_f32._PLAN_CACHE: grouped_sum_f32._plan,
+        grouped_sum_f32._SPEC_CACHE: grouped_sum_f32._spec,
+    }
+    labels = [o._label for o in observed]
+    assert labels == ["grouped_sum_count._plan", "grouped_sum_count_2l._scratch_bytes", "grouped_extreme._plan",
+                      "grouped_extreme._spec", "grouped_sum_f32._plan", "grouped_sum_f32._spec"]
+    for o, fn in observed.items():
+        assert o._fn is fn and fn.cache_info().maxsize == 256
+        o.observe()
+        assert server_metrics().gauge("engine.kernelCache.size", cache=o._label).value == fn.cache_info().currsize
