@@ -262,7 +262,7 @@
    format, build and push seconds a segment, each job's seconds, the
    merge's seconds, wall p50s, the phase's seconds against its 60 s budget.
 22. The time-series engine, the DataFrame connector and the native host
-   library (`timeseries_connector`, last): a metrics table of 1,000 hosts
+   library (`timeseries_connector`): a metrics table of 1,000 hosts
    (dc = host % 4) reporting a counter every 10 s for 6 h (2,160,000 rows,
    seed 18) written with connectors.write_table through a
    RemoteControllerClient into 4 segments of 90 minutes on two Servers on
@@ -282,6 +282,17 @@
    the kernel wrappers' plan caches' meters (engine.kernelCache.*) against
    the lookups the phase made.
 
+23. The port's static checks (`lint`, last, before the `run` line):
+   pinotlint for the port (`python -m pinot_tpu_torch.devtools.lint
+   --require-reason --json pinot_tpu_torch/`) in a subprocess: exit 0, no
+   finding, and none of torch, jax, jaxlib, pandas or the JAX package
+   loaded by it. Its `launch_inventory` maps each of the five CUDA launch
+   entries (grouped_sum_count, grouped_sum_count_2l, grouped_extremes,
+   grouped_sum_f32, presences) to the registered name it launches under;
+   those names are the `ops.*` kernels of the runtime KERNELS registry, and
+   each launched at least once on this run's paths, by the counters the
+   `kernels` line sums. No `--diff`: the checkout need not be a git tree.
+
 Every phase that fails raises, and the script exits non-zero. The last line
 of standard output is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel.
@@ -293,6 +304,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -7528,6 +7540,90 @@ def run_timeseries_connector(torch, counters: dict) -> dict:
     return path_launches
 
 
+# ---------------------------------------------------------------------------
+# the port's static checks and its launch sites
+# ---------------------------------------------------------------------------
+
+#: modules the linter must not load: it runs where there is no torch, and
+#: imports nothing of JAX, pandas or the JAX package
+LINT_FORBIDDEN = ("torch", "jax", "jaxlib", "pandas", "pinot_tpu")
+#: the checkers pinotlint runs, the JAX package's fifteen
+LINT_CHECKS = 15
+#: each CUDA launch entry -> its launch counter's key in the kernels line
+LAUNCH_ENTRY_COUNTER = {
+    "grouped_sum_count": "grouped_sum_count",
+    "grouped_sum_count_2l": "grouped_sum_count_2l",
+    "grouped_extremes": "grouped_extreme",
+    "grouped_sum_f32": "grouped_sum_f32",
+    "presences": "presence",
+}
+#: the linter's command line, run as `python -m` runs it, then the top-level
+#: packages of every module it loaded, on the last line of standard error
+LINT_CHILD = """import json, runpy, sys
+sys.argv = ["pinotlint", "--require-reason", "--json", "pinot_tpu_torch/"]
+try:
+    runpy.run_module("pinot_tpu_torch.devtools.lint", run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+print("LOADED " + json.dumps(sorted({m.split(".")[0] for m in sys.modules})), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def run_lint(launches: dict) -> None:
+    """Phase 23: the linter over the package in a subprocess, its launch
+    inventory against the runtime registry, and every registered kernel
+    launched on this run's paths (`launches`: the kernels line's counts)."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS
+    from pinot_tpu_torch.devtools.lint import ALL_CHECKERS, launch_inventory
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", LINT_CHILD], cwd=root, capture_output=True, text=True, timeout=300)
+    lint_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"pinotlint exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    findings = json.loads(proc.stdout)
+    if findings != []:
+        raise AssertionError(f"pinotlint found {len(findings)}: {findings}")
+    loaded_line = [line for line in proc.stderr.splitlines() if line.startswith("LOADED ")]
+    if not loaded_line:
+        raise AssertionError(f"the lint child reported no modules:\n{proc.stderr}")
+    loaded = json.loads(loaded_line[-1][len("LOADED "):])
+    heavy = sorted(set(loaded) & set(LINT_FORBIDDEN))
+    if heavy:
+        raise AssertionError(f"pinotlint loaded {heavy}")
+    if "clean" not in proc.stderr:
+        raise AssertionError(f"pinotlint did not report clean:\n{proc.stderr}")
+    if len(ALL_CHECKERS) != LINT_CHECKS:
+        raise AssertionError(f"pinotlint has {len(ALL_CHECKERS)} checkers, expected {LINT_CHECKS}")
+    inventory = launch_inventory([os.path.join(root, "pinot_tpu_torch")])
+    if set(inventory) != set(LAUNCH_ENTRY_COUNTER):
+        raise AssertionError(f"launch inventory {inventory}, expected the entries {sorted(LAUNCH_ENTRY_COUNTER)}")
+    registered = {name for name in KERNELS.kernel_names() if name.startswith("ops.")}
+    if set(inventory.values()) != registered:
+        raise AssertionError(f"launch sites name {sorted(set(inventory.values()))}, the registry has {sorted(registered)}")
+    by_name = {name: 0 for name in sorted(registered)}
+    for entry, name in inventory.items():
+        by_name[name] += launches[LAUNCH_ENTRY_COUNTER[entry]]
+    idle = [name for name, n in by_name.items() if n == 0]
+    if idle:
+        raise AssertionError(f"registered kernels {idle} launched no time on this run's paths")
+    emit(
+        {
+            "phase": "lint",
+            "seconds": time.perf_counter() - t0,
+            "lint_s": lint_s,
+            "findings": len(findings),
+            "checks": len(ALL_CHECKERS),
+            "launch_inventory": inventory,
+            "launches_by_name": by_name,
+            "card": card_line(),
+        }
+    )
+
+
 def main() -> int:
     import torch
 
@@ -7614,6 +7710,7 @@ def main() -> int:
              realtime_launches, control_plane_launches, batch_minion_launches, timeseries_launches)
     launches = {k: sum(p[k] for p in paths) for k in main["launches"]}
     launches["grouped_sum_f32"] = launches["presence"]
+    run_lint(launches)
 
     print(card_line(), flush=True)
     kernels = []

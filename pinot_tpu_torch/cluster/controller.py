@@ -363,9 +363,8 @@ class Controller:
         partitions = self._compute_partitions(segment, config)
         if partitions:
             seg_meta["partitions"] = partitions
-        self.store.set(f"/tables/{table}/segments/{segment.name}", seg_meta, fence=self.lease_fence())
+        self.store.set(f"/tables/{table}/segments/{segment.name}", seg_meta, fence=self.lease_fence())  # pinotlint: disable=cache-invalidation — _update_ideal on the next line bumps the routing version after the ideal-state write
         self._update_ideal(table, lambda ideal: ideal.update({segment.name: {s: "ONLINE" for s in assigned}}))
-        self.bump_routing_version(table)
         # state transition: servers load the segment from the deep store.
         # With HA enabled, a failing server falls back to the durable retry
         # queue instead of failing the upload (Helix async transition analog).
@@ -460,7 +459,6 @@ class Controller:
         removed: dict[str, dict] = {}
         self._update_ideal(table, lambda ideal: removed.update(replicas=ideal.pop(segment_name, {})))
         replicas = removed["replicas"]
-        self.bump_routing_version(table)
         if self._transitions is not None:
             self._transitions.cancel(table, segment_name)
         handles = self.servers()
@@ -548,14 +546,15 @@ class Controller:
                 ideal.pop(segment, None)
 
         self._update_ideal(table, apply)
-        self.bump_routing_version(table)
 
     def _update_ideal(self, table: str, change) -> None:
         """change(ideal) edits the table's ideal state in place, under the
         store's atomic read-modify-write: the consumer threads of a
         realtime table's partitions commit segments and open the next ones
         at once, and a plain get-then-set would drop one thread's entry (a
-        consuming segment no query routes to)."""
+        consuming segment no query routes to). Then bumps the table's
+        routing version, so no broker cache answers from the old segment
+        set: every write of the ideal state comes with its bump."""
 
         def edit(cur):  # the store hands out a copy
             ideal = cur or {}
@@ -563,6 +562,7 @@ class Controller:
             return ideal
 
         self.store.update(f"/tables/{table}/idealstate", edit, fence=self.lease_fence())
+        self.bump_routing_version(table)
 
     # -- views ---------------------------------------------------------------
 

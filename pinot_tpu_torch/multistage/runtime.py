@@ -1817,7 +1817,7 @@ def run_stage_worker(
         for pw in range(parent_par):
             try:
                 mailbox.send(stage.id, parent, pw, ("__err__", repr(e), code))
-            except Exception:  # best-effort marker; the receiver's own deadline reports the loss
+            except Exception:  # pinotlint: disable=deadline-swallow — best-effort marker forwarding; the receiver's own deadline reports the loss
                 pass
 
 
