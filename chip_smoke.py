@@ -99,10 +99,25 @@
    pruned counts against the numpy count from each segment's [min, max],
    the first query's staged segments against the unpruned ones, and, over
    configs 28-30, the kernel registry's calls against the launch counters
-   (every roofline row at most 100% of the peak). `kernel_registry_cost`
-   times 28a with the registry on and off; `kernel_obs` gives, per kernel,
-   the registry's CUDA-event ms a call beside the kernel's device-alone time
+   (every roofline row at most 100% of the peak; on the card the launches
+   replayed inside the programs' graphs). `kernel_registry_cost` times 28a
+   with the registry on and off; `kernel_obs` gives, per kernel, the
+   registry's calls and bytes a call (replayed inside the graphs) and the
+   program's CUDA-event ms a segment beside the kernel's device-alone time
    at the same operands.
+8b. The compiled programs (`compiled_program`, after the sharded phase):
+   every per-segment query of configs 1-31 on its engine runs with every
+   segment's program a replayed CUDA graph (no eager program outside a
+   capture; a graph lookup a segment program); each (plan, staged segment)
+   is replayed again through run_plan_packed and held leaf by leaf against
+   the eager build_fn(spec) program on the same segment (integers, flags
+   and keys equal; float64 within rtol 1e-12), its launch counters under
+   replay equal to eager's; the one-slot sharded Q4 and Q2 likewise against
+   build_masked_fn; configs 3, 5, 6 and 8's kernel calls held against their
+   plain versions after their replay; a program with a host sync must fail
+   its capture; capture, replay and eager ms for configs 1-9, the graph
+   table's bytes, captures, replays and evictions, and the
+   `query.fused_packed` roofline rows (at most 100% of the peak).
 
 9. The sharded table and executor (bench.py's timed path): the same 8M
    rows as one sharded table (build_sharded_table, rows_per_segment = n / 4
@@ -2641,10 +2656,13 @@ def run_scheduled(kind: str, jobs: list, want: dict) -> dict:
 
 
 def kernel_obs_phase(torch, tp_engine, up_engine) -> dict:
-    """Per kernel: the registry's device ms per call at one config (its CUDA
-    events, read at resolve) beside the kernel's device-alone time at the
-    same shape (the operands of its first call in that config, timed as
-    kernel_timing times), and the roofline rows of that run."""
+    """Per kernel at one config: the registry's calls and bytes a call (its
+    launches replayed inside the segments' graphs, read at resolve: their
+    device time is the program's) and the program's event ms a segment
+    (`query.fused_packed`), beside the kernel's device-alone time at the
+    same shape (the operands of its first call in that config, at the
+    warm-up of its graph's capture, timed as kernel_timing times), and the
+    roofline rows of that run."""
     from pinot_tpu_torch.common.kernel_obs import KERNELS
     from pinot_tpu_torch.ops import extreme as ext
     from pinot_tpu_torch.ops import groupby as gb
@@ -2670,13 +2688,15 @@ def kernel_obs_phase(torch, tp_engine, up_engine) -> dict:
 
         setattr(qk, fn_name, spy)
         try:
-            KERNELS.reset_stats()
-            eng.execute(sqls[cfg])
-            snap = KERNELS.stats_snapshot()
-            roof = KERNELS.roofline()["kernels"]
+            with own_graphs():
+                eng.execute(sqls[cfg])  # the captures, into a table of their own
+                KERNELS.reset_stats()
+                eng.execute(sqls[cfg])  # the replays
+            rows = [v for (k, *_), v in KERNELS.in_program_snapshot().items() if k == kname]
+            prog = [v for (k, _), v in KERNELS.stats_snapshot().items() if k == "query.fused_packed"]
+            roof = KERNELS.roofline()
         finally:
             setattr(qk, fn_name, real)
-        rows = [v for (k, _), v in snap.items() if k == kname]
         calls = sum(v["calls"] for v in rows)
         args, kwargs = first[0]
         KERNELS.configure(enabled=False)
@@ -2686,11 +2706,13 @@ def kernel_obs_phase(torch, tp_engine, up_engine) -> dict:
             KERNELS.configure(enabled=True)
         out[f"{cfg}:{kname}"] = {
             "registry_calls": calls,
-            "registry_device_ms_per_call": sum(v["deviceMs"] for v in rows) / calls,
             "registry_bytes_per_call": sum(v["bytesMoved"] for v in rows) / calls,
+            "program_calls": sum(v["calls"] for v in prog),
+            "program_event_ms_per_segment": sum(v["deviceMs"] for v in prog) / max(sum(v["calls"] for v in prog), 1),
             "kernel_device_ms_first_call_shape": device_ms,
             "kernel_host_ms": host_ms,
-            "roofline": [r for r in roof if r["kernel"] == kname],
+            "roofline": [r for r in roof["kernels"] if r["kernel"] == "query.fused_packed"],
+            "in_program": [r for r in roof["inProgram"] if r["kernel"] == kname],
         }
     return out
 
@@ -2745,10 +2767,10 @@ def run_slice8_main(torch, counted, counters, want, tp_want, engine, tp_eng, tp_
     want[name] = moved_want[name]
     out["upsert"] = {"valid_docs": int(live.sum()), "moved": moved}
 
-    # the registry against the launch counters over configs 28-30
-    snap = KERNELS.stats_snapshot()
+    # the registry against the launch counters over configs 28-30 (on the
+    # card the launches replayed inside the programs' graphs)
     calls = {}
-    for (kname, _), v in snap.items():
+    for (kname, *_), v in [*KERNELS.stats_snapshot().items(), *KERNELS.in_program_snapshot().items()]:
         calls[kname] = calls.get(kname, 0) + v["calls"]
     delta = {k: fn.launches - before[k] for k, fn in counters.items()}
     by_kernel = {"ops.grouped_planes": delta["grouped_sum_count"], "ops.grouped_extreme": delta["grouped_extreme"],
@@ -3036,8 +3058,232 @@ def run_main_path(torch, counters: dict) -> dict:
     emit({"phase": "where_the_time_goes", "configs": split})
     emit({"phase": "kernel_registry_cost", **registry_cost(tp_eng), "card": card_line()})
     emit({"phase": "kernel_obs", "kernels": kernel_obs_phase(torch, tp_eng, up_eng), "card": card_line()})
+    # every per-segment query of configs 1-31 on its engine, for the
+    # compiled_program phase (the host configs but 16's device segment run
+    # no program)
+    compiled = {name: (engine, sql) for name, sql in {**CONFIGS, **TAG_CONFIGS}.items()}
+    compiled.update({name: (ev_engine, sql) for name, sql in CONFIG_10.items()})
+    compiled["16_mixed_executors"] = (mixed_engine, HOST_CONFIGS["16_mixed_executors"])
+    compiled.update({name: (null_engine, sql) for name, sql in NULL_CONFIGS.items()})
+    compiled.update({name: (mv_eng, sql) for name, sql in MV_CONFIGS.items()})
+    compiled.update({name: (tp_eng, sql) for name, sql in TP_CONFIGS.items()})
+    compiled.update({name: (up_eng, sql) for name, sql in UPSERT_CONFIGS.items()})
     return {"launches": main_launches, "new_steps": new_steps, "engine": engine, "segments": segments,
-            "tp_segments": tp_segments, "data": data, "want": want, "nation": nation}
+            "tp_segments": tp_segments, "data": data, "want": want, "nation": nation, "compiled": compiled}
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the compiled programs (one CUDA graph a segment and signature)
+# ---------------------------------------------------------------------------
+
+#: configs whose capture / replay / eager ms the compiled_program line gives
+COMPILED_TIMED = tuple(n for n in CONFIGS if int(n.split("_")[0]) <= 9)
+#: the one-slot sharded programs held against their eager form
+COMPILED_SHARDED = ("4_q4_groupby_orderby", "2_filtered_agg")
+
+
+def _leaf_equal(name: str, got: np.ndarray, want: np.ndarray) -> float:
+    """A replayed leaf against the eager program's: integers, booleans and
+    shapes equal; float64 leaves equal where their sums add in one order,
+    within rtol 1e-12 where atomics add them in a run-dependent one (NaN
+    where NaN). Returns the largest absolute difference."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: replayed {got.dtype}{got.shape}, eager {want.dtype}{want.shape}")
+    if got.dtype.kind != "f":
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: replayed leaf differs from the eager program's")
+        return 0.0
+    if not np.array_equal(np.isnan(got), np.isnan(want)) or not np.allclose(got, want, rtol=1e-12, atol=0.0, equal_nan=True):
+        raise AssertionError(f"{name}: replayed float leaf differs from the eager program's past rtol 1e-12")
+    fin = np.isfinite(want)
+    return float(np.max(np.abs(got[fin] - want[fin]), initial=0.0))
+
+
+def run_compiled_program(torch, counters: dict, engines: dict, one_slot) -> dict:
+    """Phase 8b: the main path's per-segment queries (configs 1-31, each on
+    its engine) run as the engine runs them, every segment's program a
+    replayed CUDA graph (no eager program outside a capture, every lookup a
+    graph); then each (plan, staged segment) the engine dispatched, replayed
+    again through run_plan_packed and held against the eager build_fn(spec)
+    program on the same segment, leaf by leaf, with the launch counters
+    under replay equal to eager's; the one-slot sharded Q4 and Q2 likewise
+    against build_masked_fn; capture, replay and eager ms for configs 1-9;
+    a program whose capture fails raising; the graph table's bytes and the
+    `query.fused_packed` roofline rows (pctOfPeak <= 100)."""
+    from pinot_tpu_torch.common.kernel_obs import KERNELS, current_capture
+    from pinot_tpu_torch.ops import extreme as ext
+    from pinot_tpu_torch.ops import groupby as gb
+    from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.parallel import mesh as mesh_mod
+    from pinot_tpu_torch.query import engine as engine_mod
+    from pinot_tpu_torch.query import graphs
+    from pinot_tpu_torch.query import kernels as K
+
+    t_phase = time.perf_counter()
+    KERNELS.reset_stats()
+    stats0 = graphs.GRAPHS.stats()
+    dispatched, eager_runs = [], [0]
+    real_dispatch, real_leaves = engine_mod.dispatch_plan_packed, K.Program.leaves
+
+    def spy_dispatch(plan, ds):
+        dispatched.append((plan, ds))
+        return real_dispatch(plan, ds)
+
+    def spy_leaves(self, *a):
+        if current_capture() is None:
+            eager_runs[0] += 1
+        return real_leaves(self, *a)
+
+    queries = []
+    for name, (eng, sql) in engines.items():
+        engine_mod.dispatch_plan_packed, K.Program.leaves = spy_dispatch, spy_leaves
+        try:
+            before = len(dispatched)
+            eng.execute(sql)
+        finally:
+            engine_mod.dispatch_plan_packed, K.Program.leaves = real_dispatch, real_leaves
+        queries.append((name, dispatched[before:]))
+    if eager_runs[0]:
+        raise AssertionError(f"compiled_program: {eager_runs[0]} eager programs ran outside a capture on the card")
+    stats1 = graphs.GRAPHS.stats()
+    working_set = stats1["bytes"]
+    card_memory = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved()}
+    programs = len(dispatched)
+    if stats1["replays"] - stats0["replays"] != programs:
+        raise AssertionError(f"compiled_program: {programs} segment programs, {stats1['replays'] - stats0['replays']} replays")
+
+    def host_leaves(leaves):
+        return [l.cpu().numpy() for l in leaves]
+
+    per_query, worst = {}, 0.0
+    for name, runs in queries:
+        launch_replay, launch_eager = {}, {}
+        for plan, ds in runs:
+            b = [fn.launches for fn in counters.values()]
+            got, _ = K._flatten(K.run_plan_packed(plan, ds))
+            mid = [fn.launches for fn in counters.values()]
+            cols, ops = K.plan_inputs(plan, ds)
+            want, _ = K._flatten(K.build_fn(plan.spec)(cols, ops, ds.n_docs, ds.padded))
+            want = host_leaves(want)
+            end = [fn.launches for fn in counters.values()]
+            for k, x, y, z in zip(counters, b, mid, end):
+                launch_replay[k] = launch_replay.get(k, 0) + y - x
+                launch_eager[k] = launch_eager.get(k, 0) + z - y
+            if len(got) != len(want):
+                raise AssertionError(f"{name}: {len(got)} replayed leaves, {len(want)} eager")
+            for i, (g, w) in enumerate(zip(got, want)):
+                worst = max(worst, _leaf_equal(f"{name} leaf {i}", np.asarray(g), w))
+        if launch_replay != launch_eager:
+            raise AssertionError(f"{name}: launches under replay {launch_replay}, eager {launch_eager}")
+        per_query[name] = {"segments": len(runs), "launches": launch_replay}
+
+    # configs 1-9 on their first segment: the first call (warm-up, capture,
+    # replay, copy), a replay (operands in, replay, copy), the eager program
+    # and its copy (PR 19's dispatch); host walls, each ending in its
+    # device->host copy and the outputs unpacked on the host
+    timed = {}
+    for name in COMPILED_TIMED:
+        plan, ds = dict(queries)[name][0]
+        with own_graphs() as table:
+            t0 = time.perf_counter()
+            K.run_plan_packed(plan, ds)
+            capture_ms = (time.perf_counter() - t0) * 1e3
+            alone = table.stats()
+            replay = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                K.run_plan_packed(plan, ds)
+                replay.append((time.perf_counter() - t0) * 1e3)
+        eager = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            cols, ops = K.plan_inputs(plan, ds)
+            leaves, defs = K._flatten(K.build_fn(plan.spec)(cols, ops, ds.n_docs, ds.padded))
+            K._unflatten(defs, iter(K.unpack(K.pack(leaves).cpu().numpy(), K.leaf_meta(leaves))))
+            eager.append((time.perf_counter() - t0) * 1e3)
+        timed[name] = {"rows": ds.padded, "capture_ms": capture_ms, "replay_ms": float(np.median(replay)),
+                       "eager_ms": float(np.median(eager)), "graph_bytes": alone["bytes"],
+                       "pool_bytes": alone["poolBytes"]}
+
+    # the one-slot sharded programs against build_masked_fn's eager form
+    sharded = {}
+    for name in COMPILED_SHARDED:
+        _, plan, program = mesh_mod._prepare(one_slot, CONFIGS[name])
+        b = [fn.launches for fn in counters.values()]
+        vecs, rebuild = program()
+        got = K._flatten(rebuild([v.cpu().numpy() for v in vecs]))[0]
+        mid = [fn.launches for fn in counters.values()]
+        cols = {c: one_slot.arrays[c][0] for c in plan.columns} or {"__shape__": next(iter(one_slot.arrays.values()))[0]}
+        flat, valid = mesh_mod._flatten_local(cols, one_slot.n_docs[0], one_slot.padded)
+        out = K.build_masked_fn(plan.spec)(flat, K.stage_operands(list(plan.operands), flat[next(iter(flat))].device), valid)
+        want = host_leaves(K._flatten(out)[0])
+        end = [fn.launches for fn in counters.values()]
+        replay_l = {k: y - x for k, x, y in zip(counters, b, mid)}
+        eager_l = {k: z - y for k, y, z in zip(counters, mid, end)}
+        if replay_l != eager_l:
+            raise AssertionError(f"sharded {name}: launches under replay {replay_l}, eager {eager_l}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            worst = max(worst, _leaf_equal(f"sharded {name} leaf {i}", np.asarray(g), w))
+        sharded[name] = {"launches": replay_l, "leaves": len(got)}
+
+    # each spied wrapper call of configs 3, 5, 6, 8 held after its replay
+    held = {}
+    for name in ("3_q1_groupby", "5_groupby_minmax", "6_groupby_distinct", "8_groupby_wide"):
+        eng, sql = engines[name]
+        calls = spy_calls(lambda: eng.execute(sql))
+        held[name] = hold_all(torch, calls, gb, ext, gs)
+        if not held[name] or any(h["max_abs_err"] != 0 for h in held[name]):
+            raise AssertionError(f"{name}: held calls {held[name]}")
+
+    # a program with a host sync cannot be captured: the call raises
+    from pinot_tpu_torch.query.kernels import OperandBinding, compiled_graph
+
+    probe = torch.arange(1024, device="cuda")
+    try:
+        compiled_graph(("probe",), probe, probe.device, OperandBinding([np.int32(3)], probe.device),
+                       lambda ops: ((probe + int((probe > ops[0]).sum()),), {}))
+    except RuntimeError as e:
+        capture_failure = str(e).splitlines()[0][:160]
+    else:
+        raise AssertionError("compiled_program: a capture with a host sync did not raise")
+    # the card and its pool after the failure: a replay, and a new capture
+    plan, ds = dict(queries)["3_q1_groupby"][0]
+    K.run_plan_packed(plan, ds)
+    g = compiled_graph(("probe", "after"), probe, probe.device, OperandBinding([np.int32(3)], probe.device),
+                       lambda ops: ((probe + ops[0], K.capture_counts(probe.device)), {}))
+    after = K.replay(g, OperandBinding([np.int32(5)], probe.device), "query.fused", K.read_cloned)[0][0]
+    if not torch.equal(after, probe + 5):
+        raise AssertionError("compiled_program: a capture after the failed one replayed wrong")
+
+    roof = KERNELS.roofline(top=0)
+    fused = [r for r in roof["kernels"] if r["kernel"] == "query.fused_packed"]
+    if not fused or any(r["pctOfPeak"] > 100 for r in roof["kernels"]):
+        raise AssertionError(f"compiled_program: roofline {roof['kernels']}")
+    stats = graphs.GRAPHS.stats()
+    out = {
+        "phase": "compiled_program",
+        "queries": len(queries),
+        "segment_programs": programs,
+        "eager_programs_outside_capture": eager_runs[0],
+        "max_abs_err": worst,
+        "per_query": per_query,
+        "timed": timed,
+        "sharded": sharded,
+        "held": held,
+        "capture_failure": capture_failure,
+        "graphs": stats,
+        "bytes_after_queries": working_set,
+        "pool_bytes_after_queries": stats1["poolBytes"],
+        "process_memory_after_queries": card_memory,
+        "evictions_in_queries": stats1["evictions"] - stats0["evictions"],
+        "captures_in_phase": stats["captures"] - stats0["captures"],
+        "replays_in_phase": stats["replays"] - stats0["replays"],
+        "fused_packed_roofline": fused,
+        "seconds": time.perf_counter() - t_phase,
+        "card": card_line(),
+    }
+    emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3208,19 +3454,56 @@ def exchange_event_ms(table, sql) -> dict:
 SPIED_WRAPPERS = ("grouped_multi_sum", "grouped_extremes", "presences")
 
 
+#: what the blocks run in graph tables of their own (`own_graphs`: the
+#: spied runs, the timed captures) cost: their captures and seconds
+OWN_GRAPHS = {"blocks": 0, "captures": 0, "capture_seconds": 0.0, "seconds": 0.0}
+
+
+@contextlib.contextmanager
+def own_graphs():
+    """A graph table of its own (its own pools) for the block: its programs
+    capture afresh, and the process's table is back untouched after it (the
+    block's graphs and their pool dropped, their memory given back)."""
+    from pinot_tpu_torch.query import graphs
+
+    saved = graphs.GRAPHS
+    graphs.GRAPHS = graphs.GraphTable()
+    t0 = time.perf_counter()
+    try:
+        yield graphs.GRAPHS
+    finally:
+        table, graphs.GRAPHS = graphs.GRAPHS, saved
+        stats = table.stats()
+        table.clear()
+        OWN_GRAPHS["blocks"] += 1
+        OWN_GRAPHS["captures"] += stats["captures"]
+        OWN_GRAPHS["capture_seconds"] += stats["captureSeconds"]
+        OWN_GRAPHS["seconds"] += time.perf_counter() - t0
+
+
 def spy_calls(run) -> dict:
     """run() with every call of the SPIED_WRAPPERS recorded, in call order:
     {wrapper: [(args, kwargs, result), ...]}. The calls run as they would;
-    the spy only keeps their operands."""
+    the spy only keeps their operands. On the card a program's wrapper calls
+    run once, at its graph's capture, and their tensors hold each replay's
+    operands and results: so run() captures its programs into a graph table
+    of its own (`own_graphs`, whose pool holds the kept tensors apart from
+    every other graph's), only the captured calls are kept (not the
+    warm-ups'), and a caller holds them after run(), once the replays have
+    filled them."""
+    import torch
+
     from pinot_tpu_torch.query import kernels as qk
 
     calls = {n: [] for n in SPIED_WRAPPERS}
     reals = {n: getattr(qk, n) for n in SPIED_WRAPPERS}
+    on_card = DEVICE != "cpu"
 
     def spy(name, real):
         def call(*a, **k):
             got = real(*a, **k)
-            calls[name].append((a, k, got))
+            if not on_card or torch.cuda.is_current_stream_capturing():
+                calls[name].append((a, k, got))
             return got
 
         return call
@@ -3228,7 +3511,8 @@ def spy_calls(run) -> dict:
     for n, real in reals.items():
         setattr(qk, n, spy(n, real))
     try:
-        run()
+        with own_graphs() if on_card else contextlib.nullcontext():
+            run()
     finally:
         for n, real in reals.items():
             setattr(qk, n, real)
@@ -3588,7 +3872,6 @@ def slot_program_ms(torch, table, sql, iters: int = 5) -> list:
     a spin, as program_device_ms times the whole mesh's."""
     from pinot_tpu_torch.common.kernel_obs import KERNELS
     from pinot_tpu_torch.parallel import mesh as mesh_mod
-    from pinot_tpu_torch.query.kernels import stage_operands
 
     _, plan, _ = mesh_mod._prepare(table, sql)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -3598,9 +3881,9 @@ def slot_program_ms(torch, table, sql, iters: int = 5) -> list:
         for d, dev in enumerate(table.mesh.devices):
             kernel = mesh_mod._sharded_kernel(plan.spec, table.padded, (dev,))
             cols = [{c: table.arrays[c][d] for c in plan.columns}]
-            ops = [stage_operands(list(plan.operands), dev)]
+            ops = list(plan.operands)
             nd = [table.n_docs[d]]
-            kernel(cols, ops, nd)
+            kernel(table, cols, ops, nd)
             total = 0.0
             for _ in range(iters):
                 flush.zero_()
@@ -3608,7 +3891,7 @@ def slot_program_ms(torch, table, sql, iters: int = 5) -> list:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                kernel(cols, ops, nd)
+                kernel(table, cols, ops, nd)
                 end.record()
                 end.synchronize()
                 total += start.elapsed_time(end)
@@ -4166,21 +4449,21 @@ def run_multistage(torch, counters: dict) -> dict:
     queries = {}
     for name, sql in MULTISTAGE_QUERIES.items():
         kinds = []
-        real = qk.build_fn
+        real = qk.run_plan
 
-        def spy(spec, real=real):
-            kinds.append(spec[0])
-            return real(spec)
+        def spy(plan, ds, real=real):
+            kinds.append(plan.spec[0])
+            return real(plan, ds)
 
         for fn in counters.values():
             fn.launches = 0
         before = dict(rt.DEVICE_OP_STATS)
-        qk.build_fn = spy
+        qk.run_plan = spy
         out = []
         try:
             calls = spy_calls(lambda: out.append(engine.execute(sql).rows))
         finally:
-            qk.build_fn = real
+            qk.run_plan = real
         got = out[0]
         engaged = {k: rt.DEVICE_OP_STATS.get(k, 0) - before.get(k, 0) for k in ("sort", "join", "window", "mesh_join")}
         for op in MULTISTAGE_OPS[name]:
@@ -4403,11 +4686,12 @@ KERNEL_OF_REGISTRY = {
 
 def calls_by_kernel(roofline: dict) -> dict:
     """Launches by counter name from a `KERNELS.roofline()` document (the
-    body of a server's GET /debug/roofline), summed over shape buckets; the
-    registry's other entries (the sharded path's `exchange.*` programs) are
-    not kernel launches."""
+    body of a server's GET /debug/roofline), summed over shape buckets: the
+    timed launches and those replayed inside a compiled program's graph
+    (`inProgram`); the registry's other entries (the programs `query.*`,
+    `exchange.*`) are not kernel launches."""
     out = {k: 0 for k in KERNEL_OF_REGISTRY.values()}
-    for row in roofline["kernels"]:
+    for row in roofline["kernels"] + roofline.get("inProgram", []):
         if row["kernel"] in KERNEL_OF_REGISTRY:
             out[KERNEL_OF_REGISTRY[row["kernel"]]] += row["calls"]
     return out
@@ -7635,6 +7919,7 @@ def main() -> int:
     from pinot_tpu_torch.ops import extreme as ext
     from pinot_tpu_torch.ops import groupby as gb
     from pinot_tpu_torch.ops import grouped_sum_f32 as gs
+    from pinot_tpu_torch.query.graphs import GRAPHS
 
     card = card_line()
     print(card, flush=True)
@@ -7671,6 +7956,7 @@ def main() -> int:
     main = run_main_path(torch, counters)
     data, engine, want, nation = main.pop("data"), main.pop("engine"), main.pop("want"), main.pop("nation")
     sharded_launches, one_slot = run_sharded(torch, counters, data, want, engine)
+    run_compiled_program(torch, counters, main.pop("compiled"), one_slot)
     mesh_launches = run_mesh(torch, counters, data, want, one_slot)
     del one_slot
     run_store(torch, engine, main.pop("segments"), main.pop("tp_segments"), data)
@@ -7681,8 +7967,9 @@ def main() -> int:
     deep, want6 = cluster["deep"], cluster["want6"]
     del cluster, data, nation
     # the roles' five CUDA contexts share the card with this process: free
-    # the in-process cluster's staged segments first
+    # the in-process cluster's staged segments and their graphs first
     gc.collect()
+    GRAPHS.purge()
     torch.cuda.empty_cache()
     process_launches = run_processes(torch, deep, want, want6, http_p50)
     shutil.rmtree(deep, ignore_errors=True)
@@ -7739,7 +8026,8 @@ def main() -> int:
                 "library_ms": t["library_ms"],
             }
         )
-    emit({"phase": "run", "seconds": time.perf_counter() - T_START, "card": card_line()})
+    emit({"phase": "run", "seconds": time.perf_counter() - T_START, "graphs": GRAPHS.stats(), "own_graphs": OWN_GRAPHS,
+          "card": card_line()})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

@@ -29,7 +29,20 @@ The JAX package's `common/kernel_obs.py`, re-based on the card:
   (the sharded executor's `exchange.sharded`) with one CUDA event pair,
   whose end event is the wait for the copy, and resolves the launches the
   program made, which run on no segment's collector; their mask counts
-  ride at the end of the same copy.
+  ride at the end of the same copy. `program()` is the same record for a
+  compiled per-segment program (`query.fused_packed`): an event pair around
+  the replay and its copy, queued on the segment's collector.
+- CUDA graphs (`query/graphs.py`): while a program is captured
+  (`capturing()`), a launch records no event and bumps no counter; it
+  appends (name, shape, mask-count tensor) to the capture's
+  `CapturedLaunches`, and `count_launch` appends its wrapper. Each replay
+  then goes through `replayed()`: every captured counter bump is made
+  again, and every captured launch queues as an in-program record with its
+  mask count from the replay. The device time of a graph is its program's
+  (the reference's Pallas calls inside a jitted program are no roots
+  either): an in-program record adds a call and its bytes to the kernel's
+  `inProgram` row of the roofline, never to its timed row, whose
+  `pctOfPeak` stays device time's.
 - Memory: live / peak bytes from `torch.cuda.memory_stats()`
   (`allocated_bytes.all.current` / `.peak`) when a card is in use, else a
   deterministic host-side estimator, so the CPU tests see the same math.
@@ -48,7 +61,7 @@ import sys
 import threading
 import time
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -76,9 +89,44 @@ def shape_bucket(n) -> str:
 _COUNT_LOCK = threading.Lock()
 
 
+@dataclass
+class CapturedLaunches:
+    """What one capture of a program saw of the kernel wrappers, in order:
+    each launch's (registered name, shape, mask count: a device scalar in
+    the graph's memory) and each wrapper whose counter a launch bumps."""
+
+    launches: list = field(default_factory=list)
+    counters: list = field(default_factory=list)
+
+
+# the capture this context's launches go to (None: launches run and record)
+_CAPTURE: contextvars.ContextVar[CapturedLaunches | None] = contextvars.ContextVar("pinot_kernel_capture", default=None)
+
+
+@contextmanager
+def capturing(captured: CapturedLaunches):
+    """Route the launches made in this context to `captured`: a graph's
+    capture, or a warm-up whose launches count nowhere."""
+    token = _CAPTURE.set(captured)
+    try:
+        yield captured
+    finally:
+        _CAPTURE.reset(token)
+
+
+def current_capture() -> CapturedLaunches | None:
+    """The capture (or warm-up) this context's launches go to, if any."""
+    return _CAPTURE.get()
+
+
 def count_launch(wrapper) -> None:
     """Add one to a kernel wrapper's `.launches` counter, atomically: the
-    query scheduler's runner threads launch concurrently."""
+    query scheduler's runner threads launch concurrently. Under a capture the
+    bump is kept for each replay instead."""
+    cap = _CAPTURE.get()
+    if cap is not None:
+        cap.counters.append(wrapper)
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
 
@@ -193,13 +241,16 @@ class _KernelStats:
 
 @dataclass
 class _Pending:
-    """One CUDA launch whose events have not been read yet."""
+    """One CUDA launch (or program) whose events have not been read yet;
+    with no events (`start` None), a launch replayed inside `program`'s
+    graph, whose device time is the program's."""
 
     name: str
     start: object
     end: object
-    masked: object  # a device scalar (the launch's mask count) or None
+    masked: object  # the launch's mask count: a device scalar, an int, or None
     shape: dict
+    program: str | None = None
 
 
 #: launches outside any collector held before they are read (with a wait)
@@ -219,6 +270,8 @@ class KernelRegistry:
         self._hbm_peak_gbps = float(hbm_peak_gbps)
         self._kernels: dict[str, RegisteredKernel] = {}
         self._stats: dict[tuple[str, str], _KernelStats] = {}
+        # (kernel, bucket, program) -> the launches replayed inside programs
+        self._in_program: dict[tuple[str, str, str], _KernelStats] = {}
         self._orphans: list[_Pending] = []
         # (registry, name, bucket) -> the metric series a record updates,
         # resolved once (series keys are built by escaping every label)
@@ -275,6 +328,12 @@ class KernelRegistry:
         the launch's doc mask: its count of set docs feeds the byte model
         (`shape["masked"]`), and its device decides how the launch is timed
         (module docstring)."""
+        cap = _CAPTURE.get()
+        if cap is not None:
+            # captured: the launch is recorded at each replay (`replayed`)
+            out = fn()
+            cap.launches.append((name, shape, mask.sum()))
+            return out
         if not self._enabled:
             return fn()
         if mask.device.type != "cuda":
@@ -290,17 +349,63 @@ class KernelRegistry:
         start.record(stream)
         out = fn()
         end.record(stream)
-        pending = _Pending(name, start, end, mask.sum(), shape)
+        self._queue([_Pending(name, start, end, mask.sum(), shape)])
+        return out
+
+    def _queue(self, pending: list) -> None:
+        """Queue records on this context's collector, or on the orphans
+        (read, with a wait, at the next snapshot or when too many are held)."""
         sink = _COLLECTOR.get()
         if sink is not None:
-            sink.append(pending)
-        else:
-            with self._lock:
-                self._orphans.append(pending)
-                full = len(self._orphans) >= _MAX_ORPHANS
-            if full:
-                self._drain_orphans()
-        return out
+            sink.extend(pending)
+            return
+        with self._lock:
+            self._orphans.extend(pending)
+            full = len(self._orphans) >= _MAX_ORPHANS
+        if full:
+            self._drain_orphans()
+
+    def replayed(self, captured: CapturedLaunches, program: str, masked: list | None = None) -> list:
+        """The bookkeeping of one replay of a graph whose capture saw
+        `captured`: every captured counter bump made again, and one
+        in-program record a captured launch (its mask count from `masked`,
+        the replay's, or filled in by the caller before resolve), queued as
+        `launch` queues. Returns the records."""
+        with _COUNT_LOCK:
+            for wrapper in captured.counters:
+                wrapper.launches += 1
+        if not self._enabled:
+            return []
+        counts = masked if masked is not None else [None] * len(captured.launches)
+        pending = [_Pending(name, None, None, m, shape, program) for (name, shape, _), m in zip(captured.launches, counts)]
+        self._queue(pending)
+        return pending
+
+    @contextmanager
+    def program(self, name: str, device, **shape):
+        """Record a compiled program run on the CUDA `device` in this
+        context (a graph's replay and its device->host copy) under `name`:
+        a CUDA event pair on the current stream, queued as a launch's. Yields
+        the record (its `end` event is the copy's), or None when disabled."""
+        if not self._enabled:
+            yield None
+            return
+        import torch
+
+        stream = torch.cuda.current_stream(device)
+        rec = _Pending(name, torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True), None, shape)
+        rec.start.record(stream)
+        yield rec
+        rec.end.record(stream)
+        self._queue([rec])
+
+    def record_program(self, name: str, ms: float, **shape) -> None:
+        """Record a program run on the CPU (the host wall of its eager ops
+        and its copy) into the ledger and the metrics alone: its kernels'
+        plain versions recorded their own walls for the query's device time
+        and trace."""
+        if self._enabled:
+            self._record(name, ms, shape, gauges=True, attribute=False)
 
     @contextmanager
     def collect(self):
@@ -322,13 +427,23 @@ class KernelRegistry:
             return
         if wait:
             for p in pending:
-                p.end.synchronize()
+                if p.end is not None:
+                    p.end.synchronize()
         if masked is None:
-            import torch
+            masked = [p.masked for p in pending]
+            on_device = [i for i, m in enumerate(masked) if m is not None and not isinstance(m, (int, float))]
+            if on_device:
+                import torch
 
-            masked = torch.stack([p.masked for p in pending]).cpu().tolist()
+                got = torch.stack([masked[i] for i in on_device]).cpu().tolist()
+                for i, m in zip(on_device, got):
+                    masked[i] = m
         for p, m in zip(pending, masked):
-            self._record(p.name, p.start.elapsed_time(p.end), {**p.shape, "masked": int(m)}, gauges=False)
+            shape = p.shape if m is None else {**p.shape, "masked": int(m)}
+            if p.start is None:
+                self._record_in_program(p.name, shape, p.program)
+            else:
+                self._record(p.name, p.start.elapsed_time(p.end), shape, gauges=False)
         self._set_hbm_gauges()
 
     def timed_sync(self, name: str, fn: Callable[[], "torch.Tensor | list[torch.Tensor]"], device, **shape):
@@ -403,14 +518,33 @@ class KernelRegistry:
         query's accountant tracker and the active trace."""
         self._record(name, device_ms, shape, gauges=True)
 
-    def _record(self, name: str, device_ms: float, shape: dict, gauges: bool) -> None:
+    def _cost(self, k: RegisteredKernel, shape: dict) -> tuple[float, float]:
+        if k.cost_model is None:
+            return 0.0, 0.0
+        nbytes, flops = k.cost_model(shape)
+        return max(float(nbytes), 0.0), max(float(flops), 0.0)
+
+    def _record_in_program(self, name: str, shape: dict, program: str | None) -> None:
+        """Fold one launch replayed inside `program`'s graph: a call and its
+        bytes on the kernel's in-program row, a `kernel.replayed` trace
+        event; no time (the program's record carries it)."""
         k = self._kernels.get(name)
         if k is None:
             return
-        nbytes, flops = (0.0, 0.0)
-        if k.cost_model is not None:
-            nbytes, flops = k.cost_model(shape)
-            nbytes, flops = max(float(nbytes), 0.0), max(float(flops), 0.0)
+        nbytes, flops = self._cost(k, shape)
+        bucket = shape_bucket(shape.get("rows", 0))
+        with self._lock:
+            s = self._in_program.setdefault((name, bucket, program or ""), _KernelStats())
+            s.calls += 1
+            s.bytes_moved += nbytes
+            s.flops += flops
+        trace_event("kernel.replayed", kernel=name, shape=bucket, program=program, bytesMoved=int(nbytes))
+
+    def _record(self, name: str, device_ms: float, shape: dict, gauges: bool, attribute: bool = True) -> None:
+        k = self._kernels.get(name)
+        if k is None:
+            return
+        nbytes, flops = self._cost(k, shape)
         bucket = shape_bucket(shape.get("rows", 0))
         with self._lock:
             s = self._stats.setdefault((name, bucket), _KernelStats())
@@ -426,8 +560,10 @@ class KernelRegistry:
             moved.mark(int(nbytes))
         if gauges:
             self._set_hbm_gauges()
-        default_accountant.sample(device_ms=device_ms, hbm_bytes=footprint)
         trace_event("kernel.execute", kernel=name, shape=bucket, deviceMs=round(device_ms, 3), bytesMoved=int(nbytes))
+        if not attribute:
+            return
+        default_accountant.sample(device_ms=device_ms, hbm_bytes=footprint)
         tr = active_trace()
         if tr is not None:
             tr.record_phase(ServerQueryPhase.DEVICE_EXECUTION, device_ms)
@@ -466,6 +602,16 @@ class KernelRegistry:
                 for key, s in self._stats.items()
             }
 
+    def in_program_snapshot(self) -> dict[tuple[str, str, str], dict]:
+        """(kernel, shape bucket, program) -> the calls, bytes and
+        operations of the launches replayed inside that program's graphs."""
+        self._drain_orphans()
+        with self._lock:
+            return {
+                key: {"calls": s.calls, "bytesMoved": s.bytes_moved, "flops": s.flops}
+                for key, s in self._in_program.items()
+            }
+
     def total_device_ms(self) -> float:
         return sum(s["deviceMs"] for s in self.stats_snapshot().values())
 
@@ -495,11 +641,17 @@ class KernelRegistry:
                 }
             )
         offenders = sorted((r for r in rows if r["rooflineGap"] is not None), key=lambda r: -r["lostMs"])
+        in_program = [
+            {"kernel": name, "shape": bucket, "program": program, "calls": s["calls"],
+             "bytesMoved": int(s["bytesMoved"]), "flops": int(s["flops"])}
+            for (name, bucket, program), s in sorted(self.in_program_snapshot().items())
+        ]
         return {
             "hbmPeakGBps": peak,
             "enabled": self._enabled,
             "kernels": rows,
             "offenders": offenders[: max(int(top), 0)],
+            "inProgram": in_program,
             "hbm": self.hbm_snapshot(),
             "registered": self.kernel_names(),
         }
@@ -509,7 +661,18 @@ class KernelRegistry:
     def reset_stats(self) -> None:
         with self._lock:
             self._stats.clear()
+            self._in_program.clear()
             self._orphans.clear()
+        self.hbm.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._kernels.clear()
+            self._stats.clear()
+            self._in_program.clear()
+            self._orphans.clear()
+            self._enabled = True
+            self._hbm_peak_gbps = DEFAULT_HBM_PEAK_GBPS
         self.hbm.reset()
 
 

@@ -1,7 +1,8 @@
 """jit-purity: functions the port compiles or captures — `torch.compile`,
 `torch.jit.script`, `@triton.jit` kernels and the body of a
-`with torch.cuda.graph(...)` block — (and the same-module functions they
-call) must be trace-pure.
+`with torch.cuda.graph(...)` or `with capture_graph(...)` block (the port's
+capture, query/graphs.py) — (and the same-module functions they call) must
+be trace-pure.
 
 Inside a compiled function the Python body runs at trace time, not once per
 call; a captured CUDA graph runs its host code once, at capture, and each
@@ -37,8 +38,9 @@ Compiled-root discovery is lexical, per module, and names each root form:
 options, or through `functools.partial(torch.compile, ...)`), the call forms
 `torch.compile(f)` / `torch.jit.script(f)` with `f` resolved through
 enclosing scopes (a lambda argument is its own root), and the body of
-`with torch.cuda.graph(...)`. Any other `*.jit` is not a root: the port has
-no `jax.jit`, and a name is matched only where it is one of these.
+`with torch.cuda.graph(...)` / `with capture_graph(...)`. Any other `*.jit`
+is not a root: the port has no `jax.jit`, and a name is matched only where
+it is one of these.
 """
 
 from __future__ import annotations
@@ -53,8 +55,16 @@ _METRICS = {"server_metrics", "broker_metrics"}
 _STATIC_FACETS = {"shape", "ndim", "dtype", "size", "device"}
 #: the compilers whose decorated or wrapped function is a root
 _COMPILERS = {"torch.compile", "torch.jit.script", "triton.jit"}
-#: the context manager whose body is captured into a CUDA graph
+#: the context managers whose body is captured into a CUDA graph: torch's,
+#: and the port's own (query/graphs.py), matched by its last name
 _GRAPH_CAPTURE = "torch.cuda.graph"
+_PORT_CAPTURE = "capture_graph"
+
+
+def is_graph_capture(node: ast.AST) -> bool:
+    """`torch.cuda.graph` / `capture_graph` (bare or qualified)."""
+    name = dotted_name(node)
+    return name == _GRAPH_CAPTURE or name.split(".")[-1] == _PORT_CAPTURE
 
 
 def is_compiler(node: ast.AST) -> bool:
@@ -85,8 +95,9 @@ def _constexpr_params(fn: ast.AST) -> set[str]:
 
 
 class CapturedBody:
-    """The body of one `with torch.cuda.graph(...)` block as a root: its
-    statements, the parameters of the function it sits in, and its line."""
+    """The body of one `with torch.cuda.graph(...)` (or `capture_graph`)
+    block as a root: its statements, the parameters of the function it sits
+    in, and its line."""
 
     def __init__(self, node: ast.With, enclosing: ast.AST | None):
         self.node = node
@@ -155,7 +166,7 @@ def compiled_roots(tree: ast.Module, defs: _ScopedDefs) -> dict[object, set[str]
             if isinstance(wrapped, (ast.FunctionDef, ast.Lambda)):
                 roots.setdefault(wrapped, set()).update(_constexpr_params(wrapped))
         elif isinstance(node, ast.With) and any(
-            isinstance(item.context_expr, ast.Call) and dotted_name(item.context_expr.func) == _GRAPH_CAPTURE
+            isinstance(item.context_expr, ast.Call) and is_graph_capture(item.context_expr.func)
             for item in node.items
         ):
             enclosing = defs.fn_of_with.get(node)

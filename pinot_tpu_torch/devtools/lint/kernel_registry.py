@@ -20,7 +20,11 @@ registered-launch
     `torch.compile`, `torch.jit.script`, `@triton.jit`, a captured CUDA
     graph) is held to the same rule at each of its calls — `f(...)`,
     `kernel[grid](...)`, `graph.replay()`; a root the module never calls
-    must be named by a register call, or carry a disable-with-reason.
+    must be named by a register call, or carry a disable-with-reason. A
+    graph's `replay()` may also sit in a registered program record: the
+    body of `with KERNELS.program("<name>", ...)` (a compiled per-segment
+    program's event pair) or the arguments of `KERNELS.timed_sync("<name>",
+    ...)`, whose event pair spans the replay.
 
 launched-entry
     Every launch entry in the `ops/csrc/*.cu` beside an analyzed `ops/`
@@ -108,15 +112,30 @@ def _parents(tree: ast.Module) -> dict[ast.AST, ast.AST]:
     return out
 
 
-def _enclosing_launch(node: ast.AST, parents: dict[ast.AST, ast.AST]) -> ast.Call | None:
-    """The `KERNELS.launch(...)` call whose arguments hold `node`, crossing
-    lambdas but no function definition."""
+#: the registry records a graph's replay may sit in, beside a launch
+_PROGRAM_RECORDS = ("launch", "program", "timed_sync")
+
+
+def _enclosing_launch(node: ast.AST, parents: dict[ast.AST, ast.AST], records=("launch",)) -> ast.Call | None:
+    """The registry call among `records` (`KERNELS.launch(...)` by default)
+    whose arguments hold `node`, or the `with KERNELS.program(...)` whose
+    body does (when "program" is among them), crossing lambdas and `with`
+    blocks but no function definition."""
     child, cur = node, parents.get(node)
     while cur is not None and not isinstance(cur, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
-        if isinstance(cur, ast.Call) and child is not cur.func and _is_registry_call(cur, "launch"):
+        if isinstance(cur, ast.Call) and child is not cur.func and any(_is_registry_call(cur, m) for m in records):
             return cur
+        if isinstance(cur, ast.With) and "program" in records and child in cur.body:
+            for item in cur.items:
+                expr = item.context_expr
+                if isinstance(expr, ast.Call) and _is_registry_call(expr, "program"):
+                    return expr
         child, cur = cur, parents.get(cur)
     return None
+
+
+def _is_replay(call: ast.Call) -> bool:
+    return isinstance(call.func, ast.Attribute) and call.func.attr == "replay"
 
 
 def _launch_name(call: ast.Call) -> str | None:
@@ -221,7 +240,8 @@ class KernelRegistryChecker(Checker):
         defs.visit(module.tree)
         for root, (name, root_calls) in _root_calls(module.tree, defs).items():
             for call in root_calls:
-                out.extend(self._check_launch(module, call, f"compiled root {name!r}", parents, registered))
+                records = _PROGRAM_RECORDS if _is_replay(call) else ("launch",)
+                out.extend(self._check_launch(module, call, f"compiled root {name!r}", parents, registered, records))
             if not root_calls and name not in registered:
                 out.append(
                     Finding(
@@ -233,10 +253,12 @@ class KernelRegistryChecker(Checker):
                 )
         return sorted(out, key=lambda f: (f.line, f.message))
 
-    def _check_launch(self, module, call, what, parents, registered) -> list[Finding]:
-        launch = _enclosing_launch(call, parents)
+    def _check_launch(self, module, call, what, parents, registered, records=("launch",)) -> list[Finding]:
+        launch = _enclosing_launch(call, parents, records)
         if launch is None:
-            why = "is called outside KERNELS.launch(...)"
+            why = "is called outside KERNELS.launch(...)" + (
+                " and outside a program record (KERNELS.program / KERNELS.timed_sync)" if len(records) > 1 else ""
+            )
         else:
             name = _launch_name(launch)
             if name is None:

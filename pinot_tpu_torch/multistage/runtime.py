@@ -1035,16 +1035,16 @@ def _leaf_filter_mask(seg, filt, null_on: bool = False, stats=None, node=None, d
     server metrics, and with a StageStatsCollector the device time or the
     fallback is attributed to the owning Scan operator."""
     from pinot_tpu_torch.common.metrics import ServerMeter, server_metrics
-    from pinot_tpu_torch.query.kernels import build_fn, plan_inputs
+    from pinot_tpu_torch.query.kernels import run_plan
     from pinot_tpu_torch.query.plan import DeviceFallback, PlanError, plan_filter_mask
 
     t0 = _time.perf_counter() if stats is not None else 0.0
     try:
         # null_on lowers nullable-column predicates to the Kleene tree
         plan = plan_filter_mask(seg, filt, kleene=null_on)
-        ds = seg.to_device_cached(device)
-        cols, ops = plan_inputs(plan, ds)
-        mask = build_fn(plan.spec)(cols, ops, ds.n_docs, ds.padded)[: seg.n_docs].cpu().numpy()
+        # the single-stage engine's compiled `mask` program (a CUDA graph on
+        # a card), as the reference's leaf runs its jitted one
+        mask = run_plan(plan, seg.to_device_cached(device))[: seg.n_docs].cpu().numpy()
     except (DeviceFallback, PlanError):
         server_metrics().meter(ServerMeter.DEVICE_FALLBACKS).mark()
         if stats is not None:

@@ -20,7 +20,9 @@ segments [d * S/D, (d + 1) * S/D) staged on its device. `_sharded_kernel`
 flattens a slot's stacked segments into ONE doc vector with a validity mask
 (aggregates are order-independent) and runs `build_masked_fn`'s program over
 it once a slot (the exact group-by, extreme and presence kernels launch once a
-slot); `_combine_tree` then merges the slots' partials on the first slot's
+slot; on a card the slot's program is a CUDA graph per table, slot and
+operand signature, captured at its first call, as the reference jits
+`_sharded_kernel`); `_combine_tree`, eager, then merges the slots' partials on the first slot's
 device by each aggregate's rule, and every output goes into ONE float64
 vector: a dense query makes one device->host copy, timed with its programs by
 `KERNELS.timed_sync` under "exchange.sharded". A sparse group-by's slot
@@ -39,6 +41,7 @@ segment); so does a sparse group-by whose present groups overflow its U slots.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -47,7 +50,21 @@ from pinot_tpu_torch.common.kernel_obs import KERNELS
 from pinot_tpu_torch.common.types import Schema
 from pinot_tpu_torch.query import ast
 from pinot_tpu_torch.query.context import QueryContext, QueryType
-from pinot_tpu_torch.query.kernels import _flatten, _unflatten, build_masked_fn, leaf_meta, pack, stage_operands, unpack
+from pinot_tpu_torch.query.kernels import (
+    OperandBinding,
+    _flatten,
+    _unflatten,
+    build_masked_fn,
+    capture_counts,
+    columns_key,
+    compiled_graph,
+    leaf_meta,
+    pack,
+    read_cloned,
+    replay,
+    stage_operands,
+    unpack,
+)
 from pinot_tpu_torch.query.plan import DeviceFallback, SegmentPlan, plan_segment
 from pinot_tpu_torch.segment.builder import SegmentBuilder
 from pinot_tpu_torch.segment.segment import ImmutableSegment, padded_len
@@ -290,26 +307,49 @@ def _stack_trees(trees: list):
     return np.stack(trees)
 
 
+@lru_cache(maxsize=256)
 def _sharded_kernel(spec: tuple, doc_pad: int, devices: tuple):
-    """run(slot_cols, slot_ops, n_docs) -> (the packed float64 vectors on the
-    device, rebuild): the flat program once a slot over its segments, then
-    for a dense query the merge across the slots (none on one slot, whose
+    """run(table, slot_cols, operands, n_docs) -> (the packed float64
+    vectors on the device, rebuild): the flat program once a slot over its
+    segments (on a card the slot's CUDA graph, one per table, slot and
+    operand signature, captured at its first call and replayed), then for a
+    dense query the merge across the slots, eager (none on one slot, whose
     partials are already the table's) and every output leaf in ONE vector
     (int64 leaves as hi / lo halves, see kernels.pack): a list of one. A
     sparse group-by gives one vector a slot. rebuild(host vectors) restores
     the output tree: (matched, parts), (matched, counts, parts), or for a
     sparse group-by the slots' (matched, counts, parts, uniq, n_unique),
-    each leaf with a leading slot axis (its slots are the slot's own)."""
+    each leaf with a leading slot axis (its slots are the slot's own).
+    `operands` are the plan's host operands; `table` owns the graphs."""
     base = build_masked_fn(spec)
     gspec = spec[2]
     grouped = gspec is not None
     sparse = grouped and gspec[0] == "groups_sparse"
 
-    def run(slot_cols, slot_ops, n_docs):
-        outs = []
-        for cols, ops, nd in zip(slot_cols, slot_ops, n_docs):
+    def slot(table, cols, operands, nd, bound: dict):
+        dev = nd.device
+        if dev.type != "cuda":
+            if dev not in bound:
+                bound[dev] = stage_operands(operands, dev)
             flat, valid = _flatten_local(cols, nd, doc_pad)
-            outs.append(base(flat, ops, valid))
+            return base(flat, bound[dev], valid)
+        if dev not in bound:
+            bound[dev] = OperandBinding(operands, dev)
+        binding = bound[dev]
+        key = ("slot", spec, doc_pad, id(table), columns_key(cols), nd.data_ptr(), binding.signature)
+
+        def body(ops):
+            flat, valid = _flatten_local(cols, nd, doc_pad)
+            leaves, defs = _flatten(base(flat, ops, valid))
+            return (*leaves, capture_counts(dev)), {"defs": defs}
+
+        g = compiled_graph(key, table, dev, binding, body)
+        leaves, _, _ = replay(g, binding, "exchange.sharded", read_cloned)
+        return _unflatten(g.info["defs"], iter(leaves))
+
+    def run(table, slot_cols, operands, n_docs):
+        bound: dict = {}
+        outs = [slot(table, cols, operands, nd, bound) for cols, nd in zip(slot_cols, n_docs)]
         if sparse:
             vecs = []
             for out in outs:
@@ -355,9 +395,9 @@ def _collect_mv_nv_indices(node, out: set) -> None:
 
 
 def _prepare(table: ShardedTable, sql: str):
-    """(ctx, plan, program): the query planned once on the proto, its
-    operands staged once a device; program() runs `_sharded_kernel` over the
-    table's slots."""
+    """(ctx, plan, program): the query planned once on the proto; program()
+    runs `_sharded_kernel` over the table's slots, the operands bound once a
+    device."""
     ctx = QueryContext.from_sql(sql)
     if ctx.query_type not in (QueryType.AGGREGATION, QueryType.GROUP_BY):
         raise ValueError("sharded execution covers aggregation / group-by queries")
@@ -385,13 +425,8 @@ def _prepare(table: ShardedTable, sql: str):
         # flat positions pass the proto's table-level flat count once a shard
         # holds more than one segment; the padding docids exclude the padding
         operands[i] = np.int32(np.iinfo(np.int32).max)
-    by_device: dict[torch.device, tuple] = {}
-    for dev in table.mesh.devices:
-        if dev not in by_device:
-            by_device[dev] = stage_operands(operands, dev)
-    slot_ops = [by_device[dev] for dev in table.mesh.devices]
     kernel = _sharded_kernel(plan.spec, table.padded, table.mesh.devices)
-    return ctx, plan, lambda: kernel(slot_cols, slot_ops, table.n_docs)
+    return ctx, plan, lambda: kernel(table, slot_cols, operands, table.n_docs)
 
 
 def execute_sharded(table: ShardedTable, sql: str):

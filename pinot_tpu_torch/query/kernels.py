@@ -7,9 +7,13 @@ core/query/aggregation/groupby/DefaultGroupByExecutor.java:191). This is the
 JAX package's `query/kernels.py` evaluator carried over: the whole segment
 evaluates as one program — filter mask (vector compares + LUT gathers over dict
 ids), projection (dictionary-value gathers), dense group ids, aggregation — over
-the spec tuples `plan.py` emits. PyTorch runs it eagerly: each op is one
-launch on the tensors' device, and nothing syncs with the host until
-`dispatch_plan_packed`'s unpack makes the one device->host copy per segment.
+the spec tuples `plan.py` emits. `build_fn` is the eager program: each op one
+launch on the tensors' device. `get_kernel` / `get_packed_kernel` are its
+compiled form, as the reference's jitted ones: on a card one CUDA graph per
+staged segment and input signature (`query/graphs.py`), captured at its first
+call and replayed in one launch; on the CPU the eager program. Nothing syncs
+with the host until `dispatch_plan_packed`'s resolve reads the one
+device->host copy per segment.
 
 Every grouped COUNT and every int32 SUM/AVG goes through one exact group-by
 kernel (`ops.groupby.grouped_multi_sum`: the flat kernel, or the two-level one
@@ -77,15 +81,21 @@ Spec tags outside this module's set raise NotImplementedError naming the tag.
 from __future__ import annotations
 
 import threading
+import time
 import weakref
+from contextlib import nullcontext
+from functools import lru_cache
 
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.kernel_obs import KERNELS, CacheObserver, CapturedLaunches, capturing, current_capture
 from pinot_tpu_torch.ops.extreme import grouped_extremes
 from pinot_tpu_torch.ops.groupby import grouped_multi_sum
 from pinot_tpu_torch.ops.grouped_sum_f32 import presences
 from pinot_tpu_torch.query import torch_ns
+from pinot_tpu_torch.query import graphs
+from pinot_tpu_torch.query.graphs import CAPTURE_LOCK, Graph, capture_graph, held_bytes, reserved_bytes
 from pinot_tpu_torch.query.sketches import hash_device, hll_update, hll_update_grouped
 from pinot_tpu_torch.query.transforms import DEVICE_FUNCS
 
@@ -750,12 +760,14 @@ def top_k_stable(key: torch.Tensor, k: int) -> torch.Tensor:
     return idx[torch.sort(key[idx], descending=True, stable=True).indices]
 
 
+@lru_cache(maxsize=1024)
 def build_fn(spec: tuple):
-    """Build the program for a plan spec: run(cols, ops, n_docs, n_padded)
-    with cols a dict of device tensors and ops a tuple of staged operands.
-    Kinds: "agg" (aggregation, group-by, DISTINCT), "mask" (the filter's doc
-    mask alone), "select" (the first k matching docs' projections) and
-    "select_ob" (the top k by one key)."""
+    """Build the (eager) program for a plan spec: run(cols, ops, n_docs,
+    n_padded) with cols a dict of device tensors and ops a tuple of staged
+    operands. Kinds: "agg" (aggregation, group-by, DISTINCT), "mask" (the
+    filter's doc mask alone), "select" (the first k matching docs'
+    projections) and "select_ob" (the top k by one key). Plain callers use
+    get_kernel / get_packed_kernel, its compiled form."""
     kind = spec[0]
 
     def valid_docs(cols, n_docs, n_padded):
@@ -813,6 +825,7 @@ def build_fn(spec: tuple):
     raise _unsupported(kind, "program")
 
 
+@lru_cache(maxsize=1024)
 def build_masked_fn(spec: tuple):
     """The aggregation program of `build_fn` over an explicit doc-validity
     mask in place of n_docs: run(cols, ops, valid). The sharded executor
@@ -836,7 +849,7 @@ def build_masked_fn(spec: tuple):
 
 
 # ---------------------------------------------------------------------------
-# dispatch: one device program per segment, one device->host copy
+# the compile layer: a spec's program, compiled once per input signature
 # ---------------------------------------------------------------------------
 
 
@@ -885,54 +898,70 @@ def mark_stable_operand(o: np.ndarray) -> np.ndarray:
     return o
 
 
-def _to_tensor(o, device) -> torch.Tensor:
+def _host_operand(o) -> np.ndarray:
+    """A plan operand (numpy array or scalar) as the contiguous array its
+    device copy holds: uint32 tables (hashes) ride as their int32 bit
+    patterns; readers widen them to int64 and mask to 32 bits."""
     a = np.asarray(o)
-    if a.dtype == np.uint32:
-        # uint32 tables (hashes) ride as their int32 bit patterns; readers
-        # widen them to int64 and mask to 32 bits
-        a = a.view(np.int32)
-    return torch.tensor(a, device=device)
+    if not a.flags.c_contiguous:
+        a = np.ascontiguousarray(a)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def _stable_tensor(o: np.ndarray, device) -> torch.Tensor | None:
+    """The device copy of an array marked stable (staged at its first use
+    on `device`), or None for any other operand."""
+    key = (id(o), str(device))
+    with _OP_CACHE_LOCK:
+        ref = _STABLE_OPS.get(key[0])
+        if ref is None or ref() is not o:
+            return None
+        ent = _OP_DEVICE_CACHE.get(key)
+    if ent is not None and ent[0]() is o:
+        return ent[1]
+    t = torch.tensor(_host_operand(o), device=device)
+    with _OP_CACHE_LOCK:
+        _OP_DEVICE_CACHE[key] = (weakref.ref(o), t)
+    return t
 
 
 def stage_operand(o, device) -> torch.Tensor:
     """Copy one plan operand (numpy array or scalar) to the device; an array
     marked stable is copied once per device and its copy reused."""
-    if isinstance(o, np.ndarray):
-        key = (id(o), str(device))
-        with _OP_CACHE_LOCK:
-            ref = _STABLE_OPS.get(key[0])
-            stable = ref is not None and ref() is o
-            ent = _OP_DEVICE_CACHE.get(key) if stable else None
-        if ent is not None and ent[0]() is o:
-            return ent[1]
-        if stable:
-            t = _to_tensor(o, device)
-            with _OP_CACHE_LOCK:
-                _OP_DEVICE_CACHE[key] = (weakref.ref(o), t)
-            return t
-    return _to_tensor(o, device)
+    t = _stable_tensor(o, device) if isinstance(o, np.ndarray) else None
+    return t if t is not None else torch.tensor(_host_operand(o), device=device)
+
+
+def _operand_key(o) -> tuple:
+    """Operands with one key share one device tensor: equal scalars (the
+    literal of `year = 1997` in two FILTERs, so _mask_key sees one mask) and
+    repeats of one array."""
+    return ("value", np.asarray(o).dtype.str, np.asarray(o).tobytes()) if np.ndim(o) == 0 else ("array", id(o))
+
+
+def plan_columns(plan, device_segment) -> dict:
+    """The device column dict of a plan (owns the no-columns '__shape__'
+    dummy convention: a query that reads no column, SELECT COUNT(*) FROM t,
+    gets one for the device and the doc shape)."""
+    cols = {c: device_segment.arrays[c] for c in plan.columns}
+    if not cols:
+        any_col = next(iter(device_segment.arrays))
+        cols = {"__shape__": device_segment.arrays[any_col]}
+    return cols
 
 
 def plan_inputs(plan, device_segment):
-    """Device column dict + operand tuple for a plan (owns the no-columns
-    '__shape__' dummy convention)."""
-    cols = {c: device_segment.arrays[c] for c in plan.columns}
-    if not cols:
-        # query touches no columns (e.g. SELECT COUNT(*) FROM t): feed a
-        # dummy tensor for the device
-        any_col = next(iter(device_segment.arrays))
-        cols = {"__shape__": device_segment.arrays[any_col]}
+    """Device column dict + operand tuple for a plan."""
+    cols = plan_columns(plan, device_segment)
     return cols, stage_operands(plan.operands, next(iter(cols.values())).device)
 
 
 def stage_operands(operands, device) -> tuple[torch.Tensor, ...]:
-    """A plan's operands on `device`. Equal scalar operands (the literal of
-    `year = 1997` in two FILTERs) stage as one tensor: _mask_key then sees
-    one mask."""
+    """A plan's operands on `device`, one tensor a distinct `_operand_key`."""
     staged: dict = {}
     ops = []
     for o in operands:
-        key = ("value", np.asarray(o).dtype.str, np.asarray(o).tobytes()) if np.ndim(o) == 0 else ("array", id(o))
+        key = _operand_key(o)
         if key not in staged:
             staged[key] = stage_operand(o, device)
         ops.append(staged[key])
@@ -955,7 +984,8 @@ def pack(leaves: list[torch.Tensor]) -> torch.Tensor:
 
 
 def leaf_meta(leaves: list[torch.Tensor]) -> list[tuple[tuple, np.dtype]]:
-    """(shape, numpy dtype) of each leaf: what unpack rebuilds."""
+    """(shape, numpy dtype) of each leaf: what unpack rebuilds (the
+    counterpart of the reference's `_packed_meta`, read off the leaves)."""
     return [(tuple(l.shape), torch.empty(0, dtype=l.dtype).numpy().dtype) for l in leaves]
 
 
@@ -977,18 +1007,321 @@ def unpack(v: np.ndarray, meta: list[tuple[tuple, np.dtype]]) -> list[np.ndarray
     return out
 
 
+_TORCH_DTYPES: dict = {}
+
+
+def _torch_dtype(dt: np.dtype) -> torch.dtype:
+    got = _TORCH_DTYPES.get(dt)
+    if got is None:
+        got = _TORCH_DTYPES[dt] = torch.from_numpy(np.empty(0, dtype=dt)).dtype
+    return got
+
+
+class OperandBinding:
+    """A plan's operands as a graph binds them. Operands with one
+    `_operand_key` share one buffer, as `stage_operands` shares one tensor;
+    an array marked stable binds its own device copy, once; every other one
+    has a 16-byte-aligned place in the graph's static slab, filled from the
+    host at each call by one pinned copy. `signature` is what a capture bakes
+    in: the sharing, and each buffer's dtype and shape (or the stable
+    copy)."""
+
+    def __init__(self, operands, device):
+        groups: dict = {}
+        self.index: list[int] = []
+        self.host: list[np.ndarray | None] = []
+        self.stable: dict[int, torch.Tensor] = {}
+        self.offsets: list[int | None] = []
+        sig, off = [], 0
+        for o in operands:
+            key = _operand_key(o)
+            g = groups.get(key)
+            if g is None:
+                g = groups[key] = len(self.host)
+                t = _stable_tensor(o, device) if isinstance(o, np.ndarray) else None
+                if t is not None:
+                    self.stable[g] = t
+                    self.host.append(None)
+                    self.offsets.append(None)
+                    sig.append(("stable", id(t)))
+                else:
+                    a = _host_operand(o)
+                    self.host.append(a)
+                    self.offsets.append(off)
+                    off += -(-max(a.nbytes, 1) // 16) * 16
+                    sig.append((a.dtype.str, a.shape))
+            self.index.append(g)
+        self.nbytes = off
+        self.signature = (tuple(self.index), tuple(sig))
+
+    def bind(self, device) -> tuple[torch.Tensor, tuple]:
+        """A new slab on `device` and the plan's operand tuple over it."""
+        slab = torch.empty(max(self.nbytes, 16), dtype=torch.uint8, device=device)
+        bufs = []
+        for g, a in enumerate(self.host):
+            if a is None:
+                bufs.append(self.stable[g])
+            else:
+                off = self.offsets[g]
+                bufs.append(slab[off : off + a.nbytes].view(_torch_dtype(a.dtype)).reshape(a.shape))
+        return slab, tuple(bufs[g] for g in self.index)
+
+    def fill(self, buf: np.ndarray) -> None:
+        """Write the host operands' bytes at their places of the slab's
+        layout in `buf` (uint8)."""
+        for a, off in zip(self.host, self.offsets):
+            if a is not None:
+                buf[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
+
+    def load(self, slab: torch.Tensor) -> None:
+        """Enqueue the copy of the host operands into `slab` on the current
+        stream: one pinned buffer, one host->device copy."""
+        if not self.nbytes:
+            return
+        host = torch.empty(self.nbytes, dtype=torch.uint8, pin_memory=True)
+        self.fill(host.numpy())
+        slab[: self.nbytes].copy_(host, non_blocking=True)
+
+
+def columns_key(cols: dict) -> tuple:
+    """What a capture bakes in of a column dict: each tensor's name, address,
+    shape and dtype."""
+    return tuple(sorted((k, v.data_ptr(), tuple(v.shape), str(v.dtype)) for k, v in cols.items()))
+
+
+def capture_counts(device) -> torch.Tensor:
+    """The mask counts of the kernel launches captured so far in this
+    context, as one int64 vector (empty where none): a program's last
+    output, so each replay's counts ride out with its results."""
+    cap = current_capture()
+    masks = [m for _, _, m in cap.launches] if cap is not None else []
+    return torch.stack(masks) if masks else torch.zeros(0, dtype=_I, device=device)
+
+
+def compiled_graph(key: tuple, owner, device, binding: OperandBinding, body) -> Graph:
+    """The graph of `body(ops) -> (outputs, info)` under `key` in the graph
+    table (`graphs.GRAPHS`), captured at its first call: the slab bound and
+    loaded, `body` run once eagerly as the warm-up (its launches count
+    nowhere), then captured into the card's pool under CAPTURE_LOCK (a
+    failed capture raises and retires the pool). The graph holds its
+    outputs and its slab; `owner` (held by weakref) takes the graph with
+    it."""
+    table = graphs.GRAPHS
+    g = table.get(key)
+    if g is not None:
+        return g
+    with CAPTURE_LOCK:
+        g = table.get(key)
+        if g is not None:
+            return g
+        t0 = time.perf_counter()
+        pool = table.pool(device)
+        slab, ops = binding.bind(device)
+        g = Graph(pool, slab, ops)
+        binding.load(slab)
+        with capturing(CapturedLaunches()):
+            body(ops)
+        before = reserved_bytes(device)
+        try:
+            with capture_graph(g.graph, g.captured, pool):
+                g.outputs, g.info = body(ops)
+        except BaseException:
+            table.retire(pool)
+            raise
+        pool.bytes += max(reserved_bytes(device) - before, 0)
+        g.nbytes = held_bytes([*g.outputs, slab])
+        table.put(key, owner, g, time.perf_counter() - t0)
+    return g
+
+
+def replay(g: Graph, binding: OperandBinding, program: str, read, shape: dict | None = None):
+    """One use of `g` under its pool's lock, after the pool's last use ended
+    on the card: `binding`'s operands copied in, the replay, `read(outputs)
+    -> (result, mask counts or None)` enqueued on the same stream (a copy:
+    the pool's next use overwrites the outputs), and the replay's
+    bookkeeping (`KERNELS.replayed`: the captured counter bumps, and the
+    launches' in-program records of `program` with those mask counts, or
+    for the caller to fill in before resolve). With `shape`, the replay
+    and the read are recorded as `program` (`KERNELS.program`). Returns
+    (the result, that record or None, the launches' records)."""
+    pool = g.pool
+    with pool.lock:
+        pool.begin()
+        binding.load(g.slab)
+        with KERNELS.program(program, g.device, **shape) if shape is not None else nullcontext() as rec:
+            g.graph.replay()  # pinotlint: disable=kernel-registry — inside the program record above, or timed by the caller's: the sharded executor's KERNELS.timed_sync("exchange.sharded")
+            got, masked = read(g.outputs)
+        launches = KERNELS.replayed(g.captured, program, masked=masked)
+        pool.end()
+    return got, rec, launches
+
+
+def read_cloned(outputs) -> tuple[list, list]:
+    """A replay's outputs copied on the card: the leaves, and the captured
+    launches' mask counts (the last output)."""
+    outs = [o.clone() for o in outputs]
+    return outs[:-1], list(outs[-1])
+
+
+class Program:
+    """A spec's compiled program, the counterpart of the reference's jitted
+    one. Called as the reference's is, (cols, ops, n_docs, n_padded), it runs
+    the eager program: its output tree, or with `packed` every output in one
+    float64 vector (`pack`). `graph(segment, cols, binding)` is its CUDA graph
+    for one staged segment and input signature, captured at the first call:
+    the outputs (packed: the vector with the launches' mask counts at its
+    end; else the leaves, then the counts) and their tree and metadata."""
+
+    def __init__(self, spec: tuple, packed: bool):
+        self.spec = spec
+        self.packed = packed
+        self.base = build_fn(spec)
+
+    def leaves(self, cols, ops, n_docs, n_padded):
+        """(output leaves, tree) of the eager program."""
+        return _flatten(self.base(cols, ops, n_docs, n_padded))
+
+    def __call__(self, cols, ops, n_docs, n_padded):
+        leaves, defs = self.leaves(cols, ops, n_docs, n_padded)
+        return pack(leaves) if self.packed else _unflatten(defs, iter(leaves))
+
+    def graph(self, device_segment, cols: dict, binding: OperandBinding) -> Graph:
+        ds = device_segment
+        key = ("segment", self.packed, self.spec, id(ds), columns_key(cols), binding.signature, ds.n_docs, ds.padded)
+        device = next(iter(cols.values())).device
+
+        def body(ops):
+            leaves, defs = self.leaves(cols, ops, ds.n_docs, ds.padded)
+            counts = capture_counts(device)
+            outs = (torch.cat([pack(leaves), counts.to(_F)]),) if self.packed else (*leaves, counts)
+            return outs, {"defs": defs, "meta": leaf_meta(leaves), "counts": int(counts.numel())}
+
+        return compiled_graph(key, ds, device, binding, body)
+
+
+@lru_cache(maxsize=1024)
+def get_kernel(spec: tuple) -> Program:
+    """The compiled program of a plan spec (device outputs). On a card one
+    CUDA graph per (staged segment, input signature), captured at its first
+    call; on the CPU the eager program."""
+    return Program(spec, packed=False)
+
+
+@lru_cache(maxsize=1024)
+def get_packed_kernel(spec: tuple) -> Program:
+    """The compiled program whose outputs ride back in ONE float64 vector:
+    blocking on N output tensors would cost N device->host copies, so a
+    query's outputs collapse into one (int64 leaves as hi / lo halves, see
+    `pack`). The unpack metadata comes with each graph's capture (output
+    shapes can vary with the input shapes under one spec: select_ob clips k
+    to n_padded)."""
+    return Program(spec, packed=True)
+
+
+#: compile-cache observability (engine.kernelCache.*{cache=} on /metrics)
+_kernel_cache_obs = CacheObserver(get_kernel, cache="kernel")
+_packed_cache_obs = CacheObserver(get_packed_kernel, cache="packed")
+
+
+def _fused_cost(shape: dict) -> tuple[float, float]:
+    """Bytes-moved / FLOPs model for the fused per-segment program: each of
+    the plan's staged columns streams once at accumulator width (8 B) plus
+    the filter mask, and every row/column pair costs ~4 flops (compare +
+    mask + accumulate + combine)."""
+    rows = max(float(shape.get("rows", 0)), 0.0)
+    cols = max(float(shape.get("cols", 1)), 1.0)
+    return rows * (cols * 8.0 + 1.0), rows * cols * 4.0
+
+
+KERNELS.register(
+    "query.fused",
+    get_kernel,
+    cost_model=_fused_cost,
+    description="fused filter+project+aggregate segment program (device outputs)",
+)
+KERNELS.register(
+    "query.fused_packed",
+    get_packed_kernel,
+    cost_model=_fused_cost,
+    description="fused segment program, outputs packed into one f64 vector",
+)
+
+
 def dispatch_plan_packed(plan, device_segment):
-    """Enqueue the segment's program on its device without a host sync and
-    return a zero-arg function that makes the single device->host copy of the
-    packed outputs (see `pack`) and re-inflates the output tree."""
-    cols, ops = plan_inputs(plan, device_segment)
-    out = build_fn(plan.spec)(cols, ops, device_segment.n_docs, device_segment.padded)
-    leaves, defs = _flatten(out)
-    meta = leaf_meta(leaves)
-    vec = pack(leaves)
+    """Enqueue the segment's compiled program without a host sync and return
+    a zero-arg resolve() that waits for the single device->host copy of the
+    packed outputs and re-inflates the output tree. On a card: the graph's
+    replay and, right after it on the same stream, the copy into pinned
+    memory, recorded as one `query.fused_packed` event pair on the
+    segment's collector, with the replay's kernel launches as in-program
+    records (their mask counts ride at the end of the copy). On the CPU: the
+    eager program, its host wall recorded at resolve."""
+    program = get_packed_kernel(plan.spec)
+    _packed_cache_obs.observe()
+    cols = plan_columns(plan, device_segment)
+    device = next(iter(cols.values())).device
+    rows, n_cols = device_segment.padded, len(cols)
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        ops = stage_operands(plan.operands, device)
+        leaves, defs = program.leaves(cols, ops, device_segment.n_docs, device_segment.padded)
+        meta, vec = leaf_meta(leaves), pack(leaves)
+
+        def resolve_host():
+            v = vec.cpu().numpy()  # THE device->host copy for this segment
+            KERNELS.record_program("query.fused_packed", (time.perf_counter() - t0) * 1e3, rows=rows, cols=n_cols)
+            return _unflatten(defs, iter(unpack(v, meta)))
+
+        return resolve_host
+    binding = OperandBinding(plan.operands, device)
+    g = program.graph(device_segment, cols, binding)
+    host = torch.empty(g.outputs[0].shape, dtype=_F, pin_memory=True)
+
+    def read(outputs):
+        host.copy_(outputs[0], non_blocking=True)
+        return None, None
+
+    _, rec, launches = replay(g, binding, "query.fused_packed", read, {"rows": rows, "cols": n_cols})
+    if rec is not None:
+        copied = rec.end
+    else:
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(device))
+    n, defs, meta = g.info["counts"], g.info["defs"], g.info["meta"]
 
     def resolve():
-        v = vec.cpu().numpy()  # THE device->host copy for this segment
+        copied.synchronize()  # THE device->host copy for this segment
+        v = host.numpy()
+        if n:
+            for p, m in zip(launches, v[-n:]):
+                p.masked = int(m)
+            v = v[:-n]
         return _unflatten(defs, iter(unpack(v, meta)))
 
     return resolve
+
+
+def run_plan_packed(plan, device_segment):
+    """run_plan's outputs as host numpy arrays, through ONE device->host
+    copy (see get_packed_kernel)."""
+    return dispatch_plan_packed(plan, device_segment)()
+
+
+def run_plan(plan, device_segment):
+    """Execute a SegmentPlan against a DeviceSegment; returns its device
+    outputs (on a card, copies of the graph's outputs, which the next use
+    of its pool overwrites), recorded as `query.fused`."""
+    program = get_kernel(plan.spec)
+    _kernel_cache_obs.observe()
+    cols = plan_columns(plan, device_segment)
+    device = next(iter(cols.values())).device
+    rows, n_cols = device_segment.padded, len(cols)
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = program(cols, stage_operands(plan.operands, device), device_segment.n_docs, device_segment.padded)
+        KERNELS.record_program("query.fused", (time.perf_counter() - t0) * 1e3, rows=rows, cols=n_cols)
+        return out
+    binding = OperandBinding(plan.operands, device)
+    g = program.graph(device_segment, cols, binding)
+    leaves, _, _ = replay(g, binding, "query.fused", read_cloned, {"rows": rows, "cols": n_cols})
+    return _unflatten(g.info["defs"], iter(leaves))

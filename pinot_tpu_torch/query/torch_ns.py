@@ -129,7 +129,9 @@ def _pair(a, b) -> tuple[torch.Tensor, torch.Tensor]:
     t = arr.t
     if isinstance(scalar, float) and not t.dtype.is_floating_point:
         t = t.to(float64)
-    s = torch.tensor(scalar, dtype=t.dtype, device=t.device)
+    # a fill, not a host->device copy: a program captured into a CUDA graph
+    # may not copy from pageable host memory
+    s = torch.full((), scalar, dtype=t.dtype, device=t.device)
     return (t, s) if isinstance(a, Arr) else (s, t)
 
 
@@ -227,13 +229,13 @@ def power(a, b) -> Arr:
 def where(cond: Arr, a, b) -> Arr:
     c = cond.t
     if isinstance(a, Arr) or isinstance(b, Arr):
-        ta = a if isinstance(a, Arr) else Arr(torch.tensor(a, device=c.device), True)
-        tb = b if isinstance(b, Arr) else Arr(torch.tensor(b, device=c.device), True)
+        ta = a if isinstance(a, Arr) else Arr(torch.full((), a, device=c.device), True)
+        tb = b if isinstance(b, Arr) else Arr(torch.full((), b, device=c.device), True)
         x, y = _pair(ta, tb)
         return Arr(torch.where(c, x, y), ta.weak and tb.weak)
     # two Python scalars: weakly typed, int64 or float64 until it meets an array
     dt = float64 if isinstance(a, float) or isinstance(b, float) else torch.int64
-    return Arr(torch.where(c, torch.tensor(a, dtype=dt, device=c.device), torch.tensor(b, dtype=dt, device=c.device)), True)
+    return Arr(torch.where(c, torch.full((), a, dtype=dt, device=c.device), torch.full((), b, dtype=dt, device=c.device)), True)
 
 
 def ones_like(x: Arr) -> Arr:

@@ -87,3 +87,24 @@ def _cost(shape):
 KERNELS.register("fx.add_one", launch_triton, cost_model=_cost)
 KERNELS.register("fx.graph", replay, cost_model=_cost)
 KERNELS.register("_registered_elsewhere")
+
+
+def replay_in_program(g5, x, out):
+    with capture_graph(g5, None, x.device):  # the port's capture (query/graphs.py)
+        x.add_(3)
+    with KERNELS.program("fx.graph", x.device, rows=1):
+        g5.replay()  # CLEAN: inside the registered program record
+        out.copy_(x)
+
+
+def replay_in_timed_sync(g6, x):
+    with capture_graph(g6, None, x.device):
+        x.add_(4)
+    return KERNELS.timed_sync("fx.graph", lambda: g6.replay(), x.device)  # CLEAN: inside a registered record
+
+
+def replay_under_unregistered_program(g7, x):
+    with capture_graph(g7, None, x.device):
+        x.add_(5)
+    with KERNELS.program("fx.unregistered", x.device):
+        g7.replay()  # VIOLATION: the program record's name is not registered

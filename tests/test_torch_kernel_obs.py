@@ -60,14 +60,16 @@ def test_record_unregistered_is_silent_noop():
 
 
 def test_kernel_names_are_the_references():
-    """The port's four kernels, the sharded program and the join exchange
-    carry the JAX package's names, so a roofline row can be found across
-    both packages."""
+    """The port's four kernels, its two compiled per-segment programs, the
+    sharded program and the join exchange carry the JAX package's names, so
+    a roofline row can be found across both packages."""
     import pinot_tpu.ops.groupby_pallas  # noqa: F401  (registers the reference's kernels)
     import pinot_tpu.parallel.mesh  # noqa: F401  (and its sharded program)
     import pinot_tpu.parallel.shuffle  # noqa: F401  (and its join exchange)
+    import pinot_tpu.query.kernels  # noqa: F401  (and its compiled programs)
     import pinot_tpu_torch.parallel.mesh  # noqa: F401
     import pinot_tpu_torch.parallel.shuffle  # noqa: F401
+    import pinot_tpu_torch.query.kernels  # noqa: F401
 
     assert KERNELS.kernel_names() == [
         "exchange.join",
@@ -76,6 +78,8 @@ def test_kernel_names_are_the_references():
         "ops.grouped_planes",
         "ops.grouped_planes2",
         "ops.grouped_sum",
+        "query.fused",
+        "query.fused_packed",
     ]
     assert set(KERNELS.kernel_names()) <= set(JKERNELS.kernel_names())
     assert kernel_obs.DEFAULT_HBM_PEAK_GBPS == 3350.0

@@ -199,7 +199,7 @@ def test_cuda_launch_entries_of_fixture():
 
 def test_kernel_roots_fixture_findings():
     fs = lint_paths([str(ROOTS_FIXTURE)], checks=["kernel-registry"])
-    assert [f.line for f in fs] == [39, 48, 52, 56, 68, 72]
+    assert [f.line for f in fs] == [39, 48, 52, 56, 68, 72, 110]
     by_line = {f.line: f.message for f in fs}
     assert "'_orphan'" in by_line[39] and "never launched" in by_line[39]
     assert "'_bare'" in by_line[48]  # kernel[grid](...) outside a launch
@@ -207,9 +207,13 @@ def test_kernel_roots_fixture_findings():
     assert "'fx.compiled'" in by_line[56]  # torch.compile(f) alias under an unregistered name
     assert "g2" in by_line[68]  # replay outside a launch
     assert "g3" in by_line[72]  # captured, never replayed here
+    # a replay in a program record under an unregistered name
+    assert "g7" in by_line[110] and "'fx.unregistered'" in by_line[110]
     # the registered Triton launch, the root named by a register call, the
-    # replay under a registered name and the suppressed capture stay quiet
-    for clean in ("_add_one", "_registered_elsewhere", "graph graph", "g4"):
+    # replay under a registered name, the suppressed capture and the replays
+    # inside a registered program record (KERNELS.program's body,
+    # KERNELS.timed_sync's arguments) of the port's capture stay quiet
+    for clean in ("_add_one", "_registered_elsewhere", "graph graph", "g4", "g5", "g6"):
         assert not any(clean in f.message for f in fs)
 
 

@@ -294,11 +294,15 @@ def test_leaf_scan_filter_runs_the_mask_program():
     ref = JEngine({"facts": [f[0]], "dims": [d[0]]})
     port = port_engine({"facts": [f[1]], "dims": [d[1]]})
     kinds = []
-    real = K.build_fn
+    reals = {name: getattr(K, name) for name in ("get_kernel", "get_packed_kernel")}
 
-    def spy(spec):
-        kinds.append(spec[0])
-        return real(spec)
+    def spy(name):
+        # the compiled programs are cached by spec: every lookup is a run
+        def lookup(spec):
+            kinds.append(spec[0])
+            return reals[name](spec)
+
+        return lookup
 
     meter = server_metrics().meter(ServerMeter.MULTISTAGE_LEAF_DEVICE_SCANS)
     for sql, leaf, ordered in (
@@ -315,7 +319,8 @@ def test_leaf_scan_filter_runs_the_mask_program():
         before = meter.count
         kinds.clear()
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(K, "build_fn", spy)
+            for name in reals:
+                mp.setattr(K, name, spy(name))
             got = port.execute(sql)
         assert meter.count > before and leaf in kinds, (sql, kinds)
         assert_rows(got.rows, ref.execute(sql).rows, ordered, sql)
