@@ -163,20 +163,27 @@
    beside the one-slot table's in the same phase, the mesh program's device
    time and each slot's.
 12. The hash exchange: mesh_equi_join over the 4 slots, 4,000,000 left keys
-   from [1, 90,000] against the 90,000 right keys once each, the pairs
-   equal to numpy's; the declines (a duplicate right key, the sentinel key);
-   a forced overflow completed by the retry; hash_exchange delivering every
-   row once to its key's slot; exchange_group_partials equal to the sum;
-   the `exchange.join` event ms beside its bound.
+   from [1, 90,000] against the 90,000 right keys once each, each builder a
+   CUDA graph: the pairs equal to numpy's, the replay's pairs and stats
+   equal to the eager builder's in order (capture, replay and eager ms);
+   the declines (a duplicate right key, found in the replay's stats; the
+   sentinel key); a forced overflow completed by the retry, which captures
+   a second graph and then replays both; a join graph evicted and
+   recaptured under a one-graph budget; no join graph left once the
+   builders' cache is cleared; hash_exchange delivering every row once to
+   its key's slot; exchange_group_partials equal to the sum; the
+   `exchange.join` event ms beside its bound and the eager join's.
 13. The multistage engine: bench.py's config 6 (4M fact rows of its
    generator, seed 6; the 25-row nation_dim; its SQL) through
    MultistageEngine(..., device="cuda"), its ordered rows equal to the
    oracle, the exact group-by kernel launched at the leaf; then over the
    same rows a query each engaging the device join and sort, the device
    window, and the leaf's `mask` program (DEVICE_OP_STATS, a spy on the
-   program kinds), each against its oracle; walls, link_profile(), the
-   operators' host split and the numpy paths' host cost per row beside the
-   economic gates' constants.
+   program kinds), each against its oracle; the join and sort query again
+   on an engine over a 4-slot mesh of the card, its join through the graph'd
+   hash exchange, rows equal to the oracle's and the one-slot engine's;
+   walls, link_profile(), the operators' host split and the numpy paths'
+   host cost per row beside the economic gates' constants.
 14. The cluster in process: the 8M rows in 16 segments of 500,000 uploaded
    through Controller.upload_segment (deep store, then each replica's
    server loads its own copy) to 4 Servers on the card with replication 2;
@@ -3460,14 +3467,15 @@ OWN_GRAPHS = {"blocks": 0, "captures": 0, "capture_seconds": 0.0, "seconds": 0.0
 
 
 @contextlib.contextmanager
-def own_graphs():
-    """A graph table of its own (its own pools) for the block: its programs
-    capture afresh, and the process's table is back untouched after it (the
-    block's graphs and their pool dropped, their memory given back)."""
+def own_graphs(budget: int | None = None):
+    """A graph table of its own (its own pools; `budget` bytes, or the
+    table's default) for the block: its programs capture afresh, and the
+    process's table is back untouched after it (the block's graphs and
+    their pool dropped, their memory given back)."""
     from pinot_tpu_torch.query import graphs
 
     saved = graphs.GRAPHS
-    graphs.GRAPHS = graphs.GraphTable()
+    graphs.GRAPHS = graphs.GraphTable(budget)
     t0 = time.perf_counter()
     try:
         yield graphs.GRAPHS
@@ -4001,26 +4009,93 @@ def join_bound_ms(n_left: int, n_right: int, pairs: int) -> float:
     return hbm_ms((n_left + n_right) * 12 + pairs * 8)
 
 
+#: the `exchange.join` event of this shape when the join ran eagerly, before
+#: it was a graph (H100 80GB HBM3, 700 W; PERF.md §5)
+EAGER_JOIN_EVENT_MS = 12.67
+
+
+def same_pairs(label: str, got, want) -> None:
+    """Two joins' (left idx, right idx) equal, in order."""
+    if got is None or not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        raise AssertionError(f"shuffle: {label}: the pairs differ from the eager join's")
+
+
+def join_split_ms(torch, shuffle, graphs, binding, devices, lc, rc, capacity, iters: int = 5) -> dict:
+    """Where a replayed join attempt's time goes, mean of `iters`: the host
+    filling the pinned operand slab; the operands' host->device copy, the
+    graph's replay and the same builder run eagerly over the graph's own
+    operand buffers, each on the device between CUDA events."""
+    g = graphs.GRAPHS.get(("join", devices, lc, rc, capacity, torch.int64, binding.signature))
+    run = shuffle._join_kernel(devices, lc, rc, capacity, torch.int64)
+    body = shuffle._join_body(run, devices, lc, rc)
+    pinned = torch.empty(binding.nbytes, dtype=torch.uint8, pin_memory=True)
+    fill = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        binding.fill(pinned.numpy())
+        fill += (time.perf_counter() - t0) * 1e3
+
+    def device_ms(fn) -> float:
+        total = 0.0
+        for _ in range(iters):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / iters
+
+    with g.pool.lock:
+        g.pool.begin()
+        copy = device_ms(lambda: g.slab[: binding.nbytes].copy_(pinned, non_blocking=True))
+        replay_ms = device_ms(g.graph.replay)
+        g.pool.end()
+    eager_ms = device_ms(lambda: body(g.ops))
+    return {"slab_fill_host": fill / iters, "slab_copy": copy, "graph_replay": replay_ms, "eager_ops": eager_ms,
+            "slab_bytes": binding.nbytes}
+
+
 def run_shuffle(torch) -> dict:
-    """Phase 12: mesh_equi_join over four slots on the card: 4,000,000 left
-    keys drawn from [1, 90,000] and the 90,000 right keys once each, the
-    pairs equal to the numpy join's as sets; the declines (a duplicate right
-    key, the sentinel key); a forced overflow (every left key equal) that the
-    retry at the safe capacity completes; hash_exchange delivering every row
-    once, to the slot of its key's hash; exchange_group_partials equal to a
-    plain sum. The `exchange.join` event ms beside its bound."""
+    """Phase 12: mesh_equi_join over four slots of the card, each builder a
+    CUDA graph: 4,000,000 left keys drawn from [1, 90,000] and the 90,000
+    right keys once each. The first call captures, the next replay; the
+    pairs equal the numpy join's as sets, and the replay's pairs and stats
+    equal the eager builder's, in order, on the same padded arrays (capture,
+    replay and eager ms beside each other). The declines (a duplicate right
+    key, found through the replay's stats; the sentinel key); a forced
+    overflow (every left key equal) that replays the first graph, captures
+    the safe capacity's and then replays both; the eviction and recapture of
+    a join graph in a table whose budget holds one; no join graph left once
+    the builders' cache is cleared; hash_exchange delivering every row once,
+    to the slot of its key's hash; exchange_group_partials equal to a plain
+    sum. The `exchange.join` event ms beside its bound and the eager join's
+    recorded event."""
     from pinot_tpu_torch.common.kernel_obs import KERNELS
     from pinot_tpu_torch.parallel import make_mesh, shuffle
+    from pinot_tpu_torch.query import graphs
+    from pinot_tpu_torch.query.kernels import OperandBinding
     from pinot_tpu_torch.query.sketches import hash_any
 
     mesh = make_mesh(("cuda:0",) * MESH_SLOTS)
+    devices = mesh.devices
     rng = np.random.default_rng(12)
     lk = rng.integers(1, N_CUSTOMERS + 1, SHUFFLE_LEFT).astype(np.int64)
     rk = rng.permutation(np.arange(1, SHUFFLE_RIGHT + 1, dtype=np.int64))
     row_of = np.empty(SHUFFLE_RIGHT + 1, dtype=np.int64)
     row_of[rk] = np.arange(SHUFFLE_RIGHT)
 
-    shuffle.mesh_equi_join(lk, rk, mesh)  # warm
+    # the table as the earlier phases left it, their collected owners' graphs gone
+    shuffle._join_kernel.cache_clear()
+    gc.collect()
+    graphs.GRAPHS.purge()
+    table0 = graphs.GRAPHS.stats()
+    t0 = time.perf_counter()
+    captured = shuffle.mesh_equi_join(lk, rk, mesh)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    table1 = graphs.GRAPHS.stats()
+    if table1["captures"] - table0["captures"] != 1:
+        raise AssertionError(f"shuffle: the first join made {table1['captures'] - table0['captures']} captures, not 1")
     KERNELS.reset_stats()
     t0 = time.perf_counter()
     out = shuffle.mesh_equi_join(lk, rk, mesh)
@@ -4032,7 +4107,35 @@ def run_shuffle(torch) -> dict:
     order = np.argsort(li, kind="stable")
     if not (np.array_equal(li[order], np.arange(SHUFFLE_LEFT)) and np.array_equal(ri[order], row_of[lk])):
         raise AssertionError("shuffle: the pairs differ from the numpy join's")
+    same_pairs("the capture's call", captured, out)
+    kdt = np.dtype(np.int64)
+    lkp, lip, lc = shuffle._shardify(lk, kdt, MESH_SLOTS)
+    rkp, rip, rc = shuffle._shardify(rk, kdt, MESH_SLOTS)
+    cap0, cap_safe = shuffle._capacities(lc, rc, MESH_SLOTS)
+    registry = {
+        "calls": sum(v["calls"] for v in rows),
+        "event_ms": sum(v["deviceMs"] for v in rows),
+        "registry_bytes": sum(v["bytesMoved"] for v in rows),
+    }
+    want_bytes = shuffle._join_cost({"rows": MESH_SLOTS * cap0})[0]
+    if registry["calls"] != 1 or registry["registry_bytes"] != want_bytes:
+        raise AssertionError(f"shuffle: the replay's record {registry}, not one call of {want_bytes} bytes")
     wall = wall_p50_of(lambda: shuffle.mesh_equi_join(lk, rk, mesh), warm=0, runs=WALL_RUNS)
+
+    # the replay against the eager builder on the same padded arrays
+    host = (lkp, lip, rkp, rip)
+    binding = OperandBinding(host, devices[0])
+    replayed = shuffle._exchange_join(host, devices, lc, rc, cap0, torch.int64, binding)
+    eager = shuffle._exchange_join(host, devices, lc, rc, cap0, torch.int64)
+    if replayed[0].tolist() != eager[0].tolist() or eager[0].tolist() != [0.0, 0.0]:
+        raise AssertionError(f"shuffle: the replay's stats {replayed[0]} against eager's {eager[0]}")
+    same_pairs("the replay", replayed[1:], eager[1:])
+    same_pairs("mesh_equi_join", out, eager[1:])
+    replay_wall = wall_p50_of(
+        lambda: shuffle._exchange_join(host, devices, lc, rc, cap0, torch.int64, binding), warm=0, runs=WALL_RUNS
+    )
+    eager_wall = wall_p50_of(lambda: shuffle._exchange_join(host, devices, lc, rc, cap0, torch.int64), warm=0, runs=WALL_RUNS)
+    split = join_split_ms(torch, shuffle, graphs, binding, devices, lc, rc, cap0)
 
     dup = rk.copy()
     dup[1] = dup[0]
@@ -4044,24 +4147,64 @@ def run_shuffle(torch) -> dict:
     }
     if not all(declines.values()):
         raise AssertionError(f"shuffle: declines {declines}")
+    dkp, dip, _ = shuffle._shardify(dup, kdt, MESH_SLOTS)
+    dup_host = (lkp, lip, dkp, dip)
+    before = graphs.GRAPHS.stats()
+    dup_stats = shuffle._exchange_join(dup_host, devices, lc, rc, cap0, torch.int64, OperandBinding(dup_host, devices[0]))[0]
+    eager_dup = shuffle._exchange_join(dup_host, devices, lc, rc, cap0, torch.int64)[0]
+    if dup_stats[1] < 1 or dup_stats.tolist() != eager_dup.tolist() or graphs.GRAPHS.stats()["captures"] != before["captures"]:
+        raise AssertionError(f"shuffle: the duplicate's replayed stats {dup_stats} against eager's {eager_dup}")
 
     capacities = []
     real = shuffle._join_kernel
-    shuffle._join_kernel = lambda dev, cap, dt: capacities.append(cap) or real(dev, cap, dt)
+    shuffle._join_kernel = lambda dev, lc_, rc_, cap, dt: capacities.append(cap) or real(dev, lc_, rc_, cap, dt)
+    skew = np.full(SHUFFLE_LEFT, 7, dtype=np.int64)
     try:
-        skew = np.full(SHUFFLE_LEFT, 7, dtype=np.int64)
+        before = graphs.GRAPHS.stats()
         got = shuffle.mesh_equi_join(skew, rk, mesh)
+        mid = graphs.GRAPHS.stats()
+        again = shuffle.mesh_equi_join(skew, rk, mesh)
+        after = graphs.GRAPHS.stats()
     finally:
         shuffle._join_kernel = real
-    if got is None or len(got[0]) != SHUFFLE_LEFT or not np.all(rk[got[1]] == 7) or len(capacities) != 2:
+    skew_captures = (mid["captures"] - before["captures"], after["captures"] - mid["captures"])
+    skew_replays = after["replays"] - mid["replays"]
+    if got is None or len(got[0]) != SHUFFLE_LEFT or not np.all(rk[got[1]] == 7) or capacities != [cap0, cap_safe] * 2:
         raise AssertionError(f"shuffle: the overflow retry ({capacities}) did not complete the join")
+    if skew_captures != (1, 0) or skew_replays != 2:
+        raise AssertionError(f"shuffle: the skewed join's captures {skew_captures}, replays {skew_replays}")
+    skp, sip, _ = shuffle._shardify(skew, kdt, MESH_SLOTS)
+    skew_eager = shuffle._exchange_join((skp, sip, rkp, rip), devices, lc, rc, cap_safe, torch.int64)
+    same_pairs("the skewed join", got, skew_eager[1:])
+    same_pairs("the skewed join's replay", again, skew_eager[1:])
+    table2 = graphs.GRAPHS.stats()
+    join_table = {k: table2[k] - table0[k] for k in ("graphs", "bytes", "captures", "replays", "evictions")}
+    join_table["capture_seconds"] = table2["captureSeconds"] - table0["captureSeconds"]
+    if join_table["graphs"] != 2 or join_table["evictions"]:
+        raise AssertionError(f"shuffle: the join's graphs in the table {join_table}")
+
+    # eviction and recapture: a table whose budget holds the first graph alone
+    main_bytes = table1["bytes"] - table0["bytes"]
+    with own_graphs(main_bytes) as own:
+        for label, keys, want_pairs in (("main", lk, out), ("skew", skew, got), ("main again", lk, out)):
+            same_pairs(f"{label} under eviction", shuffle.mesh_equi_join(keys, rk, mesh), want_pairs)
+        evicting = own.stats()
+    eviction = {k: evicting[k] for k in ("budget", "graphs", "bytes", "captures", "replays", "evictions")}
+    if eviction["evictions"] < 1 or eviction["captures"] < 3:
+        raise AssertionError(f"shuffle: no eviction and recapture under a one-graph budget: {eviction}")
+
+    shuffle._join_kernel.cache_clear()
+    gc.collect()
+    cleared = graphs.GRAPHS.stats()
+    if (cleared["graphs"], cleared["bytes"]) != (table0["graphs"], table0["bytes"]):
+        raise AssertionError(f"shuffle: join graphs outlived their builders: {cleared} against {table0}")
 
     n_local = SHUFFLE_LEFT // MESH_SLOTS
-    keys = [torch.from_numpy(lk[d * n_local : (d + 1) * n_local]).to(dev) for d, dev in enumerate(mesh.devices)]
-    ids = [torch.arange(d * n_local, (d + 1) * n_local, device=dev) for d, dev in enumerate(mesh.devices)]
+    keys = [torch.from_numpy(lk[d * n_local : (d + 1) * n_local]).to(dev) for d, dev in enumerate(devices)]
+    ids = [torch.arange(d * n_local, (d + 1) * n_local, device=dev) for d, dev in enumerate(devices)]
     cols, valid, dropped = shuffle.hash_exchange(
         [(k, i) for k, i in zip(keys, ids)], keys, [torch.ones_like(k, dtype=torch.bool) for k in keys],
-        mesh.devices, n_local,
+        devices, n_local,
     )
     dest = (hash_any(lk) % np.uint32(MESH_SLOTS)).astype(np.int64)
     got_ids = [c[1][v].cpu().numpy() for c, v in zip(cols, valid)]
@@ -4071,7 +4214,7 @@ def run_shuffle(torch) -> dict:
         raise AssertionError("shuffle: a row reached another slot than its key's hash")
 
     parts = np.random.default_rng(9).integers(-1000, 1000, (MESH_SLOTS, 1 << 16)).astype(np.int64)
-    merged = shuffle.exchange_group_partials([torch.from_numpy(p).to(d) for p, d in zip(parts, mesh.devices)], mesh.devices)
+    merged = shuffle.exchange_group_partials([torch.from_numpy(p).to(d) for p, d in zip(parts, devices)], devices)
     if any(not np.array_equal(m.cpu().numpy(), parts.sum(axis=0)) for m in merged):
         raise AssertionError("shuffle: exchange_group_partials differs from the sum")
 
@@ -4083,18 +4226,26 @@ def run_shuffle(torch) -> dict:
             "right_rows": SHUFFLE_RIGHT,
             "pairs": int(len(li)),
             "pairs_match_numpy": True,
+            "replay_matches_eager": True,
+            "capacities": [cap0, cap_safe],
             "declines": declines,
+            "duplicates_in_replay_stats": int(dup_stats[1]),
             "overflow_capacities": capacities,
+            "skew_captures": skew_captures,
+            "skew_replays": skew_replays,
             "hash_exchange_rows": int(sum(len(g) for g in got_ids)),
+            "capture_ms": capture_ms,
             "first_ms": first_ms,
             "p50_ms": wall["p50_ms"],
             "runs_ms": wall["runs_ms"],
-            "exchange_join": {
-                "calls": sum(v["calls"] for v in rows),
-                "event_ms": sum(v["deviceMs"] for v in rows),
-                "registry_bytes": sum(v["bytesMoved"] for v in rows),
-            },
+            "attempt_ms": {"replay_p50": replay_wall["p50_ms"], "eager_p50": eager_wall["p50_ms"],
+                           "replay_runs": replay_wall["runs_ms"], "eager_runs": eager_wall["runs_ms"]},
+            "exchange_join": registry,
+            "split_ms": split,
             "bound_ms": join_bound_ms(SHUFFLE_LEFT, SHUFFLE_RIGHT, len(li)),
+            "eager_event_ms_before": EAGER_JOIN_EVENT_MS,
+            "join_graphs": join_table,
+            "eviction": eviction,
             "card": card_line(),
         }
     )
@@ -4391,6 +4542,40 @@ def host_costs(data: dict) -> dict:
     }
 
 
+def mesh_join_sql(torch, counters: dict, catalog: dict, want: dict, one_slot_rows: list) -> dict:
+    """The device join and sort query on an engine over a 4-slot mesh of the
+    card: its join rides the hash exchange (DEVICE_OP_STATS["mesh_join"]),
+    whose builder captures at the first run and replays at the second; the
+    rows of both runs equal the oracle's and the one-slot engine's. Returns
+    the runs' ms, the table's captures and replays over them, and their
+    launches (counts from 0 just before, read just after)."""
+    from pinot_tpu_torch.multistage import MultistageEngine
+    from pinot_tpu_torch.multistage import runtime as rt
+    from pinot_tpu_torch.parallel import make_mesh
+    from pinot_tpu_torch.query import graphs
+
+    engine = MultistageEngine(catalog, device="cuda", mesh=make_mesh(("cuda:0",) * MESH_SLOTS))
+    sql = MULTISTAGE_QUERIES["device_join_sort"]
+    for fn in counters.values():
+        fn.launches = 0
+    before, table0 = rt.DEVICE_OP_STATS.get("mesh_join", 0), graphs.GRAPHS.stats()
+    runs_ms = []
+    for run in ("capture", "replay"):
+        t0 = time.perf_counter()
+        rows = engine.execute(sql).rows
+        runs_ms.append((time.perf_counter() - t0) * 1e3)
+        rows_match(f"multistage mesh device_join_sort ({run})", rows, want["device_join_sort"])
+        if rows != one_slot_rows:
+            raise AssertionError(f"multistage mesh device_join_sort ({run}): rows differ from the one-slot engine's")
+    joins = rt.DEVICE_OP_STATS.get("mesh_join", 0) - before
+    table1 = graphs.GRAPHS.stats()
+    captures, replays = table1["captures"] - table0["captures"], table1["replays"] - table0["replays"]
+    if joins < 2 or captures < 1 or replays <= captures:
+        raise AssertionError(f"multistage mesh device_join_sort: mesh joins {joins}, captures {captures}, replays {replays}")
+    return {"slots": MESH_SLOTS, "mesh_joins": joins, "capture_run_ms": runs_ms[0], "replay_run_ms": runs_ms[1],
+            "captures": captures, "replays": replays, "launches": {k: fn.launches for k, fn in counters.items()}}
+
+
 def run_multistage(torch, counters: dict) -> dict:
     """Phase 13: bench.py's config 6 at its own shape (4M fact rows of its
     generator, seed 6; the 25-row nation_dim; its SQL) through
@@ -4446,7 +4631,7 @@ def run_multistage(torch, counters: dict) -> dict:
         "stage_stats": traced.stage_stats,
     }
 
-    queries = {}
+    queries, one_slot_rows = {}, {}
     for name, sql in MULTISTAGE_QUERIES.items():
         kinds = []
         real = qk.run_plan
@@ -4480,16 +4665,21 @@ def run_multistage(torch, counters: dict) -> dict:
         del calls
         for k, v in run_launches.items():
             launches[k] += v
-        w = wall_p50_of(lambda: engine.execute(sql), warm=0, runs=3)
+        one_slot_rows[name] = got
+        w = wall_p50_of(lambda: engine.execute(sql), warm=0, runs=2)
         queries[name] = {"engaged": engaged, "programs": sorted(set(kinds)), "p50_ms": w["p50_ms"],
                          "runs_ms": w["runs_ms"], "rows": len(got), "launches": run_launches,
                          "kernels_vs_plain": held[name]}
+    mesh_join = mesh_join_sql(torch, counters, catalog, want, one_slot_rows["device_join_sort"])
+    for k, v in mesh_join.pop("launches").items():
+        launches[k] += v
     emit(
         {
             "phase": "multistage",
             "results_match_oracle": True,
             "config6": config6,
             "queries": queries,
+            "mesh_join_sql": mesh_join,
             "link_profile": {"rtt_s": link_profile("cuda")[0], "bytes_per_s": link_profile("cuda")[1]},
             "gates": {"DEVICE_SORT_MIN": rt.DEVICE_SORT_MIN, "DEVICE_JOIN_MIN": rt.DEVICE_JOIN_MIN},
             "host_costs": host_costs(data),

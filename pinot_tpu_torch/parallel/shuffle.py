@@ -26,16 +26,29 @@ a device). Three exchange shapes:
 Static-shape discipline as the reference's: per-destination capacity bounds
 the send buffers; overflow is counted on the device and surfaces to the
 caller, which retries at the safe capacity (the local row count) or declines.
+
+The join is a compiled unit, as the reference's jitted one: `_join_kernel`
+is cached by (devices, block lengths, capacity, key dtype), and on a card
+whose slots all share it each builder runs as one CUDA graph a builder and
+operand signature (`query/kernels.py::compiled_graph`, the card's shared
+pool of `query/graphs.py`): both sides' padded arrays go in by one pinned
+copy, the replay runs the exchange, the sorts and the probes, and the
+compaction of the hits (a data-dependent shape) reads the outputs after it,
+all inside the `exchange.join` record. Where the slots span several cards
+the join runs eagerly, as on the CPU: a torch CUDA graph captures one
+card's stream, and the cross-slot copies would leave it.
 """
 
 from __future__ import annotations
 
 import threading
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from pinot_tpu_torch.common.kernel_obs import KERNELS
+from pinot_tpu_torch.query.kernels import OperandBinding, compiled_graph, replay
 from pinot_tpu_torch.query.sketches import mix32
 
 # One exchange at a time: the multistage engine's stage workers call
@@ -120,13 +133,17 @@ def exchange_group_partials(partials: list, devices: tuple) -> list:
     return [torch.cat([o.to(dev) for o in owned]) for dev in devices]
 
 
-def _join_kernel(devices: tuple, capacity: int, kdt: torch.dtype):
+@lru_cache(maxsize=64)
+def _join_kernel(devices: tuple, lc: int, rc: int, capacity: int, kdt: torch.dtype):
     """The mesh equi-join: hash-repartition both sides, then per slot a
     stable sort of the received right keys and a searchsorted probe. Right
     keys must be unique (FK->PK lookup join). run(lk, lidx, rk, ridx), each a
-    list of the slots' tensors, returns (left idx, right idx, hit) over every
-    slot's received left rows, concatenated in slot order on devices[0], and
-    (dropped, duplicate right keys) as a 2-vector there."""
+    list of the slots' tensors (blocks of lc left and rc right rows), returns
+    (left idx, right idx, hit) over every slot's received left rows,
+    concatenated in slot order on devices[0], and (dropped, duplicate right
+    keys) as a 2-vector there. Cached as the reference's jitted builder is,
+    so joins whose blocks share a pow-2 bucket share one builder (and on a
+    card its graphs)."""
     n_dest = len(devices)
     big = torch.iinfo(kdt).max
 
@@ -168,21 +185,74 @@ def _join_kernel(devices: tuple, capacity: int, kdt: torch.dtype):
     return run
 
 
-def _shardify(keys: np.ndarray, kdt: np.dtype, devices: tuple):
-    """A join side as D equal slot blocks: the keys (padded with the
-    sentinel, the kdt maximum) and their row indices (padding -1), slot d's
-    block on devices[d], and the block length (a power of two, at least 64:
-    the reference's bucket, which bounds its compiled shapes)."""
-    n_dest = len(devices)
+def _shardify(keys: np.ndarray, kdt: np.dtype, n_dest: int):
+    """A join side padded for D equal slot blocks: the keys (padding is the
+    sentinel, the kdt maximum), their row indices (padding -1) and the block
+    length (a power of two, at least 64: the reference's bucket, which bounds
+    its compiled shapes)."""
     n = len(keys)
     per = 1 << max(6, int(np.ceil(np.log2(-(-max(n, 1) // n_dest))))) if n else 64
     kp = np.full(n_dest * per, np.iinfo(kdt).max, dtype=kdt)
     ip = np.full(n_dest * per, -1, dtype=np.int32)
     kp[:n] = keys.astype(kdt)
     ip[:n] = np.arange(n, dtype=np.int32)
-    kb = [torch.from_numpy(kp[d * per : (d + 1) * per]).to(dev) for d, dev in enumerate(devices)]
-    ib = [torch.from_numpy(ip[d * per : (d + 1) * per]).to(dev) for d, dev in enumerate(devices)]
-    return kb, ib, per
+    return kp, ip, per
+
+
+def _join_body(run, devices: tuple, lc: int, rc: int):
+    """What a join's graph captures: body(ops) -> ((left idx, right idx,
+    hit, stats), {}) over the four padded operands (left keys, left rows,
+    right keys, right rows), each cut into its side's D slot blocks, slot d's
+    on devices[d]."""
+
+    def body(ops):
+        lk, lidx, rk, ridx = (
+            [t[d * n : (d + 1) * n].to(dev) for d, dev in enumerate(devices)] for t, n in zip(ops, (lc, lc, rc, rc))
+        )
+        return run(lk, lidx, rk, ridx), {}
+
+    return body
+
+
+def _compact(outputs) -> list:
+    """The join's outputs as they leave the device: the stats as float64,
+    and only the hits' pairs."""
+    li, ri, hit, stats = outputs
+    return [stats.to(torch.float64), li[hit], ri[hit]]
+
+
+def _capacities(lc: int, rc: int, n_dest: int) -> tuple[int, int]:
+    """A join's per-destination capacities: balanced x2 first, then the safe
+    bound (worst case, one slot receives everything a side holds for one
+    destination)."""
+    return 1 << max(6, int(np.ceil(np.log2(max(1, -(-2 * max(lc, rc) // n_dest)))))), max(lc, rc)
+
+
+def _one_card(devices: tuple) -> bool:
+    """Every slot on one CUDA card: the slots a graph can capture."""
+    return all(d.type == "cuda" for d in devices) and len(
+        {torch.cuda.current_device() if d.index is None else d.index for d in devices}
+    ) == 1
+
+
+def _exchange_join(host: tuple, devices: tuple, lc: int, rc: int, capacity: int, kdt: torch.dtype, binding=None):
+    """One join attempt at `capacity` over the padded `host` arrays, timed
+    as one `exchange.join` record: (the stats (dropped, duplicate right
+    keys), left idx, right idx of the hits) on the host. With `binding` (the
+    host arrays' OperandBinding on the slots' one card) the builder's graph
+    replays, captured at its first call; without it the builder runs
+    eagerly, slot d's blocks copied to devices[d]."""
+    run = _join_kernel(devices, lc, rc, capacity, kdt)
+    body = _join_body(run, devices, lc, rc)
+
+    def program():
+        if binding is None:
+            return _compact(body([torch.from_numpy(a) for a in host])[0])
+        key = ("join", devices, lc, rc, capacity, kdt, binding.signature)
+        g = compiled_graph(key, run, devices[0], binding, body)
+        return replay(g, binding, "exchange.join", lambda outs: (_compact(outs), None))[0]
+
+    return KERNELS.timed_sync("exchange.join", program, devices[0], rows=len(devices) * capacity)
 
 
 def mesh_equi_join(lk: np.ndarray, rk: np.ndarray, mesh=None) -> "tuple[np.ndarray, np.ndarray] | None":
@@ -213,20 +283,12 @@ def mesh_equi_join(lk: np.ndarray, rk: np.ndarray, mesh=None) -> "tuple[np.ndarr
     tdt = torch.from_numpy(np.empty(0, kdt)).dtype
 
     with _COLLECTIVE_LAUNCH_LOCK:
-        lkd, lid, lc = _shardify(lk, kdt, devices)
-        rkd, rid, rc = _shardify(rk, kdt, devices)
-        # worst case one slot receives everything both sides hold for one
-        # destination: start at balanced x2, retry once at the safe bound
-        cap0 = 1 << max(6, int(np.ceil(np.log2(max(1, -(-2 * max(lc, rc) // n_dest))))))
-        for capacity in (cap0, max(lc, rc)):
-            run = _join_kernel(devices, int(capacity), tdt)
-
-            def program(run=run):
-                li, ri, hit, stats = run(lkd, lid, rkd, rid)
-                # the pairs leave the device compacted: only hits are copied
-                return [stats.to(torch.float64), li[hit], ri[hit]]
-
-            stats, li, ri = KERNELS.timed_sync("exchange.join", program, devices[0], rows=n_dest * int(capacity))
+        lkp, lip, lc = _shardify(lk, kdt, n_dest)
+        rkp, rip, rc = _shardify(rk, kdt, n_dest)
+        host = (lkp, lip, rkp, rip)
+        binding = OperandBinding(host, devices[0]) if _one_card(devices) else None
+        for capacity in _capacities(lc, rc, n_dest):
+            stats, li, ri = _exchange_join(host, devices, lc, rc, capacity, tdt, binding)
             drops, dups = int(stats[0]), int(stats[1])
             if dups > 0:
                 return None  # many-to-many: the single-device range probe handles it

@@ -161,7 +161,8 @@ def test_compiled_program_called_as_the_references():
 
 def test_signatures_and_cache_sizes_are_the_references():
     from pinot_tpu.parallel import mesh as jmesh
-    from pinot_tpu_torch.parallel import mesh
+    from pinot_tpu.parallel import shuffle as jshuffle
+    from pinot_tpu_torch.parallel import mesh, shuffle
 
     for name in ("get_kernel", "get_packed_kernel", "run_plan", "run_plan_packed", "_fused_cost"):
         mine, ref = getattr(K, name), getattr(JK, name)
@@ -169,6 +170,7 @@ def test_signatures_and_cache_sizes_are_the_references():
     for name in ("build_fn", "build_masked_fn", "get_kernel", "get_packed_kernel"):
         assert getattr(K, name).cache_info().maxsize == getattr(JK, name).cache_info().maxsize == 1024, name
     assert mesh._sharded_kernel.cache_info().maxsize == jmesh._sharded_kernel.cache_info().maxsize == 256
+    assert shuffle._join_kernel.cache_info().maxsize == jshuffle._join_kernel.cache_info().maxsize == 64
 
 
 @pytest.mark.parametrize("rows", [0, 1, 1000, 4_194_304, 2**20 + 3, -5, None])

@@ -221,11 +221,67 @@ def test_mesh_equi_join_retries_after_an_overflow(monkeypatch):
     """The first capacity overflows and is counted; the retry succeeds."""
     calls = []
     real = shuffle._join_kernel
-    monkeypatch.setattr(shuffle, "_join_kernel", lambda dev, cap, dt: calls.append(cap) or real(dev, cap, dt))
+    monkeypatch.setattr(
+        shuffle, "_join_kernel", lambda dev, lc, rc, cap, dt: calls.append(cap) or real(dev, lc, rc, cap, dt)
+    )
     lk = np.full(10_000, 7, dtype=np.int64)
     out = shuffle.mesh_equi_join(lk, np.arange(64, dtype=np.int64), pmesh(4))
     assert out is not None and len(out[0]) == 10_000
     assert len(calls) == 2 and calls[1] > calls[0]
+
+
+def test_join_kernel_cache_hits_and_misses_as_the_reference():
+    """One sequence of joins through both packages: three left lengths in
+    one pow-2 block bucket share a builder, one in another bucket and the
+    skewed join's retry at the safe capacity add builders, and a repeat of
+    the sequence hits every time; both caches count alike."""
+    rng = np.random.default_rng(21)
+    rk = rng.permutation(np.arange(0, 1024, 4, dtype=np.int64))
+    joins = [rng.integers(0, 1024, n).astype(np.int64) for n in (3000, 3500, 4000, 9000)]
+    joins.append(np.full(4000, 8, dtype=np.int64))  # every row to one slot: a retry
+    shuffle._join_kernel.cache_clear()
+    jshuffle._join_kernel.cache_clear()
+    seen = []
+    for lk in joins + joins:
+        _same_pairs(shuffle.mesh_equi_join(lk, rk, pmesh(4)), jshuffle.mesh_equi_join(lk, rk, jmesh(4)))
+        mine, ref = shuffle._join_kernel.cache_info(), jshuffle._join_kernel.cache_info()
+        assert (mine.hits, mine.misses, mine.currsize) == (ref.hits, ref.misses, ref.currsize)
+        seen.append((mine.hits, mine.misses))
+    # the bucket's three joins: one miss, two hits; 9000 and the retry miss
+    assert seen[:5] == [(0, 1), (1, 1), (2, 1), (2, 2), (3, 3)]
+    assert seen[-1] == (9, 3)
+
+
+@pytest.mark.parametrize("d", SLOTS)
+@pytest.mark.parametrize("kdt", [np.int32, np.int64])
+def test_captured_body_over_a_cpu_slab_equals_eager_and_reference(d, kdt):
+    """The body a card's graph captures, run on the CPU over the operand
+    slab an OperandBinding lays out: its compacted pairs and stats equal the
+    eager join's and the reference's pairs, in order."""
+    from pinot_tpu_torch.query.kernels import OperandBinding
+
+    rng = np.random.default_rng(d * 10 + np.dtype(kdt).itemsize)
+    rk = rng.permutation(np.arange(0, 12_000, 3)).astype(kdt)
+    lk = rng.integers(0, 12_000, 30_000).astype(kdt)
+    devices = pmesh(d).devices
+    tdt = torch.from_numpy(np.empty(0, kdt)).dtype
+    lkp, lip, lc = shuffle._shardify(lk, np.dtype(kdt), d)
+    rkp, rip, rc = shuffle._shardify(rk, np.dtype(kdt), d)
+    host = (lkp, lip, rkp, rip)
+    cap = max(lc, rc)
+    binding = OperandBinding(host, "cpu")
+    slab, ops = binding.bind("cpu")
+    binding.fill(slab.numpy())
+    run = shuffle._join_kernel(devices, lc, rc, cap, tdt)
+    outs, info = shuffle._join_body(run, devices, lc, rc)(ops)
+    assert info == {}
+    stats, li, ri = shuffle._compact(outs)
+    eager = shuffle._exchange_join(host, devices, lc, rc, cap, tdt)
+    assert stats.tolist() == eager[0].tolist() == [0.0, 0.0]
+    np.testing.assert_array_equal(li.numpy(), eager[1])
+    np.testing.assert_array_equal(ri.numpy(), eager[2])
+    _same_pairs((li.numpy(), ri.numpy()), jshuffle.mesh_equi_join(lk, rk, jmesh(d)))
+    assert np.array_equal(lk[li.numpy()], rk[ri.numpy()]) and len(li) == int(np.isin(lk, rk).sum())
 
 
 @pytest.mark.parametrize("d", SLOTS)
