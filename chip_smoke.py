@@ -3466,6 +3466,86 @@ SPIED_WRAPPERS = ("grouped_multi_sum", "grouped_extremes", "presences")
 OWN_GRAPHS = {"blocks": 0, "captures": 0, "capture_seconds": 0.0, "seconds": 0.0}
 
 
+def run_spans(torch, engine) -> dict:
+    """Phase 8c: the port's spans on the card (common/trace.py), config 4 on
+    the main path's engine in a graph table of its own. Under a CPU
+    profiler the first run captures: every segment.enqueue says "capture"
+    and each has a graph.capture span with its warm-up and capture ms and
+    its bytes. Under a CPU and CUDA profiler the second replays: every
+    segment.enqueue says "hit" with its pool wait, every segment.resolve
+    has card_ms > 0 (its program's event pair). Reported: the card ms
+    against the trace's device time (the pairs span the replays and their
+    copies, and any wait of the card on the host's enqueue), and the
+    record_function ranges against the log through one offset."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pinot_tpu_torch.common.trace import SPANS
+
+    sql = CONFIGS["4_q4_groupby_orderby"]
+    t_phase = time.perf_counter()
+
+    def logged(t0: float, name: str) -> list:
+        return [r for r in SPANS.records() if r.end >= t0 and r.name == name]
+
+    with own_graphs():
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU]):
+            engine.execute(sql)
+        t1 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.execute(sql)
+            torch.cuda.synchronize()
+    captured, captures = logged(t0, "segment.enqueue"), logged(t0, "graph.capture")
+    captured = [r for r in captured if r.end < t1]
+    hits, resolved = logged(t1, "segment.enqueue"), logged(t1, "segment.resolve")
+    if not captured or [r.attrs.get("graph") for r in captured] != ["capture"] * len(captured):
+        raise AssertionError(f"spans: the capturing run's enqueues {[r.attrs for r in captured]}")
+    split = [(c.attrs["warmup_ms"], c.attrs["capture_ms"], c.attrs["bytes"]) for c in captures if c.end < t1]
+    if len(split) != len(captured) or not all(w > 0 and c > 0 and b > 0 for w, c, b in split):
+        raise AssertionError(f"spans: graph.capture {split} for {len(captured)} captures")
+    if [r.attrs.get("graph") for r in hits] != ["hit"] * len(captured) or not all("pool_wait_ms" in r.attrs for r in hits):
+        raise AssertionError(f"spans: the replaying run's enqueues {[r.attrs for r in hits]}")
+    card = [r.attrs.get("card_ms", 0.0) for r in resolved]
+    if len(card) != len(hits) or not all(ms > 0 for ms in card):
+        raise AssertionError(f"spans: card_ms {card} for {len(hits)} device segments")
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    names = {"engine.submit", "engine.parse", "segment.dispatch", "segment.enqueue", "engine.resolve",
+             "segment.resolve", "segment.sync", "engine.reduce"}
+    # the host's ranges (the trace mirrors each on the device's rows too)
+    ranges = sorted(
+        (e for e in prof.events() if e.name in names and e.device_type == DeviceType.CPU),
+        key=lambda e: e.time_range.start,
+    )
+    recs = sorted((r for r in SPANS.records() if r.end >= t1 and r.name in names), key=lambda r: r.start)
+    offset = recs[0].start - ranges[0].time_range.start / 1e6 if recs and ranges else 0.0
+    gaps = [
+        max(abs(e.time_range.start / 1e6 + offset - r.start), abs(e.time_range.end / 1e6 + offset - r.end)) * 1e3
+        for e, r in zip(ranges, recs)
+        if e.name == r.name
+    ]
+    out = {
+        "phase": "spans",
+        "segments": len(hits),
+        "capture_split_ms": [[round(w, 3), round(c, 3), b] for w, c, b in split],
+        "card_ms": [round(ms, 3) for ms in card],
+        "card_ms_total": sum(card),
+        "device_busy_ms": busy_ms,
+        "card_over_busy": sum(card) / busy_ms if busy_ms else None,
+        "device_ops": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                       for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:6]],
+        "pool_wait_ms": [round(r.attrs["pool_wait_ms"], 4) for r in hits],
+        "ranges_matched": len(gaps),
+        "ranges_spans": [len(ranges), len(recs)],
+        "range_gap_ms_max": max(gaps, default=None),
+        "log_dropped": SPANS.dropped,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
 @contextlib.contextmanager
 def own_graphs(budget: int | None = None):
     """A graph table of its own (its own pools; `budget` bytes, or the
@@ -4729,8 +4809,9 @@ def breakdown(torch, engine, sql: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies, memsets): the CPU ops that
-    # launched them carry the same time again
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # launched them carry the same time again, and the engine's spans'
+    # ranges are mirrored on the device's rows as annotations
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3 if ops else None
     ops.sort(key=lambda e: -e.self_device_time_total)
     out.update(
@@ -8147,6 +8228,7 @@ def main() -> int:
     data, engine, want, nation = main.pop("data"), main.pop("engine"), main.pop("want"), main.pop("nation")
     sharded_launches, one_slot = run_sharded(torch, counters, data, want, engine)
     run_compiled_program(torch, counters, main.pop("compiled"), one_slot)
+    run_spans(torch, engine)
     mesh_launches = run_mesh(torch, counters, data, want, one_slot)
     del one_slot
     run_store(torch, engine, main.pop("segments"), main.pop("tp_segments"), data)

@@ -643,33 +643,12 @@ class Server:
         scheduler configured, execution queues behind its policy; the caller
         blocks on the future (QueryScheduler.submit parity)."""
         if self._scheduler is not None:
-            from pinot_tpu_torch.common.metrics import server_metrics
-            from pinot_tpu_torch.common.trace import ServerQueryPhase, active_trace
-
-            from pinot_tpu_torch.common.frontend_obs import active_timeline
-
-            trace = active_trace()
-            wire_tl = active_timeline()
-            t_sub = time.perf_counter()
-
-            def run():
-                wait_ms = (time.perf_counter() - t_sub) * 1e3
-                if trace is not None:
-                    trace.record_phase(ServerQueryPhase.SCHEDULER_WAIT, wait_ms)
-                if wire_tl is not None:
-                    # HTTP wire timeline sub-phase: the queue-wait slice of
-                    # this request's `execute` on the server side
-                    wire_tl.record_sub(ServerQueryPhase.SCHEDULER_WAIT.value, wait_ms)
-                # aggregate phase timer: /metrics carries scheduler wait even
-                # for untraced queries (phase_timer role= parity)
-                server_metrics().timer(
-                    f"server.phase.{ServerQueryPhase.SCHEDULER_WAIT.value}Ms"
-                ).update_ms(wait_ms)
-                return self._execute_partials(table, sql, segment_names, hints)
-
             # the scheduler snapshots the submitting contextvars per job, so
-            # the active trace crosses into the worker thread by itself
-            fut = self._scheduler.submit(run, table=table, workload=workload)
+            # the active trace crosses into the worker thread by itself; it
+            # records the job's wait (trace phase, wire sub-phase, timer)
+            fut = self._scheduler.submit(
+                self._execute_partials, table, sql, segment_names, hints, table=table, workload=workload
+            )
             return fut.result()
         return self._execute_partials(table, sql, segment_names, hints)
 

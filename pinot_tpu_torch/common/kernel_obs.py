@@ -31,7 +31,8 @@ The JAX package's `common/kernel_obs.py`, re-based on the card:
   program made, which run on no segment's collector; their mask counts
   ride at the end of the same copy. `program()` is the same record for a
   compiled per-segment program (`query.fused_packed`): an event pair around
-  the replay and its copy, queued on the segment's collector.
+  the replay and its copy, queued on the segment's collector; once resolved,
+  its ms stay on the record (`timed_ms`: a segment's card time).
 - CUDA graphs (`query/graphs.py`): while a program is captured
   (`capturing()`), a launch records no event and bumps no counter; it
   appends (name, shape, mask-count tensor) to the capture's
@@ -251,6 +252,15 @@ class _Pending:
     masked: object  # the launch's mask count: a device scalar, an int, or None
     shape: dict
     program: str | None = None
+    #: the event pair's elapsed ms, once resolved
+    ms: float | None = None
+
+
+def timed_ms(pending: list) -> float | None:
+    """The elapsed ms of the resolved event pairs among `pending` (a
+    segment's programs on a card), or None where none was timed."""
+    times = [p.ms for p in pending if p.ms is not None]
+    return sum(times) if times else None
 
 
 #: launches outside any collector held before they are read (with a wait)
@@ -443,7 +453,8 @@ class KernelRegistry:
             if p.start is None:
                 self._record_in_program(p.name, shape, p.program)
             else:
-                self._record(p.name, p.start.elapsed_time(p.end), shape, gauges=False)
+                p.ms = p.start.elapsed_time(p.end)
+                self._record(p.name, p.ms, shape, gauges=False)
         self._set_hbm_gauges()
 
     def timed_sync(self, name: str, fn: Callable[[], "torch.Tensor | list[torch.Tensor]"], device, **shape):
@@ -526,8 +537,8 @@ class KernelRegistry:
 
     def _record_in_program(self, name: str, shape: dict, program: str | None) -> None:
         """Fold one launch replayed inside `program`'s graph: a call and its
-        bytes on the kernel's in-program row, a `kernel.replayed` trace
-        event; no time (the program's record carries it)."""
+        bytes on the kernel's in-program row; no time (the program's record
+        carries it)."""
         k = self._kernels.get(name)
         if k is None:
             return
@@ -538,7 +549,6 @@ class KernelRegistry:
             s.calls += 1
             s.bytes_moved += nbytes
             s.flops += flops
-        trace_event("kernel.replayed", kernel=name, shape=bucket, program=program, bytesMoved=int(nbytes))
 
     def _record(self, name: str, device_ms: float, shape: dict, gauges: bool, attribute: bool = True) -> None:
         k = self._kernels.get(name)

@@ -23,14 +23,52 @@ the active span (fault-injector hits, deadline checks) and is a no-op with
 no trace. The distributed multistage dispatcher carries the context in the
 v2 stage-plan envelope, and each server's stage workers send their subtrees
 back on the trailing end-of-stream stats relay (multistage/distributed.py).
+
+`InvocationScope` is the one span. It has two sinks:
+
+- the active `RequestTrace` (flat under its root, or under an explicit
+  `parent` Span), as above, for `/debug/traces` and EXPLAIN ANALYZE;
+- while a torch profiler records, the process-wide span log `SPANS`: name,
+  start and end as `time.perf_counter()` seconds (the clock of the
+  benchmark's slices, onto which it maps the profiler's device rows), the
+  thread, the query's id, the enclosing span's id and the attributes. The
+  log is bounded and counts what it drops. While the profiler records, each
+  span also opens a `torch.profiler.record_function` range of its name, so
+  an exported Chrome trace shows the spans over the device's rows (threads
+  other than the profiler's own appear there only under the profiler's
+  `profile_all_threads` option).
+
+The gate is the profiler's process-wide flag
+(`torch.autograd.profiler._is_profiler_enabled`, set while a profiler
+records): `torch.autograd._profiler_enabled()` is the starting thread's
+alone and reads False on a query's runner thread. A span that overlaps a
+recording interval is logged whole, one that began before the profiler
+started or ended after it stopped included: each span reads the clock as
+it opens, and one that closes with the profiler off is logged when a span
+site saw the profiler recording after it opened (`SpanLog.seen_on`).
+Attributes set while a span neither traces nor logs are dropped; a span
+logged at its close keeps those given as it opened and those set after
+its close (a segment's card time, read once its events have completed).
+Off (no request trace, no profiler), a span costs one ContextVar read, one
+read of the profiler's flag and one perf_counter read as it opens, two
+reads as it closes, and the scope object itself: no Span, no log record,
+no lock, no ContextVar set, no record_function (which costs microseconds
+even with the profiler off).
+
+Every span of one query carries one query id: the query scheduler mints it
+for each job, in the job's copied context (`new_query`), and
+`QueryEngine.submit` mints one where no scheduler did (`query_scope`).
 """
 
 from __future__ import annotations
 
 import contextvars
+import itertools
+import sys
 import threading
 import time
 import uuid
+from collections import deque
 from dataclasses import dataclass, field
 from enum import Enum
 
@@ -285,9 +323,107 @@ class RequestTrace:
 # submitting context per job; ad-hoc worker threads use run_traced).
 _active: contextvars.ContextVar[RequestTrace | None] = contextvars.ContextVar("pinot_trace", default=None)
 
+# the query this context's spans belong to, and the innermost span of this
+# context that records (a trace's or the log's)
+_query: contextvars.ContextVar[int | None] = contextvars.ContextVar("pinot_query", default=None)
+_current: contextvars.ContextVar["InvocationScope | None"] = contextvars.ContextVar("pinot_span", default=None)
+_query_ids = itertools.count(1)
+_span_ids = itertools.count(1)
+
 
 def active_trace() -> RequestTrace | None:
     return _active.get()
+
+
+def profiling() -> bool:
+    """Whether a torch profiler records now, in any thread (its own flag,
+    set from its start to its stop; False where torch was never imported)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+@dataclass(slots=True)
+class SpanRecord:
+    """One span of the log: `start` and `end` are time.perf_counter()
+    seconds, `thread` the recording thread's ident, `query` the query's id,
+    `parent` the enclosing span's id (None where none recorded as it
+    opened)."""
+
+    name: str
+    start: float
+    end: float
+    thread: int
+    query: int | None
+    id: int
+    parent: int | None
+    attrs: dict
+
+
+class SpanLog:
+    """The spans recorded while a torch profiler records, process-wide: the
+    last CAPACITY kept, the older ones dropped and counted in `dropped`."""
+
+    CAPACITY = 1 << 16
+
+    def __init__(self):
+        self.dropped = 0
+        #: the latest perf_counter time a span site saw the profiler recording
+        self.seen_on = float("-inf")
+        self._lock = threading.Lock()
+        self._records: deque = deque(maxlen=self.CAPACITY)
+
+    def add(self, rec: SpanRecord) -> None:
+        with self._lock:
+            if len(self._records) == self.CAPACITY:
+                self.dropped += 1
+            self._records.append(rec)
+
+    def records(self) -> list[SpanRecord]:
+        with self._lock:
+            return list(self._records)
+
+
+#: the process's span log
+SPANS = SpanLog()
+
+
+def _log(name: str, start: float, end: float, span_id: int, parent: int | None, attrs: dict) -> SpanRecord:
+    if end > SPANS.seen_on and profiling():
+        SPANS.seen_on = end
+    rec = SpanRecord(name, start, end, threading.get_ident(), _query.get(), span_id, parent, attrs)
+    SPANS.add(rec)
+    return rec
+
+
+def new_query() -> None:
+    """Give this context a new query id (the scheduler runs it in a job's
+    own copied context)."""
+    _query.set(next(_query_ids))
+
+
+class query_scope:
+    """The block runs under query id `qid`, or under this context's, or
+    under a new one; `as` gives the id."""
+
+    __slots__ = ("id", "_token")
+
+    def __init__(self, qid: int | None = None):
+        self.id = qid
+        self._token = None
+
+    def __enter__(self) -> int:
+        current = _query.get()
+        if self.id is None:
+            self.id = current if current is not None else next(_query_ids)
+        if current != self.id:
+            self._token = _query.set(self.id)
+        return self.id
+
+    def __exit__(self, *exc):
+        if self._token is not None:
+            _query.reset(self._token)
+            self._token = None
+        return False
 
 
 def trace_event(name: str, **attrs) -> None:
@@ -314,10 +450,12 @@ class start_trace:
 
 
 class InvocationScope:
-    """Span around an operator/kernel invocation. No-op when tracing is off
-    (Tracing.java default NoOpTracer parity: near-zero overhead)."""
+    """A span around an operator, a layer's step or a kernel invocation,
+    recorded into the active trace and, while a profiler records, into
+    SPANS (module docstring). No-op when tracing is off (Tracing.java
+    default NoOpTracer parity)."""
 
-    __slots__ = ("name", "attrs", "_trace", "_span", "_t0", "_parent")
+    __slots__ = ("name", "attrs", "_parent", "_trace", "_span", "_t0", "_token", "_rf", "_id", "_up", "_rec")
 
     def __init__(self, name: str, parent: Span | None = None, **attrs):
         self.name = name
@@ -326,29 +464,101 @@ class InvocationScope:
         self._trace = _active.get()
 
     def __enter__(self) -> "InvocationScope":
-        if self._trace is not None:
+        on = profiling()
+        self._token = self._rec = None
+        if on or self._trace is not None:
+            self._open(on)
+        else:
             self._t0 = time.perf_counter()
-            self._span = Span(self.name, self._trace.now_ms(), attrs=self.attrs)
         return self
 
-    def set_attr(self, key: str, value) -> None:
+    def _open(self, on: bool) -> None:
+        up = _current.get()
+        self._id = next(_span_ids)
+        self._up = up._id if up is not None else None
+        self._token = _current.set(self)
+        self._rf = None
+        if on:
+            self._rf = sys.modules["torch.autograd.profiler"].record_function(self.name)
+            self._rf.__enter__()
+        # read next to the range's own start (and, closing, its end)
+        self._t0 = time.perf_counter()
+        if on and self._t0 > SPANS.seen_on:
+            SPANS.seen_on = self._t0
         if self._trace is not None:
-            self._span.attrs[key] = value
+            self._span = Span(self.name, (self._t0 - self._trace._t0) * 1e3, attrs=self.attrs)
+
+    def set_attr(self, key: str, value) -> None:
+        """Set an attribute (dropped where the span neither traces nor logs;
+        after its close it still reaches its trace span and log record)."""
+        if self._token is not None or self._rec is not None:
+            self.attrs[key] = value
 
     def __exit__(self, *exc):
+        if self._token is None:
+            if not profiling() and SPANS.seen_on < self._t0:
+                return False
+            # the profiler recorded during the span: logged whole
+            self._rec = _log(self.name, self._t0, time.perf_counter(), next(_span_ids), None, self.attrs)
+            return False
+        end = time.perf_counter()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        _current.reset(self._token)
         if self._trace is not None:
-            self._span.duration_ms = (time.perf_counter() - self._t0) * 1e3
+            self._span.duration_ms = (end - self._t0) * 1e3
             self._trace.add_span(self._span, self._parent)
+        if self._rf is not None or profiling() or SPANS.seen_on >= self._t0:
+            self._rec = _log(self.name, self._t0, end, self._id, self._up, self.attrs)
         return False
 
 
+def span_attr(key: str, value) -> None:
+    """Set an attribute of this context's innermost recording span (no-op,
+    one ContextVar read, where none records)."""
+    scope = _current.get()
+    if scope is not None:
+        scope.attrs[key] = value
+
+
+def record_span(name: str, start: float, end: float, **attrs) -> None:
+    """Record a span whose start the recording code did not see (a job's
+    wait for its runner, from its enqueue), into the active trace and, where
+    a profiler recorded during it, the log; it has no record_function
+    range. Off it reads one ContextVar, the profiler's flag and
+    `SpanLog.seen_on`."""
+    tr = _active.get()
+    logged = profiling() or SPANS.seen_on >= start
+    if tr is not None:
+        tr.add_span(Span(name, (start - tr._t0) * 1e3, (end - start) * 1e3, attrs=attrs))
+    if logged:
+        up = _current.get()
+        _log(name, start, end, next(_span_ids), up._id if up is not None else None, attrs)
+
+
+def record_phase(phase: ServerQueryPhase, ms: float, role: str | None = None) -> None:
+    """Fold `ms` of `phase` into the active trace's phaseTimesMs, the active
+    HTTP wire timeline's sub-phases (a no-op outside an instrumented HTTP
+    request) and, with `role`, that role's `<role>.phase.<phase>Ms` Timer,
+    which /metrics exports for untraced queries too."""
+    tr = _active.get()
+    if tr is not None:
+        tr.record_phase(phase, ms)
+    if role is not None:
+        from pinot_tpu_torch.common.metrics import get_registry
+
+        get_registry(role).timer(f"{role}.phase.{phase.value}Ms").update_ms(ms)
+    from pinot_tpu_torch.common.frontend_obs import record_timeline_sub
+
+    record_timeline_sub(phase.value, ms)
+
+
 class phase_timer:
-    """Times one ServerQueryPhase (TimerContext parity). Records into the
-    active trace's phaseTimesMs when tracing is on, and — when `role` is
-    given — unconditionally into that role's metrics registry as a
-    `<role>.phase.<phase>Ms` Timer, so `/metrics` answers "which phase ate
-    the budget" in aggregate even for untraced queries while `/debug/traces`
-    answers it per request."""
+    """Times one ServerQueryPhase (TimerContext parity) into
+    `record_phase`: the active trace's phaseTimesMs when tracing is on, and
+    — when `role` is given — unconditionally that role's metrics registry,
+    so `/metrics` answers "which phase ate the budget" in aggregate even for
+    untraced queries while `/debug/traces` answers it per request."""
 
     def __init__(self, phase: ServerQueryPhase, role: str | None = None):
         self.phase = phase
@@ -359,19 +569,7 @@ class phase_timer:
         return self
 
     def __exit__(self, *exc):
-        ms = (time.perf_counter() - self._t0) * 1e3
-        tr = _active.get()
-        if tr is not None:
-            tr.record_phase(self.phase, ms)
-        if self.role is not None:
-            from pinot_tpu_torch.common.metrics import get_registry
-
-            get_registry(self.role).timer(f"{self.role}.phase.{self.phase.value}Ms").update_ms(ms)
-        # fold into the active HTTP wire timeline's sub-phase decomposition
-        # (no-op outside an instrumented HTTP request)
-        from pinot_tpu_torch.common.frontend_obs import record_timeline_sub
-
-        record_timeline_sub(self.phase.value, ms)
+        record_phase(self.phase, (time.perf_counter() - self._t0) * 1e3, self.role)
         return False
 
 

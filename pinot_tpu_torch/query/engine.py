@@ -26,12 +26,20 @@ an extra mask. Only DeviceFallback reroutes a segment: a NotImplementedError,
 a CUDA error or a failed kernel build reaches the caller.
 
 `_resolve_partials` is the one resolve loop: per segment the checkpoint and
-the deadline again, the device->host copy inside a `segment:<name>` trace
-span, the accountant's sample, the scan-path stats and the segment heat;
-after the last segment, the kernel launches' CUDA events, read once every
-copy has synchronized the stream (`common/kernel_obs.py`). `segment_modes`
-counts the executor
-of every segment resolved ("startree", "host", "device", "pruned").
+the deadline again, the device->host copy and the convert, the accountant's
+sample and the scan-path stats; after the last segment, the kernel
+launches' CUDA events, read once every copy has synchronized the stream
+(`common/kernel_obs.py`), give each segment its card time, which the
+segment heat folds. `segment_modes` counts the executor of every segment
+resolved ("startree", "host", "device", "pruned").
+
+Spans (`common/trace.py`), one query id each query: `engine.submit` (over
+`engine.parse` and one `segment.dispatch` a segment: the prune, also the
+`segmentPruning` phase of a trace, the plan and `segment.enqueue` or the
+star-tree / host executor inline) and `engine.resolve` (over one
+`segment.resolve` a segment, with its `segment.sync`, then
+`engine.reduce`). `partials()` and `partials_iter()` open the segments'
+spans alone.
 EXPLAIN PLAN FOR returns the operator tree of the first segment's plan;
 EXPLAIN ANALYZE runs the query under a private trace and annotates it.
 """
@@ -48,10 +56,17 @@ import torch
 
 from pinot_tpu_torch.common.accounting import default_accountant
 from pinot_tpu_torch.common.faults import FAULTS, InjectedFault
-from pinot_tpu_torch.common.kernel_obs import KERNELS
+from pinot_tpu_torch.common.kernel_obs import KERNELS, timed_ms
 from pinot_tpu_torch.common.metrics import ScanMeter, ServerMeter, server_metrics
 from pinot_tpu_torch.common.segment_heat import HEAT
-from pinot_tpu_torch.common.trace import InvocationScope, start_trace, trace_event
+from pinot_tpu_torch.common.trace import (
+    InvocationScope,
+    ServerQueryPhase,
+    active_trace,
+    query_scope,
+    start_trace,
+    trace_event,
+)
 from pinot_tpu_torch.query import ast, host_exec, pruner, scan_stats, startree_exec
 from pinot_tpu_torch.query import reduce as reduce_mod
 from pinot_tpu_torch.query.context import QueryContext, QueryType, expand_star, null_handling_enabled
@@ -199,40 +214,50 @@ class QueryEngine:
         with it."""
         pend: list = []
         pruned = 0
+        tr = active_trace()
         cm = scan_stats.collect_probes(probe_sink) if probe_sink is not None else contextlib.nullcontext()
         with cm:
             for seg in self.segments if segments is None else segments:
-                default_accountant.checkpoint()
-                if ctx.deadline is not None:
-                    ctx.deadline.check(f"segment {seg.name}")
-                try:
-                    FAULTS.maybe_fail("segment.execute")
-                except InjectedFault:
-                    trace_event("fault.injected", point="segment.execute", segment=seg.name)
-                    raise
-                reason = pruner.prune_reason(seg, ctx)
-                if reason is not None:
-                    # the canonical empty partial; the reason feeds the
-                    # pruning funnel (numSegmentsPrunedByValue / ByBloom / ByGeo)
-                    pend.append((seg, ("pruned", pruner.empty_partial(ctx), reason), []))
-                    pruned += 1
-                    continue
-                with KERNELS.collect() as launches:
-                    disp = self._dispatch_segment(seg, ctx)
+                with InvocationScope("segment.dispatch", segment=seg.name) as span:
+                    default_accountant.checkpoint()
+                    if ctx.deadline is not None:
+                        ctx.deadline.check(f"segment {seg.name}")
+                    try:
+                        FAULTS.maybe_fail("segment.execute")
+                    except InjectedFault:
+                        trace_event("fault.injected", point="segment.execute", segment=seg.name)
+                        raise
+                    t_prune = time.perf_counter() if tr is not None else 0.0
+                    reason = pruner.prune_reason(seg, ctx)
+                    if tr is not None:
+                        tr.record_phase(ServerQueryPhase.SEGMENT_PRUNING, (time.perf_counter() - t_prune) * 1e3)
+                    span.set_attr("prune", reason)
+                    if reason is not None:
+                        # the canonical empty partial; the reason feeds the
+                        # pruning funnel (numSegmentsPrunedByValue / ByBloom / ByGeo)
+                        pend.append((seg, ("pruned", pruner.empty_partial(ctx), reason), []))
+                        pruned += 1
+                        span.set_attr("mode", "pruned")
+                        continue
+                    with KERNELS.collect() as launches:
+                        disp = self._dispatch_segment(seg, ctx)
+                    span.set_attr("mode", _scan_mode(disp))
                 pend.append((seg, disp, launches))
         return pend, pruned
 
     def _resolve_partials(self, ctx: QueryContext, pend: list, pruned: int):
         """Sync + convert every pending dispatch, with the per-segment
-        checkpoint (where a killed query stops), deadline, trace span,
-        accountant sample, segment meters and scan-path and heat folds, then
-        the kernel records. Returns (partials, matched docs, scan summary)."""
+        checkpoint (where a killed query stops), deadline, span, accountant
+        sample, segment meters and scan-path fold, then the kernel records
+        and each segment's card time and heat. Returns (partials, matched
+        docs, scan summary)."""
         obs = self._obs()
         summary = scan_stats.new_scan_summary()
         n_post = len(ctx.post_filter_columns) if obs else 0
         out = []
         scanned = 0
         launched: list = []
+        resolved: list = []
         for seg, disp, launches in pend:
             if disp[0] == "pruned":
                 out.append(disp[1])  # no scan, no sample
@@ -246,27 +271,20 @@ class QueryEngine:
             # per-segment CPU attribution: thread_time_ns deltas exclude time
             # this thread spent descheduled or blocked
             t_cpu = time.thread_time_ns()
-            t_wall = time.perf_counter()
-            with InvocationScope(f"segment:{seg.name}") as scope:
+            with InvocationScope("segment.resolve", segment=seg.name) as scope:
                 if obs:
                     with scan_stats.collect_probes(summary["indexProbeEntries"]):
                         partial, matched, mode = self._finish_segment(seg, ctx, disp)
                 else:
                     partial, matched, mode = self._finish_segment(seg, ctx, disp)
-                scope.set_attr("numDocsMatched", int(matched))
+                scope.set_attr("matched", int(matched))
             launched += launches
+            resolved.append((seg, launches, scope, int(matched)))
             self.segment_modes[mode] += 1
             default_accountant.sample(segments=1, allocated_bytes=seg.size_bytes, cpu_ns=time.thread_time_ns() - t_cpu)
             if obs:
                 seg_stats = scan_stats.segment_scan_stats(ctx, seg, _scan_mode(disp), int(matched), n_post)
                 scan_stats.fold_segment_stats(summary, seg_stats)
-                HEAT.record(
-                    ctx.table,
-                    seg.name,
-                    docs_scanned=int(matched),
-                    bytes_touched=seg.size_bytes,
-                    device_ms=(time.perf_counter() - t_wall) * 1e3,
-                )
                 if seg_stats["fullScanFallbacks"]:
                     trace_event(
                         "scan.fullScan",
@@ -278,6 +296,10 @@ class QueryEngine:
         # every segment's copy has synchronized the stream: the launches'
         # events are complete; their times and mask counts are read at once
         KERNELS.resolve(launched)
+        for seg, launches, scope, matched in resolved:
+            card_ms = self._card_time(scope, launches)
+            if obs:
+                HEAT.record(ctx.table, seg.name, docs_scanned=matched, bytes_touched=seg.size_bytes, device_ms=card_ms)
         m = server_metrics()
         m.meter(ServerMeter.NUM_SEGMENTS_QUERIED).mark(len(pend) - pruned)
         if pruned:
@@ -314,25 +336,39 @@ class QueryEngine:
             except InjectedFault:
                 trace_event("fault.injected", point="segment.execute", segment=seg.name)
                 raise
-            if not pruner.can_match(seg, ctx):
-                continue
-            with KERNELS.collect() as launches:
-                disp = self._dispatch_segment(seg, ctx)
-            t_wall = time.perf_counter()
-            partial, matched, mode = self._finish_segment(seg, ctx, disp)
+            with InvocationScope("segment.dispatch", segment=seg.name) as span:
+                reason = pruner.prune_reason(seg, ctx)
+                span.set_attr("prune", reason)
+                if reason is not None:
+                    span.set_attr("mode", "pruned")
+                    continue
+                with KERNELS.collect() as launches:
+                    disp = self._dispatch_segment(seg, ctx)
+                span.set_attr("mode", _scan_mode(disp))
+            with InvocationScope("segment.resolve", segment=seg.name) as scope:
+                partial, matched, mode = self._finish_segment(seg, ctx, disp)
+                scope.set_attr("matched", int(matched))
             KERNELS.resolve(launches)
+            card_ms = self._card_time(scope, launches)
             self.segment_modes[mode] += 1
             seg_stats = None
             if obs:
                 seg_stats = scan_stats.segment_scan_stats(ctx, seg, _scan_mode(disp), int(matched), n_post)
                 HEAT.record(
-                    ctx.table,
-                    seg.name,
-                    docs_scanned=int(matched),
-                    bytes_touched=seg.size_bytes,
-                    device_ms=(time.perf_counter() - t_wall) * 1e3,
+                    ctx.table, seg.name, docs_scanned=int(matched), bytes_touched=seg.size_bytes, device_ms=card_ms
                 )
             yield seg, partial, int(matched), seg_stats
+
+    @staticmethod
+    def _card_time(scope: InvocationScope, launches: list) -> float:
+        """A resolved segment's card ms (its programs' event pairs), set as
+        its span's `card_ms`; 0.0 where nothing of it was timed on a card
+        (the CPU, the host executor, a disabled kernel registry)."""
+        card_ms = timed_ms(launches)
+        if card_ms is None:
+            return 0.0
+        scope.set_attr("card_ms", card_ms)
+        return card_ms
 
     # -- the broker half --------------------------------------------------
 
@@ -422,12 +458,12 @@ class QueryEngine:
         exec_parent = rows[1][1] if len(rows) > 1 else rows[0][1]
         nid = max(r[1] for r in rows) + 1
         for span in tr.to_dict()["spans"]:
-            if not span["name"].startswith("segment:"):
+            if span["name"] != "segment.resolve":
                 continue
-            matched = span.get("attrs", {}).get("numDocsMatched", 0)
+            attrs = span["attrs"]
             rows.append(
                 [
-                    f"SEGMENT_SCAN({span['name'][len('segment:'):]}, docsMatched={matched}, wallMs={span['durationMs']})",
+                    f"SEGMENT_SCAN({attrs['segment']}, docsMatched={attrs['matched']}, wallMs={span['durationMs']})",
                     nid,
                     exec_parent,
                 ]
@@ -447,34 +483,41 @@ class QueryEngine:
         syncs, the reduce and the ResultTable. Submitting several queries
         before resolving any keeps the device busy across them."""
         t0 = time.perf_counter()
-        ctx = self.make_context(sql)
-        if ctx.statement.explain:
-            return lambda: self.explain(ctx)
-        if ctx.statement.explain_analyze:
-            return lambda: self._explain_analyze(ctx)
-        probes = self._new_probe_sink()
-        pend, pruned = self._dispatch_all(ctx, probe_sink=probes)
+        with query_scope() as qid, InvocationScope("engine.submit") as span:
+            with InvocationScope("engine.parse"):
+                ctx = self.make_context(sql)
+            if ctx.statement.explain:
+                return lambda: self.explain(ctx)
+            if ctx.statement.explain_analyze:
+                return lambda: self._explain_analyze(ctx)
+            probes = self._new_probe_sink()
+            pend, pruned = self._dispatch_all(ctx, probe_sink=probes)
+            span.set_attr("segments", len(pend))
+            span.set_attr("pruned", pruned)
 
         def resolve() -> ResultTable:
-            partials, scanned, scan = self._resolve_partials(ctx, pend, pruned)
-            scan_stats.merge_probe_sink(scan, probes)
-            rows = self.reduce(ctx, partials)
-            by_reason = scan["prunedByReason"]
-            return reduce_mod.build_result(
-                ctx,
-                rows,
-                num_docs_scanned=int(scanned),
-                total_docs=sum(s.n_docs for s in self.segments),
-                num_segments_queried=len(self.segments),
-                num_segments_pruned=pruned,
-                num_segments_pruned_by_value=by_reason.get("value", 0),
-                num_segments_pruned_by_bloom=by_reason.get("bloom", 0),
-                num_segments_pruned_by_geo=by_reason.get("geo", 0),
-                num_entries_scanned_in_filter=scan["entriesInFilter"],
-                num_entries_scanned_post_filter=scan["entriesPostFilter"],
-                scan_profile=scan,
-                time_used_ms=(time.perf_counter() - t0) * 1e3,
-            )
+            with query_scope(qid), InvocationScope("engine.resolve"):
+                partials, scanned, scan = self._resolve_partials(ctx, pend, pruned)
+                scan_stats.merge_probe_sink(scan, probes)
+                with InvocationScope("engine.reduce") as reduce_span:
+                    rows = self.reduce(ctx, partials)
+                    reduce_span.set_attr("rows", len(rows))
+                    by_reason = scan["prunedByReason"]
+                    return reduce_mod.build_result(
+                        ctx,
+                        rows,
+                        num_docs_scanned=int(scanned),
+                        total_docs=sum(s.n_docs for s in self.segments),
+                        num_segments_queried=len(self.segments),
+                        num_segments_pruned=pruned,
+                        num_segments_pruned_by_value=by_reason.get("value", 0),
+                        num_segments_pruned_by_bloom=by_reason.get("bloom", 0),
+                        num_segments_pruned_by_geo=by_reason.get("geo", 0),
+                        num_entries_scanned_in_filter=scan["entriesInFilter"],
+                        num_entries_scanned_post_filter=scan["entriesPostFilter"],
+                        scan_profile=scan,
+                        time_used_ms=(time.perf_counter() - t0) * 1e3,
+                    )
 
         return resolve
 

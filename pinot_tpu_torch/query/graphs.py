@@ -29,6 +29,10 @@ share of the card's free memory (`graph_budget`). A capture runs under the
 staging lock, in the "thread_local" error mode, on the device's own capture
 stream, so another thread's allocations and launches do not enter it. A
 program whose capture fails raises: there is no eager fallback on a card.
+
+The table's counts go to the server registry where they change, as
+`stats()` reads them: `engine.graphs.{lookups,hits,captures,evictions}`
+meters and `engine.graphs.{bytes,peakBytes}` gauges.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from collections import OrderedDict
 from contextlib import contextmanager
 
 from pinot_tpu_torch.common.kernel_obs import CapturedLaunches, capturing
+from pinot_tpu_torch.common.metrics import server_metrics
 from pinot_tpu_torch.segment.segment import _STAGE_LOCK
 
 #: the share of a card's free memory, read when a table first captures
@@ -269,6 +274,16 @@ class GraphTable:
         (their outputs go back to the pool)."""
         with self._lock:
             self._purge_locked()
+        self._export()
+
+    def _export(self, evicted: int = 0) -> None:
+        """The byte gauges (and the evictions just made) to the server
+        registry."""
+        reg = server_metrics()
+        reg.gauge("engine.graphs.bytes").set(self.bytes)
+        reg.gauge("engine.graphs.peakBytes").set(self.peak_bytes)
+        if evicted:
+            reg.meter("engine.graphs.evictions").mark(evicted)
 
     def _purge_locked(self) -> None:
         while self._dead:
@@ -284,7 +299,11 @@ class GraphTable:
             if g is not None:
                 self._graphs.move_to_end(key)
                 self.replays += 1
-            return g
+        reg = server_metrics()
+        reg.meter("engine.graphs.lookups").mark()
+        if g is not None:
+            reg.meter("engine.graphs.hits").mark()
+        return g
 
     def put(self, key, owner, graph: Graph, seconds: float = 0.0) -> None:
         """Keep `graph` under `key` for as long as `owner` lives, then evict
@@ -292,6 +311,7 @@ class GraphTable:
         `seconds`: what its warm-up and capture took."""
         oid = id(owner)
         with self._lock:
+            evicted = self.evictions
             self.capture_seconds += seconds
             self._purge_locked()
             if oid not in self._owner_refs:
@@ -309,6 +329,9 @@ class GraphTable:
                 self.evictions += 1
                 for keys in self._owner_keys.values():
                     keys.discard(old)
+            evicted = self.evictions - evicted
+        server_metrics().meter("engine.graphs.captures").mark()
+        self._export(evicted)
 
     def clear(self) -> None:
         """Drop every graph and pool and give the card back the pools'
@@ -322,13 +345,14 @@ class GraphTable:
             self._owner_refs.clear()
             self._dead.clear()
             self.bytes = 0
+        self._export()
         torch = sys.modules.get("torch")
         if torch is not None and torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.empty_cache()
 
     def stats(self) -> dict:
+        self.purge()
         with self._lock:
-            self._purge_locked()
             return {
                 "graphs": len(self._graphs),
                 "bytes": self.bytes,

@@ -13,7 +13,12 @@ compiled form, as the reference's jitted ones: on a card one CUDA graph per
 staged segment and input signature (`query/graphs.py`), captured at its first
 call and replayed in one launch; on the CPU the eager program. Nothing syncs
 with the host until `dispatch_plan_packed`'s resolve reads the one
-device->host copy per segment.
+device->host copy per segment. Its spans (`common/trace.py`):
+`segment.enqueue` (the operands bound, the graph found or captured, its
+`graph` attribute "hit" or "capture", the wait for the pool's lock as
+`pool_wait_ms`, the replay, the copy enqueued; on the CPU the eager
+program), `graph.capture` (its warm-up and capture ms, the bytes it holds)
+and `segment.sync` (the host blocked on the copy).
 
 Every grouped COUNT and every int32 SUM/AVG goes through one exact group-by
 kernel (`ops.groupby.grouped_multi_sum`: the flat kernel, or the two-level one
@@ -90,6 +95,7 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.common.kernel_obs import KERNELS, CacheObserver, CapturedLaunches, capturing, current_capture
+from pinot_tpu_torch.common.trace import InvocationScope, span_attr
 from pinot_tpu_torch.ops.extreme import grouped_extremes
 from pinot_tpu_torch.ops.groupby import grouped_multi_sum
 from pinot_tpu_torch.ops.grouped_sum_f32 import presences
@@ -1114,23 +1120,30 @@ def compiled_graph(key: tuple, owner, device, binding: OperandBinding, body) -> 
         g = table.get(key)
         if g is not None:
             return g
-        t0 = time.perf_counter()
-        pool = table.pool(device)
-        slab, ops = binding.bind(device)
-        g = Graph(pool, slab, ops)
-        binding.load(slab)
-        with capturing(CapturedLaunches()):
-            body(ops)
-        before = reserved_bytes(device)
-        try:
-            with capture_graph(g.graph, g.captured, pool):
-                g.outputs, g.info = body(ops)
-        except BaseException:
-            table.retire(pool)
-            raise
-        pool.bytes += max(reserved_bytes(device) - before, 0)
-        g.nbytes = held_bytes([*g.outputs, slab])
-        table.put(key, owner, g, time.perf_counter() - t0)
+        span_attr("graph", "capture")  # pinotlint: disable=blocking-under-lock — a ContextVar's .get(), never a queue's
+        with InvocationScope("graph.capture") as span:  # pinotlint: disable=blocking-under-lock — a ContextVar's .get(), never a queue's
+            t0 = time.perf_counter()
+            pool = table.pool(device)
+            slab, ops = binding.bind(device)
+            g = Graph(pool, slab, ops)
+            binding.load(slab)
+            with capturing(CapturedLaunches()):
+                body(ops)
+            t1 = time.perf_counter()
+            before = reserved_bytes(device)
+            try:
+                with capture_graph(g.graph, g.captured, pool):
+                    g.outputs, g.info = body(ops)
+            except BaseException:
+                table.retire(pool)
+                raise
+            pool.bytes += max(reserved_bytes(device) - before, 0)
+            g.nbytes = held_bytes([*g.outputs, slab])
+            t2 = time.perf_counter()
+            span.set_attr("warmup_ms", (t1 - t0) * 1e3)
+            span.set_attr("capture_ms", (t2 - t1) * 1e3)
+            span.set_attr("bytes", g.nbytes)
+            table.put(key, owner, g, t2 - t0)
     return g
 
 
@@ -1145,7 +1158,9 @@ def replay(g: Graph, binding: OperandBinding, program: str, read, shape: dict | 
     and the read are recorded as `program` (`KERNELS.program`). Returns
     (the result, that record or None, the launches' records)."""
     pool = g.pool
+    t0 = time.perf_counter()
     with pool.lock:
+        waited = time.perf_counter() - t0
         pool.begin()
         binding.load(g.slab)
         with KERNELS.program(program, g.device, **shape) if shape is not None else nullcontext() as rec:
@@ -1153,6 +1168,7 @@ def replay(g: Graph, binding: OperandBinding, program: str, read, shape: dict | 
             got, masked = read(g.outputs)
         launches = KERNELS.replayed(g.captured, program, masked=masked)
         pool.end()
+    span_attr("pool_wait_ms", waited * 1e3)
     return got, rec, launches
 
 
@@ -1256,41 +1272,45 @@ def dispatch_plan_packed(plan, device_segment):
     segment's collector, with the replay's kernel launches as in-program
     records (their mask counts ride at the end of the copy). On the CPU: the
     eager program, its host wall recorded at resolve."""
-    program = get_packed_kernel(plan.spec)
-    _packed_cache_obs.observe()
-    cols = plan_columns(plan, device_segment)
-    device = next(iter(cols.values())).device
-    rows, n_cols = device_segment.padded, len(cols)
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        ops = stage_operands(plan.operands, device)
-        leaves, defs = program.leaves(cols, ops, device_segment.n_docs, device_segment.padded)
-        meta, vec = leaf_meta(leaves), pack(leaves)
+    with InvocationScope("segment.enqueue") as span:
+        program = get_packed_kernel(plan.spec)
+        _packed_cache_obs.observe()
+        cols = plan_columns(plan, device_segment)
+        device = next(iter(cols.values())).device
+        rows, n_cols = device_segment.padded, len(cols)
+        if device.type != "cuda":
+            t0 = time.perf_counter()
+            ops = stage_operands(plan.operands, device)
+            leaves, defs = program.leaves(cols, ops, device_segment.n_docs, device_segment.padded)
+            meta, vec = leaf_meta(leaves), pack(leaves)
 
-        def resolve_host():
-            v = vec.cpu().numpy()  # THE device->host copy for this segment
-            KERNELS.record_program("query.fused_packed", (time.perf_counter() - t0) * 1e3, rows=rows, cols=n_cols)
-            return _unflatten(defs, iter(unpack(v, meta)))
+            def resolve_host():
+                with InvocationScope("segment.sync"):
+                    v = vec.cpu().numpy()  # THE device->host copy for this segment
+                KERNELS.record_program("query.fused_packed", (time.perf_counter() - t0) * 1e3, rows=rows, cols=n_cols)
+                return _unflatten(defs, iter(unpack(v, meta)))
 
-        return resolve_host
-    binding = OperandBinding(plan.operands, device)
-    g = program.graph(device_segment, cols, binding)
-    host = torch.empty(g.outputs[0].shape, dtype=_F, pin_memory=True)
+            return resolve_host
+        binding = OperandBinding(plan.operands, device)
+        span.set_attr("graph", "hit")
+        g = program.graph(device_segment, cols, binding)
+        host = torch.empty(g.outputs[0].shape, dtype=_F, pin_memory=True)
 
-    def read(outputs):
-        host.copy_(outputs[0], non_blocking=True)
-        return None, None
+        def read(outputs):
+            host.copy_(outputs[0], non_blocking=True)
+            return None, None
 
-    _, rec, launches = replay(g, binding, "query.fused_packed", read, {"rows": rows, "cols": n_cols})
-    if rec is not None:
-        copied = rec.end
-    else:
-        copied = torch.cuda.Event()
-        copied.record(torch.cuda.current_stream(device))
+        _, rec, launches = replay(g, binding, "query.fused_packed", read, {"rows": rows, "cols": n_cols})
+        if rec is not None:
+            copied = rec.end
+        else:
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(device))
     n, defs, meta = g.info["counts"], g.info["defs"], g.info["meta"]
 
     def resolve():
-        copied.synchronize()  # THE device->host copy for this segment
+        with InvocationScope("segment.sync"):
+            copied.synchronize()  # THE device->host copy for this segment
         v = host.numpy()
         if n:
             for p, m in zip(launches, v[-n:]):

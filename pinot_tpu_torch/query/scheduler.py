@@ -15,7 +15,11 @@ Reference parity: pinot-core/.../core/query/scheduler/ —
 
 Schedulers run the callable on their own runner pool; callers block on the
 returned future (the broker's scatter thread is the "Netty event loop" analog
-that must not execute queries inline).
+that must not execute queries inline). Each job gets a new query id in its
+copied context, and its wait for a runner, from its enqueue to its start,
+is recorded for every caller as it starts: the `scheduler.wait` span, the
+`schedulerWait` phase of the active trace and wire timeline, and the
+`server.phase.schedulerWaitMs` timer (`common/trace.py`).
 
 The JAX package's `query/scheduler.py`. A job is typically
 `QueryEngine.execute`; whatever it raises (a CUDA error, a failed kernel
@@ -32,6 +36,7 @@ import time
 from concurrent.futures import Future
 
 from pinot_tpu_torch.common.errors import QueryErrorCode
+from pinot_tpu_torch.common.trace import ServerQueryPhase, new_query, record_phase, record_span
 
 
 class SchedulerRejectedError(RuntimeError):
@@ -49,28 +54,39 @@ class SchedulerRejectedError(RuntimeError):
 
 
 class _Job:
-    __slots__ = ("fn", "args", "kwargs", "future", "group", "workload", "enqueue_ts", "ctx")
+    __slots__ = ("fn", "args", "kwargs", "future", "group", "workload", "enqueue_ts", "ctx", "kind", "depth")
 
-    def __init__(self, fn, args, kwargs, group, workload):
+    def __init__(self, fn, args, kwargs, group, workload, kind: str):
         self.fn = fn
         self.args = args
         self.kwargs = kwargs
         self.future: Future = Future()
         self.group = group
         self.workload = workload
+        self.kind = kind
+        #: jobs queued ahead of this one at its enqueue
+        self.depth = 0
         self.enqueue_ts = time.perf_counter()
         # snapshot the submitter's contextvars (TraceRunnable parity): runner
         # threads see the submitting request's active trace, so segment-level
-        # spans land under the right parent instead of being dropped
+        # spans land under the right parent instead of being dropped; the
+        # job's spans share the query id minted here
         self.ctx = contextvars.copy_context()
+        self.ctx.run(new_query)
 
     def run(self):
         if not self.future.set_running_or_notify_cancel():
             return
         try:
-            self.future.set_result(self.ctx.run(self.fn, *self.args, **self.kwargs))
+            self.future.set_result(self.ctx.run(self._call))
         except BaseException as e:  # noqa: BLE001 — future carries it to caller
             self.future.set_exception(e)
+
+    def _call(self):
+        now = time.perf_counter()
+        record_phase(ServerQueryPhase.SCHEDULER_WAIT, (now - self.enqueue_ts) * 1e3, role="server")
+        record_span("scheduler.wait", self.enqueue_ts, now, scheduler=self.kind, queue_depth=self.depth)
+        return self.fn(*self.args, **self.kwargs)
 
 
 #: runner threads started eagerly; the pool grows on demand up to
@@ -160,10 +176,11 @@ class QueryScheduler:
     # -- submission ---------------------------------------------------------
 
     def submit(self, fn, *args, table: str = "", workload: str = "PRIMARY", **kwargs) -> Future:
-        job = _Job(fn, args, kwargs, group=table, workload=workload)
+        job = _Job(fn, args, kwargs, group=table, workload=workload, kind=self._name)
         with self._lock:
             if not self._running:
                 raise SchedulerRejectedError("scheduler not running")
+            job.depth = self._queued
             self._enqueue(job)
             self._queued += 1
             # grow the elastic pool while work is backing up

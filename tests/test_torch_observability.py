@@ -185,16 +185,18 @@ def test_heap_watermark_kills_the_largest():
 
 
 def test_segment_spans_under_a_trace(tp):
-    """Each executed segment gets a `segment:<name>` span with its matched
-    docs; a pruned segment none."""
+    """Each executed segment gets a `segment.resolve` span with its name and
+    matched docs; a pruned segment none (its `segment.dispatch` says so)."""
     _, ports = tp
     eng = ports["built"]
     with start_trace("s") as tr:
         res = eng.execute("SELECT COUNT(*) FROM t WHERE year = 1995")
-    spans = tr.to_dict()["spans"]
+    spans = [sp for sp in tr.to_dict()["spans"] if sp["name"] == "segment.resolve"]
     live = [s.name for s in eng.segments if s.columns["year"].stats.min_value <= 1995 <= s.columns["year"].stats.max_value]
-    assert [sp["name"] for sp in spans] == [f"segment:{n}" for n in live]
-    assert sum(sp["attrs"]["numDocsMatched"] for sp in spans) == res.rows[0][0]
+    assert [sp["attrs"]["segment"] for sp in spans] == live
+    assert sum(sp["attrs"]["matched"] for sp in spans) == res.rows[0][0]
+    modes = {sp["attrs"]["segment"]: sp["attrs"]["mode"] for sp in tr.to_dict()["spans"] if sp["name"] == "segment.dispatch"}
+    assert {n for n, m in modes.items() if m == "pruned"} == {s.name for s in eng.segments} - set(live)
 
 
 def test_trace_primitives():
